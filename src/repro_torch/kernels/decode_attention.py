@@ -1,0 +1,89 @@
+"""Decode attention: the CUDA kernel ``csrc/decode_attention.cu`` and its
+plain version.
+
+One query token per sequence attends over its resident (ring) KV cache,
+GQA without repeating the KV heads: q (B, H, hd) is read as (B, KV, rep,
+hd), group g owning query heads [g*rep, (g+1)*rep).  Slot ``idx`` takes
+part when ``idx < cache_len`` and, with a window, ``idx >= cache_len -
+window``.  Slot order does not matter (softmax attention is permutation
+invariant over keys), so a wrapped ring needs only ``cache_len = C``.
+
+The kernel replaces the Pallas TPU kernel `_decode_kernel`
+(``repro/kernels/decode_attention.py``) and, unlike it, takes one length
+per sequence as well as one for the batch.  ``decode_attention`` launches
+it for CUDA tensors and runs the plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .ref import NEG_INF
+
+__all__ = ["decode_attention", "decode_attention_plain"]
+
+MAX_HEAD_DIM = 128   # a lane holds at most 4 of the head dim's values
+MAX_REP = 8          # a lane holds the scores of at most 8 query heads a group
+
+_ARGS = [build.P, build.P, build.P, build.P, build.I, build.P,
+         build.I, build.I, build.I, build.I, build.I, build.F, build.I, build.P]
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
+                           window: int | None = None, scale: float | None = None):
+    """The kernel's function in plain PyTorch, float32 inside.
+
+    cache_len: an int or an integer tensor of shape () or (B,), >= 1."""
+    b, h, d = q.shape
+    _, c, kv, _ = k_cache.shape
+    rep = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.float().reshape(b, kv, rep, d) * scale
+    s = torch.einsum("bgrd,bcgd->bgrc", qg, k_cache.float())
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    idx = torch.arange(c, device=q.device)[None, :]
+    live = idx < clen                                     # (1 or B, C)
+    if window is not None:
+        live &= idx >= clen - window
+    s = torch.where(live[:, None, None, :], s, NEG_INF)
+    o = torch.einsum("bgrc,bcgd->bgrd", torch.softmax(s, dim=-1), v_cache.float())
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: int | None = None, scale: float | None = None):
+    """q (B, H, hd); caches (B, C, KV, hd); cache_len: the live slots, an
+    int32 tensor of shape () or (B,) on the card (an int or any integer
+    tensor on the CPU) -> (B, H, hd)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      window=window, scale=scale)
+    if not isinstance(cache_len, torch.Tensor):
+        raise TypeError("decode_attention: cache_len must be a device int32 tensor on "
+                        "the card, so that the step needs no host sync")
+    build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
+    b, h, d = q.shape
+    _, c, kv, _ = k_cache.shape
+    if (q.dtype not in build.DTYPE_SUFFIX or k_cache.dtype != q.dtype
+            or v_cache.dtype != q.dtype or k_cache.shape != (b, c, kv, d)
+            or v_cache.shape != k_cache.shape or h % kv or h // kv > MAX_REP
+            or d > MAX_HEAD_DIM):
+        raise ValueError(
+            f"decode_attention: q (B,H,hd) and caches (B,C,KV,hd) of one dtype "
+            f"(bf16/float32), H/KV a whole number <= {MAX_REP}, hd <= {MAX_HEAD_DIM}; "
+            f"got q {q.dtype} {tuple(q.shape)}, k {k_cache.dtype} "
+            f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if cache_len.dtype != torch.int32 or cache_len.shape not in ((), (b,)):
+        raise ValueError("decode_attention: cache_len must be int32 of shape () or (B,), "
+                         f"got {cache_len.dtype} {tuple(cache_len.shape)}")
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    build.call(f"decode_attention_{build.DTYPE_SUFFIX[q.dtype]}", _ARGS,
+               q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+               int(cache_len.dim() == 1), out.data_ptr(), b, c, h, kv, d, scale,
+               window or 0, build.stream(q.device))
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0   # kernel launches, for showing a run went through it

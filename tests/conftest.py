@@ -13,3 +13,8 @@ except ImportError:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
     import _hypothesis_compat
     _hypothesis_compat.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test when there is none")
