@@ -3,11 +3,14 @@
 Takes the pytree of ``repro.models.lm.init_params`` with its leaves as
 numpy arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
 it) and imports nothing of JAX.  The per-layer leaves under
-``params["layers"]`` are stacked over layer periods along their leading
-axis; the bridge unstacks them into the ``nn.ModuleList``.  Each value is
-cast to the port parameter's dtype (the compute dtype for matrices and
-biases, float32 for norms), which is the cast the JAX code makes at every
-use, so both packages compute with the same numbers.  bf16 leaves pass
+``params["layers"]["pos<i>"]`` (one entry a position of the block
+pattern) are stacked over layer periods along their leading axis; the
+bridge unstacks period p of position i into layer ``p * len(pattern) +
+i`` of the ``nn.ModuleList``.  Each value is cast to the port parameter's
+dtype (the compute dtype for matrices, biases and the Mamba conv taps,
+float32 for norms and the Mamba ``dt_bias``, ``a_log`` and ``d_skip``),
+which is the cast the JAX code makes at every use, so both packages
+compute with the same numbers.  bf16 leaves pass
 through float32 on the way, because ``torch.from_numpy`` does not take
 ml_dtypes' bfloat16.
 """
@@ -26,11 +29,13 @@ def _flat_jax(cfg: ModelConfig, params) -> dict:
     out = {"embed": params["embed"], "final_norm": params["final_norm"]}
     if not cfg.tie_embeddings:
         out["head"] = params["head"]
-    period = params["layers"]["pos0"]
-    for part in ("mixer", "mlp"):
-        for name, leaf in period[part].items():
-            for i in range(cfg.n_periods):
-                out[f"layers.{i}.{part}.{name}"] = leaf[i]
+    n = len(cfg.block_pattern)
+    for i in range(n):
+        period = params["layers"][f"pos{i}"]
+        for part in ("mixer", "mlp"):
+            for name, leaf in period[part].items():
+                for p in range(cfg.n_periods):
+                    out[f"layers.{p * n + i}.{part}.{name}"] = leaf[p]
     return out
 
 

@@ -32,7 +32,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 
 _lib: ctypes.CDLL | None = None
 _fns: dict = {}

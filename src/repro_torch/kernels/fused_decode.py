@@ -1,25 +1,45 @@
-"""Single-token attention-sublayer step for decode, composed route.
+"""Single-token attention-sublayer step for decode: the CUDA chain
+``csrc/fused_decode.cu`` and its plain version.
 
 One decode token through an attention sublayer: rmsnorm -> Q/K/V
-projections (+bias) -> rope at ``pos`` -> ring-slot write -> decode
-attention -> output projection -> residual.  Ported from
-``repro/kernels/fused_decode.py``'s `_composed_step`.  The projections are
-plain ``torch.matmul``, outside any kernel, as the JAX package leaves them
-to XLA; the norm and the attention are this package's CUDA kernels on the
-card.  The ring slot ``pos % C`` is written in place with a device index
-and the attention reads ``cache_len = min(pos + 1, C)`` from device
-memory, so the step makes no host sync and allocates no cache.
+projections (+bias) -> rope at ``pos`` -> attention over the ring cache
+with the fresh token -> output projection -> residual; ring slot ``pos %
+C`` of both caches is written in place.  ``pos`` is a () int32 device
+tensor and ``cache_len = min(pos + 1, C)`` is computed on the device, so
+the step makes no host sync and allocates no cache.
 
-The JAX module's single-kernel sublayer (`_fused_kernel`) is not ported
-yet, so every shape takes this route.  The rope math is a local copy of
+  * `attn_decode_step` sends CUDA tensors through `fused_decode`, the
+    chain that replaces the Pallas TPU kernel `_fused_kernel`
+    (``repro/kernels/fused_decode.py``): `qkv_rope` (norm, projections,
+    rope, slot write), the `decode_attention` kernel over the updated
+    cache, and `out_residual` (output projection + residual); three
+    launches, each counted by its wrapper.  CPU tensors go through
+    `fused_decode_plain`, the function of `_fused_kernel` in plain
+    PyTorch, and their slot is written from its ``k_new``/``v_new``.
+  * `_composed_step` is the same sublayer as torch matmuls around the
+    rmsnorm and decode-attention kernels, as the JAX module keeps its own;
+    it is off the serving path and serves as the chain's yardstick.  It
+    counts its calls, so a run can show it never took them.
+
+The JAX kernel's VMEM budget (`_fits_vmem`) is a TPU limit and is not
+carried over: the chain takes every dense config of the port at full
+width.  Shapes it does not take raise.  The rope math is a local copy of
 ``models.common.rope``: kernels do not import models.
 """
 from __future__ import annotations
 
 import torch
 
-from .decode_attention import decode_attention
+from . import build
+from .decode_attention import MAX_HEAD_DIM, MAX_REP, decode_attention
+from .ref import NEG_INF
 from .rmsnorm import rmsnorm
+
+__all__ = ["attn_decode_step", "fused_decode", "fused_decode_plain", "out_residual",
+           "qkv_rope"]
+
+_QKV_ARGS = [build.P] * 13 + [build.I] * 6 + [build.F, build.F, build.P]
+_OUT_ARGS = [build.P] * 4 + [build.I] * 3 + [build.P]
 
 
 def _rope_host(x, positions, theta):
@@ -38,8 +58,131 @@ def _rope_host(x, positions, theta):
     return rot.to(x.dtype)
 
 
+def fused_decode_plain(x2, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo, bq, bk, bv,
+                       n_heads, head_dim, eps, theta, scale):
+    """The function of `_fused_kernel` in plain PyTorch, float32 inside.
+
+    x2 (B, D); caches (B, C, KV, hd), read only; pos an int or a () integer
+    tensor.  Attends over the old cache with the stale slot ``pos % C``
+    masked plus the fresh token's column.  Returns out (B, D) in x2's
+    dtype and the new rows k_new, v_new (B, KV, hd) in the caches' dtype."""
+    B, _ = x2.shape
+    cap, kv = k_cache.shape[1], k_cache.shape[2]
+    rep = n_heads // kv
+    dev = x2.device
+    x = x2.float()
+    rms = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    h = x * rms * norm.float()
+
+    def proj(w, b, rows):
+        y = h @ w.float()
+        if b is not None:
+            y = y + b.float()
+        return y.reshape(B, rows, head_dim)
+
+    pos = torch.as_tensor(pos, device=dev)
+    q, k, v = proj(wq, bq, n_heads), proj(wk, bk, kv), proj(wv, bv, kv)
+    q = _rope_host(q[:, None], pos.reshape(1), theta)[:, 0] * scale
+    k = _rope_host(k[:, None], pos.reshape(1), theta)[:, 0]
+
+    idx = torch.arange(cap, device=dev)
+    live = (idx < torch.clamp(pos, max=cap)) & (idx != torch.remainder(pos, cap))
+    qg = q.reshape(B, kv, rep, head_dim)
+    s = torch.einsum("bgrd,bcgd->bgrc", qg, k_cache.float())
+    s = torch.where(live, s, NEG_INF)
+    s_cur = torch.einsum("bgrd,bgd->bgr", qg, k)[..., None]         # fresh token's column
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), s_cur)
+    p, p_cur = torch.exp(s - m), torch.exp(s_cur - m)
+    o = torch.einsum("bgrc,bcgd->bgrd", p, v_cache.float()) + p_cur * v[:, :, None, :]
+    o = o / (p.sum(dim=-1, keepdim=True) + p_cur)
+    out = x + o.reshape(B, n_heads * head_dim) @ wo.float()
+    return out.to(x2.dtype), k.to(k_cache.dtype), v.to(v_cache.dtype)
+
+
+def _check_chain(x2, k_cache, v_cache, pos, norm, wq, wk, wv, wo, biases, n_heads,
+                 head_dim):
+    tensors = [x2, k_cache, v_cache, pos, norm, wq, wk, wv, wo] + [b for b in biases
+                                                                   if b is not None]
+    build.check_cuda("fused_decode", *tensors)
+    B, D = x2.shape
+    _, cap, kv, hd = k_cache.shape
+    dt = x2.dtype
+    ok = (dt in build.DTYPE_SUFFIX and hd == head_dim and 1 <= hd <= MAX_HEAD_DIM
+          and kv >= 1 and n_heads % kv == 0 and n_heads // kv <= MAX_REP and cap >= 1
+          and k_cache.shape == (B, cap, kv, hd) and v_cache.shape == k_cache.shape
+          and all(t.dtype == dt for t in (k_cache, v_cache, wq, wk, wv, wo))
+          and norm.dtype == torch.float32 and norm.shape == (D,)
+          and wq.shape == (D, n_heads * hd) and wk.shape == (D, kv * hd)
+          and wv.shape == wk.shape and wo.shape == (n_heads * hd, D)
+          and pos.dtype == torch.int32 and pos.shape == ())
+    if any(b is not None for b in biases):
+        bq, bk, bv = biases
+        ok = ok and all(b is not None and b.dtype == dt for b in biases) and \
+            bq.shape == (n_heads * hd,) and bk.shape == (kv * hd,) and bv.shape == bk.shape
+    if not ok:
+        raise ValueError(
+            f"fused_decode: x (B,D) and caches (B,C,KV,hd) of one dtype (bf16/float32), "
+            f"weights of that dtype, norm float32 (D,), pos an int32 () tensor, H/KV a "
+            f"whole number <= {MAX_REP}, hd <= {MAX_HEAD_DIM}, biases all or none; got x "
+            f"{dt} {tuple(x2.shape)}, cache {k_cache.dtype} {tuple(k_cache.shape)}, "
+            f"wq {wq.dtype} {tuple(wq.shape)}, wk {tuple(wk.shape)}, wo {tuple(wo.shape)}, "
+            f"norm {norm.dtype}, pos {pos.dtype} {tuple(pos.shape)}, n_heads {n_heads}")
+
+
+def qkv_rope(x2, k_cache, v_cache, pos, *, norm, wq, wk, wv, bq, bk, bv, n_heads, eps,
+             theta):
+    """Chain step (i): q (B, H, hd) and a () int32 ``cache_len = min(pos +
+    1, C)``; the roped k row and the v row land in slot ``pos % C`` of the
+    caches.  Arguments as `fused_decode`'s, checked there."""
+    B, D = x2.shape
+    _, cap, kv, hd = k_cache.shape
+    q = torch.empty((B, n_heads, hd), dtype=x2.dtype, device=x2.device)
+    clen = torch.empty((), dtype=torch.int32, device=x2.device)
+    bias = [0 if b is None else b.data_ptr() for b in (bq, bk, bv)]
+    build.call(f"fused_qkv_rope_{build.DTYPE_SUFFIX[x2.dtype]}", _QKV_ARGS,
+               x2.data_ptr(), norm.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+               *bias, pos.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+               clen.data_ptr(), B, D, n_heads, kv, hd, cap, eps, theta,
+               build.stream(x2.device))
+    qkv_rope.launches += 1
+    return q, clen
+
+
+def out_residual(o, wo, x2):
+    """Chain step (iii): x2 + o @ wo for o (B, H*hd), x2 (B, D)."""
+    B, K = o.shape
+    D = x2.shape[1]
+    out = torch.empty_like(x2)
+    build.call(f"fused_out_residual_{build.DTYPE_SUFFIX[x2.dtype]}", _OUT_ARGS,
+               o.data_ptr(), wo.data_ptr(), x2.data_ptr(), out.data_ptr(), B, K, D,
+               build.stream(x2.device))
+    out_residual.launches += 1
+    return out
+
+
+qkv_rope.launches = 0       # kernel launches, for showing a run went through them
+out_residual.launches = 0
+
+
+def fused_decode(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo, bq=None, bk=None,
+                 bv=None, n_heads, head_dim, eps=1e-5, theta=10_000.0, scale=None):
+    """The chain on the card: x (B, 1, D) -> out (B, 1, D); slot ``pos %
+    C`` of both caches is written in place.  Raises on a shape, dtype or
+    device the kernels do not take."""
+    B, _, D = x.shape
+    x2 = x.reshape(B, D)
+    _check_chain(x2, k_cache, v_cache, pos, norm, wq, wk, wv, wo, (bq, bk, bv), n_heads,
+                 head_dim)
+    scale = scale if scale is not None else head_dim ** -0.5
+    q, clen = qkv_rope(x2, k_cache, v_cache, pos, norm=norm, wq=wq, wk=wk, wv=wv, bq=bq,
+                       bk=bk, bv=bv, n_heads=n_heads, eps=eps, theta=theta)
+    o = decode_attention(q, k_cache, v_cache, clen, scale=scale)
+    return out_residual(o.reshape(B, n_heads * head_dim), wo, x2).reshape(B, 1, D)
+
+
 def _composed_step(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo,
                    bq, bk, bv, n_heads, head_dim, eps, theta, scale):
+    _composed_step.calls += 1
     B = x.shape[0]
     cap = k_cache.shape[1]
     kv_heads = wk.shape[1] // head_dim
@@ -63,13 +206,23 @@ def _composed_step(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo,
     return x + o.reshape(B, 1, -1) @ wo
 
 
+_composed_step.calls = 0    # calls, for showing a run never took it
+
+
 def attn_decode_step(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo,
                      bq=None, bk=None, bv=None, n_heads, head_dim,
                      eps=1e-5, rope_theta=10_000.0):
     """One-token attention sublayer: x (B, 1, D) and pos, a () int32 device
     tensor -> out (B, 1, D); slot ``pos % C`` of both caches (B, C, KV, hd)
-    is written in place."""
-    return _composed_step(
-        x, k_cache, v_cache, pos, norm=norm, wq=wq, wk=wk, wv=wv, wo=wo,
-        bq=bq, bk=bk, bv=bv, n_heads=n_heads, head_dim=head_dim, eps=eps,
-        theta=rope_theta, scale=head_dim ** -0.5)
+    is written in place.  CUDA tensors take the chain, CPU tensors the
+    plain version."""
+    kw = dict(norm=norm, wq=wq, wk=wk, wv=wv, wo=wo, bq=bq, bk=bk, bv=bv, n_heads=n_heads,
+              head_dim=head_dim, eps=eps, theta=rope_theta, scale=head_dim ** -0.5)
+    if x.device.type != "cpu":
+        return fused_decode(x, k_cache, v_cache, pos, **kw)
+    B, _, D = x.shape
+    out, k_new, v_new = fused_decode_plain(x.reshape(B, D), k_cache, v_cache, pos, **kw)
+    slot = torch.remainder(pos.reshape(1), k_cache.shape[1]).long()
+    k_cache.index_copy_(1, slot, k_new[:, None])
+    v_cache.index_copy_(1, slot, v_new[:, None])
+    return out.reshape(B, 1, D)

@@ -4,9 +4,10 @@
     wrapper launches its kernel for a CUDA tensor, and runs the kernel's
     plain version for a CPU tensor; nothing falls back from the card to
     the CPU.
-  * ``impl="ref"``: the oracles of ``ref.py`` on either device, and the
-    op-by-op oracle body of `blocks.Attention.decode` — an explicit
-    request, used to hold the kernel route against the oracle.
+  * ``impl="ref"``: the oracles of ``ref.py`` on either device (for the
+    SSD scan, `ref.ssd_chunked`), and the op-by-op oracle body of
+    `blocks.Attention.decode` — an explicit request, used to hold the
+    kernel route against the oracle.
 
 Unlike ``repro.kernels.ops`` there is no platform guess and no
 environment variable: the device of the data decides.
@@ -17,6 +18,7 @@ from . import ref
 from .flash_attention import flash_attention as _flash_attention
 from .fused_decode import attn_decode_step  # noqa: F401
 from .rmsnorm import rmsnorm as _rmsnorm
+from .ssd_scan import ssd_scan as _ssd_scan
 
 IMPLS = (None, "ref")
 
@@ -36,6 +38,15 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
                                  scale=scale, kv_offset=kv_offset)
     return _flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                             kv_offset=kv_offset)
+
+
+def ssd(x, dt, a, b, c, *, chunk: int = 128, impl: str | None = None):
+    """Mamba2 SSD scan.  Returns (y, final_state).  ``chunk`` sets the
+    blocking of the oracle and of the plain version on the CPU; the CUDA
+    kernel walks the sequence in chunks of its own (64 tokens)."""
+    if check_impl(impl) == "ref":
+        return ref.ssd_chunked(x, dt, a, b, c, chunk=chunk)
+    return _ssd_scan(x, dt, a, b, c, chunk=chunk)
 
 
 def rmsnorm(x, w, *, eps: float = 1e-5, impl: str | None = None):

@@ -1,9 +1,11 @@
-"""Dense decoder-only LM: parameters, prompt pass and decode step.
+"""Decoder-only LM: parameters, prompt pass and decode step.
 
-Ported from ``repro/models/lm.py`` for the dense attention configs
-(``block_pattern`` (("attn", "dense"),), no encoder, no multimodal
-prefix).  The JAX package stacks each parameter over layer periods and
-scans; here the layers are an ``nn.ModuleList`` and the scan is a loop.
+Ported from ``repro/models/lm.py`` for decoders whose layers are
+attention or Mamba2 mixers with a dense MLP (the dense configs and
+mamba2-370m); no MoE, no encoder, no multimodal prefix.  The JAX package
+stacks each parameter over layer periods of ``block_pattern`` and scans;
+here layer ``p * len(pattern) + i`` is built from ``block_pattern[i]``,
+the layers are an ``nn.ModuleList`` and the scan is a loop.
 
 Serving keeps the cache on the device between steps:
 
@@ -13,7 +15,9 @@ Serving keeps the cache on the device between steps:
     position in place: it allocates no cache, and the position stays a
     device scalar, so a step makes no host sync;
   * positions past the capacity wrap (slot ``pos % C``), which only a
-    sliding-window config reaches.
+    sliding-window config reaches;
+  * a Mamba layer's cache is its conv tail and its SSM state, both
+    overwritten in place by each step.
 """
 from __future__ import annotations
 
@@ -30,18 +34,20 @@ from .common import rmsnorm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.block_pattern != (("attn", "dense"),) or cfg.encdec or cfg.frontend
-            or cfg.attn is None):
+    if any(mlp != "dense" for _, mlp in cfg.block_pattern) or cfg.encdec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention decoders only")
+            f"{cfg.name}: the port serves decoders of attention and Mamba2 layers with "
+            "dense MLPs; MoE, encoder-decoder and multimodal frontends are not ported")
 
 
 class DecoderLayer(nn.Module):
-    """One layer: attention sublayer (``mixer``) then MLP (``mlp``)."""
+    """One layer: the mixer (``attn`` or ``mamba``) then the MLP (``mlp``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None):
         super().__init__()
-        self.mixer = blocks.Attention(cfg, device=device, generator=generator)
+        self.kind = kind
+        mixer = blocks.Attention if kind == "attn" else blocks.Mamba
+        self.mixer = mixer(cfg, device=device, generator=generator)
         self.mlp = blocks.MLP(cfg, device=device, generator=generator)
 
 
@@ -60,9 +66,11 @@ class LM(nn.Module):
         self.embed = make((vp, d), scale=0.02)
         self.final_norm = blocks.frozen(torch.ones(d, dtype=torch.float32, device=device))
         self.head = None if cfg.tie_embeddings else make((d, vp))
+        pattern = cfg.block_pattern
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, pattern[i % len(pattern)][0], device=device,
+                         generator=generator)
+            for i in range(cfg.n_layers))
 
 
 def init_params(cfg: ModelConfig, *, device, generator: torch.Generator) -> LM:
@@ -80,28 +88,39 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch):
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device):
-    """``{"pos": () int32, "layers": [{"k", "v"} per layer]}``, zeroed;
-    a sliding-window config caps the capacity at its window."""
+    """``{"pos": () int32, "layers": [one cache a layer]}``, zeroed: {"k",
+    "v"} for attention (a sliding-window config caps the capacity at its
+    window), {"conv", "ssm"} for Mamba."""
     cap = blocks.attn_cache_capacity(cfg, capacity)
+    pattern = cfg.block_pattern
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": [blocks.init_attn_cache(cfg, batch, cap, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+                       if pattern[i % len(pattern)][0] == "attn"
+                       else blocks.init_mamba_cache(cfg, batch, dtype, device)
+                       for i in range(cfg.n_layers)]}
 
 
 def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, impl=None):
     """Prompt pass over ``layers``, filling each layer's cache in place:
-    position p lands in slot p % C.  Returns the hidden states."""
+    position p lands in slot p % C of an attention cache; a Mamba cache
+    takes the conv tail and the final SSM state.  Returns the hidden
+    states."""
     S = x.shape[1]
     for layer, c in zip(layers, caches):
-        x, (k, v) = layer.mixer(x, positions, impl=impl, return_kv=True)
-        cap = c["k"].shape[1]
-        if S >= cap:       # ring layout: the last cap positions, rolled
-            shift = (S - cap) % cap
-            c["k"].copy_(torch.roll(k[:, -cap:], shift, dims=1))
-            c["v"].copy_(torch.roll(v[:, -cap:], shift, dims=1))
-        else:              # the slots past the prompt stay zero
-            c["k"][:, :S].copy_(k)
-            c["v"][:, :S].copy_(v)
+        if layer.kind == "mamba":
+            x, (conv, ssm) = layer.mixer(x, impl=impl)
+            c["conv"].copy_(conv)
+            c["ssm"].copy_(ssm)
+        else:
+            x, (k, v) = layer.mixer(x, positions, impl=impl, return_kv=True)
+            cap = c["k"].shape[1]
+            if S >= cap:       # ring layout: the last cap positions, rolled
+                shift = (S - cap) % cap
+                c["k"].copy_(torch.roll(k[:, -cap:], shift, dims=1))
+                c["v"].copy_(torch.roll(v[:, -cap:], shift, dims=1))
+            else:              # the slots past the prompt stay zero
+                c["k"][:, :S].copy_(k)
+                c["v"][:, :S].copy_(v)
         x = layer.mlp(x, impl=impl)
     return x
 
@@ -125,10 +144,14 @@ def prefill(cfg: ModelConfig, params: LM, batch, *, capacity: int | None = None,
 
 def decode_blocks(cfg: ModelConfig, layers, caches, x, pos, *, impl=None):
     """One decode step over ``layers``; each layer's cache is updated in
-    place.  ``impl=None`` runs attention through the composed step and the
-    kernels, ``"ref"`` through the op-by-op oracle body."""
+    place.  ``impl=None`` runs attention through `ops.attn_decode_step`
+    (the chain of kernels on the card), ``"ref"`` through the op-by-op
+    oracle body."""
     for layer, c in zip(layers, caches):
-        x, _ = layer.mixer.decode(x, c, pos, impl=impl)
+        if layer.kind == "mamba":
+            x, _ = layer.mixer.decode(x, c, impl=impl)
+        else:
+            x, _ = layer.mixer.decode(x, c, pos, impl=impl)
         x = layer.mlp(x, impl=impl)
     return x
 

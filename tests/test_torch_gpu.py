@@ -19,7 +19,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels import fused_decode as fd
+from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain, out_residual,
+                                              qkv_rope)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.gpu
@@ -44,7 +48,8 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-@pytest.mark.parametrize("shape", [(4, 16), (3, 5, 64), (2, 7, 128), (8, 2048), (3, 100)])
+@pytest.mark.parametrize("shape", [(4, 16), (3, 5, 64), (2, 7, 128), (8, 1024), (8, 2048),
+                                   (3, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     rng = np.random.default_rng(1)
@@ -116,6 +121,94 @@ def test_decode_attention_kernel_matches_plain(cuda, shape, dtype):
     _close(got, decode_attention_plain(q, k, v, lens, window=window), dtype)
 
 
+SUBLAYERS = [
+    # (D, H, KV, hd): tiny (GQA 2), danube (GQA 4, hd 120), qwen (GQA 8)
+    (256, 8, 4, 32),
+    (3840, 32, 8, 120),
+    (2048, 16, 2, 128),
+]
+
+
+def _sublayer(rng, D, H, KV, hd, C, bias, dtype, device, B=3):
+    def mat(*shape, scale=1.0):
+        return _rand(rng, shape, dtype, device) * scale
+
+    w = dict(norm=1.0 + 0.1 * _rand(rng, (D,), torch.float32, device),
+             wq=mat(D, H * hd, scale=D ** -0.5), wk=mat(D, KV * hd, scale=D ** -0.5),
+             wv=mat(D, KV * hd, scale=D ** -0.5), wo=mat(H * hd, D, scale=(H * hd) ** -0.5),
+             bq=mat(H * hd, scale=0.1) if bias else None,
+             bk=mat(KV * hd, scale=0.1) if bias else None,
+             bv=mat(KV * hd, scale=0.1) if bias else None)
+    return mat(B, 1, D), mat(B, C, KV, hd), mat(B, C, KV, hd), w
+
+
+@pytest.mark.parametrize("shape", SUBLAYERS)
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("pos", [5, 40, 83])        # C 40: growing, boundary, wrapped
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_decode_chain_matches_plain(cuda, shape, bias, pos, dtype):
+    D, H, KV, hd = shape
+    rng = np.random.default_rng(D + pos)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 40, bias, dtype, cuda)
+    kw = dict(w, n_heads=H, head_dim=hd, eps=1e-5, theta=10_000.0, scale=hd ** -0.5)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    want, k_new, v_new = fused_decode_plain(x[:, 0], k, v, p, **kw)
+    k0, v0 = k.clone(), v.clone()
+    before = (qkv_rope.launches, decode_attention.launches, out_residual.launches)
+    got = fused_decode(x, k, v, p, **kw)
+    torch.cuda.synchronize()
+    after = (qkv_rope.launches, decode_attention.launches, out_residual.launches)
+    assert after == tuple(n + 1 for n in before)
+    assert got.shape == x.shape and got.dtype == dtype
+    _close(got[:, 0], want, dtype)
+    slot = pos % 40
+    _close(k[:, slot], k_new, dtype)
+    _close(v[:, slot], v_new, dtype)
+    others = [i for i in range(40) if i != slot]
+    assert torch.equal(k[:, others], k0[:, others]) and torch.equal(v[:, others], v0[:, others])
+
+
+SSD_SHAPES = [
+    # (B, L, H, P, N)
+    (2, 16, 3, 8, 16),        # reduced(): P8 N16
+    (1, 50, 2, 8, 16),        # ragged
+    (2, 300, 4, 64, 128),     # mamba2-370m's P64 N128, ragged
+    (1, 128, 32, 64, 128),    # mamba2-370m's heads, two whole chunks
+]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", ["short", "long"])
+def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, memory):
+    """bf16 tolerance 5e-2 (as the JAX test's); in float32 1e-4 of the
+    largest value, for y and the state alike, since the scan sums terms as
+    large as that in another order than the plain version (an output near
+    zero may end up ~1e-4 of the largest away).  b and c are strided slices
+    of one projection, as in the model.  Short memory (dt ~ 0.8, a ~ -1)
+    forgets the state within a chunk; long memory (dt ~ 0.02, a ~ -0.14,
+    as trained steps are) carries it across chunks."""
+    B, L, H, P, N = shape
+    rng = np.random.default_rng(L * 3 + P)
+    shift, log_a = (0.0, 0.0) if memory == "short" else (4.0, -2.0)
+    x = _rand(rng, (B, L, H, P), dtype, cuda)
+    dt = torch.nn.functional.softplus(_rand(rng, (B, L, H), torch.float32, cuda) - shift)
+    a = -torch.exp(log_a + 0.5 * _rand(rng, (H,), torch.float32, cuda))
+    bc = _rand(rng, (B, L, 2 * N + H), dtype, cuda)
+    b, c = bc[..., :N], bc[..., N:2 * N]
+    before = ssd_scan.launches
+    y, s = ssd_scan(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_s = ssd_scan_plain(x, dt, a, b, c)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    else:
+        torch.testing.assert_close(y, want_y, atol=1e-4 * float(want_y.abs().max()), rtol=1e-4)
+    torch.testing.assert_close(s, want_s, atol=1e-4 * float(want_s.abs().max()), rtol=1e-4)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -129,16 +222,59 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                          torch.zeros(1, 8, 2, 16, device=cuda), 3)
 
 
-@pytest.mark.parametrize("name", ["tiny", "h2o-danube-3-4b-smoke"])
+@pytest.mark.parametrize("case", ["float16", "hd256", "rep16", "host_pos", "one_bias"])
+def test_fused_decode_refuses_what_it_does_not_take(cuda, case):
+    D, H, KV, hd, dtype = 64, 8, 2, 16, torch.float32
+    if case == "float16":
+        dtype = torch.float16
+    if case == "hd256":
+        hd = 256
+    if case == "rep16":
+        H, KV = 16, 1
+    x, k, v, w = _sublayer(np.random.default_rng(0), D, H, KV, hd, 8, True, dtype, cuda)
+    if case == "one_bias":
+        w["bk"] = None
+    pos = torch.tensor(3, dtype=torch.int32, device="cpu" if case == "host_pos" else cuda)
+    before = (qkv_rope.launches, out_residual.launches)
+    with pytest.raises(ValueError):
+        fused_decode(x, k, v, pos, **w, n_heads=H, head_dim=hd)
+    assert (qkv_rope.launches, out_residual.launches) == before
+
+
+@pytest.mark.parametrize("case", ["P128", "N256", "mixed_dtype", "strided_x", "host_a"])
+def test_ssd_scan_refuses_what_it_does_not_take(cuda, case):
+    B, L, H, P, N = 1, 8, 2, 8, 16
+    if case == "P128":
+        P = 128
+    if case == "N256":
+        N = 256
+    rng = np.random.default_rng(0)
+    x = _rand(rng, (B, L, H, P), torch.float32, cuda)
+    dt = torch.ones(B, L, H, device=cuda)
+    a = -torch.ones(H, device="cpu" if case == "host_a" else cuda)
+    b = _rand(rng, (B, L, N), torch.bfloat16 if case == "mixed_dtype" else torch.float32, cuda)
+    if case == "strided_x":
+        x = _rand(rng, (B, L, H, 2 * P), torch.float32, cuda)[..., ::2]
+    before = ssd_scan.launches
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, a, b, b)
+    assert ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("name", ["tiny", "h2o-danube-3-4b-smoke", "mamba2-370m-smoke"])
 def test_model_kernel_route_matches_ref_route_on_card(cuda, name):
     """Prefill and decode through the kernels == the oracle route, float32,
-    including the ring roll and wraparound of the windowed config."""
+    including the ring roll and wraparound of the windowed config, and the
+    SSD scan of the Mamba2 config."""
     cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
     params = lm.init_params(cfg, device=cuda,
                             generator=torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 80))).to(cuda)
-    counts = [f.launches for f in (rmsnorm, flash_attention, decode_attention)]
+    kernels = ((rmsnorm, ssd_scan) if cfg.attn is None else
+               (rmsnorm, flash_attention, decode_attention, qkv_rope, out_residual))
+    counts = [f.launches for f in kernels]
+    composed = fd._composed_step.calls
     out = {}
     for impl in (None, "ref"):
         logits, cache = lm.prefill(cfg, params, {"tokens": toks}, capacity=86, impl=impl)
@@ -150,5 +286,6 @@ def test_model_kernel_route_matches_ref_route_on_card(cuda, name):
         out[impl] = steps
     for a, b in zip(out[None], out["ref"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    after = [f.launches for f in (rmsnorm, flash_attention, decode_attention)]
+    after = [f.launches for f in kernels]
     assert all(a > b for a, b in zip(after, counts))
+    assert fd._composed_step.calls == composed          # the chain, never the composed step

@@ -1,8 +1,10 @@
-"""The port's dense LM against the JAX package's, and the port's contracts.
+"""The port's LM against the JAX package's, and the port's contracts.
 
-Parameters come from the JAX ``init_params`` (bias leaves made random with
-numpy, so the QKV bias is exercised) and reach the port through
-``bridge.from_jax``.  The JAX side runs its ``impl="ref"`` tier on the CPU
+Parameters come from the JAX ``init_params`` (bias leaves, and the Mamba
+norms, ``dt_bias``, ``a_log`` and ``d_skip``, made random with numpy, so
+that each is exercised) and reach the port through ``bridge.from_jax``.
+The configs are the dense ones and mamba2-370m reduced, also with no MLP
+(``d_ff=0``) as at full width.  The JAX side runs its ``impl="ref"`` tier on the CPU
 as the oracle; the port runs its kernel route (the kernels' plain versions
 on the CPU) and its own ``ref`` route.
 
@@ -32,19 +34,31 @@ from repro_torch.models import lm
 from repro_torch.runtime.server import LMServer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-CONFIGS = ["tiny", "qwen2.5-3b-smoke", "h2o-danube-3-4b-smoke"]
+CONFIGS = ["tiny", "qwen2.5-3b-smoke", "h2o-danube-3-4b-smoke", "mamba2-370m-smoke",
+           "mamba2-370m-smoke-no-mlp"]
 TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+# leaves drawn at random around these values, so the test sees them
+RANDOM_LEAVES = {"bq": 0.0, "bk": 0.0, "bv": 0.0, "dt_bias": 0.0, "a_log": 0.0,
+                 "d_skip": 1.0, "gate_norm": 1.0, "norm": 1.0}
+
+
+def _config(get, name, **kw):
+    """``<name>-no-mlp``: the config with ``d_ff=0``."""
+    if name.endswith("-no-mlp"):
+        return dataclasses.replace(get(name[:-7]), d_ff=0, **kw)
+    return dataclasses.replace(get(name), **kw)
 
 
 def _setup(name, compute_dtype):
-    jcfg = dataclasses.replace(jax_get_config(name), compute_dtype=compute_dtype)
-    cfg = dataclasses.replace(get_config(name), compute_dtype=compute_dtype)
+    jcfg = _config(jax_get_config, name, compute_dtype=compute_dtype)
+    cfg = _config(get_config, name, compute_dtype=compute_dtype)
     tree = jax.tree.map(np.array, jax_lm.init_params(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
-    for key in ("bq", "bk", "bv"):
-        leaves = tree["layers"]["pos0"]["mixer"]
+    leaves = tree["layers"]["pos0"]["mixer"]
+    for key, center in RANDOM_LEAVES.items():
         if key in leaves:
-            leaves[key] = rng.normal(scale=0.1, size=leaves[key].shape).astype(np.float32)
+            leaves[key] = (center + rng.normal(scale=0.1, size=leaves[key].shape)
+                           ).astype(np.float32)
     return jcfg, cfg, tree, bridge.from_jax(cfg, tree, device="cpu")
 
 
@@ -78,7 +92,7 @@ def _inputs(cfg):
     """A prompt longer than the window for the windowed config, so the
     prefill takes the ring roll and the decode steps wrap."""
     rng = np.random.default_rng(2)
-    S = 80 if cfg.attn.window else 24
+    S = 80 if cfg.attn is not None and cfg.attn.window else 24
     toks = rng.integers(0, cfg.vocab, (2, S)).astype(np.int64)
     feed = [rng.integers(0, cfg.vocab, (2, 1)).astype(np.int64) for _ in range(4)]
     return toks, S + len(feed) + 2, feed
@@ -95,10 +109,13 @@ def test_prefill_and_decode_match_jax_ref(name, dtype):
     for (jl, jc), (tl, tc) in zip(want, got):
         np.testing.assert_allclose(_np(tl), _np(jl), atol=tol, rtol=tol)
         if dtype == "float32":      # bf16 caches differ by whole bf16 steps
+            n = len(cfg.block_pattern)
             for i, c in enumerate(tc):
-                for leaf in ("k", "v"):
-                    np.testing.assert_allclose(_np(c[leaf]), _np(jc["layers"]["pos0"][leaf][i]),
-                                               atol=tol, rtol=tol)
+                assert c.keys() == jc["layers"][f"pos{i % n}"].keys()
+                for leaf, value in c.items():
+                    np.testing.assert_allclose(
+                        _np(value), _np(jc["layers"][f"pos{i % n}"][leaf][i // n]),
+                        atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -110,7 +127,8 @@ def test_kernel_route_matches_ref_route(name):
     for (la, ca), (lb, cb) in zip(a, b):
         torch.testing.assert_close(la, lb, atol=1e-5, rtol=1e-5)
         for x, y in zip(ca, cb):
-            torch.testing.assert_close(x["k"], y["k"], atol=1e-5, rtol=1e-5)
+            for leaf in x:
+                torch.testing.assert_close(x[leaf], y[leaf], atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("impl", [None, "ref"])
@@ -131,6 +149,31 @@ def test_decode_step_updates_the_cache_in_place(impl):
     assert [t.data_ptr() for t in now] == ptrs
     assert int(cache["pos"]) == 73
     assert not torch.equal(cache["layers"][0]["k"][:, slot], before)   # written in place
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_mamba_decode_updates_its_caches_in_place(impl):
+    cfg = get_config("mamba2-370m-smoke")
+    model = lm.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=torch.Generator().manual_seed(1))
+    _, cache = lm.prefill(cfg, model, {"tokens": toks}, capacity=24, impl=impl)
+    tensors = [t for c in cache["layers"] for t in c.values()]
+    ptrs = [t.data_ptr() for t in tensors]
+    before = [t.clone() for t in tensors]
+    _, out = lm.decode_step(cfg, model, cache, toks[:, -1:], impl=impl)
+    assert out is cache
+    now = [t for c in cache["layers"] for t in c.values()]
+    assert all(a is b for a, b in zip(tensors, now))
+    assert [t.data_ptr() for t in now] == ptrs
+    assert all(not torch.equal(a, b) for a, b in zip(now, before))     # each one written
+    conv = cache["layers"][0]["conv"]
+    torch.testing.assert_close(conv[:, :-1], before[0][:, 1:])          # the tail shifted
+
+
+def test_unported_families_are_refused():
+    for name in ("jamba-1.5-large-398b", "seamless-m4t-medium", "internvl2-26b"):
+        with pytest.raises(NotImplementedError):
+            lm.build_model(jax_get_config(name))
 
 
 def test_bridge_refuses_a_tree_of_another_config():

@@ -53,7 +53,7 @@ def _margins(cfg, model, reqs, jax_tokens):
     return np.array(out).T            # (B, steps)
 
 
-@pytest.mark.parametrize("name", ["tiny", "qwen2.5-3b-smoke"])
+@pytest.mark.parametrize("name", ["tiny", "qwen2.5-3b-smoke", "mamba2-370m-smoke"])
 def test_completions_match_jax_server(name):
     jcfg = dataclasses.replace(jax_get_config(name), compute_dtype="float32")
     cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
