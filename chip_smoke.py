@@ -13,9 +13,12 @@ script exits non-zero without its result line.  The phases:
  2. build: the kernels from ``src/repro_torch/kernels/csrc``, with each
     kernel's registers, shared memory and spills from ptxas;
  3. every kernel against its plain version on the card, in bf16, at the
-    shapes the serving paths give it (and danube's head shapes): the fused
-    attention-sublayer chain in the growing, boundary and wrapped ring
-    states, the SSD scan at mamba2-370m's prefill and at a ragged length;
+    shapes the serving paths give it (and danube's head shapes): flash
+    attention also at a ragged length (S 129) and GQA 7, decode attention
+    also at the edges of its cache splits, with splits left empty and
+    calls back to back, the fused attention-sublayer chain in the growing,
+    boundary and wrapped ring states, the SSD scan at mamba2-370m's
+    prefill and at a ragged length;
  4. serving: the port's ``LMServer`` on qwen2.5-3b and on mamba2-370m, each
     at full width, random weights from a seed, 8 requests of 64-400 prompt
     tokens, 32 new tokens each; the launch counts are reset just before
@@ -33,7 +36,7 @@ script exits non-zero without its result line.  The phases:
     call that computes the same function (for the fused chain, whose
     function no single PyTorch call computes, the yardstick is
     `_composed_step`), and how decode attention's time scales with the
-    batch and the live cache;
+    batch and the live cache, with its split plan;
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps;
@@ -90,16 +93,33 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``decode_attention_kernel<bf16,4>`` from an Itanium-mangled kernel
+    name (nested in nvcc's per-file anonymous namespace), with its template
+    arguments (float, bf16, an int); the mangled name where it does not
+    parse."""
+    i, name = 3, None
+    if not mangled.startswith("_ZN"):
+        return mangled
+    while (m := re.match(r"\d+", mangled[i:])):       # <length><identifier> ...
+        start = i + m.end()
+        name, i = mangled[start:start + int(m.group())], start + int(m.group())
+    if name is None or not mangled.startswith("I", i):
+        return name or mangled
+    args, i = [], i + 1
+    while (t := re.match(r"Li(-?\d+)E|f|13__nv_bfloat16", mangled[i:])):
+        args.append(t.group(1) or {"f": "float"}.get(t.group(0), "bf16"))
+        i += t.end()
+    return f"{name}<{','.join(args)}>" if mangled.startswith("E", i) else mangled
+
+
 def ptxas_report(log: str) -> dict:
     """Registers, shared memory and spills of each compiled kernel."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            kern = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?E", mangled)
-            name = (f"{kern.group(1)}<{'float' if kern.group(2) == 'f' else 'bf16'}"
-                    f"{',' + kern.group(3) if kern.group(3) else ''}>") if kern else mangled
+            name = kernel_name(m.group(1))
             out[name] = {}
             continue
         if name is None:
@@ -135,8 +155,10 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import fused_decode as fd
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.decode_attention import (decode_attention, decode_attention_plain,
+                                                      split_plan)
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain,
@@ -192,7 +214,9 @@ def main() -> int:
     for rows, d in ((8 * 512, 2048), (8, 2048), (8 * 512, 1024), (8, 1024)):
         x, w = randn(rows, d), randn(d, dtype=torch.float32)
         check("rmsnorm", f"({rows}, {d})", rmsnorm(x, w), rmsnorm_plain(x, w))
-    for b, s, h, kv, d, window in ((8, 512, 16, 2, 128, None), (2, 512, 32, 8, 120, 64)):
+    # qwen's and danube's prefill, then a length off every tile (Sq 129) and GQA 7
+    for b, s, h, kv, d, window in ((8, 512, 16, 2, 128, None), (2, 512, 32, 8, 120, 64),
+                                   (2, 129, 16, 2, 128, None), (2, 200, 14, 2, 128, None)):
         q, k, v = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
         check("flash_attention", f"B{b} S{s} H{h} KV{kv} D{d} causal window={window}",
               flash_attention(q, k, v, window=window),
@@ -203,6 +227,24 @@ def main() -> int:
         clen = torch.tensor(lens, dtype=torch.int32, device=dev)
         check("decode_attention", f"B{b} H{h} KV{kv} hd{hd} C{c} cache_len={lens}",
               decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen))
+    # the split edges of this shape's plan (L slots a split): cache_len at L -
+    # 1, L and L + 1, a window straddling splits 1 and 2, per-sequence lengths
+    # that leave whole splits empty; then those calls back to back on one
+    # workspace, each result checked after the last (the merge counters reset)
+    L = split_plan(b, kv, c, torch.cuda.get_device_properties(dev).multi_processor_count).length
+    split_cases = [(L - 1, None), (L, None), (L + 1, None), (2 * L + 10, L),
+                   ([1, L, 3 * L + 5, c, 2, L + 1, 100, 7 * L], None)]
+    for lens, window in split_cases:
+        clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        check("decode_attention", f"B{b} H{h} KV{kv} hd{hd} C{c} split {L}: cache_len={lens} "
+              f"window={window}", decode_attention(q, kc, vc, clen, window=window),
+              decode_attention_plain(q, kc, vc, clen, window=window))
+    lens = [torch.tensor(n, dtype=torch.int32, device=dev) for n, _ in split_cases]
+    outs = [decode_attention(q, kc, vc, n, window=w) for n, (_, w) in zip(lens, split_cases)]
+    for n, (_, w), got in zip(lens, split_cases, outs):
+        check("decode_attention", f"B{b} H{h} KV{kv} hd{hd} C{c} back to back: "
+              f"cache_len={n.tolist()} window={w}", got,
+              decode_attention_plain(q, kc, vc, n, window=w))
     q, kc, vc = randn(4, 32, 120), randn(4, 300, 8, 120), randn(4, 300, 8, 120)
     clen = torch.tensor([300, 120, 64, 9], dtype=torch.int32, device=dev)
     check("decode_attention", "B4 H32 KV8 hd120 C300 per-sequence lengths window=64",
@@ -460,6 +502,14 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by)
     rows.append(("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:28", times["flash_attention"]))
+    # what sets its time: twice the key tiles (not causal); one head of one
+    # sequence, 8 blocks whose longest walks 8 key tiles; one block, one tile
+    lone = [tuple(randn(1, n, 1, d) for _ in range(3)) for n in (512, 64)]
+    emit("flash_attention_scaling", ms={
+        "B8 S512 H16 KV2 D128 not causal": timed(
+            lambda q, k, v: flash_attention(q, k, v, causal=False), sets, iters=10),
+        "B1 S512 H1 KV1 D128 causal": timed(flash_attention, lone[:1], iters=10),
+        "B1 S64 H1 KV1 D128 causal": timed(flash_attention, lone[1:], iters=10)})
 
     b, h, kv, hd, c = 8, 16, 2, 128, 544
     clen = torch.tensor(c, dtype=torch.int32, device=dev)   # the round's last step
@@ -475,14 +525,42 @@ def main() -> int:
     rows.append(("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:45", times["decode_attention"]))
     # how decode attention scales: over the batch (blocks on the card) and
-    # the live cache (32 slots is one chunk of one warp), inputs warm in L2
-    scaling = {}
+    # the live cache (32 slots: one stage of one split), inputs warm in L2,
+    # and at cache_len 544 with the plan's split length halved and doubled
+    def timed_with_plan(plan, args):
+        """Device ms of decode attention with `split_plan` swapped for one
+        that returns ``plan``."""
+        da.split_plan = lambda *_: plan
+        try:
+            return timed(decode_attention, [args])
+        finally:
+            da.split_plan = split_plan
+
+    scaling, splits, other_plans = {}, {}, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b in (8, 64):
+        plan = split_plan(b, kv, c, sms)
+        splits[f"B{b}"] = {"length": plan.length, "splits": plan.splits,
+                           "blocks": b * kv * plan.splits}
         for n in (32, 544):
             args = (randn(b, h, hd), randn(b, c, kv, hd), randn(b, c, kv, hd),
                     torch.tensor(n, dtype=torch.int32, device=dev))
             scaling[f"B{b} cache_len {n}"] = timed(decode_attention, [args])
-    emit("decode_attention_scaling", ms=scaling, shape=f"H{h} KV{kv} hd{hd} C{c} bf16")
+        for length in (plan.length // 2, plan.length * 2):
+            other = da.SplitPlan(length, -(-c // length))
+            if da.MIN_SPLIT <= length and other.splits <= da.MAX_SPLITS:
+                other_plans[f"B{b} cache_len 544 L{length} S{other.splits}"] = \
+                    timed_with_plan(other, args)
+    # a lone split per (sequence, KV head) streaming 1 to 8 stages of 32 slots
+    # (B8, splits of 256 slots, only the first live): a stage's time and the
+    # fixed cost of a call
+    qkv = (randn(8, h, hd), randn(8, c, kv, hd), randn(8, c, kv, hd))
+    by_stages = {f"B8 L256 cache_len {n}": timed_with_plan(
+        da.SplitPlan(256, -(-c // 256)), (*qkv, torch.tensor(n, dtype=torch.int32, device=dev)))
+        for n in (1, 32, 64, 128, 256)}
+    emit("decode_attention_scaling", ms=scaling, splits=splits, sms=sms,
+         ms_other_splits=other_plans, ms_lone_split=by_stages,
+         shape=f"H{h} KV{kv} hd{hd} C{c} bf16")
 
     # the fused chain at qwen's decode, the round's last step (pos 543, so
     # cache_len 544 of C 544); the bound reads the weights, the biases and
@@ -573,7 +651,7 @@ def main() -> int:
     # attention kernels and the chain (counted once a chain, by its first
     # kernel; its other two launched as often), mamba2-370m's for the scan
     cuda_kernels = {
-        "rmsnorm": ["rmsnorm_kernel"], "flash_attention": ["flash_attention_kernel"],
+        "rmsnorm": ["rmsnorm_kernel"], "flash_attention": ["flash_attention_mma_kernel"],
         "decode_attention": ["decode_attention_kernel"],
         "fused_decode": ["fused_qkv_rope_kernel", "decode_attention_kernel",
                          "fused_out_residual_kernel"],

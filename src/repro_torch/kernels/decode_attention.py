@@ -12,8 +12,19 @@ The kernel replaces the Pallas TPU kernel `_decode_kernel`
 (``repro/kernels/decode_attention.py``) and, unlike it, takes one length
 per sequence as well as one for the batch.  ``decode_attention`` launches
 it for CUDA tensors and runs the plain version for CPU tensors.
+
+The kernel splits each (sequence, KV head)'s cache into ranges of slots
+across blocks and merges the partial softmax states in the same launch
+(flash-decoding); `split_plan` chooses the ranges on the host from the
+shapes alone, so a step needs no host sync.  The partial states and the
+merge counters live in a workspace kept per device and shape: calls on one
+device share it, so they must run in one stream order, as the port's
+calls do.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,10 +34,68 @@ from .ref import NEG_INF
 __all__ = ["decode_attention", "decode_attention_plain"]
 
 MAX_HEAD_DIM = 128   # a lane holds at most 4 of the head dim's values
-MAX_REP = 8          # a lane holds the scores of at most 8 query heads a group
+MAX_REP = 8          # a warp a query head of the group
+MIN_SPLIT = 32       # slots a split at least: one stage of the kernel
+LONG_SPLIT = 256     # slots a split at most, unless MAX_SPLITS needs more
+MAX_SPLITS = 64      # splits at most: the last block merges them one after another
 
-_ARGS = [build.P, build.P, build.P, build.P, build.I, build.P,
-         build.I, build.I, build.I, build.I, build.I, build.F, build.I, build.P]
+_ARGS = [build.P, build.P, build.P, build.P, build.I, build.P, build.P, build.P, build.P,
+         build.I, build.I, build.I, build.I, build.I, build.I, build.I, build.F, build.I,
+         build.P]
+
+
+class SplitPlan(NamedTuple):
+    """Split s of a (sequence, KV head) takes the cache slots [s * length,
+    min((s + 1) * length, C)) of a cache of capacity C."""
+    length: int
+    splits: int
+
+
+def split_plan(batch: int, kv_heads: int, capacity: int, sm_count: int) -> SplitPlan:
+    """The longest split (a power of two from MIN_SPLIT) that still leaves
+    at least one block an SM, but no longer than LONG_SPLIT, since a block
+    streams its stages one after another; longer only where that would take
+    more than MAX_SPLITS, and one split where the cache is no longer than
+    it.  At qwen2.5-3b's serving shapes (B 8, KV 2, C 544, 132 SMs): 64
+    slots, 9 splits, 144 blocks."""
+    length = MIN_SPLIT
+    while length < capacity and (
+            -(-capacity // length) > MAX_SPLITS
+            or (length < LONG_SPLIT
+                and batch * kv_heads * -(-capacity // (2 * length)) >= sm_count)):
+        length *= 2
+    return SplitPlan(length, -(-capacity // length))
+
+
+def workspace_shapes(batch: int, kv_heads: int, rep: int, head_dim: int,
+                     plan: SplitPlan) -> dict:
+    """The kernel's buffers: the float32 partial sums and the running max
+    and sum of every split and query head, and an int32 merge counter a
+    (sequence, KV head)."""
+    bg = batch * kv_heads
+    return {"acc": (bg, plan.splits, rep, head_dim), "ml": (bg, plan.splits, rep, 2),
+            "tickets": (bg,)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, shapes: dict) -> dict:
+    """The buffers for ``shapes`` on ``device``, made once: the counters
+    start at 0 and the kernel leaves them at 0."""
+    key = (device, tuple(shapes.values()))
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = {"acc": torch.empty(shapes["acc"], dtype=torch.float32, device=device),
+              "ml": torch.empty(shapes["ml"], dtype=torch.float32, device=device),
+              "tickets": torch.zeros(shapes["tickets"], dtype=torch.int32, device=device)}
+        _workspaces[key] = ws
+    return ws
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
@@ -78,10 +147,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
                          f"got {cache_len.dtype} {tuple(cache_len.shape)}")
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
+    plan = split_plan(b, kv, c, _sm_count(q.device.index))
+    ws = _workspace(q.device, workspace_shapes(b, kv, h // kv, d, plan))
     build.call(f"decode_attention_{build.DTYPE_SUFFIX[q.dtype]}", _ARGS,
                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-               int(cache_len.dim() == 1), out.data_ptr(), b, c, h, kv, d, scale,
-               window or 0, build.stream(q.device))
+               int(cache_len.dim() == 1), out.data_ptr(), ws["acc"].data_ptr(),
+               ws["ml"].data_ptr(), ws["tickets"].data_ptr(), b, c, h, kv, d, plan.length,
+               plan.splits, scale, window or 0, build.stream(q.device))
     decode_attention.launches += 1
     return out
 

@@ -8,7 +8,8 @@ qpos - ``window`` with a window.
 
 The kernel replaces the Pallas TPU kernel `_flash_kernel`
 (``repro/kernels/flash_attention.py``).  ``flash_attention`` launches it
-for CUDA tensors and runs the plain version for CPU tensors.
+for CUDA tensors and runs the plain version for CPU tensors: bf16 runs on
+the tensor cores (``mma.sync``), float32 on the CUDA cores.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels import fused_decode as fd
@@ -72,6 +73,14 @@ FLASH_SHAPES = [
     (1, 100, 100, 8, 2, 120, True, 16),     # danube's head dim, window
     (2, 130, 130, 16, 2, 128, True, None),  # qwen's heads, 3 q tiles
     (1, 70, 70, 8, 2, 128, True, 64),       # window across tiles
+    (1, 1, 1, 4, 2, 64, True, None),        # one row, one key
+    (1, 15, 15, 4, 2, 32, True, None),      # Sq, Sk off 16
+    (2, 17, 17, 8, 2, 128, True, None),     # just past 16
+    (1, 129, 129, 16, 2, 128, True, None),  # just past two 64-row tiles
+    (2, 70, 200, 8, 2, 64, True, None),     # causal, kv_offset 130, Sq off the tile
+    (1, 90, 90, 10, 2, 128, True, None),    # GQA 5
+    (2, 77, 77, 14, 2, 64, True, None),     # GQA 7
+    (1, 150, 150, 4, 2, 64, True, 40),      # D 64, window across a tile boundary
 ]
 
 
@@ -102,6 +111,18 @@ DECODE_SHAPES = [
     (4, 16, 2, 128, 70, [1, 33, 64, 70], None),   # per-sequence lengths
     (3, 8, 2, 120, 90, [90, 40, 7], 30),          # per-sequence + window
     (1, 6, 2, 20, 130, 100, None),          # GQA 3, head dim 20: scalar loads
+    # the split edges: at these shapes the plan takes splits of L = 32 slots
+    # (B * KV * ceil(C / 64) blocks stay under any H100's SM count), so C 100
+    # is 3 whole splits and a short one
+    (2, 8, 2, 128, 100, 1, None),           # one live slot
+    (2, 8, 2, 128, 100, 31, None),          # L - 1
+    (2, 8, 2, 128, 100, 32, None),          # L
+    (2, 8, 2, 128, 100, 33, None),          # L + 1
+    (2, 8, 2, 128, 100, 70, 30),            # window [40, 70): splits 1 and 2
+    (4, 16, 2, 128, 200, [1, 200, 64, 97], None),   # whole splits empty
+    (2, 10, 2, 128, 90, 90, None),          # GQA 5
+    (2, 12, 2, 64, 90, 57, None),           # GQA 6
+    (1, 14, 2, 120, 130, 130, 50),          # GQA 7, danube's head dim, window
 ]
 
 
@@ -119,6 +140,30 @@ def test_decode_attention_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
     _close(got, decode_attention_plain(q, k, v, lens, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_back_to_back_calls_reset_the_merge_counters(cuda, dtype):
+    """Calls in a row with other lengths and windows on one workspace, each
+    result checked after the last: every call finds its merge counters at
+    0, and leaves them there."""
+    b, h, kv, hd, c = 3, 8, 2, 128, 150
+    rng = np.random.default_rng(5)
+    q = _rand(rng, (b, h, hd), dtype, cuda)
+    k = _rand(rng, (b, c, kv, hd), dtype, cuda)
+    v = _rand(rng, (b, c, kv, hd), dtype, cuda)
+    cases = [(150, None), (1, None), (33, None), ([5, 150, 64], None), (100, 40),
+             ([150, 1, 97], 20), (150, None)]
+    lens = [torch.tensor(n, dtype=torch.int32, device=cuda) for n, _ in cases]
+    before = decode_attention.launches
+    outs = [decode_attention(q, k, v, n, window=w) for n, (_, w) in zip(lens, cases)]
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + len(cases)
+    for n, (_, w), got in zip(lens, cases, outs):
+        _close(got, decode_attention_plain(q, k, v, n, window=w), dtype)
+    plan = da.split_plan(b, kv, c, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    ws = da._workspace(q.device, da.workspace_shapes(b, kv, h // kv, hd, plan))
+    assert plan.splits > 1 and int(ws["tickets"].abs().sum()) == 0
 
 
 SUBLAYERS = [

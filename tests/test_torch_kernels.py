@@ -29,7 +29,9 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models import blocks as jax_blocks
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (MAX_SPLITS, MIN_SPLIT, SplitPlan,
+                                                  decode_attention, split_plan,
+                                                  workspace_shapes)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_decode import (_composed_step, attn_decode_step,
                                               fused_decode_plain)
@@ -133,6 +135,43 @@ def test_decode_attention_per_sequence_lengths_match_chunked(window):
     tlens = torch.tensor(lens, dtype=torch.int32)
     _close(decode_attention(tq, tk, tv, tlens, window=window), want, "float32")
     _close(ref.decode_attention_ref(tq, tk, tv, tlens, window=window), want, "float32")
+
+
+SPLIT_GRID = [
+    # (B, KV, C, SMs): C = 1 and C < L, the split edges, qwen2.5-3b's serving
+    # shapes (B 8, KV 2, C 544) and danube's (KV 8, C 544 and its window
+    # 4096), a batch that fills the card alone, a cache long enough to hit
+    # the split cap, and a card of few SMs
+    (1, 1, 1, 132), (2, 2, 20, 132), (2, 2, 31, 132), (2, 2, 32, 132), (2, 2, 33, 132),
+    (8, 2, 544, 132), (8, 8, 544, 132), (8, 8, 4096, 132), (64, 8, 544, 132),
+    (1, 1, 100_000, 132), (3, 2, 150, 132), (8, 2, 544, 8), (1, 2, 545, 1),
+]
+
+
+@pytest.mark.parametrize("batch,kv,capacity,sms", SPLIT_GRID)
+def test_split_plan_covers_the_cache_once(batch, kv, capacity, sms):
+    plan = split_plan(batch, kv, capacity, sms)
+    assert 1 <= plan.splits <= MAX_SPLITS and plan.length >= MIN_SPLIT
+    # the kernel's ranges: split s takes [s * length, min((s + 1) * length, C))
+    ranges = [(s * plan.length, min((s + 1) * plan.length, capacity))
+              for s in range(plan.splits)]
+    assert all(lo < hi for lo, hi in ranges)                 # no split is empty
+    cover = np.zeros(capacity, np.int64)
+    for lo, hi in ranges:
+        assert hi - lo <= plan.length
+        cover[lo:hi] += 1
+    assert (cover == 1).all()                                # [0, C) exactly once
+    rep, hd = 7, 120
+    assert workspace_shapes(batch, kv, rep, hd, plan) == {
+        "acc": (batch * kv, plan.splits, rep, hd), "ml": (batch * kv, plan.splits, rep, 2),
+        "tickets": (batch * kv,)}
+
+
+def test_split_plan_at_qwen_serving_shape():
+    """B 8, KV 2, C 544 on 132 SMs: 9 splits of 64 slots, 144 blocks, one
+    doubling short of leaving SMs idle (5 splits, 80 blocks)."""
+    assert split_plan(8, 2, 544, 132) == SplitPlan(64, 9)
+    assert split_plan(8, 2, 544, 80) == SplitPlan(128, 5)
 
 
 def test_ops_dispatch_by_impl():
