@@ -35,8 +35,12 @@ script exits non-zero without its result line.  The phases:
     the L2 cache), beside its bound, its plain version and one library
     call that computes the same function (for the fused chain, whose
     function no single PyTorch call computes, the yardstick is
-    `_composed_step`), and how decode attention's time scales with the
-    batch and the live cache, with its split plan;
+    `_composed_step`); the chain's two GEMV launches as rows of their own
+    (out_residual beside ``torch.addmm``, qkv_rope beside ``F.rms_norm`` +
+    ``torch.addmm``); how decode attention's time scales with the batch and
+    the live cache, with its split plan; and how the GEMVs' time scales
+    with the batch, the width, one block alone, the split and the tile
+    width (``gemv_scaling``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps;
@@ -96,8 +100,8 @@ def nvidia_smi_line() -> str:
 def kernel_name(mangled: str) -> str:
     """``decode_attention_kernel<bf16,4>`` from an Itanium-mangled kernel
     name (nested in nvcc's per-file anonymous namespace), with its template
-    arguments (float, bf16, an int); the mangled name where it does not
-    parse."""
+    arguments (float, bf16, an int or a bool as 0/1); the mangled name where
+    it does not parse."""
     i, name = 3, None
     if not mangled.startswith("_ZN"):
         return mangled
@@ -107,7 +111,7 @@ def kernel_name(mangled: str) -> str:
     if name is None or not mangled.startswith("I", i):
         return name or mangled
     args, i = [], i + 1
-    while (t := re.match(r"Li(-?\d+)E|f|13__nv_bfloat16", mangled[i:])):
+    while (t := re.match(r"L[ib](-?\d+)E|f|13__nv_bfloat16", mangled[i:])):
         args.append(t.group(1) or {"f": "float"}.get(t.group(0), "bf16"))
         i += t.end()
     return f"{name}<{','.join(args)}>" if mangled.startswith("E", i) else mangled
@@ -584,6 +588,105 @@ def main() -> int:
     rows.append(("fused_decode", "src/repro_torch/kernels/csrc/fused_decode.cu",
                  "src/repro/kernels/fused_decode.py:91", times["fused_decode"]))
 
+    # the chain's two GEMVs as rows of their own at the same shapes: qkv_rope
+    # reads x, norm, the Q/K/V weights and biases once and writes q and the
+    # new k and v rows; out_residual reads o, wo and x once and writes out
+    def gemv_sets(b, d, h, kv, hd, bias=True):
+        """qkv_rope's and out_residual's inputs, copies that overflow L2."""
+        n_qkv = (h + 2 * kv) * hd
+        qkv_bytes = 2 * (d * n_qkv + (n_qkv if bias else 0) + b * d + b * n_qkv) + 4 * d
+        out_bytes = 2 * (h * hd * d + b * h * hd + 2 * b * d)
+
+        def qkv_set():
+            x, kc, vc, kw = sublayer(b, d, h, kv, hd, 64, bias)
+            return x[:, 0], kc, vc, kw
+        qkv = copies(qkv_set, qkv_bytes)
+        out = copies(lambda: (randn(b, h * hd), randn(h * hd, d) * (h * hd) ** -0.5,
+                              randn(b, d)), out_bytes)
+        return qkv, qkv_bytes, out, out_bytes
+
+    def run_qkv(x2, kc, vc, kw):
+        return qkv_rope(x2, kc, vc, pos, norm=kw["norm"], wq=kw["wq"], wk=kw["wk"],
+                        wv=kw["wv"], bq=kw["bq"], bk=kw["bk"], bv=kw["bv"],
+                        n_heads=kw["n_heads"], eps=kw["eps"], theta=kw["theta"])
+
+    def plain_qkv(x2, kc, vc, kw):
+        return fd.qkv_plain(x2, pos, **{n: kw[n] for n in (
+            "norm", "wq", "wk", "wv", "bq", "bk", "bv", "n_heads", "head_dim", "eps", "theta")})
+
+    qkv_sets, qkv_bytes, out_sets, out_bytes = gemv_sets(b, d, h, kv, hd)
+    # yardstick: F.rms_norm and one addmm over the concatenated weights
+    # (two PyTorch calls; the rope and the slot write are left out)
+    cat_sets = [(x2, kw["norm"].to(bf16), torch.cat([kw["wq"], kw["wk"], kw["wv"]], 1),
+                 torch.cat([kw["bq"], kw["bk"], kw["bv"]])) for x2, _, _, kw in qkv_sets]
+    qkv_b_ms, qkv_b_by = bound(qkv_bytes, 2 * b * d * (h + 2 * kv) * hd, BF16_FLOP_PER_S)
+    out_b_ms, out_b_by = bound(out_bytes, 2 * b * h * hd * d, BF16_FLOP_PER_S)
+    chain_parts = {
+        "fused_qkv_rope": dict(
+            ms=timed(run_qkv, qkv_sets), plain_ms=timed(plain_qkv, qkv_sets), library_ms=None,
+            yardstick_ms=timed(lambda x2, nw, w, bb: torch.addmm(
+                bb, F.rms_norm(x2, (d,), nw, 1e-6), w), cat_sets),
+            yardstick="F.rms_norm + torch.addmm over wq|wk|wv (no rope, no slot write)",
+            bound_ms=qkv_b_ms, bound_by=qkv_b_by, bytes=qkv_bytes),
+        "fused_out_residual": dict(
+            ms=timed(out_residual, out_sets), plain_ms=timed(fd.out_residual_plain, out_sets),
+            library_ms=timed(lambda o, wo, x2: torch.addmm(x2, o, wo), out_sets),
+            library="torch.addmm(x, o, wo)", bound_ms=out_b_ms, bound_by=out_b_by,
+            bytes=out_bytes)}
+    times["fused_decode"]["parts"] = chain_parts
+
+    # what sets the GEMVs' time: qwen's and danube's widths at B 1 and 8,
+    # with the split plans taken; one block alone streaming a 128-column
+    # tile of 256 and of 2048 rows (out_residual, its plan swapped for one
+    # split); qwen's B 8 with other split counts (clusters) than the plan's
+    gemv_ms, gemv_plans = {}, {}
+    for label, (d_, h_, kv_, hd_, bias_) in (("qwen", (2048, 16, 2, 128, True)),
+                                             ("danube", (3840, 32, 8, 120, False))):
+        for b_ in (1, 8):
+            q_sets, _, o_sets, _ = gemv_sets(b_, d_, h_, kv_, hd_, bias_)
+            key = f"{label} B{b_} D{d_}"
+            gemv_ms[f"qkv_rope {key}"] = timed(run_qkv, q_sets)
+            gemv_ms[f"out_residual {key}"] = timed(out_residual, o_sets)
+            gemv_plans[f"qkv_rope {key}"] = dict(fd.gemv_plan(
+                h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms)._asdict(), tiles=h_ + 2 * kv_)
+            gemv_plans[f"out_residual {key}"] = dict(fd.gemv_plan(
+                -(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_, 1, sms)._asdict(),
+                tiles=-(-d_ // fd.OUT_WIDTH))
+            del q_sets, o_sets
+    def timed_with_splits(splits, fn, arg_sets):
+        """Device ms of ``fn`` with `gemv_plan` swapped for one of ``splits``
+        splits."""
+        plan = fd.gemv_plan
+
+        def forced(tiles, width, rows, groups, sm_count):
+            slice_ = -(-rows // splits)
+            return fd.GemvPlan(width, -(-slice_ // 16) * 16 if splits > 1 else rows, splits)
+        fd.gemv_plan = forced
+        try:
+            return timed(fn, arg_sets)
+        finally:
+            fd.gemv_plan = plan
+
+    for k_ in (256, 2048):
+        lone = [(randn(8, k_), randn(k_, fd.OUT_WIDTH) * k_ ** -0.5, randn(8, fd.OUT_WIDTH))]
+        gemv_ms[f"out_residual one block B8 K{k_} N{fd.OUT_WIDTH}"] = timed_with_splits(
+            1, out_residual, lone)
+    # out_residual's tiles at 64 columns (128-byte rows: one L1 line; 32
+    # tiles x 4 splits) and 32, against the 128 taken
+    out_width = fd.OUT_WIDTH
+    for width_ in (64, 32):
+        fd.OUT_WIDTH = width_
+        try:
+            gemv_ms[f"out_residual qwen B8 D2048 width {width_}"] = timed(out_residual, out_sets)
+        finally:
+            fd.OUT_WIDTH = out_width
+    for splits_ in (4, 6, 8):
+        gemv_ms[f"out_residual qwen B8 D2048 splits {splits_}"] = timed_with_splits(
+            splits_, out_residual, out_sets)
+        gemv_ms[f"qkv_rope qwen B8 D2048 splits {splits_}"] = timed_with_splits(
+            splits_, run_qkv, qkv_sets)
+    emit("gemv_scaling", ms=gemv_ms, plans=gemv_plans, sms=sms, dtype="bf16", card=smi)
+
     # the SSD scan at mamba2-370m's prefill; operations as the kernel's
     # chunks of 64 need them: C.B^T, W x, C S^T and the state update
     b, L, h, p, n, q = 8, 512, 32, 64, 128, 64
@@ -663,7 +766,11 @@ def main() -> int:
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-         **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {})}
+         **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
+         **({"parts": [dict(name=part, launches=launches[part], **{
+             k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             **({"yardstick_ms": p["yardstick_ms"]} if "yardstick_ms" in p else {}))
+             for part, p in t["parts"].items()]} if "parts" in t else {})}
         for name, source, replaces, t in rows]}), flush=True)
     emit("elapsed", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)

@@ -11,8 +11,7 @@
 //
 //   x (B, D) in T; norm (D,) float32; wq (D, H*hd), wk, wv (D, KV*hd),
 //   wo (H*hd, D) and the optional biases in T; pos a device int32;
-//   caches (B, C, KV, hd) in T.  Everything between the loads and the
-//   stores is float32.
+//   caches (B, C, KV, hd) in T.  Sums are float32.
 //
 // Replaces the Pallas TPU kernel `_fused_kernel` (repro/kernels/
 // fused_decode.py), which runs the whole sublayer in one kernel, one grid
@@ -20,26 +19,68 @@
 // the stale slot pos % C while adding the fresh token as an extra column,
 // because its cache write happens outside the kernel.  Here the slot is
 // written in place first, so (ii) is attention over the updated cache,
-// which is the same function.  Bound on the H100: bytes.  At qwen2.5-3b's
-// decode (B 8) the weights (18.9 MB) and the live cache are read once a
-// step and each weight meets B rows: 2 B operations per 2 bytes, far below
-// the card's ~295 operations per byte.
+// which is the same function.
 //
-// Design of (i) and (iii), hand-written GEMVs: every block loads the B
-// rows it serves (at most 8) into shared memory as float32, normalised in
-// (i), which is B x D of recomputation per block and cheap.  A block owns
-// 16 output columns (32 bytes of a bf16 weight row: one memory sector) and
-// its 8 warps split the rows of the weight; a thread owns VEC adjacent
-// columns (16-byte loads: 8 bf16 or 4 float32, where the layout allows,
-// else 1) and keeps 8 loads in flight, and each weight element it loads
-// meets every batch row from shared memory.  The partial sums meet by warp
-// shuffles and then across warps in shared memory.  In (i) a block's 16
-// columns are 8 rope pairs (i, i + hd/2) of one head, so the rotation
-// needs no second pass: after the reduction lane s holds column p0 + s and
-// lane s + 8 its partner.  The grid is (heads x pair tiles, batch groups):
-// 160 blocks at qwen (20 Q/K/V heads x 8 tiles), 128 for (iii) at D 2048,
-// enough to give every one of the 132 SMs a block.
+// Bound on the H100: bytes.  (i) and (iii) are GEMVs: each weight element
+// is read once and meets B <= 8 rows, 2 B operations per 2 bytes, far
+// below the card's ~295 operations per byte.  At qwen2.5-3b's decode (B 8)
+// (i) streams 10.5 MB (3.1 us at 3.35 TB/s) and (iii) 8.4 MB (2.5 us).
+// What held the first version back: too few bytes in flight an SM, a
+// prologue (every block normalising all of x) before the first weight
+// load, and an epilogue of 256 shuffles a thread.  What still holds this
+// one back, from timestamps taken inside the blocks on the card
+// (`repro_torch.probes.gemv_phases`): at qwen's out_residual a block has
+// used its last stage ~5 us after its start (the slowest block ~7 us),
+// against ~4.3 us for a kernel that only reads the same bytes; then the
+// cluster merge costs ~2 us (the slowest of 8 blocks, one barrier).
+//
+// Design, one GEMV core for both kernels:
+//  * Tiles and splits.  A tile is a range of output columns: one head of
+//    Q, K or V in (i) (hd rounded up to a power of two, so a rope pair
+//    (c, c + hd/2) lands in one tile), 128 columns of D in (iii).  The
+//    weight rows of a tile are cut into `splits` slices (`gemv_plan` in
+//    fused_decode.py, from the shapes and the SM count: at qwen 20 x 8 =
+//    160 blocks for (i), 16 x 8 = 128 for (iii)).
+//  * Small loads first, then the weights.  A block requests x's rows of its
+//    slice (and the norm's) by cp.async, and the epilogue's operands (bias
+//    or residual) into registers, before any weight: requested after the
+//    weights they wait ~3 us behind them.  Then it requests its weights
+//    into a ring of 16 KB stages (a stage is 64 rows of a 128-column tile;
+//    ~88 KB, at qwen the whole slice) by 16-byte cp.async, each thread
+//    copying one column chunk of every 1/cpr-th row, so that its addresses
+//    advance by constants: with addresses computed afresh a copy cost ~40
+//    instructions, and the issue, not the memory, set a block's rate.
+//    (Register staging and tensor copies were tried and were slower.)
+//  * The norm off the critical path.  rscale[b] = rsqrt(mean(x_b^2) + eps)
+//    is one scalar a row, so (i) computes y = rscale * sum_k (x*norm)_k W_k:
+//    a block needs only x*norm on its own rows of the slice, and sums the
+//    squares of those rows; the blocks of a tile add their sums.
+//  * bf16 products on the tensor cores: mma.sync.m16n8k16 with a 16-column
+//    x 16-row weight tile as A (ldmatrix.trans from the K-major stage) and
+//    the 8 batch rows as the n = 8 side, float32 accumulators.  Warp w owns
+//    16 columns (and, for tiles narrower than 128, every (128/width)th
+//    k-step).  No per-element conversion, no shuffle reduction.  x*norm is
+//    rounded to bf16 for the mma (one bf16 step a term, ~2e-3 at q's
+//    magnitude).  float32 keeps CUDA-core FMAs on the same stages: bf16
+//    operands cannot meet the float32 model tests' 1e-4.
+//  * The splits of a tile run as one thread block cluster.  Each block
+//    stores the sums of batch row b into the shared memory of block b %
+//    splits (distributed shared memory), one cluster barrier, and each
+//    block adds what it received in rank order, so the sums do not depend
+//    on timing, and finishes its rows: rscale, bias, rope and the q or
+//    slot stores, or the residual.  No workspace, no atomics, one launch.
+//  * Shapes whose columns are not whole 16-byte chunks (an odd hd, a
+//    misaligned weight) take the same kernel with plain element loads.
+//
+// The `// phase-stamp N` comments mark the phases of a block that
+// `repro_torch.probes.gemv_phases` times, in a copy of this file that it
+// builds with a timestamp at each mark.
+#include <cooperative_groups.h>
+#include <type_traits>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -48,138 +89,288 @@ using repro::to_float;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int SLOTS = 16;       // output columns a block
-constexpr int BG = 8;           // batch rows a block, at most
-constexpr int PAIRS = SLOTS / 2;  // rope pairs a block in (i)
-constexpr size_t SMEM_BUDGET = 200 * 1024;
+constexpr int BG = 8;              // batch rows a block: the n = 8 side of the mma
+constexpr int STAGE_BYTES = 16 * 1024;   // weights a stage: 64 rows of 128 bf16 columns
+constexpr int RING_BYTES = 88 * 1024;    // the stages in flight
+constexpr int TN_MAX = 128;        // columns a tile, at most
+constexpr int RED_FLOATS = 2048;   // the warps' partial sums before they meet
+constexpr int EPI = BG * TN_MAX / THREADS;   // epilogue items a thread, at most
+constexpr int MAX_SPLITS = 8;      // blocks a cluster, the portable most
+constexpr int RECV_ROWS = 16;      // >= splits * ceil(BG / splits) for splits <= 8
+static_assert(BG == WARPS, "warp b reads batch row b of x");
 
-size_t red_floats() { return WARPS * BG * SLOTS + BG; }
-
-// Rows a block may hold in shared memory, for rows of length K.
-int batch_group(int K) {
-  const long fit = (static_cast<long>(SMEM_BUDGET) / sizeof(float) - red_floats()) / K;
-  return static_cast<int>(fit < BG ? fit : BG);
+// elements of 16 bytes: the row padding of the ring and of x's rows, which
+// keeps ldmatrix's 8 row addresses and the mma's B fragments off one bank
+template <typename T>
+__host__ __device__ constexpr int pad() {
+  return 16 / static_cast<int>(sizeof(T));
 }
 
-// VEC elements of a weight row as loaded, converted to float at use, so a
-// load in flight holds 4 registers (16 bytes), not VEC floats.
-template <typename T, int VEC>
-struct Vec {
-  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "1 element or 16 bytes");
-  uint4 u;
-  __device__ __forceinline__ void load(const T* p, bool ok) {
-    if constexpr (VEC == 1) {
-      reinterpret_cast<T*>(&u)[0] = ok ? *p : from_float<T>(0.f);
-    } else {
-      u = ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  __device__ __forceinline__ float operator[](int e) const {
-    return to_float(reinterpret_cast<const T*>(&u)[e]);
+// stages in the ring: RING_BYTES of stages of STAGE_BYTES, rows padded
+template <typename T>
+__host__ __device__ constexpr int ring_stages() {
+  return RING_BYTES / (STAGE_BYTES + STAGE_BYTES / TN_MAX * pad<T>());
+}
+
+// weight rows a stage: STAGE_BYTES of a tile tn columns wide
+template <typename T>
+__host__ __device__ inline int stage_rows(int tn) {
+  return STAGE_BYTES / (tn * static_cast<int>(sizeof(T)));
+}
+
+__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// The block's shared memory: the ring of stages (reused, once the last
+// stage is used, for the warps' partial sums and then the totals of the
+// block's batch rows), x's rows of the slice, the norm's slice (float32,
+// where there is a norm), the sums of squares (own 8, received 16, totals
+// 8: 32 floats), and the sums the cluster's blocks send this one (splits x
+// ceil(BG / splits) rows of tn floats, at most RECV_ROWS rows).
+// `shared_bytes` in fused_decode.py mirrors this.
+template <typename T>
+struct Layout {
+  int srow, sr, ksp;
+  size_t ring, xs, bytes;
+  __host__ __device__ Layout(int tn, int slice, bool with_norm)
+      : srow(tn + pad<T>()), sr(stage_rows<T>(tn)) {
+    ksp = round_up(slice, sr) + pad<T>();
+    const size_t stages = static_cast<size_t>(ring_stages<T>()) * sr * srow * sizeof(T);
+    const size_t red = RED_FLOATS * sizeof(float);
+    ring = round_up(static_cast<int>(stages > red ? stages : red), 16);
+    xs = static_cast<size_t>(BG) * ksp * sizeof(T) + (with_norm ? ksp * sizeof(float) : 0);
+    bytes = ring + xs + (32 + RECV_ROWS * tn) * sizeof(float);
   }
 };
 
-// Rows [0, bg) of `src` (row length K, contiguous) into hs[bg][K] as
-// float32; with `norm`, each row times rsqrt(mean(x^2) + eps) times norm.
+// Columns [col0, col0 + nvalid) of the row-major weight `w` (row stride
+// `ld`), a tile of `tn` columns.
 template <typename T>
-__device__ void load_rows(float* hs, float* rscale, const T* src, int K, int bg,
-                          const float* norm, float eps) {
-  repro::load_tile(hs, K, src, K, bg, bg, K, 1.f);
-  __syncthreads();
-  if (norm == nullptr) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < bg; r += WARPS) {
-    float ss = 0.f;
-    for (int k = lane; k < K; k += 32) ss += hs[r * K + k] * hs[r * K + k];
-    ss = repro::warp_sum(ss);
-    if (lane == 0) rscale[r] = rsqrtf(ss / K + eps);
-  }
-  __syncthreads();
-  // each thread loads its columns of `norm` at once, then scales every row
-  constexpr int U = 8;
-  for (int k0 = threadIdx.x; k0 < K; k0 += U * THREADS) {
-    float w[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * THREADS;
-      w[u] = k < K ? norm[k] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * THREADS;
-      if (k >= K) break;
-      for (int r = 0; r < bg; ++r) hs[r * K + k] = hs[r * K + k] * rscale[r] * w[u];
-    }
-  }
-  __syncthreads();
-}
+struct Tile {
+  const T* w;
+  long ld;
+  int col0, nvalid;
+};
 
-// y[b][s] = sum_k hs[b][k] * W[k][col(s)] for the block's SLOTS column
-// slots; `wcol` points at row 0 of this thread's first column, `ld` is the
-// row stride.  Thread (warp w, lane) owns slots [(lane % TPR) * VEC, +VEC)
-// and rows w * RPW + lane / TPR + i * WARPS * RPW.  Returns, in warp
-// b < bg, lane s < SLOTS, the sum for batch row b and slot s (0 elsewhere).
-template <typename T, int VEC>
-__device__ float gemv(const float* hs, float* red, int K, int bg, const T* wcol, long ld,
-                      bool valid) {
-  constexpr int TPR = SLOTS / VEC;      // threads a row
-  constexpr int RPW = 32 / TPR;         // rows a warp covers at once
-  constexpr int U = 8;                  // loads in flight a thread
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ro = lane / TPR, sbase = (lane % TPR) * VEC;
-  float acc[BG][VEC];
-#pragma unroll
-  for (int b = 0; b < BG; ++b)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[b][e] = 0.f;
+// The GEMV core: y[b][c] = sum_k xn[b][k] w[k][col0 + c] over all K rows,
+// b < bg, c < tn, with xn = x * norm (x where norm is null), and ss[b] =
+// sum_k x[b][k]^2.  The `splits` blocks of a tile form one thread block
+// cluster; block `split` sums the rows [split * slice, +slice), and sends
+// the sums of batch row b to block b % splits, into its shared memory.
+// Block r ends with the totals of the batch rows b = r (mod splits), in
+// `tot` (BG x tn floats, those rows only) and `sst` (BG).  `prefetch` runs
+// before the weights are requested: the caller's loads for its epilogue,
+// which would wait behind the weights if requested after them.
+template <typename T, bool VEC, typename Prefetch>
+__device__ void gemv_core(const Tile<T>& tl, const T* __restrict__ x, long xld,
+                          const float* __restrict__ norm, int K, int bg, int tn, int slice,
+                          int splits, int split, unsigned char* smem, float*& tot,
+                          float*& sst, Prefetch prefetch) {
+  // phase-stamp 0
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  const Layout<T> lay(tn, slice, norm != nullptr);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* xs = reinterpret_cast<T*>(smem + lay.ring);
+  float* nrm = reinterpret_cast<float*>(xs + BG * lay.ksp);   // norm[k0 + i]
+  float* ss = reinterpret_cast<float*>(smem + lay.ring + lay.xs);
+  float* rss = ss + BG;                          // [splits][per] received, 16 at most
+  sst = ss + 24;
+  float* recv = ss + 32;                         // [splits][per][tn] received
+  const int k0 = split * slice, k1 = min(k0 + slice, K);
+  const int KR = lay.sr;                         // weight rows a stage
+  const int nst = k1 > k0 ? (k1 - k0 + KR - 1) / KR : 0;   // a split past K is empty
+  const int stage_elems = KR * lay.srow;
 
-  for (int k0 = warp * RPW + ro; k0 < K; k0 += U * WARPS * RPW) {
-    Vec<T, VEC> w[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * WARPS * RPW;
-      w[u].load(wcol + k * ld, valid && k < K);
+  // stage st: weight rows [k0 + st KR, +KR) of the slice, zero past the
+  // slice and past the live columns; 16-byte cp.async where the layout
+  // allows (VEC), else plain loads.  With VEC a thread always copies the
+  // same 16-byte column chunk cc of rows r0, r0 + rstep, ...: its source and
+  // destination addresses advance by constants, so a copy costs a compare,
+  // two adds and the cp.async (with the addresses computed afresh, the
+  // issue and not the memory set a block's rate)
+  constexpr int R = ring_stages<T>();
+  const int cpr = tn / E, rstep = THREADS / cpr, r0 = tid / cpr, cc = (tid % cpr) * E;
+  const bool col_ok = cc < tl.nvalid;
+  const T* src0 = tl.w + tl.col0 + cc + static_cast<long>(k0 + r0) * tl.ld;
+  const long src_rstep = static_cast<long>(rstep) * tl.ld;
+  const unsigned dst0 = repro::smem_addr(ring + r0 * lay.srow + cc);
+  const unsigned dst_rstep = rstep * lay.srow * sizeof(T);
+  auto load_stage = [&](int slot, int st) {
+    const int kb = k0 + st * KR;
+    if constexpr (VEC) {
+      const T* src = src0 + static_cast<long>(st) * KR * tl.ld;
+      unsigned dst = dst0 + slot * stage_elems * sizeof(T);
+      for (int k = kb + r0; k < kb + KR; k += rstep, src += src_rstep, dst += dst_rstep) {
+        const bool ok = col_ok && k < k1;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                     "l"(ok ? src : tl.w), "r"(ok ? 16 : 0)
+                     : "memory");
+      }
+    } else {
+      T* dst = ring + slot * stage_elems;
+      for (int i = tid; i < KR * tn; i += THREADS) {
+        const int r = i / tn, col = i - r * tn, k = kb + r;
+        dst[r * lay.srow + col] = k < k1 && col < tl.nvalid
+                                      ? tl.w[static_cast<long>(k) * tl.ld + tl.col0 + col]
+                                      : from_float<T>(0.f);
+      }
     }
+  };
+
+  // x's rows of the slice into xs[b][0, nst*KR) and the norm's slice into
+  // nrm, by cp.async, requested first: these few small loads must not queue
+  // behind the weights' bytes (~3 us at full load).  Zero past the slice
+  // and for rows past bg.
+  const int nch = nst * KR / E;
+  const bool xvec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && xld % E == 0;
+  for (int i = tid; i < BG * nch; i += THREADS) {
+    const int b = i / nch, c = i - b * nch, k = k0 + c * E;
+    T* dst = xs + b * lay.ksp + c * E;
+    if (xvec && (k + E <= k1 || k >= k1)) {      // a whole chunk, or zeros
+      const bool ok = b < bg && k < k1;
+      repro::cp_async16(dst, ok ? x + b * xld + k : x, ok ? 16 : 0);
+    } else {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * WARPS * RPW;
-      if (k >= K) break;
-      float wf[VEC];
+      for (int e = 0; e < E; ++e)
+        dst[e] = b < bg && k + e < k1 ? x[b * xld + k + e] : from_float<T>(0.f);
+    }
+  }
+  if (norm != nullptr) {
+    const bool nvec = (reinterpret_cast<uintptr_t>(norm) & 15) == 0;
+    for (int c = tid; c < nst * KR / 4; c += THREADS) {
+      const int k = k0 + c * 4;
+      if (nvec && k + 4 <= k1) {
+        repro::cp_async16(nrm + c * 4, norm + k, 16);
+      } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) wf[e] = w[u][e];
-#pragma unroll
-      for (int b = 0; b < BG; ++b) {
-        if (b < bg) {
-          const float hb = hs[b * K + k];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[b][e] += hb * wf[e];
-        }
+        for (int e = 0; e < 4; ++e) nrm[c * 4 + e] = k + e < k1 ? norm[k + e] : 0.f;
       }
     }
   }
-  // the lanes of one slot differ by multiples of TPR
+  repro::cp_async_commit();
+  prefetch();
+
+  // then the weights: the whole ring requested before x is used, a group
+  // a stage
+#pragma unroll 1
+  for (int st = 0; st < R; ++st) {
+    if (st < nst) load_stage(st, st);
+    repro::cp_async_commit();
+  }
+  // phase-stamp 1
+
+  // with a norm: x * norm in place, rounded to T, and the sum of squares
+  // of x, warp b for batch row b (x's group is the oldest)
+  repro::cp_async_wait<R>();
+  __syncthreads();
+  {
+    const int b = warp;
+    T* row = xs + b * lay.ksp;
+    float s2 = 0.f;
+    for (int k = lane; norm != nullptr && k < nst * KR; k += 32) {
+      const float f = to_float(row[k]);
+      s2 += f * f;
+      row[k] = from_float<T>(f * nrm[k]);
+    }
+    s2 = repro::warp_sum(s2);
+    if (lane == 0) ss[b] = s2;
+  }
+
+  // phase-stamp 2
+  float acc[BG];
 #pragma unroll
-  for (int o = TPR; o < 32; o <<= 1)
+  for (int i = 0; i < BG; ++i) acc[i] = 0.f;
+  const int mts = tn / 16, mt = warp % mts, kg = warp / mts, kgs = WARPS / mts;  // mma
+  const int col = tid % tn, kp = tid / tn, kps = THREADS / tn;                    // float32
+  // the ring: wait for stage st, use it, refill its slot with st + R
+#pragma unroll 1
+  for (int st = 0; st < nst; ++st) {
+    repro::cp_async_wait<R - 1>();
+    __syncthreads();
+    // phase-stamp 3 when st == 0
+    const T* ws = ring + (st % R) * stage_elems;
+    const T* xk = xs + st * KR;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      const int i = lane >> 3;
 #pragma unroll
-    for (int b = 0; b < BG; ++b)
+      for (int j = 0; j < KR / 16; ++j) {
+        if (j % kgs != kg) continue;
+        unsigned a[4];
+        repro::ldmatrix_x4_trans(
+            a, ws + (j * 16 + (i >> 1) * 8 + (lane & 7)) * lay.srow + mt * 16 + (i & 1) * 8);
+        const T* xb = xk + (lane >> 2) * lay.ksp + j * 16 + 2 * (lane & 3);
+        float c4[4] = {acc[0], acc[1], acc[2], acc[3]};
+        repro::mma_bf16(c4, a, *reinterpret_cast<const unsigned*>(xb),
+                        *reinterpret_cast<const unsigned*>(xb + 8));
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[b][e] += __shfl_xor_sync(0xffffffffu, acc[b][e], o);
-  if (ro == 0) {
+        for (int e = 0; e < 4; ++e) acc[e] = c4[e];
+      }
+    } else {
+      for (int r = kp; r < KR; r += kps) {
+        const float wv = to_float(ws[r * lay.srow + col]);
 #pragma unroll
-    for (int b = 0; b < BG; ++b)
+        for (int b = 0; b < BG; ++b) acc[b] += to_float(xk[b * lay.ksp + r]) * wv;
+      }
+    }
+    __syncthreads();                             // the slot is free again
+    if (st + R < nst) load_stage(st % R, st + R);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();                               // x's rows are written even where nst is 0
+  // phase-stamp 4
+
+  // the warps' partial sums meet in the freed slots, then go to the block
+  // of the cluster that owns their batch row
+  float* red = reinterpret_cast<float*>(smem);
+  int parts;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // acc[e]: column mt*16 + lane/4 (+8 for e >= 2), batch row 2 (lane%4) + e%2
+    const int c = mt * 16 + (lane >> 2), b = 2 * (lane & 3);
+    red[(kg * BG + b) * tn + c] = acc[0];
+    red[(kg * BG + b + 1) * tn + c] = acc[1];
+    red[(kg * BG + b) * tn + c + 8] = acc[2];
+    red[(kg * BG + b + 1) * tn + c + 8] = acc[3];
+    parts = kgs;
+  } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) red[(warp * BG + b) * SLOTS + sbase + e] = acc[b][e];
+    for (int b = 0; b < BG; ++b) red[(kp * BG + b) * tn + col] = acc[b];
+    parts = kps;
   }
   __syncthreads();
-  float y = 0.f;
-  if (warp < bg && lane < SLOTS) {
-    for (int w = 0; w < WARPS; ++w) y += red[(w * BG + warp) * SLOTS + lane];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int per = (BG + splits - 1) / splits;    // batch rows a block owns, at most
+  for (int i = tid; i < BG * tn; i += THREADS) {
+    float y = 0.f;
+    for (int p = 0; p < parts; ++p) y += red[p * BG * tn + i];
+    const int b = i / tn, c = i - b * tn;
+    cluster.map_shared_rank(recv, b % splits)[(split * per + b / splits) * tn + c] = y;
   }
-  return y;
+  if (tid < BG) cluster.map_shared_rank(rss, tid % splits)[split * per + tid / splits] = ss[tid];
+  cluster.sync();                                // every block's sums have landed
+  // phase-stamp 5
+  // the totals of this block's rows, adding the blocks' sums in rank order
+  tot = red;
+  for (int i = tid; i < per * tn; i += THREADS) {
+    const int j = i / tn, c = i - j * tn;
+    if (split + j * splits >= BG) continue;
+    float y = 0.f;
+    for (int r = 0; r < splits; ++r) y += recv[(r * per + j) * tn + c];
+    tot[(split + j * splits) * tn + c] = y;
+  }
+  if (tid < per && split + tid * splits < BG) {
+    float y = 0.f;
+    for (int r = 0; r < splits; ++r) y += rss[r * per + tid];
+    sst[split + tid * splits] = y;
+  }
+  __syncthreads();
+  // phase-stamp 6
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
+// Grid (tiles x splits, batch groups), clusters of `splits` blocks; tile t
+// is head t of Q (t < H), of K (t < H + KV) or of V.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 fused_qkv_rope_kernel(const T* __restrict__ x, const float* __restrict__ norm,
                       const T* __restrict__ wq, const T* __restrict__ wk,
                       const T* __restrict__ wv, const T* __restrict__ bq,
@@ -187,136 +378,176 @@ fused_qkv_rope_kernel(const T* __restrict__ x, const float* __restrict__ norm,
                       const int* __restrict__ pos_ptr, T* __restrict__ q_out,
                       T* __restrict__ k_cache, T* __restrict__ v_cache,
                       int* __restrict__ clen_out, int B, int D, int H, int KV, int hd, int C,
-                      int tiles, int bgmax, float eps, float theta) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hh = blockIdx.x / tiles, tile = blockIdx.x - hh * tiles;
-  const int b0 = blockIdx.y * bgmax, bg = min(bgmax, B - b0);
-  const int d2 = hd / 2, pair_tiles = (d2 + PAIRS - 1) / PAIRS;
-  const bool tail = tile >= pair_tiles;          // the odd head-dim column, unrotated
-  const int p0 = tile * PAIRS;
-  const int pos = *pos_ptr, slot = pos % C;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) clen_out[0] = min(pos + 1, C);
+                      int tn, int slice, int splits, float eps, float theta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x / splits, split = blockIdx.x - tile * splits;
+  const int g = blockIdx.y, b0 = g * BG, bg = min(BG, B - b0);
+  if (blockIdx.x == 0 && g == 0 && threadIdx.x == 0) clen_out[0] = min(*pos_ptr + 1, C);
 
   const T* w;
   const T* bias;
   int ncols, mh, kind;                           // kind 0 q, 1 k, 2 v
-  if (hh < H) {
-    w = wq, bias = bq, ncols = H * hd, mh = hh, kind = 0;
-  } else if (hh < H + KV) {
-    w = wk, bias = bk, ncols = KV * hd, mh = hh - H, kind = 1;
+  if (tile < H) {
+    w = wq, bias = bq, ncols = H * hd, mh = tile, kind = 0;
+  } else if (tile < H + KV) {
+    w = wk, bias = bk, ncols = KV * hd, mh = tile - H, kind = 1;
   } else {
-    w = wv, bias = bv, ncols = KV * hd, mh = hh - H - KV, kind = 2;
+    w = wv, bias = bv, ncols = KV * hd, mh = tile - H - KV, kind = 2;
   }
+  const Tile<T> tl{w, ncols, mh * hd, hd};
+  // the epilogue's items: batch rows b = split (mod splits) x the head's
+  // columns, EPI at most a thread; their bias (and the rope partner's) and
+  // pos are requested before the weights
+  const int d2 = hd / 2, nb = (bg - split + splits - 1) / splits;
+  float bias_c[EPI], bias_p[EPI];
+  int pos = 0;
+  auto prefetch = [&] {
+    pos = *pos_ptr;
+#pragma unroll
+    for (int u = 0; u < EPI; ++u) {
+      const int i = threadIdx.x + u * THREADS, c = i % hd;
+      const bool live = i < nb * hd && bias != nullptr;
+      const int pc = c < d2 ? c + d2 : c < 2 * d2 ? c - d2 : c;
+      bias_c[u] = live ? to_float(bias[mh * hd + c]) : 0.f;
+      bias_p[u] = live ? to_float(bias[mh * hd + pc]) : 0.f;
+    }
+  };
+  float *tot, *sst;
+  gemv_core<T, VEC>(tl, x + static_cast<long>(b0) * D, D, norm, D, bg, tn, slice, splits, split,
+                    smem, tot, sst, prefetch);
 
-  float* hs = smem;                              // [bg][D]
-  float* red = hs + bgmax * D;                   // [WARPS][BG][SLOTS]
-  float* rscale = red + WARPS * BG * SLOTS;      // [BG]
-  load_rows(hs, rscale, x + static_cast<long>(b0) * D, D, bg, norm, eps);
-
-  // this thread's first column slot, as a column of the head
-  constexpr int TPR = SLOTS / VEC;
-  const int sbase = (lane % TPR) * VEC;
-  const int half = sbase / PAIRS, e0 = sbase - half * PAIRS;
-  const bool valid = tail ? sbase == 0 : p0 + e0 < d2;
-  const int col = tail ? 2 * d2 : half * d2 + p0 + e0;
-  const float y = gemv<T, VEC>(hs, red, D, bg, w + mh * hd + col, ncols, valid);
-
-  if (warp >= bg) return;
-  // lane s: slot s of batch row b0 + warp
-  const int s = lane, sh = s / PAIRS, se = s - sh * PAIRS;
-  const bool live = s < SLOTS && (tail ? s == 0 : p0 + se < d2);
-  const int c = tail ? 2 * d2 : sh * d2 + p0 + se;
-  float v = y;
-  if (live && bias != nullptr) v += to_float(bias[mh * hd + c]);
-  const float partner = __shfl_xor_sync(0xffffffffu, v, PAIRS);
-  if (!live) return;
-  if (kind < 2 && !tail) {
-    const float freq = powf(theta, -(static_cast<float>(p0 + se) / static_cast<float>(d2)));
-    const float ang = static_cast<float>(pos) * freq;
-    const float cs = cosf(ang), sn = sinf(ang);
-    v = sh == 0 ? v * cs - partner * sn : partner * sn + v * cs;
+  // rscale, bias, rope, the stores
+  const int slot = pos % C;
+#pragma unroll
+  for (int u = 0; u < EPI; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    if (i >= nb * hd) break;
+    const int b = split + (i / hd) * splits, c = i % hd;
+    const float rs = rsqrtf(sst[b] / D + eps);
+    float v = tot[b * tn + c] * rs + bias_c[u];
+    if (kind < 2 && c < 2 * d2) {                // rope; an odd tail column passes
+      const int p = c < d2 ? c : c - d2, pc = c < d2 ? c + d2 : c - d2;
+      const float partner = tot[b * tn + pc] * rs + bias_p[u];
+      const float freq = powf(theta, -(static_cast<float>(p) / static_cast<float>(d2)));
+      const float ang = static_cast<float>(pos) * freq;
+      const float cs = cosf(ang), sn = sinf(ang);
+      v = c < d2 ? v * cs - partner * sn : partner * sn + v * cs;
+    }
+    const long bb = b0 + b;
+    if (kind == 0) {
+      q_out[(bb * H + mh) * hd + c] = from_float<T>(v);
+    } else {
+      T* cache = kind == 1 ? k_cache : v_cache;
+      cache[((bb * C + slot) * KV + mh) * hd + c] = from_float<T>(v);
+    }
   }
-  const int b = b0 + warp;
-  if (kind == 0) {
-    q_out[(static_cast<long>(b) * H + mh) * hd + c] = from_float<T>(v);
-  } else {
-    T* cache = kind == 1 ? k_cache : v_cache;
-    cache[((static_cast<long>(b) * C + slot) * KV + mh) * hd + c] = from_float<T>(v);
-  }
+  // phase-stamp 7 synced
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
+// Grid (tiles x splits, batch groups), clusters of `splits` blocks; tile t
+// is columns [t tn, t tn + tn) of wo.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 fused_out_residual_kernel(const T* __restrict__ o, const T* __restrict__ wo,
                           const T* __restrict__ x, T* __restrict__ out, int B, int K, int D,
-                          int bgmax) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * SLOTS;
-  const int b0 = blockIdx.y * bgmax, bg = min(bgmax, B - b0);
-  float* hs = smem;
-  float* red = hs + bgmax * K;
-  load_rows(hs, red, o + static_cast<long>(b0) * K, K, bg, static_cast<const float*>(nullptr),
-            0.f);
-  constexpr int TPR = SLOTS / VEC;
-  const int n = n0 + (lane % TPR) * VEC;
-  const float y = gemv<T, VEC>(hs, red, K, bg, wo + n, D, n < D);
-  if (warp >= bg || lane >= SLOTS || n0 + lane >= D) return;
-  const long i = static_cast<long>(b0 + warp) * D + n0 + lane;
-  out[i] = from_float<T>(to_float(x[i]) + y);
+                          int tn, int slice, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x / splits, split = blockIdx.x - tile * splits;
+  const int g = blockIdx.y, b0 = g * BG, bg = min(BG, B - b0);
+  const int n0 = tile * tn, nvalid = min(tn, D - n0);
+  const Tile<T> tl{wo, D, n0, nvalid};
+  // the epilogue's items: batch rows b = split (mod splits) x the tile's
+  // columns, EPI at most a thread; their residual is requested before the
+  // weights
+  const int nb = (bg - split + splits - 1) / splits;
+  float res[EPI];
+  auto prefetch = [&] {
+#pragma unroll
+    for (int u = 0; u < EPI; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int b = split + (i / nvalid) * splits, c = i % nvalid;
+      res[u] = i < nb * nvalid ? to_float(x[static_cast<long>(b0 + b) * D + n0 + c]) : 0.f;
+    }
+  };
+  float *tot, *sst;
+  gemv_core<T, VEC>(tl, o + static_cast<long>(b0) * K, K, nullptr, K, bg, tn, slice, splits,
+                    split, smem, tot, sst, prefetch);
+#pragma unroll
+  for (int u = 0; u < EPI; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    if (i >= nb * nvalid) break;
+    const int b = split + (i / nvalid) * splits, c = i % nvalid;
+    out[static_cast<long>(b0 + b) * D + n0 + c] = from_float<T>(res[u] + tot[b * tn + c]);
+  }
+  // phase-stamp 7 synced
 }
 
 bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// up to 8 splits (a portable cluster), slices of whole mma steps that
+// cover the K rows
+bool plan_ok(int tn, int slice, int splits, int K) {
+  return tn >= 16 && tn <= TN_MAX && (tn & (tn - 1)) == 0 && slice >= 1 && splits >= 1 &&
+         splits <= MAX_SPLITS && (splits == 1 || slice % 16 == 0) &&
+         static_cast<long>(slice) * splits >= K;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int splits, size_t smem, void* stream, Args... args) {
+  cudaError_t err = repro::allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
 
 template <typename T>
 int launch_qkv(const void* x, const void* norm, const void* wq, const void* wk, const void* wv,
                const void* bq, const void* bk, const void* bv, const void* pos, void* q_out,
                void* k_cache, void* v_cache, void* clen, int B, int D, int H, int KV, int hd,
-               int C, float eps, float theta, void* stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int d2 = hd / 2;
-  const int tiles = (d2 + PAIRS - 1) / PAIRS + (hd % 2);
-  const int bgmax = min(batch_group(D), B);
-  if (bgmax < 1 || hd < 1 || H < 1 || KV < 1 || C < 1)
+               int C, int tn, int slice, int splits, float eps, float theta, void* stream) {
+  if (B < 1 || hd < 1 || hd > tn || H < 1 || KV < 1 || C < 1 || !plan_ok(tn, slice, splits, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = hd % V == 0 && d2 % V == 0 && aligned(wq) && aligned(wk) && aligned(wv);
-  const size_t smem = (bgmax * static_cast<size_t>(D) + red_floats()) * sizeof(float);
-  const dim3 grid(tiles * (H + 2 * KV), (B + bgmax - 1) / bgmax);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Layout<T> lay(tn, slice, true);
+  const dim3 grid((H + 2 * KV) * splits, (B + BG - 1) / BG);
+  const bool vec = hd % pad<T>() == 0 && aligned(wq) && aligned(wk) && aligned(wv);
   auto run = [&](auto kernel) {
-    cudaError_t err = repro::allow_shared(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const float*>(norm), static_cast<const T*>(wq),
-        static_cast<const T*>(wk), static_cast<const T*>(wv), static_cast<const T*>(bq),
-        static_cast<const T*>(bk), static_cast<const T*>(bv), static_cast<const int*>(pos),
-        static_cast<T*>(q_out), static_cast<T*>(k_cache), static_cast<T*>(v_cache),
-        static_cast<int*>(clen), B, D, H, KV, hd, C, tiles, bgmax, eps, theta);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kernel, grid, splits, lay.bytes, stream, static_cast<const T*>(x),
+                  static_cast<const float*>(norm), static_cast<const T*>(wq),
+                  static_cast<const T*>(wk), static_cast<const T*>(wv), static_cast<const T*>(bq),
+                  static_cast<const T*>(bk), static_cast<const T*>(bv),
+                  static_cast<const int*>(pos), static_cast<T*>(q_out), static_cast<T*>(k_cache),
+                  static_cast<T*>(v_cache), static_cast<int*>(clen), B, D, H, KV, hd, C, tn,
+                  slice, splits, eps, theta);
   };
-  return vec ? run(fused_qkv_rope_kernel<T, V>) : run(fused_qkv_rope_kernel<T, 1>);
+  return vec ? run(fused_qkv_rope_kernel<T, true>) : run(fused_qkv_rope_kernel<T, false>);
 }
 
 template <typename T>
 int launch_out(const void* o, const void* wo, const void* x, void* out, int B, int K, int D,
-               void* stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int bgmax = min(batch_group(K), B);
-  if (bgmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = D % V == 0 && aligned(wo);
-  const size_t smem = (bgmax * static_cast<size_t>(K) + red_floats()) * sizeof(float);
-  const dim3 grid((D + SLOTS - 1) / SLOTS, (B + bgmax - 1) / bgmax);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+               int tn, int slice, int splits, void* stream) {
+  if (B < 1 || D < 1 || !plan_ok(tn, slice, splits, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout<T> lay(tn, slice, false);
+  const dim3 grid((D + tn - 1) / tn * splits, (B + BG - 1) / BG);
+  const bool vec = D % pad<T>() == 0 && aligned(wo);
   auto run = [&](auto kernel) {
-    cudaError_t err = repro::allow_shared(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, THREADS, smem, st>>>(static_cast<const T*>(o), static_cast<const T*>(wo),
-                                        static_cast<const T*>(x), static_cast<T*>(out), B, K,
-                                        D, bgmax);
-    return static_cast<int>(cudaGetLastError());
+    return launch(kernel, grid, splits, lay.bytes, stream, static_cast<const T*>(o),
+                  static_cast<const T*>(wo), static_cast<const T*>(x), static_cast<T*>(out), B, K,
+                  D, tn, slice, splits);
   };
-  return vec ? run(fused_out_residual_kernel<T, V>) : run(fused_out_residual_kernel<T, 1>);
+  return vec ? run(fused_out_residual_kernel<T, true>) : run(fused_out_residual_kernel<T, false>);
 }
 
 }  // namespace
@@ -325,16 +556,16 @@ int launch_out(const void* o, const void* wo, const void* x, void* out, int B, i
   extern "C" int NAME(const void* x, const void* norm, const void* wq, const void* wk,       \
                       const void* wv, const void* bq, const void* bk, const void* bv,        \
                       const void* pos, void* q_out, void* k_cache, void* v_cache, void* clen, \
-                      int B, int D, int H, int KV, int hd, int C, float eps, float theta,    \
-                      void* stream) {                                                        \
+                      int B, int D, int H, int KV, int hd, int C, int tn, int slice,         \
+                      int splits, float eps, float theta, void* stream) {                    \
     return launch_qkv<T>(x, norm, wq, wk, wv, bq, bk, bv, pos, q_out, k_cache, v_cache, clen, \
-                         B, D, H, KV, hd, C, eps, theta, stream);                            \
+                         B, D, H, KV, hd, C, tn, slice, splits, eps, theta, stream);         \
   }
 
 #define OUT_ENTRY(NAME, T)                                                                   \
   extern "C" int NAME(const void* o, const void* wo, const void* x, void* out, int B, int K, \
-                      int D, void* stream) {                                                 \
-    return launch_out<T>(o, wo, x, out, B, K, D, stream);                                    \
+                      int D, int tn, int slice, int splits, void* stream) {                  \
+    return launch_out<T>(o, wo, x, out, B, K, D, tn, slice, splits, stream);                 \
   }
 
 QKV_ENTRY(fused_qkv_rope_bf16, __nv_bfloat16)

@@ -1,0 +1,13 @@
+"""Measurements of the port's kernels on the card, beyond ``chip_smoke.py``:
+each module runs on a CUDA card with ``python -m repro_torch.probes.<name>``
+(``PYTHONPATH=src``, from the repository root) and prints JSON.
+
+  * `gemv_phases`: where a block of the fused chain's GEMV kernels spends
+    its time, from ``%globaltimer`` stamps at the ``// phase-stamp``
+    marks of ``kernels/csrc/fused_decode.cu``.
+  * `read_pattern`: how fast the card reads a GEMV's weights, for blocks
+    that stream column strips of several widths, against the port's
+    out_residual kernel and ``torch.addmm``.
+
+Nothing here is imported by the package or runs on the serving path.
+"""

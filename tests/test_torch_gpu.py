@@ -22,7 +22,7 @@ from repro_torch.kernels.decode_attention import decode_attention, decode_attent
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain, out_residual,
-                                              qkv_rope)
+                                              out_residual_plain, qkv_plain, qkv_rope)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import lm
@@ -191,10 +191,11 @@ def _sublayer(rng, D, H, KV, hd, C, bias, dtype, device, B=3):
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("pos", [5, 40, 83])        # C 40: growing, boundary, wrapped
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_decode_chain_matches_plain(cuda, shape, bias, pos, dtype):
+@pytest.mark.parametrize("batch", [3, 1, 8, 11])    # 11: two batch groups of the GEMVs
+def test_fused_decode_chain_matches_plain(cuda, shape, bias, pos, dtype, batch):
     D, H, KV, hd = shape
     rng = np.random.default_rng(D + pos)
-    x, k, v, w = _sublayer(rng, D, H, KV, hd, 40, bias, dtype, cuda)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 40, bias, dtype, cuda, B=batch)
     kw = dict(w, n_heads=H, head_dim=hd, eps=1e-5, theta=10_000.0, scale=hd ** -0.5)
     p = torch.tensor(pos, dtype=torch.int32, device=cuda)
     want, k_new, v_new = fused_decode_plain(x[:, 0], k, v, p, **kw)
@@ -211,6 +212,54 @@ def test_fused_decode_chain_matches_plain(cuda, shape, bias, pos, dtype):
     _close(v[:, slot], v_new, dtype)
     others = [i for i in range(40) if i != slot]
     assert torch.equal(k[:, others], k0[:, others]) and torch.equal(v[:, others], v0[:, others])
+
+
+# (D, H, KV, hd, bias): SUBLAYERS' shapes, the reduced configs' hd 16, an
+# odd hd (the unrotated tail column, plain loads into the ring)
+QKV_SHAPES = [(256, 8, 4, 32, True), (3840, 32, 8, 120, False), (2048, 16, 2, 128, True),
+              (2048, 16, 2, 128, False), (64, 4, 2, 16, True), (96, 4, 2, 15, True)]
+
+
+@pytest.mark.parametrize("shape", QKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 8, 11])
+def test_qkv_rope_kernel_matches_plain_rows(cuda, shape, dtype, batch):
+    """q, the k and v rows in slot pos % C and cache_len against
+    `qkv_plain`; every other slot untouched."""
+    D, H, KV, hd, bias = shape
+    rng = np.random.default_rng(D + hd + batch)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 24, bias, dtype, cuda, B=batch)
+    pos = torch.tensor(30, dtype=torch.int32, device=cuda)
+    kw = {n: w[n] for n in ("norm", "wq", "wk", "wv", "bq", "bk", "bv")}
+    k0, v0 = k.clone(), v.clone()
+    before = qkv_rope.launches
+    q, clen = qkv_rope(x[:, 0], k, v, pos, **kw, n_heads=H, eps=1e-5, theta=1e4)
+    torch.cuda.synchronize()
+    assert qkv_rope.launches == before + 1 and int(clen) == 24
+    wq, wk, wv = qkv_plain(x[:, 0], pos, **kw, n_heads=H, head_dim=hd, eps=1e-5, theta=1e4)
+    _close(q, wq, dtype)
+    _close(k[:, 30 % 24], wk, dtype)
+    _close(v[:, 30 % 24], wv, dtype)
+    rest = [i for i in range(24) if i != 30 % 24]
+    assert torch.equal(k[:, rest], k0[:, rest]) and torch.equal(v[:, rest], v0[:, rest])
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 2048), (1, 2048, 2048), (11, 4096, 2048),
+                                   (8, 3840, 3840), (3, 256, 256), (2, 64, 64), (4, 60, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_residual_kernel_matches_plain(cuda, shape, dtype):
+    """x + o @ wo for o (B, K), wo (K, D): qwen's and danube's shapes, more
+    than one batch group, and widths off 16 columns (plain loads)."""
+    B, K, D = shape
+    rng = np.random.default_rng(B + K + D)
+    o, wo, x = (_rand(rng, (B, K), dtype, cuda), _rand(rng, (K, D), dtype, cuda) * K ** -0.5,
+                _rand(rng, (B, D), dtype, cuda))
+    before = out_residual.launches
+    got = out_residual(o, wo, x)
+    torch.cuda.synchronize()
+    assert out_residual.launches == before + 1
+    _close(got, out_residual_plain(o, wo, x), dtype)
+    _close(got, x.float() + o.float() @ wo.float(), dtype)
 
 
 SSD_SHAPES = [

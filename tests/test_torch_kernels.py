@@ -33,8 +33,10 @@ from repro_torch.kernels.decode_attention import (MAX_SPLITS, MIN_SPLIT, SplitPl
                                                   decode_attention, split_plan,
                                                   workspace_shapes)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_decode import (_composed_step, attn_decode_step,
-                                              fused_decode_plain)
+from repro_torch.kernels import fused_decode as fd
+from repro_torch.kernels.fused_decode import (SHARED_LIMIT, GemvPlan, _composed_step,
+                                              attn_decode_step, fused_decode_plain, gemv_plan,
+                                              out_residual, qkv_rope, shared_bytes, tile_width)
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -275,6 +277,91 @@ def test_composed_step_matches_plain(pos):
     torch.testing.assert_close(got[:, 0], want, atol=5e-5, rtol=5e-5)
     torch.testing.assert_close(k[:, slot], k_new, atol=5e-5, rtol=5e-5)
     torch.testing.assert_close(v[:, slot], v_new, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 15, 16, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain_steps_on_cpu_match_pallas(pos, dtype):
+    """The chain as the card runs it, from the wrappers' plain versions on
+    the CPU: `qkv_rope` writes the slot and gives q and cache_len, decode
+    attention reads the updated cache, `out_residual` adds the residual;
+    == the JAX `_fused_kernel` in interpret mode, out and both caches.  The
+    bf16 tolerance takes the chain's two extra roundings (q and o to
+    bf16)."""
+    _, jw, tw, jd, td, static, theta = _sublayer("tiny", dtype)
+    hd = static["head_dim"]
+    kw = dict(static, theta=theta, scale=hd ** -0.5)
+    jw_kw = {k: jw[k] for k in ("norm", "wq", "wk", "wv", "wo")}
+    out, kc, vc = _fused_pallas_step(jd["x"], jd["k"], jd["v"], jnp.int32(pos), **jw_kw,
+                                     **_bias_kw(jw), interpret=True, **kw)
+    k, v = td["k"].clone(), td["v"].clone()
+    p = torch.tensor(pos, dtype=torch.int32)
+    q, clen = qkv_rope(td["x"], k, v, p, **{n: tw[n] for n in ("norm", "wq", "wk", "wv")},
+                       **_bias_kw(tw), n_heads=static["n_heads"], eps=static["eps"],
+                       theta=theta)
+    assert int(clen) == min(pos + 1, k.shape[1]) and q.dtype == td["x"].dtype
+    o = decode_attention(q, k, v, clen, scale=hd ** -0.5)
+    got = out_residual(o.reshape(o.shape[0], -1), tw["wo"], td["x"])
+    _close(got, out[:, 0], dtype, 5e-5)
+    _close(k, kc, dtype, 5e-5)
+    _close(v, vc, dtype, 5e-5)
+
+
+# (tiles, width, K) of both GEMVs at the port's dense configs: tiny (hd 32),
+# reduced (hd 16, D 64), qwen2.5-3b (20 heads, D 2048), danube (48 heads of
+# hd 120, D 3840); qkv_rope's tiles are heads, out_residual's 128 columns
+GEMV_SHAPES = {"tiny qkv": (16, 32, 256), "tiny out": (2, 128, 256),
+               "reduced qkv": (8, 16, 64), "reduced out": (1, 64, 64),
+               "qwen qkv": (20, 128, 2048), "qwen out": (16, 128, 2048),
+               "danube qkv": (48, 128, 3840), "danube out": (30, 128, 3840)}
+
+
+@pytest.mark.parametrize("shape", list(GEMV_SHAPES))
+@pytest.mark.parametrize("batch", [1, 8, 11])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_gemv_plan_covers_every_row_once(shape, batch, sms):
+    tiles, width, rows = GEMV_SHAPES[shape]
+    groups = -(-batch // 8)
+    plan = gemv_plan(tiles, width, rows, groups, sms)
+    assert plan.width == width
+    # a power of two up to a portable cluster of 8
+    assert 1 <= plan.splits <= fd.MAX_SPLITS and plan.splits & (plan.splits - 1) == 0
+    # the kernels' ranges: split s takes rows [s * slice, min((s + 1) * slice, K))
+    cover = np.zeros(rows, np.int64)
+    for s in range(plan.splits):
+        cover[s * plan.slice:min((s + 1) * plan.slice, rows)] += 1
+    assert (cover == 1).all()
+    assert plan.splits == 1 or plan.slice % 16 == 0      # whole mma steps, 16-byte x loads
+    # 7/8 of the SMs get a block, unless the cluster or the mma step forbids
+    # more splits; with half as many splits they would not
+    blocks = tiles * plan.splits * groups
+    assert 8 * blocks >= 7 * sms or plan.splits == fd.MAX_SPLITS or rows <= plan.splits * 16
+    assert plan.splits == 1 or 8 * blocks // 2 < 7 * sms
+    # the sums a block receives fit its buffer
+    assert plan.splits * -(-8 // plan.splits) <= fd.RECV_ROWS
+    for dtype in (torch.bfloat16, torch.float32):
+        assert shared_bytes(plan, dtype, shape.endswith("qkv")) <= SHARED_LIMIT
+
+
+@pytest.mark.parametrize("columns,width", [(1, 16), (16, 16), (17, 32), (32, 32), (120, 128),
+                                           (128, 128), (2048, 128), (64, 64)])
+def test_tile_width_holds_a_head_or_caps_at_128(columns, width):
+    assert tile_width(columns) == width
+
+
+def test_gemv_plan_at_qwen_serving_shape():
+    """B 8 on 132 SMs: qkv_rope 20 heads x 8 splits of 256 rows (160
+    blocks), out_residual 16 tiles of 128 columns x 8 (128 blocks), danube's
+    48 heads and 30 tiles x 4; each block's shared memory leaves room for
+    two on an SM."""
+    assert gemv_plan(20, 128, 2048, 1, 132) == GemvPlan(128, 256, 8)
+    assert gemv_plan(16, 128, 2048, 1, 132) == GemvPlan(128, 256, 8)
+    assert gemv_plan(48, 128, 3840, 1, 132) == GemvPlan(128, 960, 4)
+    assert gemv_plan(30, 128, 3840, 1, 132) == GemvPlan(128, 960, 4)
+    for tiles, rows, norm in ((20, 2048, True), (16, 2048, False), (48, 3840, True),
+                              (30, 3840, False)):
+        plan = gemv_plan(tiles, 128, rows, 1, 132)
+        assert 2 * (shared_bytes(plan, torch.bfloat16, norm) + 1024) <= 233_472
 
 
 SSD_SHAPES = [
