@@ -18,7 +18,8 @@ script exits non-zero without its result line.  The phases:
     also at the edges of its cache splits, with splits left empty and
     calls back to back, the fused attention-sublayer chain in the growing,
     boundary and wrapped ring states, the SSD scan at mamba2-370m's
-    prefill and at a ragged length;
+    prefill, at a ragged length, at the edges of its own chunk of 64
+    tokens (L 1, L 65) and at the reduced config's widths (P8 N16);
  4. serving: the port's ``LMServer`` on qwen2.5-3b and on mamba2-370m, each
     at full width, random weights from a seed, 8 requests of 64-400 prompt
     tokens, 32 new tokens each; the launch counts are reset just before
@@ -40,10 +41,12 @@ script exits non-zero without its result line.  The phases:
     ``torch.addmm``); how decode attention's time scales with the batch and
     the live cache, with its split plan; and how the GEMVs' time scales
     with the batch, the width, one block alone, the split and the tile
-    width (``gemv_scaling``);
+    width (``gemv_scaling``); the SSD scan's time at B 1 and 8 and L 512
+    and 2048, with the blocks an SM (``ssd_scaling``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
-    of unprofiled steps;
+    of unprofiled steps; the same for one mamba2-370m prefill at the
+    serving bucket, with the scan's share of the device time;
  8. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -168,7 +171,7 @@ def main() -> int:
     from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain,
                                                   out_residual, qkv_rope)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan, ssd_scan_plain
     from repro_torch.models import lm
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
@@ -299,10 +302,18 @@ def main() -> int:
                 -torch.exp(log_a + 0.5 * randn(h, dtype=torch.float32)), bc[..., :n],
                 bc[..., n:2 * n])
 
-    for L, memory in ((512, "short"), (300, "short"), (512, "long")):
-        args = ssd_inputs(8, L, memory=memory)
+    # then the edges of the kernel's own chunk of 64 tokens (L 1, L 65: a
+    # second chunk of one token) and the reduced config's widths (H16 P8
+    # N16: b and c rows 48 elements apart, padded inside one mma tile)
+    for (b, L, h, p, n), memory in (((8, 512, 32, 64, 128), "short"),
+                                    ((8, 300, 32, 64, 128), "short"),
+                                    ((8, 512, 32, 64, 128), "long"),
+                                    ((8, 1, 32, 64, 128), "long"),
+                                    ((8, 65, 32, 64, 128), "long"),
+                                    ((2, 100, 16, 8, 16), "long")):
+        args = ssd_inputs(b, L, h, p, n, memory=memory)
         (y, s), (want_y, want_s) = ssd_scan(*args), ssd_scan_plain(*args, chunk=128)
-        case = f"B8 L{L} H32 P64 N128 bf16, chunk 128, {memory} memory"
+        case = f"B{b} L{L} H{h} P{p} N{n} bf16, chunk 128, {memory} memory"
         check("ssd_scan", case + ": y", y, want_y)
         check("ssd_scan", case + ": state (float32)", s, want_s, STATE_ATOL * float(
             want_s.abs().max()), STATE_RTOL)
@@ -701,6 +712,16 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
     rows.append(("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:27", times["ssd_scan"]))
+    # how the scan's time scales: the batch (blocks: H x B, 1 or 2 waves'
+    # worth of SMs) and the length (chunks walked in order by each block)
+    ssd_ms = {}
+    for b_, L_ in ((1, 512), (8, 512), (1, 2048), (8, 2048)):
+        nb = nbytes * b_ * L_ // (b * L)
+        ssd_ms[f"B{b_} L{L_}"] = timed(lambda *a: ssd_scan(*a),
+                                      copies(lambda: ssd_inputs(b_, L_), nb), iters=10)
+    emit("ssd_scaling", ms=ssd_ms, shape=f"H{h} P{p} N{n} bf16", sms=sms,
+         blocks_per_sm=blocks_per_sm(bf16), blocks_per_sm_float32=blocks_per_sm(torch.float32),
+         card=smi)
     emit("times", shapes={"rmsnorm": "(8, 2048) decode, (4096, 2048) prefill, bf16",
                           "flash_attention": "B8 S512 H16 KV2 D128 causal bf16",
                           "decode_attention": "B8 H16 KV2 hd128 C544 cache_len 544 bf16",
@@ -748,6 +769,43 @@ def main() -> int:
 
     profile_decode(cfg, params, prompts)
     profile_decode(m_cfg, m_params, m_prompts)
+
+    def profile_prefill(cfg, params, prompts, scan="ssd_scan_kernel"):
+        """One prefill of the serving round's 8 prompts at its bucket: device
+        busy from ``torch.profiler`` against the wall time of unprofiled
+        prefills, and the scan's share of the busy time."""
+        bucket = _bucket(max(map(len, prompts)))
+        toks = np.zeros((len(prompts), bucket), np.int64)
+        for i, p_ in enumerate(prompts):
+            toks[i, bucket - len(p_):] = p_
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        n_runs = 4
+        with torch.no_grad():
+            lm.prefill(cfg, params, batch, capacity=bucket + 32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_runs):
+                lm.prefill(cfg, params, batch, capacity=bucket + 32)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_runs
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_runs):
+                    lm.prefill(cfg, params, batch, capacity=bucket + 32)
+                torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(e.device_time_total for e in kern) / n_runs / 1e3
+        scan_ms = sum(e.device_time_total for e in kern if scan in e.key) / n_runs / 1e3
+        top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:8]
+        emit("profile", what=f"prefill, {cfg.name}, B{len(prompts)}, bucket {bucket}",
+             runs=n_runs, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=max(0.0, 1 - busy_ms / wall_ms), scan_ms=scan_ms,
+             scan_share_of_busy=scan_ms / busy_ms if busy_ms else None,
+             kernel_launches=sum(e.count for e in kern) / n_runs,
+             top_kernels=[{"name": e.key[:90], "ms": e.device_time_total / n_runs / 1e3,
+                           "calls": e.count / n_runs} for e in top])
+
+    profile_prefill(m_cfg, m_params, m_prompts)
 
     # -- 8. the record of the kernels, the card, the result -----------------
     # launches from the serving round that runs each kernel: qwen's for the

@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: element conversion, warp and block
 // reductions, the tile load from device memory into float shared memory,
-// and the PTX of cp.async, ldmatrix and the bf16 mma.sync.
+// and the PTX of cp.async, tensor copies and mbarriers, ldmatrix, stmatrix
+// and the bf16 mma.sync.
 #pragma once
 
 #include <cmath>
@@ -123,6 +124,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
+// The same for 4 bytes (a float of a strided row), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -147,6 +155,103 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// Four 8x8 bf16 matrices to shared memory, each transposed: register i
+// holds matrix i in the mma fragment layout (lane l: row l / 4, columns
+// 2 (l % 4), +1), and lanes 8i..8i+7 give the addresses of the stored rows
+// of matrix i, which are its columns.
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, unsigned r0, unsigned r1, unsigned r2,
+                                                  unsigned r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// -- bulk copies by the copy engine, completed on an mbarrier --------------
+
+// An mbarrier in shared memory whose phase completes after `count` arrivals
+// (and the bytes its arrivals announce).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes mbarrier initialisations visible to the copy engine.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives on `bar`, announcing `bytes` more of copies that complete on it.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory writes before later accesses
+// of the copy engine to the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A box of a 3-d or 4-d tensor (coordinates innermost first, in elements)
+// from device memory to shared memory by the copy engine, as the tensor
+// map `map` (in kernel parameter space) lays it out, counted on `bar`;
+// elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tensor_load_3d(void* dst, const void* map, int c0, int c1, int c2,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tensor_load_4d(void* dst, const void* map, int c0, int c1, int c2,
+                                               int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A box of a 4-d tensor from shared memory to device memory by the copy
+// engine, as `map` lays it out; elements outside the tensor are not
+// written.  Committed to this thread's bulk group.
+__device__ __forceinline__ void tensor_store_4d(const void* map, const void* src, int c0, int c1,
+                                                int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores are done.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // c (16x8, float32) += a (16x16, bf16, row-major) * b (16x8, bf16, col-major)

@@ -7,44 +7,101 @@
 //   b, c (B, L, N) in T, through their strides (n contiguous), one group
 //   shared by the heads;
 //   y (B, L, H, P) in T, contiguous; state (B, H, P, N) float32, contiguous.
-//   P <= 64, N <= 128.
+//   P <= 64, N <= 128, any L >= 1.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` (repro/kernels/ssd_scan.py).
-// Bound on the H100: bytes at the bf16 tensor-core rate (x and y, the
-// state, b and c, dt: ~44 MB at mamba2-370m's prefill, B8 L512 H32 P64
-// N128, against ~10 GFLOP); this first version runs its products as
-// float32 FMAs on the CUDA cores, so it is bound by those operations.
-//
-// Design: one block per (head, sequence), walking the sequence in order
-// in chunks of Q = 64 tokens: the loop inside the block takes the place
-// of the TPU's sequential chunk axis, and the (P, N) state stays in
-// shared memory between chunks as it stayed in VMEM scratch.  The chunk
-// length is the kernel's own blocking (the TPU kernel's 128 would need
-// ~256 KB of float32 tiles here); a chunked scan gives the same function
-// for any chunk length, summed in another order.  A chunk's b, c and x
-// tiles go to shared memory as float32; dt and the inclusive cumsum of
-// dt * a (one warp's shuffle scan) sit beside them.  Then three register-
-// tiled passes, 256 threads each holding a 4 x 4 (or 4 x 8) tile:
-//   1. W[i][j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j for j <= i, else 0;
-//   2. y[i][p] = sum_j W[i][j] x[j][p] + exp(cs_i) * (C_i . S[p]);
-//   3. S[p][n] = S[p][n] * exp(cs_last) + sum_j x[j][p] rem_j B[j][n],
-//      rem_j = exp(cs_last - cs_j) * dt_j.
-// Tiles have one float of padding a row, so the threads of a warp, which
-// read 16 different rows at one column, hit 16 different banks.  The
-// blocks of one sequence sit next to each other in the grid, so b and c,
-// read by every head, come from L2 after the first.  Rows past the end
-// of the sequence load as zeros (x, b, c and dt), which leaves the state
+// Both instances walk a sequence in chunks of Q = 64 tokens, the kernel's
+// own blocking: a loop inside the block takes the place of the TPU's
+// sequential chunk axis, and a chunked scan gives the same function for
+// any chunk length, summed in another order.  A chunk's cumsum of dt * a
+// is one warp's shuffle scan, two tokens a lane.  Rows past the end of the
+// sequence load as zeros (x, b, c and dt = 0), which leaves the state
 // unchanged, as the TPU wrapper's zero padding does.
+//
+// Bound on the H100: bytes.  At mamba2-370m's prefill (B8 L512 H32 P64
+// N128) the call moves ~44.6 MB (x and y, b and c, dt, the state: ~13 us
+// at 3.35 TB/s) against ~7.5 GFLOP of chunk products (~8 us at the bf16
+// tensor-core rate).  On the CUDA cores alone those products take >= 110
+// us, so the bf16 instance runs them on the tensor cores.
+//
+// bf16, `ssd_scan_kernel<bf16>`: one block of 4 warps per (head,
+// sequence), ~109 KB of shared memory, two blocks an SM, so mamba2-370m's
+// 256 (head, sequence) pairs run in one wave on 132 SMs.  (One block per
+// pair of heads, which would load b and c once for both, was not taken:
+// C.B^T is a tenth of the products, W differs by head anyway, and a block
+// of one head needs no odd-H case.)  A chunk's c, b and x tiles stay bf16
+// in shared memory, in a ring of two stages: thread 0 asks the copy engine
+// for chunk k + 1's tiles (2-d tensor copies, one box of 64 rows by 64
+// columns each, rows past L zero-filled, completing on the stage's
+// mbarrier) while chunk k computes, and its dt comes by cp.async.  The
+// boxes land in the 128-byte swizzle (16-byte chunk c of row r at c ^ r %
+// 8), so `ldmatrix` meets no bank conflicts.  (Copies issued by the
+// threads stalled them ~1500 clocks a chunk; one bulk copy a row, ~200
+// small copies a chunk, outran the copy engine.)  Where a base or stride
+// is off 16 bytes, the tiles load element by element.  Every product is
+// `mma.sync.m16n8k16` in bf16 with float32 sums; warp w owns rows
+// p0 = 16w .. p0 + 15 of the head dim (P zero-padded to 64, N to 128):
+//   1. W = (C B^T) o exp(cs_i - cs_j) o dt_j on the 10 16x16 tiles on or
+//      below the diagonal only (C B^T is exact: bf16 inputs, float32
+//      sums), three tiles a warp side by side, stored as bf16 hi + lo
+//      after all of the warp's elements are computed;
+//   2. y^T[p][i] = exp(cs_i) * sum_n S[p][n] C[i][n]: the carried state S
+//      is the A operand straight from this warp's accumulator registers,
+//      as hi + lo, C the B operand; it needs no W, so it runs before the
+//      barrier that waits for W;
+//   3. y^T += x^T W^T, x^T through `ldmatrix.trans`, W's lower tiles;
+//   4. y through a per-warp tile (stmatrix transposes the fragments into
+//      rows) and one tensor store of its 64 rows by 16 columns;
+//   5. S = S exp(cs_last) + (rem o x)^T B, rem_j = exp(cs_last - cs_j) dt_j,
+//      with (rem o x)^T built from x^T's fragments in registers as hi + lo
+//      and B through `ldmatrix.trans`; S stays float32 in registers for the
+//      whole sequence and is never rounded.
+// Precision: x, b and c are exact in bf16; W, S and rem o x are float32
+// values, and one bf16 rounding (2^-9 of a term) would break the state's
+// 1e-4 check, so each is split as hi = bf16(v), lo = bf16(v - hi) and
+// multiplied twice (~2^-17 of a term).  With W and S rounded once, y
+// misses its 0.02 + 0.02 |y| check by up to 7.6x (`probes.ssd_phases`).
+// Two block barriers a chunk: chunk k - 1 is done with the other stage,
+// W is whole.  What bounds it now: the mma.sync products at two warps an
+// SM sub-partition (steps 2 and 5 take ~15 clocks a product a warp), and
+// the tails around them (W's decay, the barriers): ~3.8x the bytes bound.
+//
+// float32, `ssd_scan_kernel<float>`: the CUDA-core body of the port's first
+// version, unchanged but for moving into a function; it serves the float32 A/B and tests (a bf16
+// tensor-core product cannot hold float32 inputs to 1e-4).  One block per
+// (head, sequence); a chunk's b, c and x tiles go to shared memory as
+// float32, then three register-tiled passes, 256 threads each holding a
+// 4 x 4 (or 4 x 8) tile: W, y = W x + exp(cs) (C S^T), and the state
+// update.  Tiles have one float of padding a row, so the threads of a
+// warp, which read 16 different rows at one column, hit 16 different
+// banks.  The blocks of one sequence sit next to each other in the grid
+// (both instances), so b and c, read by every head, come from L2 after
+// the first.
+#include <cuda.h>   // the tensor map types (the driver is reached through the runtime)
+
+#include <type_traits>
+
 #include "common.cuh"
+
+// 0 drops the lo halves of W and S in the y products (steps 2 and 3 below):
+// a variant that `repro_torch.probes.ssd_phases` builds to measure what the
+// split costs and what it saves in error.
+#ifndef SSD_SPLIT_Y
+#define SSD_SPLIT_Y 1
+#endif
 
 namespace {
 
 using repro::from_float;
+using bf16 = __nv_bfloat16;
 
 constexpr int Q = 64;           // tokens a chunk
-constexpr int THREADS = 256;    // 16 x 16 thread tile
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;
+
+// -- float32: CUDA cores ----------------------------------------------------
+
+constexpr int THREADS = 256;    // 16 x 16 thread tile
 
 size_t shared_floats(int P, int N) {
   // Cs, Bs [Q][N+1]; Xs [Q][P+1]; Ws [Q][Q+1]; Ss [P][N+1]; dt, cs, exp(cs), rem [Q]
@@ -52,12 +109,12 @@ size_t shared_floats(int P, int N) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bm,
-                const T* __restrict__ cm, T* __restrict__ y, float* __restrict__ state,
-                int L, int H, int P, int N, long xs_b, long xs_l, long xs_h, long ds_b,
-                long ds_l, long ds_h, long bs_b, long bs_l, long cs_b, long cs_l) {
+__device__ __forceinline__ void scan_fma(const T* __restrict__ x, const float* __restrict__ dt,
+                                         const float* __restrict__ a, const T* __restrict__ bm,
+                                         const T* __restrict__ cm, T* __restrict__ y,
+                                         float* __restrict__ state, int L, int H, int P, int N,
+                                         long xs_b, long xs_l, long xs_h, long ds_b, long ds_l,
+                                         long ds_h, long bs_b, long bs_l, long cs_b, long cs_l) {
   extern __shared__ float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -208,21 +265,544 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// -- bf16: tensor cores -----------------------------------------------------
+
+constexpr int WARPS = 4;                  // 16 rows of the head dim each
+constexpr int MMA_THREADS = WARPS * 32;
+constexpr int NCH = MAX_N / 8;            // 16-byte chunks a row of b and c
+constexpr int QT = Q / 16;                // 16-token tiles a chunk
+constexpr int TILES = QT * (QT + 1) / 2;  // W's tiles on or below the diagonal
+constexpr int TILES_A_WARP = (TILES + WARPS - 1) / WARPS;
+// The tiles are boxes of 64 rows by 64 columns (128 bytes) as the copy
+// engine's 128-byte swizzle lays them out: 16-byte chunk c of row r at
+// chunk c ^ (r % 8), so that the 8 rows an ldmatrix reads at one chunk fall
+// in 8 different bank groups.  c and b take two boxes (N up to 128), x and
+// W one.
+constexpr int BOX = 64 * 64;              // elements
+constexpr int BOX_BYTES = BOX * 2;
+// a stage: c, b (two boxes each), x (one), all bf16
+constexpr int STAGE_BYTES = 5 * BOX_BYTES;
+// then W hi and lo (a box each); each warp's y tile [Q][16] bf16; dt of
+// each stage and each warp's cs log2(e), exp(cs), rem [Q] float32; an
+// mbarrier a stage.  The boxes need 1024-byte alignment: room to align the base.
+constexpr int W_OFF = 2 * STAGE_BYTES;
+constexpr int YS_OFF = W_OFF + 2 * BOX_BYTES;
+constexpr int DT_OFF = YS_OFF + WARPS * Q * 16 * 2;
+constexpr int CS_OFF = DT_OFF + 2 * Q * 4;
+constexpr int BAR_OFF = CS_OFF + WARPS * 3 * Q * 4;
+constexpr size_t MMA_SMEM = BAR_OFF + 2 * sizeof(uint64_t) + 1024;
+
+// which tensors go by tensor copies (the host could make their maps)
+constexpr int TMA_X = 1, TMA_BC = 2, TMA_Y = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The tensor maps of c, b, x and y (made on the host for each call); the
+// float32 instance takes none.
+struct Maps {
+  CUtensorMap c, b, x, y;
+};
+
+// Element offset of 16-byte chunk `chunk` of row `row` in a tile of boxes.
+__device__ __forceinline__ int sw_at(int row, int chunk) {
+  return (chunk >> 3) * BOX + row * 64 + ((chunk & 7) ^ (row & 7)) * 8;
+}
+
+// Element offset of row i's 8-column half `half` in a warp's y tile: the
+// halves of rows 4..7 of every 8 swap places (the copy engine's 32-byte
+// swizzle), so that the 8 rows one stmatrix writes fall in 8 different
+// bank groups.
+__device__ __forceinline__ int ys_at(int i, int half) {
+  return i * 16 + (half ^ ((i >> 2) & 1)) * 8;
+}
+
+// v0, v1 ~ hi + lo, each a bf16 pair (v0 in the low halves): one bf16
+// holds a float32 value to 2^-9 of itself, the pair to ~2^-17.
+__device__ __forceinline__ void split_bf16(float v0, float v1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = repro::pack_bf16(v0 - f.x, v1 - f.y);
+}
+
+// A tile's rows [0, valid) into its boxes element by element, zero past
+// `cols` and `valid`: the path for tensors the copy engine cannot map.
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long stride, int valid,
+                                          int cols, int width) {
+  for (int idx = threadIdx.x; idx < Q * width; idx += MMA_THREADS) {
+    const int row = idx / width, col = idx % width;
+    dst[sw_at(row, col / 8) + col % 8] =
+        row < valid && col < cols ? src[row * stride + col] : __float2bfloat16_rn(0.f);
+  }
+}
+
+__device__ __forceinline__ void scan_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
+                                         const float* __restrict__ a, const bf16* __restrict__ bm,
+                                         const bf16* __restrict__ cm, bf16* __restrict__ y,
+                                         float* __restrict__ state, int L, int H, int P, int N,
+                                         long xs_b, long xs_l, long xs_h, long ds_b, long ds_l,
+                                         long ds_h, long bs_b, long bs_l, long cs_b, long cs_l,
+                                         int flags, const Maps& maps) {
+  extern __shared__ __align__(1024) unsigned char ssd_smem_raw[];
+  unsigned char* smem = ssd_smem_raw + ((1024 - (repro::smem_addr(ssd_smem_raw) & 1023)) & 1023);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;   // fragment row and column pair
+  const int p0 = warp * 16;
+  bf16* Whi = reinterpret_cast<bf16*>(smem + W_OFF);          // a box each
+  bf16* Wlo = Whi + BOX;
+  bf16* Ys = reinterpret_cast<bf16*>(smem + YS_OFF) + warp * Q * 16;   // [Q][16], ys_at
+  float* cs2 = reinterpret_cast<float*>(smem + CS_OFF) + warp * 3 * Q;   // cs log2(e)
+  float* ecs = cs2 + Q;      // exp(cs)
+  float* rem = ecs + Q;      // exp(cs_last - cs) * dt
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);   // a stage's tensor copies
+
+  const bf16* xb = x + b * xs_b + h * xs_h;
+  const float* db = dt + b * ds_b + h * ds_h;
+  const bf16* bb = bm + b * bs_b;
+  const bf16* cb = cm + b * cs_b;
+  const float ah = a[h];
+  const int chunks = (L + Q - 1) / Q;
+  const bool tma_bc = flags & TMA_BC, tma_x = flags & TMA_X;
+  const int bc_boxes = N > 64 ? 2 : 1;     // a second box of c and b only where N needs it
+
+  if (threadIdx.x == 0) {
+    repro::mbar_init(&full[0], 1);
+    repro::mbar_init(&full[1], 1);
+    repro::mbar_fence_init();
+  }
+  if (bc_boxes == 1) {                     // the box no copy writes stays zero
+    for (int st = 0; st < 2; ++st)
+      for (int i = threadIdx.x; i < BOX_BYTES / 16; i += MMA_THREADS) {
+        unsigned char* stage = smem + st * STAGE_BYTES;
+        reinterpret_cast<uint4*>(stage + BOX_BYTES)[i] = make_uint4(0, 0, 0, 0);
+        reinterpret_cast<uint4*>(stage + 3 * BOX_BYTES)[i] = make_uint4(0, 0, 0, 0);
+      }
+    repro::fence_proxy_async();
+  }
+  __syncthreads();
+
+  // Chunk k's c, b and x into stage k % 2 (tensor copies, rows past L
+  // zero-filled, issued by thread 0; or element loads by every thread),
+  // and its dt by cp.async, committed as one group
+  auto issue = [&](int k) {
+    unsigned char* stage = smem + (k & 1) * STAGE_BYTES;
+    bf16* Cs = reinterpret_cast<bf16*>(stage);
+    bf16* Bs = Cs + 2 * BOX;
+    bf16* Xs = Bs + 2 * BOX;
+    const int l0 = k * Q, valid = min(Q, L - l0);
+    uint64_t* bar = &full[k & 1];
+    if (threadIdx.x == 0) {
+      repro::mbar_arrive_expect_tx(
+          bar, (tma_bc ? 2 * bc_boxes * BOX_BYTES : 0) + (tma_x ? BOX_BYTES : 0));
+      if (tma_bc)
+        for (int box = 0; box < bc_boxes; ++box) {
+          repro::tensor_load_3d(Cs + box * BOX, &maps.c, box * 64, l0, b, bar);
+          repro::tensor_load_3d(Bs + box * BOX, &maps.b, box * 64, l0, b, bar);
+        }
+      if (tma_x) repro::tensor_load_4d(Xs, &maps.x, 0, h, l0, b, bar);
+    }
+    if (!tma_bc) {
+      copy_rows(Cs, cb + l0 * cs_l, cs_l, valid, N, MAX_N);
+      copy_rows(Bs, bb + l0 * bs_l, bs_l, valid, N, MAX_N);
+    }
+    if (!tma_x) copy_rows(Xs, xb + l0 * xs_l, xs_l, valid, P, MAX_P);
+    float* dts = reinterpret_cast<float*>(smem + DT_OFF) + (k & 1) * Q;
+    if (threadIdx.x < Q) {
+      const bool ok = static_cast<int>(threadIdx.x) < valid;
+      repro::cp_async4(dts + threadIdx.x, ok ? db + (l0 + threadIdx.x) * ds_l : db, ok ? 4 : 0);
+    }
+    repro::cp_async_commit();
+  };
+
+  // W's tiles this warp computes: w, w + 4, w + 8 of the row-major lower
+  // triangle; a warp with fewer computes its first again in the last slot
+  // and does not store it (it would wait for the others at the barrier)
+  int tile_i[TILES_A_WARP], tile_j[TILES_A_WARP];
+  bool tile_own[TILES_A_WARP];
+#pragma unroll
+  for (int u = 0; u < TILES_A_WARP; ++u) {
+    const int t0 = warp + u * WARPS;
+    tile_own[u] = t0 < TILES;
+    const int t = tile_own[u] ? t0 : warp;
+    tile_i[u] = t < 1 ? 0 : t < 3 ? 1 : t < 6 ? 2 : 3;
+    tile_j[u] = t - tile_i[u] * (tile_i[u] + 1) / 2;
+  }
+
+  // S rows p0 + gr (e 0, 1) and p0 + gr + 8 (e 2, 3), columns 8 nt + 2 tq
+  // (+1): the accumulator layout of the state update
+  float s[MAX_N / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < MAX_N / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+
+  // phase-stamp 0
+  issue(0);
+  for (int k = 0; k < chunks; ++k) {
+    const int l0 = k * Q, valid = min(Q, L - l0);
+    const bf16* Cs = reinterpret_cast<const bf16*>(smem + (k & 1) * STAGE_BYTES);
+    const bf16* Bs = Cs + 2 * BOX;
+    const bf16* Xs = Bs + 2 * BOX;
+    const float* dts = reinterpret_cast<const float*>(smem + DT_OFF) + (k & 1) * Q;
+    repro::cp_async_wait<0>();
+    __syncthreads();               // chunk k's dt and element loads are in; chunk k - 1 is done
+    // phase-stamp 1
+    if (k + 1 < chunks) issue(k + 1);
+    repro::mbar_wait(&full[k & 1], (k >> 1) & 1);   // chunk k's tensor copies are in
+    // phase-stamp 2
+
+    // 1. W = (C B^T) o exp(cs_i - cs_j) o dt_j on the tiles on or below the
+    //    diagonal (zero above it), as bf16 hi + lo; this warp's tiles side
+    //    by side, so that their products interleave
+    float g[TILES_A_WARP][2][4];
+#pragma unroll
+    for (int u = 0; u < TILES_A_WARP; ++u)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g[u][e / 4][e % 4] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NCH / 2; ++kk) {
+#pragma unroll
+      for (int u = 0; u < TILES_A_WARP; ++u) {
+        unsigned fa[4], fb[4];
+        repro::ldmatrix_x4(fa, Cs + sw_at(tile_i[u] * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          kk * 2 + (lane >> 4)));
+        repro::ldmatrix_x4(fb, Bs + sw_at(tile_j[u] * 16 + (lane & 7) + (lane >> 4) * 8,
+                                          kk * 2 + ((lane >> 3) & 1)));
+        repro::mma_bf16(g[u][0], fa, fb[0], fb[1]);
+        repro::mma_bf16(g[u][1], fa, fb[2], fb[3]);
+      }
+    }
+
+    // 0. the chunk's inclusive cumsum cs of dt * a, each warp its own copy
+    //    (a shuffle scan, two tokens a lane), while the products run
+    float tot;
+    {
+      const float d0 = dts[2 * lane], d1 = dts[2 * lane + 1];
+      const float v0 = d0 * ah, v1 = d1 * ah;
+      float run = v0 + v1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, run, o);
+        if (lane >= o) run += u;
+      }
+      const float c1 = run, c0 = run - v1;
+      tot = __shfl_sync(0xffffffffu, run, 31);
+      cs2[2 * lane] = c0 * LOG2E;
+      cs2[2 * lane + 1] = c1 * LOG2E;
+      ecs[2 * lane] = expf(c0);
+      ecs[2 * lane + 1] = expf(c1);
+      rem[2 * lane] = expf(tot - c0) * d0;
+      rem[2 * lane + 1] = expf(tot - c1) * d1;
+    }
+    __syncwarp();
+    // phase-stamp 3
+
+    // every element of this warp's tiles first, then the stores: a store
+    // to W might alias a later read of cs, which would chain each element
+    // after the last one's store; no branch either (exp of a clamped
+    // argument, which overflows above the diagonal, times a 0/1 mask)
+    unsigned w_hi[TILES_A_WARP][2][2], w_lo[TILES_A_WARP][2][2];
+#pragma unroll
+    for (int u = 0; u < TILES_A_WARP; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = tile_i[u] * 16 + gr + r * 8;
+        const float ci = cs2[i];
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const int j = tile_j[u] * 16 + jt * 8 + 2 * tq;
+          const float w0 = g[u][jt][2 * r] * exp2f(fminf(ci - cs2[j], 0.f)) * dts[j] *
+                           static_cast<float>(j <= i);
+          const float w1 = g[u][jt][2 * r + 1] * exp2f(fminf(ci - cs2[j + 1], 0.f)) *
+                           dts[j + 1] * static_cast<float>(j < i);
+          split_bf16(w0, w1, w_hi[u][r][jt], w_lo[u][r][jt]);
+        }
+      }
+#pragma unroll
+    for (int u = 0; u < TILES_A_WARP; ++u) {
+      if (!tile_own[u]) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          const int o = sw_at(tile_i[u] * 16 + gr + r * 8, tile_j[u] * 2 + jt) + 2 * tq;
+          *reinterpret_cast<unsigned*>(Whi + o) = w_hi[u][r][jt];
+          *reinterpret_cast<unsigned*>(Wlo + o) = w_lo[u][r][jt];
+        }
+    }
+    // phase-stamp 4
+
+    // y^T: rows p0 + gr (e 0, 1) and p0 + gr + 8 (e 2, 3), columns (tokens)
+    // 8 it + 2 tq (+1)
+    float acc[QT * 2][4];
+#pragma unroll
+    for (int it = 0; it < QT * 2; ++it)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[it][e] = 0.f;
+    const bool active = p0 < P;    // the rest is this warp's rows alone
+
+    // 2. y^T = exp(cs_i) (S C^T), S's A fragments from its accumulators; it
+    //    needs no W, so it runs before the barrier that waits for W
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < NCH / 2; ++kk) {
+        unsigned hi[4], lo[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int I = 0; I < QT; ++I) {
+          unsigned fc[4];
+          repro::ldmatrix_x4(fc, Cs + sw_at(I * 16 + (lane & 7) + (lane >> 4) * 8,
+                                            kk * 2 + ((lane >> 3) & 1)));
+          repro::mma_bf16(acc[2 * I], hi, fc[0], fc[1]);
+          repro::mma_bf16(acc[2 * I + 1], hi, fc[2], fc[3]);
+          if constexpr (SSD_SPLIT_Y) {
+            repro::mma_bf16(acc[2 * I], lo, fc[0], fc[1]);
+            repro::mma_bf16(acc[2 * I + 1], lo, fc[2], fc[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < QT * 2; ++it)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[it][e] *= ecs[it * 8 + 2 * tq + (e & 1)];
+    }
+    // phase-stamp 5
+    __syncthreads();               // W is whole
+    // phase-stamp 6
+
+    if (active) {
+      // 3. y^T += x^T W^T over W's tiles on or below the diagonal
+      unsigned xa[QT][4];          // x^T's A fragments, token tile J
+#pragma unroll
+      for (int J = 0; J < QT; ++J) {
+        repro::ldmatrix_x4_trans(xa[J], Xs + sw_at(J * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                   2 * warp + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int I = J; I < QT; ++I) {
+          unsigned wh[4], wl[4];
+          const int o = sw_at(I * 16 + (lane & 7) + (lane >> 4) * 8, J * 2 + ((lane >> 3) & 1));
+          repro::ldmatrix_x4(wh, Whi + o);
+          repro::ldmatrix_x4(wl, Wlo + o);
+          repro::mma_bf16(acc[2 * I], xa[J], wh[0], wh[1]);
+          repro::mma_bf16(acc[2 * I + 1], xa[J], wh[2], wh[3]);
+          if constexpr (SSD_SPLIT_Y) {
+            repro::mma_bf16(acc[2 * I], xa[J], wl[0], wl[1]);
+            repro::mma_bf16(acc[2 * I + 1], xa[J], wl[2], wl[3]);
+          }
+        }
+      }
+      // phase-stamp 7
+
+      // 4. y: this warp's 16 columns of each row through its tile (stmatrix
+      //    transposes the fragments into rows), then a tensor store (rows
+      //    past L are not written) or 16 bytes a lane
+      if (lane == 0) repro::bulk_wait_read();   // the last chunk's store has read the tile
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < QT; ++q) {
+        const int m = lane >> 3;
+        repro::stmatrix_x4_trans(
+            Ys + ys_at((2 * q + (m >> 1)) * 8 + (lane & 7), m & 1),
+            repro::pack_bf16(acc[2 * q][0], acc[2 * q][1]),
+            repro::pack_bf16(acc[2 * q][2], acc[2 * q][3]),
+            repro::pack_bf16(acc[2 * q + 1][0], acc[2 * q + 1][1]),
+            repro::pack_bf16(acc[2 * q + 1][2], acc[2 * q + 1][3]));
+      }
+      if (flags & TMA_Y) {
+        repro::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) repro::tensor_store_4d(&maps.y, Ys, p0, h, l0, b);
+      } else {
+        __syncwarp();
+        for (int c = lane; c < Q * 2; c += 32) {
+          const int i = c >> 1, pl = p0 + (c & 1) * 8;
+          if (i < valid && pl < P) {
+            bf16* yr = y + ((static_cast<long>(b) * L + l0 + i) * H + h) * P + pl;
+            const bf16* src = Ys + ys_at(i, c & 1);
+            for (int e = 0; e < 8 && pl + e < P; ++e) yr[e] = src[e];
+          }
+        }
+        __syncwarp();
+      }
+      // phase-stamp 8
+
+      // 5. S = S exp(cs_last) + (rem o x)^T B
+      const float decay = expf(tot);
+#pragma unroll
+      for (int nt = 0; nt < MAX_N / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= decay;
+#pragma unroll
+      for (int J = 0; J < QT; ++J) {
+        // xa[J]: registers 0, 1 hold tokens J16 + 2 tq (+1), 2, 3 those + 8
+        const int j = J * 16 + 2 * tq;
+        const float r0 = rem[j], r1 = rem[j + 1], r2 = rem[j + 8], r3 = rem[j + 9];
+        unsigned hi[4], lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[J][q]));
+          split_bf16(v.x * (q < 2 ? r0 : r2), v.y * (q < 2 ? r1 : r3), hi[q], lo[q]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NCH / 2; ++nb) {
+          unsigned fb[4];
+          repro::ldmatrix_x4_trans(fb, Bs + sw_at(J * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                  nb * 2 + (lane >> 4)));
+          repro::mma_bf16(s[2 * nb], hi, fb[0], fb[1]);
+          repro::mma_bf16(s[2 * nb + 1], hi, fb[2], fb[3]);
+          repro::mma_bf16(s[2 * nb], lo, fb[0], fb[1]);
+          repro::mma_bf16(s[2 * nb + 1], lo, fb[2], fb[3]);
+        }
+      }
+      // phase-stamp 9
+    }
+  }
+
+  if (lane == 0) repro::bulk_wait();   // y's last tensor store is done
+  if (p0 < P) {
+    float* sb = state + (static_cast<long>(b) * H + h) * P * N;
+#pragma unroll
+    for (int nt = 0; nt < MAX_N / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gr + (e >> 1) * 8, n = nt * 8 + 2 * tq + (e & 1);
+        if (p < P && n < N) sb[p * N + n] = s[nt][e];
+      }
+  }
+  // phase-stamp 10
+}
+
+// -- the kernel: one template, an instance for each dtype --------------------
+
+template <typename T>
+struct Shape {               // float32: the CUDA-core body
+  static constexpr int threads = THREADS, min_blocks = 1;
+};
+template <>
+struct Shape<bf16> {         // bf16: the tensor-core body, two blocks an SM
+  static constexpr int threads = MMA_THREADS, min_blocks = 2;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
+ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ a, const T* __restrict__ bm,
+                const T* __restrict__ cm, T* __restrict__ y, float* __restrict__ state,
+                int L, int H, int P, int N, long xs_b, long xs_l, long xs_h, long ds_b,
+                long ds_l, long ds_h, long bs_b, long bs_l, long cs_b, long cs_l, int flags,
+                const __grid_constant__ Maps maps) {
+  if constexpr (std::is_same_v<T, bf16>)
+    scan_mma(x, dt, a, bm, cm, y, state, L, H, P, N, xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b,
+             bs_l, cs_b, cs_l, flags, maps);
+  else
+    scan_fma(x, dt, a, bm, cm, y, state, L, H, P, N, xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b,
+             bs_l, cs_b, cs_l);
+}
+
+template <typename T>
+size_t smem_bytes(int P, int N) {
+  return std::is_same_v<T, bf16> ? MMA_SMEM : shared_floats(P, N) * sizeof(float);
+}
+
+template <typename T>
+cudaError_t prepare(int P, int N) {
+  cudaError_t err = repro::allow_shared(ssd_scan_kernel<T>, smem_bytes<T>(P, N));
+  if (err == cudaSuccess && std::is_same_v<T, bf16>)   // room for two blocks an SM
+    err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no driver library), or null
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of a bf16 tensor whose dims (innermost first) lie strides[i - 1]
+// elements apart, in boxes of `box_dims` elements with the 128-byte swizzle
+// (32-byte where a box row is 32 bytes);
+// false where the copy engine cannot take it (a base or a stride off 16
+// bytes), and the caller loads element by element.
+bool make_map(CUtensorMap* map, const void* base, int rank, const long* dims,
+              const long* strides, const unsigned* box_dims) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || (reinterpret_cast<uintptr_t>(base) & 15)) return false;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t box[4], estride[4];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = box_dims[i];
+    estride[i] = 1;
+    if (i > 0) {
+      if ((strides[i - 1] * 2) % 16) return false;
+      gstride[i - 1] = static_cast<cuuint64_t>(strides[i - 1] * 2);
+    }
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim,
+                gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box[0] == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
            void* y, void* state, int B, int L, int H, int P, int N, long xs_b, long xs_l,
            long xs_h, long ds_b, long ds_l, long ds_h, long bs_b, long bs_l, long cs_b,
            long cs_l, void* stream) {
   if (P > MAX_P || N > MAX_N || P < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_floats(P, N) * sizeof(float);
-  cudaError_t err = repro::allow_shared(ssd_scan_kernel<T>, smem);
+  cudaError_t err = prepare<T>(P, N);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<T><<<dim3(H, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  Maps maps = {};
+  int flags = 0;
+  if (std::is_same_v<T, bf16> && L > 0) {
+    // c, b: (n, l, b), a box 64 columns by the chunk's 64 rows; x: (p, h,
+    // l, b), a box of one head's 64 columns by 64 rows
+    const long bc_dims[3] = {N, L, B}, c_strides[2] = {cs_l, cs_b}, b_strides[2] = {bs_l, bs_b};
+    const long x_dims[4] = {P, H, L, B}, x_strides[3] = {xs_h, xs_l, xs_b};
+    const unsigned bc_box[3] = {64, Q, 1}, x_box[4] = {64, 1, Q, 1}, y_box[4] = {16, 1, Q, 1};
+    const long y_strides[3] = {P, static_cast<long>(H) * P, static_cast<long>(L) * H * P};
+    if (make_map(&maps.c, c, 3, bc_dims, c_strides, bc_box) &&
+        make_map(&maps.b, b, 3, bc_dims, b_strides, bc_box))
+      flags |= TMA_BC;
+    if (make_map(&maps.x, x, 4, x_dims, x_strides, x_box)) flags |= TMA_X;
+    if (make_map(&maps.y, y, 4, x_dims, y_strides, y_box)) flags |= TMA_Y;   // y: contiguous
+  }
+  ssd_scan_kernel<T><<<dim3(H, B), Shape<T>::threads, smem_bytes<T>(P, N),
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<T*>(y),
       static_cast<float*>(state), L, H, P, N, xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b, bs_l,
-      cs_b, cs_l);
+      cs_b, cs_l, flags, maps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy(int P, int N, int* blocks) {
+  cudaError_t err = prepare<T>(P, N);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ssd_scan_kernel<T>,
+                                                        Shape<T>::threads, smem_bytes<T>(P, N));
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -234,6 +814,9 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
                       long bs_b, long bs_l, long cs_b, long cs_l, void* stream) {             \
     return launch<T>(x, dt, a, b, c, y, state, B, L, H, P, N, xs_b, xs_l, xs_h, ds_b, ds_l,   \
                      ds_h, bs_b, bs_l, cs_b, cs_l, stream);                                   \
+  }                                                                                           \
+  extern "C" int NAME##_blocks_per_sm(int P, int N, int* blocks) {                            \
+    return occupancy<T>(P, N, blocks);                                                        \
   }
 
 SSD_ENTRY(ssd_scan_bf16, __nv_bfloat16)

@@ -12,19 +12,23 @@ choice), so the slices of the Mamba projection go in without a copy.
 ``ssd_scan`` launches it for CUDA tensors and runs the plain version,
 ``ref.ssd_chunked``, for CPU tensors.  ``chunk`` is the plain version's
 blocking; the kernel walks the sequence in chunks of its own (64 tokens,
-see the source), and any chunk length gives the same scan.
+see the source), and any chunk length gives the same scan.  In bf16 the
+kernel runs its chunk products on the tensor cores, one block of 4 warps
+per (head, sequence), two blocks an SM (`blocks_per_sm` asks CUDA).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build
 from .ref import ssd_chunked
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["blocks_per_sm", "ssd_scan", "ssd_scan_plain"]
 
-MAX_HEAD_DIM = 64    # P: the kernel's 16 x 16 thread tile holds 4 columns a thread
-MAX_STATE = 128      # N: 8 state columns a thread
+MAX_HEAD_DIM = 64    # P: zero-padded to 64, 16 rows a warp (bf16); 4 columns a thread (float32)
+MAX_STATE = 128      # N: zero-padded to 128 (bf16); 8 state columns a thread (float32)
 
 _ARGS = [build.P] * 7 + [build.I] * 5 + [build.L] * 10 + [build.P]
 
@@ -71,3 +75,12 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0   # kernel launches, for showing a run went through it
+
+
+def blocks_per_sm(dtype: torch.dtype, P: int = MAX_HEAD_DIM, N: int = MAX_STATE) -> int:
+    """Blocks of the kernel that fit one SM of the current card at these
+    widths, by CUDA's occupancy calculator (card only)."""
+    out = ctypes.c_int(0)
+    build.call(f"ssd_scan_{build.DTYPE_SUFFIX[dtype]}_blocks_per_sm",
+               [build.I, build.I, build.P], P, N, ctypes.addressof(out))
+    return out.value

@@ -8,6 +8,10 @@ each module runs on a CUDA card with ``python -m repro_torch.probes.<name>``
   * `read_pattern`: how fast the card reads a GEMV's weights, for blocks
     that stream column strips of several widths, against the port's
     out_residual kernel and ``torch.addmm``.
+  * `ssd_phases`: where a block of the bf16 SSD scan spends its time, from
+    SM clock stamps at the ``// phase-stamp`` marks of
+    ``kernels/csrc/ssd_scan.cu``, and what splitting its y products' W and
+    S operands into bf16 hi + lo costs in time and saves in error.
 
 Nothing here is imported by the package or runs on the serving path.
 """

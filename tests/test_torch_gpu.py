@@ -268,6 +268,15 @@ SSD_SHAPES = [
     (1, 50, 2, 8, 16),        # ragged
     (2, 300, 4, 64, 128),     # mamba2-370m's P64 N128, ragged
     (1, 128, 32, 64, 128),    # mamba2-370m's heads, two whole chunks
+    # the edges of the kernel's chunk of 64 tokens, in both load paths (b and
+    # c rows 2N + H elements apart: tensor copies where that is a multiple
+    # of 8 elements, 16 bytes; element loads where it is not)
+    (2, 1, 8, 64, 128),       # L 1: one token, 63 rows of zero fill
+    (1, 63, 4, 64, 128),      # one short of a chunk; element loads
+    (2, 65, 32, 64, 128),     # one past: a second chunk of one token
+    (8, 512, 32, 64, 128),    # mamba2-370m's serving prefill
+    (2, 130, 8, 24, 48),      # P and N off the 16-wide mma tiles
+    (2, 70, 3, 20, 40),       # P off 8 elements: x and y element by element too
 ]
 
 

@@ -370,6 +370,11 @@ SSD_SHAPES = [
     (2, 64, 3, 8, 16, 16),
     (1, 50, 2, 16, 32, 16),   # ragged
     (2, 128, 4, 64, 128, 32),  # production-like dims
+    # the CUDA kernel's chunk of 64 tokens (its plain version is what the
+    # card tests hold it to): one token, one short of a chunk, one past
+    (1, 1, 2, 8, 16, 64),
+    (1, 63, 2, 24, 48, 64),
+    (2, 65, 3, 8, 16, 64),
 ]
 
 
