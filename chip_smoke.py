@@ -13,7 +13,12 @@ script exits non-zero without its result line.  The phases:
  2. build: the kernels from ``src/repro_torch/kernels/csrc``, with each
     kernel's registers, shared memory and spills from ptxas;
  3. every kernel against its plain version on the card, in bf16, at the
-    shapes the serving paths give it (and danube's head shapes): flash
+    shapes the serving paths give it (and danube's head shapes): rmsnorm
+    in bf16 and float32 at widths 1024, 2048, 3840 and 1000 with 8, 4096
+    and 5000 rows (5000: off its persistent grid), at a width off 16 bytes,
+    one beyond its row kernel and an input off 16 bytes, and its gated form
+    at mamba2-370m's decode and prefill with z strided as ``torch.chunk``
+    gives it; flash
     attention also at a ragged length (S 129) and GQA 7, decode attention
     also at the edges of its cache splits, with splits left empty and
     calls back to back, the fused attention-sublayer chain in the growing,
@@ -30,7 +35,9 @@ script exits non-zero without its result line.  The phases:
     (``impl="ref"``) and the kernel route in lockstep; logits must agree
     within the stated tolerance at every step, tokens up to the first
     near-tie (mamba2-370m in float32, beside the spread that a change of
-    summation order alone gives its stack in bf16 and in float32);
+    summation order alone gives its stack in bf16 and in float32); and one
+    mamba2-370m block at full width in bf16, prefill at the serving bucket
+    and 4 decode steps, both routes;
  6. times: each kernel's device time at its serving shape (from
     ``torch.profiler``, over many launches on input copies that overflow
     the L2 cache), beside its bound, its plain version and one library
@@ -42,7 +49,10 @@ script exits non-zero without its result line.  The phases:
     the live cache, with its split plan; and how the GEMVs' time scales
     with the batch, the width, one block alone, the split and the tile
     width (``gemv_scaling``); the SSD scan's time at B 1 and 8 and L 512
-    and 2048, with the blocks an SM (``ssd_scaling``);
+    and 2048, with the blocks an SM (``ssd_scaling``); rmsnorm at (8,
+    1024), (8, 2048) and (4096, 2048) and its gated form at (8, 2048) and
+    (4096, 2048), each beside an empty kernel on the same grid (the launch
+    floor), and rmsnorm's time with other plans (``rmsnorm_scaling``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
@@ -71,6 +81,8 @@ L2_BYTES = 50 * 2 ** 20
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
 ATOL = RTOL = 2e-2
+# the same in float32 (the norms): both sum float32 squares in another order
+F32_TOL = 2e-5
 # the SSD scan's float32 state against the plain version's: both sum float32
 # products of the same bf16 inputs in another order, so an entry may be off by
 # ~1e-4 of the largest one (STATE_ATOL is taken of the state's largest value)
@@ -87,6 +99,11 @@ TIE_MARGIN = 2 * LOGIT_TOL
 # spread is ~0.006 at logits of magnitude ~2.5; the kernel route (the scan
 # and norms summing in their own order) is held to 8 times it.
 MAMBA_LOGIT_TOL = 0.05
+# one mamba2-370m block in bf16, kernel route vs oracle route: its output
+# within ATOL + RTOL |ref|, two bf16 steps at its magnitude.  Both routes
+# round it once to bf16; what differs inside (the order of the scan's and
+# the norms' sums, moving single bf16 roundings of y and of the normalised
+# gate) reaches it through w_out, a sum of 2048 inputs at weights ~2048^-1/2.
 
 
 def emit(phase: str, **record) -> None:
@@ -170,9 +187,11 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain,
                                                   out_residual, qkv_rope)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_gated, rmsnorm_gated_plain,
+                                             rmsnorm_plain)
     from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan, ssd_scan_plain
-    from repro_torch.models import lm
+    from repro_torch.models import blocks, lm
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
     dev = torch.device("cuda")
@@ -217,10 +236,39 @@ def main() -> int:
             raise AssertionError(f"{kernel} {case}: {bad} elements out of tolerance")
         errors[kernel] = max(errors.get(kernel, 0.0), float(err.max()))
 
-    # qwen's width (2048) and mamba2-370m's (1024), whose block is half as wide
-    for rows, d in ((8 * 512, 2048), (8, 2048), (8 * 512, 1024), (8, 1024)):
-        x, w = randn(rows, d), randn(d, dtype=torch.float32)
-        check("rmsnorm", f"({rows}, {d})", rmsnorm(x, w), rmsnorm_plain(x, w))
+    # the norms: mamba2-370m's width (1024), qwen's (2048), danube's (3840)
+    # and 1000 (a ragged number of 16-byte pieces a lane) at decode and
+    # prefill rows and at 5000 (rows off the persistent grid); widths off 16
+    # bytes (1001) and beyond the row kernel (20000), an input off 16 bytes
+    def norm_check(case, x, w):
+        tol = ATOL if x.dtype == bf16 else F32_TOL
+        check("rmsnorm", f"{case} {x.dtype}", rmsnorm(x, w), rmsnorm_plain(x, w), tol, tol)
+
+    for dtype in (bf16, torch.float32):
+        for d in (1024, 2048, 3840, 1000):
+            for rows in (8, 8 * 512, 5000):
+                norm_check(f"({rows}, {d})", randn(rows, d, dtype=dtype),
+                           randn(d, dtype=torch.float32))
+        for rows, d in ((3, 1001), (2, 20000)):
+            norm_check(f"({rows}, {d})", randn(rows, d, dtype=dtype), randn(d, dtype=torch.float32))
+        norm_check("(8, 2048) off 16 bytes", randn(8 * 2048 + 1, dtype=dtype)[1:].view(8, 2048),
+                   randn(2048, dtype=torch.float32))
+
+    # the gated form at mamba2-370m's decode (8 rows) and prefill (8 x 512),
+    # H32 P64, z the second half of the in-projection (rows 4096 apart); and
+    # mamba2-2.7b's width (5120), beyond the row kernel
+    def gated_inputs(lead, h=32, p=64, dtype=bf16):
+        return (randn(*lead, h, p, dtype=dtype), randn(*lead, h, p, dtype=dtype),
+                1.0 + 0.1 * randn(h, dtype=torch.float32),
+                torch.chunk(randn(*lead, 2 * h * p, dtype=dtype), 2, dim=-1)[1],
+                1.0 + 0.1 * randn(h * p, dtype=torch.float32))
+
+    for dtype in (bf16, torch.float32):
+        tol = ATOL if dtype == bf16 else F32_TOL
+        for lead, h in (((8,), 32), ((8, 512), 32), ((2, 3), 80)):
+            args = gated_inputs(lead, h, dtype=dtype)
+            check("rmsnorm_gated", f"{lead} H{h} P64 {dtype}, z rows {args[3].stride(-2)} apart",
+                  rmsnorm_gated(*args), rmsnorm_gated_plain(*args), tol, tol)
     # qwen's and danube's prefill, then a length off every tile (Sq 129) and GQA 7
     for b, s, h, kv, d, window in ((8, 512, 16, 2, 128, None), (2, 512, 32, 8, 120, 64),
                                    (2, 129, 16, 2, 128, None), (2, 200, 14, 2, 128, None)):
@@ -376,7 +424,7 @@ def main() -> int:
         raise AssertionError(f"the qwen decode step left the fused chain: {launches}, "
                              f"_composed_step called {fd._composed_step.calls} times")
     m_cfg, m_params, m_prompts, m_launches = serve(
-        "mamba2-370m", {"rmsnorm": rmsnorm, "ssd_scan": ssd_scan})
+        "mamba2-370m", {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated, "ssd_scan": ssd_scan})
 
     # -- 5. A/B: oracle route vs kernel route, lockstep --------------------
     def ab(cfg, params, prompts, tol_of):
@@ -454,6 +502,32 @@ def main() -> int:
     ab(m32_cfg, m32_params, m_prompts, lambda ref_logits: MAMBA_LOGIT_TOL)
     del m32_params
 
+    # one mamba2-370m block at full width in bf16: a prefill of 8 sequences
+    # at the serving bucket, then 4 decode steps, each route on its own caches
+    layer = blocks.Mamba(m_cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    bucket = _bucket(max(map(len, m_prompts)))
+    xs = [randn(8, bucket, m_cfg.d_model)] + [randn(8, 1, m_cfg.d_model) for _ in range(4)]
+    outs = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            y, (conv, ssm) = layer(xs[0], impl=impl)
+            cache = {"conv": conv.clone(), "ssm": ssm.clone()}
+            outs[impl] = [y] + [layer.decode(t, cache, impl=impl)[0] for t in xs[1:]]
+    diffs, bad = [], []
+    for step, (got, want) in enumerate(zip(outs[None], outs["ref"])):
+        err = (got.float() - want.float()).abs()
+        diffs.append(float(err.max()))
+        if (err > ATOL + RTOL * want.float().abs()).any():
+            bad.append(step)
+    emit("ab_layer", config=m_cfg.name, block="Mamba", dtype="bfloat16", batch=8,
+         prefill_tokens=bucket, decode_steps=4, max_abs_diff=diffs,
+         out_abs_max=[float(o.float().abs().max()) for o in outs["ref"]],
+         tolerance=f"|d| <= {ATOL} + {RTOL}*|ref|", ok=not bad)
+    if bad:
+        raise AssertionError(f"A/B of one {m_cfg.name} block in bf16: steps {bad} (0: the "
+                             f"prefill) out of tolerance, largest differences {diffs}")
+    del layer, outs
+
     # -- 6. times at the serving shapes ------------------------------------
     def timed_by_kernel(fn, arg_sets, iters=50) -> dict:
         """Device ms a call, by kernel name: the kernel time ``torch.profiler``
@@ -486,22 +560,105 @@ def main() -> int:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
+    def timed_with_norm_plan(plan, fn, arg_sets):
+        """Device ms of ``fn`` with `norm_plan` swapped for one that returns
+        ``plan``."""
+        norm_plan = rn.norm_plan
+        rn.norm_plan = lambda *_, **__: plan
+        try:
+            return timed(fn, arg_sets)
+        finally:
+            rn.norm_plan = norm_plan
+
+    # the norms at the serving shapes: mamba2-370m's and qwen's decode rows,
+    # qwen's prefill; each beside an empty kernel on the grid its plan takes.
+    # The bound reads the rows and the weight once and writes the rows.
+    card = rn.card_of(torch.cuda.current_device())
     times = {}
     rows = []
-    for shape in ((8, 2048), (8 * 512, 2048)):
-        n = shape[0] * shape[1]
-        nbytes = 2 * n * 2 + 2048 * 4
-        sets = copies(lambda: (randn(*shape), randn(2048, dtype=torch.float32)), nbytes)
+    norm_times = {}
+    for shape in ((8, 1024), (8, 2048), (8 * 512, 2048)):
+        n, d = shape[0] * shape[1], shape[1]
+        nbytes = 2 * n * 2 + d * 4
+        sets = copies(lambda: (randn(*shape), randn(d, dtype=torch.float32)), nbytes)
+        plan = rn.norm_plan(*shape, 2, gated=False, aligned=True, card=card)
         b_ms, b_by = bound(nbytes, 4 * n, F32_FLOP_PER_S)
-        times[f"rmsnorm {shape}"] = dict(
+        norm_times[str(shape)] = dict(
             ms=timed(lambda x, w: rmsnorm(x, w), sets),
             plain_ms=timed(lambda x, w: rmsnorm_plain(x, w), sets),
-            library_ms=timed(lambda x, w: F.rms_norm(x, (2048,), w, 1e-5), sets),
-            library_bf16_weight_ms=timed(lambda x, w: F.rms_norm(x, (2048,), w.to(bf16), 1e-5),
+            library_ms=timed(lambda x, w: F.rms_norm(x, (d,), w, 1e-5), sets),
+            library_bf16_weight_ms=timed(lambda x, w: F.rms_norm(x, (d,), w.to(bf16), 1e-5),
                                          sets),
-            bound_ms=b_ms, bound_by=b_by)
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets),
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nbytes)
+    times["rmsnorm"] = dict(norm_times["(8, 2048)"], by_shape=norm_times)
     rows.append(("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-                 "src/repro/kernels/rmsnorm.py:11", times["rmsnorm (8, 2048)"]))
+                 "src/repro/kernels/rmsnorm.py:11", times["rmsnorm"]))
+
+    # the gated form at mamba2-370m's decode and prefill: the bound reads y,
+    # xh, z (half of its projection's row), d_skip and the weight once and
+    # writes the rows; the yardstick is what the block ran before it: the
+    # torch ops of the body, then the norm kernel
+    def unfused(y, xh, ds, z, w):
+        g = y + xh * ds[:, None].to(xh.dtype)
+        return rmsnorm(g.reshape(z.shape) * F.silu(z), w)
+
+    gated_times = {}
+    for lead in ((8,), (8, 512)):
+        n_rows = int(np.prod(lead))
+        n = n_rows * 2048
+        nbytes = 4 * n * 2 + 2048 * 4 + 32 * 4
+        sets = copies(lambda: gated_inputs(lead), nbytes + n * 2)
+        plan = rn.norm_plan(n_rows, 2048, 2, gated=True, aligned=True, card=card)
+        b_ms, b_by = bound(nbytes, 11 * n, F32_FLOP_PER_S)
+        gated_times[f"({n_rows}, 2048)"] = dict(
+            ms=timed(lambda *a: rmsnorm_gated(*a), sets),
+            plain_ms=timed(lambda *a: rmsnorm_gated_plain(*a), sets), library_ms=None,
+            yardstick_ms=timed(unfused, sets),
+            yardstick="the op-by-op torch body (5 launches) then the rmsnorm kernel",
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets),
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nbytes)
+    times["rmsnorm_gated"] = dict(gated_times["(8, 2048)"], by_shape=gated_times)
+    rows.append(("rmsnorm_gated", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:11", times["rmsnorm_gated"]))
+
+    # what sets the norm's time: the decode rows of mamba2-370m, qwen and the
+    # gated form split over other warps a row (a block a row); qwen's prefill
+    # with 1 and 2 blocks an SM and with no grid stride (1024 blocks of 4
+    # rows, four waves), and with 4 and 8 warps a row; beside it a copy of
+    # the same rows (``copy_``: the rate the memory gives one read and one
+    # write stream of these bytes)
+    norm_ms = {}
+    for d, warps in ((1024, (1, 2, 4)), (2048, (2, 4, 8))):
+        x_dec = [(randn(8, d), randn(d, dtype=torch.float32))]
+        for w in warps:
+            norm_ms[f"(8, {d}) {w} warps a row"] = timed_with_norm_plan(
+                rn.NormPlan(w, d // 256 // w, 1, 8), rmsnorm, x_dec)
+    g_dec = [gated_inputs((8,))]
+    for w, u in ((4, 2), (8, 1)):
+        norm_ms[f"gated (8, 2048) {w} warps a row"] = timed_with_norm_plan(
+            rn.NormPlan(w, u, 1, 8), lambda *a: rmsnorm_gated(*a), g_dec)
+    x_pre = copies(lambda: (randn(4096, 2048), randn(2048, dtype=torch.float32)), 2 * 4096 * 4096)
+    for plan in ((2, 4, 4, card.sms), (2, 4, 4, 2 * card.sms), (2, 4, 4, 1024),
+                 (4, 2, 2, 2 * card.sms), (8, 1, 1, 2 * card.sms)):
+        norm_ms[f"(4096, 2048) {rn.NormPlan(*plan)}"] = timed_with_norm_plan(
+            rn.NormPlan(*plan), rmsnorm, x_pre)
+    norm_ms["(4096, 2048) copy_ of the rows"] = timed(
+        lambda x, w: torch.empty_like(x).copy_(x), x_pre)
+    # the same with every output kept, so no call writes where the last one
+    # did (above, the allocator hands each call the block the last one
+    # freed, whose lines may still sit in L2)
+    kept = []
+    norm_ms["(4096, 2048) outputs kept"] = timed(lambda x, w: kept.append(rmsnorm(x, w)), x_pre)
+    kept.clear()
+    norm_ms["(4096, 2048) copy_ of the rows, outputs kept"] = timed(
+        lambda x, w: kept.append(torch.empty_like(x).copy_(x)), x_pre)
+    kept.clear()
+    gkept, g_pre = [], copies(lambda: gated_inputs((8, 512)), 4 * 4096 * 2048 * 2)
+    norm_ms["gated (4096, 2048) outputs kept"] = timed(
+        lambda *a: gkept.append(rmsnorm_gated(*a)), g_pre)
+    emit("rmsnorm_scaling", ms=norm_ms, sms=card.sms, card=smi)
+    del x_pre, g_pre, gkept
 
     b, s, h, kv, d = 8, 512, 16, 2, 128
     nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
@@ -722,7 +879,10 @@ def main() -> int:
     emit("ssd_scaling", ms=ssd_ms, shape=f"H{h} P{p} N{n} bf16", sms=sms,
          blocks_per_sm=blocks_per_sm(bf16), blocks_per_sm_float32=blocks_per_sm(torch.float32),
          card=smi)
-    emit("times", shapes={"rmsnorm": "(8, 2048) decode, (4096, 2048) prefill, bf16",
+    emit("times", shapes={"rmsnorm": "(8, 2048) decode (by_shape: also (8, 1024) and "
+                                     "(4096, 2048) prefill), bf16, float32 weight",
+                          "rmsnorm_gated": "(8, 2048) decode (by_shape: also (4096, 2048) "
+                                           "prefill), H32 P64, bf16, z rows 4096 apart",
                           "flash_attention": "B8 S512 H16 KV2 D128 causal bf16",
                           "decode_attention": "B8 H16 KV2 hd128 C544 cache_len 544 bf16",
                           "fused_decode": "qwen sublayer B8 D2048 H16 KV2 hd128 bias C544 "
@@ -809,22 +969,28 @@ def main() -> int:
 
     # -- 8. the record of the kernels, the card, the result -----------------
     # launches from the serving round that runs each kernel: qwen's for the
-    # attention kernels and the chain (counted once a chain, by its first
-    # kernel; its other two launched as often), mamba2-370m's for the scan
+    # attention kernels, rmsnorm and the chain (counted once a chain, by its
+    # first kernel; its other two launched as often), mamba2-370m's for the
+    # scan and the gated norm
     cuda_kernels = {
-        "rmsnorm": ["rmsnorm_kernel"], "flash_attention": ["flash_attention_mma_kernel"],
+        "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
+        "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
+        "flash_attention": ["flash_attention_mma_kernel"],
         "decode_attention": ["decode_attention_kernel"],
         "fused_decode": ["fused_qkv_rope_kernel", "decode_attention_kernel",
                          "fused_out_residual_kernel"],
         "ssd_scan": ["ssd_scan_kernel"]}
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
-                  ssd_scan=m_launches["ssd_scan"])
+                  ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
+         **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (
+             "ms", "floor_ms", "plain_ms", "bound_ms", "library_ms")} for s, v in
+             t["by_shape"].items()}} if "by_shape" in t else {}),
          **({"parts": [dict(name=part, launches=launches[part], **{
              k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
              **({"yardstick_ms": p["yardstick_ms"]} if "yardstick_ms" in p else {}))

@@ -6,8 +6,8 @@
     the CPU.
   * ``impl="ref"``: the oracles of ``ref.py`` on either device (for the
     SSD scan, `ref.ssd_chunked`), and the op-by-op oracle body of
-    `blocks.Attention.decode` — an explicit request, used to hold the
-    kernel route against the oracle.
+    `blocks.Attention.decode` and of `blocks.Mamba._gate_out` — an
+    explicit request, used to hold the kernel route against the oracle.
 
 Unlike ``repro.kernels.ops`` there is no platform guess and no
 environment variable: the device of the data decides.
@@ -18,6 +18,7 @@ from . import ref
 from .flash_attention import flash_attention as _flash_attention
 from .fused_decode import attn_decode_step  # noqa: F401
 from .rmsnorm import rmsnorm as _rmsnorm
+from .rmsnorm import rmsnorm_gated  # noqa: F401
 from .ssd_scan import ssd_scan as _ssd_scan
 
 IMPLS = (None, "ref")

@@ -174,10 +174,17 @@ class Mamba(nn.Module):
         return x_in, z, b, c, dt
 
     def _gate_out(self, x, y, xh, z, impl):
-        """Skip, gate, gate norm, output projection and residual."""
-        y = y + xh * self.d_skip[:, None].to(xh.dtype)
-        y = y.reshape(*z.shape) * F.silu(z)
-        y = rmsnorm(y, self.gate_norm, self.cfg.norm_eps, impl)
+        """Skip, gate, gate norm, output projection and residual.
+
+        ``impl=None`` runs the first three as `kernels.ops.rmsnorm_gated`:
+        on the card one kernel launch, on the CPU its plain version;
+        ``"ref"`` runs the op-by-op body, the oracle."""
+        if ops.check_impl(impl) == "ref":
+            y = y + xh * self.d_skip[:, None].to(xh.dtype)
+            y = y.reshape(*z.shape) * F.silu(z)
+            y = rmsnorm(y, self.gate_norm, self.cfg.norm_eps, impl)
+        else:
+            y = ops.rmsnorm_gated(y, xh, self.d_skip, z, self.gate_norm, eps=self.cfg.norm_eps)
         return x + y @ self.w_out
 
     def forward(self, x, *, impl=None):

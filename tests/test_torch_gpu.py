@@ -23,7 +23,9 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain, out_residual,
                                               out_residual_plain, qkv_plain, qkv_rope)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_gated, rmsnorm_gated_plain,
+                                         rmsnorm_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import lm
 
@@ -49,8 +51,13 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+# the serving widths (mamba2-370m 1024, qwen 2048, danube 3840) at decode
+# and prefill rows, rows off the persistent grid (5000), a width of a ragged
+# number of pieces (1000), widths off 16 bytes (100, 1001) and one wider
+# than the row kernel holds (20000): the wide kernel
 @pytest.mark.parametrize("shape", [(4, 16), (3, 5, 64), (2, 7, 128), (8, 1024), (8, 2048),
-                                   (3, 100)])
+                                   (3, 100), (4096, 1024), (4096, 2048), (5000, 2048), (8, 3840),
+                                   (4096, 3840), (8, 1000), (3, 1001), (2, 20000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     rng = np.random.default_rng(1)
@@ -62,6 +69,84 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     assert rmsnorm.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, rmsnorm_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_rows_off_16_bytes(cuda, dtype):
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (8 * 2048 + 1,), dtype, cuda)[1:].view(8, 2048)
+    assert x.data_ptr() % 16
+    w = _rand(rng, (2048,), torch.float32, cuda)
+    _close(rmsnorm(x, w), rmsnorm_plain(x, w), dtype)
+
+
+def _forced(warps):
+    """`norm_plan` with ``warps`` warps a row, for the row kernel."""
+    def forced(rows, d, elem_bytes, *, gated, aligned, card):
+        pieces = d * elem_bytes // 16
+        units = 1 << (-(-pieces // (32 * warps)) - 1).bit_length()
+        groups = rn.THREADS // 32 // warps
+        return rn.NormPlan(warps, units, groups, min(-(-rows // groups), 2 * card.sms))
+    return forced
+
+
+# qwen's width in each split the row kernel takes: 1-4 pieces a lane
+@pytest.mark.parametrize("dtype,warps", [(torch.bfloat16, 2), (torch.bfloat16, 4),
+                                         (torch.bfloat16, 8), (torch.float32, 4),
+                                         (torch.float32, 8)])
+@pytest.mark.parametrize("rows", [8, 1000])
+def test_rmsnorm_kernel_with_a_row_split_across_warps(cuda, monkeypatch, warps, rows, dtype):
+    """qwen's width split over 2-8 warps a row, which add their sums in
+    shared memory; 1000 rows walk the grid several times, so the two sum
+    slots alternate."""
+    monkeypatch.setattr(rn, "norm_plan", _forced(warps))
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (rows, 2048), dtype, cuda)
+    w = _rand(rng, (2048,), torch.float32, cuda)
+    _close(rmsnorm(x, w), rmsnorm_plain(x, w), dtype)
+
+
+def _gated_inputs(rng, lead, heads, width, dtype, device):
+    """y, xh (*lead, H, P), d_skip (H,), z: the second half of a (*lead,
+    2 H P) projection as ``torch.chunk`` gives it, and the norm weight."""
+    di = heads * width
+    y = _rand(rng, (*lead, heads, width), dtype, device)
+    xh = _rand(rng, (*lead, heads, width), dtype, device)
+    d_skip = 1.0 + 0.1 * _rand(rng, (heads,), torch.float32, device)
+    z = torch.chunk(_rand(rng, (*lead, 2 * di), dtype, device), 2, dim=-1)[1]
+    return y, xh, d_skip, z, 1.0 + 0.1 * _rand(rng, (di,), torch.float32, device)
+
+
+# mamba2-370m's decode and prefill (H32 P64, z's rows 4096 apart), the
+# reduced config's widths (H16 P8), a width beyond the row kernel (5120:
+# mamba2-2.7b's) and one off 16 bytes (15): the wide kernel
+@pytest.mark.parametrize("lead,heads,width", [((8,), 32, 64), ((8, 512), 32, 64), ((2, 3), 16, 8),
+                                              ((3,), 80, 64), ((2, 2), 3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gated_kernel_matches_plain(cuda, lead, heads, width, dtype):
+    args = _gated_inputs(np.random.default_rng(5), lead, heads, width, dtype, cuda)
+    before = rmsnorm_gated.launches
+    got = rmsnorm_gated(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm_gated.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[3].shape and got.is_contiguous()
+    _close(got, rmsnorm_gated_plain(*args, eps=1e-5), dtype)
+
+
+@pytest.mark.parametrize("case", ["uneven_z", "mixed_dtype", "d_skip_shape", "float16"])
+def test_rmsnorm_gated_refuses_what_it_does_not_take(cuda, case):
+    dtype = torch.float16 if case == "float16" else torch.float32
+    y, xh, d_skip, z, w = _gated_inputs(np.random.default_rng(0), (2, 3), 4, 8, dtype, cuda)
+    if case == "uneven_z":
+        z = torch.zeros(2, 4, 32, device=cuda)[:, :3]
+    if case == "mixed_dtype":
+        xh = xh.to(torch.bfloat16)
+    if case == "d_skip_shape":
+        d_skip = d_skip[:2]
+    before = rmsnorm_gated.launches
+    with pytest.raises(ValueError):
+        rmsnorm_gated(y, xh, d_skip, z, w)
+    assert rmsnorm_gated.launches == before
 
 
 FLASH_SHAPES = [
@@ -374,7 +459,7 @@ def test_model_kernel_route_matches_ref_route_on_card(cuda, name):
                             generator=torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 80))).to(cuda)
-    kernels = ((rmsnorm, ssd_scan) if cfg.attn is None else
+    kernels = ((rmsnorm, rmsnorm_gated, ssd_scan) if cfg.attn is None else
                (rmsnorm, flash_attention, decode_attention, qkv_rope, out_residual))
     counts = [f.launches for f in kernels]
     composed = fd._composed_step.calls
@@ -392,3 +477,34 @@ def test_model_kernel_route_matches_ref_route_on_card(cuda, name):
     after = [f.launches for f in kernels]
     assert all(a > b for a, b in zip(after, counts))
     assert fd._composed_step.calls == composed          # the chain, never the composed step
+
+
+def test_mamba_layer_bf16_kernel_route_matches_ref_route_at_full_width(cuda):
+    """One mamba2-370m block at full width in bf16: a prefill of 8 x 512
+    tokens, then 4 decode steps, the kernel route (rmsnorm, the SSD scan,
+    the gated norm) against ``impl="ref"``, each route on its own caches.
+    The block's output is held to 0.02 + 0.02 |ref|, two bf16 steps at its
+    magnitude, as every bf16 kernel check: both routes round it once to
+    bf16, and what differs inside (the order of the scan's and the norms'
+    sums, which moves single bf16 roundings of y and of the normalised gate)
+    reaches it through the output projection, a sum over 2048 inputs at
+    weights of 2048^-1/2.  The SSD state carried into the decode steps is
+    checked through their outputs."""
+    from repro_torch.models.blocks import Mamba
+
+    cfg = get_config("mamba2-370m")
+    layer = Mamba(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(6)
+    x = _rand(rng, (8, 512, cfg.d_model), torch.bfloat16, cuda)
+    steps = [_rand(rng, (8, 1, cfg.d_model), torch.bfloat16, cuda) for _ in range(4)]
+    counts = (rmsnorm.launches, rmsnorm_gated.launches, ssd_scan.launches)
+    out = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            y, (conv, ssm) = layer(x, impl=impl)
+            cache = {"conv": conv.clone(), "ssm": ssm.clone()}
+            out[impl] = [y] + [layer.decode(t, cache, impl=impl)[0] for t in steps]
+    assert (rmsnorm.launches, rmsnorm_gated.launches, ssd_scan.launches) == (
+        counts[0] + 5, counts[1] + 5, counts[2] + 1)
+    for a, b in zip(out[None], out["ref"]):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)

@@ -15,6 +15,7 @@ holds the JAX step, since it sums two more products of width D; the SSD
 scan takes that file's 1e-4 (float32) and 5e-2 (bf16): its state sums
 over the whole sequence and its bf16 inputs are rounded before the scan.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,7 +38,8 @@ from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels.fused_decode import (SHARED_LIMIT, GemvPlan, _composed_step,
                                               attn_decode_step, fused_decode_plain, gemv_plan,
                                               out_residual, qkv_rope, shared_bytes, tile_width)
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import (MAX_UNITS, REGISTERS, THREADS, WIDE, Card, NormPlan,
+                                         _row_stride, norm_plan, rmsnorm, rmsnorm_gated)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -67,6 +69,107 @@ def test_rmsnorm_matches_pallas(shape, dtype):
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(got, want, dtype)
     _close(ref.rmsnorm_reference(tx, tw), want, dtype)
+
+
+# (lead, H, P): a prefill's (B, S) and a decode step's (B,) at small widths
+GATED_SHAPES = [((2, 5), 4, 8), ((3,), 4, 8), ((2, 3), 2, 16), ((1,), 3, 4)]
+
+
+@pytest.mark.parametrize("lead,heads,width", GATED_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_gated_matches_jax_composition(lead, heads, width, dtype):
+    """The gated wrapper (its plain version on the CPU) against the JAX
+    block's body: y + xh * d_skip, times silu(z), then the Pallas rmsnorm in
+    interpret mode; z is the second half of one projection, as
+    ``torch.chunk`` gives it, so its rows lie 2 * H * P apart."""
+    rng = np.random.default_rng(8)
+    di = heads * width
+    jy, ty = _pair(rng, (*lead, heads, width), dtype)
+    jxh, txh = _pair(rng, (*lead, heads, width), dtype)
+    jd, td = _pair(rng, (heads,), "float32")
+    jxz, txz = _pair(rng, (*lead, 2 * di), dtype)
+    jw, tw = _pair(rng, (di,), "float32")
+    jz, tz = jxz[..., di:], torch.chunk(txz, 2, dim=-1)[1]
+    assert tz.stride(-2) == 2 * di
+    g = (jy + jxh * jd[:, None].astype(jxh.dtype)).reshape(*lead, di) * jax.nn.silu(jz)
+    want = jax_rmsnorm(g, jw, eps=1e-5, block_rows=2, interpret=True)
+    got = rmsnorm_gated(ty, txh, td, tz, tw, eps=1e-5)
+    assert got.dtype == ty.dtype and got.shape == tz.shape
+    _close(got, want, dtype)
+
+
+NORM_CARD = Card(sms=132, threads=2048, registers=65536)   # an H100
+
+
+@pytest.mark.parametrize("rows", [1, 8, 131, 132, 1000, 4096, 5000])
+@pytest.mark.parametrize("d,elem,gated", [(1024, 2, False), (2048, 2, False), (3840, 2, False),
+                                          (1000, 2, False), (8192, 2, False), (2048, 4, False),
+                                          (4096, 4, False), (2048, 2, True), (2048, 4, True),
+                                          (4096, 2, True), (16, 2, False), (24, 4, True)])
+def test_norm_plan_covers_the_row_within_its_limits(rows, d, elem, gated):
+    plan = norm_plan(rows, d, elem, gated=gated, aligned=True, card=NORM_CARD)
+    pieces = d * elem // 16
+    assert plan.warps & (plan.warps - 1) == 0 and plan.units & (plan.units - 1) == 0
+    # the lanes hold the row, and half as many warps a row would not (a
+    # quarter as many, where the rows are fewer than the SMs and the plan
+    # doubles the warps)
+    assert 32 * plan.warps * plan.units >= pieces and plan.units <= MAX_UNITS[gated]
+    fewest = plan.warps // 2 if rows < 132 and plan.warps > 1 else plan.warps
+    assert fewest == 1 or 32 * (fewest // 2) * MAX_UNITS[gated] < pieces
+    assert rows >= 132 or plan.warps == 8 or 32 * plan.warps * MAX_UNITS[gated] >= 2 * pieces
+    assert plan.units == 1 or 32 * plan.warps * (plan.units // 2) < pieces
+    threads = 32 * plan.warps * plan.groups
+    assert threads <= THREADS
+    # grid-stride: every row once; at most the blocks that fit the card at once
+    cover = np.zeros(rows, np.int64)
+    for b in range(plan.blocks):
+        for g in range(plan.groups):
+            cover[b * plan.groups + g::plan.blocks * plan.groups] += 1
+    assert (cover == 1).all()
+    fit = min(2048 // threads, 65536 // (REGISTERS * threads))
+    assert plan.blocks <= 132 * fit
+    # few rows spread one row group a block over the SMs
+    assert rows >= 2 * 132 or plan.groups == 1
+
+
+@pytest.mark.parametrize("d,elem,gated,aligned", [(100, 2, False, True), (1001, 4, False, True),
+                                                  (2048, 2, False, False), (20000, 2, False, True),
+                                                  (8200, 2, False, True), (4100, 4, False, True),
+                                                  (5120, 2, True, True), (2048, 2, True, False)])
+def test_norm_plan_sends_what_the_row_kernel_does_not_take_to_the_wide_kernel(
+        d, elem, gated, aligned):
+    assert norm_plan(8, d, elem, gated=gated, aligned=aligned, card=NORM_CARD) == WIDE
+
+
+def test_norm_plan_at_the_serving_shapes():
+    """qwen2.5-3b's prefill (4096 x 2048 bf16): 2 warps a row, 4 pieces a
+    lane, 4 rows a block, two blocks an SM (the launch bounds' 128
+    registers); its decode (8 rows): 8 blocks of a row of 4 warps, 2 pieces
+    a lane; mamba2-370m's pre-norm at decode (8 x 1024): 2 warps, 2 pieces;
+    its gated norm (2048 wide, at most two pieces a lane): 4 warps a row at
+    prefill, 8 at decode; danube's 3840: 4 warps a row."""
+    assert norm_plan(4096, 2048, 2, gated=False, aligned=True, card=NORM_CARD) == \
+        NormPlan(2, 4, 4, 264)
+    assert norm_plan(8, 2048, 2, gated=False, aligned=True, card=NORM_CARD) == NormPlan(4, 2, 1, 8)
+    assert norm_plan(8, 1024, 2, gated=False, aligned=True, card=NORM_CARD) == NormPlan(2, 2, 1, 8)
+    assert norm_plan(4096, 2048, 2, gated=True, aligned=True, card=NORM_CARD) == \
+        NormPlan(4, 2, 2, 264)
+    assert norm_plan(8, 2048, 2, gated=True, aligned=True, card=NORM_CARD) == NormPlan(8, 1, 1, 8)
+    assert norm_plan(4096, 3840, 2, gated=False, aligned=True, card=NORM_CARD) == \
+        NormPlan(4, 4, 2, 264)
+
+
+def test_row_stride_reads_column_slices_and_refuses_uneven_rows():
+    xz = torch.zeros(2, 5, 16)
+    assert _row_stride(torch.chunk(xz, 2, dim=-1)[1]) == 16
+    assert _row_stride(torch.chunk(xz[:, :1], 2, dim=-1)[1]) == 80    # (2, 1) rows
+    assert _row_stride(xz[:, 0]) == 80
+    assert _row_stride(xz) == 16
+    assert _row_stride(torch.zeros(8)) == 8
+    assert _row_stride(xz.view(10, 16)[::2]) == 32
+    assert _row_stride(xz[:, ::2]) is None                 # (2, 3) rows: 32 apart, then 80
+    assert _row_stride(xz[:, :3]) is None                  # (2, 3) rows: 80 between sequences
+    assert _row_stride(xz.transpose(1, 2)) is None         # last dim strided
 
 
 FLASH_CASES = [

@@ -170,6 +170,31 @@ def test_mamba_decode_updates_its_caches_in_place(impl):
     torch.testing.assert_close(conv[:, :-1], before[0][:, 1:])          # the tail shifted
 
 
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_mamba_gate_goes_through_the_gated_norm_on_the_kernel_route(monkeypatch, impl):
+    """A Mamba block's skip, gate and gate norm: one call of the gated
+    wrapper a prefill and a decode step on the kernel route, and none (the
+    op-by-op body) on the ref route; both give the same output."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import Mamba
+
+    calls = []
+    gated = ops.rmsnorm_gated
+    monkeypatch.setattr(ops, "rmsnorm_gated", lambda *a, **kw: calls.append(1) or gated(*a, **kw))
+    cfg = dataclasses.replace(get_config("mamba2-370m-smoke"), compute_dtype="float32")
+    layer = Mamba(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 6, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    out, (conv, ssm) = layer(x, impl=impl)
+    assert len(calls) == (1 if impl is None else 0)
+    cache = {"conv": conv.clone(), "ssm": ssm.clone()}
+    step, _ = layer.decode(x[:, -1:], cache, impl=impl)
+    assert len(calls) == (2 if impl is None else 0)
+    want, (conv, ssm) = layer(x, impl="ref")
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    want, _ = layer.decode(x[:, -1:], {"conv": conv, "ssm": ssm}, impl="ref")
+    torch.testing.assert_close(step, want, atol=1e-5, rtol=1e-5)
+
+
 def test_unported_families_are_refused():
     for name in ("jamba-1.5-large-398b", "seamless-m4t-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError):
