@@ -9,7 +9,8 @@ It imports nothing of JAX and nothing of the JAX package.  Each phase
 prints one JSON record on a line of its own; any failure raises and the
 script exits non-zero without its result line.  The phases:
 
- 1. device and toolchain: the card and its power limit, torch, CUDA, nvcc;
+ 1. device and toolchain: the card and its power limit, torch, CUDA, nvcc,
+    scipy (the planner's ILP engine);
  2. build: the kernels from ``src/repro_torch/kernels/csrc``, with each
     kernel's registers, shared memory and spills from ptxas;
  3. every kernel against its plain version on the card, in bf16, at the
@@ -20,8 +21,9 @@ script exits non-zero without its result line.  The phases:
     at mamba2-370m's decode and prefill with z strided as ``torch.chunk``
     gives it; flash
     attention also at a ragged length (S 129) and GQA 7, decode attention
-    also at the edges of its cache splits, with splits left empty and
-    calls back to back, the fused attention-sublayer chain in the growing,
+    also at the edges of its cache splits, with splits left empty, calls
+    back to back and calls on two streams at once (each stream has its own
+    workspace), the fused attention-sublayer chain in the growing,
     boundary and wrapped ring states, the SSD scan at mamba2-370m's
     prefill, at a ragged length, at the edges of its own chunk of 64
     tokens (L 1, L 65) and at the reduced config's widths (P8 N16);
@@ -57,7 +59,26 @@ script exits non-zero without its result line.  The phases:
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
     serving bucket, with the scan's share of the device time;
- 8. the ``kernels`` record, the card's name and power limit, and last the
+ 8. pipeline: the same 8 requests through ``LMServer(max_batch=4,
+    pipeline=DecodePipeline(...))`` on the same weights, the plan from the
+    port's planner on a decode shape (B 4, 512 tokens) priced on the H100,
+    every slice placed on the one card: qwen2.5-3b with 9 layers a stage
+    (embed, four block stages, head), unfused, fused (``"auto"``),
+    unfused with ``overlap=False`` and unfused on two worker threads;
+    mamba2-370m with 12 layers a stage.
+    Each serve must give the tokens of the single-device
+    ``LMServer(max_batch=4)`` exactly, launch no program at a new shape
+    inside the serve (``compile_stats.late == 0``), launch every kernel of
+    its path (counts reset just before the serve, read just after) and,
+    overlapped, run on more than one stream.  Printed beside the
+    single-device serve: tok/s, wall time, ``slo()``, the engine's
+    in-flight high water, stage seconds and firings, launches a generated
+    token, peak memory, and the device's busy time (the union of kernel
+    intervals over all streams) and idle share of one profiled serve each,
+    and each stage's waits in one traced pipelined serve (this phase
+    runs after 6 and 7: run before them it left the profiler recording
+    less kernel time there);
+ 9. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -191,7 +212,12 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_gated, rmsnorm_gated_plain,
                                              rmsnorm_plain)
     from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan, ssd_scan_plain
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
     from repro_torch.models import blocks, lm
+    from repro_torch.runtime.pipeline import DecodePipeline, Tracer, stall_bottleneck
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
     dev = torch.device("cuda")
@@ -206,9 +232,14 @@ def main() -> int:
         triton_v = triton.__version__
     except ImportError:
         triton_v = None
+    try:
+        import scipy
+        scipy_v = scipy.__version__
+    except ImportError:
+        scipy_v = None
     emit("toolchain", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_v,
-         python=sys.version.split()[0], triton=triton_v)
+         python=sys.version.split()[0], triton=triton_v, scipy=scipy_v)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -300,6 +331,27 @@ def main() -> int:
         check("decode_attention", f"B{b} H{h} KV{kv} hd{hd} C{c} back to back: "
               f"cache_len={n.tolist()} window={w}", got,
               decode_attention_plain(q, kc, vc, n, window=w))
+    # two streams at once at this shape (the pipeline's stages and replicas
+    # run decode attention so): each stream has its own partial sums and
+    # merge counters; calls alternate between the streams, and every
+    # result is checked after the last
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    calls = [[(randn(b, h, hd), randn(b, c, kv, hd), randn(b, c, kv, hd),
+               torch.tensor(n, dtype=torch.int32, device=dev)) for n, _ in split_cases]
+             for _ in streams]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i in range(len(split_cases)):
+        for s_, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[s_].append(decode_attention(*calls[s_][i]))
+    torch.cuda.synchronize()
+    for s_ in range(2):
+        for args, got in zip(calls[s_], outs[s_]):
+            check("decode_attention", f"B{b} H{h} KV{kv} hd{hd} C{c} two streams at once, "
+                  f"stream {s_}: cache_len={args[3].tolist()}", got,
+                  decode_attention_plain(*args))
+    del streams, calls, outs
     q, kc, vc = randn(4, 32, 120), randn(4, 300, 8, 120), randn(4, 300, 8, 120)
     clen = torch.tensor([300, 120, 64, 9], dtype=torch.int32, device=dev)
     check("decode_attention", "B4 H32 KV8 hd120 C300 per-sequence lengths window=64",
@@ -967,11 +1019,159 @@ def main() -> int:
 
     profile_prefill(m_cfg, m_params, m_prompts)
 
-    # -- 8. the record of the kernels, the card, the result -----------------
+    # -- 8. pipelined serving on the same weights ---------------------------
+    # after the timing and profiling phases: run before them (right after
+    # phase 4), it left torch.profiler recording less kernel time in
+    # phase 6 (flash attention 0.013-0.032 ms where it takes 0.065, the
+    # SSD scan 0.010-0.025 ms, under its bytes bound); the cause is not
+    # known
+    def kernel_busy(prof):
+        """Device ms with a kernel running on any stream (the union of the
+        kernel intervals), the sum of kernel times, and the kernel count."""
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if str(e.device_type).endswith("CUDA"))
+        union, end = 0.0, float("-inf")
+        for a, b_ in spans:
+            if b_ > end:
+                union += b_ - max(a, end)
+                end = b_
+        return union / 1e3, sum(b_ - a for a, b_ in spans) / 1e3, len(spans)
+
+    def timed_serve(server, reqs, kernels, profile=False):
+        """One counted serve: launch counts and the peak-memory mark reset
+        just before it, read just after (the peak, and the peak over what
+        was allocated before: the other model's weights stay resident);
+        with ``profile`` under ``torch.profiler`` (the card alone)."""
+        server.stats = ServeStats()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+            if profile else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        outs = server.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"a {server.cfg.name} serve launched no {missing} kernel")
+        gen = sum(len(o.tokens) for o in outs)
+        summary = server.stats.summary()
+        rec = dict(wall_s=wall, prefill_tok_per_s=summary["prefill_tok_per_s"],
+                   decode_tok_per_s=summary["decode_tok_per_s"], generated_tokens=gen,
+                   launches=launches, port_kernel_launches_per_token=sum(launches.values()) / gen,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   peak_over_start=torch.cuda.max_memory_allocated() - before)
+        if prof is not None:
+            busy, total, n_kern = kernel_busy(prof)
+            if not n_kern:          # a profiler window now and then records nothing
+                busy = total = None
+            rec.update(profiled_wall_s=wall, device_busy_ms=busy, kernel_ms_summed=total,
+                       device_idle_share=None if busy is None
+                       else max(0.0, 1 - busy / 1e3 / wall),
+                       kernel_launches_per_token=n_kern / gen)
+        return outs, rec
+
+    def pipelined(name, params, prompts, pps, kernels, variants):
+        """The requests through the single-device server at max_batch 4,
+        then through the pipeline in each variant: tokens must be equal."""
+        cfg = get_config(name)
+        shape = ShapeCfg("serve_decode", 512, 4, "decode")
+        t0 = time.perf_counter()
+        # one card: no node can split across cards (max_tp 1); the budget is
+        # the card, and the plan still takes a chip a node, all on this one
+        plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+        stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+        plan_s = time.perf_counter() - t0
+        reqs = [Request(uid=i, prompt=p_, max_new=32) for i, p_ in enumerate(prompts)]
+        warm = [Request(uid=i, prompt=p_, max_new=2) for i, p_ in enumerate(prompts)]
+        single = LMServer(cfg, max_batch=4, params=params, device="cuda")
+        single.serve(warm)
+        want, rec = timed_serve(single, reqs, kernels)
+        want_tokens = [o.tokens for o in want]
+        steps = np.array(single.stats.decode_step_s)
+        emit("pipeline", config=cfg.name, backend="single-device LMServer(max_batch=4)",
+             decode_step_p50_ms=float(np.percentile(steps, 50) * 1e3), **rec)
+        _, rec = timed_serve(single, reqs, kernels, profile=True)
+        emit("pipeline_profile", config=cfg.name, backend="single-device", **rec)
+        emit("plan", config=cfg.name, shape="decode B4 512 tokens", hw=HW_H100.name,
+             chips=1, max_tp=1, seconds=plan_s, summary=plan.summary().splitlines()[0],
+             choices=sorted({(s_.impl, s_.replicas) for s_ in plan.stages}),
+             nodes=len(plan.stages))
+        for i, variant in enumerate(variants):
+            pipe = DecodePipeline(cfg, stg, plan, params=params, periods_per_stage=pps,
+                                  device="cuda", **variant)
+            server = LMServer(cfg, max_batch=4, pipeline=pipe, device="cuda")
+            pipe.warm([r.prompt for r in reqs], 32, group_size=4)
+            got, rec = timed_serve(server, reqs, kernels)
+            run = server.last_run
+            late = pipe.compile_stats.late
+            emit("pipeline", config=cfg.name, backend="DecodePipeline", periods_per_stage=pps,
+                 variant={k: str(v) for k, v in variant.items()}, stages=pipe.stage_names,
+                 replicas=[len(d) for d in pipe.stage_devices], groups=len(run.groups),
+                 streams_used=run.streams_used, max_inflight=run.max_inflight,
+                 stage_seconds=run.stage_seconds, stage_firings=run.stage_firings,
+                 stage_host_us={n: run.stage_host_us(n) for n in pipe.stage_names},
+                 slo=run.slo(), compile_stats=pipe.compile_stats.summary(), late=late,
+                 tokens_equal=[o.tokens for o in got] == want_tokens, **rec)
+            if [o.tokens for o in got] != want_tokens:
+                bad = [j for j, o in enumerate(got) if o.tokens != want_tokens[j]]
+                raise AssertionError(f"{cfg.name} pipelined {variant}: requests {bad} differ "
+                                     f"from the single-device server")
+            if late:
+                raise AssertionError(f"{cfg.name} pipelined {variant}: {late} first launches "
+                                     f"inside the serve")
+            if pipe.overlap and run.streams_used < 2:
+                raise AssertionError(f"{cfg.name} pipelined {variant}: ops ran on "
+                                     f"{run.streams_used} stream(s)")
+            if i == 0:
+                first = rec["launches"]
+                _, rec = timed_serve(server, reqs, kernels, profile=True)
+                emit("pipeline_profile", config=cfg.name, backend="DecodePipeline",
+                     periods_per_stage=pps, variant={}, **rec)
+                # a traced serve: how long each stage waited, and on what
+                server.tracer = Tracer()
+                _, rec = timed_serve(server, reqs, kernels)
+                run = server.last_run
+                emit("pipeline_trace", config=cfg.name, periods_per_stage=pps, variant={},
+                     wall_s=rec["wall_s"], stage_wait_s=run.stage_wait_s,
+                     stall_share={n: sum(w.values()) / run.wall_s
+                                  for n, w in run.stage_wait_s.items()},
+                     busy_share={n: t / run.wall_s for n, t in run.stage_seconds.items()},
+                     bottleneck=stall_bottleneck(server.tracer))
+                server.tracer = None
+            del pipe, server
+        return first
+
+    fd._composed_step.calls = 0
+    qwen_kernels = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                    "fused_qkv_rope": qkv_rope, "decode_attention": decode_attention,
+                    "fused_out_residual": out_residual}
+    # the last variant: the overlapped serve on two worker threads (16 by
+    # default here), for what the threads cost in host time and memory
+    pipe_launches = pipelined("qwen2.5-3b", params, prompts, 9, qwen_kernels,
+                              [{}, {"fusion_plan": "auto"}, {"overlap": False},
+                               {"workers": 2}])
+    if fd._composed_step.calls:
+        raise AssertionError(f"a pipelined qwen decode step left the fused chain: "
+                             f"_composed_step called {fd._composed_step.calls} times")
+    m_pipe_launches = pipelined("mamba2-370m", m_params, m_prompts, 12,
+                                {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated,
+                                 "ssd_scan": ssd_scan}, [{}])
+
+    # -- 9. the record of the kernels, the card, the result -----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
-    # scan and the gated norm
+    # scan and the gated norm; ``pipeline_launches`` the same from the
+    # first pipelined serve of each model (phase 8)
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -982,9 +1182,13 @@ def main() -> int:
         "ssd_scan": ["ssd_scan_kernel"]}
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
                   ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"])
+    piped = dict(pipe_launches, fused_decode=pipe_launches["fused_qkv_rope"],
+                 ssd_scan=m_pipe_launches["ssd_scan"],
+                 rmsnorm_gated=m_pipe_launches["rmsnorm_gated"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
+         "pipeline_launches": piped[name],
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +37,9 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 
 _lib: ctypes.CDLL | None = None
 _fns: dict = {}
+# the first launches may come from several threads at once (the pipeline's
+# workers): one builds and loads the library, the others wait for it
+_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -107,12 +111,25 @@ def build_log() -> str:
 
 def library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.repro_cuda_error_string.argtypes = [I]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.repro_cuda_error_string.argtypes = [I]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
+
+
+def _entry(name: str, argtypes: list):
+    lib = library()
+    with _lock:
+        fn = _fns.get(name)
+        if fn is None:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = I
+            _fns[name] = fn
+    return fn
 
 
 def call(name: str, argtypes: list, *args) -> None:
@@ -120,10 +137,7 @@ def call(name: str, argtypes: list, *args) -> None:
     (the caller passes it last) and raises on the CUDA error it returns."""
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(library(), name)
-        fn.argtypes = argtypes
-        fn.restype = I
-        _fns[name] = fn
+        fn = _entry(name, argtypes)
     err = fn(*args)
     if err:
         msg = library().repro_cuda_error_string(err).decode()

@@ -17,13 +17,14 @@ The kernel splits each (sequence, KV head)'s cache into ranges of slots
 across blocks and merges the partial softmax states in the same launch
 (flash-decoding); `split_plan` chooses the ranges on the host from the
 shapes alone, so a step needs no host sync.  The partial states and the
-merge counters live in a workspace kept per device and shape: calls on one
-device share it, so they must run in one stream order, as the port's
-calls do.
+merge counters live in a workspace kept per device, stream and shape:
+calls that share one are ordered by their stream, and calls on two
+streams (two pipeline stages, two replicas) never share one.
 """
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -83,18 +84,23 @@ def _sm_count(index: int) -> int:
 
 
 _workspaces: dict = {}
+_workspaces_lock = threading.Lock()
 
 
-def _workspace(device: torch.device, shapes: dict) -> dict:
-    """The buffers for ``shapes`` on ``device``, made once: the counters
-    start at 0 and the kernel leaves them at 0."""
-    key = (device, tuple(shapes.values()))
-    ws = _workspaces.get(key)
-    if ws is None:
-        ws = {"acc": torch.empty(shapes["acc"], dtype=torch.float32, device=device),
-              "ml": torch.empty(shapes["ml"], dtype=torch.float32, device=device),
-              "tickets": torch.zeros(shapes["tickets"], dtype=torch.int32, device=device)}
-        _workspaces[key] = ws
+def _workspace(device: torch.device, stream: int, shapes: dict) -> dict:
+    """The buffers for ``shapes`` on ``device`` for the launches of one
+    ``stream`` (its handle), made once, on that stream: the counters start
+    at 0 and the kernel leaves them at 0.  A workspace is only ever
+    touched by its stream's launches, which run one after another."""
+    key = (device, stream, tuple(shapes.values()))
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None:
+            ws = {"acc": torch.empty(shapes["acc"], dtype=torch.float32, device=device),
+                  "ml": torch.empty(shapes["ml"], dtype=torch.float32, device=device),
+                  "tickets": torch.zeros(shapes["tickets"], dtype=torch.int32,
+                                         device=device)}
+            _workspaces[key] = ws
     return ws
 
 
@@ -148,12 +154,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     plan = split_plan(b, kv, c, _sm_count(q.device.index))
-    ws = _workspace(q.device, workspace_shapes(b, kv, h // kv, d, plan))
+    stream = build.stream(q.device)
+    ws = _workspace(q.device, stream, workspace_shapes(b, kv, h // kv, d, plan))
     build.call(f"decode_attention_{build.DTYPE_SUFFIX[q.dtype]}", _ARGS,
                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
                int(cache_len.dim() == 1), out.data_ptr(), ws["acc"].data_ptr(),
                ws["ml"].data_ptr(), ws["tickets"].data_ptr(), b, c, h, kv, d, plan.length,
-               plan.splits, scale, window or 0, build.stream(q.device))
+               plan.splits, scale, window or 0, stream)
     decode_attention.launches += 1
     return out
 

@@ -87,17 +87,20 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch):
     return params.embed[batch["tokens"]]
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device):
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device,
+               span: tuple[int, int] | None = None):
     """``{"pos": () int32, "layers": [one cache a layer]}``, zeroed: {"k",
     "v"} for attention (a sliding-window config caps the capacity at its
-    window), {"conv", "ssm"} for Mamba."""
+    window), {"conv", "ssm"} for Mamba.  ``span``: the layers [lo, hi) to
+    make caches for (a pipeline stage's); every layer by default."""
     cap = blocks.attn_cache_capacity(cfg, capacity)
     pattern = cfg.block_pattern
+    lo, hi = span or (0, cfg.n_layers)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": [blocks.init_attn_cache(cfg, batch, cap, dtype, device)
                        if pattern[i % len(pattern)][0] == "attn"
                        else blocks.init_mamba_cache(cfg, batch, dtype, device)
-                       for i in range(cfg.n_layers)]}
+                       for i in range(lo, hi)]}
 
 
 def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, impl=None):

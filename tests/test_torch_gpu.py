@@ -247,8 +247,41 @@ def test_decode_attention_back_to_back_calls_reset_the_merge_counters(cuda, dtyp
     for n, (_, w), got in zip(lens, cases, outs):
         _close(got, decode_attention_plain(q, k, v, n, window=w), dtype)
     plan = da.split_plan(b, kv, c, torch.cuda.get_device_properties(cuda).multi_processor_count)
-    ws = da._workspace(q.device, da.workspace_shapes(b, kv, h // kv, hd, plan))
+    ws = da._workspace(q.device, torch.cuda.current_stream(cuda).cuda_stream,
+                       da.workspace_shapes(b, kv, h // kv, hd, plan))
     assert plan.splits > 1 and int(ws["tickets"].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_two_streams_at_once(cuda, dtype):
+    """Two streams launching decode attention at one shape, back to back
+    and at once (the pipeline's stages and replicas do so): each stream
+    has its own partial sums and merge counters, so every result holds to
+    the plain version, and both workspaces end with their counters at 0."""
+    b, h, kv, hd, c = 8, 16, 2, 128, 544            # qwen2.5-3b's decode
+    rng = np.random.default_rng(9)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    calls = [[(_rand(rng, (b, h, hd), dtype, cuda), _rand(rng, (b, c, kv, hd), dtype, cuda),
+               _rand(rng, (b, c, kv, hd), dtype, cuda),
+               torch.tensor(n, dtype=torch.int32, device=cuda))
+              for n in (544, 1, 300, [5, 544, 64, 97, 200, 1, 433, 12])]
+             for _ in streams]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i in range(len(calls[0])):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[s].append(decode_attention(*calls[s][i]))
+    torch.cuda.synchronize()
+    for s in range(2):
+        for args, got in zip(calls[s], outs[s]):
+            _close(got, decode_attention_plain(*args), dtype)
+    plan = da.split_plan(b, kv, c, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    shapes = da.workspace_shapes(b, kv, h // kv, hd, plan)
+    dev = calls[0][0][0].device
+    ws = [da._workspace(dev, stream.cuda_stream, shapes) for stream in streams]
+    assert ws[0]["tickets"].data_ptr() != ws[1]["tickets"].data_ptr()
+    assert all(int(w["tickets"].abs().sum()) == 0 for w in ws)
 
 
 SUBLAYERS = [
@@ -508,3 +541,36 @@ def test_mamba_layer_bf16_kernel_route_matches_ref_route_at_full_width(cuda):
         counts[0] + 5, counts[1] + 5, counts[2] + 1)
     for a, b in zip(out[None], out["ref"]):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("name", ["tiny", "h2o-danube-3-4b-smoke", "mamba2-370m-smoke"])
+def test_pipeline_matches_single_device_server_on_card(cuda, name, overlap):
+    """`DecodePipeline` on the card, each (stage, replica) on its own
+    stream, against the single-device `LMServer` on the same weights in
+    bf16: the same kernels on the same rows, so the tokens are equal;
+    no first launch inside the serve; overlapped, the ops run on several
+    streams.  The window config's prompts and tokens run past its window."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.runtime.pipeline import DecodePipeline
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = get_config(name)
+    shape = ShapeCfg("decode_test", 128, 16, "decode")
+    plan = planner.plan(cfg, shape, chips=2 * cfg.n_layers + 4, max_tp=4)
+    stg, _ = lm_graph.build_stg(cfg, shape, max_tp=4)
+    params = lm.init_params(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, rng.integers(40, 100)).tolist(),
+                    max_new=int(rng.integers(20, 30))) for i in range(8)]
+    want = LMServer(cfg, max_batch=4, params=params, device=cuda).serve(reqs)
+    pipe = DecodePipeline(cfg, stg, plan, params=params, device=cuda, overlap=overlap,
+                          fusion_plan="auto")
+    pipe.check_pos = True
+    srv = LMServer(cfg, max_batch=4, pipeline=pipe, device=cuda)
+    got = srv.serve(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert pipe.compile_stats.late == 0
+    assert (srv.last_run.streams_used > 1) if overlap else (srv.last_run.streams_used == 1)

@@ -221,6 +221,9 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.path.insert(0, "src")
 import repro_torch
+for name in ("repro_torch.core", "repro_torch.graphs", "repro_torch.analysis",
+             "repro_torch.runtime.pipeline"):
+    importlib.import_module(name)
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
