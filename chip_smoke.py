@@ -63,21 +63,22 @@ script exits non-zero without its result line.  The phases:
     pipeline=DecodePipeline(...))`` on the same weights, the plan from the
     port's planner on a decode shape (B 4, 512 tokens) priced on the H100,
     every slice placed on the one card: qwen2.5-3b with 9 layers a stage
-    (embed, four block stages, head), unfused, fused (``"auto"``),
-    unfused with ``overlap=False`` and unfused on two worker threads;
-    mamba2-370m with 12 layers a stage.
+    (embed, four block stages, head), unfused, fused (``"auto"``) and
+    unfused with ``overlap=False``; mamba2-370m with 12 layers a stage.
     Each serve must give the tokens of the single-device
-    ``LMServer(max_batch=4)`` exactly, launch no program at a new shape
-    inside the serve (``compile_stats.late == 0``), launch every kernel of
-    its path (counts reset just before the serve, read just after) and,
-    overlapped, run on more than one stream.  Printed beside the
-    single-device serve: tok/s, wall time, ``slo()``, the engine's
-    in-flight high water, stage seconds and firings, launches a generated
-    token, peak memory, and the device's busy time (the union of kernel
-    intervals over all streams) and idle share of one profiled serve each,
-    and each stage's waits in one traced pipelined serve (this phase
-    runs after 6 and 7: run before them it left the profiler recording
-    less kernel time there);
+    ``LMServer(max_batch=4)`` exactly, run no program at a new (shape,
+    thread, stream) inside the serve (``compile_stats.late == 0``: the
+    warm-up ran each on the worker thread and stream its ops run on),
+    launch every kernel of its path (counts reset just before the serve,
+    read just after) and, overlapped, run on more than one stream.
+    Printed beside the single-device serve: tok/s, wall time, ``slo()``,
+    the engine's in-flight high water, stage seconds and firings,
+    launches a generated token, peak memory and the memory a serve leaves
+    allocated; for qwen2.5-3b's unfused pipeline, one more serve,
+    profiled (the device's busy time, the union of kernel intervals over
+    all streams, and idle share) and traced (each stage's waits); and the
+    phase's own seconds (this phase runs after 6 and 7: run before them,
+    it left the profiler recording less kernel time there);
  9. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -1039,9 +1040,11 @@ def main() -> int:
 
     def timed_serve(server, reqs, kernels, profile=False):
         """One counted serve: launch counts and the peak-memory mark reset
-        just before it, read just after (the peak, and the peak over what
-        was allocated before: the other model's weights stay resident);
-        with ``profile`` under ``torch.profiler`` (the card alone)."""
+        just before it, read just after (the peak, the peak over what was
+        allocated before: the other model's weights stay resident, and
+        what the serve left allocated: the pipeline's last logits a
+        group); with ``profile`` under ``torch.profiler`` (the card
+        alone)."""
         server.stats = ServeStats()
         for fn in kernels.values():
             fn.launches = 0
@@ -1068,7 +1071,8 @@ def main() -> int:
                    decode_tok_per_s=summary["decode_tok_per_s"], generated_tokens=gen,
                    launches=launches, port_kernel_launches_per_token=sum(launches.values()) / gen,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   peak_over_start=torch.cuda.max_memory_allocated() - before)
+                   peak_over_start=torch.cuda.max_memory_allocated() - before,
+                   left_allocated=torch.cuda.memory_allocated() - before)
         if prof is not None:
             busy, total, n_kern = kernel_busy(prof)
             if not n_kern:          # a profiler window now and then records nothing
@@ -1079,9 +1083,11 @@ def main() -> int:
                        kernel_launches_per_token=n_kern / gen)
         return outs, rec
 
-    def pipelined(name, params, prompts, pps, kernels, variants):
+    def pipelined(name, params, prompts, pps, kernels, variants, profile=False):
         """The requests through the single-device server at max_batch 4,
-        then through the pipeline in each variant: tokens must be equal."""
+        then through the pipeline in each variant: tokens must be equal.
+        ``profile``: serve the first variant once more, profiled and
+        traced (the profiler's events take seconds to read back)."""
         cfg = get_config(name)
         shape = ShapeCfg("serve_decode", 512, 4, "decode")
         t0 = time.perf_counter()
@@ -1099,8 +1105,6 @@ def main() -> int:
         steps = np.array(single.stats.decode_step_s)
         emit("pipeline", config=cfg.name, backend="single-device LMServer(max_batch=4)",
              decode_step_p50_ms=float(np.percentile(steps, 50) * 1e3), **rec)
-        _, rec = timed_serve(single, reqs, kernels, profile=True)
-        emit("pipeline_profile", config=cfg.name, backend="single-device", **rec)
         emit("plan", config=cfg.name, shape="decode B4 512 tokens", hw=HW_H100.name,
              chips=1, max_tp=1, seconds=plan_s, summary=plan.summary().splitlines()[0],
              choices=sorted({(s_.impl, s_.replicas) for s_ in plan.stages}),
@@ -1110,6 +1114,7 @@ def main() -> int:
                                   device="cuda", **variant)
             server = LMServer(cfg, max_batch=4, pipeline=pipe, device="cuda")
             pipe.warm([r.prompt for r in reqs], 32, group_size=4)
+            warm_compiles = pipe.compile_stats.compiles
             got, rec = timed_serve(server, reqs, kernels)
             run = server.last_run
             late = pipe.compile_stats.late
@@ -1120,6 +1125,7 @@ def main() -> int:
                  stage_seconds=run.stage_seconds, stage_firings=run.stage_firings,
                  stage_host_us={n: run.stage_host_us(n) for n in pipe.stage_names},
                  slo=run.slo(), compile_stats=pipe.compile_stats.summary(), late=late,
+                 compiles_in_serve=pipe.compile_stats.compiles - warm_compiles,
                  tokens_equal=[o.tokens for o in got] == want_tokens, **rec)
             if [o.tokens for o in got] != want_tokens:
                 bad = [j for j, o in enumerate(got) if o.tokens != want_tokens[j]]
@@ -1133,13 +1139,13 @@ def main() -> int:
                                      f"{run.streams_used} stream(s)")
             if i == 0:
                 first = rec["launches"]
-                _, rec = timed_serve(server, reqs, kernels, profile=True)
-                emit("pipeline_profile", config=cfg.name, backend="DecodePipeline",
-                     periods_per_stage=pps, variant={}, **rec)
-                # a traced serve: how long each stage waited, and on what
+            if i == 0 and profile:
+                # profiled and traced: how long each stage waited, and on what
                 server.tracer = Tracer()
-                _, rec = timed_serve(server, reqs, kernels)
+                _, rec = timed_serve(server, reqs, kernels, profile=True)
                 run = server.last_run
+                emit("pipeline_profile", config=cfg.name, backend="DecodePipeline",
+                     periods_per_stage=pps, variant={}, traced=True, **rec)
                 emit("pipeline_trace", config=cfg.name, periods_per_stage=pps, variant={},
                      wall_s=rec["wall_s"], stage_wait_s=run.stage_wait_s,
                      stall_share={n: sum(w.values()) / run.wall_s
@@ -1147,24 +1153,24 @@ def main() -> int:
                      busy_share={n: t / run.wall_s for n, t in run.stage_seconds.items()},
                      bottleneck=stall_bottleneck(server.tracer))
                 server.tracer = None
+            pipe.close()
             del pipe, server
         return first
 
+    t_phase = time.perf_counter()
     fd._composed_step.calls = 0
     qwen_kernels = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                     "fused_qkv_rope": qkv_rope, "decode_attention": decode_attention,
                     "fused_out_residual": out_residual}
-    # the last variant: the overlapped serve on two worker threads (16 by
-    # default here), for what the threads cost in host time and memory
     pipe_launches = pipelined("qwen2.5-3b", params, prompts, 9, qwen_kernels,
-                              [{}, {"fusion_plan": "auto"}, {"overlap": False},
-                               {"workers": 2}])
+                              [{}, {"fusion_plan": "auto"}, {"overlap": False}], profile=True)
     if fd._composed_step.calls:
         raise AssertionError(f"a pipelined qwen decode step left the fused chain: "
                              f"_composed_step called {fd._composed_step.calls} times")
     m_pipe_launches = pipelined("mamba2-370m", m_params, m_prompts, 12,
                                 {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated,
                                  "ssd_scan": ssd_scan}, [{}])
+    emit("pipeline_phase", seconds=time.perf_counter() - t_phase)
 
     # -- 9. the record of the kernels, the card, the result -----------------
     # launches from the serving round that runs each kernel: qwen's for the

@@ -40,6 +40,15 @@ _fns: dict = {}
 # the first launches may come from several threads at once (the pipeline's
 # workers): one builds and loads the library, the others wait for it
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one to the counter ``attr`` of wrapper ``fn``.  Wrappers count
+    their launches so: the pipeline's worker threads launch at once, and
+    ``fn.launches += 1`` alone can lose an update between two threads."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def nvcc() -> str:

@@ -161,7 +161,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
                int(cache_len.dim() == 1), out.data_ptr(), ws["acc"].data_ptr(),
                ws["ml"].data_ptr(), ws["tickets"].data_ptr(), b, c, h, kv, d, plan.length,
                plan.splits, scale, window or 0, stream)
-    decode_attention.launches += 1
+    build.count(decode_attention)
     return out
 
 

@@ -72,7 +72,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                b, sq, sk, h, kv, d, scale, int(causal), window or 0, kv_offset,
                build.stream(q.device))
-    flash_attention.launches += 1
+    build.count(flash_attention)
     return out
 
 

@@ -245,7 +245,7 @@ def qkv_rope(x2, k_cache, v_cache, pos, *, norm, wq, wk, wv, bq, bk, bv, n_heads
                *bias, pos.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                clen.data_ptr(), B, D, n_heads, kv, hd, cap, plan.width, plan.slice,
                plan.splits, eps, theta, build.stream(x2.device))
-    qkv_rope.launches += 1
+    build.count(qkv_rope)
     return q, clen
 
 
@@ -262,7 +262,7 @@ def out_residual(o, wo, x2):
     build.call(f"fused_out_residual_{build.DTYPE_SUFFIX[x2.dtype]}", _OUT_ARGS,
                o.data_ptr(), wo.data_ptr(), x2.data_ptr(), out.data_ptr(), B, K, D,
                plan.width, plan.slice, plan.splits, build.stream(x2.device))
-    out_residual.launches += 1
+    build.count(out_residual)
     return out
 
 
@@ -288,7 +288,7 @@ def fused_decode(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo, bq=None, bk=
 
 def _composed_step(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo,
                    bq, bk, bv, n_heads, head_dim, eps, theta, scale):
-    _composed_step.calls += 1
+    build.count(_composed_step, "calls")
     B = x.shape[0]
     cap = k_cache.shape[1]
     kv_heads = wk.shape[1] // head_dim

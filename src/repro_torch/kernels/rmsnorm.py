@@ -115,7 +115,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
     plan = _plan(x, rows, d, False, _aligned(x.data_ptr(), w.data_ptr(), out.data_ptr()))
     build.call(f"rmsnorm_{build.DTYPE_SUFFIX[x.dtype]}", _ARGS, x.data_ptr(), w.data_ptr(),
                out.data_ptr(), rows, d, eps, *plan, build.stream(x.device))
-    rmsnorm.launches += 1
+    build.count(rmsnorm)
     return out
 
 
@@ -182,7 +182,7 @@ def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
     build.call(f"rmsnorm_gated_{build.DTYPE_SUFFIX[y.dtype]}", _GATED_ARGS, y.data_ptr(),
                xh.data_ptr(), d_skip.data_ptr(), z.data_ptr(), zs, p, w.data_ptr(),
                out.data_ptr(), rows, d, eps, *plan, build.stream(y.device))
-    rmsnorm_gated.launches += 1
+    build.count(rmsnorm_gated)
     return out
 
 

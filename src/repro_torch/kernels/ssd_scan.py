@@ -70,7 +70,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
                x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
                dt.stride(2), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
                build.stream(x.device))
-    ssd_scan.launches += 1
+    build.count(ssd_scan)
     return y, state
 
 

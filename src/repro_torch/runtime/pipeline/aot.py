@@ -4,21 +4,19 @@ The JAX package compiles every stage program ahead of time (its
 ``aot.py``), so that no served request waits for a compile.  PyTorch
 compiles nothing ahead: what a program's first call at a shape pays is
 the kernel library's build and load (`kernels.build`, once a process) and
-the first launch at that shape on its stream (a stream's decode-attention
-workspace, the caching allocator's first blocks there).  So here:
+the first launch at that shape from a thread on a stream: PyTorch keeps
+a cuBLAS handle a thread and a cuBLAS workspace a (handle, stream), decode
+attention a workspace a stream, and the caching allocator its blocks a
+stream.  So here:
 
-  * `AotProgram` wraps one stage function and keeps the set of shapes it
-    has run at; ``precompile`` runs it once on scratch inputs of a shape,
-    before the engine's clock starts;
-  * a call at a shape not seen before is a *compile*: counted in the
-    shared `CompileStats`, and *late* when it lands inside a timed window
-    (the engine is running).  Pipelines expose this as
+  * `AotProgram` wraps one stage function and keeps the set of (shape,
+    thread, stream) it has run at; ``precompile`` runs it once on scratch
+    inputs of a shape, on the thread and stream that will run it, before
+    the engine's clock starts;
+  * a call at a (shape, thread, stream) not seen before is a *compile*:
+    counted in the shared `CompileStats`, and *late* when it lands inside
+    a timed window (the engine is running).  Pipelines expose this as
     ``pipe.compile_stats`` and tests assert ``late == 0`` after warm-up.
-
-What it cannot see: PyTorch keeps a cuBLAS handle a thread and a cuBLAS
-workspace a (handle, stream), so an engine worker thread's first matmul
-on a stream makes one inside the serve; warm-up runs on the caller's
-thread.
 """
 from __future__ import annotations
 
@@ -44,7 +42,7 @@ class CompileStats:
     in_window: bool = False        # set by the pipeline around engine.run()
     programs: dict[str, int] = field(default_factory=dict)  # name -> compiles
     # one stats object is shared by every program of a pipeline, and op
-    # bodies run on the engine's worker pool — counter updates take a lock
+    # bodies run on the engine's worker threads — counter updates take a lock
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -92,13 +90,22 @@ def signature(x):
     return x
 
 
+def _where() -> tuple:
+    """The calling thread and its current CUDA stream (None where CUDA is
+    not in use)."""
+    stream = torch.cuda.current_stream().cuda_stream \
+        if torch.cuda.is_initialized() else None
+    return threading.get_ident(), stream
+
+
 class AotProgram:
-    """One stage program, ``fn(params, *args)``, warmed per shape.
+    """One stage program, ``fn(params, *args)``, warmed per shape, thread
+    and stream.
 
     ``precompile`` takes the same arguments as a call (scratch tensors of
     the shapes to come), runs the program once, and returns its output;
-    a call at a shape that no call or ``precompile`` has run is counted
-    as a compile (late inside a timed window)."""
+    a call at a (shape, thread, stream) that no call or ``precompile``
+    has run is counted as a compile (late inside a timed window)."""
 
     def __init__(self, fn, *, name: str = "", stats: CompileStats | None = None):
         self.fn = fn
@@ -115,7 +122,7 @@ class AotProgram:
             return True
 
     def precompile(self, params, *args):
-        first = self._first(signature(args))
+        first = self._first((signature(args), _where()))
         t0 = time.perf_counter()
         out = self.fn(params, *args)
         if first:
@@ -123,7 +130,7 @@ class AotProgram:
         return out
 
     def __call__(self, params, *args):
-        if not self._first(signature(args)):
+        if not self._first((signature(args), _where())):
             self.stats.count_call()
             return self.fn(params, *args)
         t0 = time.perf_counter()

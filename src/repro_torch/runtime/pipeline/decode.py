@@ -23,13 +23,15 @@ This module runs that shape on the engine (`engine.Engine`):
     embed stage over a `channels.StreamChannel`: decode ops are scheduled
     as tokens arrive, and the stream closes when the last group drains;
   * each (stage, replica) launches on a CUDA stream of its own, made once
-    per pipeline; an op body returns as soon as its kernels are queued,
-    with a `DeviceWatch` (a CUDA event on its stream) that the engine
-    polls, so no op body waits for the device.  ``overlap=False`` runs
-    every op on the caller's stream, one after another;
+    per pipeline, and its op bodies run on one worker thread of the
+    pipeline's `engine.Lanes`; an op body returns as soon as its kernels
+    are queued, with a `DeviceWatch` (a CUDA event on its stream) that the
+    engine polls, so no op body waits for the device.  ``overlap=False``
+    runs every op on the caller's thread and stream, one after another;
   * every program is an `aot.AotProgram`, run once per group shape on
-    scratch inputs before the engine's clock starts (``warmup=``), so no
-    served request pays a first launch (``compile_stats.late == 0``).
+    scratch inputs before the engine's clock starts (``warmup=``), on the
+    thread and stream that will run the group's ops, so no served request
+    pays a first launch (``compile_stats.late == 0``).
 
 Streams and memory.  The engine dispatches a consumer only after it has
 seen its producer's event, so a hidden state is complete before the next
@@ -68,9 +70,10 @@ from ...kernels import ops
 from ...models import blocks, lm
 from ...models.common import rmsnorm
 from ..server import _bucket            # one bucketing rule: token parity
-from .aot import AotProgram, CompileStats
+from .aot import AotProgram, CompileStats, _where
 from .channels import Fifo, StreamChannel
-from .engine import AsyncResult, DeviceWatch, Engine, EngineResult, Op, describe_position
+from .engine import (AsyncResult, DeviceWatch, Engine, EngineResult, Lanes, Op,
+                     describe_position)
 from .placement import Placement, place
 
 
@@ -484,9 +487,10 @@ class DecodePipeline:
     member sequence — one op and one fewer FIFO hop per fused boundary —
     with the member math unchanged (token parity with the unfused
     pipeline) and each member's cache slice resident as before.
-    ``overlap``: each (stage, replica) on its own stream and ops on a
-    worker pool (True), or every op on the caller's stream, one after
-    another (False).  ``temperature`` > 0 samples from a generator per
+    ``overlap``: each (stage, replica) on its own stream and its ops on
+    one of ``workers`` worker threads (True), or every op on the caller's
+    thread and stream, one after another (False).  ``close`` stops the
+    worker threads.  ``temperature`` > 0 samples from a generator per
     group seeded from ``seed``; it does not reproduce ``jax.random``'s
     draws, nor the single-device server's single generator.
     """
@@ -609,6 +613,7 @@ class DecodePipeline:
                 [torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
                  for _ in range(n_rep)])
             self.period_span.append(desc.span)
+        self.lanes = Lanes([len(d) for d in self.stage_devices], self._n_workers())
 
         # one (prefill, decode) program pair per stage signature present
         self.warmup = warmup
@@ -684,37 +689,54 @@ class DecodePipeline:
             return max(1, self.workers)
         return min(16, max(2, sum(len(d) for d in self.stage_devices)))
 
-    def _warm_group_shape(self, batch: int, bucket: int, cap: int) -> None:
-        """Run every program one group shape class will execute — prefill
-        at (B, bucket), a decode step on the cache it made — once on each
-        replica's stream, on scratch inputs, plus the greedy sampler at
-        the head.  Runs before the engine's clock starts; no served
-        request pays a first launch."""
-        key = (batch, bucket, cap)
-        if key in self._warmed:
-            return
+    def _warm_group(self, g: _Group, overlap: bool) -> None:
+        """Run every program group ``g``'s ops will run — prefill at (B,
+        bucket), a decode step on the cache it made, and the greedy sampler
+        at the head — once, on scratch inputs, where the ops will run:
+        overlapped, on the lane thread of each stage's replica for ``g``
+        and on that replica's stream; else on this thread and its stream.
+        Runs before the engine's clock starts; no served request pays a
+        first launch."""
+        shape = (g.batch, g.bucket, g.cap)
+        jobs = []
+        for s in range(len(self.stage_descs)):
+            rep = g.gid % len(self.stage_devices[s])
+            key = (s, rep, shape) if overlap else (s, _where(), shape)
+            if key in self._warmed:
+                continue
+            if overlap:
+                jobs.append(self.lanes.submit(s, rep, self._warm_stage, s,
+                                              self.stage_streams[s][rep], *shape))
+            else:
+                self._warm_stage(s, None, *shape)
+            self._warmed.add(key)
+        for job in jobs:
+            job.result()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warm_stage(self, s: int, stream, batch: int, bucket: int, cap: int) -> None:
         cfg, dev = self.cfg, self.device
         dt = self.params.embed.dtype
-        with torch.no_grad():
-            for s, desc in enumerate(self.stage_descs):
-                pre, dec = self._programs[desc.key]
-                for stream in self.stage_streams[s]:
-                    on = torch.cuda.stream(stream) if stream is not None \
-                        else contextlib.nullcontext()
-                    with on:
-                        if desc.has_embed:
-                            xp = torch.zeros((batch, bucket), dtype=torch.long, device=dev)
-                            xd = torch.zeros((batch, 1), dtype=torch.long, device=dev)
-                        else:
-                            xp = torch.zeros((batch, bucket, cfg.d_model), dtype=dt, device=dev)
-                            xd = torch.zeros((batch, 1, cfg.d_model), dtype=dt, device=dev)
-                        y, cache = pre.precompile(self.stage_params[s], xp, cap)
-                        y = dec.precompile(self.stage_params[s], cache, xd)
-                        if desc.has_head and (self.temperature or 0.0) <= 0.0:
-                            self._sample(y, gid=-1).to("cpu", non_blocking=True)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self._warmed.add(key)
+        desc = self.stage_descs[s]
+        pre, dec = self._programs[desc.key]
+        on = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        with torch.no_grad(), on:
+            if desc.has_embed:
+                xp = torch.zeros((batch, bucket), dtype=torch.long, device=dev)
+                xd = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+            else:
+                xp = torch.zeros((batch, bucket, cfg.d_model), dtype=dt, device=dev)
+                xd = torch.zeros((batch, 1, cfg.d_model), dtype=dt, device=dev)
+            y, cache = pre.precompile(self.stage_params[s], xp, cap)
+            y = dec.precompile(self.stage_params[s], cache, xd)
+            if desc.has_head and (self.temperature or 0.0) <= 0.0:
+                self._sample(y, gid=-1).to("cpu", non_blocking=True)
+
+    def close(self) -> None:
+        """Stop the worker threads: the pipeline serves overlapped no
+        more."""
+        self.lanes.close()
 
     # -- serving ------------------------------------------------------------
     def _groups(self, prompts: list[list[int]], max_new, group_size: int):
@@ -740,11 +762,14 @@ class DecodePipeline:
             group_of.extend([gid] * len(chunk))
         return groups, group_of
 
-    def warm(self, prompts: list[list[int]], max_new, *, group_size: int = 8) -> None:
+    def warm(self, prompts: list[list[int]], max_new, *, group_size: int = 8,
+             overlap: bool | None = None) -> None:
         """Run every program at the group shapes ``serve`` will form for
-        these requests, now (``serve`` does it itself when ``warmup``)."""
+        these requests, where it will run them, now (``serve`` does it
+        itself when ``warmup``)."""
+        overlap = self.overlap if overlap is None else overlap
         for g in self._groups(prompts, max_new, group_size)[0]:
-            self._warm_group_shape(g.batch, g.bucket, g.cap)
+            self._warm_group(g, overlap)
 
     def serve(self, prompts: list[list[int]], max_new, *, eos_id: int = 1,
               group_size: int = 8, capacity_blocks: int = 2,
@@ -766,7 +791,7 @@ class DecodePipeline:
         groups, group_of = self._groups(prompts, max_new, group_size)
         if self.warmup:
             for g in groups:
-                self._warm_group_shape(g.batch, g.bucket, g.cap)
+                self._warm_group(g, overlap)
         for g in groups:
             if g.gid not in self._gens:
                 self._gens[g.gid] = torch.Generator(device=self.device).manual_seed(
@@ -796,9 +821,8 @@ class DecodePipeline:
             tracer.watch_fifo(run.feedback, "feedback",
                               src=names[-1], dst=names[0])
         engine = Engine(run.programs, overlap=overlap,
-                        workers=self._n_workers(),
                         replica_queue=self.replica_queue,
-                        tracer=tracer, fifos=fifo_map)
+                        tracer=tracer, fifos=fifo_map, lanes=self.lanes)
         with self.compile_stats.window():
             er = engine.run()
         assert run.feedback.exhausted, \

@@ -19,15 +19,23 @@ body, where the JAX package watches a `jax.Array`.
     is pending-or-inflight, not a precomputed op count.
 
   * **`Engine`** — the asynchronous overlapped scheduler.  Scans programs
-    downstream-first, hands dispatched ops to a worker pool (or runs them
-    inline under ``overlap=False``), retires them on completion events,
-    releases channel credits (also on failure — no leaked slots), and
-    records completion-time streams.  An op body may return an
+    downstream-first, hands dispatched ops to worker threads (`Lanes`; or
+    runs them inline under ``overlap=False``), retires them on completion
+    events, releases channel credits (also on failure — no leaked slots),
+    and records completion-time streams.  An op body may return an
     `AsyncResult` — "launched on the device, not complete": the worker
     returns immediately (no per-op host sync) and the engine retires the
     op when its watch set reports ready, so a worker launches the next op
     while the previous one still runs.  Backend: `decode.DecodePipeline`
     (prefill/decode serving).
+
+Against the JAX engine, the worker threads are `Lanes`: each (stage,
+replica) keeps one thread, where the JAX engine hands every op to any
+thread of one pool.  PyTorch keeps a cuBLAS handle a thread and a cuBLAS
+workspace a (handle, stream); with a lane a (stage, replica), the pairs a
+serve reaches are the ones a warm-up on the same lanes made.  The fault
+injector, the health tick and the static preflight's cross-reference are
+left out with failover (``ROADMAP.md``).
 
 The measurement surface is per-stage streams of completion times whose
 steady-state gap is the stage's measured inverse throughput
@@ -37,12 +45,12 @@ value reads ii/nr.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Protocol, runtime_checkable
 
 import torch
 
-from ..failures import PipelineFailure, ReplicaFault
 from .channels import Fifo
 
 
@@ -85,11 +93,6 @@ class Op:
     is_firing: bool = True       # contributes to the stage's completion
     #                              stream (microbatch pipelines: forward
     #                              ops only)
-    recover: tuple | None = None  # program-defined replay payload: what
-    #                               `fail_replica` needs to re-issue this
-    #                               op on a surviving replica (inputs were
-    #                               consumed at dispatch; a lost op cannot
-    #                               re-pop them)
 
 
 @runtime_checkable
@@ -289,10 +292,6 @@ class EngineResult:
     # (input empty) vs reorder attribution; populated only when the run
     # was traced (the accounting rides the tracer's enable flag so the
     # default path stays untouched)
-    failovers: list = field(default_factory=list)
-    # one dict per survived replica fault: {stage, replica, kind,
-    # t_fault_s, recovery_s, replayed_ops} — the drill's recovery-time
-    # and tokens-lost evidence
 
     def stage_inverse_us(self, name: str) -> float:
         """Steady-state microseconds per firing of one stage (merged
@@ -316,19 +315,34 @@ class EngineResult:
                 if n else float("nan"))
 
 
-def _stalled(fn: Callable, stall_s: float) -> Callable:
-    """Wrap an op body in a host-side sleep — the injected-straggler
-    shape: the replica is alive but every firing it runs is slow."""
-    def wrapped(*args):
-        time.sleep(stall_s)
-        return fn(*args)
-    return wrapped
+class Lanes:
+    """The engine's worker threads: ``n`` lanes of one thread each, and
+    every (stage, replica) on one lane for good (``lane``).  An op body
+    thus always runs on the thread that the (stage, replica)'s warm-up
+    ran on.  Threads start at a lane's first op and live until
+    ``close``."""
+
+    def __init__(self, replicas: list[int], n: int):
+        self.n = max(1, n)
+        self._base = [sum(replicas[:s]) for s in range(len(replicas))]
+        self._pools = [ThreadPoolExecutor(1, thread_name_prefix=f"lane{i}")
+                       for i in range(self.n)]
+
+    def lane(self, stage: int, rep: int) -> int:
+        return (self._base[stage] + rep) % self.n
+
+    def submit(self, stage: int, rep: int, fn, *args):
+        return self._pools[self.lane(stage, rep)].submit(fn, *args)
+
+    def close(self) -> None:
+        for pool in self._pools:
+            pool.shutdown(wait=True)
 
 
 class Engine(Driver):
     """Wall-clock driver: non-blocking scheduler over a list of `Program`s.
 
-    ``overlap=True`` hands dispatched ops to a thread pool and retires
+    ``overlap=True`` hands dispatched ops to worker threads and retires
     them on completion; ``overlap=False`` is the serial A/B baseline
     (dispatch, block, advance).  ``replica_queue`` caps in-flight ops per
     stage replica (1 = strict serial worker, 2 = short device queue).
@@ -341,37 +355,22 @@ class Engine(Driver):
     def __init__(self, programs: list, *, overlap: bool = True,
                  workers: int = 8, replica_queue: int = 2,
                  tracer=None, fifos: dict | None = None,
-                 injector=None, on_tick: Callable | None = None,
-                 tick_every: int = 64, static_report=None):
+                 lanes: Lanes | None = None):
         """``tracer``: optional `trace.Tracer` — op spans, wait spans, and
         per-stage stall/starve accounting (off = zero-cost path).
         ``fifos``: {label: Fifo} for the deadlock report's occupancy
-        snapshot (independent of tracing).  ``injector``: optional
-        `failures.ReplicaFaultPlan` consulted before every dispatch —
-        a firing ``crash`` marks the op's replica dead and triggers
-        failover, a ``stall`` wraps the op body in a host-side sleep.
-        ``on_tick(engine)``: optional health hook invoked every
-        ``tick_every`` retirements from the scheduler thread (the
-        `HealthController` attachment point).  ``static_report``: the
-        `core.verify.VerificationReport` this run was preflighted with
-        (None = preflight skipped) — a runtime deadlock cross-references
-        it so the report says whether the wedge matches a static finding
-        or the plan was proven deadlock-free."""
+        snapshot (independent of tracing).  ``lanes``: the worker threads
+        of an overlapped run, kept by the caller across runs; None makes
+        ``workers`` lanes for the run and closes them after it."""
         super().__init__(tracer)
         self.programs = list(programs)
         self.fifos = dict(fifos or {})
-        self.static_report = static_report
         self.overlap = overlap
         self.workers = max(1, workers)
         self.replica_queue = max(1, replica_queue)
-        self.injector = injector
-        self.on_tick = on_tick
-        self.tick_every = max(1, tick_every)
-        self._retired_n = 0
+        self.lanes = lanes
         self.result = EngineResult()
         self._busy = [[0] * max(1, p.n_replicas) for p in self.programs]
-        self._inflight: dict = {}     # future -> Op (worker running)
-        self._pending: list = []      # (Op, AsyncResult): device in flight
         for p in self.programs:
             self.result.stage_seconds[p.name] = 0.0
             self.result.stage_firings[p.name] = 0
@@ -395,10 +394,6 @@ class Engine(Driver):
             self.tracer.op_retire(prog.name, op.rep, op.kind, op.seq,
                                   op.chunk, op.t_dispatch - self.t0,
                                   t_done - self.t0)
-        self._retired_n += 1
-        if self.on_tick is not None \
-                and self._retired_n % self.tick_every == 0:
-            self.on_tick(self)
 
     def _settle(self, op: Op, result, t_done: float) -> None:
         """Retire a completed op, unwrapping an `AsyncResult` by appending
@@ -414,82 +409,6 @@ class Engine(Driver):
         for fifo, n in op.releases:
             fifo.release(n)
         self._busy[op.stage][op.rep] -= 1
-
-    def diagnostic_bundle(self) -> dict:
-        """The deadlock report's forensics as structured data — what a
-        `PipelineFailure` carries out of the run: every registered
-        fifo's occupancy, each stuck program's wait reason and schedule
-        position, reorder-buffer depth, failover history, trace tail."""
-        bundle: dict = {
-            "fifo_occupancy": {
-                label: {"len": len(f), "capacity": f.capacity,
-                        "inflight_slots": f.inflight_slots}
-                for label, f in sorted(self.fifos.items())},
-            "waiting": {p.name: self.wait_reason_of(p)
-                        for p in self.programs if p.pending()},
-            "schedule": [p.describe() for p in self.programs],
-            "reorder_occupancy": self.reorder_occupancy(),
-            "failovers": list(self.result.failovers),
-            "static_preflight": (self.static_report.summary()
-                                 if self.static_report is not None
-                                 else {"ran": False}),
-        }
-        if self.tracer is not None:
-            bundle["trace_tail"] = [
-                f"{e.track}:{e.kind} {e.name}{e.seq if e.seq >= 0 else ''}"
-                f"@{e.t:.4g}" for e in self.tracer.tail(n=12)]
-        return bundle
-
-    def _replica_fault(self, s: int, rep: int, kind: str, lost0=()) -> None:
-        """Whole-replica abort + failover: replica ``rep`` of stage ``s``
-        died.  Drain its in-flight ops (results discarded — the device is
-        gone), release every credit they held, and hand the lost ops —
-        sorted by seq, each carrying its ``recover`` payload — to the
-        program's ``fail_replica`` hook, which remaps routing and queues
-        the replay.  A program without the hook, or whose last replica
-        died, escalates to `PipelineFailure` with the diagnostic bundle
-        attached — a structured failure, never a wedged reorder buffer."""
-        prog = self.programs[s]
-        t_fault = time.perf_counter() - self.t0
-        lost = list(lost0)
-        for f in [f for f, o in self._inflight.items()
-                  if o.stage == s and o.rep == rep]:
-            op = self._inflight.pop(f)
-            try:
-                f.result()          # wait the body home; discard its output
-            except BaseException:
-                pass
-            self._abort(op)
-            lost.append(op)
-        for op, ar in [(o, a) for o, a in self._pending
-                       if o.stage == s and o.rep == rep]:
-            self._pending.remove((op, ar))
-            self._abort(op)
-            lost.append(op)
-        lost.sort(key=lambda o: o.seq)
-        fail = getattr(prog, "fail_replica", None)
-        try:
-            if fail is None:
-                raise PipelineFailure(
-                    f"stage {prog.name}: replica r{rep} died ({kind}) and "
-                    f"the program has no failover hook",
-                    stage=prog.name, replica=rep, reason=kind)
-            fail(rep, self, lost)
-        except PipelineFailure as e:
-            e.reason = e.reason or kind
-            for key, val in self.diagnostic_bundle().items():
-                e.diagnostics.setdefault(key, val)
-            e.diagnostics.setdefault(
-                "lost_ops", [(o.kind, o.seq) for o in lost])
-            raise
-        t_rec = time.perf_counter() - self.t0
-        self.result.failovers.append({
-            "stage": prog.name, "replica": rep, "kind": kind,
-            "t_fault_s": t_fault, "recovery_s": t_rec - t_fault,
-            "replayed_ops": len(lost)})
-        if self.tracer is not None:
-            self.tracer.failover(prog.name, rep, kind, t_fault, t_rec,
-                                 len(lost))
 
     def _deadlock_detail(self) -> str:
         """Hang forensics appended to the deadlock error: what each party
@@ -520,31 +439,7 @@ class Engine(Driver):
                     lines.append(f"last events {p.name}: " + "; ".join(
                         f"{e.kind} {e.name}{e.seq if e.seq >= 0 else ''}"
                         f"@{e.t:.4g}" for e in tail))
-        lines.extend(self._static_crossref())
         return "".join("\n  " + ln for ln in lines)
-
-    def _static_crossref(self) -> list[str]:
-        """Tie the runtime wedge back to the static analysis: either the
-        plan skipped preflight (say so — the wedge may be a statically
-        catchable sizing bug), or a static finding already predicted a
-        deadlock on some edge (name it), or the plan was verified
-        deadlock-free (so suspect the executor, a fault injection, or an
-        external stall, not the plan)."""
-        rep = self.static_report
-        if rep is None:
-            return ["static preflight: not run for this drive — "
-                    "rerun with preflight=True (or tools/stg_lint.py) "
-                    "to check whether this wedge is statically provable"]
-        hits = rep.deadlock_findings()
-        if hits:
-            out = ["static preflight: runtime wedge matches "
-                   f"{len(hits)} static finding(s):"]
-            out += ["  " + f.describe() for f in hits[:4]]
-            return out
-        return ["static preflight: plan was verified deadlock-free "
-                f"(checks: {', '.join(rep.checks)}) — suspect an "
-                "executor bug, fault injection, or external stall, "
-                "not the plan's channel sizing"]
 
     @staticmethod
     def _timed(fn, args):
@@ -557,14 +452,15 @@ class Engine(Driver):
         return result, time.perf_counter() - t0
 
     def run(self) -> EngineResult:
-        from concurrent.futures import (FIRST_COMPLETED, ThreadPoolExecutor,
-                                        wait)
+        from concurrent.futures import FIRST_COMPLETED, wait
         self.t0 = time.perf_counter()
-        inflight = self._inflight           # future -> Op (worker running)
-        pending = self._pending             # (Op, AsyncResult): body returned,
+        inflight: dict = {}                 # future -> Op (worker running)
+        pending: list = []                  # (Op, AsyncResult): body returned,
         #                                     device work still in flight
-        pool = ThreadPoolExecutor(max_workers=self.workers) \
-            if self.overlap else None
+        lanes = self.lanes
+        if self.overlap and lanes is None:
+            lanes = Lanes([max(1, p.n_replicas) for p in self.programs],
+                          self.workers)
         dispatch_s = self.result.stage_dispatch_s
         tr = self.tracer
         if tr is not None:
@@ -595,21 +491,7 @@ class Engine(Driver):
                             wait_since[s] = (time.perf_counter() - self.t0,
                                              self.wait_reason_of(prog))
                         continue
-                    stall_s = 0.0
-                    if self.injector is not None:
-                        spec = self.injector.check(prog.name, op.rep, op.seq)
-                        if spec is not None and spec.kind == "crash":
-                            # the op consumed nothing yet: failover remaps
-                            # its routing and the next sweep re-peeks it
-                            # onto a surviving replica
-                            self._replica_fault(s, op.rep, spec.kind)
-                            progressed = True
-                            continue
-                        elif spec is not None:
-                            stall_s = spec.stall_s
                     fn, args = prog.dispatch(op, self)
-                    if stall_s > 0.0:
-                        fn = _stalled(fn, stall_s)
                     op.t_dispatch = time.perf_counter()
                     self._busy[s][op.rep] += 1
                     progressed = True
@@ -624,16 +506,10 @@ class Engine(Driver):
                             d[reason] = d.get(reason, 0.0) + (td - t_w)
                         tr.op_dispatch(prog.name, op.rep, op.kind,
                                        op.seq, op.chunk, td)
-                    if pool is None:
+                    if not self.overlap:
                         # serial A/B baseline: dispatch, await, advance
                         try:
                             result, host_s = self._timed(fn, args)
-                        except ReplicaFault:
-                            self._abort(op)     # the op itself is lost too:
-                            self._replica_fault(s, op.rep, "crash",
-                                                lost0=(op,))
-                            progressed = True
-                            continue
                         except BaseException:
                             self._abort(op)
                             raise
@@ -641,18 +517,13 @@ class Engine(Driver):
                         if isinstance(result, AsyncResult):
                             try:        # a device error surfaces here —
                                 result.block()   # free credits like the
-                            except ReplicaFault:
-                                self._abort(op)
-                                self._replica_fault(s, op.rep, "crash",
-                                                    lost0=(op,))
-                                progressed = True
-                                continue
                             except BaseException:  # old in-body sync did
                                 self._abort(op)
                                 raise
                         self._settle(op, result, time.perf_counter())
                     else:
-                        inflight[pool.submit(self._timed, fn, args)] = op
+                        inflight[lanes.submit(s, op.rep, self._timed,
+                                              fn, args)] = op
                         self.result.max_inflight = max(
                             self.result.max_inflight,
                             len(inflight) + len(pending))
@@ -663,12 +534,6 @@ class Engine(Driver):
                     op = inflight.pop(f)
                     try:
                         result, host_s = f.result()
-                    except ReplicaFault:
-                        self._abort(op)
-                        self._replica_fault(op.stage, op.rep, "crash",
-                                            lost0=(op,))
-                        progressed = True
-                        continue
                     except BaseException:
                         self._abort(op)
                         raise
@@ -689,7 +554,7 @@ class Engine(Driver):
                             progressed = True
                         else:
                             still.append((op, ar))
-                    pending = self._pending = still
+                    pending = still
                 if not progressed:
                     if inflight:
                         # with device work pending, wait bounded (a watch
@@ -706,11 +571,6 @@ class Engine(Driver):
                         op, ar = pending.pop(0)
                         try:
                             ar.block()
-                        except ReplicaFault:
-                            self._abort(op)
-                            self._replica_fault(op.stage, op.rep, "crash",
-                                                lost0=(op,))
-                            continue
                         except BaseException:
                             self._abort(op)
                             raise
@@ -724,7 +584,7 @@ class Engine(Driver):
                             f"schedule/backpressure bug ({state})"
                             + self._deadlock_detail())
         finally:
-            if pool is not None:
-                pool.shutdown(wait=True)
+            if lanes is not None and lanes is not self.lanes:
+                lanes.close()
         self.result.wall_s = time.perf_counter() - self.t0
         return self.result

@@ -23,6 +23,7 @@
 """
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -41,8 +42,9 @@ from repro_torch.configs.base import ShapeCfg
 from repro_torch.core import planner
 from repro_torch.graphs import lm_graph
 from repro_torch.models import lm
-from repro_torch.runtime.pipeline import (DecodePipeline, Engine, Fifo, Op, StreamChannel,
-                                          Tracer, registry_from_trace)
+from repro_torch.runtime.pipeline import (AotProgram, CompileStats, DecodePipeline, Engine,
+                                          Fifo, Op, StreamChannel, Tracer,
+                                          registry_from_trace)
 from repro_torch.runtime.server import LMServer, Request
 
 MODELS = ["tiny", "h2o-danube-3-4b-smoke", "mamba2-370m-smoke", "mamba2-370m-smoke-no-mlp"]
@@ -228,6 +230,34 @@ def test_pipeline_matches_single_device_server(name, fusion, overlap, pps):
     stats = srv.stats.summary()
     assert stats["decode_tokens"] == sum(len(c.tokens) for c in want)
     assert set(stats["slo"]) >= {"ttft_p50_ms", "token_gap_p50_ms"}
+
+
+def test_second_serve_runs_where_the_warm_up_ran():
+    """The worker threads outlive a serve: a second overlapped serve runs
+    every op on the thread and stream the warm-up ran it on, so it makes
+    no first call at all."""
+    cfg, stg, plan, params, reqs, want, _ = _setup("tiny")
+    pipe = DecodePipeline(cfg, stg, plan, device="cpu", params=params)
+    srv = LMServer(cfg, max_batch=4, pipeline=pipe, device="cpu")
+    srv.serve(reqs)
+    compiles = pipe.compile_stats.compiles
+    assert [c.tokens for c in srv.serve(reqs)] == [c.tokens for c in want]
+    assert (pipe.compile_stats.compiles, pipe.compile_stats.late) == (compiles, 0)
+    pipe.close()
+
+
+def test_first_call_on_an_unwarmed_thread_is_late():
+    """A program warmed on one thread is not warm on another: PyTorch
+    keeps a cuBLAS handle a thread, so that call counts as late."""
+    prog = AotProgram(lambda p, x: x + p, stats=CompileStats())
+    x = torch.zeros(3)
+    prog.precompile(1.0, x)
+    with prog.stats.window():
+        prog(1.0, x)
+        assert prog.stats.late == 0
+        with ThreadPoolExecutor(1) as other:
+            other.submit(prog, 1.0, x).result()
+    assert (prog.stats.compiles, prog.stats.late) == (2, 1)
 
 
 def test_stages_share_the_model_tensors():
