@@ -79,7 +79,26 @@ script exits non-zero without its result line.  The phases:
     all streams, and idle share) and traced (each stage's waits); and the
     phase's own seconds (this phase runs after 6 and 7: run before them,
     it left the profiler recording less kernel time there);
- 9. the ``kernels`` record, the card's name and power limit, and last the
+ 9. resilience, on phase 8's weights, requests and plans: drills through
+    the pipeline (two groups of 4, 32 new tokens), each holding its tokens
+    to the single-device ``LMServer(max_batch=4)``'s exactly, with no first
+    call inside a serve (``late == 0``) and every kernel of its path
+    launched (counts reset just before each drill, read just after).
+    qwen2.5-3b, 9 layers a stage: a crash of ``blocks01`` r1 at token 6,
+    overlapped; a crash of ``blocks00`` r0 at its third op, serial; a
+    stalled ``blocks00`` r0 driving a ``HealthController`` (a migration and
+    re-plan advice); a pause after 8 tokens resumed on the same pipeline,
+    and another resumed on the successor that ``rescale_serving`` builds
+    at 12 layers a stage with the advice (caches replayed); a crash of the
+    lone embed replica, which must raise ``PipelineFailure`` with its
+    diagnostic bundle, then a plain serve on the same pipeline.
+    mamba2-370m, 12 layers a stage: the first crash drill.  Each crash
+    drill's first cache replay runs again alone, twice: its launches, its
+    time and the two rebuilt caches bitwise equal.  Also ``compare_lm`` of
+    phase 8's traced qwen2.5-3b serve and what ``measured_replan`` changes;
+    each drill's peak memory over what was resident, and the phase's
+    seconds;
+10. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -181,6 +200,219 @@ def ptxas_report(log: str) -> dict:
             sm = re.search(r"(\d+) bytes smem", line)
             out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def counted(fn, kernels, require=True):
+    """Run ``fn`` once, every launch count set to 0 just before it and
+    read just after, the peak-memory mark reset just before it.  Returns
+    its result and a record: wall seconds (the card synchronized at both
+    ends), launches, the peak and what stayed allocated over what was
+    allocated before.  ``require``: True, every kernel must have
+    launched; else the names of those that must."""
+    import torch
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = dict(wall_s=time.perf_counter() - t0,
+               launches={name: k.launches for name, k in kernels.items()},
+               peak_over_start=torch.cuda.max_memory_allocated() - before,
+               left_allocated=torch.cuda.memory_allocated() - before)
+    need = kernels if require is True else (require or ())
+    missing = [name for name in need if rec["launches"][name] == 0]
+    if missing:
+        raise AssertionError(f"no {missing} kernel launched")
+    return out, rec
+
+
+def resilience(cfg, params, prompts, pps, ctx, kernels, *, full, device="cuda",
+               rescale_pps=12):
+    """Phase 9: drills on phase 8's weights, requests and plan, through the
+    pipeline at ``pps`` periods a stage, two groups of 4, 32 new tokens.
+    Each drill must give the single-device server's tokens exactly, make
+    no first call inside a serve (``late == 0``) and launch every kernel
+    of the path (counts reset just before the drill, read just after).
+    Both models: a crash of ``blocks01`` r1 at token 6, overlapped, and
+    that crash's cache replay run again alone, twice (launches, time, and
+    the two rebuilt caches bitwise equal).  ``full`` (qwen2.5-3b) adds: a
+    crash of ``blocks00`` r0 at its third op with ``overlap=False``; a
+    stall of ``blocks00`` r0 driving a `HealthController` (a migration
+    and re-plan advice); ``pause_after_tokens=8`` resumed on the same
+    pipeline (caches handed off), and again resumed on the successor
+    `rescale_serving` builds at ``rescale_pps`` layers a stage with the advice
+    (caches replayed); a crash of the lone embed replica, which must
+    raise `PipelineFailure` with its bundle, and a plain serve on the
+    same pipeline after it; and `compare_lm` of phase 8's traced serve
+    with what `measured_replan` changes.  Returns the first crash drill's
+    launches and its replay's."""
+    import torch
+
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.runtime.elastic import rescale_serving
+    from repro_torch.runtime.failures import PipelineFailure, ReplicaFaultPlan
+    from repro_torch.runtime.pipeline import (DecodePipeline, HealthController,
+                                              PipelineReport, Tracer, as_selection,
+                                              compare_lm, measured_replan)
+    from repro_torch.runtime.server import LMServer, Request
+
+    plan, stg, shape, want = ctx["plan"], ctx["stg"], ctx["shape"], ctx["want"]
+    reqs = [Request(uid=i, prompt=p, max_new=32) for i, p in enumerate(prompts)]
+    replays: list = []
+
+    def recorded(pipe):
+        """Keep each cache replay's arguments and host seconds."""
+        real = pipe._replay_cache
+
+        def replay(g, s, k, reps, overlap):
+            t0 = time.perf_counter()
+            out = real(g, s, k, reps, overlap)
+            replays.append(dict(group=g, stage=pipe.stage_names[s], s=s, k=k,
+                                reps=list(reps), overlap=overlap,
+                                host_s=time.perf_counter() - t0))
+            return out
+        pipe._replay_cache = replay
+        pipe.real_replay = real
+        return pipe
+
+    def warmed(pipe):
+        pipe.warm(prompts, 32, group_size=4)
+        pipe.warm(prompts, 32, group_size=4, overlap=False)
+        return pipe
+
+    pipe = warmed(recorded(DecodePipeline(cfg, stg, plan, params=params,
+                                          periods_per_stage=pps, device=device)))
+    pipes = [pipe]
+
+    def via_server(**kw):
+        server = LMServer(cfg, max_batch=4, pipeline=pipe, device=device, **kw)
+        return [o.tokens for o in server.serve(reqs)], server.last_run
+
+    def via_pipe(target, fn):
+        run = fn(target)
+        return run.tokens, run
+
+    def drill(label, fn, *, check_tokens=True, require=True, **extra):
+        replays.clear()
+        (tokens, run), rec = counted(fn, kernels, require)
+        late = sum(p.compile_stats.late for p in pipes)
+        emit("resilience", config=cfg.name, drill=label, periods_per_stage=pps,
+             tokens_equal=tokens == want if check_tokens else None, late=late,
+             failovers=run.failovers, streams_used=run.streams_used,
+             replays=[{k: v for k, v in r.items() if k != "group"} for r in replays],
+             paused=run.paused, **rec, **extra)
+        if check_tokens and tokens != want:
+            bad = [j for j, t in enumerate(tokens) if t != want[j]]
+            raise AssertionError(f"{cfg.name} drill {label}: requests {bad} differ from "
+                                 f"the single-device server")
+        if late:
+            raise AssertionError(f"{cfg.name} drill {label}: {late} first launches inside "
+                                 f"a serve")
+        return run, rec, list(replays)
+
+    def crash(label, spec, **kw):
+        inj = ReplicaFaultPlan.parse(spec)
+        out = drill(label, lambda: via_server(injector=inj) if not kw else
+                    via_pipe(pipe, lambda p: p.serve(prompts, 32, group_size=4,
+                                                     injector=inj, **kw)))
+        run, _, reps = out
+        if inj.fired != 1 or len(run.failovers) != 1 or not reps:
+            raise AssertionError(f"{cfg.name} drill {label}: fired {inj.fired}, "
+                                 f"failovers {run.failovers}, replays {len(reps)}")
+        return out
+
+    def replay_alone(r):
+        """A drill's cache replay again, on the idle pipeline, twice."""
+        caches = []
+        for _ in range(2):
+            cache, rec = counted(lambda: pipe.real_replay(r["group"], r["s"], r["k"], r["reps"],
+                                                          r["overlap"]), kernels, require=False)
+            caches.append(cache)
+        flat = [[c["pos"]] + [t for layer in c["layers"] for t in layer.values()]
+                for c in caches]
+        same = all(torch.equal(a, b) for a, b in zip(*flat))
+        emit("resilience_replay", config=cfg.name, stage=r["stage"], k=r["k"], reps=r["reps"],
+             overlap=r["overlap"], bitwise_repeatable=same, **rec)
+        if not same:
+            raise AssertionError(f"{cfg.name}: a cache replay is not bitwise repeatable")
+        return rec["launches"]
+
+    run, rec, reps = crash("crash blocks01:r1@tok6", "blocks01:r1@tok6=crash")
+    first_launches = rec["launches"]
+    first_replay = replay_alone(reps[0])
+    if not full:
+        pipe.close()
+        return first_launches, first_replay
+
+    crash("crash blocks00:r0@op3 overlap=False", "blocks00:r0@op3=crash", overlap=False)
+
+    tracer = Tracer()
+    hc = HealthController(tracer=tracer, threshold=1.5, min_samples=4, check_every=8,
+                          replan_after=2)
+    stall = ReplicaFaultPlan.parse("blocks00:r0@op1=stall:0.03x999")
+    drill("stall blocks00:r0@op1 x0.03s, health", lambda: via_server(
+        tracer=tracer, injector=stall, health=hc))
+    emit("resilience_health", config=cfg.name, ticks=hc.ticks, migrations=hc.migrations,
+         advice=hc.replan_advice, strikes={f"{s}/r{r}": n for (s, r), n in hc.strikes.items()},
+         reports=[r.describe() for r in hc.reports[-4:]], log=hc.log)
+    if hc.migrations < 1 or not hc.replan_advice:
+        raise AssertionError(f"health drill: {hc.migrations} migrations, advice "
+                             f"{hc.replan_advice}")
+
+    def pause():
+        return via_pipe(pipe, lambda p: p.serve(prompts, 32, group_size=4, pause_after_tokens=8))
+
+    run, _, _ = drill("pause after 8 tokens", pause, check_tokens=False)
+    # no prefill on this path: the caches are adopted, not replayed
+    drill("resume on the same pipeline", lambda: via_pipe(
+        pipe, lambda p: p.resume(run.resume_state)),
+        require=[k for k in kernels if k != "flash_attention"])
+    run, _, _ = drill("pause after 8 tokens", pause, check_tokens=False)
+    t0 = time.perf_counter()
+    rs = rescale_serving(pipe, cfg, shape, plan, new_chips=1, stg=stg,
+                         periods_per_stage=rescale_pps,
+                         measured_ratio=hc.replan_advice, hw=HW_H100, max_tp=1)
+    rescale_s = time.perf_counter() - t0
+    succ = warmed(recorded(rs.pipe))
+    pipes.append(succ)
+    drill(f"resume on the successor, {rescale_pps} layers a stage", lambda: via_pipe(
+        succ, lambda p: p.resume(run.resume_state)), rescale=rs.summary(),
+        rescale_s=rescale_s, stages=succ.stage_names)
+    succ.close()
+
+    try:
+        pipe.serve(prompts, 32, group_size=4,
+                   injector=ReplicaFaultPlan.parse("embed:r0@op2=crash"))
+        raise AssertionError("a crash of the lone embed replica did not raise")
+    except PipelineFailure as e:
+        keys = sorted(e.diagnostics)
+        emit("resilience_escalation", config=cfg.name, stage=e.stage, replica=e.replica,
+             reason=e.reason, bundle_keys=keys, lost_ops=e.diagnostics.get("lost_ops"))
+        need = {"fifo_occupancy", "waiting", "schedule", "reorder_occupancy", "lost_ops",
+                "failovers", "static_preflight"}
+        if (e.stage, e.replica) != ("embed", 0) or not need <= set(keys):
+            raise AssertionError(f"escalation: {e.stage}/r{e.replica}, bundle {keys}")
+    drill("plain serve after the escalation", via_server)
+    pipe.close()
+
+    traced, stage_map = ctx["traced"]
+    report = compare_lm(stg, as_selection(plan), traced, stage_map=stage_map)
+    changed = {}
+    for budget in (plan.total_chips, 2 * plan.total_chips):
+        base = measured_replan(stg, PipelineReport(), area_budget=budget).selection.choices
+        got = measured_replan(stg, report, area_budget=budget).selection.choices
+        changed[str(budget)] = {n: [list(base[n]), list(c)] for n, c in got.items()
+                                if c != base[n]}
+    emit("resilience_measure", config=cfg.name, ratios=report.ratios(),
+         accuracy=report.accuracy, v_app_measured_us=report.v_app_measured,
+         v_app_analytic_us=report.v_app_analytic,
+         bottleneck_measured=report.bottleneck_measured,
+         bottleneck_analytic=report.bottleneck_analytic,
+         measured_replan_changes=changed)
+    return first_launches, first_replay
 
 
 def main() -> int:
@@ -1087,7 +1319,10 @@ def main() -> int:
         """The requests through the single-device server at max_batch 4,
         then through the pipeline in each variant: tokens must be equal.
         ``profile``: serve the first variant once more, profiled and
-        traced (the profiler's events take seconds to read back)."""
+        traced (the profiler's events take seconds to read back).
+        Returns what the resilience phase reuses: the plan, its graph and
+        shape, the single-device tokens, the first variant's launches and
+        the traced serve with its stage map."""
         cfg = get_config(name)
         shape = ShapeCfg("serve_decode", 512, 4, "decode")
         t0 = time.perf_counter()
@@ -1138,7 +1373,8 @@ def main() -> int:
                 raise AssertionError(f"{cfg.name} pipelined {variant}: ops ran on "
                                      f"{run.streams_used} stream(s)")
             if i == 0:
-                first = rec["launches"]
+                ctx = dict(plan=plan, stg=stg, shape=shape, want=want_tokens,
+                           launches=rec["launches"], traced=None)
             if i == 0 and profile:
                 # profiled and traced: how long each stage waited, and on what
                 server.tracer = Tracer()
@@ -1153,31 +1389,48 @@ def main() -> int:
                      busy_share={n: t / run.wall_s for n, t in run.stage_seconds.items()},
                      bottleneck=stall_bottleneck(server.tracer))
                 server.tracer = None
+                ctx["traced"] = (run, pipe.graph_stage_map())
             pipe.close()
             del pipe, server
-        return first
+        return ctx
 
     t_phase = time.perf_counter()
     fd._composed_step.calls = 0
     qwen_kernels = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                     "fused_qkv_rope": qkv_rope, "decode_attention": decode_attention,
                     "fused_out_residual": out_residual}
-    pipe_launches = pipelined("qwen2.5-3b", params, prompts, 9, qwen_kernels,
-                              [{}, {"fusion_plan": "auto"}, {"overlap": False}], profile=True)
+    qwen_ctx = pipelined("qwen2.5-3b", params, prompts, 9, qwen_kernels,
+                         [{}, {"fusion_plan": "auto"}, {"overlap": False}], profile=True)
+    pipe_launches = qwen_ctx["launches"]
     if fd._composed_step.calls:
         raise AssertionError(f"a pipelined qwen decode step left the fused chain: "
                              f"_composed_step called {fd._composed_step.calls} times")
-    m_pipe_launches = pipelined("mamba2-370m", m_params, m_prompts, 12,
-                                {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated,
-                                 "ssd_scan": ssd_scan}, [{}])
+    mamba_kernels = {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated, "ssd_scan": ssd_scan}
+    mamba_ctx = pipelined("mamba2-370m", m_params, m_prompts, 12, mamba_kernels, [{}])
+    m_pipe_launches = mamba_ctx["launches"]
     emit("pipeline_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 9. the record of the kernels, the card, the result -----------------
+    # -- 9. resilience on phase 8's weights, requests and plans -------------
+    t_phase = time.perf_counter()
+    fd._composed_step.calls = 0
+    drill_launches, replay_launches = resilience(
+        get_config("qwen2.5-3b"), params, prompts, 9, qwen_ctx, qwen_kernels, full=True)
+    m_drill_launches, m_replay_launches = resilience(
+        get_config("mamba2-370m"), m_params, m_prompts, 12, mamba_ctx, mamba_kernels,
+        full=False)
+    if fd._composed_step.calls:
+        raise AssertionError(f"a drill's qwen decode step left the fused chain: "
+                             f"_composed_step called {fd._composed_step.calls} times")
+    emit("resilience_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 10. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
     # scan and the gated norm; ``pipeline_launches`` the same from the
-    # first pipelined serve of each model (phase 8)
+    # first pipelined serve of each model (phase 8), ``drill_launches``
+    # from each model's first crash drill and ``replay_launches`` from
+    # that drill's cache replay run again alone (phase 9)
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -1191,10 +1444,17 @@ def main() -> int:
     piped = dict(pipe_launches, fused_decode=pipe_launches["fused_qkv_rope"],
                  ssd_scan=m_pipe_launches["ssd_scan"],
                  rmsnorm_gated=m_pipe_launches["rmsnorm_gated"])
+    drilled = dict(drill_launches, fused_decode=drill_launches["fused_qkv_rope"],
+                   ssd_scan=m_drill_launches["ssd_scan"],
+                   rmsnorm_gated=m_drill_launches["rmsnorm_gated"])
+    replayed = dict(replay_launches, fused_decode=replay_launches["fused_qkv_rope"],
+                    ssd_scan=m_replay_launches["ssd_scan"],
+                    rmsnorm_gated=m_replay_launches["rmsnorm_gated"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
-         "pipeline_launches": piped[name],
+         "pipeline_launches": piped[name], "drill_launches": drilled[name],
+         "replay_launches": replayed[name],
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),

@@ -1,0 +1,96 @@
+"""Elastic scaling of a live serving pool: re-plan, rebuild, resume.
+
+Ported from the serving half of ``repro/runtime/elastic.py``.  The paper's
+motivation is exactly this ("scaling a program to a larger or smaller
+processor array requires manually re-programming all objects and
+channels"): here the planner re-solves the trade-off for the new budget
+and a successor `DecodePipeline` is built on the same weights, ready to
+adopt the drained pool's live state.
+
+Not ported (``ROADMAP.md``): ``rescale`` and ``reshard_tree``, which
+re-plan a trainer and build a device mesh for its checkpointed state.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..configs.base import ModelConfig, ShapeCfg
+from ..core import planner
+
+
+def plan_for_chips(cfg: ModelConfig, shape: ShapeCfg, chips: int,
+                   engine: str = "heuristic") -> planner.PlanResult:
+    return planner.plan(cfg, shape, chips=chips, engine=engine)
+
+
+@dataclass
+class ServingRescale:
+    """A re-planned serving pipeline, ready to adopt a drained pool's
+    live state via ``pipe.resume(state)``."""
+    pipe: object                    # the new DecodePipeline
+    plan: planner.PlanResult
+    diff: dict
+
+    def summary(self) -> str:
+        o, n = self.diff["chips"]
+        return (f"serving rescale: {o:.0f} -> {n:.0f} chips, "
+                f"throughput x{self.diff['throughput_ratio']:.2f}, "
+                f"{len(self.diff['stages_changed'])} stages re-laid-out")
+
+
+def rescale_serving(pipe, cfg: ModelConfig, shape: ShapeCfg,
+                    old_plan: planner.PlanResult, *, new_chips: int, stg,
+                    devices=None, engine: str = "heuristic",
+                    periods_per_stage: int | None = None,
+                    measured_ratio: dict[str, float] | None = None,
+                    **plan_kw) -> ServingRescale:
+    """Re-plan a *serving* pool for ``new_chips`` and build the successor
+    pipeline on the same weights.
+
+    The live-rescale protocol (no request dropped):
+
+        1. old run drains:  ``res = pipe.serve(..., pause_after_tokens=N)``
+           — admission pauses, in-flight groups park with caches resident,
+           ``res.resume_state`` exports them.
+        2. ``rs = rescale_serving(pipe, cfg, shape, old_plan,
+           new_chips=..., stg=stg)`` — this function: one solver call and
+           a new `DecodePipeline` over the re-planned placement *sharing*
+           ``pipe.params`` (the same `LM`: no weight is copied).
+        3. ``rs.pipe.resume(res.resume_state)`` — parked groups' cache
+           slices are adopted (handed off when stage spans match,
+           replayed from token history when the cut points moved) and
+           decoding continues to completion.
+
+    ``measured_ratio`` (e.g. a `HealthController.replan_advice`) routes
+    straggler measurements into the re-solve — the measurement-guided
+    re-planning loop of the paper, closed over a live pool.  Advice keys
+    may be *pipeline stage* names (what the controller observes —
+    ``blocks00`` may group several graph nodes) or graph node names;
+    stage keys fan out to every graph node the stage owns via
+    ``pipe.graph_stage_map()`` before they reach the solver.
+    ``plan_kw``: the planner options the old plan was made with (``hw``,
+    ``max_tp``), which ``stg`` was built with too; they pass to
+    ``planner.replan``.  ``devices``: where the successor runs (default:
+    ``pipe``'s device)."""
+    if measured_ratio:
+        stage_of = pipe.graph_stage_map()        # graph node -> stage name
+        fanned: dict[str, float] = {}
+        for key, ratio in measured_ratio.items():
+            owners = [n for n, s in stage_of.items() if s == key] or [key]
+            for n in owners:
+                fanned[n] = max(fanned.get(n, 1.0), ratio)
+        measured_ratio = fanned
+    new_plan, diff = planner.replan(cfg, shape, old_plan,
+                                    new_chips=new_chips, engine=engine,
+                                    measured_ratio=measured_ratio, **plan_kw)
+    from .pipeline.decode import DecodePipeline
+    new_pipe = DecodePipeline(
+        cfg, stg, new_plan,
+        devices=devices if devices is not None else [pipe.device],
+        periods_per_stage=(pipe.periods_per_stage
+                           if periods_per_stage is None else periods_per_stage),
+        seed=pipe.seed, params=pipe.params, overlap=pipe.overlap,
+        replica_queue=pipe.replica_queue, workers=pipe.workers,
+        temperature=pipe.temperature, fusion_plan=pipe.fusion_plan,
+        impl=pipe.impl, warmup=pipe.warmup)
+    return ServingRescale(pipe=new_pipe, plan=new_plan, diff=diff)

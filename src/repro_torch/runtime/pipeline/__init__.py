@@ -17,12 +17,20 @@ The port of ``repro/runtime/pipeline`` for serving:
                 shape before a timed serve, first calls inside it counted
   decode      — `DecodePipeline`: prefill/decode serving with per-stage
                 KV/SSM-cache residency, a CUDA stream per (stage,
-                replica) and a token feedback stream
+                replica) and a token feedback stream; replica failover
+                with cache replay, migration, admission pause and
+                `resume`
+  health      — `HealthController`: straggler detection driving
+                migration and re-plan advice
+  measure     — measured vs analytic stage throughput of a serve
+                (`compare_lm`) and the calibrated re-solve
+                (`measured_replan`)
   trace, metrics — the typed event stream of a traced serve and the
                 metrics read from it (`serving_slo`)
 
 Not ported yet: the training backends (``interpreter``, ``schedule``,
-``jax_pipe``), ``measure``, ``health`` and ``elastic``.
+``jax_pipe``) and what needs them (`measure.compare`,
+`measure.replan_to_fixed_point`, the virtual-clock ``EventLoop``).
 """
 
 
@@ -54,7 +62,10 @@ from .aot import AotProgram, CompileStats  # noqa: E402
 from .channels import Fifo, FifoStats, StreamChannel  # noqa: E402
 from .engine import (AsyncResult, DeviceWatch, Driver, Engine,  # noqa: E402
                      EngineResult, Op, Program, StageProgram, steady_inverse)
-from .decode import DecodePipeline, ServeRunResult  # noqa: E402
+from .decode import DecodePipeline, ResumeState, ServeRunResult  # noqa: E402
+from .health import HealthController  # noqa: E402
+from .measure import (PipelineReport, StageMeasurement, calibrate,  # noqa: E402
+                      compare_lm, measured_bubble, measured_replan)
 from .placement import Placement, StageSlice, place, tp_of  # noqa: E402
 from .trace import FifoWatch, TraceEvent, Tracer  # noqa: E402
 from .metrics import (BlameEntry, Counter, Gauge, Histogram,  # noqa: E402
@@ -69,7 +80,9 @@ __all__ = [
     "Fifo", "FifoStats", "StreamChannel",
     "AsyncResult", "DeviceWatch", "Driver", "Engine", "EngineResult", "Op",
     "Program", "StageProgram", "steady_inverse",
-    "DecodePipeline", "ServeRunResult",
+    "DecodePipeline", "ResumeState", "ServeRunResult", "HealthController",
+    "PipelineReport", "StageMeasurement", "calibrate", "compare_lm",
+    "measured_bubble", "measured_replan",
     "Placement", "StageSlice", "place", "tp_of",
     "FifoWatch", "TraceEvent", "Tracer",
     "BlameEntry", "Counter", "Gauge", "Histogram", "MetricsRegistry",

@@ -18,7 +18,8 @@ This module runs that shape on the engine (`engine.Engine`):
     crosses the inter-stage FIFOs;
   * request groups map to stage replicas by ``gid % nr`` (cache
     affinity), so a replicated stage serves groups concurrently like the
-    plan's round-robin replication;
+    plan's round-robin replication; a stage's ``rep_map`` overrides that
+    rule once a replica died (``dead``) or shed a group;
   * the head stage samples in its op and feeds the token back to the
     embed stage over a `channels.StreamChannel`: decode ops are scheduled
     as tokens arrive, and the stream closes when the last group drains;
@@ -30,8 +31,28 @@ This module runs that shape on the engine (`engine.Engine`):
     runs every op on the caller's thread and stream, one after another;
   * every program is an `aot.AotProgram`, run once per group shape on
     scratch inputs before the engine's clock starts (``warmup=``), on the
-    thread and stream that will run the group's ops, so no served request
-    pays a first launch (``compile_stats.late == 0``).
+    thread and stream of every replica a group may be routed to, so no
+    served request pays a first launch (``compile_stats.late == 0``), not
+    even one moved by failover or migration.
+
+Failover, migration, pause and resume.  A replica that dies mid-serve
+(``serve(injector=)``, `engine.Engine._replica_fault`) hands its groups
+to survivors (`_ServeStageProgram.fail_replica`): its in-flight ops are
+redone there under their original sequence numbers, and each moved
+group's cache slice is rebuilt *fresh* by deterministic replay of its
+prompt and fed-token history (`_Group.fed`) through the same programs on
+the lanes and streams they were warmed on (`DecodePipeline._replay_cache`)
+— a dead op may have half-updated the old slice in place, and no
+surviving slice is touched.  A slow replica sheds groups
+(`shed_replica`, driven by `health.HealthController`).  An
+admission-paused serve (``pause_after_tokens=``) parks its groups with
+their caches resident and exports a `ResumeState`; `DecodePipeline.resume`
+continues it here or on a re-planned pipeline
+(`runtime.elastic.rescale_serving`), adopting each cache slice whose span
+matches and replaying the others.  Where a cache changes owner (migration,
+resume), the new owner's stream waits on an event recorded on the old
+owner's stream and the cache is marked for the new stream
+(``record_stream``): on one card that hand-off is the whole copy.
 
 Streams and memory.  The engine dispatches a consumer only after it has
 seen its producer's event, so a hidden state is complete before the next
@@ -40,16 +61,17 @@ one stream and freed after another stream read it could be handed out
 again on the first while the read is still queued.  Each op body
 therefore marks its tensor inputs with ``Tensor.record_stream`` on its
 own stream.  A group's cache is made and used on one (stage, replica)
-stream only.
+stream at a time, and handed off as above when its owner changes.
 
 On one card every placement slice is the card: the replicas of a stage
 share the ``LM``'s tensors, so the weights live once however many
 replicas the plan asks for.  Encoder-decoder and multimodal frontends are
 rejected: the pipeline runs embed -> blocks -> head only.
 
-Left out against the JAX module (later items): failover (``fail_replica``,
-cache replay, migration), admission pause and ``resume``, the static
-preflight (``core.verify``), and health ticks.
+Every serve is preflighted (`core.verify.verify_decode_plan`, ``preflight=``)
+as in the JAX module; the port has no buffer donation, so the cache
+contract it checks is that a stage's decode leaves every cache tensor's
+shape, dtype and storage as it found them.
 
 `runtime/server.LMServer` uses this as its pipelined backend
 (``LMServer(cfg, pipeline=DecodePipeline(...))``).
@@ -69,6 +91,7 @@ from ...core.stg import STG
 from ...kernels import ops
 from ...models import blocks, lm
 from ...models.common import rmsnorm
+from ..failures import PipelineFailure
 from ..server import _bucket            # one bucketing rule: token parity
 from .aot import AotProgram, CompileStats, _where
 from .channels import Fifo, StreamChannel
@@ -151,11 +174,17 @@ class _Group:
     done: np.ndarray = None
     out_tokens: list = None
     steps: int = 0                     # completed decode steps
+    cur: np.ndarray = None             # last sampled token per slot (B,)
     t_start: float = 0.0
     t_prefill_done: float = 0.0
     t_last: float = 0.0
     decode_done_s: list = field(default_factory=list)
     last_logits: torch.Tensor = None   # (B, 1, Vp) of the group's last step
+    fed: list = field(default_factory=list)
+    # token history: fed[j] is a host copy of the (B,) token batch fed
+    # back for decode step j.  out_tokens is NOT enough to replay a cache —
+    # done slots keep feeding their last sampled token in lockstep without
+    # emitting it — so failover/resume cache rebuilds read this instead.
 
     @property
     def batch(self) -> int:
@@ -165,13 +194,18 @@ class _Group:
 @dataclass
 class ServeRunResult(EngineResult):
     """One pipelined serve: per-request tokens + the engine's measurement
-    surface (stage completion streams, fifo stats, trace)."""
+    surface (stage completion streams, fifo stats, trace).  As an
+    `EngineResult` it exposes ``stage_inverse_us``, so a serve run feeds
+    `measure.compare_lm(stg, sel, run, stage_map=pipe.graph_stage_map())`
+    — serving traffic is a calibration source for re-planning."""
     tokens: list = field(default_factory=list)   # per request, generated
     group_of: list = field(default_factory=list)  # request index -> group id
     groups: list = field(default_factory=list)   # _Group bookkeeping
     fifo_stats: dict = field(default_factory=dict)
     placement: Placement | None = None
     streams_used: int = 0              # distinct CUDA streams that ran ops
+    paused: bool = False               # admission-paused mid-stream
+    resume_state: object = None        # `ResumeState` when paused
 
     @property
     def decode_tokens(self) -> int:
@@ -248,17 +282,35 @@ class _ServeStageProgram:
         self.stall_mark = -1
         self.wait_reason = None   # (reason, fifo) of the last deferral
         self.caches: dict[int, dict] = {}      # gid -> resident cache slice
+        # failover/rebalance state: group routing defaults to the cache-
+        # affinity rule gid % n_replicas; rep_map overrides it after a
+        # replica dies (or a straggler sheds load), dead marks replicas
+        # the engine must never route to again
+        self.rep_map: dict[int, int] = {}
+        self.dead: set[int] = set()
+        self.redo: list = []           # (kind, gid, seq, pos, payload):
+        #                                lost ops re-issued under their
+        #                                ORIGINAL seq so reorder holes fill
+        self.done_count: dict[int, int] = {}   # gid -> retired ops here
+        self.inflight: dict[int, int] = {}     # gid -> dispatched-unretired
 
     def enqueue(self, kind: str, gid: int, seq: int, pos: int) -> None:
         self.queue.append((kind, gid, seq, pos))
 
     def pending(self) -> int:
-        return len(self.queue) - self.pos_i
+        return len(self.queue) - self.pos_i + len(self.redo)
 
     def rep_of(self, gid: int) -> int:
-        return gid % self.n_replicas
+        return self.rep_map.get(gid, gid % self.n_replicas)
+
+    def stream_of(self, rep: int):
+        """The stream replica ``rep``'s ops run on in this serve."""
+        return self.pipe._owner_stream(self.s, rep, self.run.overlap)
 
     def peek(self) -> Op | None:
+        if self.redo:
+            kind, gid, seq, _pos, _payload = self.redo[0]
+            return Op(stage=self.s, kind=kind, seq=seq, rep=self.rep_of(gid))
         if self.pos_i >= len(self.queue):
             return None
         kind, gid, seq, _ = self.queue[self.pos_i]
@@ -266,6 +318,11 @@ class _ServeStageProgram:
 
     def ready(self, op: Op, count_stall: bool = False) -> float | None:
         s, S, run = self.s, self.S, self.run
+        if self.redo:
+            # a replayed op re-runs from its saved inputs and retires into
+            # the slot its original dispatch already reserved — no fifo
+            # state to wait for
+            return 0.0
         if s > 0 and not run.acts[s - 1].can_pop(1):
             self.wait_reason = ("starve", run.acts[s - 1])
             return None
@@ -294,6 +351,15 @@ class _ServeStageProgram:
 
     def dispatch(self, op: Op, driver):
         s, S, run = self.s, self.S, self.run
+        if self.redo:
+            # replay of a lost op: inputs were saved at its original
+            # dispatch; that dispatch's downstream reservation is still
+            # outstanding, so no pop and no reserve here — retirement
+            # fills the reorder hole under the original seq
+            kind, gid, seq, pos, payload = self.redo.pop(0)
+            op.recover = (kind, gid, seq, pos, payload)
+            self.inflight[gid] = self.inflight.get(gid, 0) + 1
+            return self._task_for(kind, gid, pos, payload, op.rep)
         kind, gid, seq, pos = self.queue[self.pos_i]
         self.pos_i += 1
         g = run.groups[gid]
@@ -314,9 +380,15 @@ class _ServeStageProgram:
             payload = x
         if s < S - 1:
             run.acts[s].reserve(1)
+        op.recover = (kind, gid, seq, pos, payload)
+        self.inflight[gid] = self.inflight.get(gid, 0) + 1
         return self._task_for(kind, gid, pos, payload, op.rep)
 
     def _task_for(self, kind: str, gid: int, pos: int, payload, rep: int):
+        """Build the op body from in-hand inputs (``payload`` is the
+        prompt, the fed-back tokens or the popped hidden state) — shared
+        by the normal dispatch path and failover redo, so a redo runs the
+        exact math the lost op would have."""
         pipe, run = self.pipe, self.run
         desc = pipe.stage_descs[self.s]
         pre, dec = pipe._programs[desc.key]
@@ -341,6 +413,8 @@ class _ServeStageProgram:
         s, run = self.s, self.run
         (y, cache, toks), t_done = result
         gid = run.gid_of[op.seq]
+        self.done_count[gid] = self.done_count.get(gid, 0) + 1
+        self.inflight[gid] = self.inflight.get(gid, 1) - 1
         if cache is not None:                             # a prefill's cache
             self.caches[gid] = cache                      # stays resident here
         if self.pipe.stage_descs[s].has_head:             # head: sampled
@@ -349,6 +423,92 @@ class _ServeStageProgram:
             engine.ordered_push(run.acts[s], op.seq, (gid, y), t_done)
         return t_done
 
+    # -- failover & rebalance -----------------------------------------------
+    def fail_replica(self, rep: int, driver, lost: list) -> None:
+        """Replica ``rep`` died: remap its groups onto survivors, rebuild
+        the cache slices that died with it, and queue the drained
+        in-flight ops for redo under their original sequence numbers.
+        No survivors -> `PipelineFailure` (the engine attaches its
+        diagnostic bundle).
+
+        A drained op's kernels may still be running on the dead
+        replica's stream, writing its group's cache in place: the
+        current stream waits on that stream (an event), and every
+        dropped cache tensor is marked for the current stream, so the
+        allocator cannot hand its memory out again before those kernels
+        end.  Each moved group's slice is rebuilt fresh by deterministic
+        replay of its prompt and fed-token history up to its last
+        retired op here — bitwise what the dead replica held."""
+        pipe, run = self.pipe, self.run
+        self.dead.add(rep)
+        alive = [r for r in range(self.n_replicas) if r not in self.dead]
+        if not alive:
+            raise PipelineFailure(
+                f"stage {self.name}: replica r{rep} was the last one — "
+                f"nothing left to fail over to",
+                stage=self.name, replica=rep)
+        moved = [gid for gid in range(len(run.groups))
+                 if self.rep_of(gid) == rep]
+        for i, gid in enumerate(moved):
+            self.rep_map[gid] = alive[i % len(alive)]
+        for op in lost:
+            kind, gid, seq, pos, payload = op.recover
+            self.inflight[gid] = self.inflight.get(gid, 1) - 1
+            self.redo.append((kind, gid, seq, pos, payload))
+        here = pipe._owner_stream(self.s, rep, False)     # the current stream
+        for gid in moved:
+            old = self.caches.pop(gid, None)
+            if old is None:
+                continue
+            pipe._hand_off(old, self.stream_of(rep), here)
+            del old
+            k = self.done_count.get(gid, 0)
+            if k > 0:
+                reps = [run.programs[j].rep_of(gid) for j in range(self.s + 1)]
+                self.caches[gid] = pipe._replay_cache(
+                    run.groups[gid], self.s, k, reps, run.overlap)
+
+    def migrate_gid(self, gid: int, to_rep: int) -> bool:
+        """Move one group to another replica between its ops (straggler
+        shedding): routing flips and the resident cache slice is handed
+        to the new owner's stream — the source replica is alive and on
+        the same card, so no copy and no replay.  Refused while the
+        group has an op in flight anywhere at this stage."""
+        if self.inflight.get(gid) or to_rep in self.dead:
+            return False
+        frm = self.rep_of(gid)
+        if frm == to_rep:
+            return True
+        self.rep_map[gid] = to_rep
+        if gid in self.caches:
+            self.pipe._hand_off(self.caches[gid], self.stream_of(frm),
+                                self.stream_of(to_rep))
+        return True
+
+    def shed_replica(self, rep: int, max_groups: int = 1) -> int:
+        """Shift dispatch share off a slow replica: migrate up to
+        ``max_groups`` of its idle groups to the least-loaded healthy
+        peer.  Returns how many actually moved."""
+        peers = [r for r in range(self.n_replicas)
+                 if r not in self.dead and r != rep]
+        if not peers:
+            return 0
+        n_groups = len(self.run.groups)
+        moved = 0
+        for gid in range(n_groups):
+            if moved >= max_groups:
+                break
+            g = self.run.groups[gid]
+            if self.rep_of(gid) != rep or gid not in self.caches \
+                    or g.done is not None and g.done.all():
+                continue
+            load = {r: sum(1 for g2 in range(n_groups)
+                           if self.rep_of(g2) == r) for r in peers}
+            to = min(peers, key=lambda r: (load[r], r))
+            if self.migrate_gid(gid, to):
+                moved += 1
+        return moved
+
     def describe(self) -> str:
         return describe_position(
             self.name, self.pos_i, self.queue,
@@ -356,11 +516,13 @@ class _ServeStageProgram:
 
 
 def _run_stage(prog: AotProgram, params, x: torch.Tensor, device, stream, sample,
-               cache=None, cap=None):
+               cache=None, cap=None, after=None):
     """One op body: launch the stage program on the stage's stream and
     return without waiting for the device; the engine retires the op off
     the returned `DeviceWatch`.  ``cap`` given: a prefill, which makes the
     stage's cache for the group; else a decode step on ``cache``.
+    ``after``: a CUDA event the stream waits on first (a cache replay's
+    previous stage, on another stream).
 
     The input was made on another stage's stream (or is the prompt, still
     on the host): it is marked for this stream (``record_stream``), so
@@ -369,6 +531,8 @@ def _run_stage(prog: AotProgram, params, x: torch.Tensor, device, stream, sample
     copy to the host, so that retirement reads them without a sync."""
     on = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
     with torch.no_grad(), on:
+        if after is not None:
+            torch.cuda.current_stream(device).wait_event(after)
         if x.device != device:
             x = x.to(device)
         elif stream is not None:
@@ -391,12 +555,19 @@ class _ServeRun:
 
     def __init__(self, pipe: "DecodePipeline", groups: list, *,
                  eos_id: int, capacity_blocks: int, overlap: bool,
-                 temperature: float | None = None):
+                 temperature: float | None = None,
+                 pause_at: int | None = None,
+                 open_groups: int | None = None,
+                 feedback_capacity: int | None = None):
         self.pipe = pipe
         self.groups = groups
         self.eos_id = eos_id
         self.overlap = overlap
         self.temperature = temperature
+        self.pause_at = pause_at       # admission pause: groups reaching
+        self.parked: list[int] = []    # this many decode steps park (their
+        #                                caches stay resident for export)
+        #                                instead of feeding back
         self.streams: set = set()              # handles of the CUDA streams
         #                                        ops ran on
         self.gid_of: list[int] = []            # seq -> gid
@@ -407,9 +578,14 @@ class _ServeRun:
         # the continuous token stream: head -> embed feedback.  At most
         # one token per live group is ever in flight (a group's next op
         # consumes it before its next push), so n_groups slots suffice.
+        # The head pushes here *unconditionally* at retirement, which is
+        # why `verify_decode_plan` requires capacity >= n_groups — an
+        # override below that statically fails preflight.
+        fb_cap = feedback_capacity if feedback_capacity is not None \
+            else max(2, len(groups))
         self.feedback = StreamChannel(block=1, capacity_blocks=1,
-                                      min_capacity=max(2, len(groups)))
-        self.open_groups = len(groups)
+                                      min_capacity=fb_cap)
+        self.open_groups = len(groups) if open_groups is None else open_groups
 
     def enqueue(self, kind: str, gid: int, pos: int) -> int:
         seq = len(self.gid_of)
@@ -420,14 +596,15 @@ class _ServeRun:
 
     def on_head(self, op: Op, logits, toks, t_done: float, engine: Engine) -> None:
         """Book the sampled tokens at head retirement and schedule the
-        group's next decode step (or retire the group) —
+        group's next decode step (or park or retire the group) —
         `LMServer.serve_round` bookkeeping, verbatim, so completions are
         token-identical.  ``toks``: the tokens on the device (fed back to
         the embed stage as they are) and their copy on the host, complete
-        since the op's event fired."""
+        since the op's event fired; ``fed`` and ``cur`` keep copies of
+        the host values."""
         g = self.groups[self.gid_of[op.seq]]
         dev_toks, host_toks = toks
-        nxt = host_toks.numpy()
+        nxt = host_toks.numpy().copy()
         g.last_logits = logits
         if op.kind == "P":
             g.t_prefill_done = t_done - engine.t0
@@ -445,9 +622,20 @@ class _ServeRun:
                         g.done[i] = True
                 elif not g.done[i]:
                     g.done[i] = True
+        g.cur = nxt
         if (not g.done.all()) and g.steps < g.budget.max() - 1:
-            seq = self.enqueue("D", g.gid, g.bucket + g.steps)
-            self.feedback.push([(seq, (g.gid, dev_toks[:, None]))], t_done)
+            if self.pause_at is not None and g.steps >= self.pause_at:
+                # admission pause: park the group instead of feeding its
+                # token back — caches stay resident for the export,
+                # g.cur is the un-fed token resume() re-feeds
+                self.parked.append(g.gid)
+                self.open_groups -= 1
+                if self.open_groups == 0:
+                    self.feedback.close()
+            else:
+                seq = self.enqueue("D", g.gid, g.bucket + g.steps)
+                g.fed.append(g.cur.copy())
+                self.feedback.push([(seq, (g.gid, dev_toks[:, None]))], t_done)
         else:
             g.t_last = t_done - engine.t0
             for p in self.programs:            # free the group's resident
@@ -455,6 +643,31 @@ class _ServeRun:
             self.open_groups -= 1
             if self.open_groups == 0:
                 self.feedback.close()
+
+
+@dataclass
+class ResumeState:
+    """Everything a drained, admission-paused serve hands the next
+    pipeline: the group bookkeeping (prompts, budgets, sampled-token
+    history, the un-fed ``cur`` token) and each block stage's resident
+    cache slices keyed by the stage's period span, with the stream each
+    was last used on.  A resuming pipeline whose stage spans match
+    *adopts* the slices (a hand-off to its streams — the cheap path);
+    mismatched spans are rebuilt by deterministic replay from prompt +
+    fed-token history, so a rescale can change the stage partitioning
+    without touching in-flight requests.  Single use: the resumed serve
+    updates the adopted slices in place."""
+    groups: list                       # _Group objects, indexed by gid
+    group_of: list                     # request index -> gid
+    eos_id: int
+    stage_caches: dict = field(default_factory=dict)
+    # stage name -> {"span": (lo, hi), "caches": {gid: cache},
+    #                "streams": {gid: stream the cache was last used on}}
+
+    def live_groups(self) -> list:
+        return [g for g in self.groups
+                if g.done is not None and not g.done.all()
+                and g.steps < g.budget.max() - 1]
 
 
 # ===========================================================================
@@ -474,8 +687,9 @@ class DecodePipeline:
     asks for the CPU (``devices=["cpu"]``); without a card this raises.
     The pool is one device: every placement slice folds onto it.
     ``warmup`` (default True) runs every stage program once per group
-    shape before the engine starts; ``compile_stats.late`` counts first
-    calls that landed inside a timed serve (kept at zero by the default).
+    shape on every replica before the engine starts; ``compile_stats.late``
+    counts first calls that landed inside a timed serve (kept at zero by
+    the default, failover and migration included).
 
     ``fusion_plan``: planner-selected stage combining
     (`core.restructure`).  ``None`` runs every base stage as its own
@@ -692,24 +906,25 @@ class DecodePipeline:
     def _warm_group(self, g: _Group, overlap: bool) -> None:
         """Run every program group ``g``'s ops will run — prefill at (B,
         bucket), a decode step on the cache it made, and the greedy sampler
-        at the head — once, on scratch inputs, where the ops will run:
-        overlapped, on the lane thread of each stage's replica for ``g``
-        and on that replica's stream; else on this thread and its stream.
-        Runs before the engine's clock starts; no served request pays a
-        first launch."""
+        at the head — once, on scratch inputs, where the ops may run:
+        overlapped, on the lane thread and stream of *every* replica of
+        each stage (failover and migration may route ``g`` to any of
+        them, and a cache replay runs there too); else on this thread and
+        its stream.  Runs before the engine's clock starts; no served
+        request pays a first launch."""
         shape = (g.batch, g.bucket, g.cap)
         jobs = []
         for s in range(len(self.stage_descs)):
-            rep = g.gid % len(self.stage_devices[s])
-            key = (s, rep, shape) if overlap else (s, _where(), shape)
-            if key in self._warmed:
-                continue
-            if overlap:
-                jobs.append(self.lanes.submit(s, rep, self._warm_stage, s,
-                                              self.stage_streams[s][rep], *shape))
-            else:
-                self._warm_stage(s, None, *shape)
-            self._warmed.add(key)
+            for rep in range(len(self.stage_devices[s]) if overlap else 1):
+                key = (s, rep, shape) if overlap else (s, _where(), shape)
+                if key in self._warmed:
+                    continue
+                if overlap:
+                    jobs.append(self.lanes.submit(s, rep, self._warm_stage, s,
+                                                  self.stage_streams[s][rep], *shape))
+                else:
+                    self._warm_stage(s, None, *shape)
+                self._warmed.add(key)
         for job in jobs:
             job.result()
         if self.device.type == "cuda":
@@ -737,6 +952,85 @@ class DecodePipeline:
         """Stop the worker threads: the pipeline serves overlapped no
         more."""
         self.lanes.close()
+
+    # -- cache ownership ------------------------------------------------------
+    def _owner_stream(self, s: int, rep: int, overlap: bool):
+        """The stream replica ``rep`` of stage ``s`` runs its ops on: its
+        own when overlapped, else the calling thread's current one (None
+        off the card)."""
+        if self.device.type != "cuda":
+            return None
+        return self.stage_streams[s][rep] if overlap \
+            else torch.cuda.current_stream(self.device)
+
+    @staticmethod
+    def _hand_off(cache: dict, src, dst) -> None:
+        """Give ``cache`` (a stage's slice for one group) a new owner
+        stream: ``dst`` waits on an event recorded on ``src`` after all
+        the work queued there, and every cache tensor is marked for
+        ``dst`` so the allocator cannot reuse its memory before ``dst``'s
+        work on it ends.  On one card this is the whole transfer."""
+        if dst is None or src == dst:
+            return
+        ev = torch.cuda.Event()
+        ev.record(src)
+        dst.wait_event(ev)
+        cache["pos"].record_stream(dst)
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t.record_stream(dst)
+
+    def graph_stage_map(self) -> dict[str, str]:
+        """graph node -> executed stage name (block nodes collapse onto
+        the period-group stage that owns them) — the ``stage_map``
+        `measure.compare_lm` needs to read a serve run's completion
+        streams against the decode-shape plan."""
+        L = len(self.cfg.block_pattern)
+        out = {}
+        for desc in self.stage_descs:
+            if desc.has_embed:
+                out["embed"] = desc.name
+            if desc.span is not None:
+                for li in range(desc.span[0] * L, desc.span[1] * L):
+                    out[f"block{li:02d}"] = desc.name
+            if desc.has_head:
+                out["head"] = desc.name
+        return out
+
+    def _replay_cache(self, g: _Group, s_target: int, k: int, reps: list,
+                      overlap: bool) -> dict:
+        """Rebuild stage ``s_target``'s cache slice for group ``g`` as it
+        stood after ``k`` retired ops (prefill + k-1 decode steps), for
+        replica ``reps[s_target]``.
+
+        The replay re-runs the programs the live traffic runs (embed ->
+        preceding block stages -> target stage) from the prompt and the
+        fed-token history, each stage ``s`` as replica ``reps[s]``:
+        overlapped, on that replica's lane thread and stream, where its
+        programs were warmed, each step's stream waiting on the previous
+        step's event; else on this thread and stream.  Every stage builds
+        a *fresh* cache (``lm.init_cache`` in its prefill) — the
+        surviving resident slices are never touched — and the same
+        kernels on the same shapes give bitwise what the lost slice
+        held."""
+        caches: dict[int, dict] = {}
+        after = None
+        for j in range(k):
+            x = torch.from_numpy(g.tokens if j == 0 else g.fed[j - 1][:, None])
+            for s in range(s_target + 1):
+                pre, dec = self._programs[self.stage_descs[s].key]
+                stream = self.stage_streams[s][reps[s]] if overlap else None
+                args = ((pre, self.stage_params[s], x, self.device, stream, None,
+                         None, g.cap, after) if j == 0 else
+                        (dec, self.stage_params[s], x, self.device, stream, None,
+                         caches.get(s), None, after))
+                ar = (self.lanes.submit(s, reps[s], _run_stage, *args).result()
+                      if overlap else _run_stage(*args))
+                (x, cache, _), = ar.payload
+                if cache is not None:
+                    caches[s] = cache
+                after = ar.watch[0].event
+        return caches[s_target]
 
     # -- serving ------------------------------------------------------------
     def _groups(self, prompts: list[list[int]], max_new, group_size: int):
@@ -766,16 +1060,24 @@ class DecodePipeline:
              overlap: bool | None = None) -> None:
         """Run every program at the group shapes ``serve`` will form for
         these requests, where it will run them, now (``serve`` does it
-        itself when ``warmup``)."""
+        itself when ``warmup``), and verify the plan as a ``serve`` with
+        the default channel sizes will (the report is cached), so neither
+        lands inside a timed serve."""
         overlap = self.overlap if overlap is None else overlap
-        for g in self._groups(prompts, max_new, group_size)[0]:
+        groups = self._groups(prompts, max_new, group_size)[0]
+        self._preflight(n_groups=len(groups), capacity_blocks=2, feedback_capacity=None,
+                        group_shapes=[(g.batch, g.bucket, g.cap) for g in groups])
+        for g in groups:
             self._warm_group(g, overlap)
 
     def serve(self, prompts: list[list[int]], max_new, *, eos_id: int = 1,
               group_size: int = 8, capacity_blocks: int = 2,
               overlap: bool | None = None,
               temperature: float | None = None,
-              tracer=None) -> ServeRunResult:
+              tracer=None, injector=None, health=None,
+              pause_after_tokens: int | None = None,
+              preflight: bool = True,
+              feedback_capacity: int | None = None) -> ServeRunResult:
         """Serve ``prompts`` in ``group_size`` slot groups streamed
         concurrently through the pipeline.  Grouping, bucketing, and
         EOS/budget bookkeeping mirror `LMServer.serve_round` on each
@@ -784,33 +1086,83 @@ class DecodePipeline:
         the pipeline-level default for this run.  ``tracer``: optional
         `trace.Tracer` — the serve emits op spans, credit/starve waits,
         and fifo occupancy (incl. the head->embed feedback stream);
-        warm-up stays untraced."""
+        warm-up stays untraced.  ``injector``: optional
+        `failures.ReplicaFaultPlan` chaos schedule (see
+        `_ServeStageProgram.fail_replica` for the failover semantics).
+        ``health``: optional `health.HealthController` ticked from the
+        engine's retire path.  ``pause_after_tokens``: admission pause —
+        groups reaching that many decode steps park instead of
+        scheduling further work; the returned result has ``paused=True``
+        and a ``resume_state`` that `resume()` (on this or a rescaled
+        pipeline) continues without dropping any in-flight request.
+        ``preflight``: run the static plan verifier
+        (`core.verify.verify_decode_plan`) before launching — channel and
+        cycle credits, fusion legality, placement consistency, the cache
+        contract — raising `PlanVerificationError` on any ERROR (False =
+        escape hatch for deliberately unsafe experiments; the deadlock
+        report will note preflight was skipped).  ``feedback_capacity``:
+        override the head->embed stream's capacity (default ``max(2,
+        n_groups)``) — mainly for demonstrating that an undersized
+        feedback path is rejected statically."""
         if not prompts:
             raise ValueError("serve() needs at least one prompt")
         overlap = self.overlap if overlap is None else overlap
         groups, group_of = self._groups(prompts, max_new, group_size)
+        report = None
+        if preflight:
+            report = self._preflight(
+                n_groups=len(groups), capacity_blocks=capacity_blocks,
+                feedback_capacity=feedback_capacity,
+                group_shapes=[(g.batch, g.bucket, g.cap) for g in groups])
         if self.warmup:
             for g in groups:
                 self._warm_group(g, overlap)
+        self._seed_groups(groups)
+
+        run = _ServeRun(self, groups, eos_id=eos_id,
+                        capacity_blocks=capacity_blocks, overlap=overlap,
+                        temperature=temperature,
+                        pause_at=pause_after_tokens,
+                        feedback_capacity=feedback_capacity)
+        for g in groups:
+            run.enqueue("P", g.gid, 0)
+        res, engine = self._launch(run, group_of, tracer=tracer, injector=injector,
+                                   health=health, static_report=report)
+        for g in groups:                       # run-relative group timings
+            g.t_start = max(0.0, g.t_start - engine.t0)
+        return res
+
+    def _seed_groups(self, groups) -> None:
         for g in groups:
             if g.gid not in self._gens:
                 self._gens[g.gid] = torch.Generator(device=self.device).manual_seed(
                     (self.seed ^ 0xC0FFEE) + g.gid)
 
-        run = _ServeRun(self, groups, eos_id=eos_id,
-                        capacity_blocks=capacity_blocks, overlap=overlap,
-                        temperature=temperature)
-        for g in groups:
-            run.enqueue("P", g.gid, 0)
-        res, engine = self._launch(run, group_of, overlap=overlap, tracer=tracer)
-        for g in groups:                       # run-relative group timings
-            g.t_start = max(0.0, g.t_start - engine.t0)
-        return res
+    def _preflight(self, *, n_groups: int, capacity_blocks: int,
+                   feedback_capacity: int | None, group_shapes):
+        """Static verification of this serve's plan tuple; raises
+        `core.verify.PlanVerificationError` on any ERROR and caches the
+        accepted report (the cache contract doesn't change per serve) on
+        ``self.last_preflight``."""
+        from ...core import verify as _verify
+        fb_cap = feedback_capacity if feedback_capacity is not None \
+            else max(2, n_groups)       # the capacity the serve will make
+        key = (n_groups, capacity_blocks, fb_cap, frozenset(group_shapes))
+        cached = getattr(self, "_preflight_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1].raise_if_errors("DecodePipeline.serve")
+        report = _verify.verify_decode_plan(
+            self, n_groups=n_groups, capacity_blocks=capacity_blocks,
+            feedback_capacity=feedback_capacity, group_shapes=group_shapes)
+        self._preflight_cache = (key, report)
+        self.last_preflight = report
+        return report.raise_if_errors("DecodePipeline.serve")
 
-    def _launch(self, run: _ServeRun, group_of: list, *, overlap: bool,
-                tracer) -> tuple[ServeRunResult, Engine]:
+    def _launch(self, run: _ServeRun, group_of: list, *, tracer, injector=None,
+                health=None, static_report=None) -> tuple[ServeRunResult, Engine]:
         """Wire channels, drive the engine to quiescence, fold the engine
-        result into a `ServeRunResult`."""
+        result into a `ServeRunResult` (exporting a `ResumeState` when the
+        run admission-paused) — shared by `serve` and `resume`."""
         names = self.stage_names
         fifo_map = {f"act{s}": run.acts[s] for s in range(len(run.acts))}
         fifo_map["feedback"] = run.feedback
@@ -820,9 +1172,13 @@ class DecodePipeline:
                                   src=names[s], dst=names[s + 1])
             tracer.watch_fifo(run.feedback, "feedback",
                               src=names[-1], dst=names[0])
-        engine = Engine(run.programs, overlap=overlap,
+        engine = Engine(run.programs, overlap=run.overlap,
                         replica_queue=self.replica_queue,
-                        tracer=tracer, fifos=fifo_map, lanes=self.lanes)
+                        tracer=tracer, fifos=fifo_map, lanes=self.lanes,
+                        injector=injector,
+                        on_tick=None if health is None else health.tick,
+                        tick_every=64 if health is None else health.check_every,
+                        static_report=static_report)
         with self.compile_stats.window():
             er = engine.run()
         assert run.feedback.exhausted, \
@@ -834,8 +1190,8 @@ class DecodePipeline:
             stage_firings=er.stage_firings,
             stage_dispatch_s=er.stage_dispatch_s, op_trace=er.op_trace,
             max_inflight=er.max_inflight, wall_s=er.wall_s,
-            stage_wait_s=er.stage_wait_s, placement=self.placement,
-            streams_used=len(run.streams))
+            stage_wait_s=er.stage_wait_s, failovers=er.failovers,
+            placement=self.placement, streams_used=len(run.streams))
         idx_in_group: dict[int, int] = {}
         for gid in group_of:
             i = idx_in_group.get(gid, 0)
@@ -844,4 +1200,81 @@ class DecodePipeline:
         for s in range(len(run.acts)):
             res.fifo_stats[("act", s)] = run.acts[s].stats
         res.fifo_stats["feedback"] = run.feedback.stats
+        if run.parked:
+            res.paused = True
+            res.resume_state = ResumeState(
+                groups=run.groups, group_of=list(group_of), eos_id=run.eos_id,
+                stage_caches={
+                    names[s]: {"span": self.period_span[s],
+                               "caches": dict(prog.caches),
+                               "streams": {gid: prog.stream_of(prog.rep_of(gid))
+                                           for gid in prog.caches}}
+                    for s, prog in enumerate(run.programs)
+                    if self.period_span[s] is not None})
         return res, engine
+
+    def resume(self, state: ResumeState, *, capacity_blocks: int = 2,
+               overlap: bool | None = None,
+               temperature: float | None = None, tracer=None,
+               injector=None, health=None,
+               pause_after_tokens: int | None = None,
+               preflight: bool = True,
+               feedback_capacity: int | None = None) -> ServeRunResult:
+        """Continue an admission-paused serve on THIS pipeline — possibly
+        a different plan or partitioning than the one that drained
+        (`elastic.rescale_serving` builds that pipeline).  Live groups'
+        cache slices are adopted: handed off to this pipeline's streams
+        when its stage spans match the exporter's, rebuilt by
+        deterministic replay from prompt + fed-token history when they
+        don't.  Each group's parked token is fed back and decoding
+        continues, so no in-flight request is dropped and the combined
+        streams are bitwise what an uninterrupted serve yields."""
+        overlap = self.overlap if overlap is None else overlap
+        live = state.live_groups()
+        if not live:
+            raise ValueError("resume() on a state with no live groups")
+        report = None
+        if preflight:
+            # the channel is sized for every exported group (finished
+            # ones hold no tokens), but only live groups circulate
+            fb_cap = feedback_capacity if feedback_capacity is not None \
+                else max(2, len(state.groups))
+            report = self._preflight(
+                n_groups=len(live), capacity_blocks=capacity_blocks,
+                feedback_capacity=fb_cap,
+                group_shapes=[(g.batch, g.bucket, g.cap) for g in live])
+        if self.warmup:
+            for g in live:
+                self._warm_group(g, overlap)
+        self._seed_groups(live)
+        run = _ServeRun(self, state.groups, eos_id=state.eos_id,
+                        capacity_blocks=capacity_blocks, overlap=overlap,
+                        temperature=temperature,
+                        pause_at=pause_after_tokens,
+                        open_groups=len(live),
+                        feedback_capacity=feedback_capacity)
+        by_span = {tuple(v["span"]): v for v in state.stage_caches.values()}
+        for s, prog in enumerate(run.programs):
+            span = self.period_span[s]
+            donors = by_span.get(tuple(span)) if span is not None else None
+            for g in live:
+                k = 1 + g.steps        # every stage retired prefill +
+                prog.done_count[g.gid] = k     # g.steps decode ops
+                if span is None:
+                    continue
+                rep = prog.rep_of(g.gid)
+                if donors is not None and g.gid in donors["caches"]:
+                    cache = donors["caches"][g.gid]
+                    self._hand_off(cache, donors["streams"][g.gid], prog.stream_of(rep))
+                    prog.caches[g.gid] = cache
+                else:
+                    reps = [run.programs[j].rep_of(g.gid) for j in range(s + 1)]
+                    prog.caches[g.gid] = self._replay_cache(g, s, k, reps, overlap)
+        for g in live:
+            seq = run.enqueue("D", g.gid, g.bucket + g.steps)
+            g.fed.append(g.cur.copy())
+            run.feedback.push([(seq, (g.gid, torch.from_numpy(g.cur[:, None])))], 0.0)
+        res, _engine = self._launch(run, state.group_of, tracer=tracer,
+                                    injector=injector, health=health,
+                                    static_report=report)
+        return res

@@ -1,10 +1,10 @@
 """The executor core: one Program protocol and its wall-clock driver.
 
 Copied from ``repro/runtime/pipeline/engine.py``: `Program`, `Op`,
-`Driver`, `Engine`, `EngineResult` and the deadlock diagnostics, with the
-names and behaviour unchanged.  The virtual-clock driver (``EventLoop``)
-is not copied: its users, the host interpreter and the schedules as data,
-are not ported.  What changes is how an op says its device work is done:
+`Driver`, `Engine`, `EngineResult`, the deadlock diagnostics and replica
+failover, with the names and behaviour unchanged.  The virtual-clock
+driver (``EventLoop``) is not copied: its users, the host interpreter
+and the schedules as data, are not ported.  What changes is how an op says its device work is done:
 a `DeviceWatch`, a CUDA event recorded on the stage's stream after the op
 body, where the JAX package watches a `jax.Array`.
 
@@ -29,13 +29,30 @@ body, where the JAX package watches a `jax.Array`.
     while the previous one still runs.  Backend: `decode.DecodePipeline`
     (prefill/decode serving).
 
+  * **Failover.**  A `failures.ReplicaFaultPlan` (``injector=``) is
+    consulted before every dispatch: a firing ``crash`` kills the op's
+    replica, a ``stall`` wraps the op body in a host-side sleep; an op
+    body may also raise `failures.ReplicaFault`.  `_replica_fault`
+    drains the dead replica's ops (their outputs discarded, their
+    credits freed) and hands them, each with its ``Op.recover`` payload,
+    to the program's ``fail_replica`` hook, which remaps routing and
+    queues their replay under the original sequence numbers; with no
+    hook or no survivor it raises `failures.PipelineFailure` carrying
+    `diagnostic_bundle`.  ``on_tick`` runs every ``tick_every``
+    retirements (the `health.HealthController` attachment point), and a
+    deadlock report cross-references the static preflight's report
+    (``static_report``).
+
 Against the JAX engine, the worker threads are `Lanes`: each (stage,
 replica) keeps one thread, where the JAX engine hands every op to any
 thread of one pool.  PyTorch keeps a cuBLAS handle a thread and a cuBLAS
 workspace a (handle, stream); with a lane a (stage, replica), the pairs a
-serve reaches are the ones a warm-up on the same lanes made.  The fault
-injector, the health tick and the static preflight's cross-reference are
-left out with failover (``ROADMAP.md``).
+serve reaches are the ones a warm-up on the same lanes made.  An op's
+device work runs on its (stage, replica)'s CUDA stream, so a drained op
+may still be running there after its body returned: the program's
+``fail_replica`` orders what it drops or rebuilds after that stream
+(`decode.DecodePipeline`).  The lanes belong to the caller and outlive a
+`PipelineFailure`: the next run on them starts clean.
 
 The measurement surface is per-stage streams of completion times whose
 steady-state gap is the stage's measured inverse throughput
@@ -51,6 +68,7 @@ from typing import Any, Callable, Iterable, Protocol, runtime_checkable
 
 import torch
 
+from ..failures import PipelineFailure, ReplicaFault
 from .channels import Fifo
 
 
@@ -93,6 +111,11 @@ class Op:
     is_firing: bool = True       # contributes to the stage's completion
     #                              stream (microbatch pipelines: forward
     #                              ops only)
+    recover: tuple | None = None  # program-defined replay payload: what
+    #                               `fail_replica` needs to re-issue this
+    #                               op on a surviving replica (inputs were
+    #                               consumed at dispatch; a lost op cannot
+    #                               re-pop them)
 
 
 @runtime_checkable
@@ -292,6 +315,10 @@ class EngineResult:
     # (input empty) vs reorder attribution; populated only when the run
     # was traced (the accounting rides the tracer's enable flag so the
     # default path stays untouched)
+    failovers: list = field(default_factory=list)
+    # one dict per survived replica fault: {stage, replica, kind,
+    # t_fault_s, recovery_s, replayed_ops} — the drill's recovery-time
+    # and tokens-lost evidence
 
     def stage_inverse_us(self, name: str) -> float:
         """Steady-state microseconds per firing of one stage (merged
@@ -313,6 +340,15 @@ class EngineResult:
         n = self.stage_firings.get(name, 0)
         return (self.stage_dispatch_s.get(name, 0.0) / n * 1e6
                 if n else float("nan"))
+
+
+def _stalled(fn: Callable, stall_s: float) -> Callable:
+    """Wrap an op body in a host-side sleep — the injected-straggler
+    shape: the replica is alive but every firing it runs is slow."""
+    def wrapped(*args):
+        time.sleep(stall_s)
+        return fn(*args)
+    return wrapped
 
 
 class Lanes:
@@ -355,22 +391,42 @@ class Engine(Driver):
     def __init__(self, programs: list, *, overlap: bool = True,
                  workers: int = 8, replica_queue: int = 2,
                  tracer=None, fifos: dict | None = None,
-                 lanes: Lanes | None = None):
+                 lanes: Lanes | None = None, injector=None,
+                 on_tick: Callable | None = None, tick_every: int = 64,
+                 static_report=None):
         """``tracer``: optional `trace.Tracer` — op spans, wait spans, and
         per-stage stall/starve accounting (off = zero-cost path).
         ``fifos``: {label: Fifo} for the deadlock report's occupancy
         snapshot (independent of tracing).  ``lanes``: the worker threads
         of an overlapped run, kept by the caller across runs; None makes
-        ``workers`` lanes for the run and closes them after it."""
+        ``workers`` lanes for the run and closes them after it.
+        ``injector``: optional `failures.ReplicaFaultPlan` consulted
+        before every dispatch — a firing ``crash`` marks the op's replica
+        dead and triggers failover, a ``stall`` wraps the op body in a
+        host-side sleep.  ``on_tick(engine)``: optional health hook
+        invoked every ``tick_every`` retirements from the scheduler
+        thread (the `HealthController` attachment point).
+        ``static_report``: the `core.verify.VerificationReport` this run
+        was preflighted with (None = preflight skipped) — a runtime
+        deadlock cross-references it so the report says whether the
+        wedge matches a static finding or the plan was proven
+        deadlock-free."""
         super().__init__(tracer)
         self.programs = list(programs)
         self.fifos = dict(fifos or {})
+        self.static_report = static_report
         self.overlap = overlap
         self.workers = max(1, workers)
         self.replica_queue = max(1, replica_queue)
         self.lanes = lanes
+        self.injector = injector
+        self.on_tick = on_tick
+        self.tick_every = max(1, tick_every)
+        self._retired_n = 0
         self.result = EngineResult()
         self._busy = [[0] * max(1, p.n_replicas) for p in self.programs]
+        self._inflight: dict = {}     # future -> Op (worker running)
+        self._pending: list = []      # (Op, AsyncResult): device in flight
         for p in self.programs:
             self.result.stage_seconds[p.name] = 0.0
             self.result.stage_firings[p.name] = 0
@@ -394,6 +450,10 @@ class Engine(Driver):
             self.tracer.op_retire(prog.name, op.rep, op.kind, op.seq,
                                   op.chunk, op.t_dispatch - self.t0,
                                   t_done - self.t0)
+        self._retired_n += 1
+        if self.on_tick is not None \
+                and self._retired_n % self.tick_every == 0:
+            self.on_tick(self)
 
     def _settle(self, op: Op, result, t_done: float) -> None:
         """Retire a completed op, unwrapping an `AsyncResult` by appending
@@ -409,6 +469,85 @@ class Engine(Driver):
         for fifo, n in op.releases:
             fifo.release(n)
         self._busy[op.stage][op.rep] -= 1
+
+    def diagnostic_bundle(self) -> dict:
+        """The deadlock report's forensics as structured data — what a
+        `PipelineFailure` carries out of the run: every registered
+        fifo's occupancy, each stuck program's wait reason and schedule
+        position, reorder-buffer depth, failover history, trace tail."""
+        bundle: dict = {
+            "fifo_occupancy": {
+                label: {"len": len(f), "capacity": f.capacity,
+                        "inflight_slots": f.inflight_slots}
+                for label, f in sorted(self.fifos.items())},
+            "waiting": {p.name: self.wait_reason_of(p)
+                        for p in self.programs if p.pending()},
+            "schedule": [p.describe() for p in self.programs],
+            "reorder_occupancy": self.reorder_occupancy(),
+            "failovers": list(self.result.failovers),
+            "static_preflight": (self.static_report.summary()
+                                 if self.static_report is not None
+                                 else {"ran": False}),
+        }
+        if self.tracer is not None:
+            bundle["trace_tail"] = [
+                f"{e.track}:{e.kind} {e.name}{e.seq if e.seq >= 0 else ''}"
+                f"@{e.t:.4g}" for e in self.tracer.tail(n=12)]
+        return bundle
+
+    def _replica_fault(self, s: int, rep: int, kind: str, lost0=()) -> None:
+        """Whole-replica abort + failover: replica ``rep`` of stage ``s``
+        died.  Drain its ops — wait each body still on its lane home,
+        discard its output, release every credit it held — and hand the
+        lost ops, sorted by seq, each carrying its ``recover`` payload,
+        to the program's ``fail_replica`` hook, which remaps routing and
+        queues the replay.  A drained op's kernels may still be queued
+        on the replica's stream: the hook orders what it drops or
+        rebuilds after them.  A program without the hook, or whose last
+        replica died, escalates to `PipelineFailure` with the diagnostic
+        bundle attached — a structured failure, never a wedged reorder
+        buffer."""
+        prog = self.programs[s]
+        t_fault = time.perf_counter() - self.t0
+        lost = list(lost0)
+        for f in [f for f, o in self._inflight.items()
+                  if o.stage == s and o.rep == rep]:
+            op = self._inflight.pop(f)
+            try:
+                f.result()          # wait the body home; discard its output
+            except BaseException:
+                pass
+            self._abort(op)
+            lost.append(op)
+        for op, ar in [(o, a) for o, a in self._pending
+                       if o.stage == s and o.rep == rep]:
+            self._pending.remove((op, ar))
+            self._abort(op)
+            lost.append(op)
+        lost.sort(key=lambda o: o.seq)
+        fail = getattr(prog, "fail_replica", None)
+        try:
+            if fail is None:
+                raise PipelineFailure(
+                    f"stage {prog.name}: replica r{rep} died ({kind}) and "
+                    f"the program has no failover hook",
+                    stage=prog.name, replica=rep, reason=kind)
+            fail(rep, self, lost)
+        except PipelineFailure as e:
+            e.reason = e.reason or kind
+            for key, val in self.diagnostic_bundle().items():
+                e.diagnostics.setdefault(key, val)
+            e.diagnostics.setdefault(
+                "lost_ops", [(o.kind, o.seq) for o in lost])
+            raise
+        t_rec = time.perf_counter() - self.t0
+        self.result.failovers.append({
+            "stage": prog.name, "replica": rep, "kind": kind,
+            "t_fault_s": t_fault, "recovery_s": t_rec - t_fault,
+            "replayed_ops": len(lost)})
+        if self.tracer is not None:
+            self.tracer.failover(prog.name, rep, kind, t_fault, t_rec,
+                                 len(lost))
 
     def _deadlock_detail(self) -> str:
         """Hang forensics appended to the deadlock error: what each party
@@ -439,7 +578,31 @@ class Engine(Driver):
                     lines.append(f"last events {p.name}: " + "; ".join(
                         f"{e.kind} {e.name}{e.seq if e.seq >= 0 else ''}"
                         f"@{e.t:.4g}" for e in tail))
+        lines.extend(self._static_crossref())
         return "".join("\n  " + ln for ln in lines)
+
+    def _static_crossref(self) -> list[str]:
+        """Tie the runtime wedge back to the static analysis: either the
+        plan skipped preflight (say so — the wedge may be a statically
+        catchable sizing bug), or a static finding already predicted a
+        deadlock on some edge (name it), or the plan was verified
+        deadlock-free (so suspect the executor, a fault injection, or an
+        external stall, not the plan)."""
+        rep = self.static_report
+        if rep is None:
+            return ["static preflight: not run for this drive — "
+                    "rerun with preflight=True to check whether this "
+                    "wedge is statically provable"]
+        hits = rep.deadlock_findings()
+        if hits:
+            out = ["static preflight: runtime wedge matches "
+                   f"{len(hits)} static finding(s):"]
+            out += ["  " + f.describe() for f in hits[:4]]
+            return out
+        return ["static preflight: plan was verified deadlock-free "
+                f"(checks: {', '.join(rep.checks)}) — suspect an "
+                "executor bug, fault injection, or external stall, "
+                "not the plan's channel sizing"]
 
     @staticmethod
     def _timed(fn, args):
@@ -454,8 +617,8 @@ class Engine(Driver):
     def run(self) -> EngineResult:
         from concurrent.futures import FIRST_COMPLETED, wait
         self.t0 = time.perf_counter()
-        inflight: dict = {}                 # future -> Op (worker running)
-        pending: list = []                  # (Op, AsyncResult): body returned,
+        inflight = self._inflight           # future -> Op (worker running)
+        pending = self._pending             # (Op, AsyncResult): body returned,
         #                                     device work still in flight
         lanes = self.lanes
         if self.overlap and lanes is None:
@@ -491,7 +654,21 @@ class Engine(Driver):
                             wait_since[s] = (time.perf_counter() - self.t0,
                                              self.wait_reason_of(prog))
                         continue
+                    stall_s = 0.0
+                    if self.injector is not None:
+                        spec = self.injector.check(prog.name, op.rep, op.seq)
+                        if spec is not None and spec.kind == "crash":
+                            # the op consumed nothing yet: failover remaps
+                            # its routing and the next sweep re-peeks it
+                            # onto a surviving replica
+                            self._replica_fault(s, op.rep, spec.kind)
+                            progressed = True
+                            continue
+                        elif spec is not None:
+                            stall_s = spec.stall_s
                     fn, args = prog.dispatch(op, self)
+                    if stall_s > 0.0:
+                        fn = _stalled(fn, stall_s)
                     op.t_dispatch = time.perf_counter()
                     self._busy[s][op.rep] += 1
                     progressed = True
@@ -510,6 +687,12 @@ class Engine(Driver):
                         # serial A/B baseline: dispatch, await, advance
                         try:
                             result, host_s = self._timed(fn, args)
+                        except ReplicaFault:
+                            self._abort(op)     # the op itself is lost too:
+                            self._replica_fault(s, op.rep, "crash",
+                                                lost0=(op,))
+                            progressed = True
+                            continue
                         except BaseException:
                             self._abort(op)
                             raise
@@ -517,7 +700,13 @@ class Engine(Driver):
                         if isinstance(result, AsyncResult):
                             try:        # a device error surfaces here —
                                 result.block()   # free credits like the
-                            except BaseException:  # old in-body sync did
+                            except ReplicaFault:     # old in-body sync did
+                                self._abort(op)
+                                self._replica_fault(s, op.rep, "crash",
+                                                    lost0=(op,))
+                                progressed = True
+                                continue
+                            except BaseException:
                                 self._abort(op)
                                 raise
                         self._settle(op, result, time.perf_counter())
@@ -531,9 +720,17 @@ class Engine(Driver):
                 # synchronously (host compute) or handed back an
                 # AsyncResult whose device work we watch below
                 for f in [f for f in inflight if f.done()]:
+                    if f not in inflight:
+                        continue        # drained by a failover this sweep
                     op = inflight.pop(f)
                     try:
                         result, host_s = f.result()
+                    except ReplicaFault:
+                        self._abort(op)
+                        self._replica_fault(op.stage, op.rep, "crash",
+                                            lost0=(op,))
+                        progressed = True
+                        continue
                     except BaseException:
                         self._abort(op)
                         raise
@@ -554,7 +751,7 @@ class Engine(Driver):
                             progressed = True
                         else:
                             still.append((op, ar))
-                    pending = still
+                    pending[:] = still
                 if not progressed:
                     if inflight:
                         # with device work pending, wait bounded (a watch
@@ -571,6 +768,11 @@ class Engine(Driver):
                         op, ar = pending.pop(0)
                         try:
                             ar.block()
+                        except ReplicaFault:
+                            self._abort(op)
+                            self._replica_fault(op.stage, op.rep, "crash",
+                                                lost0=(op,))
+                            continue
                         except BaseException:
                             self._abort(op)
                             raise

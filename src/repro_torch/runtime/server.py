@@ -96,7 +96,7 @@ class LMServer:
     def __init__(self, cfg: ModelConfig, *, max_batch: int = 8, eos_id: int = 1,
                  params=None, seed: int = 0, temperature: float = 0.0,
                  impl: str | None = None, device="cuda", pipeline=None,
-                 tracer=None):
+                 tracer=None, injector=None, health=None, preflight: bool = True):
         """``device``: where the model runs; the card unless the caller asks
         for the CPU, and without a card this raises.  ``params``: an
         `models.lm.LM` on that device (e.g. from `bridge.from_jax`); else
@@ -109,7 +109,13 @@ class LMServer:
         device — when set, ``serve`` streams request groups of
         ``max_batch`` through it instead of the single-device loop.
         ``tracer``: an optional pipeline `Tracer` (pipelined backend only;
-        None = tracing off)."""
+        None = tracing off).  ``injector`` (a `failures.ReplicaFaultPlan`)
+        and ``health`` (a `pipeline.health.HealthController`) ride along
+        on every pipelined serve — chaos drills and self-healing,
+        pipelined backend only.  ``preflight``: statically verify each
+        pipelined serve's plan (`core.verify`) before launch; False skips
+        the check (the single-device backend has no plan to verify
+        either way)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch
@@ -119,6 +125,9 @@ class LMServer:
         self.model = build_model(cfg, impl)
         self.pipeline = pipeline
         self.tracer = tracer
+        self.injector = injector
+        self.health = health
+        self.preflight = preflight
         self.last_run = None         # the last pipelined serve's ServeRunResult
         if pipeline is not None:
             if pipeline.device != self.device:
@@ -217,7 +226,8 @@ class LMServer:
         run = self.pipeline.serve(
             [r.prompt for r in reqs], [r.max_new for r in reqs],
             eos_id=self.eos_id, group_size=self.max_batch,
-            temperature=self.temperature, tracer=self.tracer)
+            temperature=self.temperature, tracer=self.tracer,
+            injector=self.injector, health=self.health, preflight=self.preflight)
         self.last_run = run
         self.stats.requests += len(reqs)
         self.stats.rounds += len(run.groups)

@@ -574,3 +574,84 @@ def test_pipeline_matches_single_device_server_on_card(cuda, name, overlap):
     assert [c.tokens for c in got] == [c.tokens for c in want]
     assert pipe.compile_stats.late == 0
     assert (srv.last_run.streams_used > 1) if overlap else (srv.last_run.streams_used == 1)
+
+
+def _chaos(name, device):
+    """A reduced config on the card with two replicas forced on the first
+    period's blocks (``blocks00`` has a survivor), its requests, and the
+    single-device server's completions on the same weights."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.runtime.pipeline import as_selection
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = get_config(name)
+    shape = ShapeCfg("decode_test", 128, 16, "decode")
+    plan = planner.plan(cfg, shape, chips=2 * cfg.n_layers + 4, max_tp=4)
+    stg, _ = lm_graph.build_stg(cfg, shape, max_tp=4)
+    sel = as_selection(plan)
+    for n in stg.topo_order():
+        if n.startswith("block") and int(n[5:]) < len(cfg.block_pattern):
+            sel.set(n, sel.choices[n][0], 2)
+    params = lm.init_params(cfg, device=device,
+                            generator=torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, rng.integers(20, 60)).tolist(),
+                    max_new=16) for i in range(8)]
+    want = [c.tokens for c in LMServer(cfg, max_batch=4, params=params,
+                                       device=device).serve(reqs)]
+    return cfg, shape, stg, plan, sel, params, reqs, want
+
+
+DRILLS = ["crash_at_token", "crash_at_op", "migration", "resume_same", "resume_transfer",
+          "resume_replay"]
+
+
+@pytest.mark.parametrize("drill", DRILLS)
+@pytest.mark.parametrize("name", ["qwen2.5-3b-smoke", "mamba2-370m-smoke"])
+def test_failover_drills_on_card(cuda, name, drill):
+    """The pipeline overlapped on its streams, against the single-device
+    server on the same weights: a replica crash (the moved group's cache
+    replayed on the survivor's lane and stream), a health-driven
+    migration (the cache handed to the new owner's stream), and an
+    admission pause resumed on the same pipeline, on a new one with the
+    same stage spans (caches handed to its streams) and on one with other
+    spans (caches replayed).  Each gives the same tokens, with no first
+    launch inside the serves."""
+    from repro_torch.runtime.failures import ReplicaFaultPlan
+    from repro_torch.runtime.pipeline import DecodePipeline, HealthController, Tracer
+
+    cfg, shape, stg, plan, sel, params, reqs, want = _chaos(name, cuda)
+    pipe = DecodePipeline(cfg, stg, sel, params=params, device=cuda)
+    prompts, max_new = [r.prompt for r in reqs], [r.max_new for r in reqs]
+    pipes = [pipe]
+    if drill.startswith("crash"):
+        spec = "blocks00:r1@tok6=crash" if drill == "crash_at_token" else "blocks00:r0@op3=crash"
+        inj = ReplicaFaultPlan.parse(spec)
+        res = pipe.serve(prompts, max_new, group_size=4, injector=inj)
+        assert inj.fired == 1 and len(res.failovers) == 1
+    elif drill == "migration":
+        tr = Tracer()
+        # a tick at every retirement: on the card the stalled op is nearly
+        # all of its group's step, so a sparser tick mostly finds the
+        # group in flight there, where it may not move
+        hc = HealthController(tracer=tr, threshold=1.5, min_samples=4, check_every=1,
+                              replan_after=2)
+        res = pipe.serve(prompts, max_new, group_size=4, tracer=tr, health=hc,
+                         injector=ReplicaFaultPlan.parse("blocks00:r0@op1=stall:0.03x999"))
+        assert hc.migrations >= 1 and hc.replan_advice
+    else:
+        paused = pipe.serve(prompts, max_new, group_size=4, pause_after_tokens=5)
+        assert paused.paused
+        succ = pipe if drill == "resume_same" else DecodePipeline(
+            cfg, stg, sel, params=params, device=cuda) if drill == "resume_transfer" \
+            else DecodePipeline(cfg, stg, plan, params=params, device=cuda,
+                                periods_per_stage=2)
+        pipes.append(succ)
+        res = succ.resume(paused.resume_state)
+    assert res.tokens == want
+    assert res.streams_used > 1
+    assert all(p.compile_stats.late == 0 for p in pipes)
+    for p in set(pipes):
+        p.close()

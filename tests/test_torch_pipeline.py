@@ -40,6 +40,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.core import planner
+from repro_torch.core.verify import PlanVerificationError
 from repro_torch.graphs import lm_graph
 from repro_torch.models import lm
 from repro_torch.runtime.pipeline import (AotProgram, CompileStats, DecodePipeline, Engine,
@@ -202,6 +203,15 @@ def _base_names(cfg, pps):
     return ["embed"] + [f"blocks{i:02d}" for i in range(n)] + ["head"]
 
 
+def _refused(pipe):
+    """Plans the serve's preflight refuses, as the JAX package's does: a
+    fused stage holding several block stages (the heavy-set rule), or a
+    single stage, whose ring of credits (the feedback stream alone) holds
+    no more than the groups."""
+    return len(pipe.stage_names) == 1 or any(
+        sum(m.startswith("blocks") for m in g) > 1 for g in pipe.fusion_plan or ())
+
+
 @pytest.mark.parametrize("pps", [1, 2])
 @pytest.mark.parametrize("overlap", [True, False])
 @pytest.mark.parametrize("fusion", [None, "auto", "explicit"])
@@ -215,6 +225,10 @@ def test_pipeline_matches_single_device_server(name, fusion, overlap, pps):
                           periods_per_stage=pps, fusion_plan=fusion)
     pipe.check_pos = True
     srv = LMServer(cfg, max_batch=4, pipeline=pipe, device="cpu")
+    if _refused(pipe):
+        with pytest.raises(PlanVerificationError):
+            srv.serve(reqs)
+        srv = LMServer(cfg, max_batch=4, pipeline=pipe, device="cpu", preflight=False)
     got = srv.serve(reqs)
     assert [c.uid for c in got] == [c.uid for c in want]
     assert [c.tokens for c in got] == [c.tokens for c in want]
