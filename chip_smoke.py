@@ -98,13 +98,34 @@ script exits non-zero without its result line.  The phases:
     phase 8's traced qwen2.5-3b serve and what ``measured_replan`` changes;
     each drill's peak memory over what was resident, and the phase's
     seconds;
-10. the ``kernels`` record, the card's name and power limit, and last the
+10. training, after the serving models are freed: the backward kernels
+    (flash attention, rmsnorm) against the plain version's autograd
+    gradients in bf16 and float32 at qwen2.5-3b's training shape (B 2, S
+    4096, H 16, KV 2, D 128, causal), danube's heads (D 120, window 256, S
+    1024), GQA 7 and a ragged S 129, and rmsnorm at (8192, 2048), width 1000
+    and a row off 16 bytes; their times at qwen's training shape beside
+    their bounds, the plain versions' autograd and the library's (SDPA's
+    backward, ``F.rms_norm``'s); one train step (accum 2) of qwen2.5-3b at
+    full width cut to 2 layers, kernel route against ``impl="ref"`` from
+    the same float32 masters and batch (loss and every leaf's gradient
+    norm, float32 and bf16); qwen2.5-3b at full width and depth (36 layers,
+    3.40 B parameters, AdamW on float32 masters) through ``train_loop``:
+    the bigram pipeline at seq 4096, global batch 8, grad_accum 4, remat
+    "full", one warm-up step, 4 timed steps (launch counts set to 0 just
+    before them and read just after; every forward and backward kernel
+    must launch and no plain version be called), one step profiled (device
+    idle share); and a crash-restart drill on qwen2.5-3b ``reduced()``
+    (checkpoint every 2 steps, crash at step 3) whose final float32
+    parameters must be bitwise an uninterrupted run's;
+11. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -145,6 +166,20 @@ MAMBA_LOGIT_TOL = 0.05
 # round it once to bf16; what differs inside (the order of the scan's and
 # the norms' sums, moving single bf16 roundings of y and of the normalised
 # gate) reaches it through w_out, a sum of 2048 inputs at weights ~2048^-1/2.
+
+# backward kernels against the plain version's autograd gradients, as a share
+# of the gradient's largest entry: bf16, about three bf16 steps (both round
+# each gradient to bf16 once, and the kernel takes rowsum(dO o) from the
+# forward's bf16 output o where the plain version's autograd has the float32
+# one); float32, sums of up to 4096 float32 terms taken in another order
+GRAD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
+# the 2-layer full-width train step, kernel route against impl="ref" from the
+# same float32 masters and batch: the loss and each leaf's gradient norm,
+# relative.  float32: the routes sum float32 products in another order; bf16:
+# the routes round at other points (the flash forward rounds P to bf16 for its
+# P V product, the oracle rounds the float32 output once), and a leaf's norm
+# averages those single-step differences
+TRAIN_AB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 
 def emit(phase: str, **record) -> None:
@@ -413,6 +448,344 @@ def resilience(cfg, params, prompts, pps, ctx, kernels, *, full, device="cuda",
          bottleneck_analytic=report.bottleneck_analytic,
          measured_replan_changes=changed)
     return first_launches, first_replay
+
+
+def training(check, copies, bound, smi, *, full=True, device="cuda"):
+    """Phase 10: training.  The backward kernels against the plain version's
+    autograd gradients, and their times at qwen2.5-3b's training shape; one
+    train step (accum 2) of qwen2.5-3b at full width cut to 2 layers, kernel
+    route against ``impl="ref"`` from the same float32 masters and batch, in
+    float32 and bf16; qwen2.5-3b at full width and depth through
+    `train_loop` (AdamW, float32 masters, the bigram pipeline at seq 4096,
+    global batch 8, grad_accum 4, remat "full"): a warm-up step, 4 timed
+    steps with the launch counts set to 0 just before them and read just
+    after (the plain versions must not be called), then one step profiled;
+    and a `run_resilient` drill on qwen2.5-3b ``reduced()``, a checkpoint
+    every 2 steps and a crash at step 3, whose final float32 parameters must
+    be bitwise those of an uninterrupted run.  ``full`` False: small shapes,
+    for a rehearsal on the CPU.  Returns the kernel rows and the timed
+    steps' launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
+                                                     flash_attention_forward,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward, rmsnorm_plain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import TrainLoopConfig, run_resilient, train_loop
+
+    dev = torch.device(device)
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    kernels = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_backward,
+               "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward}
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def timed(fn, arg_sets, iters=10):
+        """Device ms a call: CUDA events around ``iters`` calls cycling
+        through ``arg_sets``, after a call on each.  These calls take 0.07 ms
+        and more, so the host queues the next before the card is done, and
+        the events read the card's time; ``torch.profiler`` read less kernel
+        time than the calls take here once phase 8 had run (PERF.md §7)."""
+        if device != "cuda":          # a rehearsal on the CPU times nothing
+            return 0.0
+        for args in arg_sets:
+            fn(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    # -- the backward kernels against the plain version's autograd ----------
+    def grads(fn, inputs, dout, **kw):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        fn(*leaves, **kw).backward(dout)
+        return [t.grad for t in leaves]
+
+    def check_grad(kernel, case, got, want, dtype):
+        tol = GRAD_TOL[str(dtype).removeprefix("torch.")]
+        check(kernel, case, got, want, tol * float(want.float().abs().max()), tol)
+
+    attn_shapes = ((((2, 4096, 16, 2, 128, None), "qwen's training shape"),
+                    ((1, 1024, 32, 8, 120, 256), "danube's heads, window 256"),
+                    ((2, 200, 14, 2, 128, None), "GQA 7"),
+                    ((2, 129, 16, 2, 128, None), "ragged S 129")) if full else
+                   (((1, 70, 4, 2, 16, None), "small"), ((1, 40, 4, 1, 16, 8), "small window")))
+    width = 2048 if full else 64
+    norm_shapes = ((((8192, 2048), "qwen's training rows"), ((8192, 1000), "width 1000"))
+                   if full else (((64, 32), "small"),))
+    for dtype in (bf16, f32):
+        for (b, s_, h, kv, d, window), label in attn_shapes:
+            q, k, v, do = (randn(b, s_, h, d, dtype=dtype), randn(b, s_, kv, d, dtype=dtype),
+                           randn(b, s_, kv, d, dtype=dtype), randn(b, s_, h, d, dtype=dtype))
+            got = grads(flash_attention, (q, k, v), do, window=window)
+            want = grads(flash_attention_plain, (q, k, v), do, window=window)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check_grad("flash_attention_bwd", f"{label}: B{b} S{s_} H{h} KV{kv} D{d} "
+                           f"causal window={window} {dtype}: {name}", g, w, dtype)
+            del q, k, v, do, got, want
+        cases = [(randn(*shape, dtype=dtype), label) for shape, label in norm_shapes]
+        cases.append((randn(8 * width + 1, dtype=dtype)[1:].view(8, width),
+                      f"(8, {width}), a row off 16 bytes"))
+        for x, label in cases:
+            w = 1.0 + 0.1 * randn(x.shape[-1], dtype=f32)
+            g = randn(*x.shape, dtype=dtype)
+            got, want = grads(rmsnorm, (x, w), g), grads(rmsnorm_plain, (x, w), g)
+            for name, a, b_ in zip(("dx", "dw"), got, want):
+                check_grad("rmsnorm_bwd", f"{label} {dtype}: {name}", a, b_, dtype)
+        del cases
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- times at qwen2.5-3b's training shape -------------------------------
+    def with_graph(fn, *inputs):
+        """``fn``'s output with its autograd graph, its leaves, and a dO."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return out, leaves, torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+
+    def backward_only(out, leaves, dout):
+        torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              enable_gqa=True)
+
+    rows = []
+    b, s_, h, kv, d = (2, 4096, 16, 2, 128) if full else (1, 64, 4, 2, 16)
+    live = b * h * s_ * (s_ + 1) // 2                      # causal (query, key) pairs
+    qkv_bytes = 2 * (b * s_ * h * d + 2 * b * s_ * kv * d)
+    sets = copies(lambda: (randn(b, s_, h, d), randn(b, s_, kv, d), randn(b, s_, kv, d)),
+                  qkv_bytes)
+    # reads q, k, v, writes o and the float32 logsumexp; QK^T and PV
+    b_ms, b_by = bound(qkv_bytes + 2 * b * s_ * h * d + 4 * b * h * s_, 4 * d * live,
+                       BF16_FLOP_PER_S)
+    fwd = dict(ms=timed(lambda q, k, v: flash_attention_forward(q, k, v, with_lse=True),
+                        sets, iters=5),
+               plain_ms=timed(flash_attention_plain, sets[:1], iters=2),
+               library_ms=timed(sdpa, sets, iters=5), bound_ms=b_ms, bound_by=b_by)
+    emit("train_kernel_time", kernel="flash_attention forward with logsumexp",
+         shape=f"B{b} S{s_} H{h} KV{kv} D{d} causal bf16", card=smi, **fwd)
+    bwd_sets = []
+    for q, k, v in sets:
+        o, lse = flash_attention_forward(q, k, v, with_lse=True)
+        bwd_sets.append((q, k, v, o, randn(b, s_, h, d), lse))
+    # reads q, k, v, o, dO and the logsumexp, writes dq, dk, dv; five products
+    # a live pair (S and dP again, dV, dK, dQ)
+    b_ms, b_by = bound(2 * qkv_bytes + 2 * 2 * b * s_ * h * d + 4 * b * h * s_, 10 * d * live,
+                       BF16_FLOP_PER_S)
+    bwd = dict(ms=timed(flash_attention_backward, bwd_sets, iters=3),
+               plain_ms=timed(backward_only, [with_graph(flash_attention_plain, *sets[0])],
+                              iters=2),
+               library_ms=timed(backward_only, [with_graph(sdpa, *t) for t in sets], iters=3),
+               bound_ms=b_ms, bound_by=b_by)
+    emit("train_kernel_time", kernel="flash_attention backward",
+         shape=f"B{b} S{s_} H{h} KV{kv} D{d} causal bf16", card=smi, **bwd)
+    del sets, bwd_sets
+    rows.append(("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:85", dict(bwd, forward_with_lse=fwd)))
+
+    n, dn = (8192, 2048) if full else (64, 32)
+    nsets = copies(lambda: (randn(n, dn), 1.0 + 0.1 * randn(dn, dtype=f32), randn(n, dn)),
+                   3 * 2 * n * dn)
+    # reads x, g and w, writes dx and dw
+    b_ms, b_by = bound(3 * 2 * n * dn + 8 * dn, 10 * n * dn, F32_FLOP_PER_S)
+    norm = dict(ms=timed(rmsnorm_backward, nsets),
+                plain_ms=timed(backward_only, [with_graph(rmsnorm_plain, x, w)
+                                               for x, w, _ in nsets]),
+                library_ms=timed(backward_only, [with_graph(
+                    lambda x_, w_: F.rms_norm(x_, (dn,), w_, 1e-5), x, w.to(bf16))
+                    for x, w, _ in nsets]),
+                bound_ms=b_ms, bound_by=b_by)
+    emit("train_kernel_time", kernel="rmsnorm backward", shape=f"({n}, {dn}) bf16", card=smi,
+         **norm)
+    del nsets
+    rows.append(("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:18", norm))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- one train step at full width: kernel route against impl="ref" -----
+    qwen = get_config("qwen2.5-3b")
+    ab_cfg = dataclasses.replace(qwen, n_layers=2) if full else qwen.reduced()
+    ab_seq = 1024 if full else 32
+
+    def one_step(cfg, impl, batch):
+        model = lm.init_params(cfg, device=dev, param_dtype=f32,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+        opt, step_fn = make_train_step(cfg, grad_accum=2, impl=impl, warmup=1)
+        state = opt.init(dict(model.named_parameters()))
+        # kernels launch on the card only (a rehearsal on the CPU runs the
+        # plain versions)
+        metrics, rec = counted(lambda: step_fn(model, state, 0, batch), kernels,
+                               require=True if impl is None and device == "cuda" else ())
+        norms = {k: float(p.grad.norm()) for k, p in model.named_parameters()}
+        return float(metrics["loss"]), norms, rec
+
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(ab_cfg, compute_dtype=dt)
+        pipe = make_pipeline("bigram", cfg, ShapeCfg("ab", ab_seq, 4, "train"), seed=3, accum=2)
+        batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in pipe.host_batch(pipe.init_state()).items()}
+        loss_k, norms_k, rec_k = one_step(cfg, None, batch)
+        loss_r, norms_r, rec_r = one_step(cfg, "ref", batch)
+        if any(rec_r["launches"].values()):
+            raise AssertionError(f"the impl='ref' step launched kernels: {rec_r['launches']}")
+        rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
+        worst = max(rel, key=rel.get)
+        tol = TRAIN_AB_TOL[dt]
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        emit("train_ab", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", compute_dtype=dt, seq=ab_seq,
+             global_batch=4, grad_accum=2, loss_kernels=loss_k, loss_ref=loss_r,
+             loss_rel_diff=loss_rel, worst_grad_norm_leaf=worst,
+             worst_grad_norm_rel_diff=rel[worst], tolerance=tol, leaves=len(rel),
+             launches_kernels=rec_k["launches"], kernel_step_s=rec_k["wall_s"],
+             ref_step_s=rec_r["wall_s"], ok=loss_rel <= tol and rel[worst] <= tol)
+        if loss_rel > tol or rel[worst] > tol:
+            raise AssertionError(f"train step, {dt}: kernel route and impl='ref' differ "
+                                 f"(loss {loss_k} vs {loss_r}; {worst} {rel[worst]})")
+        del batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- qwen2.5-3b at full width and depth through train_loop --------------
+    cfg = qwen if full else qwen.reduced()
+    seq, gbatch, accum = (4096, 8, 4) if full else (32, 4, 2)
+    plain_calls = {}
+    plain_fns = [(fa, "flash_attention_plain"), (rn, "rmsnorm_plain"),
+                 (ref, "mha_reference"), (ref, "rmsnorm_reference")]
+    originals = {(m, a): getattr(m, a) for m, a in plain_fns}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    timed_launches, prof_box = {}, {}
+
+    def on_metrics(rec):
+        if rec["step"] == 0:                     # the warm-up step is done
+            if device == "cuda":
+                torch.cuda.synchronize()
+            for k_ in kernels.values():
+                k_.launches = 0
+            for m, a in plain_fns:
+                setattr(m, a, counting(a, originals[(m, a)]))
+        elif rec["step"] == 4:                   # the 4 timed steps are done
+            timed_launches.update({name: k_.launches for name, k_ in kernels.items()})
+            for m, a in plain_fns:
+                setattr(m, a, originals[(m, a)])
+            act = [torch.profiler.ProfilerActivity.CUDA if device == "cuda"
+                   else torch.profiler.ProfilerActivity.CPU]
+            prof_box["p"] = torch.profiler.profile(activities=act)
+            prof_box["p"].start()
+        elif rec["step"] == 5:
+            prof_box["p"].stop()
+
+    resident = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    loop = TrainLoopConfig(steps=6, seq_len=seq, global_batch=gbatch, grad_accum=accum,
+                           lr=3e-4, warmup=2, log_interval=1, seed=0, data_kind="bigram",
+                           on_metrics=on_metrics)
+    try:
+        t0 = time.perf_counter()
+        summary = train_loop(cfg, loop, device=device)
+        loop_s = time.perf_counter() - t0
+    finally:
+        for m, a in plain_fns:
+            setattr(m, a, originals[(m, a)])
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    n_params = sum(p.numel() for p in summary.model.parameters())
+    n_matmul = n_params - summary.model.embed.numel()    # the lookup is no product
+    tokens = seq * gbatch
+    attn = cfg.attn
+    live_pairs = seq * (seq + 1) // 2
+    flops = (6 * n_matmul * tokens
+             + 12 * attn.head_dim * attn.n_heads * cfg.n_layers * live_pairs * gbatch)
+    losses = [summary.losses[i] for i in range(6)]
+    step_s = [summary.step_seconds[i] for i in range(6)]
+    timed_s = step_s[1:5]
+    prof = prof_box["p"]
+    kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy_s = sum(e.device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:10]
+    median_s = sorted(timed_s)[len(timed_s) // 2]
+    emit("train", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", params=n_params, optimizer=cfg.optimizer,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+         data="bigram", seq=seq, global_batch=gbatch, grad_accum=accum,
+         cuts=["global batch 8, not train_4k's 256"], losses=losses, step_s=step_s,
+         warmup_step_s=step_s[0], timed_steps=4, timed_step_s_median=median_s,
+         tok_per_s=tokens / median_s, model_flops_per_step=flops,
+         model_flop_per_s=flops / median_s, bf16_peak_share=flops / median_s / BF16_FLOP_PER_S,
+         max_memory_allocated=peak, peak_over_resident=peak - resident if peak else None,
+         loop_s=loop_s, launches_timed_steps=timed_launches,
+         plain_calls_timed_steps=plain_calls, card=smi)
+    emit("train_profile", what=f"train step 5 of {cfg.name}", wall_s=step_s[5],
+         device_busy_s=busy_s, device_idle_share=max(0.0, 1 - busy_s / step_s[5]),
+         kernel_launches=sum(e.count for e in kern),
+         top_kernels=[{"name": e.key[:90], "ms": e.device_time_total / 1e3, "calls": e.count}
+                      for e in top], card=smi)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    missing = [k_ for k_, n_ in timed_launches.items() if n_ == 0]
+    if device == "cuda" and (missing or plain_calls):
+        raise AssertionError(f"the timed steps launched no {missing} kernel, or called a "
+                             f"plain version: {plain_calls}")
+    del summary, prof, prof_box
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- a crash and restart, bitwise ----------------------------------------
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(steps=6, seq_len=64 if full else 16, global_batch=4, grad_accum=2,
+                ckpt_interval=2, log_interval=1, warmup=2, lr=1e-3, seed=0)
+    small = qwen.reduced()
+    try:
+        clean = train_loop(small, TrainLoopConfig(**base, ckpt_dir=str(root / "clean")),
+                           device=device)
+        failed = run_resilient(small, TrainLoopConfig(**base, ckpt_dir=str(root / "crash"),
+                                                      failures=FailureInjector({3: "crash"})),
+                               max_restarts=1, device=device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = dict(clean.model.named_parameters())
+    got = dict(failed["summaries"][-1].model.named_parameters())
+    differ = [k_ for k_ in want if not torch.equal(want[k_], got[k_])]
+    emit("train_drill", config=small.name, steps=6, ckpt_interval=2, crash_at=3,
+         restarts=failed["restarts"], restored_from=failed["summaries"][-1].restored_from,
+         losses_clean=[clean.losses[i] for i in range(6)],
+         losses_crashed={int(k_): v for k_, v in failed["losses"].items()},
+         leaves=len(want), leaves_differing=len(differ), first_differing_leaf=(
+             differ[0] if differ else None), bitwise_equal=not differ)
+    if differ or failed["restarts"] != 1:
+        raise AssertionError(f"the restarted run's parameters differ from the uninterrupted "
+                             f"run's, first at {differ[:1]} ({len(differ)} leaves)")
+    return rows, timed_launches
 
 
 def main() -> int:
@@ -1423,14 +1796,33 @@ def main() -> int:
                              f"_composed_step called {fd._composed_step.calls} times")
     emit("resilience_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 10. the record of the kernels, the card, the result ----------------
+    # -- 10. training, after the serving models are freed -------------------
+    # the cuBLAS workspaces that the pipeline's (thread, stream) pairs made
+    # stay allocated after their pipelines close; a CUDA build of torch
+    # frees them on request
+    before = torch.cuda.memory_allocated()
+    del params, m_params, qwen_ctx, mamba_ctx
+    gc.collect()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    emit("train_phase_start", memory_allocated_before=before,
+         memory_allocated=torch.cuda.memory_allocated())
+    train_rows, train_launches = training(check, copies, bound, smi)
+    rows.extend(train_rows)
+    emit("train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 11. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
     # scan and the gated norm; ``pipeline_launches`` the same from the
     # first pipelined serve of each model (phase 8), ``drill_launches``
     # from each model's first crash drill and ``replay_launches`` from
-    # that drill's cache replay run again alone (phase 9)
+    # that drill's cache replay run again alone (phase 9); ``train_launches``
+    # from the 4 timed steps of qwen2.5-3b's training (phase 10), where the
+    # backward kernels' ``launches`` come from (each of their calls launches
+    # the kernels listed)
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -1438,26 +1830,35 @@ def main() -> int:
         "decode_attention": ["decode_attention_kernel"],
         "fused_decode": ["fused_qkv_rope_kernel", "decode_attention_kernel",
                          "fused_out_residual_kernel"],
-        "ssd_scan": ["ssd_scan_kernel"]}
+        "ssd_scan": ["ssd_scan_kernel"],
+        "flash_attention_bwd": ["flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
+                                "flash_bwd_kv_reduce_kernel", "flash_bwd_dq_mma_kernel",
+                                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
+        "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"]}
+    backward = ("flash_attention_bwd", "rmsnorm_bwd")
+    not_served = dict.fromkeys(backward, 0)
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
-                  ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"])
-    piped = dict(pipe_launches, fused_decode=pipe_launches["fused_qkv_rope"],
+                  ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"],
+                  **{k: train_launches[k] for k in backward})
+    piped = dict(not_served, **pipe_launches, fused_decode=pipe_launches["fused_qkv_rope"],
                  ssd_scan=m_pipe_launches["ssd_scan"],
                  rmsnorm_gated=m_pipe_launches["rmsnorm_gated"])
-    drilled = dict(drill_launches, fused_decode=drill_launches["fused_qkv_rope"],
+    drilled = dict(not_served, **drill_launches, fused_decode=drill_launches["fused_qkv_rope"],
                    ssd_scan=m_drill_launches["ssd_scan"],
                    rmsnorm_gated=m_drill_launches["rmsnorm_gated"])
-    replayed = dict(replay_launches, fused_decode=replay_launches["fused_qkv_rope"],
+    replayed = dict(not_served, **replay_launches,
+                    fused_decode=replay_launches["fused_qkv_rope"],
                     ssd_scan=m_replay_launches["ssd_scan"],
                     rmsnorm_gated=m_replay_launches["rmsnorm_gated"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
          "pipeline_launches": piped[name], "drill_launches": drilled[name],
-         "replay_launches": replayed[name],
+         "replay_launches": replayed[name], "train_launches": train_launches.get(name, 0),
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
+         **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (
              "ms", "floor_ms", "plain_ms", "bound_ms", "library_ms")} for s, v in
              t["by_shape"].items()}} if "by_shape" in t else {}),

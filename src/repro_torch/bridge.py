@@ -7,10 +7,11 @@ it) and imports nothing of JAX.  The per-layer leaves under
 pattern) are stacked over layer periods along their leading axis; the
 bridge unstacks period p of position i into layer ``p * len(pattern) +
 i`` of the ``nn.ModuleList``.  Each value is cast to the port parameter's
-dtype (the compute dtype for matrices, biases and the Mamba conv taps,
-float32 for norms and the Mamba ``dt_bias``, ``a_log`` and ``d_skip``),
-which is the cast the JAX code makes at every use, so both packages
-compute with the same numbers.  bf16 leaves pass
+dtype (for serving the compute dtype for matrices, biases and the Mamba
+conv taps, float32 for norms and the Mamba ``dt_bias``, ``a_log`` and
+``d_skip``; for training ``param_dtype`` throughout but the float32
+ones), which is the cast the JAX code makes at every use, so both
+packages compute with the same numbers.  bf16 leaves pass
 through float32 on the way, because ``torch.from_numpy`` does not take
 ml_dtypes' bfloat16.
 """
@@ -39,9 +40,11 @@ def _flat_jax(cfg: ModelConfig, params) -> dict:
     return out
 
 
-def from_jax(cfg: ModelConfig, params, *, device="cuda") -> LM:
-    """A port `LM` on ``device`` holding the JAX ``params`` (numpy leaves)."""
-    model = LM(cfg, device=resolve_device(device))
+def from_jax(cfg: ModelConfig, params, *, device="cuda", param_dtype=None) -> LM:
+    """A port `LM` on ``device`` holding the JAX ``params`` (numpy leaves):
+    for serving (``param_dtype`` None) in the compute dtype, or as trainable
+    masters of ``param_dtype`` (the JAX float32 masters as they are)."""
+    model = LM(cfg, device=resolve_device(device), param_dtype=param_dtype)
     src = _flat_jax(cfg, params)
     dst = dict(model.named_parameters())
     if src.keys() != dst.keys():

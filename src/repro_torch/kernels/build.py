@@ -169,3 +169,14 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raises where autograd would have to run through kernel ``name``, which
+    has no backward kernel yet: no silent detach, no plain-version fallback."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: this kernel has no backward kernel on the card yet (ROADMAP.md, "
+            "queue 1, item 6: the SSD scan's and the gated norm's backward kernels come "
+            "next; decode attention and the fused decode chain serve only); run it under "
+            "torch.no_grad(), or train on the CPU")

@@ -288,6 +288,93 @@ int launch(const Args& a, int warps, int units, int groups, int blocks, void* st
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- the backward pass ------------------------------------------------------
+//
+// With r = rsqrt(mean(x^2) + eps) in float32 and g the output's gradient:
+//   dx = r (g w) - x r^3 mean(g w x),   dw = sum over rows of g x r.
+// rmsnorm_bwd_kernel: a block walks rows grid-stride, one row at a time:
+// a pass over the row for sum(x^2) and sum(g w x) (one block reduction of
+// the pair), a second (from L1/L2) writing dx and adding g x r to the
+// block's float32 partial of dw in shared memory, where each thread owns
+// its columns; at the end the block writes its partial row.
+// rmsnorm_dw_kernel: dw = the partial rows summed in block order.  No
+// atomics: two calls on the same inputs give the same bits.  Bound on the
+// H100: bytes (x and g read, dx written, and the partials, a few MB).
+
+// The pair (a, b) summed over the block; every thread gets both.  The
+// leading barrier lets the buffer be reused from one row to the next.
+__device__ __forceinline__ float2 block_sum2(float a, float b) {
+  __shared__ float2 partial[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = repro::warp_sum(a);
+  b = repro::warp_sum(b);
+  __syncthreads();
+  if (lane == 0) partial[warp] = make_float2(a, b);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) {
+    t.x += partial[i].x;
+    t.y += partial[i].y;
+  }
+  return t;
+}
+
+template <typename T>
+__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                                   const T* __restrict__ g, T* __restrict__ dx,
+                                   float* __restrict__ dw_part, int rows, int D, float eps) {
+  extern __shared__ float acc[];   // this block's sum of g x r, a column a float
+  for (int i = threadIdx.x; i < D; i += blockDim.x) acc[i] = 0.f;
+  for (long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * D;
+    const T* gr = g + row * D;
+    float ss = 0.f, gwx = 0.f;
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float xf = to_float(xr[i]);
+      ss += xf * xf;
+      gwx += to_float(gr[i]) * w[i] * xf;
+    }
+    const float2 t = block_sum2(ss, gwx);
+    const float r = rsqrtf(t.x / D + eps);
+    const float c = r * r * r * t.y / D;
+    T* dxr = dx + row * D;
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float xf = to_float(xr[i]), gf = to_float(gr[i]);
+      dxr[i] = from_float<T>(r * gf * w[i] - xf * c);
+      acc[i] += gf * xf * r;
+    }
+  }
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    dw_part[static_cast<long>(blockIdx.x) * D + i] = acc[i];
+}
+
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw,
+                                  int parts, int D) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= D) return;
+  float s = 0.f;
+  for (int b = 0; b < parts; ++b) s += dw_part[static_cast<long>(b) * D + col];
+  dw[col] = s;
+}
+
+constexpr int BWD_THREADS = 256;
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_part, void* dw,
+               int rows, int D, float eps, int blocks, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * D;
+  cudaError_t err = repro::allow_shared(rmsnorm_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(g),
+      static_cast<T*>(dx), static_cast<float*>(dw_part), rows, D, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dw_kernel<<<(D + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(
+      static_cast<const float*>(dw_part), static_cast<float*>(dw), blocks, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define RMSNORM_ENTRY(SUFFIX, T)                                                               \
@@ -309,6 +396,17 @@ int launch(const Args& a, int warps, int units, int groups, int blocks, void* st
 
 RMSNORM_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_ENTRY(f32, float)
+
+// dx laid out as x; dw_part float32 (blocks, D) scratch; dw float32 (D,)
+#define RMSNORM_BWD_ENTRY(SUFFIX, T)                                                           \
+  extern "C" int rmsnorm_bwd_##SUFFIX(const void* x, const void* w, const void* g, void* dx,   \
+                                      void* dw_part, void* dw, int rows, int D, float eps,     \
+                                      int blocks, void* stream) {                              \
+    return launch_bwd<T>(x, w, g, dx, dw_part, dw, rows, D, eps, blocks, stream);              \
+  }
+
+RMSNORM_BWD_ENTRY(bf16, __nv_bfloat16)
+RMSNORM_BWD_ENTRY(f32, float)
 
 // An empty kernel on a given grid: the launch floor a norm's time is held
 // against.

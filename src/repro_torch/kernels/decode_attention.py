@@ -136,6 +136,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if not isinstance(cache_len, torch.Tensor):
         raise TypeError("decode_attention: cache_len must be a device int32 tensor on "
                         "the card, so that the step needs no host sync")
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
     b, h, d = q.shape
     _, c, kv, _ = k_cache.shape

@@ -1,15 +1,19 @@
-"""Prefill attention: the CUDA kernel ``csrc/flash_attention.cu`` and its
-plain version.
+"""Prefill and training attention: the CUDA kernels ``csrc/flash_attention.cu``
+and their plain version.
 
 Forward attention in the JAX layout, q (B, Sq, H, D) and k, v (B, Sk, KV,
 D), GQA with H a multiple of KV.  With qpos = q index + ``kv_offset``, key
 kpos takes part when kpos < Sk, kpos <= qpos if ``causal``, and kpos >
 qpos - ``window`` with a window.
 
-The kernel replaces the Pallas TPU kernel `_flash_kernel`
+The forward kernel replaces the Pallas TPU kernel `_flash_kernel`
 (``repro/kernels/flash_attention.py``).  ``flash_attention`` launches it
 for CUDA tensors and runs the plain version for CPU tensors: bf16 runs on
-the tensor cores (``mma.sync``), float32 on the CUDA cores.
+the tensor cores (``mma.sync``), float32 on the CUDA cores.  When an input
+requires grad, the call goes through `_FlashAttention`: the forward kernel
+also writes each row's logsumexp, and the backward is the hand-written
+kernel `flash_attention_backward` (the JAX package has no backward kernel;
+it trains through its composed tiers).
 """
 from __future__ import annotations
 
@@ -18,12 +22,13 @@ import torch
 from . import build
 from .ref import NEG_INF
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_forward",
+           "flash_attention_plain"]
 
-MAX_HEAD_DIM = 128   # the kernel's register tile holds 128 output columns
+MAX_HEAD_DIM = 128   # the kernels' register tiles hold 128 output columns
 
-_ARGS = [build.P, build.P, build.P, build.P, build.I, build.I, build.I, build.I,
-         build.I, build.I, build.F, build.I, build.I, build.I, build.P]
+_ARGS = [build.P] * 5 + [build.I] * 6 + [build.F] + [build.I] * 3 + [build.P]
+_BWD_ARGS = [build.P] * 11 + [build.I] * 6 + [build.F] + [build.I] * 3 + [build.P]
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -48,32 +53,108 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = 
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                    scale: float | None = None, kv_offset: int = 0):
-    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, kv_offset=kv_offset)
-    build.check_cuda("flash_attention", q, k, v)
+def _check(name, q, k, v):
+    build.check_cuda(name, q, k, v)
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     if (q.dtype not in build.DTYPE_SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype
             or k.shape != (b, sk, kv, d) or v.shape != k.shape or h % kv
             or d > MAX_HEAD_DIM):
         raise ValueError(
-            f"flash_attention: q (B,Sq,H,D) and k, v (B,Sk,KV,D) of one dtype "
+            f"{name}: q (B,Sq,H,D) and k, v (B,Sk,KV,D) of one dtype "
             f"(bf16/float32), KV dividing H, D <= {MAX_HEAD_DIM}; got q {q.dtype} "
             f"{tuple(q.shape)}, k {k.dtype} {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def flash_attention_forward(q, k, v, *, causal: bool = True, window: int | None = None,
+                            scale: float | None = None, kv_offset: int = 0,
+                            with_lse: bool = False):
+    """One launch of the forward kernel on CUDA tensors: the output and,
+    ``with_lse``, each row's logsumexp of the scaled live logits, float32
+    (B, H, Sq) (+inf for a row with no live key)."""
+    _check("flash_attention", q, k, v)
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    build.call(f"flash_attention_{build.DTYPE_SUFFIX[q.dtype]}", _ARGS,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel():
+        build.call(f"flash_attention_{build.DTYPE_SUFFIX[q.dtype]}", _ARGS,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr() if with_lse else None, b, sq, sk, h, kv, d, scale,
+                   int(causal), window or 0, kv_offset, build.stream(q.device))
+        build.count(flash_attention)
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int | None = None, scale: float | None = None,
+                             kv_offset: int = 0):
+    """dq, dk, dv of the forward for CUDA tensors, from its output ``o`` and
+    logsumexp ``lse``: one call launches the kernels of
+    ``csrc/flash_attention.cu``'s backward (row dots, then dK/dV by key
+    tile (bf16: by key tile and query head, then their fixed-order sum), dQ
+    by query tile), which use no atomics."""
+    _check("flash_attention_backward", q, k, v)
+    build.check_cuda("flash_attention_backward", q, o, do, lse)
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_backward: o and do as q {tuple(q.shape)} "
+                         f"{q.dtype}, lse float32 ({b}, {h}, {sq}); got o {o.dtype} "
+                         f"{tuple(o.shape)}, do {do.dtype} {tuple(do.shape)}, lse "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    scale = scale if scale is not None else d ** -0.5
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    rows = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # bf16: each query head's float32 share of dk and dv, summed by a second kernel
+    part = (torch.empty((2, b, sk, h, d), dtype=torch.float32, device=q.device)
+            if q.dtype == torch.bfloat16 else None)
+    build.call(f"flash_attention_bwd_{build.DTYPE_SUFFIX[q.dtype]}", _BWD_ARGS,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), rows.data_ptr(), None if part is None else part.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                b, sq, sk, h, kv, d, scale, int(causal), window or 0, kv_offset,
                build.stream(q.device))
-    build.count(flash_attention)
-    return out
+    build.count(flash_attention_backward)
+    return dq, dk, dv
 
 
-flash_attention.launches = 0   # kernel launches, for showing a run went through it
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its logsumexp, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_offset):
+        out, lse = flash_attention_forward(q, k, v, causal=causal, window=window,
+                                           scale=scale, kv_offset=kv_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale, kv_offset=kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do.contiguous(), lse, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None, kv_offset: int = 0):
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D).  On the card,
+    differentiable through the backward kernel when an input requires
+    grad; otherwise one forward launch, as serving runs it."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, kv_offset=kv_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale, kv_offset)
+    return flash_attention_forward(q, k, v, causal=causal, window=window, scale=scale,
+                                   kv_offset=kv_offset)[0]
+
+
+flash_attention.launches = 0            # forward kernel launches
+flash_attention_backward.launches = 0   # backward calls (three kernels each)

@@ -277,6 +277,7 @@ def fused_decode(x, k_cache, v_cache, pos, *, norm, wq, wk, wv, wo, bq=None, bk=
     device the kernels do not take."""
     B, _, D = x.shape
     x2 = x.reshape(B, D)
+    build.refuse_grad("fused_decode", x, norm, wq, wk, wv, wo, bq, bk, bv)
     _check_chain(x2, k_cache, v_cache, pos, norm, wq, wk, wv, wo, (bq, bk, bv), n_heads,
                  head_dim)
     scale = scale if scale is not None else head_dim ** -0.5

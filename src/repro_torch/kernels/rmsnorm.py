@@ -8,6 +8,11 @@ source says what bounds them on the H100 and how they are laid out;
 `norm_plan` chooses the launch on the host from the shapes and the card's
 properties.  ``rmsnorm`` and ``rmsnorm_gated`` launch a kernel for CUDA
 tensors and run the plain version for CPU tensors.
+
+On the card, ``rmsnorm`` is differentiable when ``x`` or ``w`` requires
+grad: `_RmsNorm` runs the forward kernel and the backward kernel
+(`rmsnorm_backward`, in the same source).  The gated form has no backward
+kernel yet and refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -20,13 +25,16 @@ import torch.nn.functional as F
 from . import build
 from .ref import rmsnorm_reference as rmsnorm_plain  # the kernel's plain version
 
-__all__ = ["rmsnorm", "rmsnorm_gated", "rmsnorm_gated_plain", "rmsnorm_plain", "norm_plan"]
+__all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_plain",
+           "rmsnorm_plain", "norm_plan"]
 
 THREADS = 256      # a block of the row kernel at most (its launch bounds)
 REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an SM
 MAX_UNITS = {False: 4, True: 2}   # 16-byte pieces of a row a lane holds: plain, gated
 
 _ARGS = [build.P, build.P, build.P, build.I, build.I, build.F] + [build.I] * 4 + [build.P]
+_BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F, build.I, build.P]
+MAX_BWD_WIDTH = 50_000   # the backward keeps a float32 partial of dw a column in shared memory
 _GATED_ARGS = ([build.P] * 4 + [build.L, build.I, build.P, build.P, build.I, build.I, build.F]
                + [build.I] * 4 + [build.P])
 
@@ -99,15 +107,17 @@ def _plan(x: torch.Tensor, rows: int, d: int, gated: bool, aligned: bool) -> Nor
                      card=card_of(x.device.index))
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., D) bf16 or float32, w: (D,) float32 -> x's shape and dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, w, eps=eps)
-    build.check_cuda("rmsnorm", x, w)
+def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    build.check_cuda(name, x, w)
     d = x.shape[-1]
     if x.dtype not in build.DTYPE_SUFFIX or w.dtype != torch.float32 or w.shape != (d,):
-        raise ValueError(f"rmsnorm: x bf16/float32 (..., {d}) and w float32 ({d},), "
+        raise ValueError(f"{name}: x bf16/float32 (..., {d}) and w float32 ({d},), "
                          f"got {x.dtype} {tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    _check("rmsnorm", x, w)
+    d = x.shape[-1]
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -119,7 +129,60 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
     return out
 
 
-rmsnorm.launches = 0   # kernel launches, for showing a run went through it
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """dx (x's shape and dtype) and dw (float32) of ``rmsnorm(x, w)`` for the
+    output gradient ``g``, on CUDA tensors: the backward kernel, then the
+    fixed-order sum of its per-block partials of dw (no atomics)."""
+    _check("rmsnorm_backward", x, w)
+    build.check_cuda("rmsnorm_backward", x, g)
+    d = x.shape[-1]
+    if g.shape != x.shape or g.dtype != x.dtype or d > MAX_BWD_WIDTH:
+        raise ValueError(f"rmsnorm_backward: g as x {x.dtype} {tuple(x.shape)}, width <= "
+                         f"{MAX_BWD_WIDTH}; got g {g.dtype} {tuple(g.shape)}")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    blocks = min(rows, 2 * card_of(x.device.index).sms)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(w)
+    build.call(f"rmsnorm_bwd_{build.DTYPE_SUFFIX[x.dtype]}", _BWD_ARGS, x.data_ptr(),
+               w.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows,
+               d, eps, blocks, build.stream(x.device))
+    build.count(rmsnorm_backward)
+    return dx, dw
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The forward kernel and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, w, g.contiguous(), eps=ctx.eps)
+        return dx, dw, None
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D) bf16 or float32, w: (D,) float32 -> x's shape and dtype.
+    On the card, differentiable through the backward kernel when x or w
+    requires grad; otherwise one forward launch."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, w, eps=eps)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RmsNorm.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+rmsnorm.launches = 0            # forward kernel launches
+rmsnorm_backward.launches = 0   # backward calls (two kernels each)
 
 
 def rmsnorm_gated_plain(y, xh, d_skip, z, w, *, eps: float = 1e-5):
@@ -156,6 +219,7 @@ def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
     (H,) and w (H*P,) float32 -> z's shape and dtype, contiguous."""
     if y.device.type == "cpu":
         return rmsnorm_gated_plain(y, xh, d_skip, z, w, eps=eps)
+    build.refuse_grad("rmsnorm_gated", y, xh, d_skip, z, w)
     build.check_cuda("rmsnorm_gated", y, xh, d_skip, w)
     if z.device != y.device:
         raise ValueError(f"rmsnorm_gated: z on {z.device}, the rest on {y.device}")

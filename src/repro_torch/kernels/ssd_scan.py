@@ -43,6 +43,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
     y (B, L, H, P) in x's dtype, final state (B, H, P, N) float32."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    build.refuse_grad("ssd_scan", x, dt, a, b, c)
     if chunk < 1:
         raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
     B, L, H, P = x.shape

@@ -18,12 +18,15 @@ leaf for leaf:
   init_attn_cache, init_mamba_cache
 
 Matrix weights, biases, the Mamba conv taps and the embedding are held in
-the compute dtype: the JAX code casts each of them to it at every use
-(``.astype(x.dtype)``), so the values are the same and the weights take
-half the memory and half the bytes per decode step.  Norm weights and
-the Mamba ``dt_bias``, ``a_log`` and ``d_skip`` stay float32, as the JAX
-code uses them (``d_skip`` is cast at its use).  Parameters take no
-gradients: the port serves only.
+``param_dtype``: for serving (``None``, the default) the compute dtype,
+with no gradient, so the weights take half the memory and half the bytes
+per decode step of float32 masters; for training the masters' dtype
+(``cfg.param_dtype``, float32), with gradients.  Every module casts a
+weight to the compute dtype where it uses it, as the JAX code does
+(``.astype(x.dtype)``); ``Tensor.to`` of the same dtype returns the tensor
+itself, so serving pays nothing for it.  Norm weights and the Mamba
+``dt_bias``, ``a_log`` and ``d_skip`` are float32 either way, as the JAX
+code uses them (``d_skip`` is cast at its use).
 """
 from __future__ import annotations
 
@@ -36,40 +39,47 @@ from ..kernels import ops, ref
 from .common import activation, dense_init, dtype_of, rmsnorm, rope
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+class Maker:
+    """Makes a module's parameters: in ``param_dtype`` (``None``: the compute
+    dtype, no gradient; a dtype: trainable masters of it), random from
+    ``generator`` or left unset for ``bridge.py`` to fill."""
 
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator | None,
+                 param_dtype: torch.dtype | None = None):
+        self.device, self.generator = device, generator
+        self.dtype = param_dtype or dtype_of(cfg.compute_dtype)
+        self.trainable = param_dtype is not None
 
-def weight_maker(cfg: ModelConfig, device, generator: torch.Generator | None):
-    """Maker of matrix weights in the compute dtype: random from
-    ``generator``, or left unset for ``bridge.py`` to fill."""
-    dt = dtype_of(cfg.compute_dtype)
+    def _param(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=self.trainable)
 
-    def make(shape, scale=None):
-        if generator is None:
-            return frozen(torch.empty(shape, dtype=dt, device=device))
-        return frozen(dense_init(shape, dt, generator=generator, device=device,
-                                 scale=scale))
-    return make
+    def weight(self, shape, scale=None) -> nn.Parameter:
+        if self.generator is None:
+            return self._param(torch.empty(shape, dtype=self.dtype, device=self.device))
+        return self._param(dense_init(shape, self.dtype, generator=self.generator,
+                                      device=self.device, scale=scale))
+
+    def fill(self, value: float, shape, dtype=None) -> nn.Parameter:
+        """A constant: float32 (norms, the Mamba scalars) unless ``dtype``."""
+        return self._param(torch.full(shape, value, dtype=dtype or torch.float32,
+                                      device=self.device))
 
 
 class Attention(nn.Module):
     """Pre-norm self-attention sublayer with residual (`init_attn`)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, param_dtype=None):
         super().__init__()
+        make = Maker(cfg, device, generator, param_dtype)
         a = cfg.attn
         self.cfg = cfg
         d, hd = cfg.d_model, a.head_dim
-        w = weight_maker(cfg, device, generator)
-        self.norm = frozen(torch.ones(d, dtype=torch.float32, device=device))
-        self.wq = w((d, a.n_heads * hd))
-        self.wk = w((d, a.n_kv_heads * hd))
-        self.wv = w((d, a.n_kv_heads * hd))
-        self.wo = w((a.n_heads * hd, d))
-        bias = (lambda n: frozen(torch.zeros(n, dtype=dtype_of(cfg.compute_dtype),
-                                             device=device))) if a.qkv_bias \
-            else (lambda n: None)
+        self.norm = make.fill(1.0, (d,))
+        self.wq = make.weight((d, a.n_heads * hd))
+        self.wk = make.weight((d, a.n_kv_heads * hd))
+        self.wv = make.weight((d, a.n_kv_heads * hd))
+        self.wo = make.weight((a.n_heads * hd, d))
+        bias = (lambda n: make.fill(0.0, (n,), make.dtype)) if a.qkv_bias else (lambda n: None)
         self.bq = bias(a.n_heads * hd)
         self.bk = bias(a.n_kv_heads * hd)
         self.bv = bias(a.n_kv_heads * hd)
@@ -77,13 +87,14 @@ class Attention(nn.Module):
     def _qkv(self, x, positions):
         a = self.cfg.attn
         B, S, _ = x.shape
-        q = x @ self.wq
-        k = x @ self.wk
-        v = x @ self.wv
+        dt = x.dtype
+        q = x @ self.wq.to(dt)
+        k = x @ self.wk.to(dt)
+        v = x @ self.wv.to(dt)
         if self.bq is not None:
-            q = q + self.bq
-            k = k + self.bk
-            v = v + self.bv
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
         q = rope(q.view(B, S, a.n_heads, a.head_dim), positions, a.rope_theta)
         k = rope(k.view(B, S, a.n_kv_heads, a.head_dim), positions, a.rope_theta)
         return q, k, v.view(B, S, a.n_kv_heads, a.head_dim)
@@ -95,7 +106,7 @@ class Attention(nn.Module):
         q, k, v = self._qkv(h, positions)
         o = ops.attention(q, k, v, causal=True, window=self.cfg.attn.window, impl=impl)
         B, S, _ = x.shape
-        out = x + o.reshape(B, S, -1) @ self.wo
+        out = x + o.reshape(B, S, -1) @ self.wo.to(x.dtype)
         return (out, (k, v)) if return_kv else out
 
     def decode(self, x, cache, pos, *, impl=None):
@@ -126,7 +137,7 @@ class Attention(nn.Module):
         cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         cache_len = torch.clamp(pos + 1, max=C)
         o = ref.decode_attention_ref(q[:, 0], cache["k"], cache["v"], cache_len)
-        return x + o.reshape(B, 1, -1) @ self.wo, cache
+        return x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype), cache
 
 
 def attn_cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -144,31 +155,28 @@ def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device):
 class Mamba(nn.Module):
     """Pre-norm Mamba2 (SSD) mixer with residual (`init_mamba`)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, param_dtype=None):
         super().__init__()
+        make = Maker(cfg, device, generator, param_dtype)
         m = cfg.mamba
         self.cfg = cfg
         d = cfg.d_model
         di, H, N = m.d_inner(d), m.n_ssm_heads(d), m.d_state
-        w = weight_maker(cfg, device, generator)
-
-        def f32(fill, n):
-            return frozen(torch.full((n,), fill, dtype=torch.float32, device=device))
-        self.norm = f32(1.0, d)
-        self.w_xz = w((d, 2 * di))
-        self.w_bcdt = w((d, 2 * m.n_groups * N + H))
-        self.conv_w = w((m.d_conv, di), scale=0.5)
-        self.dt_bias = f32(0.0, H)
-        self.a_log = f32(0.0, H)                  # A = -exp(a_log) = -1
-        self.d_skip = f32(1.0, H)
-        self.gate_norm = f32(1.0, di)
-        self.w_out = w((di, d))
+        self.norm = make.fill(1.0, (d,))
+        self.w_xz = make.weight((d, 2 * di))
+        self.w_bcdt = make.weight((d, 2 * m.n_groups * N + H))
+        self.conv_w = make.weight((m.d_conv, di), scale=0.5)
+        self.dt_bias = make.fill(0.0, (H,))
+        self.a_log = make.fill(0.0, (H,))          # A = -exp(a_log) = -1
+        self.d_skip = make.fill(1.0, (H,))
+        self.gate_norm = make.fill(1.0, (di,))
+        self.w_out = make.weight((di, d))
 
     def _proj(self, h):
         """`_mamba_proj`: x_in, z (..., di); b, c (..., N); dt float32 (..., H)."""
         N = self.cfg.mamba.d_state
-        x_in, z = torch.chunk(h @ self.w_xz, 2, dim=-1)
-        bcdt = h @ self.w_bcdt
+        x_in, z = torch.chunk(h @ self.w_xz.to(h.dtype), 2, dim=-1)
+        bcdt = h @ self.w_bcdt.to(h.dtype)
         b, c, dt_raw = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
         dt = F.softplus(dt_raw.float() + self.dt_bias)
         return x_in, z, b, c, dt
@@ -185,7 +193,7 @@ class Mamba(nn.Module):
             y = rmsnorm(y, self.gate_norm, self.cfg.norm_eps, impl)
         else:
             y = ops.rmsnorm_gated(y, xh, self.d_skip, z, self.gate_norm, eps=self.cfg.norm_eps)
-        return x + y @ self.w_out
+        return x + y @ self.w_out.to(x.dtype)
 
     def forward(self, x, *, impl=None):
         """The Mamba branch of `lm.prefill_blocks`: x (B, S, D) -> (out,
@@ -200,8 +208,9 @@ class Mamba(nn.Module):
         # depthwise causal conv (d_conv taps) as shifted adds
         padded = F.pad(x_in, (0, 0, m.d_conv - 1, 0))
         conv = torch.zeros_like(x_in)
+        w = self.conv_w.to(x_in.dtype)
         for k in range(m.d_conv):
-            conv = conv + padded[:, k:k + S] * self.conv_w[k]
+            conv = conv + padded[:, k:k + S] * w[k]
         xh = F.silu(conv).reshape(B, S, H, m.head_dim)
         y, state = ops.ssd(xh, dt, -torch.exp(self.a_log), b, c, impl=impl)
         return self._gate_out(x, y, xh, z, impl), (padded[:, S:], state)
@@ -215,7 +224,7 @@ class Mamba(nn.Module):
         H = m.n_ssm_heads(self.cfg.d_model)
         h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
         x_in, z, b, c, dt = (t[:, 0] for t in self._proj(h))
-        w, hist = self.conv_w, cache["conv"]
+        w, hist = self.conv_w.to(x_in.dtype), cache["conv"]
         conv = x_in * w[-1] + torch.einsum("bkd,kd->bd", hist.to(x_in.dtype), w[:-1])
         hist.copy_(torch.cat([hist[:, 1:], x_in[:, None].to(hist.dtype)], dim=1))
         xh = F.silu(conv).reshape(B, H, m.head_dim)
@@ -237,22 +246,23 @@ class MLP(nn.Module):
     ``d_ff == 0`` (attention-free Mamba2 stacks) it holds only ``norm``
     and passes x through."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, param_dtype=None):
         super().__init__()
+        make = Maker(cfg, device, generator, param_dtype)
         self.cfg = cfg
         d, f = cfg.d_model, cfg.d_ff
-        self.norm = frozen(torch.ones(d, dtype=torch.float32, device=device))
+        self.norm = make.fill(1.0, (d,))
         if f == 0:
             return
-        w = weight_maker(cfg, device, generator)
-        self.w_gate = w((d, f)) if cfg.act == "silu_glu" else None
-        self.w_up = w((d, f))
-        self.w_down = w((f, d))
+        self.w_gate = make.weight((d, f)) if cfg.act == "silu_glu" else None
+        self.w_up = make.weight((d, f))
+        self.w_down = make.weight((f, d))
 
     def _ffn(self, h):
+        dt = h.dtype
         if self.w_gate is not None:
-            return (F.silu(h @ self.w_gate) * (h @ self.w_up)) @ self.w_down
-        return activation(self.cfg.act)(h @ self.w_up) @ self.w_down
+            return (F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))) @ self.w_down.to(dt)
+        return activation(self.cfg.act)(h @ self.w_up.to(dt)) @ self.w_down.to(dt)
 
     def forward(self, x, *, impl=None):
         """`mlp_forward`: x (B, S, D) -> (B, S, D)."""

@@ -1,4 +1,5 @@
-"""Decoder-only LM: parameters, prompt pass and decode step.
+"""Decoder-only LM: parameters, the full-sequence forward and loss
+(training), the prompt pass and the decode step (serving).
 
 Ported from ``repro/models/lm.py`` for decoders whose layers are
 attention or Mamba2 mixers with a dense MLP (the dense configs and
@@ -18,6 +19,10 @@ Serving keeps the cache on the device between steps:
     sliding-window config reaches;
   * a Mamba layer's cache is its conv tail and its SSM state, both
     overwritten in place by each step.
+
+Training runs `loss_fn` → `forward` → `_run_stack` over float32 masters
+(``init_params(..., param_dtype=torch.float32)``), each period of layers
+under `_remat`'s policy, and `common.chunked_lm_loss`.
 """
 from __future__ import annotations
 
@@ -27,10 +32,11 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import blocks
-from .common import rmsnorm
+from .common import chunked_lm_loss, dtype_of, rmsnorm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -43,39 +49,46 @@ def _check_supported(cfg: ModelConfig) -> None:
 class DecoderLayer(nn.Module):
     """One layer: the mixer (``attn`` or ``mamba``) then the MLP (``mlp``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None,
+                 param_dtype=None):
         super().__init__()
         self.kind = kind
         mixer = blocks.Attention if kind == "attn" else blocks.Mamba
-        self.mixer = mixer(cfg, device=device, generator=generator)
-        self.mlp = blocks.MLP(cfg, device=device, generator=generator)
+        kw = dict(device=device, generator=generator, param_dtype=param_dtype)
+        self.mixer = mixer(cfg, **kw)
+        self.mlp = blocks.MLP(cfg, **kw)
 
 
 class LM(nn.Module):
     """The parameters of `init_params`, under the JAX names: ``embed``
     (Vp, D), ``final_norm`` (D,), ``head`` (D, Vp) unless tied, and
     ``layers``.  With no generator the storage is left unset, for
-    ``bridge.py`` to fill."""
+    ``bridge.py`` to fill.  ``param_dtype``: None for serving (weights in
+    the compute dtype, no gradients); a dtype for training (the masters
+    the optimizer updates, with gradients)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.padded_vocab
-        make = blocks.weight_maker(cfg, device, generator)
-        self.embed = make((vp, d), scale=0.02)
-        self.final_norm = blocks.frozen(torch.ones(d, dtype=torch.float32, device=device))
-        self.head = None if cfg.tie_embeddings else make((d, vp))
+        make = blocks.Maker(cfg, device, generator, param_dtype)
+        self.embed = make.weight((vp, d), scale=0.02)
+        self.final_norm = make.fill(1.0, (d,))
+        self.head = None if cfg.tie_embeddings else make.weight((d, vp))
         pattern = cfg.block_pattern
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, pattern[i % len(pattern)][0], device=device,
-                         generator=generator)
+                         generator=generator, param_dtype=param_dtype)
             for i in range(cfg.n_layers))
 
 
-def init_params(cfg: ModelConfig, *, device, generator: torch.Generator) -> LM:
-    """Random weights on ``device``, drawn from ``generator``."""
-    return LM(cfg, device=device, generator=generator)
+def init_params(cfg: ModelConfig, *, device, generator: torch.Generator,
+                param_dtype: torch.dtype | None = None) -> LM:
+    """Random weights on ``device``, drawn from ``generator``; trainable
+    masters of ``param_dtype`` if one is given (`LM`)."""
+    return LM(cfg, device=device, generator=generator, param_dtype=param_dtype)
 
 
 def _head(cfg: ModelConfig, params: LM):
@@ -84,7 +97,80 @@ def _head(cfg: ModelConfig, params: LM):
 
 def _embed_inputs(cfg: ModelConfig, params: LM, batch):
     """Token embeddings (B, S, D) in the compute dtype."""
-    return params.embed[batch["tokens"]]
+    return params.embed[batch["tokens"]].to(dtype_of(cfg.compute_dtype))
+
+
+# ===========================================================================
+# training: the full-sequence forward and the loss
+# ===========================================================================
+# `_remat`'s "dots" policy: keep every matrix product's output, recompute
+# the rest (``jax.checkpoint_policies.checkpoint_dots``)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``"none"``: ``fn`` as it is; ``"full"``: keep only its inputs and
+    recompute the rest in the backward pass; ``"dots"``: keep its matrix
+    products' outputs too."""
+    if mode == "none":
+        return fn
+    if mode == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, context_fn=context)
+    if mode == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"remat must be none, dots or full, got {mode!r}")
+
+
+def _apply_period(layers, x, positions, *, impl=None):
+    for layer in layers:
+        if layer.kind == "mamba":
+            x, _ = layer.mixer(x, impl=impl)
+        else:
+            x = layer.mixer(x, positions, impl=impl)
+        x = layer.mlp(x, impl=impl)
+    return x
+
+
+def _run_stack(cfg: ModelConfig, layers, x, positions, *, impl=None, remat: str | None = None):
+    """Every period of ``block_pattern`` in turn, each under `_remat`."""
+    n = len(cfg.block_pattern)
+    periods = [layers[i:i + n] for i in range(0, len(layers), n)]
+    body = _remat(functools.partial(_apply_period, impl=impl),
+                  remat if remat is not None else cfg.remat)
+    for period in periods:
+        x = body(period, x, positions)
+    return x
+
+
+def forward(cfg: ModelConfig, params: LM, batch, *, impl=None, remat: str | None = None):
+    """Full-sequence forward: the final hidden states (B, S, D), after the
+    final norm."""
+    x = _embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(cfg, params.layers, x, positions, impl=impl, remat=remat)
+    return rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch, *, impl=None):
+    """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
+    ``batch["mask"]`` where given): (loss, {"loss": loss}); each period of
+    layers under ``cfg.remat``."""
+    x = forward(cfg, params, batch, impl=impl)
+    loss = chunked_lm_loss(x, _head(cfg, params), batch["labels"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+def logits_fn(cfg: ModelConfig, params: LM, batch, *, impl=None, last_only: bool = True):
+    x = forward(cfg, params, batch, impl=impl, remat="none")
+    h = x[:, -1:] if last_only else x
+    return h @ _head(cfg, params).to(x.dtype)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device,
@@ -140,7 +226,7 @@ def prefill(cfg: ModelConfig, params: LM, batch, *, capacity: int | None = None,
     cache = init_cache(cfg, B, capacity or S, dtype=x.dtype, device=x.device)
     x = prefill_blocks(cfg, params.layers, x, positions, cache["layers"], impl=impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
-    logits = x[:, -1:] @ _head(cfg, params)
+    logits = x[:, -1:] @ _head(cfg, params).to(x.dtype)
     cache["pos"].fill_(S)
     return logits, cache
 
@@ -163,11 +249,11 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, *, impl=None):
     """One token for every sequence.  tokens: (B, 1) integer device tensor.
     Returns logits (B, 1, Vp) and ``cache``, updated in place: the ring
     slots and ``pos`` (+1)."""
-    x = params.embed[tokens]
+    x = params.embed[tokens].to(dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
     x = decode_blocks(cfg, params.layers, cache["layers"], x, pos, impl=impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
-    logits = x @ _head(cfg, params)
+    logits = x @ _head(cfg, params).to(x.dtype)
     pos.add_(1)
     return logits, cache
 

@@ -1,1 +1,1 @@
-"""Serving runtime of the port."""
+"""Serving and training runtime of the port."""

@@ -19,13 +19,14 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
+                                                 flash_attention_forward, flash_attention_plain)
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain, out_residual,
                                               out_residual_plain, qkv_plain, qkv_rope)
 from repro_torch.kernels import rmsnorm as rn
-from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_gated, rmsnorm_gated_plain,
-                                         rmsnorm_plain)
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward, rmsnorm_gated,
+                                         rmsnorm_gated_plain, rmsnorm_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import lm
 
@@ -655,3 +656,227 @@ def test_failover_drills_on_card(cuda, name, drill):
     assert all(p.compile_stats.late == 0 for p in pipes)
     for p in set(pipes):
         p.close()
+
+
+# -- the backward kernels ---------------------------------------------------
+# (B, S, H, KV, D, window, kv_offset): the head dims 16, 32, 64, 120 and 128,
+# GQA 1, 2, 5, 6, 7 and 8, windows across tiles, a key offset (Sk = S +
+# kv_offset) and ragged lengths
+BWD_SHAPES = [
+    (1, 64, 4, 4, 16, None, 0),          # MHA, one tile
+    (2, 100, 4, 2, 32, None, 0),         # GQA 2, ragged
+    (1, 129, 10, 2, 64, None, 0),        # GQA 5, just past two tiles
+    (2, 150, 12, 2, 120, 40, 0),         # danube's head dim, GQA 6, window across a tile
+    (1, 200, 14, 2, 128, None, 0),       # qwen's head dim, GQA 7
+    (1, 96, 16, 2, 128, None, 0),        # GQA 8
+    (1, 70, 8, 2, 64, None, 130),        # kv_offset 130: Sk 200
+    (1, 300, 8, 8, 120, 256, 0),         # danube's window of 256
+    (2, 17, 4, 1, 128, 5, 3),            # a tiny window, an offset, one KV head
+]
+# float32: the kernel and the plain version's autograd sum float32 products
+# in another order; bf16: both take bf16 inputs and round each gradient to
+# bf16 once, and the kernel also rounds P and dS's inputs as they are stored
+# (o is the forward's bf16 output), about three bf16 steps at the gradient's
+# largest entry
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _attn_inputs(shape, dtype, cuda, seed=0):
+    b, s, h, kv, d, window, off = shape
+    rng = np.random.default_rng(seed + s + d)
+    q = _rand(rng, (b, s, h, d), dtype, cuda)
+    k = _rand(rng, (b, s + off, kv, d), dtype, cuda)
+    v = _rand(rng, (b, s + off, kv, d), dtype, cuda)
+    do = _rand(rng, (b, s, h, d), dtype, cuda)
+    return q, k, v, do, dict(causal=True, window=window, kv_offset=off)
+
+
+def _grads(fn, q, k, v, do, kw):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves, **kw)
+    out.backward(do)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _close_scaled(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=tol * float(want.float().abs().max()), rtol=tol)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain_autograd(cuda, shape, dtype):
+    q, k, v, do, kw = _attn_inputs(shape, dtype, cuda)
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    out, got = _grads(flash_attention, q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.launches) == (fwd + 1, bwd + 1)
+    want_out, want = _grads(flash_attention_plain, q, k, v, do, kw)
+    _close(out, want_out, dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close_scaled(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_logsumexp(cuda, dtype):
+    b, s, h, kv, d, window, off = shape = (2, 150, 12, 2, 120, 40, 5)
+    q, k, v, _, kw = _attn_inputs(shape, dtype, cuda)
+    _, lse = flash_attention_forward(q, k, v, **kw, with_lse=True)
+    rep, sk = h // kv, s + off
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5,
+                          k.float().repeat_interleave(rep, dim=2))
+    qpos = torch.arange(s, device=cuda)[:, None] + off
+    kpos = torch.arange(sk, device=cuda)[None, :]
+    live = (kpos <= qpos) & (kpos > qpos - window)
+    want = torch.logsumexp(torch.where(live, logits, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(cuda, dtype):
+    q, k, v, do, kw = _attn_inputs((2, 200, 14, 2, 128, None, 0), dtype, cuda)
+    out, lse = flash_attention_forward(q, k, v, **kw, with_lse=True)
+    first = flash_attention_backward(q, k, v, out, do, lse, **kw)
+    second = flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    rng = np.random.default_rng(5)
+    x, g = _rand(rng, (4096, 2048), dtype, cuda), _rand(rng, (4096, 2048), dtype, cuda)
+    w = _rand(rng, (2048,), torch.float32, cuda)
+    first, second = rmsnorm_backward(x, w, g), rmsnorm_backward(x, w, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# qwen's width at its training rows, a width of a ragged number of 16-byte
+# pieces, widths off 16 bytes and one wider than the forward's row kernel
+@pytest.mark.parametrize("shape", [(8192, 2048), (8, 1000), (3, 1001), (2, 20000), (5, 3840),
+                                   (2, 7, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_matches_plain_autograd(cuda, shape, dtype):
+    rng = np.random.default_rng(7)
+    x = _rand(rng, shape, dtype, cuda).requires_grad_(True)
+    w = (1.0 + 0.1 * _rand(rng, shape[-1:], torch.float32, cuda)).requires_grad_(True)
+    g = _rand(rng, shape, dtype, cuda)
+    fwd, bwd = rmsnorm.launches, rmsnorm_backward.launches
+    rmsnorm(x, w).backward(g)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_backward.launches) == (fwd + 1, bwd + 1)
+    got = (x.grad, w.grad)
+    x.grad = w.grad = None
+    rmsnorm_plain(x, w).backward(g)
+    # dx as the forward's tolerance; dw sums the rows' float32 terms in
+    # another order (8192 of them at most)
+    _close_scaled(got[0], x.grad, BWD_TOL[dtype])
+    _close_scaled(got[1], w.grad, 1e-4 if dtype == torch.float32 else BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_takes_rows_off_16_bytes(cuda, dtype):
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (8 * 2048 + 1,), dtype, cuda)[1:].view(8, 2048)
+    assert x.data_ptr() % 16
+    w = _rand(rng, (2048,), torch.float32, cuda)
+    g = _rand(rng, (8, 2048), dtype, cuda)
+    dx, dw = rmsnorm_backward(x, w, g)
+    xl, wl = x.detach().clone().requires_grad_(True), w.clone().requires_grad_(True)
+    rmsnorm_plain(xl, wl).backward(g)
+    _close_scaled(dx, xl.grad, BWD_TOL[dtype])
+    _close_scaled(dw, wl.grad, 1e-4 if dtype == torch.float32 else BWD_TOL[dtype])
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """The SSD scan, the gated norm, decode attention and the fused chain
+    raise on inputs that require grad (no silent detach, no plain-version
+    fallback) and launch nothing."""
+    rng = np.random.default_rng(0)
+    f32 = torch.float32
+    x = _rand(rng, (1, 8, 2, 8), f32, cuda).requires_grad_(True)
+    before = ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_scan(x, torch.ones(1, 8, 2, device=cuda), -torch.ones(2, device=cuda),
+                 _rand(rng, (1, 8, 16), f32, cuda), _rand(rng, (1, 8, 16), f32, cuda))
+    assert ssd_scan.launches == before
+    y = _rand(rng, (3, 2, 8), f32, cuda)
+    w = torch.ones(16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rmsnorm_gated(y, y, torch.ones(2, device=cuda), _rand(rng, (3, 16), f32, cuda), w)
+    q = _rand(rng, (1, 4, 16), f32, cuda).requires_grad_(True)
+    kc = _rand(rng, (1, 8, 2, 16), f32, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decode_attention(q, kc, kc, torch.tensor(3, dtype=torch.int32, device=cuda))
+    xd, k, v, wts = _sublayer(rng, 64, 8, 2, 16, 8, True, f32, cuda)
+    wts["wq"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_decode(xd, k, v, torch.tensor(3, dtype=torch.int32, device=cuda), **wts,
+                     n_heads=8, head_dim=16)
+    with torch.no_grad():                        # without grad the same calls run
+        decode_attention(q, kc, kc, torch.tensor(3, dtype=torch.int32, device=cuda))
+
+
+def test_serving_launches_unchanged_without_grad(cuda):
+    """No input requires grad, or grad is off: one forward launch each, no
+    backward, and no logsumexp kept."""
+    q, k, v, _, kw = _attn_inputs((1, 64, 4, 2, 64, None, 0), torch.bfloat16, cuda)
+    x, w = q.reshape(-1, 64), torch.ones(64, device=cuda)
+    counts = lambda: (flash_attention.launches, flash_attention_backward.launches,  # noqa: E731
+                      rmsnorm.launches, rmsnorm_backward.launches)
+    before = counts()
+    out = flash_attention(q, k, v, **kw)
+    rmsnorm(x, w)
+    with torch.no_grad():
+        flash_attention(q.requires_grad_(True), k, v, **kw)
+        rmsnorm(x, w.requires_grad_(True))
+    assert out.grad_fn is None
+    after = counts()
+    assert after == (before[0] + 2, before[1], before[2] + 2, before[3])
+
+
+def _train_grads(cfg, device, impl=None, seed=0):
+    model = lm.init_params(cfg, device=device, param_dtype=torch.float32,
+                           generator=torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96))).to(device)
+             for k in ("tokens", "labels")}
+    loss, _ = lm.loss_fn(cfg, model, batch, impl=impl)
+    loss.backward()
+    return float(loss), {k: p.grad for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("name", ["tiny", "qwen2.5-3b-smoke", "h2o-danube-3-4b-smoke"])
+def test_training_kernel_route_matches_ref_route_on_card(cuda, name):
+    """Loss and every gradient leaf of the kernel route (the flash and
+    rmsnorm forward and backward kernels) against ``impl="ref"``, float32
+    compute, within 1e-4 of the leaf's largest entry."""
+    cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
+    counts = [f.launches for f in (flash_attention, flash_attention_backward, rmsnorm,
+                                   rmsnorm_backward)]
+    loss, got = _train_grads(cfg, cuda)
+    after = [f.launches for f in (flash_attention, flash_attention_backward, rmsnorm,
+                                  rmsnorm_backward)]
+    assert all(a > b for a, b in zip(after, counts))
+    want_loss, want = _train_grads(cfg, cuda, impl="ref")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for k, g in got.items():
+        torch.testing.assert_close(g, want[k], atol=1e-4 * float(want[k].abs().max()) + 1e-12,
+                                   rtol=0, msg=k)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_training_remat_modes_are_bitwise_on_card(cuda, compute_dtype):
+    """The recomputation under ``full`` and ``dots`` launches the same
+    deterministic kernels on the same inputs: the gradients are bitwise
+    those of ``none``."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b-smoke"), compute_dtype=compute_dtype)
+    loss, want = _train_grads(dataclasses.replace(cfg, remat="none"), cuda)
+    for remat in ("full", "dots"):
+        got_loss, got = _train_grads(dataclasses.replace(cfg, remat=remat), cuda)
+        assert got_loss == loss
+        assert all(torch.equal(got[k], want[k]) for k in want), remat
+
+
+def test_mamba_training_on_card_refuses(cuda):
+    """The SSD scan and the gated norm have no backward kernel yet: a Mamba2
+    loss on trainable parameters raises instead of training nothing."""
+    cfg = get_config("mamba2-370m-smoke")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _train_grads(cfg, cuda)
