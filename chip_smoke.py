@@ -237,6 +237,30 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+def sass_record(lib_path, names) -> dict:
+    """Per kernel whose name starts with one of ``names``: its count of
+    warpgroup products (HGMMA), tensor copies (UTMALDG) and bulk copies
+    (UBLKCP) in the library's machine code, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            name = name if name.startswith(tuple(names)) else None
+            if name:
+                out[name] = dict(HGMMA=0, UTMALDG=0, UBLKCP=0)
+            continue
+        if name:
+            for op in out[name]:
+                if op in line:
+                    out[name][op] += 1
+    return out
+
+
 def counted(fn, kernels, require=True):
     """Run ``fn`` once, every launch count set to 0 just before it and
     read just after, the peak-memory mark reset just before it.  Returns
@@ -593,11 +617,19 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     # a live pair (S and dP again, dV, dK, dQ)
     b_ms, b_by = bound(2 * qkv_bytes + 2 * 2 * b * s_ * h * d + 4 * b * h * s_, 10 * d * live,
                        BF16_FLOP_PER_S)
+    def passes(mask):
+        return lambda *a: flash_attention_backward(*a, passes=mask)
+
+    # the row pass alone, and each product kernel after it, less the row pass
+    rows_ms = timed(passes(fa.ROWS_PASS), bwd_sets, iters=3)
     bwd = dict(ms=timed(flash_attention_backward, bwd_sets, iters=3),
                plain_ms=timed(backward_only, [with_graph(flash_attention_plain, *sets[0])],
                               iters=2),
                library_ms=timed(backward_only, [with_graph(sdpa, *t) for t in sets], iters=3),
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, rows_ms=rows_ms,
+               dkdv_ms=timed(passes(fa.ROWS_PASS | fa.DKDV_PASS), bwd_sets, iters=3) - rows_ms,
+               dq_ms=timed(passes(fa.ROWS_PASS | fa.DQ_PASS), bwd_sets, iters=3) - rows_ms,
+               plan=fa.bwd_plan(b, s_, s_, h, kv, d, bf16=True, aligned=True)._asdict())
     emit("train_kernel_time", kernel="flash_attention backward",
          shape=f"B{b} S{s_} H{h} KV{kv} D{d} causal bf16", card=smi, **bwd)
     del sets, bwd_sets
@@ -852,8 +884,14 @@ def main() -> int:
     lib_path = build.build()
     build_s = time.perf_counter() - t0
     build.library()
+    # the bf16 flash backward must run on wgmma, fed by tensor copies
+    sass = sass_record(lib_path, ("flash_bwd_", "rmsnorm_bwd"))
     emit("build", seconds=round(build_s, 3), library=str(lib_path.relative_to(ROOT)),
-         flags=build.FLAGS, ptxas=ptxas_report(build.build_log()))
+         flags=build.FLAGS, ptxas=ptxas_report(build.build_log()), sass=sass)
+    for name in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
+        found = [c for k, c in sass.items() if k.startswith(name)]
+        if not found or not all(c["HGMMA"] and c["UTMALDG"] for c in found):
+            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its machine code: {sass}")
 
     # -- 3. kernels against their plain versions on the card ---------------
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -1797,13 +1835,11 @@ def main() -> int:
     emit("resilience_phase", seconds=time.perf_counter() - t_phase)
 
     # -- 10. training, after the serving models are freed -------------------
-    # the cuBLAS workspaces that the pipeline's (thread, stream) pairs made
-    # stay allocated after their pipelines close; a CUDA build of torch
-    # frees them on request
+    # the pipelines' close() freed the cuBLAS workspaces of their threads
+    # and streams; what is left is the serving models and their contexts
     before = torch.cuda.memory_allocated()
     del params, m_params, qwen_ctx, mamba_ctx
     gc.collect()
-    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     emit("train_phase_start", memory_allocated_before=before,
@@ -1831,10 +1867,10 @@ def main() -> int:
         "fused_decode": ["fused_qkv_rope_kernel", "decode_attention_kernel",
                          "fused_out_residual_kernel"],
         "ssd_scan": ["ssd_scan_kernel"],
-        "flash_attention_bwd": ["flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel",
-                                "flash_bwd_kv_reduce_kernel", "flash_bwd_dq_mma_kernel",
+        "flash_attention_bwd": ["flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dot_kernel",
                                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
-        "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"]}
+        "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"]}
     backward = ("flash_attention_bwd", "rmsnorm_bwd")
     not_served = dict.fromkeys(backward, 0)
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
@@ -1859,6 +1895,7 @@ def main() -> int:
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
          **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
+         **{k: t[k] for k in ("rows_ms", "dkdv_ms", "dq_ms") if k in t},
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (
              "ms", "floor_ms", "plain_ms", "bound_ms", "library_ms")} for s, v in
              t["by_shape"].items()}} if "by_shape" in t else {}),

@@ -39,9 +39,12 @@
 // sequence); each of 128 threads owns 4 rows: an 8-column slice of the 64
 // scores and a 16-column slice of the 128 outputs; row reductions are 3
 // shuffles among 8 neighbouring lanes.
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -427,24 +430,29 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, void* lse
 // of the sum of exp(scale * q.k) over the live keys), and dO: three passes,
 // with no atomics, so that two calls on the same inputs give the same bits.
 // The JAX package has no backward kernel (it differentiates its composed
-// tiers); these compute the gradient of the function `_flash_kernel`
-// computes.
-//  (1) flash_bwd_dot_kernel: Dv = rowsum(dO * o), float32 (B, H, Sq);
-//  (2) dK and dV, a block per 64 keys: it keeps its K and V rows in shared
+// tiers); these compute the gradient of the function that the Pallas TPU
+// kernel `_flash_kernel` (repro/kernels/flash_attention.py) computes.
+//  (1) Dv = rowsum(dO * o), float32, a row each;
+//  (2) dK and dV by key tile: the block keeps its K and V rows in shared
 //      memory and dK, dV in registers, and walks every q tile that sees one
 //      of its keys: P^T = exp(scale K Q^T - lse), dP^T = V dO^T, dS^T = P^T
 //      (dP^T - Dv), dV += P^T dO, dK += scale dS^T Q.  GQA's sum over the
-//      H/KV query heads of a KV head is taken in one order: in the
-//      registers of a block per KV head (float32), or by a second kernel
-//      over each query head's float32 share (bf16, below); K and V are
+//      H/KV query heads of a KV head is taken in head order; K and V are
 //      never repeated;
-//  (3) dQ, a block per (64 queries, head, sequence): Q and dO in shared
-//      memory, dQ in registers, over the key tiles its rows see: dQ +=
-//      scale dS K.
-// Both recompute the scores.  Bound on the H100 at qwen2.5-3b's training
-// shape: operations (five products a live (q, key) pair).  bf16 runs the
-// products on the tensor cores (`flash_bwd_*_mma_kernel`, below); float32
-// on the CUDA cores (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`): each
+//  (3) dQ by query tile: Q and dO in shared memory, dQ in registers, over
+//      the key tiles its rows see: dQ += scale dS K.
+// Both recompute the scores: seven products a live (q, key) pair where the
+// bound counts five.  Bound on the H100 at qwen2.5-3b's training shape (B
+// 2, S 4096, H 16, KV 2, D 128, causal; 2.68e8 live pairs): operations,
+// 4.8e11 FLOP, 0.35 ms at the bf16 tensor-core rate; the bytes (0.15 GB)
+// take 0.05 ms.  Only wgmma reaches that rate: bf16 runs on it
+// (`flash_bwd_*_wgmma_kernel`, below), fed by tensor copies into a ring of
+// stages, with GQA's sum in a thread block cluster's distributed shared
+// memory, so that no per-head partials go through device memory.  Shapes
+// they do not take (D % 8, an input off 16 bytes, more than 8 query heads
+// a KV head) and float32 run on the CUDA cores (`flash_bwd_dkdv_kernel`, a
+// block per (64 keys, KV head) walking its query heads, and
+// `flash_bwd_dq_kernel`): each
 // thread holds a 4 x 4 patch of the 64 x 64 score tile (rows tr*4..,
 // columns tc + 16 j) and a 4 x 8 patch of the 64 x D accumulators (columns
 // tc + 16 c), all in float32 shared memory.
@@ -711,374 +719,660 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// -- the bf16 backward on the tensor cores ------------------------------
+// -- the bf16 backward on wgmma -------------------------------------------
 //
-// The same passes, the products on `mma.sync` with the forward's tiles and
-// fragments (64-row tiles, swizzled bf16 in shared memory, `ldmatrix`,
-// float32 sums).  flash_bwd_dkdv_mma_kernel: a block per (64 keys, query
-// head, sequence), 4 warps each owning 16 of its keys, dK and dV (16 x DP
-// each) in registers; for each q tile S^T = K Q^T and dP^T = V dO^T come
-// from the K and V rows as A operands and the Q and dO rows as B operands,
-// exactly as the forward's S = Q K^T; P^T becomes the bf16 A fragments of
-// dV += P^T dO in registers (dO through `ldmatrix.trans`, as the forward's
-// V), and dS^T = P^T (dP^T - Dv), from those bf16 P^T, the A fragments of
-// dK += dS^T Q.  Each query head writes its share of dK and dV in float32,
-// and flash_bwd_kv_reduce_kernel sums a KV head's H/KV shares in head
-// order: a block a KV head walking all its query heads (the CUDA-core
-// kernels' layout) made the first key tile's block, 8 heads x 64 q tiles
-// at qwen2.5-3b's training shape, the critical path of the launch.
-// flash_bwd_dq_mma_kernel: 4 warps of 16 queries, dQ in registers, S and
-// dP per key tile, dQ += dS K with K through `ldmatrix.trans`.  Loads are
-// 16-byte cp.async, one stage: a tile lands, then is used.
+// flash_bwd_rows_kernel writes each row's Dv and logsumexp (in log2 units)
+// into float32 (B, H, Sqp) arrays padded to whole 64-row slices.  Then two
+// kernels whose products are wgmma (m64nNk16, bf16, float32 sums) fed by
+// tensor copies into a ring of RING stages, counted on full/empty
+// mbarriers.  Tiles are 64-column halves of 128-byte rows in the copy
+// engine's 128-byte swizzle, 1024-byte aligned, as wgmma's descriptors read
+// them; the copy engine zero-fills rows past Sq or Sk and the head-dim
+// padding (16, 32 -> 64; 120 -> 128).
+//
+// flash_bwd_dkdv_wgmma_kernel: a block per (128 keys, query head) of two
+// warpgroups, K and V resident in shared memory, warpgroup w owning keys
+// [64 w, +64) and its dK, dV (64 x DP float32 each) in registers for the
+// whole query loop.  Per 64-query tile: S^T = K Q^T and dP^T = V dO^T
+// (m64n64k16, both operands K-major in shared memory); P^T = exp2(S^T
+// scale log2e - lse) and dS^T = P^T (dP^T - Dv) on the accumulators,
+// packed to bf16 A operands in registers; dV += P^T dO and dK += dS^T Q
+// (m64nDPk16, B read MN-major from the same Q and dO tiles).  Thread 0
+// issues the copies: K, V and the first RING tiles at the start, and each
+// later tile once every warp is done with its stage.  The H/KV blocks of
+// one (key tile, KV head) run as one thread block cluster: each writes its
+// float32 dK, dV into its own shared memory, and after a cluster barrier
+// block r sums its 1/(H/KV) of the rows over the cluster's blocks in head
+// order through distributed shared memory and stores them as bf16.  Key
+// tile 0, the longest under a causal mask, is first in the grid.  No
+// producer warpgroup: with one, whose `setmaxnreg` gave these warpgroups
+// 240 registers, ptxas spilled hundreds of bytes a thread and serialised
+// every wgmma at DP 128, and the kernel ran slower; with 255 a thread and
+// no `setmaxnreg` it spills nothing (the build record shows its
+// registers and spills).
+//
+// flash_bwd_dq_wgmma_kernel: a block per (128 queries, head), Q and dO
+// resident, two consumer warpgroups, warpgroup w owning queries [64 w,
+// +64) and dQ in registers, over the 64-key tiles of K and V its rows see:
+// S and dP again, then dQ += dS K (K read MN-major).  A producer warpgroup,
+// lowered by `setmaxnreg` to 24 registers (the consumers raised to 240),
+// one thread of which issues every copy: with its 64 accumulators nothing
+// spills, and it measured faster than thread 0 issuing the copies.  The
+// last query tiles, the longest under a causal mask, first.
 
-// A value of a packed bf16 A fragment built from accumulator tile j,
-// element e (as the forward packs P): the inverse of that packing.
-template <int NT>
-__device__ __forceinline__ float unpack_frag(const unsigned (&pa)[NT / 2][4], int j, int e) {
-  const unsigned w = pa[j >> 1][(j & 1) * 2 + (e >> 1)];
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  return (e & 1) ? __high2float(v) : __low2float(v);
+constexpr int WG = 128;                        // threads a warpgroup
+constexpr int CONSUMERS = 2;                   // warpgroups that compute
+constexpr int WG_BLOCK = (CONSUMERS + 1) * WG; // and one that loads
+constexpr int KB = 128;                        // keys a dK/dV block, 64 a warpgroup
+constexpr int KT = 128;                        // queries a dQ block
+constexpr int QT = 64;                         // queries a dK/dV step; keys a dQ step
+constexpr int RING = 2;                        // stages of the copy ring
+constexpr int MAX_CLUSTER = 8;                 // query heads a KV head: a portable cluster
+constexpr int ROW_BYTES = 128;                 // a swizzled row: 64 bf16
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;   // 168 x 384 at launch
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of the dK/dV kernel for head dim DP (64 or 128), in bytes
+// from a 1024-byte aligned base: K and V (KB rows each), a ring of Q and dO
+// tiles (QT rows each) with their rows' lse and Dv, and, once the loop is
+// done, over all of these, the float32 dK and dV (KB rows of DP + 8
+// floats); the barriers after both.  `bwd_plan` in flash_attention.py
+// mirrors this and DqLayout.
+template <int DP>
+struct DkdvLayout {
+  static constexpr int KV_TILE = KB * DP * 2, Q_TILE = QT * DP * 2;
+  static constexpr int K = 0, V = KV_TILE, RING0 = 2 * KV_TILE, STAGE = 2 * Q_TILE;
+  static constexpr int ROWS0 = RING0 + RING * STAGE;   // lse, Dv: 2 x QT floats a stage
+  static constexpr int LOOP = ROWS0 + RING * 2 * QT * 4;
+  static constexpr int RED_STRIDE = DP + 8;             // floats a row of dK, dV
+  static constexpr int RED = 2 * KB * RED_STRIDE * 4;
+  static constexpr int BARS = LOOP > RED ? LOOP : RED;
+  static constexpr int BYTES = BARS + (2 * RING + 1) * 8 + 1024;   // + the alignment
+};
+
+// The dQ kernel's: Q and dO (KT rows each), a ring of K and V tiles (QT
+// rows each), the barriers.
+template <int DP>
+struct DqLayout {
+  static constexpr int Q_TILE = KT * DP * 2, KV_TILE = QT * DP * 2;
+  static constexpr int Q = 0, DO = Q_TILE, RING0 = 2 * Q_TILE, STAGE = 2 * KV_TILE;
+  static constexpr int BARS = RING0 + RING * STAGE;
+  static constexpr int BYTES = BARS + (2 * RING + 1) * 8 + 1024;
+};
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (repro::smem_addr(p) & 1023)) & 1023);
 }
 
-template <int NT>
-__device__ __forceinline__ void pack_frags(unsigned (&pa)[NT / 2][4], const float (&s)[NT][4]) {
+// ROWS rows (a multiple of 64) of head `head` from row `row0` of sequence
+// `b`, all DP columns, by the copy engine: column half c lands at c * ROWS
+// rows, each 64-row box 64 rows after the last.
+template <int DP, int ROWS>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, int head,
+                                         int row0, int b, uint64_t* bar) {
 #pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    pa[kk][0] = repro::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = repro::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = repro::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = repro::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < ROWS / 64; ++j)
+      repro::tensor_load_4d(dst + (c * ROWS + j * 64) * ROW_BYTES, map, c * 64, head,
+                            row0 + j * 64, b, bar);
+}
+
+// A K-major operand: rows [r0, r0 + 64) of a tile of `rows` rows at shared
+// address `tile`, columns [16 kk, +16).
+__device__ __forceinline__ uint64_t desc_k(unsigned tile, int rows, int r0, int kk) {
+  return repro::wgmma_desc(tile + ((kk / 4) * rows + r0) * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+}
+
+// An MN-major (transposed) B operand: rows [16 kk, +16) of a tile of
+// `rows` rows as its k-step, all its columns as N.
+__device__ __forceinline__ uint64_t desc_mn(unsigned tile, int rows, int kk) {
+  return repro::wgmma_desc(tile + kk * 16 * ROW_BYTES, rows * ROW_BYTES, 1024);
+}
+
+// `v`, which the compiler may not look through: a value made from it in a
+// loop is made where it is used, not hoisted and kept in a register for
+// every unrolled use across the loop.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// The descriptor offset of k-step kk of a K-major tile of `rows` rows.
+__host__ __device__ constexpr unsigned k_step(int rows, int kk) {
+  return static_cast<unsigned>(((kk / 4) * rows * ROW_BYTES + (kk % 4) * 32) >> 4);
+}
+
+// ... and of an MN-major one.
+__host__ __device__ constexpr unsigned mn_step(int kk) {
+  return static_cast<unsigned>(kk * 16 * ROW_BYTES >> 4);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const unsigned (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (N == 64) repro::wgmma_rs_m64n64_tb(d, a, desc_b);
+  else repro::wgmma_rs_m64n128_tb(d, a, desc_b);
+}
+
+// The bf16 A operand of a product over a 64-column tile (4 k-steps of 16),
+// from an m64n64 accumulator.
+__device__ __forceinline__ void to_a(unsigned (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = repro::pack_bf16(d[8 * kk], d[8 * kk + 1]);
+    a[kk][1] = repro::pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = repro::pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = repro::pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
   }
 }
 
-// acc (16 rows of this warp x 64 columns) = A rows [warp*16, +16) of `At`
-// times the 64 rows of `Bt`, both tiles 64 x DP, over DP
-template <int DP>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[TILE_ROWS / 8][4], const bf16* At,
-                                                 const bf16* Bt, int warp, int lane) {
-  constexpr int CH = DP / 8, KSTEPS = DP / 16, NT = TILE_ROWS / 8;
+// Element i of the m64n64 accumulator that `to_a` packed into `a`, as the
+// bf16 it was rounded to.
+__device__ __forceinline__ float from_a(const unsigned (&a)[4][4], int i) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[i / 8][(i % 8) / 2]);
+  return (i & 1) ? __high2float(v) : __low2float(v);
+}
+
+// Dv = rowsum(dO * o) and the logsumexp in log2 units, float32 (B, H, Sqp)
+// each; rows Sq to Sqp are padding (Dv 0, lse +inf, so that their P is 0).
+// A warp a row, 16 bytes a lane (D % 8 == 0, D <= 128).
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ dvr, long rows, int Sq, int Sqp, int H, int D) {
+  const long row = static_cast<long>(blockIdx.x) * (BWD_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long bh = row / Sqp;
+  const int i = static_cast<int>(row - bh * Sqp);
+  float acc = 0.f;
+  if (i < Sq && lane * 8 < D) {
+    const long b = bh / H, h = bh - b * H;
+    const long at = ((b * Sq + i) * H + h) * D + lane * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + at);
+    const bf16* xe = reinterpret_cast<const bf16*>(&x);
+    const bf16* ye = reinterpret_cast<const bf16*>(&y);
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    unsigned af[4];
-    repro::ldmatrix_x4(af, At + swz<CH>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                        kk * 2 + (lane >> 4)));
-#pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      unsigned bfr[4];
-      repro::ldmatrix_x4(bfr, Bt + swz<CH>(jj * 16 + (lane & 7) + (lane >> 4) * 8,
-                                           kk * 2 + ((lane >> 3) & 1)));
-      repro::mma_bf16(acc[2 * jj], af, bfr[0], bfr[1]);
-      repro::mma_bf16(acc[2 * jj + 1], af, bfr[2], bfr[3]);
-    }
+    for (int j = 0; j < 8; ++j) acc += __bfloat162float(xe[j]) * __bfloat162float(ye[j]);
+  }
+  acc = repro::warp_sum(acc);
+  if (lane == 0) {
+    dvr[row] = acc;
+    lse2[row] = i < Sq ? lse[bh * Sq + i] * LOG2E : INFINITY;
   }
 }
 
-// out (16 x DP) += the A fragments `pa` (16 x 64) times the 64 x DP tile
-// `Bt` taken as (rows = k, columns = n) through ldmatrix.trans
+// Issues the copies of q tile i (from t0) into stage i % RING.
 template <int DP>
-__device__ __forceinline__ void mma_frags_by_tile(float (&out)[DP / 8][4],
-                                                  const unsigned (&pa)[TILE_ROWS / 16][4],
-                                                  const bf16* Bt, int lane) {
-  constexpr int CH = DP / 8, DT = DP / 8;
-#pragma unroll
-  for (int kk = 0; kk < TILE_ROWS / 16; ++kk)
-#pragma unroll
-    for (int dd = 0; dd < DT / 2; ++dd) {
-      unsigned bfr[4];
-      repro::ldmatrix_x4_trans(bfr, Bt + swz<CH>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                 dd * 2 + (lane >> 4)));
-      repro::mma_bf16(out[2 * dd], pa[kk], bfr[0], bfr[1]);
-      repro::mma_bf16(out[2 * dd + 1], pa[kk], bfr[2], bfr[3]);
-    }
-}
-
-// Writes a warp's 16 x DP accumulator, times `mul`, to rows [row0, row0 +
-// 16) of a (rows, D) slab `stride` elements a row, rows below `nrows`.
-template <int DP, typename T>
-__device__ __forceinline__ void store_rows(T* base, long stride, const float (&acc)[DP / 8][4],
-                                           int row0, int nrows, int D, float mul, int lane) {
-  const int gr = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gr + r * 8;
-    if (row >= nrows) continue;
-    T* out = base + static_cast<long>(row) * stride;
-#pragma unroll
-    for (int d = 0; d < DP / 8; ++d) {
-      const int col = d * 8 + tq * 2;
-      const float x = acc[d][2 * r] * mul, y = acc[d][2 * r + 1] * mul;
-      if constexpr (std::is_same_v<T, float>) {
-        if (col < D) out[col] = x;
-        if (col + 1 < D) out[col + 1] = y;
-      } else if (col + 1 < D && (D & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(x, y);
-      } else {
-        if (col < D) out[col] = __float2bfloat16_rn(x);
-        if (col + 1 < D) out[col + 1] = __float2bfloat16_rn(y);
-      }
-    }
-  }
+__device__ __forceinline__ void dkdv_load(unsigned char* sm, const BwdMaps& maps,
+                                          const float* lse2, const float* dvr, long at, int i,
+                                          int t0, int h, int b, uint64_t* full) {
+  using L = DkdvLayout<DP>;
+  const int s = i % RING, q0 = (t0 + i) * QT;
+  unsigned char* st = sm + L::RING0 + s * L::STAGE;
+  float* rows = reinterpret_cast<float*>(sm + L::ROWS0 + s * 2 * QT * 4);
+  repro::mbar_arrive_expect_tx(&full[s], L::STAGE + 2 * QT * 4);
+  tma_tile<DP, QT>(st, &maps.q, h, q0, b, &full[s]);
+  tma_tile<DP, QT>(st + L::Q_TILE, &maps.dout, h, q0, b, &full[s]);
+  repro::bulk_load(rows, lse2 + at + q0, QT * 4, &full[s]);
+  repro::bulk_load(rows + QT, dvr + at + q0, QT * 4, &full[s]);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ dv_rows,
-                          float* __restrict__ pk, float* __restrict__ pv, int Sq, int Sk, int H,
-                          int KV, int D, float scale, int causal, int window, int kv_offset,
-                          int vec) {
-  constexpr int NT = TILE_ROWS / 8, DT = DP / 8, TILE = TILE_ROWS * DP;
+__global__ void __launch_bounds__(CONSUMERS * WG, 1)
+flash_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse2, const float* __restrict__ dvr,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sqp,
+                            int Sk, int H, int KV, int D, float scale, int causal, int window,
+                            int kv_offset, const __grid_constant__ BwdMaps maps) {
+  using L = DkdvLayout<DP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;
-  bf16* dOs = Qs + TILE;
-  float* lse_s = reinterpret_cast<float*>(dOs + TILE);
-  float* dv_s = lse_s + TILE_ROWS;
-  const int k0 = blockIdx.x * TILE_ROWS, h = blockIdx.y, b = blockIdx.z, g = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int nk = min(TILE_ROWS, Sk - k0);
-  const long q_row = static_cast<long>(H) * D, kv_row = static_cast<long>(KV) * D;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const long kv_base = (static_cast<long>(b) * Sk + k0) * kv_row + static_cast<long>(g) * D;
-  load_tile_bf16<DP>(Ks, k + kv_base, k + kv_base, kv_row, nk, D, vec);
-  load_tile_bf16<DP>(Vs, v + kv_base, v + kv_base, kv_row, nk, D, vec);
-  repro::cp_async_commit();
-  // the q rows that see a key of this tile, as the CUDA-core kernel's
+  unsigned char* sm = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + RING;
+  uint64_t* kv_full = empty + RING;
+  const int rep = H / KV, bh = blockIdx.x, b = bh / H, h = bh - b * H, g = h / rep;
+  const int k0 = blockIdx.y * KB, nk = min(KB, Sk - k0);
+  // the q tiles that see a key of this tile: qpos >= k0 if causal, and
+  // qpos <= (last key) + window - 1 with a window
   const int qbeg = causal ? max(0, k0 - kv_offset) : 0;
   const int qend = window > 0 ? min(Sq, k0 + nk - 1 + window - kv_offset) : Sq;
-
-  float gk[DT][4], gv[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[d][e] = gv[d][e] = 0.f;
-
-  for (int q0 = qbeg / TILE_ROWS * TILE_ROWS; q0 < qend; q0 += TILE_ROWS) {
-    const int nq = min(TILE_ROWS, Sq - q0);
-    __syncthreads();   // the previous q tile has been consumed
-    const long q_base = (static_cast<long>(b) * Sq + q0) * q_row + static_cast<long>(h) * D;
-    load_tile_bf16<DP>(Qs, q + q_base, q + q_base, q_row, nq, D, vec);
-    load_tile_bf16<DP>(dOs, dout + q_base, dout + q_base, q_row, nq, D, vec);
-    repro::cp_async_commit();
-    if (threadIdx.x < TILE_ROWS) {
-      const int t = threadIdx.x;
-      const long r = (static_cast<long>(b) * H + h) * Sq + q0 + t;
-      lse_s[t] = t < nq ? lse[r] * 1.4426950408889634f : INFINITY;   // log2 units
-      dv_s[t] = t < nq ? dv_rows[r] : 0.f;
+  const int t0 = qbeg / QT, ntiles = qend > qbeg ? (qend - 1) / QT - t0 + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], CONSUMERS * 4);   // every consumer warp
     }
-    repro::cp_async_wait<0>();
-    __syncthreads();
-
-    // P^T (this warp's 16 keys x the tile's 64 queries), as bf16 fragments
-    float s[NT][4];
-    mma_rows_by_rows<DP>(s, Ks, Qs, warp, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + gr + (e >> 1) * 8, c = j * 8 + tq * 2 + (e & 1);
-        s[j][e] = bwd_live(key, q0 + c, Sk, Sq, causal, window, kv_offset)
-                      ? exp2f(fmaf(s[j][e], scale_log2, -lse_s[c])) : 0.f;
-      }
-    unsigned pa[NT / 2][4];
-    pack_frags<NT>(pa, s);
-    mma_frags_by_tile<DP>(gv, pa, dOs, lane);               // dV += P^T dO
-    mma_rows_by_rows<DP>(s, Vs, dOs, warp, lane);           // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = unpack_frag<NT>(pa, j, e) * (s[j][e] - dv_s[j * 8 + tq * 2 + (e & 1)]);
-    pack_frags<NT>(pa, s);
-    mma_frags_by_tile<DP>(gk, pa, Qs, lane);                // dK += dS^T Q
+    repro::mbar_init(kv_full, 1);
+    repro::mbar_fence_init();
   }
-  repro::cp_async_wait<0>();   // no copy outlives the block (K, V alone when no q tile sees it)
-  // this head's share of dK (unscaled) and dV, float32 (B, Sk, H, D)
-  const long p_base = (static_cast<long>(b) * Sk + k0) * q_row + static_cast<long>(h) * D;
-  store_rows<DP>(pk + p_base, q_row, gk, warp * 16, nk, D, 1.f, lane);
-  store_rows<DP>(pv + p_base, q_row, gv, warp * 16, nk, D, 1.f, lane);
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  const long at = static_cast<long>(bh) * Sqp;
+
+  if (threadIdx.x == 0) {   // K, V and the first tiles; later tiles as stages free up
+    repro::mbar_arrive_expect_tx(kv_full, 2 * L::KV_TILE);
+    tma_tile<DP, KB>(sm + L::K, &maps.k, g, k0, b, kv_full);
+    tma_tile<DP, KB>(sm + L::V, &maps.v, g, k0, b, kv_full);
+    for (int i = 0; i < min(RING, ntiles); ++i) dkdv_load<DP>(sm, maps, lse2, dvr, at, i, t0, h, b, full);
+  }
+  const int tid = threadIdx.x - wg * WG, warp = tid >> 5, lane = tid & 31;
+  const int kw = k0 + wg * 64;                  // this warpgroup's first key
+  const int key = kw + warp * 16 + lane / 4;    // this thread's keys: key, key + 8
+  const int cq = (lane % 4) * 2;                // and its query columns: 8 j + cq, +1
+  const float scale_log2 = scale * LOG2E;
+  const unsigned base = repro::smem_addr(sm);
+  float gk[DP / 2], gv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) gk[i] = gv[i] = 0.f;
+  repro::mbar_wait_or_trap(kv_full, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % RING, q0 = (t0 + i) * QT;
+    repro::mbar_wait_or_trap(&full[s], (i / RING) & 1);
+    // no pair of this warpgroup's 64 keys and the tile's 64 queries is live
+    const bool dead = kw >= Sk || (causal && kw > q0 + QT - 1 + kv_offset) ||
+                      (window > 0 && kw + 63 <= q0 + kv_offset - window);
+    if (!dead) {
+      const unsigned qs = base + L::RING0 + s * L::STAGE, dos = qs + L::Q_TILE;
+      const float* rows = reinterpret_cast<const float*>(sm + L::ROWS0 + s * 2 * QT * 4);
+      float st[32], dpt[32];   // S^T, dP^T: this warpgroup's 64 keys x the 64 queries
+      repro::fence_regs(st);
+      repro::fence_regs(dpt);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        repro::wgmma_ss_m64n64(st, desc_k(base + L::K, KB, wg * 64, kk), desc_k(qs, QT, 0, kk),
+                               kk > 0);
+      repro::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        repro::wgmma_ss_m64n64(dpt, desc_k(base + L::V, KB, wg * 64, kk),
+                               desc_k(dos, QT, 0, kk), kk > 0);
+      repro::wgmma_commit();
+      repro::wgmma_wait<1>();   // S^T is in
+      repro::fence_regs(st);
+      const bool edge = (causal && kw + 63 > q0 + kv_offset) ||
+                        (window > 0 && kw <= q0 + QT - 1 + kv_offset - window);
+      const int dk0 = opaque(key - cq - q0 - kv_offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {   // P^T, in place; query rows past Sq have lse +inf
+        const float2 l2 = *reinterpret_cast<const float2*>(rows + j * 8 + cq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          const int d = dk0 + (e >> 1) * 8 - j * 8 - (e & 1);   // key - qpos
+          if (edge && ((causal && d > 0) || (window > 0 && d <= -window))) p = 0.f;
+          st[4 * j + e] = p;
+        }
+      }
+      // P^T as bf16 A operands; dS^T from those, so that S^T's registers
+      // are free while dP^T's are live
+      unsigned pa[4][4], da[4][4];
+      to_a(pa, st);
+      repro::wgmma_wait<0>();   // dP^T is in
+      repro::fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {   // dS^T = P^T (dP^T - Dv), P^T as rounded for dV
+        const float2 d2 = *reinterpret_cast<const float2*>(rows + QT + j * 8 + cq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * j + e] = from_a(pa, 4 * j + e) * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      to_a(da, dpt);
+      repro::fence_regs(gk);
+      repro::fence_regs(gv);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<DP>(gv, pa[kk], desc_mn(dos, QT, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<DP>(gk, da[kk], desc_mn(qs, QT, kk));
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(gk);
+      repro::fence_regs(gv);
+    }
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(&empty[s]);   // this warp is done with stage s
+    if (threadIdx.x == 0 && i + RING < ntiles) {   // stage s again, once every warp is done
+      repro::mbar_wait_or_trap(&empty[s], (i / RING) & 1);
+      dkdv_load<DP>(sm, maps, lse2, dvr, at, i + RING, t0, h, b, full);
+    }
+    __syncwarp();
+  }
+
+  // dK (unscaled) and dV of the block's 128 keys, float32, over K, V and
+  // the ring, once both warpgroups are done with them
+  repro::named_barrier(1, CONSUMERS * WG);
+  float* red = reinterpret_cast<float*>(sm);
+  const int r = wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    float* at = red + r * L::RED_STRIDE + j * 8 + cq;
+    *reinterpret_cast<float2*>(at) = make_float2(gk[4 * j], gk[4 * j + 1]);
+    *reinterpret_cast<float2*>(at + 8 * L::RED_STRIDE) = make_float2(gk[4 * j + 2], gk[4 * j + 3]);
+    at += KB * L::RED_STRIDE;
+    *reinterpret_cast<float2*>(at) = make_float2(gv[4 * j], gv[4 * j + 1]);
+    *reinterpret_cast<float2*>(at + 8 * L::RED_STRIDE) = make_float2(gv[4 * j + 2], gv[4 * j + 3]);
+  }
+  repro::cluster_sync();
+
+  // this block's share of the rows, summed over the cluster (rank j is
+  // query head g * rep + j) in head order, as bf16
+  cg::cluster_group cluster = cg::this_cluster();
+  const int per = (KB + rep - 1) / rep, r0 = static_cast<int>(cluster.block_rank()) * per;
+  const int nr = max(0, min(KB, r0 + per) - r0), chunks = DP / 8;
+  for (int it = threadIdx.x; it < 2 * nr * chunks; it += CONSUMERS * WG) {
+    const int which = it / (nr * chunks), rem = it - which * nr * chunks;
+    const int row = r0 + rem / chunks, c = (rem % chunks) * 8;
+    if (k0 + row >= Sk || c >= D) continue;
+    const int off = (which * KB + row) * L::RED_STRIDE + c;
+    float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < rep; ++j) {
+      const float* src = cluster.map_shared_rank(red, j) + off;
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      const float4 y = *reinterpret_cast<const float4*>(src + 4);
+      sum[0] += x.x, sum[1] += x.y, sum[2] += x.z, sum[3] += x.w;
+      sum[4] += y.x, sum[5] += y.y, sum[6] += y.z, sum[7] += y.w;
+    }
+    const float mul = which == 0 ? scale : 1.f;
+    const uint4 out = make_uint4(repro::pack_bf16(sum[0] * mul, sum[1] * mul),
+                                 repro::pack_bf16(sum[2] * mul, sum[3] * mul),
+                                 repro::pack_bf16(sum[4] * mul, sum[5] * mul),
+                                 repro::pack_bf16(sum[6] * mul, sum[7] * mul));
+    *reinterpret_cast<uint4*>((which == 0 ? dk : dv) +
+                              ((static_cast<long>(b) * Sk + k0 + row) * KV + g) * D + c) = out;
+  }
+  repro::cluster_sync();
 }
 
-// dK = scale * (the H/KV query heads' shares of it summed in head order),
-// dV the same unscaled, both cast to bf16; a thread an element.
-__global__ void flash_bwd_kv_reduce_kernel(const float* __restrict__ pk,
-                                           const float* __restrict__ pv, bf16* __restrict__ dk,
-                                           bf16* __restrict__ dv, long elems, int H, int KV,
-                                           int D, float scale) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= elems) return;   // i = (row * KV + g) * D + d, row = b * Sk + key
-  const int d = static_cast<int>(i % D), rep = H / KV;
-  const long rg = i / D, row = rg / KV;
-  const int g = static_cast<int>(rg % KV);
-  const long base = (row * H + static_cast<long>(g) * rep) * D + d;
-  float sk = 0.f, sv = 0.f;
-  for (int r = 0; r < rep; ++r) {
-    sk += pk[base + static_cast<long>(r) * D];
-    sv += pv[base + static_cast<long>(r) * D];
-  }
-  dk[i] = __float2bfloat16_rn(sk * scale);
-  dv[i] = __float2bfloat16_rn(sv);
+// Issues the copies of key tile i (from t0) into stage i % RING.
+template <int DP>
+__device__ __forceinline__ void dq_load(unsigned char* sm, const BwdMaps& maps, int i, int t0,
+                                        int g, int b, uint64_t* full) {
+  using L = DqLayout<DP>;
+  const int s = i % RING, kt0 = (t0 + i) * QT;
+  unsigned char* st = sm + L::RING0 + s * L::STAGE;
+  repro::mbar_arrive_expect_tx(&full[s], L::STAGE);
+  tma_tile<DP, QT>(st, &maps.k, g, kt0, b, &full[s]);
+  tma_tile<DP, QT>(st + L::KV_TILE, &maps.v, g, kt0, b, &full[s]);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ dv_rows,
-                        bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, int D, float scale,
-                        int causal, int window, int kv_offset, int vec) {
-  constexpr int NT = TILE_ROWS / 8, DT = DP / 8, TILE = TILE_ROWS * DP;
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+flash_bwd_dq_wgmma_kernel(const float* __restrict__ lse2, const float* __restrict__ dvr,
+                          bf16* __restrict__ dq, int Sq, int Sqp, int Sk, int H, int KV, int D,
+                          float scale, int causal, int window, int kv_offset,
+                          const __grid_constant__ BwdMaps maps) {
+  using L = DqLayout<DP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + TILE;
-  bf16* Ks = dOs + TILE;
-  bf16* Vs = Ks + TILE;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE_ROWS;   // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, g = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
-  const int nq = min(TILE_ROWS, Sq - q0);
-  const long q_row = static_cast<long>(H) * D, kv_row = static_cast<long>(KV) * D;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const long q_base = (static_cast<long>(b) * Sq + q0) * q_row + static_cast<long>(h) * D;
-  load_tile_bf16<DP>(Qs, q + q_base, q + q_base, q_row, nq, D, vec);
-  load_tile_bf16<DP>(dOs, dout + q_base, dout + q_base, q_row, nq, D, vec);
-  repro::cp_async_commit();
-  float lse_r[2], dv_r[2];   // this lane's two rows: gr and gr + 8 of the warp's 16
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + gr + r * 8;
-    const long i = (static_cast<long>(b) * H + h) * Sq + q0 + row;
-    lse_r[r] = row < nq ? lse[i] * 1.4426950408889634f : INFINITY;
-    dv_r[r] = row < nq ? dv_rows[i] : 0.f;
-  }
+  unsigned char* sm = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + RING;
+  uint64_t* q_full = empty + RING;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, g = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * KT;   // the longest causal rows first
+  const int nq = min(KT, Sq - q0);
   // keys [kbeg, kend) cover every row of this q tile, as in the forward
   const int kend = causal ? min(Sk, q0 + nq + kv_offset) : Sk;
   const int kbeg = window > 0 ? max(0, q0 + kv_offset - window + 1) : 0;
-  const long kv_base = static_cast<long>(b) * Sk * kv_row + static_cast<long>(g) * D;
-
-  float gq[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gq[d][e] = 0.f;
-
-  for (int k0 = kbeg / TILE_ROWS * TILE_ROWS; k0 < kend; k0 += TILE_ROWS) {
-    __syncthreads();   // the previous key tile has been consumed
-    load_tile_bf16<DP>(Ks, k + kv_base + k0 * kv_row, k + kv_base, kv_row, Sk - k0, D, vec);
-    load_tile_bf16<DP>(Vs, v + kv_base + k0 * kv_row, v + kv_base, kv_row, Sk - k0, D, vec);
-    repro::cp_async_commit();
-    repro::cp_async_wait<0>();
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-    mma_rows_by_rows<DP>(s, Qs, Ks, warp, lane);             // S = Q K^T
-    mma_rows_by_rows<DP>(dp, dOs, Vs, warp, lane);           // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = warp * 16 + gr + (e >> 1) * 8, key = k0 + j * 8 + tq * 2 + (e & 1);
-        const float p = bwd_live(key, q0 + row, Sk, Sq, causal, window, kv_offset)
-                            ? exp2f(fmaf(s[j][e], scale_log2, -lse_r[e >> 1])) : 0.f;
-        s[j][e] = p * (dp[j][e] - dv_r[e >> 1]);
-      }
-    unsigned ds[NT / 2][4];
-    pack_frags<NT>(ds, s);
-    mma_frags_by_tile<DP>(gq, ds, Ks, lane);                 // dQ += dS K
+  const int t0 = kbeg / QT, ntiles = kend > kbeg ? (kend - 1) / QT - t0 + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    repro::mbar_init(q_full, 1);
+    repro::mbar_fence_init();
   }
-  repro::cp_async_wait<0>();
-  store_rows<DP>(dq + q_base, q_row, gq, warp * 16, nq, D, scale, lane);
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMERS) {
+    repro::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      repro::mbar_arrive_expect_tx(q_full, 2 * L::Q_TILE);
+      tma_tile<DP, KT>(sm + L::Q, &maps.q, h, q0, b, q_full);
+      tma_tile<DP, KT>(sm + L::DO, &maps.dout, h, q0, b, q_full);
+      for (int i = 0; i < ntiles; ++i) {
+        repro::mbar_wait_or_trap(&empty[i % RING], ((i / RING) & 1) ^ 1);
+        dq_load<DP>(sm, maps, i, t0, g, b, full);
+      }
+    }
+    return;
+  }
+
+  repro::setmaxnreg_inc<CONSUMER_REGS>();
+  const int tid = threadIdx.x - wg * WG, warp = tid >> 5, lane = tid & 31;
+  const int qw = q0 + wg * 64;                  // this warpgroup's first query
+  const int row = qw + warp * 16 + lane / 4;    // this thread's rows: row, row + 8
+  const int ck = (lane % 4) * 2;                // and its key columns: 8 j + ck, +1
+  const float scale_log2 = scale * LOG2E;
+  const unsigned base = repro::smem_addr(sm);
+  float lr[2], dr[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {   // rows past the padding: P 0
+    const int rr = row + e * 8;
+    lr[e] = rr < Sqp ? lse2[static_cast<long>(bh) * Sqp + rr] : INFINITY;
+    dr[e] = rr < Sqp ? dvr[static_cast<long>(bh) * Sqp + rr] : 0.f;
+  }
+  float gq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) gq[i] = 0.f;
+  repro::mbar_wait_or_trap(q_full, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % RING, kt0 = (t0 + i) * QT;
+    repro::mbar_wait_or_trap(&full[s], (i / RING) & 1);
+    const bool dead = qw >= Sq || (causal && kt0 > qw + 63 + kv_offset) ||
+                      (window > 0 && kt0 + QT - 1 <= qw + kv_offset - window);
+    if (!dead) {
+      const unsigned ks = base + L::RING0 + s * L::STAGE, vs = ks + L::KV_TILE;
+      const uint64_t d_q = desc_k(base + L::Q, KT, wg * 64, 0);
+      const uint64_t d_do = desc_k(base + L::DO, KT, wg * 64, 0);
+      const uint64_t d_k = desc_k(ks, QT, 0, 0), d_v = desc_k(vs, QT, 0, 0);
+      float sc[32], dp[32];   // S, dP: this warpgroup's 64 queries x the tile's 64 keys
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        repro::wgmma_ss_m64n64(sc, d_q + k_step(KT, kk), d_k + k_step(QT, kk), kk > 0);
+      repro::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        repro::wgmma_ss_m64n64(dp, d_do + k_step(KT, kk), d_v + k_step(QT, kk), kk > 0);
+      repro::wgmma_commit();
+      repro::wgmma_wait<1>();
+      repro::fence_regs(sc);
+      const bool edge = kt0 + QT > Sk || (causal && kt0 + QT - 1 > qw + kv_offset) ||
+                        (window > 0 && kt0 <= qw + 63 + kv_offset - window);
+      const int dq0 = opaque(kt0 + ck - row - kv_offset), sk0 = opaque(kt0 + ck - Sk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -lr[e >> 1]));
+          const int d = dq0 + j * 8 + (e & 1) - (e >> 1) * 8;   // kpos - qpos
+          if (edge && (sk0 + j * 8 + (e & 1) >= 0 || (causal && d > 0) ||
+                       (window > 0 && d <= -window)))
+            p = 0.f;
+          sc[4 * j + e] = p;
+        }
+      repro::wgmma_wait<0>();
+      repro::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dr[e >> 1]);
+      unsigned da[4][4];
+      to_a(da, dp);
+      const uint64_t d_kt = desc_mn(ks, QT, 0);
+      repro::fence_regs(gq);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<DP>(gq, da[kk], d_kt + mn_step(kk));
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(gq);
+    }
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int rr = row + e * 8;
+    if (rr >= Sq) continue;
+    bf16* out = dq + ((static_cast<long>(b) * Sq + rr) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + ck;
+      if (c < D)
+        *reinterpret_cast<unsigned*>(out + c) =
+            repro::pack_bf16(gq[4 * j + 2 * e] * scale, gq[4 * j + 2 * e + 1] * scale);
+    }
+  }
 }
+
+// A map of a bf16 (B, S, heads, D) tensor, D % 8 == 0, 16-byte aligned:
+// boxes of 64 rows of one head by 64 columns (128 bytes, the 128-byte
+// swizzle), zeros past S and D.
+bool bwd_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D) {
+  const repro::EncodeTiled encode = repro::encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 2ull * D;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, 64, 1}, estride[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// which of a backward call's launches run (chip_smoke times them apart)
+constexpr int ROWS_PASS = 1, DKDV_PASS = 2, DQ_PASS = 4;
 
 template <int DP>
-int launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const float* dv_rows, float* kv_part, void* dq, void* dk,
-                   void* dv, int B, int Sq, int Sk, int H, int KV, int D, float scale, int causal,
-                   int window, int kv_offset, cudaStream_t s) {
-  const size_t smem = 4 * TILE_ROWS * DP * sizeof(bf16) + 2 * TILE_ROWS * sizeof(float);
-  cudaError_t err = repro::allow_shared(flash_bwd_dkdv_mma_kernel<DP>, smem);
-  if (err == cudaSuccess) err = repro::allow_shared(flash_bwd_dq_mma_kernel<DP>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = D % 8 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  const float* lt = static_cast<const float*>(lse);
-  const long part = static_cast<long>(B) * Sk * H * D;
-  const dim3 grid_kv((Sk + TILE_ROWS - 1) / TILE_ROWS, H, B);
-  flash_bwd_dkdv_mma_kernel<DP><<<grid_kv, WARPS * 32, smem, s>>>(
-      qt, kt, vt, dot, lt, dv_rows, kv_part, kv_part + part, Sq, Sk, H, KV, D, scale, causal,
-      window, kv_offset, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const long elems = static_cast<long>(B) * Sk * KV * D;
-  flash_bwd_kv_reduce_kernel<<<static_cast<unsigned>((elems + 255) / 256), 256, 0, s>>>(
-      kv_part, kv_part + part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), elems, H, KV, D,
-      scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((Sq + TILE_ROWS - 1) / TILE_ROWS, H, B);
-  flash_bwd_dq_mma_kernel<DP><<<grid_q, WARPS * 32, smem, s>>>(
-      qt, kt, vt, dot, lt, dv_rows, static_cast<bf16*>(dq), Sq, Sk, H, KV, D, scale, causal,
-      window, kv_offset, vec);
-  return static_cast<int>(cudaGetLastError());
+int launch_bwd_wgmma(const BwdMaps& maps, const float* lse2, const float* dvr, void* dq,
+                     void* dk, void* dv, int B, int Sq, int Sqp, int Sk, int H, int KV, int D,
+                     float scale, int causal, int window, int kv_offset, int parts,
+                     cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (parts & DKDV_PASS) {
+    err = repro::allow_shared(flash_bwd_dkdv_wgmma_kernel<DP>, DkdvLayout<DP>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * H, (Sk + KB - 1) / KB);
+    cfg.blockDim = dim3(CONSUMERS * WG);
+    cfg.dynamicSmemBytes = DkdvLayout<DP>::BYTES;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = H / KV;   // the query heads of one KV head
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma_kernel<DP>, lse2, dvr,
+                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sqp, Sk, H, KV,
+                             D, scale, causal, window, kv_offset, maps);
+    if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (parts & DQ_PASS) {
+    err = repro::allow_shared(flash_bwd_dq_wgmma_kernel<DP>, DqLayout<DP>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_wgmma_kernel<DP><<<dim3(B * H, (Sq + KT - 1) / KT), WG_BLOCK,
+                                    DqLayout<DP>::BYTES, s>>>(
+        lse2, dvr, static_cast<bf16*>(dq), Sq, Sqp, Sk, H, KV, D, scale, causal, window,
+        kv_offset, maps);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// route WGMMA (bf16): the wgmma kernels, for D % 8 == 0, H / KV <= 8 and
+// 16-byte aligned inputs (flash_attention.bwd_plan); rows: float32
+// scratch of 2 x (B, H, Sqp), Sqp = Sq rounded up to 64.  Route
+// CUDA_CORES (float32, and bf16 otherwise): the CUDA-core kernels; rows:
+// (B, H, Sq) of it.
+constexpr int CUDA_CORES = 0, WGMMA = 1;
 
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, void* dv_rows, void* kv_part, void* dq, void* dk, void* dv, int B,
-               int Sq, int Sk, int H, int KV, int D, float scale, int causal, int window,
-               int kv_offset, void* stream) {
+               const void* lse, void* rows, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
+               int H, int KV, int D, float scale, int causal, int window, int kv_offset,
+               int route, int parts, void* stream) {
   if (D > DMAX || KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const T* dot = static_cast<const T*>(dout);
-  float* dvr = static_cast<float*>(dv_rows);
-  const int rows = B * Sq * H, per_block = BWD_THREADS / 32;
-  flash_bwd_dot_kernel<T><<<(rows + per_block - 1) / per_block, BWD_THREADS, 0, s>>>(
-      static_cast<const T*>(o), dot, dvr, rows, Sq, H, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (std::is_same_v<T, bf16>) {
-    float* part = static_cast<float*>(kv_part);
-    if (D <= 16)
-      return launch_bwd_mma<16>(q, k, v, dout, lse, dvr, part, dq, dk, dv, B, Sq, Sk, H, KV, D,
-                                scale, causal, window, kv_offset, s);
-    if (D <= 32)
-      return launch_bwd_mma<32>(q, k, v, dout, lse, dvr, part, dq, dk, dv, B, Sq, Sk, H, KV, D,
-                                scale, causal, window, kv_offset, s);
-    if (D <= 64)
-      return launch_bwd_mma<64>(q, k, v, dout, lse, dvr, part, dq, dk, dv, B, Sq, Sk, H, KV, D,
-                                scale, causal, window, kv_offset, s);
-    return launch_bwd_mma<128>(q, k, v, dout, lse, dvr, part, dq, dk, dv, B, Sq, Sk, H, KV, D,
-                               scale, causal, window, kv_offset, s);
-  } else {   // float32: the CUDA-core kernels
-    const size_t smem = bwd_shared_bytes(D);
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k);
-    const T* vt = static_cast<const T*>(v);
-    const float* lt = static_cast<const float*>(lse);
-    err = repro::allow_shared(flash_bwd_dkdv_kernel<T>, smem);
-    if (err == cudaSuccess) err = repro::allow_shared(flash_bwd_dq_kernel<T>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const float* lt = static_cast<const float*>(lse);
+  cudaError_t err = cudaSuccess;
+  if (route == WGMMA) {
+    if (!std::is_same_v<T, bf16> || D % 8 || H / KV > MAX_CLUSTER || !aligned16(q) ||
+        !aligned16(k) || !aligned16(v) || !aligned16(o) || !aligned16(dout))
+      return static_cast<int>(cudaErrorInvalidValue);
+    BwdMaps maps;
+    repro::bind_context();
+    if (!bwd_map(&maps.q, q, B, Sq, H, D) || !bwd_map(&maps.k, k, B, Sk, KV, D) ||
+        !bwd_map(&maps.v, v, B, Sk, KV, D) || !bwd_map(&maps.dout, dout, B, Sq, H, D))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int Sqp = (Sq + QT - 1) / QT * QT;
+    const long n = static_cast<long>(B) * H * Sqp;
+    float* lse2 = static_cast<float*>(rows);
+    float* dvr = lse2 + n;
+    if (parts & ROWS_PASS) {
+      const int per_block = BWD_THREADS / 32;
+      flash_bwd_rows_kernel<<<static_cast<unsigned>((n + per_block - 1) / per_block),
+                              BWD_THREADS, 0, s>>>(static_cast<const bf16*>(o),
+                                                   static_cast<const bf16*>(dout), lt, lse2,
+                                                   dvr, n, Sq, Sqp, H, D);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    return D <= 64 ? launch_bwd_wgmma<64>(maps, lse2, dvr, dq, dk, dv, B, Sq, Sqp, Sk, H, KV, D,
+                                          scale, causal, window, kv_offset, parts, s)
+                   : launch_bwd_wgmma<128>(maps, lse2, dvr, dq, dk, dv, B, Sq, Sqp, Sk, H, KV,
+                                           D, scale, causal, window, kv_offset, parts, s);
+  }
+  if (route != CUDA_CORES) return static_cast<int>(cudaErrorInvalidValue);
+  float* dvr = static_cast<float*>(rows);
+  if (parts & ROWS_PASS) {
+    const int n = B * Sq * H, per_block = BWD_THREADS / 32;
+    flash_bwd_dot_kernel<T><<<(n + per_block - 1) / per_block, BWD_THREADS, 0, s>>>(
+        static_cast<const T*>(o), dot, dvr, n, Sq, H, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t smem = bwd_shared_bytes(D);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if (parts & DKDV_PASS) {
+    if ((err = repro::allow_shared(flash_bwd_dkdv_kernel<T>, smem)) != cudaSuccess)
+      return static_cast<int>(err);
     const dim3 grid_kv((Sk + BWD_TILE - 1) / BWD_TILE, KV, B);
     flash_bwd_dkdv_kernel<T><<<grid_kv, BWD_THREADS, smem, s>>>(
         qt, kt, vt, dot, lt, dvr, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KV, D,
         scale, causal, window, kv_offset);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & DQ_PASS) {
+    if ((err = repro::allow_shared(flash_bwd_dq_kernel<T>, smem)) != cudaSuccess)
+      return static_cast<int>(err);
     const dim3 grid_q((Sq + BWD_TILE - 1) / BWD_TILE, H, B);
     flash_bwd_dq_kernel<T><<<grid_q, BWD_THREADS, smem, s>>>(
         qt, kt, vt, dot, lt, dvr, static_cast<T*>(dq), Sq, Sk, H, KV, D, scale, causal, window,
         kv_offset);
-    return static_cast<int>(cudaGetLastError());
+    err = cudaGetLastError();
   }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1118,17 +1412,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq, dk, dv laid out as q, k, v; dv_rows: float32 (B, H, Sq) scratch; kv_part
-// (bf16 only): float32 scratch for two (B, Sk, H, D) tensors, each query
-// head's share of dK and dV
+// dq, dk, dv laid out as q, k, v; rows: float32 scratch of 2 x (B, H, Sq
+// rounded up to 64); route: CUDA_CORES or WGMMA (bf16); parts: which
+// launches run (ROWS_PASS | DKDV_PASS | DQ_PASS for the whole backward)
 #define FLASH_BWD_ENTRY(SUFFIX, T)                                                             \
   extern "C" int flash_attention_bwd_##SUFFIX(                                                 \
       const void* q, const void* k, const void* v, const void* o, const void* dout,            \
-      const void* lse, void* dv_rows, void* kv_part, void* dq, void* dk, void* dv, int B,      \
-      int Sq, int Sk, int H, int KV, int D, float scale, int causal, int window,               \
-      int kv_offset, void* stream) {                                                           \
-    return launch_bwd<T>(q, k, v, o, dout, lse, dv_rows, kv_part, dq, dk, dv, B, Sq, Sk, H,    \
-                         KV, D, scale, causal, window, kv_offset, stream);                     \
+      const void* lse, void* rows, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, \
+      int KV, int D, float scale, int causal, int window, int kv_offset, int route, int parts, \
+      void* stream) {                                                                          \
+    return launch_bwd<T>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq, Sk, H, KV, D, scale,  \
+                         causal, window, kv_offset, route, parts, stream);                     \
   }
 
 FLASH_BWD_ENTRY(bf16, bf16)

@@ -86,10 +86,6 @@ __device__ __forceinline__ float gate(float y, float xh, float ds, float z) {
   return rnd<T>(rnd<T>(y + rnd<T>(xh * ds)) * rnd<T>(__fdividef(z, 1.f + __expf(-z))));
 }
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // A lane's pieces of one row: the row's (the gated form's y), and the gated
 // form's xh and z.
 template <int UNITS, bool GATED>
@@ -158,7 +154,7 @@ __device__ __forceinline__ void norm_row(Pieces<UNITS, GATED>& p, const Args& a,
   if (log_warps > 0) {   // the row's warps add their sums in one order, so all get one value
     const int warp = threadIdx.x >> 5, group = warp >> log_warps;
     if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = ss;
-    named_barrier(1 + group, 32 << log_warps);
+    repro::named_barrier(1 + group, 32 << log_warps);
     ss = 0.f;
     for (int i = group << log_warps; i < (group + 1) << log_warps; ++i)
       ss += part[parity * MAX_WARPS + i];
@@ -290,16 +286,171 @@ int launch(const Args& a, int warps, int units, int groups, int blocks, void* st
 
 // -- the backward pass ------------------------------------------------------
 //
-// With r = rsqrt(mean(x^2) + eps) in float32 and g the output's gradient:
+// The gradient of the function `_rmsnorm_kernel` computes (the JAX package
+// has no backward kernel; it differentiates its composed tiers).  With r =
+// rsqrt(mean(x^2) + eps) in float32 and g the output's gradient:
 //   dx = r (g w) - x r^3 mean(g w x),   dw = sum over rows of g x r.
-// rmsnorm_bwd_kernel: a block walks rows grid-stride, one row at a time:
-// a pass over the row for sum(x^2) and sum(g w x) (one block reduction of
-// the pair), a second (from L1/L2) writing dx and adding g x r to the
-// block's float32 partial of dw in shared memory, where each thread owns
-// its columns; at the end the block writes its partial row.
-// rmsnorm_dw_kernel: dw = the partial rows summed in block order.  No
-// atomics: two calls on the same inputs give the same bits.  Bound on the
-// H100: bytes (x and g read, dx written, and the partials, a few MB).
+// Bound on the H100: bytes (x and g read, dx written, once each; the
+// partial rows of dw are a few MB): 0.030 ms at (8192, 2048) bf16.
+//
+// rmsnorm_bwd_rows_kernel, for the rows the forward's row kernel takes,
+// in its layout (`rmsnorm.norm_bwd_plan`: `norm_plan` for two inputs a
+// piece, at most 2 pieces each a lane):
+//  - A lane holds its 16-byte pieces of x and of g in registers, and issues
+//    all their loads, and those of its columns' weight (once, resident),
+//    before it reduces; each row is read once, and the next row's pieces
+//    are in flight while this one is reduced and written.
+//  - sum(x^2) and sum(g w x) are reduced together: shuffles within a warp,
+//    then one named barrier a row across the row's warps.
+//  - dx is written from the same registers.
+//  - A lane's float32 share of dw stays in registers: its columns are the
+//    same in every row it takes.  At the end the block adds its row
+//    groups' shares in group order in shared memory and writes one partial
+//    row.
+// Rows off 16 bytes or too wide take rmsnorm_bwd_kernel: a block walks
+// rows grid-stride, one at a time, element by element, in two passes (the
+// second from L1/L2), the block's partial of dw in shared memory.
+// rmsnorm_dw_kernel: dw = the partial rows summed in a fixed order.  No
+// atomics: two calls on the same inputs give the same bits.
+
+constexpr int BWD_UNITS = 2;   // 16-byte pieces of x (and of g) a lane, at most
+constexpr int FOLD_FLOATS = MAX_WARPS * 32 * BWD_UNITS * 8;   // the widest row groups' dw
+
+template <typename T, int UNITS>
+__device__ __forceinline__ void load_pieces(uint4 (&x)[UNITS], uint4 (&g)[UNITS],
+                                            const T* __restrict__ xs, const T* __restrict__ gs,
+                                            long row, int D, Lane l) {
+  constexpr int E = 16 / sizeof(T);
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+    const bool in = u < l.units;
+    x[k] = in ? *reinterpret_cast<const uint4*>(xs + row * D + u * E) : make_uint4(0u, 0u, 0u, 0u);
+    g[k] = in ? *reinterpret_cast<const uint4*>(gs + row * D + u * E) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// dx of one row from a lane's pieces, and the lane's share of dw.
+template <typename T, int UNITS>
+__device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g)[UNITS],
+                                        T* __restrict__ dx, long row, int D, float eps, Lane l,
+                                        const float4 (&w)[UNITS][16 / sizeof(T) / 4],
+                                        float (&dw)[UNITS][16 / sizeof(T)], float2* part,
+                                        int log_warps, int& parity) {
+  constexpr int E = 16 / sizeof(T);
+  float ss = 0.f, gwx = 0.f;
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const T* xe = reinterpret_cast<const T*>(&x[k]);
+    const T* ge = reinterpret_cast<const T*>(&g[k]);
+    const float* wk = reinterpret_cast<const float*>(&w[k][0]);
+    float a = 0.f, c = 0.f;   // a sum a piece: short chains
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const float xf = to_float(xe[j]);
+      a += xf * xf;
+      c += to_float(ge[j]) * wk[j] * xf;
+    }
+    ss += a;
+    gwx += c;
+  }
+  ss = repro::warp_sum(ss);
+  gwx = repro::warp_sum(gwx);
+  if (log_warps > 0) {   // the row's warps add their sums in one order, so all get one value
+    const int warp = threadIdx.x >> 5, group = warp >> log_warps;
+    if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = make_float2(ss, gwx);
+    repro::named_barrier(1 + group, 32 << log_warps);
+    ss = gwx = 0.f;
+    for (int i = group << log_warps; i < (group + 1) << log_warps; ++i) {
+      const float2 p = part[parity * MAX_WARPS + i];
+      ss += p.x;
+      gwx += p.y;
+    }
+    parity ^= 1;
+  }
+  const float r = rsqrtf(ss / D + eps), c = r * r * r * gwx / D;
+  T* out = dx + row * D;
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+    if (u < l.units) {
+      const T* xe = reinterpret_cast<const T*>(&x[k]);
+      const T* ge = reinterpret_cast<const T*>(&g[k]);
+      const float* wk = reinterpret_cast<const float*>(&w[k][0]);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float xf = to_float(xe[j]), gf = to_float(ge[j]);
+        oe[j] = from_float<T>(r * gf * wk[j] - xf * c);
+        dw[k][j] += gf * xf * r;
+      }
+      *reinterpret_cast<uint4*>(out + u * E) = o;
+    }
+  }
+}
+
+// Rows of 2^log_warps warps each, `blockDim.x / 32 >> log_warps` row
+// groups a block, grid-stride over the rows; dw_part: a row a block.
+template <typename T, int UNITS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                            const T* __restrict__ g, T* __restrict__ dx,
+                            float* __restrict__ dw_part, int rows, int D, float eps,
+                            int log_warps) {
+  constexpr int E = 16 / sizeof(T), H = E / 4;
+  __shared__ float2 part[2 * MAX_WARPS];
+  __shared__ float fold[FOLD_FLOATS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = blockDim.x >> (5 + log_warps), group = warp >> log_warps;
+  const Lane l{((warp & ((1 << log_warps) - 1)) << 5) + lane, 32 << log_warps, D / E};
+  const long stride = static_cast<long>(gridDim.x) * groups;
+  long row = static_cast<long>(blockIdx.x) * groups + group;
+
+  uint4 x0[UNITS], g0[UNITS], x1[UNITS], g1[UNITS];
+  if (row < rows) load_pieces<T>(x0, g0, x, g, row, D, l);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float4 wr[UNITS][H];
+  float dw[UNITS][E];
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      wr[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < E; ++j) dw[k][j] = 0.f;
+  }
+
+  int parity = 0;
+  while (row < rows) {   // two buffers: the next row loads while this one is reduced
+    long next = row + stride;
+    if (next < rows) load_pieces<T>(x1, g1, x, g, next, D, l);
+    bwd_row<T>(x0, g0, dx, row, D, eps, l, wr, dw, part, log_warps, parity);
+    row = next;
+    if (row >= rows) break;
+    next = row + stride;
+    if (next < rows) load_pieces<T>(x0, g0, x, g, next, D, l);
+    bwd_row<T>(x1, g1, dx, row, D, eps, l, wr, dw, part, log_warps, parity);
+    row = next;
+  }
+
+  // the block's row groups' shares of dw, added in group order
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+    if (u < l.units) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) fold[group * D + u * E + j] = dw[k][j];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int i = 0; i < groups; ++i) s += fold[i * D + c];
+    dw_part[static_cast<long>(blockIdx.x) * D + c] = s;
+  }
+}
 
 // The pair (a, b) summed over the block; every thread gets both.  The
 // leading barrier lets the buffer be reused from one row to the next.
@@ -348,34 +499,70 @@ __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restr
     dw_part[static_cast<long>(blockIdx.x) * D + i] = acc[i];
 }
 
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw,
-                                  int parts, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
+// dw = the partial rows summed in a fixed order: a block takes 32 columns
+// and 8 slices of the rows (slice j: rows j, j + 8, ...), then adds its
+// slices in order.
+__global__ void __launch_bounds__(256)
+rmsnorm_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw, int parts, int D) {
+  __shared__ float slice[8][33];
+  const int lane = threadIdx.x & 31, j = threadIdx.x >> 5, col = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < parts; ++b) s += dw_part[static_cast<long>(b) * D + col];
-  dw[col] = s;
+  if (col < D) {
+#pragma unroll 4
+    for (int p = j; p < parts; p += 8) s += dw_part[static_cast<long>(p) * D + col];
+  }
+  slice[j][lane] = s;
+  __syncthreads();
+  if (j == 0 && col < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += slice[i][lane];
+    dw[col] = t;
+  }
 }
 
 constexpr int BWD_THREADS = 256;
 
+// warps 0: the wide kernel on `blocks` blocks; else the row kernel with the
+// plan's units, warps a row, row groups a block and blocks
+// (rmsnorm.norm_bwd_plan).  dw_part: float32 (blocks, D).
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_part, void* dw,
-               int rows, int D, float eps, int blocks, void* stream) {
+               int rows, int D, float eps, int warps, int units, int groups, int blocks,
+               void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * D;
-  cudaError_t err = repro::allow_shared(rmsnorm_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(g),
-      static_cast<T*>(dx), static_cast<float*>(dw_part), rows, D, eps);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const float* wt = static_cast<const float*>(w);
+  T* dxt = static_cast<T*>(dx);
+  float* part = static_cast<float*>(dw_part);
+  cudaError_t err = cudaSuccess;
+  if (warps == 0) {
+    const size_t smem = sizeof(float) * D;
+    if ((err = repro::allow_shared(rmsnorm_bwd_kernel<T>, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(xt, wt, gt, dxt, part, rows, D, eps);
+  } else {
+    if (warps > MAX_WARPS || (warps & (warps - 1)) || groups * warps > MAX_WARPS ||
+        groups * D > FOLD_FLOATS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = groups * warps * 32, log_warps = __builtin_ctz(warps);
+    if (units == 1)
+      rmsnorm_bwd_rows_kernel<T, 1><<<blocks, threads, 0, s>>>(xt, wt, gt, dxt, part, rows, D,
+                                                                eps, log_warps);
+    else if (units == 2)
+      rmsnorm_bwd_rows_kernel<T, 2><<<blocks, threads, 0, s>>>(xt, wt, gt, dxt, part, rows, D,
+                                                                eps, log_warps);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dw_kernel<<<(D + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(
-      static_cast<const float*>(dw_part), static_cast<float*>(dw), blocks, D);
+  rmsnorm_dw_kernel<<<(D + 31) / 32, 256, 0, s>>>(part, static_cast<float*>(dw), blocks, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
 
 #define RMSNORM_ENTRY(SUFFIX, T)                                                               \
   extern "C" int rmsnorm_##SUFFIX(const void* x, const void* w, void* out, int rows, int D,    \
@@ -401,8 +588,10 @@ RMSNORM_ENTRY(f32, float)
 #define RMSNORM_BWD_ENTRY(SUFFIX, T)                                                           \
   extern "C" int rmsnorm_bwd_##SUFFIX(const void* x, const void* w, const void* g, void* dx,   \
                                       void* dw_part, void* dw, int rows, int D, float eps,     \
-                                      int blocks, void* stream) {                              \
-    return launch_bwd<T>(x, w, g, dx, dw_part, dw, rows, D, eps, blocks, stream);              \
+                                      int warps, int units, int groups, int blocks,            \
+                                      void* stream) {                                          \
+    return launch_bwd<T>(x, w, g, dx, dw_part, dw, rows, D, eps, warps, units, groups, blocks, \
+                         stream);                                                              \
   }
 
 RMSNORM_BWD_ENTRY(bf16, __nv_bfloat16)

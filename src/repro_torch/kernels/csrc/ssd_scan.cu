@@ -77,8 +77,6 @@
 // banks.  The blocks of one sequence sit next to each other in the grid
 // (both instances), so b and c, read by every head, come from L2 after
 // the first.
-#include <cuda.h>   // the tensor map types (the driver is reached through the runtime)
-
 #include <type_traits>
 
 #include "common.cuh"
@@ -717,26 +715,6 @@ cudaError_t prepare(int P, int N) {
   return err;
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links no driver library), or null
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-                       cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A map of a bf16 tensor whose dims (innermost first) lie strides[i - 1]
 // elements apart, in boxes of `box_dims` elements with the 128-byte swizzle
 // (32-byte where a box row is 32 bytes);
@@ -744,7 +722,7 @@ EncodeTiled encode_tiled() {
 // bytes), and the caller loads element by element.
 bool make_map(CUtensorMap* map, const void* base, int rank, const long* dims,
               const long* strides, const unsigned* box_dims) {
-  const EncodeTiled encode = encode_tiled();
+  const repro::EncodeTiled encode = repro::encode_tiled();
   if (!encode || (reinterpret_cast<uintptr_t>(base) & 15)) return false;
   cuuint64_t gdim[4], gstride[3];
   cuuint32_t box[4], estride[4];
@@ -775,6 +753,7 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
   Maps maps = {};
   int flags = 0;
   if (std::is_same_v<T, bf16> && L > 0) {
+    repro::bind_context();
     // c, b: (n, l, b), a box 64 columns by the chunk's 64 rows; x: (p, h,
     // l, b), a box of one head's 64 columns by 64 rows
     const long bc_dims[3] = {N, L, B}, c_strides[2] = {cs_l, cs_b}, b_strides[2] = {bs_l, bs_b};

@@ -11,8 +11,9 @@ tensors and run the plain version for CPU tensors.
 
 On the card, ``rmsnorm`` is differentiable when ``x`` or ``w`` requires
 grad: `_RmsNorm` runs the forward kernel and the backward kernel
-(`rmsnorm_backward`, in the same source).  The gated form has no backward
-kernel yet and refuses inputs that require grad.
+(`rmsnorm_backward`, in the same source), which holds rows in the
+forward's register layout (`norm_bwd_plan`).  The gated form has no
+backward kernel yet and refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -26,15 +27,18 @@ from . import build
 from .ref import rmsnorm_reference as rmsnorm_plain  # the kernel's plain version
 
 __all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_plain",
-           "rmsnorm_plain", "norm_plan"]
+           "rmsnorm_plain", "norm_bwd_plan", "norm_plan"]
 
 THREADS = 256      # a block of the row kernel at most (its launch bounds)
 REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an SM
-MAX_UNITS = {False: 4, True: 2}   # 16-byte pieces of a row a lane holds: plain, gated
+# 16-byte pieces of a row a lane holds: one input a piece (the forward), or
+# more (the gated form: three; the backward: x and g)
+MAX_UNITS = {False: 4, True: 2}
 
 _ARGS = [build.P, build.P, build.P, build.I, build.I, build.F] + [build.I] * 4 + [build.P]
-_BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F, build.I, build.P]
-MAX_BWD_WIDTH = 50_000   # the backward keeps a float32 partial of dw a column in shared memory
+_BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F] + [build.I] * 4 + [build.P]
+MAX_BWD_WIDTH = 50_000   # the wide backward keeps a float32 partial of dw a column in shared memory
+FOLD_FLOATS = 8 * 32 * 2 * 8   # the backward's row groups' dw shares in shared memory, at most
 _GATED_ARGS = ([build.P] * 4 + [build.L, build.I, build.P, build.P, build.I, build.I, build.F]
                + [build.I] * 4 + [build.P])
 
@@ -60,7 +64,7 @@ WIDE = NormPlan(0, 0, 0, 0)
 
 
 def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
-              card: Card) -> NormPlan:
+              card: Card, backward: bool = False) -> NormPlan:
     """The fewest warps a row (a power of two, at most a block's 8) whose
     lanes hold the row in at most ``MAX_UNITS`` pieces each, and twice as
     many (where a block holds them) when there are fewer rows than SMs, so
@@ -72,13 +76,14 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     launch bounds allow), so each block walks several rows where there are
     many.  At qwen2.5-3b's prefill (4096 rows of 2048 bf16 on 132 SMs): 2
     warps a row, 4 pieces a lane, 4 rows a block, 264 blocks; at a decode
-    step (8 rows): 8 blocks of one row of 4 warps."""
+    step (8 rows): 8 blocks of one row of 4 warps.  ``backward``: two
+    inputs a piece, as the gated form's three."""
     vec = 16 // elem_bytes
     if not aligned or d % vec:
         return WIDE
     pieces = d // vec
     warps = 1
-    while -(-pieces // (32 * warps)) > MAX_UNITS[gated]:
+    while -(-pieces // (32 * warps)) > MAX_UNITS[gated or backward]:
         warps *= 2
     if warps > THREADS // 32:
         return WIDE
@@ -89,6 +94,17 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     threads = 32 * warps * groups
     fit = min(card.threads // threads, card.registers // (REGISTERS * threads))
     return NormPlan(warps, units, groups, min(-(-rows // groups), card.sms * max(1, fit)))
+
+
+def norm_bwd_plan(rows: int, d: int, elem_bytes: int, *, aligned: bool, card: Card) -> NormPlan:
+    """The backward's launch, which writes one partial row of dw a block:
+    `norm_plan`'s for two inputs a piece (x and the output's gradient) at
+    qwen2.5-3b's training rows (8192 of 2048 bf16 on 132 SMs: 4 warps a
+    row, 2 pieces a lane, 2 rows a block, 264 blocks); rows that go to the
+    wide kernel take a block a row, at most two blocks an SM at once."""
+    plan = norm_plan(rows, d, elem_bytes, gated=False, aligned=aligned, card=card,
+                     backward=True)
+    return plan if plan.warps else NormPlan(0, 0, 0, min(rows, 2 * card.sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,8 +148,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """dx (x's shape and dtype) and dw (float32) of ``rmsnorm(x, w)`` for the
-    output gradient ``g``, on CUDA tensors: the backward kernel, then the
-    fixed-order sum of its per-block partials of dw (no atomics)."""
+    output gradient ``g``, on CUDA tensors: the backward kernel on
+    `norm_bwd_plan`'s launch, then the fixed-order sum of its per-block
+    partial rows of dw (no atomics)."""
     _check("rmsnorm_backward", x, w)
     build.check_cuda("rmsnorm_backward", x, g)
     d = x.shape[-1]
@@ -144,12 +161,15 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, torch.zeros_like(w)
-    blocks = min(rows, 2 * card_of(x.device.index).sms)
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    plan = norm_bwd_plan(rows, d, x.element_size(),
+                         aligned=_aligned(x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                                          dx.data_ptr()),
+                         card=card_of(x.device.index))
+    part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
     build.call(f"rmsnorm_bwd_{build.DTYPE_SUFFIX[x.dtype]}", _BWD_ARGS, x.data_ptr(),
                w.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows,
-               d, eps, blocks, build.stream(x.device))
+               d, eps, *plan, build.stream(x.device))
     build.count(rmsnorm_backward)
     return dx, dw
 

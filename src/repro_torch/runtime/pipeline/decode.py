@@ -949,9 +949,16 @@ class DecodePipeline:
                 self._sample(y, gid=-1).to("cpu", non_blocking=True)
 
     def close(self) -> None:
-        """Stop the worker threads: the pipeline serves overlapped no
-        more."""
+        """Stop the worker threads, and free the cuBLAS workspaces that their
+        (thread, stream) pairs made: the pipeline serves overlapped no more.
+        PyTorch keys a workspace by (cuBLAS handle, stream) and frees them
+        only all at once, so the workspaces of other threads go too and are
+        made again at their next product: call it while no other thread
+        runs one."""
         self.lanes.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch._C._cuda_clearCublasWorkspaces()
 
     # -- cache ownership ------------------------------------------------------
     def _owner_stream(self, s: int, rep: int, overlap: bool):

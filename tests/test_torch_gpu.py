@@ -577,6 +577,44 @@ def test_pipeline_matches_single_device_server_on_card(cuda, name, overlap):
     assert (srv.last_run.streams_used > 1) if overlap else (srv.last_run.streams_used == 1)
 
 
+def test_pipeline_close_frees_its_lanes_cublas_workspaces(cuda):
+    """A pipelined serve on its worker threads and streams makes a cuBLAS
+    workspace for each (thread, stream) pair that runs a product; after
+    `DecodePipeline.close()`, with the pipeline and its server dropped, the
+    memory allocated is back within 64 MB of where it was before the
+    pipeline was built."""
+    import gc
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.runtime.pipeline import DecodePipeline
+    from repro_torch.runtime.server import LMServer, Request
+
+    cfg = get_config("qwen2.5-3b-smoke")
+    shape = ShapeCfg("decode_test", 128, 16, "decode")
+    plan = planner.plan(cfg, shape, chips=2 * cfg.n_layers + 4, max_tp=4)
+    stg, _ = lm_graph.build_stg(cfg, shape, max_tp=4)
+    params = lm.init_params(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab, rng.integers(40, 100)).tolist(),
+                    max_new=16) for i in range(8)]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pipe = DecodePipeline(cfg, stg, plan, params=params, device=cuda)
+    srv = LMServer(cfg, max_batch=4, pipeline=pipe, device=cuda)
+    srv.serve(reqs)
+    assert srv.last_run.streams_used > 1
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    pipe.close()
+    del srv, pipe
+    gc.collect()
+    left = torch.cuda.memory_allocated() - before
+    assert left < 64 << 20, f"{left} bytes left after close (the serve grew it by {grown})"
+
+
 def _chaos(name, device):
     """A reduced config on the card with two replicas forced on the first
     period's blocks (``blocks00`` has a survivor), its requests, and the
@@ -659,9 +697,11 @@ def test_failover_drills_on_card(cuda, name, drill):
 
 
 # -- the backward kernels ---------------------------------------------------
-# (B, S, H, KV, D, window, kv_offset): the head dims 16, 32, 64, 120 and 128,
-# GQA 1, 2, 5, 6, 7 and 8, windows across tiles, a key offset (Sk = S +
-# kv_offset) and ragged lengths
+# (B, S, H, KV, D, window, kv_offset[, causal]): the head dims 16, 32, 64,
+# 120 and 128, GQA 1, 2, 5, 6, 7 and 8 (bf16: clusters of that many
+# blocks), windows across tiles, a key offset (Sk = S + kv_offset), ragged
+# lengths, causal and not; and shapes the bf16 wgmma kernels do not take,
+# which run on the CUDA-core kernels (a head dim off 16 bytes, GQA 16)
 BWD_SHAPES = [
     (1, 64, 4, 4, 16, None, 0),          # MHA, one tile
     (2, 100, 4, 2, 32, None, 0),         # GQA 2, ragged
@@ -672,6 +712,11 @@ BWD_SHAPES = [
     (1, 70, 8, 2, 64, None, 130),        # kv_offset 130: Sk 200
     (1, 300, 8, 8, 120, 256, 0),         # danube's window of 256
     (2, 17, 4, 1, 128, 5, 3),            # a tiny window, an offset, one KV head
+    (1, 129, 12, 2, 128, None, 0, False),   # not causal, GQA 6, ragged
+    (2, 200, 16, 2, 120, 64, 0, False),     # not causal with a window, GQA 8
+    (1, 200, 4, 4, 32, None, 7, False),     # not causal, an offset
+    (1, 129, 4, 2, 100, None, 0),        # a head dim off 16 bytes: the CUDA-core kernels
+    (1, 100, 16, 1, 64, 30, 0),          # GQA 16: the CUDA-core kernels
 ]
 # float32: the kernel and the plain version's autograd sum float32 products
 # in another order; bf16: both take bf16 inputs and round each gradient to
@@ -682,13 +727,14 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 def _attn_inputs(shape, dtype, cuda, seed=0):
-    b, s, h, kv, d, window, off = shape
+    b, s, h, kv, d, window, off, *causal = shape
     rng = np.random.default_rng(seed + s + d)
     q = _rand(rng, (b, s, h, d), dtype, cuda)
     k = _rand(rng, (b, s + off, kv, d), dtype, cuda)
     v = _rand(rng, (b, s + off, kv, d), dtype, cuda)
     do = _rand(rng, (b, s, h, d), dtype, cuda)
-    return q, k, v, do, dict(causal=True, window=window, kv_offset=off)
+    return q, k, v, do, dict(causal=causal[0] if causal else True, window=window,
+                             kv_offset=off)
 
 
 def _grads(fn, q, k, v, do, kw):
@@ -733,9 +779,13 @@ def test_flash_attention_forward_logsumexp(cuda, dtype):
     torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
 
 
+# GQA 7, 2 and 8 (bf16: clusters of 7, 2 and 8 blocks), head dims 128 and
+# 120, and a window
+@pytest.mark.parametrize("shape", [(2, 200, 14, 2, 128, None, 0), (2, 200, 4, 2, 128, None, 0),
+                                   (1, 256, 16, 2, 128, None, 0), (2, 150, 12, 2, 120, 40, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernels_are_deterministic(cuda, dtype):
-    q, k, v, do, kw = _attn_inputs((2, 200, 14, 2, 128, None, 0), dtype, cuda)
+def test_backward_kernels_are_deterministic(cuda, shape, dtype):
+    q, k, v, do, kw = _attn_inputs(shape, dtype, cuda)
     out, lse = flash_attention_forward(q, k, v, **kw, with_lse=True)
     first = flash_attention_backward(q, k, v, out, do, lse, **kw)
     second = flash_attention_backward(q, k, v, out, do, lse, **kw)
@@ -747,10 +797,38 @@ def test_backward_kernels_are_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-# qwen's width at its training rows, a width of a ragged number of 16-byte
-# pieces, widths off 16 bytes and one wider than the forward's row kernel
+def test_flash_attention_backward_on_a_thread_new_to_cuda(cuda):
+    """Autograd runs a backward on a device thread of its own, where the
+    backward's first call may be the thread's first CUDA call (its outputs
+    come from PyTorch's cache): the bf16 kernels' tensor maps must encode
+    there too, and the gradients equal those made on the main thread."""
+    import threading
+
+    q, k, v, do, kw = _attn_inputs((1, 200, 8, 2, 128, None, 0), torch.bfloat16, cuda)
+    out, lse = flash_attention_forward(q, k, v, **kw, with_lse=True)
+    want = flash_attention_backward(q, k, v, out, do, lse, **kw)
+    flash_attention_backward(q, k, v, out, do, lse, **kw)   # its outputs go back to the cache
+    got = {}
+
+    def run():
+        try:
+            got["grads"] = flash_attention_backward(q, k, v, out, do, lse, **kw)
+        except Exception as e:   # reported below, on the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
+
+
+# qwen's width at its training rows and at 8 rows, a width of a ragged
+# number of 16-byte pieces, widths off 16 bytes, one that takes 8 warps a
+# row (4096; float32: the wide kernel) and one wider than the row kernel
 @pytest.mark.parametrize("shape", [(8192, 2048), (8, 1000), (3, 1001), (2, 20000), (5, 3840),
-                                   (2, 7, 128)])
+                                   (2, 7, 128), (8, 2048), (4096, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_matches_plain_autograd(cuda, shape, dtype):
     rng = np.random.default_rng(7)

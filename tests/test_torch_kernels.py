@@ -33,13 +33,17 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (MAX_SPLITS, MIN_SPLIT, SplitPlan,
                                                   decode_attention, split_plan,
                                                   workspace_shapes)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels.fused_decode import (SHARED_LIMIT, GemvPlan, _composed_step,
                                               attn_decode_step, fused_decode_plain, gemv_plan,
                                               out_residual, qkv_rope, shared_bytes, tile_width)
+from repro_torch.kernels import build
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.rmsnorm import (MAX_UNITS, REGISTERS, THREADS, WIDE, Card, NormPlan,
-                                         _row_stride, norm_plan, rmsnorm, rmsnorm_gated)
+                                         _row_stride, norm_bwd_plan, norm_plan, rmsnorm,
+                                         rmsnorm_gated)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -159,6 +163,50 @@ def test_norm_plan_at_the_serving_shapes():
         NormPlan(4, 4, 2, 264)
 
 
+@pytest.mark.parametrize("rows", [1, 8, 131, 1000, 4096, 8192])
+@pytest.mark.parametrize("d,elem", [(2048, 2), (4096, 2), (1000, 2), (3840, 2), (128, 2),
+                                    (16, 2), (2048, 4), (1024, 4), (24, 4)])
+def test_norm_bwd_plan_covers_every_row_once_within_its_limits(rows, d, elem):
+    """The backward's row kernel holds x and g, two pieces at most a lane:
+    its lanes hold the row, its row groups take every row once, its block
+    fits the launch bounds and its row groups' dw shares fit the shared
+    memory it folds them in; one partial row of dw a block."""
+    plan = norm_bwd_plan(rows, d, elem, aligned=True, card=NORM_CARD)
+    pieces = d * elem // 16
+    assert plan.warps and plan.units <= MAX_UNITS[True] == 2
+    assert 32 * plan.warps * plan.units >= pieces
+    assert 32 * plan.warps * plan.groups <= THREADS
+    assert plan.groups * d <= rn.FOLD_FLOATS
+    cover = np.zeros(rows, np.int64)
+    for b in range(plan.blocks):
+        for g in range(plan.groups):
+            cover[b * plan.groups + g::plan.blocks * plan.groups] += 1
+    assert (cover == 1).all()
+    assert plan == norm_plan(rows, d, elem, gated=True, aligned=True, card=NORM_CARD)
+
+
+@pytest.mark.parametrize("rows,d,elem,aligned", [(8, 100, 2, True), (3, 1001, 4, True),
+                                                 (8, 2048, 2, False), (2, 20000, 2, True),
+                                                 (4096, 4096, 4, True), (5, 3840, 4, True),
+                                                 (1000, 8200, 2, True)])
+def test_norm_bwd_plan_sends_what_the_row_kernel_does_not_take_to_the_wide_kernel(
+        rows, d, elem, aligned):
+    """Rows off 16 bytes or too wide for 8 warps of two pieces: the wide
+    kernel, a block a row at a time, at most two blocks an SM; a partial
+    row of dw a block."""
+    assert norm_bwd_plan(rows, d, elem, aligned=aligned, card=NORM_CARD) == \
+        NormPlan(0, 0, 0, min(rows, 2 * 132))
+
+
+def test_norm_bwd_plan_at_the_training_shapes():
+    """qwen2.5-3b's training rows (8192 of 2048 bf16): 4 warps a row, 2
+    pieces a lane, 2 rows a block, 264 blocks; 8 rows: 8 blocks of a row
+    of 8 warps; (4096, 4096): 8 warps, 2 pieces."""
+    assert norm_bwd_plan(8192, 2048, 2, aligned=True, card=NORM_CARD) == NormPlan(4, 2, 2, 264)
+    assert norm_bwd_plan(8, 2048, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 1, 1, 8)
+    assert norm_bwd_plan(4096, 4096, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 2, 1, 264)
+
+
 def test_row_stride_reads_column_slices_and_refuses_uneven_rows():
     xz = torch.zeros(2, 5, 16)
     assert _row_stride(torch.chunk(xz, 2, dim=-1)[1]) == 16
@@ -198,6 +246,152 @@ def test_flash_attention_matches_pallas(case, dtype):
                                interpret=True, **kw)
     _close(flash_attention(tq, tk, tv, **kw), want, dtype)
     _close(ref.mha_reference(tq, tk, tv, **kw), want, dtype)
+
+
+# (B, Sq, Sk, H, KV, D): qwen2.5-3b's and danube's training heads, each GQA
+# ratio the models use and more, head dims 16-128, ragged lengths
+BWD_PLAN_SHAPES = [(2, 4096, 4096, 16, 2, 128), (1, 1024, 1024, 32, 8, 120),
+                   (2, 200, 200, 14, 2, 128), (1, 129, 129, 10, 2, 64), (2, 150, 150, 12, 2, 120),
+                   (1, 64, 64, 4, 4, 16), (2, 100, 100, 4, 2, 32), (1, 70, 200, 8, 2, 64),
+                   (2, 17, 20, 4, 1, 128), (1, 300, 300, 8, 8, 120), (3, 257, 513, 6, 1, 96)]
+
+
+@pytest.mark.parametrize("shape", BWD_PLAN_SHAPES)
+def test_bwd_plan_clusters_cover_every_key_tile_and_row_once(shape):
+    """bf16's dK/dV grid: every (sequence, KV head, 128-key tile) is one
+    cluster, of the KV head's query heads in head order, at most 8 blocks;
+    the cluster's blocks split the tile's 128 rows between them, each row
+    once; the dQ grid takes every (sequence, head, 128-query tile) once;
+    the row arrays are whole 64-row slices; both kernels fit 227 KB."""
+    b, sq, sk, h, kv, d = shape
+    plan = fa.bwd_plan(b, sq, sk, h, kv, d, bf16=True, aligned=True)
+    assert plan.route == fa.WGMMA and plan.head_pad in (64, 128) and plan.head_pad >= d
+    assert plan.cluster == h // kv <= fa.MAX_CLUSTER
+    gx, gy = plan.dkdv_grid
+    assert gx % plan.cluster == 0
+    seen = {}
+    for x in range(gx):
+        for y in range(gy):
+            bi, head = divmod(x, h)
+            cluster, rank = divmod(x, plan.cluster)
+            assert head // (h // kv) == cluster % kv and head % plan.cluster == rank
+            seen.setdefault((bi, head // (h // kv), y), []).append(head)
+    assert sorted(seen) == [(bi, g, t) for bi in range(b) for g in range(kv)
+                            for t in range(-(-sk // fa.KEY_TILE))]
+    assert all(heads == list(range(g * (h // kv), (g + 1) * (h // kv)))
+               for (_, g, _), heads in seen.items())
+    rows = np.zeros(fa.KEY_TILE, np.int64)
+    for r in fa.cluster_rows(plan.cluster):
+        rows[r.start:r.stop] += 1
+    assert (rows == 1).all()
+    assert plan.dq_grid == (b * h, -(-sq // fa.QUERY_TILE))
+    assert plan.rows_pad % fa.STEP == 0 and 0 <= plan.rows_pad - sq < fa.STEP
+    assert max(plan.dkdv_smem, plan.dq_smem) <= fa.MAX_SHARED
+
+
+@pytest.mark.parametrize("head_pad,dkdv,dq", [(64, 74_792, 66_600), (128, 140_328, 132_136)])
+def test_bwd_shared_budget_by_head_dim(head_pad, dkdv, dq):
+    """The wgmma kernels' shared memory as the source lays it out: under the
+    227 KB a block may use, one block an SM (the blocks are 384 threads at
+    up to 240 registers)."""
+    assert fa.dkdv_shared_bytes(head_pad) == dkdv <= fa.MAX_SHARED
+    assert fa.dq_shared_bytes(head_pad) == dq <= fa.MAX_SHARED
+
+
+@pytest.mark.parametrize("shape,bf16,aligned", [((1, 64, 64, 4, 2, 100), True, True),
+                                                ((1, 64, 64, 16, 1, 64), True, True),
+                                                ((1, 64, 64, 4, 2, 128), True, False),
+                                                ((2, 4096, 4096, 16, 2, 128), False, True)])
+def test_bwd_plan_sends_what_wgmma_does_not_take_to_the_cuda_cores(shape, bf16, aligned):
+    """A head dim off 16 bytes, more than 8 query heads a KV head (no
+    portable cluster), an input off 16 bytes, and float32: the CUDA-core
+    kernels, dK/dV a block per (64 keys, KV head), dQ per (64 queries,
+    head)."""
+    b, sq, sk, h, kv, d = shape
+    assert fa.bwd_plan(b, sq, sk, h, kv, d, bf16=bf16, aligned=aligned) == fa.BwdPlan(
+        fa.CUDA_CORES, d, 1, (-(-sk // 64), kv, b), (-(-sq // 64), h, b), sq, 0, 0)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,off", [
+    (64, 64, True, 0, 0), (129, 129, True, 0, 0), (150, 150, True, 40, 0), (70, 200, True, 0, 130),
+    (300, 300, True, 256, 0), (17, 20, True, 5, 3), (200, 200, False, 0, 0),
+    (129, 129, False, 40, 0), (257, 300, True, 100, 43)])
+def test_bwd_tile_walk_computes_every_live_pair_once(sq, sk, causal, window, off):
+    """The wgmma kernels' walk, as the source has it: a dK/dV block's two
+    warpgroups (64 keys each) over the query tiles from qbeg to qend, a dQ
+    block's (64 queries each) over the key tiles from kbeg to kend, each
+    skipping tiles where no pair is live and masking only where some pair
+    is dead: each computes every live (key, query) pair once and no other.
+    Rows past Sq have P 0 from their padded logsumexp, rows past Sk are
+    not stored (dK/dV) or zero (dQ)."""
+    kt, qt = fa.KEY_TILE, fa.STEP
+    qs, ks = np.arange(sq), np.arange(sk)
+    qpos = qs[None, :] + off
+    live = (ks[:, None] <= qpos) | (not causal)
+    if window:
+        live &= ks[:, None] > qpos - window
+    dkdv = np.zeros((sk, sq), np.int64)
+    for k0 in range(0, sk, kt):
+        nk = min(kt, sk - k0)
+        qbeg = max(0, k0 - off) if causal else 0
+        qend = min(sq, k0 + nk - 1 + window - off) if window else sq
+        for kw in (k0, k0 + 64):
+            for q0 in range(qbeg // qt * qt, qend if qend > qbeg else 0, qt):
+                if kw >= sk or (causal and kw > q0 + qt - 1 + off) or (
+                        window and kw + 63 <= q0 + off - window):
+                    continue
+                edge = (causal and kw + 63 > q0 + off) or (window and kw <= q0 + qt - 1 + off - window)
+                k_, q_ = np.arange(kw, min(kw + 64, sk)), np.arange(q0, min(q0 + qt, sq))
+                dead = (causal & (k_[:, None] > q_[None, :] + off)) | (
+                    (window > 0) & (k_[:, None] <= q_[None, :] + off - window))
+                dkdv[k_[0]:k_[-1] + 1, q_[0]:q_[-1] + 1] += ~(bool(edge) & dead) if len(q_) else 0
+    dq = np.zeros((sk, sq), np.int64)
+    for q0 in range(0, sq, fa.QUERY_TILE):
+        nq = min(fa.QUERY_TILE, sq - q0)
+        kend = min(sk, q0 + nq + off) if causal else sk
+        kbeg = max(0, q0 + off - window + 1) if window else 0
+        for qw in (q0, q0 + 64):
+            for k0 in range(kbeg // qt * qt, kend if kend > kbeg else 0, qt):
+                if qw >= sq or (causal and k0 > qw + 63 + off) or (
+                        window and k0 + qt - 1 <= qw + off - window):
+                    continue
+                edge = k0 + qt > sk or (causal and k0 + qt - 1 > qw + off) or (
+                    window and k0 <= qw + 63 + off - window)
+                q_, k_ = np.arange(qw, min(qw + 64, sq)), np.arange(k0, min(k0 + qt, sk))
+                dead = (causal & (k_[:, None] > q_[None, :] + off)) | (
+                    (window > 0) & (k_[:, None] <= q_[None, :] + off - window))
+                dq[k_[0]:k_[-1] + 1, q_[0]:q_[-1] + 1] += ~(bool(edge) & dead) if len(q_) else 0
+    np.testing.assert_array_equal(dkdv, live.astype(np.int64))
+    np.testing.assert_array_equal(dq, live.astype(np.int64))
+
+
+def test_backward_wrappers_raise_on_shapes_they_do_not_take(monkeypatch):
+    """Past the device check, the backward wrappers refuse, with their
+    messages and before any launch, a dtype or shape the kernels do not
+    take."""
+    monkeypatch.setattr(build, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(build, "call", lambda *a: pytest.fail("launched"))
+    z = torch.zeros
+    q, kv, lse = z(1, 8, 4, 64), z(1, 8, 2, 64), z(1, 4, 8)
+    with pytest.raises(ValueError, match="q .B,Sq,H,D. and k, v .B,Sk,KV,D. of one dtype"):
+        fa.flash_attention_backward(q, z(1, 8, 3, 64), z(1, 8, 3, 64), q, q, lse)
+    with pytest.raises(ValueError, match="D <= 128"):
+        big = z(1, 8, 2, 160)
+        fa.flash_attention_backward(z(1, 8, 4, 160), big, big, z(1, 8, 4, 160), z(1, 8, 4, 160),
+                                    lse)
+    with pytest.raises(ValueError, match="o and do as q"):
+        fa.flash_attention_backward(q, kv, kv, q, q, z(1, 4, 7))
+    with pytest.raises(ValueError, match="o and do as q"):
+        fa.flash_attention_backward(q, kv, kv, q.bfloat16(), q, lse)
+    x, w = z(8, 2048), z(2048)
+    with pytest.raises(ValueError, match="g as x"):
+        rn.rmsnorm_backward(x, w, z(8, 1024))
+    with pytest.raises(ValueError, match="g as x"):
+        rn.rmsnorm_backward(x, w, x.bfloat16())
+    with pytest.raises(ValueError, match="width <= 50000"):
+        rn.rmsnorm_backward(z(2, 60_000), z(60_000), z(2, 60_000))
+    with pytest.raises(ValueError, match="w float32"):
+        rn.rmsnorm_backward(x, w.bfloat16(), x)
 
 
 DECODE_CASES = [
