@@ -99,24 +99,32 @@ script exits non-zero without its result line.  The phases:
     each drill's peak memory over what was resident, and the phase's
     seconds;
 10. training, after the serving models are freed: the backward kernels
-    (flash attention, rmsnorm) against the plain version's autograd
-    gradients in bf16 and float32 at qwen2.5-3b's training shape (B 2, S
-    4096, H 16, KV 2, D 128, causal), danube's heads (D 120, window 256, S
-    1024), GQA 7 and a ragged S 129, and rmsnorm at (8192, 2048), width 1000
-    and a row off 16 bytes; their times at qwen's training shape beside
-    their bounds, the plain versions' autograd and the library's (SDPA's
-    backward, ``F.rms_norm``'s); one train step (accum 2) of qwen2.5-3b at
-    full width cut to 2 layers, kernel route against ``impl="ref"`` from
-    the same float32 masters and batch (loss and every leaf's gradient
-    norm, float32 and bf16); qwen2.5-3b at full width and depth (36 layers,
-    3.40 B parameters, AdamW on float32 masters) through ``train_loop``:
-    the bigram pipeline at seq 4096, global batch 8, grad_accum 4, remat
-    "full", one warm-up step, 4 timed steps (launch counts set to 0 just
-    before them and read just after; every forward and backward kernel
-    must launch and no plain version be called), one step profiled (device
-    idle share); and a crash-restart drill on qwen2.5-3b ``reduced()``
-    (checkpoint every 2 steps, crash at step 3) whose final float32
-    parameters must be bitwise an uninterrupted run's;
+    against the plain version's autograd gradients in bf16 and float32:
+    flash attention at qwen2.5-3b's training shape (B 2, S 4096, H 16, KV
+    2, D 128, causal), danube's heads (D 120, window 256, S 1024), GQA 7
+    and a ragged S 129; rmsnorm at (8192, 2048), width 1000 and a row off
+    16 bytes; the SSD scan at mamba2-370m's training shape (B 2, L 4096, H
+    32, P 64, N 128), L 129, L 1, L 65 and the reduced widths (P 8, N 16),
+    b and c strided as ``Mamba._proj`` slices them; the gated norm at
+    (8192, 2048) with z strided as ``torch.chunk`` gives it, and at width
+    1000; each of the last two also called twice and compared bitwise.
+    Their times at the training shapes beside their bounds, the plain
+    versions' autograd and the library's (SDPA's backward, ``F.rms_norm``'s;
+    none computes the scan's or the gated norm's); one train step (accum 2)
+    of qwen2.5-3b and of mamba2-370m at full width cut to 2 layers, kernel
+    route against ``impl="ref"`` from the same float32 masters and batch
+    (loss and every leaf's gradient norm, float32 and bf16; mamba2-370m's
+    beside the oracle's spread with its scan's chunk halved);
+    qwen2.5-3b (36 layers, 3.40 B parameters) and mamba2-370m (48 layers,
+    368 M) at full width and depth, AdamW on float32 masters, through
+    ``train_loop``: the bigram pipeline at seq 4096, global batch 8,
+    grad_accum 4, remat "full", one warm-up step, 4 timed steps (launch
+    counts set to 0 just before them and read just after; every forward
+    and backward kernel of the model must launch and no plain version be
+    called), one step profiled (device idle share); and a crash-restart
+    drill on qwen2.5-3b ``reduced()`` (checkpoint every 2 steps, crash at
+    step 3) whose final float32 parameters must be bitwise an
+    uninterrupted run's;
 11. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -169,16 +177,25 @@ MAMBA_LOGIT_TOL = 0.05
 
 # backward kernels against the plain version's autograd gradients, as a share
 # of the gradient's largest entry: bf16, about three bf16 steps (both round
-# each gradient to bf16 once, and the kernel takes rowsum(dO o) from the
+# each gradient to bf16 once, and the flash kernel takes rowsum(dO o) from the
 # forward's bf16 output o where the plain version's autograd has the float32
-# one); float32, sums of up to 4096 float32 terms taken in another order
+# one); float32, sums of up to 4096 float32 terms (and the scan's 32 heads)
+# taken in another order
 GRAD_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
+# da at L 1 is 0 in exact arithmetic (no token decays another): the plain
+# version's autograd gives float32 noise of the terms that cancel there (up to
+# 1.8e-4 seen in a card test), so the kernel's is held to 0 within 1e-5
+VANISHING_GRAD = 1e-5
 # the 2-layer full-width train step, kernel route against impl="ref" from the
 # same float32 masters and batch: the loss and each leaf's gradient norm,
 # relative.  float32: the routes sum float32 products in another order; bf16:
 # the routes round at other points (the flash forward rounds P to bf16 for its
 # P V product, the oracle rounds the float32 output once), and a leaf's norm
-# averages those single-step differences
+# averages those single-step differences, as do mamba2-370m's (the scan's
+# backward also runs its float32 operands through TF32).  mamba2-370m's step
+# is printed beside the spread of the oracle against itself with its scan's
+# chunk halved: what a change of summation order alone gives (its 2 layers
+# moved a leaf's norm by 1.4e-3 so in bf16 on the card)
 TRAIN_AB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 
@@ -476,19 +493,25 @@ def resilience(cfg, params, prompts, pps, ctx, kernels, *, full, device="cuda",
 
 def training(check, copies, bound, smi, *, full=True, device="cuda"):
     """Phase 10: training.  The backward kernels against the plain version's
-    autograd gradients, and their times at qwen2.5-3b's training shape; one
-    train step (accum 2) of qwen2.5-3b at full width cut to 2 layers, kernel
-    route against ``impl="ref"`` from the same float32 masters and batch, in
-    float32 and bf16; qwen2.5-3b at full width and depth through
+    autograd gradients (flash attention and rmsnorm at qwen2.5-3b's training
+    shapes; the SSD scan and the gated norm at mamba2-370m's, each also
+    called twice and compared bitwise), and their times at those shapes;
+    one train step (accum 2) of qwen2.5-3b and of mamba2-370m at full width
+    cut to 2 layers, kernel route against ``impl="ref"`` from the same
+    float32 masters and batch, in float32 and bf16 (mamba2-370m's beside
+    the spread of the oracle against itself with its scan's chunk halved);
+    qwen2.5-3b and mamba2-370m at full width and depth through
     `train_loop` (AdamW, float32 masters, the bigram pipeline at seq 4096,
     global batch 8, grad_accum 4, remat "full"): a warm-up step, 4 timed
     steps with the launch counts set to 0 just before them and read just
-    after (the plain versions must not be called), then one step profiled;
-    and a `run_resilient` drill on qwen2.5-3b ``reduced()``, a checkpoint
-    every 2 steps and a crash at step 3, whose final float32 parameters must
-    be bitwise those of an uninterrupted run.  ``full`` False: small shapes,
+    after (every forward and backward kernel of the model must launch and
+    no plain version be called), then one step profiled; and a
+    `run_resilient` drill on qwen2.5-3b ``reduced()``, a checkpoint every 2
+    steps and a crash at step 3, whose final float32 parameters must be
+    bitwise those of an uninterrupted run.  ``full`` False: small shapes,
     for a rehearsal on the CPU.  Returns the kernel rows and the timed
-    steps' launches."""
+    steps' launches (the SSD scan's and the gated norm's from
+    mamba2-370m's run, the others from qwen2.5-3b's)."""
     import dataclasses
     import shutil
 
@@ -504,7 +527,12 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
                                                      flash_attention_forward,
                                                      flash_attention_plain)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward, rmsnorm_plain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward, rmsnorm_gated,
+                                             rmsnorm_gated_backward, rmsnorm_gated_plain,
+                                             rmsnorm_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_plain
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.runtime.failures import FailureInjector
@@ -515,6 +543,9 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     gen = torch.Generator(device=dev).manual_seed(4321)
     kernels = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_backward,
                "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward}
+    mamba_kernels = {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward, "ssd_scan": ssd_scan,
+                     "ssd_scan_bwd": ssd_scan_backward, "rmsnorm_gated": rmsnorm_gated,
+                     "rmsnorm_gated_bwd": rmsnorm_gated_backward}
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -544,9 +575,9 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
         fn(*leaves, **kw).backward(dout)
         return [t.grad for t in leaves]
 
-    def check_grad(kernel, case, got, want, dtype):
+    def check_grad(kernel, case, got, want, dtype, floor=0.0):
         tol = GRAD_TOL[str(dtype).removeprefix("torch.")]
-        check(kernel, case, got, want, tol * float(want.float().abs().max()), tol)
+        check(kernel, case, got, want, tol * float(want.float().abs().max()) + floor, tol)
 
     attn_shapes = ((((2, 4096, 16, 2, 128, None), "qwen's training shape"),
                     ((1, 1024, 32, 8, 120, 256), "danube's heads, window 256"),
@@ -576,6 +607,77 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
             for name, a, b_ in zip(("dx", "dw"), got, want):
                 check_grad("rmsnorm_bwd", f"{label} {dtype}: {name}", a, b_, dtype)
         del cases
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the SSD scan's and the gated norm's backward: mamba2-370m's training
+    # shape, the scan also at a ragged length, at the edges of its chunk of
+    # 64 tokens and at the reduced widths; b and c strided as `Mamba._proj`
+    # slices them, z as ``torch.chunk`` gives it; trained Mamba2's long
+    # memory (dt ~ 0.02, a ~ -0.14); the loss, as in training, uses y and
+    # not the final state.  Each case also calls the backward twice and
+    # compares the two bitwise.
+    def ssd_in(b, L, h, p, n, dtype):
+        bc = randn(b, L, 2 * n + h, dtype=dtype)
+        return (randn(b, L, h, p, dtype=dtype), F.softplus(randn(b, L, h, dtype=f32) - 4.0),
+                -torch.exp(-2.0 + 0.5 * randn(h, dtype=f32)), bc, randn(b, L, h, p, dtype=dtype))
+
+    def ssd_grads(fn, x, dt, a, bc, dy):
+        n = (bc.shape[-1] - x.shape[2]) // 2
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, a, bc)]
+        fn(*leaves[:3], leaves[3][..., :n], leaves[3][..., n:2 * n])[0].backward(dy)
+        return [t.grad for t in leaves]
+
+    def gate_in(lead, h, p, dtype):
+        return (randn(*lead, h, p, dtype=dtype), randn(*lead, h, p, dtype=dtype),
+                1.0 + 0.1 * randn(h, dtype=f32), randn(*lead, 2 * h * p, dtype=dtype),
+                1.0 + 0.1 * randn(h * p, dtype=f32), randn(*lead, h * p, dtype=dtype))
+
+    def gate_grads(fn, y, xh, d, xz, w, g):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (y, xh, d, xz, w)]
+        fn(*leaves[:3], torch.chunk(leaves[3], 2, dim=-1)[1], leaves[4]).backward(g)
+        return [t.grad for t in leaves]
+
+    bitwise = []
+    ssd_shapes = ((((2, 4096, 32, 64, 128), "mamba2-370m's training shape"),
+                   ((2, 129, 32, 64, 128), "ragged L 129"), ((2, 1, 32, 64, 128), "L 1"),
+                   ((2, 65, 32, 64, 128), "L 65"), ((2, 100, 16, 8, 16), "reduced widths"))
+                  if full else (((1, 70, 4, 8, 16), "small"),))
+    gate_shapes = ((((2, 4096), 32, 64, "mamba2-370m's training rows"),
+                    ((2, 4096), 4, 250, "width 1000")) if full else (((4, 8), 4, 8, "small"),))
+    for dtype in (bf16, f32):
+        for (b, L, h, p, n), label in ssd_shapes:
+            x, dt, a, bc, dy = ssd_in(b, L, h, p, n, dtype)
+            got = ssd_grads(ssd_scan, x, dt, a, bc, dy)
+            want = ssd_grads(ssd_scan_plain, x, dt, a, bc, dy)
+            if L == 1:
+                want[2] = torch.zeros_like(want[2])
+            for name, g, w in zip(("dx", "ddt", "da", "d(b, c) projection"), got, want):
+                check_grad("ssd_scan_bwd", f"{label}: B{b} L{L} H{h} P{p} N{n} {dtype}, b and c "
+                           f"strided: {name}", g, w, dtype, VANISHING_GRAD)
+            args = (x, dt, a, bc[..., :n], bc[..., n:2 * n], dy)
+            first, second = ssd_scan_backward(*args), ssd_scan_backward(*args)
+            bitwise.append((f"ssd_scan_bwd {label} {dtype}",
+                            all(torch.equal(u, v) for u, v in zip(first, second))))
+            del x, dt, a, bc, dy, got, want, first, second
+        for lead, h, p, label in gate_shapes:
+            y, xh, d, xz, w, g = gate_in(lead, h, p, dtype)
+            got = gate_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+            want = gate_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+            for name, a_, b_ in zip(("dy", "dxh", "dd_skip", "d(x, z) projection", "dw"), got,
+                                    want):
+                check_grad("rmsnorm_gated_bwd", f"{label}: {lead} H{h} P{p} {dtype}, z rows "
+                           f"{2 * h * p} apart: {name}", a_, b_, dtype)
+            args = (y, xh, d, torch.chunk(xz, 2, dim=-1)[1], w, g)
+            first, second = rmsnorm_gated_backward(*args), rmsnorm_gated_backward(*args)
+            bitwise.append((f"rmsnorm_gated_bwd {label} {dtype}",
+                            all(torch.equal(u, v) for u, v in zip(first, second))))
+            del y, xh, d, xz, w, g, got, want, first, second
+    emit("train_bitwise", what="each backward called twice on the same inputs",
+         cases={k: v for k, v in bitwise}, ok=all(v for _, v in bitwise))
+    if not all(v for _, v in bitwise):
+        raise AssertionError(f"a backward kernel gave other bits on a second call: "
+                             f"{[k for k, v in bitwise if not v]}")
     if device == "cuda":
         torch.cuda.empty_cache()
 
@@ -656,12 +758,57 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     if device == "cuda":
         torch.cuda.empty_cache()
 
+    # -- times at mamba2-370m's training shape ------------------------------
+    b, L, h, p, n = (2, 4096, 32, 64, 128) if full else (1, 128, 4, 8, 16)
+    chunks, q = -(-L // ss.CHUNK), ss.CHUNK
+    tri = q * (q + 1) // 2
+    # reads x, dy, b, c, dt (and a), writes dx, db, dc, ddt (and da)
+    ssd_bytes = 3 * 2 * b * L * h * p + 4 * 2 * b * L * n + 2 * 4 * b * L * h + 2 * 4 * h
+    # the chunked algorithm's products, the causal ones on the lower
+    # triangle: a (sequence, chunk, head)'s dy x^T and M^T dy (P deep), W^T C
+    # and W B (N deep), dS B, x dS, dy S and the two state recurrences (P N
+    # each a token); a (sequence, chunk)'s C B^T
+    ssd_flops = b * chunks * (h * (4 * tri * p + 4 * tri * n + 10 * q * p * n) + 2 * tri * n)
+    ssets = copies(lambda: (lambda x, dt, a, bc, dy: (x, dt, a, bc[..., :n], bc[..., n:2 * n], dy))(
+        *ssd_in(b, L, h, p, n, bf16)), ssd_bytes)
+    b_ms, b_by = bound(ssd_bytes, ssd_flops, BF16_FLOP_PER_S)
+    scan = dict(ms=timed(ssd_scan_backward, ssets, iters=10),
+                plain_ms=timed(backward_only, [with_graph(
+                    lambda *t: ssd_scan_plain(*t)[0], *ssets[0][:5])], iters=2),
+                library_ms=None, library="none: no single PyTorch call computes this function",
+                bound_ms=b_ms, bound_by=b_by, bytes=ssd_bytes, flops=ssd_flops)
+    emit("train_kernel_time", kernel="ssd_scan backward",
+         shape=f"B{b} L{L} H{h} P{p} N{n} bf16, b and c strided", card=smi, **scan)
+    del ssets
+    rows.append(("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:69", scan))
+
+    lead, h, p = ((2, 4096), 32, 64) if full else ((4, 8), 4, 8)
+    n, dn = lead[0] * lead[1], h * p
+    # reads y, xh, z and g, writes dy, dxh and dz; w, d_skip, dw, dd_skip
+    gate_bytes = 7 * 2 * n * dn + 2 * 4 * dn + 2 * 4 * h
+    gsets = copies(lambda: (lambda y, xh, d, xz, w, g: (y, xh, d, torch.chunk(xz, 2, dim=-1)[1],
+                                                        w, g))(*gate_in(lead, h, p, bf16)),
+                   gate_bytes)
+    b_ms, b_by = bound(gate_bytes, 30 * n * dn, F32_FLOP_PER_S)
+    gate = dict(ms=timed(rmsnorm_gated_backward, gsets),
+                plain_ms=timed(backward_only, [with_graph(rmsnorm_gated_plain, *t[:5])
+                                               for t in gsets]),
+                library_ms=None, library="none: no single PyTorch call computes this function",
+                bound_ms=b_ms, bound_by=b_by, bytes=gate_bytes)
+    emit("train_kernel_time", kernel="rmsnorm_gated backward",
+         shape=f"({n}, {dn}) bf16, H{h} P{p}, z rows {2 * dn} apart", card=smi, **gate)
+    del gsets
+    rows.append(("rmsnorm_gated_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:18", gate))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
     # -- one train step at full width: kernel route against impl="ref" -----
-    qwen = get_config("qwen2.5-3b")
-    ab_cfg = dataclasses.replace(qwen, n_layers=2) if full else qwen.reduced()
+    qwen, mamba = get_config("qwen2.5-3b"), get_config("mamba2-370m")
     ab_seq = 1024 if full else 32
 
-    def one_step(cfg, impl, batch):
+    def one_step(cfg, impl, batch, kernels):
         model = lm.init_params(cfg, device=dev, param_dtype=f32,
                                generator=torch.Generator(device=dev).manual_seed(0))
         opt, step_fn = make_train_step(cfg, grad_accum=2, impl=impl, warmup=1)
@@ -673,123 +820,168 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
         norms = {k: float(p.grad.norm()) for k, p in model.named_parameters()}
         return float(metrics["loss"]), norms, rec
 
-    for dt in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(ab_cfg, compute_dtype=dt)
-        pipe = make_pipeline("bigram", cfg, ShapeCfg("ab", ab_seq, 4, "train"), seed=3, accum=2)
-        batch = {k: torch.from_numpy(v).to(dev, torch.long)
-                 for k, v in pipe.host_batch(pipe.init_state()).items()}
-        loss_k, norms_k, rec_k = one_step(cfg, None, batch)
-        loss_r, norms_r, rec_r = one_step(cfg, "ref", batch)
-        if any(rec_r["launches"].values()):
-            raise AssertionError(f"the impl='ref' step launched kernels: {rec_r['launches']}")
-        rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
+    def rel_diffs(loss, norms, loss_r, norms_r):
+        rel = {k: abs(norms[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
         worst = max(rel, key=rel.get)
-        tol = TRAIN_AB_TOL[dt]
-        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
-        emit("train_ab", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-             f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", compute_dtype=dt, seq=ab_seq,
-             global_batch=4, grad_accum=2, loss_kernels=loss_k, loss_ref=loss_r,
-             loss_rel_diff=loss_rel, worst_grad_norm_leaf=worst,
-             worst_grad_norm_rel_diff=rel[worst], tolerance=tol, leaves=len(rel),
-             launches_kernels=rec_k["launches"], kernel_step_s=rec_k["wall_s"],
-             ref_step_s=rec_r["wall_s"], ok=loss_rel <= tol and rel[worst] <= tol)
-        if loss_rel > tol or rel[worst] > tol:
-            raise AssertionError(f"train step, {dt}: kernel route and impl='ref' differ "
-                                 f"(loss {loss_k} vs {loss_r}; {worst} {rel[worst]})")
-        del batch
-    if device == "cuda":
-        torch.cuda.empty_cache()
+        return abs(loss - loss_r) / abs(loss_r), worst, rel[worst], len(rel)
 
-    # -- qwen2.5-3b at full width and depth through train_loop --------------
-    cfg = qwen if full else qwen.reduced()
-    seq, gbatch, accum = (4096, 8, 4) if full else (32, 4, 2)
-    plain_calls = {}
-    plain_fns = [(fa, "flash_attention_plain"), (rn, "rmsnorm_plain"),
-                 (ref, "mha_reference"), (ref, "rmsnorm_reference")]
-    originals = {(m, a): getattr(m, a) for m, a in plain_fns}
+    def scan_chunk_64(fn):
+        """``fn()`` with the oracle's scan at chunk 64 instead of 128: a
+        change of summation order alone."""
+        ssd = ops.ssd
+        ops.ssd = lambda *a, impl=None, chunk=128: ssd(*a, impl=impl, chunk=64)
+        try:
+            return fn()
+        finally:
+            ops.ssd = ssd
 
-    def counting(name, fn):
-        def wrapped(*a, **kw):
-            plain_calls[name] = plain_calls.get(name, 0) + 1
-            return fn(*a, **kw)
-        return wrapped
+    for base, kset in ((qwen, kernels), (mamba, mamba_kernels)):
+        ab_cfg = dataclasses.replace(base, n_layers=2) if full else base.reduced()
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(ab_cfg, compute_dtype=dt)
+            pipe = make_pipeline("bigram", cfg, ShapeCfg("ab", ab_seq, 4, "train"), seed=3,
+                                 accum=2)
+            batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                     for k, v in pipe.host_batch(pipe.init_state()).items()}
+            loss_k, norms_k, rec_k = one_step(cfg, None, batch, kset)
+            loss_r, norms_r, rec_r = one_step(cfg, "ref", batch, kset)
+            if any(rec_r["launches"].values()):
+                raise AssertionError(f"the impl='ref' step launched kernels: {rec_r['launches']}")
+            loss_rel, worst, worst_rel, leaves = rel_diffs(loss_k, norms_k, loss_r, norms_r)
+            # mamba2-370m: the oracle against itself with its scan's chunk
+            # halved, the spread a change of summation order alone gives
+            extra = {}
+            if cfg.mamba is not None:
+                loss_o, norms_o, _ = scan_chunk_64(lambda: one_step(cfg, "ref", batch, kset))
+                o_loss, o_worst, o_rel, _ = rel_diffs(loss_o, norms_o, loss_r, norms_r)
+                extra = dict(order_only=dict(what="impl='ref' with its scan at chunk 64 vs 128",
+                                             loss_rel_diff=o_loss, worst_grad_norm_leaf=o_worst,
+                                             worst_grad_norm_rel_diff=o_rel))
+            tol = TRAIN_AB_TOL[dt]
+            ok = loss_rel <= tol and worst_rel <= tol
+            emit("train_ab", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                 f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", compute_dtype=dt, seq=ab_seq,
+                 global_batch=4, grad_accum=2, loss_kernels=loss_k, loss_ref=loss_r,
+                 loss_rel_diff=loss_rel, worst_grad_norm_leaf=worst,
+                 worst_grad_norm_rel_diff=worst_rel, tolerance=tol, leaves=leaves,
+                 launches_kernels=rec_k["launches"], kernel_step_s=rec_k["wall_s"],
+                 ref_step_s=rec_r["wall_s"], ok=ok, **extra)
+            if not ok:
+                raise AssertionError(f"train step of {cfg.name}, {dt}: kernel route and "
+                                     f"impl='ref' differ (loss {loss_k} vs {loss_r}; {worst} "
+                                     f"{worst_rel})")
+            del batch
+        if device == "cuda":
+            torch.cuda.empty_cache()
 
-    timed_launches, prof_box = {}, {}
+    # -- each model at full width and depth through train_loop --------------
+    def full_run(cfg, kernels, plain_fns):
+        """6 steps of `train_loop`: a warm-up, 4 timed with the launch counts
+        set to 0 just before them and read just after and the plain
+        versions counted, then one profiled.  Emits the ``train`` and
+        ``train_profile`` records; returns the timed steps' launches."""
+        seq, gbatch, accum = (4096, 8, 4) if full else (32, 4, 2)
+        plain_calls = {}
+        originals = {(m, a): getattr(m, a) for m, a in plain_fns}
 
-    def on_metrics(rec):
-        if rec["step"] == 0:                     # the warm-up step is done
-            if device == "cuda":
-                torch.cuda.synchronize()
-            for k_ in kernels.values():
-                k_.launches = 0
-            for m, a in plain_fns:
-                setattr(m, a, counting(a, originals[(m, a)]))
-        elif rec["step"] == 4:                   # the 4 timed steps are done
-            timed_launches.update({name: k_.launches for name, k_ in kernels.items()})
+        def counting(name, fn):
+            def wrapped(*a, **kw):
+                plain_calls[name] = plain_calls.get(name, 0) + 1
+                return fn(*a, **kw)
+            return wrapped
+
+        timed_launches, prof_box = {}, {}
+
+        def on_metrics(rec):
+            if rec["step"] == 0:                     # the warm-up step is done
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                for k_ in kernels.values():
+                    k_.launches = 0
+                for m, a in plain_fns:
+                    setattr(m, a, counting(a, originals[(m, a)]))
+            elif rec["step"] == 4:                   # the 4 timed steps are done
+                timed_launches.update({name: k_.launches for name, k_ in kernels.items()})
+                for m, a in plain_fns:
+                    setattr(m, a, originals[(m, a)])
+                act = [torch.profiler.ProfilerActivity.CUDA if device == "cuda"
+                       else torch.profiler.ProfilerActivity.CPU]
+                prof_box["p"] = torch.profiler.profile(activities=act)
+                prof_box["p"].start()
+            elif rec["step"] == 5:
+                prof_box["p"].stop()
+
+        resident = 0
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        loop = TrainLoopConfig(steps=6, seq_len=seq, global_batch=gbatch, grad_accum=accum,
+                               lr=3e-4, warmup=2, log_interval=1, seed=0, data_kind="bigram",
+                               on_metrics=on_metrics)
+        try:
+            t0 = time.perf_counter()
+            summary = train_loop(cfg, loop, device=device)
+            loop_s = time.perf_counter() - t0
+        finally:
             for m, a in plain_fns:
                 setattr(m, a, originals[(m, a)])
-            act = [torch.profiler.ProfilerActivity.CUDA if device == "cuda"
-                   else torch.profiler.ProfilerActivity.CPU]
-            prof_box["p"] = torch.profiler.profile(activities=act)
-            prof_box["p"].start()
-        elif rec["step"] == 5:
-            prof_box["p"].stop()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        n_params = sum(p.numel() for p in summary.model.parameters())
+        # the lookup is no product; a tied embedding is also the head, which is one
+        n_matmul = n_params - (0 if cfg.tie_embeddings else summary.model.embed.numel())
+        tokens = seq * gbatch
+        flops = 6 * n_matmul * tokens
+        if cfg.attn is not None:
+            live_pairs = seq * (seq + 1) // 2
+            flops += 12 * cfg.attn.head_dim * cfg.attn.n_heads * cfg.n_layers * live_pairs * gbatch
+        losses = [summary.losses[i] for i in range(6)]
+        step_s = [summary.step_seconds[i] for i in range(6)]
+        timed_s = step_s[1:5]
+        prof = prof_box["p"]
+        kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_s = sum(e.device_time_total for e in kern) / 1e6
+        top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:10]
+        median_s = sorted(timed_s)[len(timed_s) // 2]
+        emit("train", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", params=n_params, optimizer=cfg.optimizer,
+             param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+             data="bigram", seq=seq, global_batch=gbatch, grad_accum=accum,
+             cuts=["global batch 8, not train_4k's 256"], losses=losses, step_s=step_s,
+             warmup_step_s=step_s[0], timed_steps=4, timed_step_s_median=median_s,
+             tok_per_s=tokens / median_s, model_flops_per_step=flops,
+             model_flops="6 N tokens" + (" + attention's 12 d H layers live pairs" if cfg.attn
+                                         else "; the SSD scan's own products not counted"),
+             model_flop_per_s=flops / median_s,
+             bf16_peak_share=flops / median_s / BF16_FLOP_PER_S,
+             max_memory_allocated=peak, peak_over_resident=peak - resident if peak else None,
+             loop_s=loop_s, launches_timed_steps=timed_launches,
+             plain_calls_timed_steps=plain_calls, card=smi)
+        emit("train_profile", what=f"train step 5 of {cfg.name}", wall_s=step_s[5],
+             device_busy_s=busy_s, device_idle_share=max(0.0, 1 - busy_s / step_s[5]),
+             kernel_launches=sum(e.count for e in kern),
+             top_kernels=[{"name": e.key[:90], "ms": e.device_time_total / 1e3,
+                           "calls": e.count} for e in top], card=smi)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"non-finite training loss of {cfg.name}: {losses}")
+        missing = [k_ for k_, n_ in timed_launches.items() if n_ == 0]
+        if device == "cuda" and (missing or plain_calls):
+            raise AssertionError(f"{cfg.name}: the timed steps launched no {missing} kernel, "
+                                 f"or called a plain version: {plain_calls}")
+        del summary, prof, prof_box
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return timed_launches
 
-    resident = 0
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-    loop = TrainLoopConfig(steps=6, seq_len=seq, global_batch=gbatch, grad_accum=accum,
-                           lr=3e-4, warmup=2, log_interval=1, seed=0, data_kind="bigram",
-                           on_metrics=on_metrics)
-    try:
-        t0 = time.perf_counter()
-        summary = train_loop(cfg, loop, device=device)
-        loop_s = time.perf_counter() - t0
-    finally:
-        for m, a in plain_fns:
-            setattr(m, a, originals[(m, a)])
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    n_params = sum(p.numel() for p in summary.model.parameters())
-    n_matmul = n_params - summary.model.embed.numel()    # the lookup is no product
-    tokens = seq * gbatch
-    attn = cfg.attn
-    live_pairs = seq * (seq + 1) // 2
-    flops = (6 * n_matmul * tokens
-             + 12 * attn.head_dim * attn.n_heads * cfg.n_layers * live_pairs * gbatch)
-    losses = [summary.losses[i] for i in range(6)]
-    step_s = [summary.step_seconds[i] for i in range(6)]
-    timed_s = step_s[1:5]
-    prof = prof_box["p"]
-    kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy_s = sum(e.device_time_total for e in kern) / 1e6
-    top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:10]
-    median_s = sorted(timed_s)[len(timed_s) // 2]
-    emit("train", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}", params=n_params, optimizer=cfg.optimizer,
-         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype, remat=cfg.remat,
-         data="bigram", seq=seq, global_batch=gbatch, grad_accum=accum,
-         cuts=["global batch 8, not train_4k's 256"], losses=losses, step_s=step_s,
-         warmup_step_s=step_s[0], timed_steps=4, timed_step_s_median=median_s,
-         tok_per_s=tokens / median_s, model_flops_per_step=flops,
-         model_flop_per_s=flops / median_s, bf16_peak_share=flops / median_s / BF16_FLOP_PER_S,
-         max_memory_allocated=peak, peak_over_resident=peak - resident if peak else None,
-         loop_s=loop_s, launches_timed_steps=timed_launches,
-         plain_calls_timed_steps=plain_calls, card=smi)
-    emit("train_profile", what=f"train step 5 of {cfg.name}", wall_s=step_s[5],
-         device_busy_s=busy_s, device_idle_share=max(0.0, 1 - busy_s / step_s[5]),
-         kernel_launches=sum(e.count for e in kern),
-         top_kernels=[{"name": e.key[:90], "ms": e.device_time_total / 1e3, "calls": e.count}
-                      for e in top], card=smi)
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    missing = [k_ for k_, n_ in timed_launches.items() if n_ == 0]
-    if device == "cuda" and (missing or plain_calls):
-        raise AssertionError(f"the timed steps launched no {missing} kernel, or called a "
-                             f"plain version: {plain_calls}")
-    del summary, prof, prof_box
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    qwen_launches = full_run(qwen if full else qwen.reduced(), kernels,
+                             [(fa, "flash_attention_plain"), (rn, "rmsnorm_plain"),
+                              (ref, "mha_reference"), (ref, "rmsnorm_reference")])
+    mamba_launches = full_run(mamba if full else mamba.reduced(), mamba_kernels,
+                              [(ss, "ssd_scan_plain"), (ss, "ssd_chunked_backward"),
+                               (ref, "ssd_chunked"), (rn, "rmsnorm_gated_plain"),
+                               (rn, "rmsnorm_gated_backward_plain"), (rn, "rmsnorm_plain"),
+                               (ref, "rmsnorm_reference")])
+    timed_launches = dict(qwen_launches, **{k: mamba_launches[k] for k in (
+        "ssd_scan", "ssd_scan_bwd", "rmsnorm_gated", "rmsnorm_gated_bwd")})
 
     # -- a crash and restart, bitwise ----------------------------------------
     root = ROOT / "build" / "chip_smoke_train"
@@ -1856,9 +2048,10 @@ def main() -> int:
     # first pipelined serve of each model (phase 8), ``drill_launches``
     # from each model's first crash drill and ``replay_launches`` from
     # that drill's cache replay run again alone (phase 9); ``train_launches``
-    # from the 4 timed steps of qwen2.5-3b's training (phase 10), where the
-    # backward kernels' ``launches`` come from (each of their calls launches
-    # the kernels listed)
+    # from the 4 timed steps of qwen2.5-3b's training (phase 10), and of
+    # mamba2-370m's for the SSD scan, the gated norm and their backward;
+    # the backward kernels' ``launches`` come from there (each of their calls
+    # launches the kernels listed)
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -1870,8 +2063,12 @@ def main() -> int:
         "flash_attention_bwd": ["flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
                                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dot_kernel",
                                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
-        "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"]}
-    backward = ("flash_attention_bwd", "rmsnorm_bwd")
+        "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"],
+        "ssd_scan_bwd": ["ssd_bwd_deltas_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
+                         "ssd_bwd_da_kernel"],
+        "rmsnorm_gated_bwd": ["rmsnorm_gated_bwd_rows_kernel", "rmsnorm_gated_bwd_kernel",
+                              "rmsnorm_dw_kernel", "rmsnorm_dskip_kernel"]}
+    backward = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd", "rmsnorm_gated_bwd")
     not_served = dict.fromkeys(backward, 0)
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
                   ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"],

@@ -173,10 +173,10 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raises where autograd would have to run through kernel ``name``, which
-    has no backward kernel yet: no silent detach, no plain-version fallback."""
+    serves only and has no backward kernel: no silent detach, no
+    plain-version fallback."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: this kernel has no backward kernel on the card yet (ROADMAP.md, "
-            "queue 1, item 6: the SSD scan's and the gated norm's backward kernels come "
-            "next; decode attention and the fused decode chain serve only); run it under "
-            "torch.no_grad(), or train on the CPU")
+            f"{name}: this kernel has no backward kernel (decode attention and the fused "
+            "decode chain serve only, as the JAX package's do; ROADMAP.md); run it under "
+            "torch.no_grad()")

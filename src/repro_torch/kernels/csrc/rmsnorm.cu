@@ -330,6 +330,28 @@ __device__ __forceinline__ void load_pieces(uint4 (&x)[UNITS], uint4 (&g)[UNITS]
   }
 }
 
+// A row's sums (a, b) from each lane's share: shuffles within a warp, then
+// the row's warps add theirs in one order behind one named barrier (two
+// slots by row parity), so every lane of the row gets the same value.
+__device__ __forceinline__ float2 row_sums(float a, float b, float2* part, int log_warps,
+                                           int& parity) {
+  a = repro::warp_sum(a);
+  b = repro::warp_sum(b);
+  if (log_warps > 0) {
+    const int warp = threadIdx.x >> 5, group = warp >> log_warps;
+    if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = make_float2(a, b);
+    repro::named_barrier(1 + group, 32 << log_warps);
+    a = b = 0.f;
+    for (int i = group << log_warps; i < (group + 1) << log_warps; ++i) {
+      const float2 p = part[parity * MAX_WARPS + i];
+      a += p.x;
+      b += p.y;
+    }
+    parity ^= 1;
+  }
+  return make_float2(a, b);
+}
+
 // dx of one row from a lane's pieces, and the lane's share of dw.
 template <typename T, int UNITS>
 __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g)[UNITS],
@@ -354,21 +376,8 @@ __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g
     ss += a;
     gwx += c;
   }
-  ss = repro::warp_sum(ss);
-  gwx = repro::warp_sum(gwx);
-  if (log_warps > 0) {   // the row's warps add their sums in one order, so all get one value
-    const int warp = threadIdx.x >> 5, group = warp >> log_warps;
-    if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = make_float2(ss, gwx);
-    repro::named_barrier(1 + group, 32 << log_warps);
-    ss = gwx = 0.f;
-    for (int i = group << log_warps; i < (group + 1) << log_warps; ++i) {
-      const float2 p = part[parity * MAX_WARPS + i];
-      ss += p.x;
-      gwx += p.y;
-    }
-    parity ^= 1;
-  }
-  const float r = rsqrtf(ss / D + eps), c = r * r * r * gwx / D;
+  const float2 t = row_sums(ss, gwx, part, log_warps, parity);
+  const float r = rsqrtf(t.x / D + eps), c = r * r * r * t.y / D;
   T* out = dx + row * D;
 #pragma unroll
   for (int k = 0; k < UNITS; ++k) {
@@ -561,6 +570,258 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the gated form's backward ---------------------------------------------
+//
+// For out = rmsnorm(u, w), u = (y + xh * ds) * silu(z) rounded as the
+// forward rounds (ds = d_skip in the input type), and the output gradient g:
+//   du = rnd(r (g w) - u r^3 mean(g w u)),   dw = sum over rows of g u r,
+//   dy = rnd(du s), s = rnd(silu(z)),   dxh = rnd(dy ds),
+//   dz = rnd(rnd(du g1) silu'(z)), g1 = rnd(y + rnd(xh ds)), silu'(z) =
+//   sig (1 + z (1 - sig)), sig = sigmoid(z),
+//   dd_skip = sum over rows and a head's P columns of dy xh,
+// rounded where autograd of the op-by-op torch body rounds; dw and dd_skip
+// are float32 sums.  Bound on the H100: bytes (y, xh, z and g read, dy, dxh
+// and dz written, once each): 0.060 ms at mamba2-370m's 8192 rows of 2048
+// bf16.
+//
+// rmsnorm_gated_bwd_rows_kernel, for rows the row layout takes: the
+// backward's (`rmsnorm.norm_bwd_plan`, gated), one 16-byte piece of each of
+// the four inputs a lane (8 warps a row at D 2048 bf16), the next row's
+// pieces in flight while this one is reduced; the gate is recomputed from
+// y, xh and z in registers; u's two sums go through `row_sums`; a lane's
+// float32 shares of dw and of dd_skip's columns stay in registers and are
+// folded into one partial row each a block at the end.  Other rows take
+// rmsnorm_gated_bwd_kernel: a block walks rows, element by element, two
+// passes a row.  Then rmsnorm_dw_kernel sums each partial (dw, and dd_skip's
+// columns) in a fixed order, and rmsnorm_dskip_kernel a head's columns.
+
+struct GatedBwdArgs {
+  const void *y, *xh, *z, *g;   // g (rows, D) contiguous; z rows z_stride apart
+  const float *d_skip, *w;
+  void *dy, *dxh, *dz;          // contiguous
+  float *dw_part, *dd_part;     // (blocks, D): a block's partial row of dw, of dd_skip a column
+  long z_stride;
+  int rows, D, P;
+  float eps;
+};
+
+// One element's gate from y, xh, z and ds (in the input type): g1, s =
+// silu(z) as the forward rounds them, and sigmoid(z)
+template <typename T>
+__device__ __forceinline__ void gate_parts(float y, float xh, float ds, float z, float& g1,
+                                           float& s, float& sig) {
+  const float e = __expf(-z);
+  g1 = rnd<T>(y + rnd<T>(xh * ds));
+  s = rnd<T>(__fdividef(z, 1.f + e));
+  sig = __fdividef(1.f, 1.f + e);
+}
+
+// The outputs of one element from its gate parts, the row's r and c, its
+// weight and ds; adds its shares of dw and dd_skip.
+template <typename T>
+__device__ __forceinline__ void gate_grads(float g1, float s, float sig, float z, float xh,
+                                           float gf, float wv, float ds, float r, float c,
+                                           T& dy, T& dxh, T& dz, float& dw, float& dd) {
+  const float u = rnd<T>(g1 * s);
+  const float du = rnd<T>(r * gf * wv - u * c);
+  const float dyv = rnd<T>(du * s);
+  dw += gf * u * r;
+  dd += dyv * xh;
+  dy = from_float<T>(dyv);
+  dxh = from_float<T>(dyv * ds);
+  dz = from_float<T>(rnd<T>(du * g1) * sig * (1.f + z * (1.f - sig)));
+}
+
+template <typename T>
+__device__ __forceinline__ void load_gated(uint4 (&p)[4], const GatedBwdArgs& a, long row,
+                                           Lane l) {
+  constexpr int E = 16 / sizeof(T);
+  const bool in = l.first < l.units;
+  const long o = row * a.D + l.first * E;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  p[0] = in ? *reinterpret_cast<const uint4*>(static_cast<const T*>(a.y) + o) : zero;
+  p[1] = in ? *reinterpret_cast<const uint4*>(static_cast<const T*>(a.xh) + o) : zero;
+  p[2] = in ? *reinterpret_cast<const uint4*>(static_cast<const T*>(a.z) + row * a.z_stride +
+                                              l.first * E)
+            : zero;
+  p[3] = in ? *reinterpret_cast<const uint4*>(static_cast<const T*>(a.g) + o) : zero;
+}
+
+// One row from a lane's piece of each input (one piece a lane).
+template <typename T>
+__device__ __forceinline__ void gated_bwd_row(const uint4 (&p)[4], const GatedBwdArgs& a,
+                                              long row, Lane l, const float (&w)[16 / sizeof(T)],
+                                              const float (&ds)[16 / sizeof(T)],
+                                              float (&dw)[16 / sizeof(T)],
+                                              float (&dd)[16 / sizeof(T)], float2* part,
+                                              int log_warps, int& parity) {
+  constexpr int E = 16 / sizeof(T);
+  const T* y = reinterpret_cast<const T*>(&p[0]);
+  const T* xh = reinterpret_cast<const T*>(&p[1]);
+  const T* z = reinterpret_cast<const T*>(&p[2]);
+  const T* g = reinterpret_cast<const T*>(&p[3]);
+  float g1[E], s[E], sig[E], ss = 0.f, guw = 0.f;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {   // a piece past the row holds zeros: its gate is 0
+    gate_parts<T>(to_float(y[j]), to_float(xh[j]), ds[j], to_float(z[j]), g1[j], s[j], sig[j]);
+    const float u = rnd<T>(g1[j] * s[j]);
+    ss += u * u;
+    guw += to_float(g[j]) * w[j] * u;
+  }
+  const float2 t = row_sums(ss, guw, part, log_warps, parity);
+  const float r = rsqrtf(t.x / a.D + a.eps), c = r * r * r * t.y / a.D;
+  if (l.first < l.units) {
+    uint4 o[3];
+    T* dy = reinterpret_cast<T*>(&o[0]);
+    T* dxh = reinterpret_cast<T*>(&o[1]);
+    T* dz = reinterpret_cast<T*>(&o[2]);
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      gate_grads<T>(g1[j], s[j], sig[j], to_float(z[j]), to_float(xh[j]), to_float(g[j]), w[j],
+                    ds[j], r, c, dy[j], dxh[j], dz[j], dw[j], dd[j]);
+    const long at = row * a.D + l.first * E;
+    *reinterpret_cast<uint4*>(static_cast<T*>(a.dy) + at) = o[0];
+    *reinterpret_cast<uint4*>(static_cast<T*>(a.dxh) + at) = o[1];
+    *reinterpret_cast<uint4*>(static_cast<T*>(a.dz) + at) = o[2];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    rmsnorm_gated_bwd_rows_kernel(const GatedBwdArgs a, int log_warps) {
+  constexpr int E = 16 / sizeof(T);
+  __shared__ float2 part[2 * MAX_WARPS];
+  __shared__ float fold[FOLD_FLOATS];     // the row groups' dw, then their dd_skip columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = blockDim.x >> (5 + log_warps), group = warp >> log_warps;
+  const Lane l{((warp & ((1 << log_warps) - 1)) << 5) + lane, 32 << log_warps, a.D / E};
+  const long stride = static_cast<long>(gridDim.x) * groups;
+  long row = static_cast<long>(blockIdx.x) * groups + group;
+
+  uint4 p0[4], p1[4];
+  if (row < a.rows) load_gated<T>(p0, a, row, l);
+  float w[E], ds[E], dw[E], dd[E];
+  {
+    const int col = min(l.first, l.units - 1) * E;
+    int head = col / a.P, c = col - head * a.P;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      w[j] = l.first < l.units ? a.w[col + j] : 0.f;
+      ds[j] = rnd<T>(a.d_skip[head]);
+      dw[j] = dd[j] = 0.f;
+      if (++c == a.P) c = 0, ++head;
+    }
+  }
+
+  int parity = 0;
+  while (row < a.rows) {   // two buffers: the next row loads while this one is reduced
+    long next = row + stride;
+    if (next < a.rows) load_gated<T>(p1, a, next, l);
+    gated_bwd_row<T>(p0, a, row, l, w, ds, dw, dd, part, log_warps, parity);
+    row = next;
+    if (row >= a.rows) break;
+    next = row + stride;
+    if (next < a.rows) load_gated<T>(p0, a, next, l);
+    gated_bwd_row<T>(p1, a, row, l, w, ds, dw, dd, part, log_warps, parity);
+    row = next;
+  }
+
+  // the block's row groups' shares, added in group order
+  const int span = groups * a.D;
+  if (l.first < l.units) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      fold[group * a.D + l.first * E + j] = dw[j];
+      fold[span + group * a.D + l.first * E + j] = dd[j];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < a.D; c += blockDim.x) {
+    float sw = 0.f, sd = 0.f;
+    for (int i = 0; i < groups; ++i) {
+      sw += fold[i * a.D + c];
+      sd += fold[span + i * a.D + c];
+    }
+    a.dw_part[static_cast<long>(blockIdx.x) * a.D + c] = sw;
+    a.dd_part[static_cast<long>(blockIdx.x) * a.D + c] = sd;
+  }
+}
+
+template <typename T>
+__global__ void rmsnorm_gated_bwd_kernel(const GatedBwdArgs a) {
+  extern __shared__ float acc[];   // this block's dw a column, then its dd_skip a column
+  for (int i = threadIdx.x; i < 2 * a.D; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+  const T* ys = static_cast<const T*>(a.y);
+  const T* xs = static_cast<const T*>(a.xh);
+  const T* zs = static_cast<const T*>(a.z);
+  const T* gs = static_cast<const T*>(a.g);
+  for (long row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const long o = row * a.D, oz = row * a.z_stride;
+    float ss = 0.f, guw = 0.f;
+    for (int i = threadIdx.x; i < a.D; i += blockDim.x) {
+      float g1, s, sig;
+      gate_parts<T>(to_float(ys[o + i]), to_float(xs[o + i]), rnd<T>(a.d_skip[i / a.P]),
+                    to_float(zs[oz + i]), g1, s, sig);
+      const float u = rnd<T>(g1 * s);
+      ss += u * u;
+      guw += to_float(gs[o + i]) * a.w[i] * u;
+    }
+    const float2 t = block_sum2(ss, guw);
+    const float r = rsqrtf(t.x / a.D + a.eps), c = r * r * r * t.y / a.D;
+    for (int i = threadIdx.x; i < a.D; i += blockDim.x) {
+      const float ds = rnd<T>(a.d_skip[i / a.P]), xh = to_float(xs[o + i]);
+      const float z = to_float(zs[oz + i]);
+      float g1, s, sig;
+      gate_parts<T>(to_float(ys[o + i]), xh, ds, z, g1, s, sig);
+      gate_grads<T>(g1, s, sig, z, xh, to_float(gs[o + i]), a.w[i], ds, r, c,
+                    static_cast<T*>(a.dy)[o + i], static_cast<T*>(a.dxh)[o + i],
+                    static_cast<T*>(a.dz)[o + i], acc[i], acc[a.D + i]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < a.D; i += blockDim.x) {
+    a.dw_part[static_cast<long>(blockIdx.x) * a.D + i] = acc[i];
+    a.dd_part[static_cast<long>(blockIdx.x) * a.D + i] = acc[a.D + i];
+  }
+}
+
+// dd_skip[h] = the P columns of head h summed in order
+__global__ void rmsnorm_dskip_kernel(const float* __restrict__ col, float* __restrict__ dd,
+                                     int H, int P) {
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < P; ++c) s += col[h * P + c];
+    dd[h] = s;
+  }
+}
+
+// warps 0: the wide kernel on `blocks` blocks; else the row kernel (one
+// piece a lane) with the plan's warps a row, row groups a block and blocks
+template <typename T>
+int launch_gated_bwd(const GatedBwdArgs& a, float* col, float* dw, float* dd, int H, int warps,
+                     int units, int groups, int blocks, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (warps == 0) {
+    const size_t smem = 2 * sizeof(float) * a.D;
+    if ((err = repro::allow_shared(rmsnorm_gated_bwd_kernel<T>, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    rmsnorm_gated_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(a);
+  } else {
+    if (units != 1 || warps > MAX_WARPS || (warps & (warps - 1)) || groups * warps > MAX_WARPS ||
+        2 * groups * a.D > FOLD_FLOATS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_gated_bwd_rows_kernel<T><<<blocks, groups * warps * 32, 0, s>>>(
+        a, __builtin_ctz(warps));
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dw_kernel<<<(a.D + 31) / 32, 256, 0, s>>>(a.dw_part, dw, blocks, a.D);
+  rmsnorm_dw_kernel<<<(a.D + 31) / 32, 256, 0, s>>>(a.dd_part, col, blocks, a.D);
+  rmsnorm_dskip_kernel<<<1, 256, 0, s>>>(col, dd, H, a.P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 
@@ -596,6 +857,26 @@ RMSNORM_ENTRY(f32, float)
 
 RMSNORM_BWD_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_BWD_ENTRY(f32, float)
+
+// dy, dxh laid out as y; dz (rows, D) contiguous; dw_part, dd_part float32
+// (blocks, D) and col (D,) scratch; dw (D,), dd (H,) float32
+#define RMSNORM_GATED_BWD_ENTRY(SUFFIX, T)                                                     \
+  extern "C" int rmsnorm_gated_bwd_##SUFFIX(                                                   \
+      const void* y, const void* xh, const void* d_skip, const void* z, long z_stride, int P,  \
+      const void* w, const void* g, void* dy, void* dxh, void* dz, void* dw_part,              \
+      void* dd_part, void* col, void* dw, void* dd, int rows, int D, float eps, int H,         \
+      int warps, int units, int groups, int blocks, void* stream) {                           \
+    const GatedBwdArgs a{y, xh, z, g, static_cast<const float*>(d_skip),                       \
+                         static_cast<const float*>(w), dy, dxh, dz,                            \
+                         static_cast<float*>(dw_part), static_cast<float*>(dd_part), z_stride, \
+                         rows, D, P, eps};                                                     \
+    return launch_gated_bwd<T>(a, static_cast<float*>(col), static_cast<float*>(dw),           \
+                               static_cast<float*>(dd), H, warps, units, groups, blocks,       \
+                               stream);                                                        \
+  }
+
+RMSNORM_GATED_BWD_ENTRY(bf16, __nv_bfloat16)
+RMSNORM_GATED_BWD_ENTRY(f32, float)
 
 // An empty kernel on a given grid: the launch floor a norm's time is held
 // against.

@@ -77,6 +77,9 @@
 // banks.  The blocks of one sequence sit next to each other in the grid
 // (both instances), so b and c, read by every head, come from L2 after
 // the first.
+//
+// The backward pass (dx, ddt, da, db and dc, for training) is at the end of
+// this file.
 #include <type_traits>
 
 #include "common.cuh"
@@ -784,6 +787,532 @@ int occupancy(int P, int N, int* blocks) {
   return static_cast<int>(err);
 }
 
+// -- the backward pass ------------------------------------------------------
+//
+// The gradient of the scan (the JAX package has no backward kernel; jax.grad
+// differentiates its XLA path): dx, ddt, da, db and dc for dy and an
+// optional gradient of the final state.  `ref.ssd_chunked_backward` is the
+// same algorithm in plain PyTorch, step by step.  With cs the chunk's
+// inclusive cumsum of dt a, S the state entering a chunk and dS the
+// gradient of the state leaving it, M_ij = (C_i.B_j) e^(cs_i - cs_j) (i >= j),
+// G_ij = dy_i.x_j, W_ij = e^(cs_i - cs_j) dt_j G_ij and rem_j = e^(cs_last -
+// cs_j):
+//   dx_j = dt_j (sum_i M_ij dy_i + rem_j dS B_j)
+//   db_j = sum_h (sum_i W_ij C_i + rem_j dt_j dS^T x_j)
+//   dc_i = sum_h (sum_j W_ij B_j + e^(cs_i) S^T dy_i)
+//   d(cs)_i = sum_j (C B^T o W)_ij - sum_j (C B^T o W)_ji + e^(cs_i) C_i.(S^T dy_i)
+//             - dt_i rem_i x_i.(dS B_i), and at the chunk's last token also
+//             e^(cs_last) <dS, S> + sum_j dt_j rem_j x_j.(dS B_j)
+//   ddt_j = x_j.(sum_i M_ij dy_i) + rem_j x_j.(dS B_j) + a R_j,
+//   da += sum_j dt_j R_j, with R_j = sum_{i >= j} d(cs)_i within the chunk.
+// Only differences of cs are exponentiated, as in the forward.
+//
+// Bound on the H100: at mamba2-370m's training shape (B2 L4096 H32 P64 N128,
+// bf16) the call must read x, dy, b, c, dt and write dx, db, dc, ddt: ~111 MB,
+// 0.033 ms; its products, ~28 GFLOP, take 0.028 ms at the bf16 tensor-core
+// rate.  Bytes bound it; the float32 states this design keeps between its
+// launches add ~0.8 GB of traffic.
+//
+// Four launches, every product on the tensor cores in TF32 (mma.sync
+// m16n8k8, float32 sums).  In the bf16 instance x, dy, b and c are exact in
+// TF32 and the float32 operands (M, W, S, dS, x rem dt) round to its 10-bit
+// mantissa, 2^-11 of a term, below the gradients' own bf16 rounding (2^-9).
+// The float32 instance splits every operand into a TF32 hi + lo pair and
+// takes three products (~2^-22 of a term), to hold its 2e-4 checks.
+//  1. `ssd_bwd_deltas_kernel`: one block of 256 threads per (chunk,
+//     sequence, head): each chunk's own state increment,
+//     sum_j rem_j dt_j x_j B_j^T, and its own share of the state gradient,
+//     sum_i e^(cs_i) dy_i C_i^T, into float32 scratch (B, H, chunks, P, N),
+//     and the chunk's total cs_last.
+//  2. `ssd_bwd_pass_kernel`: the states passed from chunk to chunk, S' =
+//     e^(cs_last) S + increment in order and dS' = e^(cs_last) dS + share in
+//     reverse, a thread an element, 16 chunks' loads in flight, in place:
+//     the scratch then holds the state entering and the gradient leaving
+//     every chunk.  (A block a (head, sequence) sweeping the chunks in order
+//     took 0.92 ms at the training shape, waiting on each chunk's loads.)
+//  3. `ssd_bwd_chunk_kernel`: one block of 512 threads per (chunk,
+//     sequence), walking the heads in order.  C B^T is the same for every
+//     head and is formed once; db and dc, shared by the heads, are summed
+//     over them in the block's registers and written once, so no per-head
+//     partial of them reaches device memory and two calls give the same
+//     bits (no atomics).  The chunk's d(cs) suffix sum is one warp's
+//     shuffle scan; each head's share of da goes to a (B, chunks, H) row.
+//  4. `ssd_bwd_da_kernel`: da summed over those rows in a fixed order.
+// In the tile kernels a warp owns 16 output rows of every product and half
+// (deltas) or a quarter (chunk) of its columns; its fragments are read from float32
+// shared memory element by element.  Tiles are padded 4 floats a row, so the
+// 8 rows by 4 columns of a fragment load fall in 32 different banks where
+// the row index is the fragment's, two-way where it is the reduction's.
+
+constexpr int PAD = 4;
+
+struct BwdArgs {
+  const void *x, *b, *c, *dy;             // dy (B, L, H, P) contiguous
+  const float *dt, *a, *d_state;          // d_state (B, H, P, N), or null for zero
+  float *starts, *dstates;                // scratch (B, H, chunks, P, N)
+  float *tots, *da_part;                  // scratch (B, H, chunks), (B, chunks, H)
+  void *dx, *db, *dc;                     // dx (B, L, H, P), db, dc (B, L, N) contiguous
+  float *ddt, *da;                        // ddt (B, L, H) contiguous, da (H,)
+  int B, L, H, P, N, chunks;
+  long xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b, bs_l, cs_b, cs_l;
+};
+
+// The chunk's inclusive cumsum of dt * a into cs, by one warp, two tokens a
+// lane; every lane gets the chunk's total.
+__device__ __forceinline__ float chunk_cumsum(const float* dts, float ah, float* cs, int lane) {
+  const float v0 = dts[2 * lane] * ah, v1 = dts[2 * lane + 1] * ah;
+  float run = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, run, o);
+    if (lane >= o) run += u;
+  }
+  cs[2 * lane] = run - v1;
+  cs[2 * lane + 1] = run;
+  return __shfl_sync(0xffffffffu, run, 31);
+}
+
+// The 4 lanes of a quad (the tq of a fragment row) add v.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[t] += A (16 rows, K deep) x B (K deep, columns 8 t .. 8 t + 7), K a
+// multiple of 8; a(r, k) and b(k, c) read the operands.  acc[t]'s element e
+// is row gr + 8 (e / 2), column 8 t + 2 tq + e % 2 (gr = lane / 4, tq =
+// lane % 4).  SPLIT: each operand as TF32 hi + lo, three products.
+template <bool SPLIT, int NT, typename FA, typename FB>
+__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], int K, FA a, FB b) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float av[4] = {a(gr, k0 + tq), a(gr + 8, k0 + tq), a(gr, k0 + tq + 4),
+                         a(gr + 8, k0 + tq + 4)};
+    unsigned hi[4], lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hi[q] = to_tf32(av[q]);
+      lo[q] = SPLIT ? to_tf32(av[q] - __uint_as_float(hi[q])) : 0u;
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float b0 = b(k0 + tq, 8 * t + gr), b1 = b(k0 + tq + 4, 8 * t + gr);
+      const unsigned h0 = to_tf32(b0), h1 = to_tf32(b1);
+      mma_tf32(acc[t], hi, h0, h1);
+      if constexpr (SPLIT) {
+        mma_tf32(acc[t], lo, h0, h1);
+        mma_tf32(acc[t], hi, to_tf32(b0 - __uint_as_float(h0)), to_tf32(b1 - __uint_as_float(h1)));
+      }
+    }
+  }
+}
+
+// A head's dt for chunk k (zero past L), then warp 0's cumsum and the
+// chunk's e^(cs_i), rem_i and rem_i dt_i; returns the total (warp 0 only).
+// Two block barriers: the caller's tiles and dt are in, and so are these.
+__device__ __forceinline__ float chunk_decay(const BwdArgs& g, int b, int h, int l0, int valid,
+                                             float* dts, float* cs, float* ecs, float* rem,
+                                             float* sc) {
+  const int tid = threadIdx.x;
+  if (tid < Q) dts[tid] = tid < valid ? g.dt[b * g.ds_b + (l0 + tid) * g.ds_l + h * g.ds_h] : 0.f;
+  __syncthreads();
+  float tot = 0.f;
+  if (tid < 32) {
+    tot = chunk_cumsum(dts, g.a[h], cs, tid);
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * tid + e;
+      ecs[i] = expf(cs[i]);
+      rem[i] = expf(tot - cs[i]);
+      sc[i] = rem[i] * dts[i];
+    }
+  }
+  __syncthreads();
+  return tot;
+}
+
+size_t deltas_shared_floats(int P, int N) {
+  // Cs, Bs [Q][N+4]; Xs, Ys [Q][P+4]; dt, cs, e^cs, rem, rem dt [Q]
+  return 2 * Q * (N + PAD) + 2 * Q * (P + PAD) + 5 * Q;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ssd_bwd_deltas_kernel(const BwdArgs g) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  extern __shared__ float deltas_smem[];
+  const int k = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tq = lane & 3, r0 = 16 * (warp >> 1), ch = warp & 1;
+  const int P = g.P, N = g.N, ns = N + PAD, ps = P + PAD;
+  const int l0 = k * Q, valid = min(Q, g.L - l0);
+  float* Cs = deltas_smem;         // [Q][N+4]
+  float* Bs = Cs + Q * ns;         // [Q][N+4]
+  float* Xs = Bs + Q * ns;         // [Q][P+4]
+  float* Ys = Xs + Q * ps;         // [Q][P+4]: dy
+  float* dts = Ys + Q * ps;        // [Q] each below
+  float* cs = dts + Q;
+  float* ecs = cs + Q;
+  float* rem = ecs + Q;
+  float* sc = rem + Q;
+  const long y_l = static_cast<long>(g.H) * P;
+  repro::load_tile(Cs, ns, static_cast<const T*>(g.c) + b * g.cs_b + l0 * g.cs_l, g.cs_l, Q,
+                   valid, N, 1.f);
+  repro::load_tile(Bs, ns, static_cast<const T*>(g.b) + b * g.bs_b + l0 * g.bs_l, g.bs_l, Q,
+                   valid, N, 1.f);
+  repro::load_tile(Xs, ps, static_cast<const T*>(g.x) + b * g.xs_b + l0 * g.xs_l + h * g.xs_h,
+                   g.xs_l, Q, valid, P, 1.f);
+  repro::load_tile(Ys, ps, static_cast<const T*>(g.dy) + (static_cast<long>(b) * g.L + l0) * y_l +
+                   static_cast<long>(h) * P, y_l, Q, valid, P, 1.f);
+  const float tot = chunk_decay(g, b, h, l0, valid, dts, cs, ecs, rem, sc);
+  const long at = (static_cast<long>(b) * g.H + h) * g.chunks + k;
+  if (threadIdx.x == 0) g.tots[at] = tot;
+  if (r0 >= P) return;             // rows p past P: nothing to write
+  // rows p, columns n = 64 ch ..: sum_j (rem dt x)_jp B_jn and sum_i (e^cs dy)_ip C_in
+  float ds[8][4] = {}, dd[8][4] = {};
+  mma_rows<SPLIT>(ds, Q, [&](int r, int j) { return r0 + r < P ? Xs[j * ps + r0 + r] * sc[j] : 0.f; },
+                  [&](int j, int c) { return 64 * ch + c < N ? Bs[j * ns + 64 * ch + c] : 0.f; });
+  mma_rows<SPLIT>(dd, Q, [&](int r, int i) { return r0 + r < P ? Ys[i * ps + r0 + r] * ecs[i] : 0.f; },
+                  [&](int i, int c) { return 64 * ch + c < N ? Cs[i * ns + 64 * ch + c] : 0.f; });
+  float* s_out = g.starts + at * P * N;
+  float* d_out = g.dstates + at * P * N;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = r0 + gr + 8 * (e >> 1), n = 64 * ch + 8 * t + 2 * tq + (e & 1);
+      if (p < P && n < N) {
+        s_out[p * N + n] = ds[t][e];
+        d_out[p * N + n] = dd[t][e];
+      }
+    }
+}
+
+constexpr int PASS_BATCH = 16;   // chunks whose loads the pass issues before it uses any
+
+// Each thread one element (p, n) of one (head, sequence)'s state: the
+// increments become the states entering each chunk, in order, and the
+// shares the gradients leaving each chunk, in reverse; a batch of chunks'
+// loads in flight at a time.
+__global__ void ssd_bwd_pass_kernel(const BwdArgs g) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long PN = static_cast<long>(g.P) * g.N;
+  if (e >= PN) return;
+  const long first = (static_cast<long>(b) * g.H + h) * g.chunks;
+  float s = 0.f;
+  for (int k0 = 0; k0 < g.chunks; k0 += PASS_BATCH) {
+    float inc[PASS_BATCH], dec[PASS_BATCH];
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u)
+      if (k0 + u < g.chunks) {
+        inc[u] = g.starts[(first + k0 + u) * PN + e];
+        dec[u] = expf(g.tots[first + k0 + u]);
+      }
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u)
+      if (k0 + u < g.chunks) {
+        g.starts[(first + k0 + u) * PN + e] = s;
+        s = dec[u] * s + inc[u];
+      }
+  }
+  float d = g.d_state ? g.d_state[(static_cast<long>(b) * g.H + h) * PN + e] : 0.f;
+  for (int k0 = g.chunks - 1; k0 >= 0; k0 -= PASS_BATCH) {
+    float share[PASS_BATCH], dec[PASS_BATCH];
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u)
+      if (k0 - u >= 0) {
+        share[u] = g.dstates[(first + k0 - u) * PN + e];
+        dec[u] = expf(g.tots[first + k0 - u]);
+      }
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u)
+      if (k0 - u >= 0) {
+        g.dstates[(first + k0 - u) * PN + e] = d;
+        d = dec[u] * d + share[u];
+      }
+  }
+}
+
+constexpr int CHUNK_THREADS = 512;   // 16 warps: a quarter of a product's columns each
+constexpr int QUARTERS = 4;
+
+size_t chunk_shared_floats(int P, int N) {
+  // Cs, Bs [Q][N+4]; CB, M, W [Q][Q+4]; Xs, Ys [Q][P+4]; Ss, dSs [P][N+4];
+  // dt, cs, e^cs, rem, rem dt, row and column sums [Q]; a1, a2 and y's
+  // inter term, a column quarter's share each [4][Q]; a float a warp
+  return 2 * Q * (N + PAD) + 3 * Q * (Q + PAD) + 2 * Q * (P + PAD) + 2 * P * (N + PAD) +
+         7 * Q + 3 * QUARTERS * Q + CHUNK_THREADS / 32;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const BwdArgs g) {
+  constexpr bool SPLIT = std::is_same_v<T, float>;
+  extern __shared__ float chunk_smem[];
+  const int k = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (warp >> 2), cq = warp & 3;   // this warp's rows, column quarter
+  const int P = g.P, N = g.N, ns = N + PAD, ps = P + PAD, qs = Q + PAD;
+  const int KP = (P + 7) & ~7, KN = (N + 7) & ~7;   // P and N in whole k-steps of 8
+  const int l0 = k * Q, valid = min(Q, g.L - l0);
+  float* Cs = chunk_smem;          // [Q][N+4]
+  float* Bs = Cs + Q * ns;         // [Q][N+4]
+  float* CB = Bs + Q * ns;         // [Q][Q+4]: C B^T
+  float* Mt = CB + Q * qs;         // [Q][Q+4]: M = C B^T o decay, lower triangle
+  float* Wt = Mt + Q * qs;         // [Q][Q+4]: W = decay o dt_j o G, lower triangle
+  float* Xs = Wt + Q * qs;         // [Q][P+4]
+  float* Ys = Xs + Q * ps;         // [Q][P+4]: dy
+  float* Ss = Ys + Q * ps;         // [P][N+4]: S entering the chunk
+  float* dSs = Ss + P * ns;        // [P][N+4]: dS leaving it
+  float* dts = dSs + P * ns;       // [Q] each below
+  float* cs = dts + Q;
+  float* ecs = cs + Q;             // e^(cs_i)
+  float* rem = ecs + Q;            // e^(cs_last - cs_j)
+  float* sc = rem + Q;             // rem_j dt_j
+  float* rT = sc + Q;              // row sums of C B^T o W
+  float* cT = rT + Q;              // column sums
+  float* a1p = cT + Q;             // [4][Q]: x_j.(M^T dy)_j, a column quarter's share each
+  float* a2p = a1p + QUARTERS * Q; // [4][Q]: x_j.(dS B_j)
+  float* yp = a2p + QUARTERS * Q;  // [4][Q]: e^(cs_i) C_i.(S^T dy_i)
+  float* red = yp + QUARTERS * Q;  // a float a warp: <dS, S>
+
+  repro::load_tile(Cs, ns, static_cast<const T*>(g.c) + b * g.cs_b + l0 * g.cs_l, g.cs_l, Q,
+                   valid, N, 1.f);
+  repro::load_tile(Bs, ns, static_cast<const T*>(g.b) + b * g.bs_b + l0 * g.bs_l, g.bs_l, Q,
+                   valid, N, 1.f);
+  __syncthreads();
+  {  // C B^T, the same for every head: rows r0 .., columns 16 cq ..
+    float acc[2][4] = {};
+    mma_rows<SPLIT>(acc, KN, [&](int r, int kk) { return kk < N ? Cs[(r0 + r) * ns + kk] : 0.f; },
+                    [&](int kk, int c) { return kk < N ? Bs[(16 * cq + c) * ns + kk] : 0.f; });
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        CB[(r0 + gr + 8 * (e >> 1)) * qs + 16 * cq + 8 * t + 2 * tq + (e & 1)] = acc[t][e];
+  }
+
+  // db rows r0 .. (tokens), columns 32 cq ..; dc the same: summed over the heads
+  float dB[4][4] = {}, dC[4][4] = {};
+  const long y_l = static_cast<long>(g.H) * P;    // dy and dx are contiguous
+  for (int h = 0; h < g.H; ++h) {
+    __syncthreads();               // the last head is done with the tiles; C B^T is whole
+    const long slot = ((static_cast<long>(b) * g.H + h) * g.chunks + k) * P * N;
+    repro::load_tile(Xs, ps, static_cast<const T*>(g.x) + b * g.xs_b + l0 * g.xs_l + h * g.xs_h,
+                     g.xs_l, Q, valid, P, 1.f);
+    repro::load_tile(Ys, ps, static_cast<const T*>(g.dy) + (static_cast<long>(b) * g.L + l0) *
+                     y_l + static_cast<long>(h) * P, y_l, Q, valid, P, 1.f);
+    repro::load_tile(Ss, ns, g.starts + slot, N, P, P, N, 1.f);
+    repro::load_tile(dSs, ns, g.dstates + slot, N, P, P, N, 1.f);
+    const float tot = chunk_decay(g, b, h, l0, valid, dts, cs, ecs, rem, sc);   // warp 0's
+
+    // 1. G = dy x^T (rows i, columns j); W = decay o dt_j o G and M = C B^T
+    //    o decay on and below the diagonal (zero above it)
+    {
+      float acc[2][4] = {};
+      mma_rows<SPLIT>(acc, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
+                      [&](int kk, int c) { return kk < P ? Xs[(16 * cq + c) * ps + kk] : 0.f; });
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r0 + gr + 8 * (e >> 1), j = 16 * cq + 8 * t + 2 * tq + (e & 1);
+          const float dec = j <= i ? expf(fminf(cs[i] - cs[j], 0.f)) : 0.f;
+          Wt[i * qs + j] = dec * dts[j] * acc[t][e];
+          Mt[i * qs + j] = CB[i * qs + j] * dec;
+        }
+    }
+    __syncthreads();
+
+    // 2. the row and column sums of C B^T o W: d(cs) from the chunk's own exponents
+    if (tid < Q) {
+      float t = 0.f;
+      for (int j = 0; j < Q; ++j) t += CB[tid * qs + j] * Wt[tid * qs + j];
+      rT[tid] = t;
+    } else if (tid < 2 * Q) {
+      const int j = tid - Q;
+      float t = 0.f;
+      for (int i = 0; i < Q; ++i) t += CB[i * qs + j] * Wt[i * qs + j];
+      cT[j] = t;
+    }
+
+    // 3. dx = dt o (M^T dy + rem o dS B), rows j, columns p = 16 cq ..; and
+    //    a token's x.(M^T dy) and x.(dS B), this column quarter's share
+    {
+      float in[2][4] = {}, ex[2][4] = {};
+      mma_rows<SPLIT>(in, Q, [&](int r, int kk) { return Mt[kk * qs + r0 + r]; },
+                      [&](int kk, int c) { return 16 * cq + c < P ? Ys[kk * ps + 16 * cq + c] : 0.f; });
+      mma_rows<SPLIT>(ex, KN, [&](int r, int kk) { return kk < N ? Bs[(r0 + r) * ns + kk] : 0.f; },
+                      [&](int kk, int c) {
+                        return kk < N && 16 * cq + c < P ? dSs[(16 * cq + c) * ns + kk] : 0.f;
+                      });
+      float s1[2] = {}, s2[2] = {};
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = r0 + gr + 8 * (e >> 1), p = 16 * cq + 8 * t + 2 * tq + (e & 1);
+          if (p < P) {
+            const float xv = Xs[j * ps + p];
+            s1[e >> 1] += xv * in[t][e];
+            s2[e >> 1] += xv * ex[t][e];
+            if (j < valid)
+              static_cast<T*>(g.dx)[(static_cast<long>(b) * g.L + l0 + j) * y_l +
+                                    static_cast<long>(h) * P + p] =
+                  from_float<T>(dts[j] * (in[t][e] + rem[j] * ex[t][e]));
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float v1 = quad_sum(s1[u]), v2 = quad_sum(s2[u]);
+        if (tq == 0) {
+          a1p[cq * Q + r0 + gr + 8 * u] = v1;
+          a2p[cq * Q + r0 + gr + 8 * u] = v2;
+        }
+      }
+    }
+
+    // 4. db += W^T C + (rem dt o x) dS, rows j, columns n = 32 cq ..
+    mma_rows<SPLIT>(dB, Q, [&](int r, int kk) { return Wt[kk * qs + r0 + r]; },
+                    [&](int kk, int c) { return 32 * cq + c < N ? Cs[kk * ns + 32 * cq + c] : 0.f; });
+    mma_rows<SPLIT>(dB, KP,
+                    [&](int r, int kk) { return kk < P ? Xs[(r0 + r) * ps + kk] * sc[r0 + r] : 0.f; },
+                    [&](int kk, int c) {
+                      return kk < P && 32 * cq + c < N ? dSs[kk * ns + 32 * cq + c] : 0.f;
+                    });
+
+    // 5. dc += e^cs o (dy S) + W B, rows i, columns n = 32 cq ..; and y's
+    //    inter term, this column quarter's share
+    {
+      float t4[4][4] = {};
+      mma_rows<SPLIT>(t4, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
+                      [&](int kk, int c) {
+                        return kk < P && 32 * cq + c < N ? Ss[kk * ns + 32 * cq + c] : 0.f;
+                      });
+      float u[2] = {};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r0 + gr + 8 * (e >> 1), n = 32 * cq + 8 * t + 2 * tq + (e & 1);
+          if (n < N) u[e >> 1] += Cs[i * ns + n] * t4[t][e];
+          dC[t][e] += ecs[i] * t4[t][e];
+        }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float w = quad_sum(u[v]);
+        if (tq == 0) yp[cq * Q + r0 + gr + 8 * v] = ecs[r0 + gr + 8 * v] * w;
+      }
+    }
+    mma_rows<SPLIT>(dC, Q, [&](int r, int kk) { return Wt[(r0 + r) * qs + kk]; },
+                    [&](int kk, int c) { return 32 * cq + c < N ? Bs[kk * ns + 32 * cq + c] : 0.f; });
+
+    // 6. <dS, S>, a warp's share each
+    {
+      float v = 0.f;
+      for (int idx = tid; idx < P * N; idx += CHUNK_THREADS) {
+        const int p = idx / N, n = idx - p * N;
+        v += dSs[p * ns + n] * Ss[p * ns + n];
+      }
+      v = repro::warp_sum(v);
+      if (lane == 0) red[warp] = v;
+    }
+    __syncthreads();
+
+    // 7. d(cs), its suffix sum R within the chunk, ddt and this head's da
+    if (warp == 0) {
+      float dot = 0.f;
+      for (int w = 0; w < CHUNK_THREADS / 32; ++w) dot += red[w];
+      float a1[2] = {}, a2[2] = {}, yi[2] = {}, u[2], dcs[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * lane + e;
+        for (int q = 0; q < QUARTERS; ++q) {   // the column quarters' shares, in order
+          a1[e] += a1p[q * Q + i];
+          a2[e] += a2p[q * Q + i];
+          yi[e] += yp[q * Q + i];
+        }
+        u[e] = sc[i] * a2[e];
+        dcs[e] = rT[i] - cT[i] + yi[e] - u[e];
+      }
+      const float usum = repro::warp_sum(u[0] + u[1]);
+      if (lane == 31) dcs[1] += expf(tot) * dot + usum;   // the chunk's last token
+      float run = dcs[0] + dcs[1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_down_sync(0xffffffffu, run, o);
+        if (lane + o < 32) run += v;
+      }
+      const float R[2] = {run, run - dcs[0]};
+      const float ah = g.a[h];
+      float da = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * lane + e;
+        if (i < valid)
+          g.ddt[(static_cast<long>(b) * g.L + l0 + i) * g.H + h] = a1[e] + rem[i] * a2[e] + ah * R[e];
+        da += dts[i] * R[e];
+      }
+      da = repro::warp_sum(da);
+      if (lane == 0) g.da_part[(static_cast<long>(b) * g.chunks + k) * g.H + h] = da;
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = r0 + gr + 8 * (e >> 1), n = 32 * cq + 8 * t + 2 * tq + (e & 1);
+      if (j < valid && n < N) {
+        const long at = (static_cast<long>(b) * g.L + l0 + j) * N + n;
+        static_cast<T*>(g.db)[at] = from_float<T>(dB[t][e]);
+        static_cast<T*>(g.dc)[at] = from_float<T>(dC[t][e]);
+      }
+    }
+}
+
+// da = the rows of da_part summed in order
+__global__ void ssd_bwd_da_kernel(const float* __restrict__ part, float* __restrict__ da,
+                                  int parts, int H) {
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    float s = 0.f;
+    for (int i = 0; i < parts; ++i) s += part[static_cast<long>(i) * H + h];
+    da[h] = s;
+  }
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& g, void* stream) {
+  if (g.P > MAX_P || g.N > MAX_N || g.P < 1 || g.N < 1 || g.L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t deltas = deltas_shared_floats(g.P, g.N) * sizeof(float);
+  const size_t chunk = chunk_shared_floats(g.P, g.N) * sizeof(float);
+  cudaError_t err = repro::allow_shared(ssd_bwd_deltas_kernel<T>, deltas);
+  if (err == cudaSuccess) err = repro::allow_shared(ssd_bwd_chunk_kernel<T>, chunk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_deltas_kernel<T><<<dim3(g.chunks, g.B, g.H), THREADS, deltas, s>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_pass_kernel<<<dim3((g.P * g.N + 255) / 256, g.H, g.B), 256, 0, s>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_kernel<T><<<dim3(g.chunks, g.B), CHUNK_THREADS, chunk, s>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_da_kernel<<<1, 256, 0, s>>>(g.da_part, g.da, g.B * g.chunks, g.H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define SSD_ENTRY(NAME, T)                                                                    \
@@ -800,3 +1329,25 @@ int occupancy(int P, int N, int* blocks) {
 
 SSD_ENTRY(ssd_scan_bf16, __nv_bfloat16)
 SSD_ENTRY(ssd_scan_f32, float)
+
+// starts, dstates: float32 scratch (B, H, chunks, P, N); tots (B, H, chunks)
+// and da_part (B, chunks, H) float32 scratch; dy contiguous; d_state null for
+// a zero gradient of the final state
+#define SSD_BWD_ENTRY(NAME, T)                                                                \
+  extern "C" int NAME(const void* x, const void* dt, const void* a, const void* b,            \
+                      const void* c, const void* dy, const void* d_state, void* starts,       \
+                      void* dstates, void* tots, void* da_part, void* dx, void* ddt,          \
+                      void* da, void* db, void* dc, int B, int L, int H, int P, int N,        \
+                      long xs_b, long xs_l, long xs_h, long ds_b, long ds_l, long ds_h,       \
+                      long bs_b, long bs_l, long cs_b, long cs_l, void* stream) {             \
+    const BwdArgs g{x, b, c, dy, static_cast<const float*>(dt), static_cast<const float*>(a), \
+                    static_cast<const float*>(d_state), static_cast<float*>(starts),          \
+                    static_cast<float*>(dstates), static_cast<float*>(tots),                  \
+                    static_cast<float*>(da_part), dx, db, dc, static_cast<float*>(ddt),       \
+                    static_cast<float*>(da), B, L, H, P, N, (L + Q - 1) / Q, xs_b, xs_l,      \
+                    xs_h, ds_b, ds_l, ds_h, bs_b, bs_l, cs_b, cs_l};                          \
+    return launch_bwd<T>(g, stream);                                                          \
+  }
+
+SSD_BWD_ENTRY(ssd_scan_bwd_bf16, __nv_bfloat16)
+SSD_BWD_ENTRY(ssd_scan_bwd_f32, float)

@@ -12,12 +12,12 @@
 Unlike ``repro.kernels.ops`` there is no platform guess and no
 environment variable: the device of the data decides.
 
-Training takes the same dispatch: on the card, `attention` and `rmsnorm`
-are differentiable through their backward kernels when an input requires
-grad (chosen by ``requires_grad``, not by a knob); `ssd`, `rmsnorm_gated`
-and the decode kernels have no backward kernel yet and raise
-``NotImplementedError`` on such inputs.  On the CPU the plain versions
-are differentiated by autograd.
+Training takes the same dispatch: on the card, `attention`, `rmsnorm`,
+`ssd` and `rmsnorm_gated` are differentiable through their backward
+kernels when an input requires grad (chosen by ``requires_grad``, not by
+a knob); the decode kernels serve only and raise ``NotImplementedError``
+on such inputs.  On the CPU the plain versions are differentiated by
+autograd.
 """
 from __future__ import annotations
 

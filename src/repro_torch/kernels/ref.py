@@ -3,13 +3,17 @@
 The simplest correct definition of each op the port's kernels compute:
 attention materialises every logit and repeats the KV heads for GQA; the
 Mamba2 SSD scan runs token by token (`ssd_reference`) or chunk by chunk
-(`ssd_chunked`, the TPU kernel's algorithm).
+(`ssd_chunked`, the TPU kernel's algorithm).  Two backward functions,
+`ssd_chunked_backward` and `rmsnorm_gated_backward`, are written step by
+step as the card's backward kernels compute them; the tests hold them
+against autograd and against ``jax.vjp`` of the JAX package's oracles.
 ``ops`` runs these under ``impl="ref"`` on either device; the tests hold
 the kernels' plain versions against the JAX package's kernels with them.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -131,7 +135,9 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, d_skip=None, init_state=Non
         cs = torch.cumsum(dtc * a, dim=1)                       # (B,Q,H) inclusive
         # intra-chunk: y_i += sum_{j<=i} C_i.B_j * exp(cs_i - cs_j) * dt_j * x_j
         seg = cs[:, :, None, :] - cs[:, None, :, :]              # (B,Qi,Qj,H)
-        decay = torch.where(causal, torch.exp(seg), 0.0)
+        # seg <= 0 on and below the diagonal (a < 0); clamped above it, where
+        # exp would overflow and autograd would carry 0 * inf = nan back
+        decay = torch.where(causal, torch.exp(torch.clamp(seg, max=0.0)), 0.0)
         cb = torch.einsum("bin,bjn->bij", cc, bc)                # (B,Qi,Qj)
         w = cb[..., None] * decay * dtc[:, None, :, :]
         y_intra = torch.einsum("bijh,bjhp->bihp", w, xc)
@@ -149,6 +155,84 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int = 128, d_skip=None, init_state=Non
     return y.to(x.dtype), s
 
 
+def ssd_chunked_backward(x, dt, a, b, c, dy, d_state=None, *, chunk: int = 64):
+    """The gradients (dx, ddt, da, db, dc) of ``ssd_chunked(x, dt, a, b, c)``
+    for dy (y's shape) and d_state (the final state's gradient, or None for
+    zero), by the card's chunked algorithm: each chunk's starting state S,
+    passed from chunk to chunk, then a reverse sweep over the chunks
+    carrying dS, the gradient of the state a chunk leaves.  With cs the chunk's inclusive
+    cumsum of dt a, M_ij = (C_i.B_j) e^(cs_i - cs_j) (i >= j), G_ij =
+    dy_i.x_j and rem_j = e^(cs_last - cs_j):
+
+      dx_j  = dt_j (sum_i M_ij dy_i + rem_j dS B_j)
+      db_j  = sum_h (sum_i e^(cs_i - cs_j) dt_j G_ij C_i + rem_j dt_j dS^T x_j)
+      dc_i  = sum_h (sum_j e^(cs_i - cs_j) dt_j G_ij B_j + e^(cs_i) S^T dy_i)
+      dS'   = e^(cs_last) dS + sum_i e^(cs_i) dy_i C_i^T  (into the chunk before)
+
+    and d(cs) from every exponent, which reaches ddt and da through the
+    cumsum as a suffix sum within the chunk.  Only differences of cs are
+    exponentiated.  dx, db, dc in their inputs' dtypes; ddt, da float32."""
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    xf, dtf, bf, cf, dyf = x.float(), dt.float(), b.float(), c.float(), dy.float()
+    if pad:
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        bf, cf = (F.pad(t, (0, 0, 0, pad)) for t in (bf, cf))
+    xf, dyf = xf.reshape(B, nc, chunk, H, P), dyf.reshape(B, nc, chunk, H, P)
+    dtf = dtf.reshape(B, nc, chunk, H)
+    bf, cf = bf.reshape(B, nc, chunk, N), cf.reshape(B, nc, chunk, N)
+    cs = torch.cumsum(dtf * a, dim=2)                          # (B,nc,Q,H) inclusive
+    tot = cs[:, :, -1]                                          # (B,nc,H)
+    i = torch.arange(chunk, device=x.device)
+    causal = (i[:, None] >= i[None, :])[None, :, :, None]
+    starts = []                                                 # S entering each chunk
+    s = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    for k in range(nc):
+        starts.append(s)
+        rem = torch.exp(tot[:, k, None, :] - cs[:, k]) * dtf[:, k]
+        s = (s * torch.exp(tot[:, k])[:, :, None, None]
+             + torch.einsum("bjh,bjn,bjhp->bhpn", rem, bf[:, k], xf[:, k]))
+    ds = (d_state.float() if d_state is not None
+          else torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (xf, dtf, bf, cf))
+    da = torch.zeros_like(a, dtype=torch.float32)
+    for k in reversed(range(nc)):
+        xc, dyc, dtc, bc, cc, csk = xf[:, k], dyf[:, k], dtf[:, k], bf[:, k], cf[:, k], cs[:, k]
+        S, tk = starts[k], tot[:, k]
+        dec = torch.where(causal, torch.exp(torch.clamp(
+            csk[:, :, None, :] - csk[:, None, :, :], max=0.0)), 0.0)          # (B,Qi,Qj,H)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)
+        m = cb[..., None] * dec
+        w2 = dec * dtc[:, None] * torch.einsum("bihp,bjhp->bijh", dyc, xc)
+        t = cb[..., None] * w2                                  # M_ij dt_j G_ij
+        rem = torch.exp(tk[:, None, :] - csk)                   # (B,Q,H)
+        ecs = torch.exp(csk)
+        intra = torch.einsum("bijh,bihp->bjhp", m, dyc)
+        inter = torch.einsum("bhpn,bjn->bjhp", ds, bc)
+        dx[:, k] = dtc[..., None] * (intra + rem[..., None] * inter)
+        a2 = (xc * inter).sum(-1)
+        u = dtc * rem * a2                                      # d(cs_j) of the state's rem_j
+        dys = torch.einsum("bihp,bhpn->bihn", dyc, S)
+        db[:, k] = (torch.einsum("bijh,bin->bjn", w2, cc)
+                    + torch.einsum("bjh,bjhp,bhpn->bjn", rem * dtc, xc, ds))
+        dc[:, k] = torch.einsum("bijh,bjn->bin", w2, bc) + torch.einsum("bih,bihn->bin", ecs, dys)
+        dcs = t.sum(2) - t.sum(1) + ecs * torch.einsum("bihn,bin->bih", dys, cc) - u
+        dcs[:, -1] += torch.exp(tk) * (ds * S).sum((-1, -2)) + u.sum(1)
+        suffix = torch.flip(torch.cumsum(torch.flip(dcs, [1]), 1), [1])
+        ddt[:, k] = (xc * intra).sum(-1) + rem * a2 + a * suffix
+        da += (dtc * suffix).sum((0, 1))
+        ds = (ds * torch.exp(tk)[:, :, None, None]
+              + torch.einsum("bih,bihp,bin->bhpn", ecs, dyc, cc))
+    dx = dx.reshape(B, nc * chunk, H, P)[:, :L].to(x.dtype)
+    ddt = ddt.reshape(B, nc * chunk, H)[:, :L]
+    db = db.reshape(B, nc * chunk, N)[:, :L].to(b.dtype)
+    dc = dc.reshape(B, nc * chunk, N)[:, :L].to(c.dtype)
+    return dx, ddt, da, db, dc
+
+
 def ssd_decode_step(s, xt, dtt, a, bt, ct, *, d_skip=None):
     """One-token SSD state update (serving): s (B, H, P, N) float32, xt
     (B, H, P), dtt (B, H), bt, ct (B, N) -> (y (B, H, P) in xt's dtype, s')."""
@@ -159,3 +243,29 @@ def ssd_decode_step(s, xt, dtt, a, bt, ct, *, d_skip=None):
     if d_skip is not None:
         y = y + xt.float() * d_skip[None, :, None]
     return y.to(xt.dtype), s
+
+
+def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5):
+    """The gradients (dy, dxh, dd_skip, dz, dw) of Mamba2's gated norm
+    rmsnorm((y + xh * d_skip) * silu(z), w) for its output gradient g, as
+    the card's kernel computes them: the gate recomputed with the forward's
+    roundings, the norm's backward in float32 rounded once to the input
+    type, then the gate's chain rule with silu'(z) = s (1 + z (1 - s)), s =
+    sigmoid(z), rounded where autograd of the op-by-op body rounds.  y, xh
+    (..., H, P); z and g (..., H*P); d_skip (H,) and w (H*P,) float32.
+    dd_skip and dw are float32 sums over the rows (and, for dd_skip, over
+    each head's P columns)."""
+    h, p = y.shape[-2:]
+    ds = d_skip[:, None].to(xh.dtype)
+    g1 = (y + xh * ds).reshape(z.shape)
+    sz = F.silu(z)
+    gate = g1 * sz
+    gf, gw = gate.float(), g.float() * w
+    r = torch.rsqrt(torch.mean(gf * gf, dim=-1, keepdim=True) + eps)
+    dgate = (r * gw - gf * r ** 3 * torch.mean(gw * gf, dim=-1, keepdim=True)).to(gate.dtype)
+    dw = (g.float() * gf * r).reshape(-1, h * p).sum(0)
+    dg1 = (dgate * sz).reshape(y.shape)
+    sig = torch.sigmoid(z.float())
+    dz = ((dgate * g1).float() * sig * (1 + z.float() * (1 - sig))).to(z.dtype)
+    dd_skip = (dg1.float() * xh.float()).reshape(-1, h, p).sum((0, 2))
+    return dg1, dg1 * ds, dd_skip, dz, dw

@@ -12,8 +12,10 @@ tensors and run the plain version for CPU tensors.
 On the card, ``rmsnorm`` is differentiable when ``x`` or ``w`` requires
 grad: `_RmsNorm` runs the forward kernel and the backward kernel
 (`rmsnorm_backward`, in the same source), which holds rows in the
-forward's register layout (`norm_bwd_plan`).  The gated form has no
-backward kernel yet and refuses inputs that require grad.
+forward's register layout (`norm_bwd_plan`).  So is ``rmsnorm_gated``:
+`_RmsNormGated` runs its forward kernel and its backward kernel
+(`rmsnorm_gated_backward`), on `norm_bwd_plan`'s layout for four inputs a
+piece; its plain version is `ref.rmsnorm_gated_backward`.
 """
 from __future__ import annotations
 
@@ -24,16 +26,19 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .ref import rmsnorm_gated_backward as rmsnorm_gated_backward_plain
 from .ref import rmsnorm_reference as rmsnorm_plain  # the kernel's plain version
 
-__all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_plain",
-           "rmsnorm_plain", "norm_bwd_plan", "norm_plan"]
+__all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_backward",
+           "rmsnorm_gated_plain", "rmsnorm_plain", "norm_bwd_plan", "norm_plan"]
 
 THREADS = 256      # a block of the row kernel at most (its launch bounds)
 REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an SM
 # 16-byte pieces of a row a lane holds: one input a piece (the forward), or
-# more (the gated form: three; the backward: x and g)
+# more (the gated form: three; the backward: x and g); the gated backward,
+# four inputs a piece, holds one
 MAX_UNITS = {False: 4, True: 2}
+GATED_BWD_UNITS = 1
 
 _ARGS = [build.P, build.P, build.P, build.I, build.I, build.F] + [build.I] * 4 + [build.P]
 _BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F] + [build.I] * 4 + [build.P]
@@ -41,6 +46,9 @@ MAX_BWD_WIDTH = 50_000   # the wide backward keeps a float32 partial of dw a col
 FOLD_FLOATS = 8 * 32 * 2 * 8   # the backward's row groups' dw shares in shared memory, at most
 _GATED_ARGS = ([build.P] * 4 + [build.L, build.I, build.P, build.P, build.I, build.I, build.F]
                + [build.I] * 4 + [build.P])
+_GATED_BWD_ARGS = ([build.P] * 4 + [build.L, build.I] + [build.P] * 10
+                   + [build.I, build.I, build.F] + [build.I] * 5 + [build.P])
+MAX_GATED_BWD_WIDTH = 25_000   # its wide kernel keeps two float32 partials a column in shared memory
 
 
 class Card(NamedTuple):
@@ -77,13 +85,14 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     many.  At qwen2.5-3b's prefill (4096 rows of 2048 bf16 on 132 SMs): 2
     warps a row, 4 pieces a lane, 4 rows a block, 264 blocks; at a decode
     step (8 rows): 8 blocks of one row of 4 warps.  ``backward``: two
-    inputs a piece, as the gated form's three."""
+    inputs a piece, as the gated form's three; both: four, one piece a lane."""
     vec = 16 // elem_bytes
     if not aligned or d % vec:
         return WIDE
     pieces = d // vec
+    limit = GATED_BWD_UNITS if gated and backward else MAX_UNITS[gated or backward]
     warps = 1
-    while -(-pieces // (32 * warps)) > MAX_UNITS[gated or backward]:
+    while -(-pieces // (32 * warps)) > limit:
         warps *= 2
     if warps > THREADS // 32:
         return WIDE
@@ -96,13 +105,17 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     return NormPlan(warps, units, groups, min(-(-rows // groups), card.sms * max(1, fit)))
 
 
-def norm_bwd_plan(rows: int, d: int, elem_bytes: int, *, aligned: bool, card: Card) -> NormPlan:
+def norm_bwd_plan(rows: int, d: int, elem_bytes: int, *, aligned: bool, card: Card,
+                  gated: bool = False) -> NormPlan:
     """The backward's launch, which writes one partial row of dw a block:
     `norm_plan`'s for two inputs a piece (x and the output's gradient) at
     qwen2.5-3b's training rows (8192 of 2048 bf16 on 132 SMs: 4 warps a
-    row, 2 pieces a lane, 2 rows a block, 264 blocks); rows that go to the
-    wide kernel take a block a row, at most two blocks an SM at once."""
-    plan = norm_plan(rows, d, elem_bytes, gated=False, aligned=aligned, card=card,
+    row, 2 pieces a lane, 2 rows a block, 264 blocks), or, ``gated``, for
+    four (y, xh, z and the gradient; mamba2-370m's 8192 rows of 2048 bf16:
+    8 warps a row, one piece a lane, a row a block, 264 blocks); rows that
+    go to the wide kernel take a block a row, at most two blocks an SM at
+    once."""
+    plan = norm_plan(rows, d, elem_bytes, gated=gated, aligned=aligned, card=card,
                      backward=True)
     return plan if plan.warps else NormPlan(0, 0, 0, min(rows, 2 * card.sms))
 
@@ -231,18 +244,11 @@ def _row_stride(t: torch.Tensor) -> int | None:
     return t.shape[-1] if stride is None else stride
 
 
-def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
-    """rmsnorm((y + xh * d_skip) * silu(z), w) in one launch, rounded to the
-    input type where the op-by-op body rounds.  y, xh (..., H, P)
-    contiguous and z (..., H*P) of one dtype (bf16/float32), z's rows evenly
-    spaced (a column slice of the in-projection is taken as it is); d_skip
-    (H,) and w (H*P,) float32 -> z's shape and dtype, contiguous."""
-    if y.device.type == "cpu":
-        return rmsnorm_gated_plain(y, xh, d_skip, z, w, eps=eps)
-    build.refuse_grad("rmsnorm_gated", y, xh, d_skip, z, w)
-    build.check_cuda("rmsnorm_gated", y, xh, d_skip, w)
+def _gated_check(name: str, y, xh, d_skip, z, w) -> int:
+    """Raises unless the gated form takes these inputs; returns z's row stride."""
+    build.check_cuda(name, y, xh, d_skip, w)
     if z.device != y.device:
-        raise ValueError(f"rmsnorm_gated: z on {z.device}, the rest on {y.device}")
+        raise ValueError(f"{name}: z on {z.device}, the rest on {y.device}")
     *lead, h, p = y.shape
     d = h * p
     zs = _row_stride(z)
@@ -251,11 +257,18 @@ def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
             or d_skip.dtype != torch.float32 or w.shape != (d,) or w.dtype != torch.float32
             or zs is None):
         raise ValueError(
-            f"rmsnorm_gated: y, xh (..., H, P) and z (..., H*P) of one dtype (bf16/float32), "
+            f"{name}: y, xh (..., H, P) and z (..., H*P) of one dtype (bf16/float32), "
             f"z's rows evenly spaced, d_skip (H,) and w (H*P,) float32; got y {y.dtype} "
             f"{tuple(y.shape)}, xh {xh.dtype} {tuple(xh.shape)}, z {z.dtype} "
             f"{tuple(z.shape)} strides {z.stride()}, d_skip {d_skip.dtype} "
             f"{tuple(d_skip.shape)}, w {w.dtype} {tuple(w.shape)}")
+    return zs
+
+
+def _gated_forward(y, xh, d_skip, z, w, eps):
+    zs = _gated_check("rmsnorm_gated", y, xh, d_skip, z, w)
+    p = y.shape[-1]
+    d = w.shape[0]
     out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
     rows = out.numel() // d if d else 0
     if rows == 0:
@@ -270,7 +283,75 @@ def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
     return out
 
 
-rmsnorm_gated.launches = 0   # kernel launches, for showing a run went through it
+def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5):
+    """dy, dxh (y's shape and dtype), dd_skip (H,) float32, dz (z's shape,
+    contiguous) and dw (H*P,) float32 of ``rmsnorm_gated(y, xh, d_skip, z,
+    w)`` for the output gradient ``g`` (z's shape and dtype).  CUDA
+    tensors: the backward kernel on `norm_bwd_plan`'s gated launch, then
+    the fixed-order sums of its per-block partial rows of dw and of
+    d_skip's gradient a column, then d_skip's over each head's columns (no
+    atomics); CPU tensors: the plain version."""
+    if y.device.type == "cpu":
+        return rmsnorm_gated_backward_plain(y, xh, d_skip, z, w, g, eps=eps)
+    zs = _gated_check("rmsnorm_gated_backward", y, xh, d_skip, z, w)
+    build.check_cuda("rmsnorm_gated_backward", y, g)
+    h, p = y.shape[-2:]
+    d = h * p
+    if g.shape != z.shape or g.dtype != z.dtype or d > MAX_GATED_BWD_WIDTH:
+        raise ValueError(f"rmsnorm_gated_backward: g as z {z.dtype} {tuple(z.shape)}, width <= "
+                         f"{MAX_GATED_BWD_WIDTH}; got g {g.dtype} {tuple(g.shape)}")
+    dy, dxh = torch.empty_like(y), torch.empty_like(xh)
+    dz = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    rows = dz.numel() // d if d else 0
+    if rows == 0:
+        return dy, dxh, torch.zeros_like(d_skip), dz, torch.zeros_like(w)
+    aligned = _aligned(y.data_ptr(), xh.data_ptr(), z.data_ptr(), w.data_ptr(), g.data_ptr(),
+                       dy.data_ptr(), dxh.data_ptr(), dz.data_ptr(), zs * z.element_size())
+    plan = norm_bwd_plan(rows, d, y.element_size(), aligned=aligned,
+                         card=card_of(y.device.index), gated=True)
+    part = torch.empty((2, plan.blocks, d), dtype=torch.float32, device=y.device)
+    col = torch.empty((d,), dtype=torch.float32, device=y.device)
+    dd, dw = torch.empty_like(d_skip), torch.empty_like(w)
+    build.call(f"rmsnorm_gated_bwd_{build.DTYPE_SUFFIX[y.dtype]}", _GATED_BWD_ARGS,
+               y.data_ptr(), xh.data_ptr(), d_skip.data_ptr(), z.data_ptr(), zs, p,
+               w.data_ptr(), g.data_ptr(), dy.data_ptr(), dxh.data_ptr(), dz.data_ptr(),
+               part[0].data_ptr(), part[1].data_ptr(), col.data_ptr(), dw.data_ptr(),
+               dd.data_ptr(), rows, d, eps, h, *plan, build.stream(y.device))
+    build.count(rmsnorm_gated_backward)
+    return dy, dxh, dd, dz, dw
+
+
+class _RmsNormGated(torch.autograd.Function):
+    """The gated forward kernel and its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, y, xh, d_skip, z, w, eps):
+        ctx.save_for_backward(y, xh, d_skip, z, w)
+        ctx.eps = eps
+        return _gated_forward(y, xh, d_skip, z, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*rmsnorm_gated_backward(*ctx.saved_tensors, g.contiguous(), eps=ctx.eps), None)
+
+
+def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
+    """rmsnorm((y + xh * d_skip) * silu(z), w) in one launch, rounded to the
+    input type where the op-by-op body rounds.  y, xh (..., H, P)
+    contiguous and z (..., H*P) of one dtype (bf16/float32), z's rows evenly
+    spaced (a column slice of the in-projection is taken as it is); d_skip
+    (H,) and w (H*P,) float32 -> z's shape and dtype, contiguous.  On the
+    card, differentiable through the backward kernel when an input requires
+    grad; otherwise one forward launch."""
+    if y.device.type == "cpu":
+        return rmsnorm_gated_plain(y, xh, d_skip, z, w, eps=eps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, xh, d_skip, z, w)):
+        return _RmsNormGated.apply(y, xh, d_skip, z, w, eps)
+    return _gated_forward(y, xh, d_skip, z, w, eps)
+
+
+rmsnorm_gated.launches = 0            # kernel launches, for showing a run went through it
+rmsnorm_gated_backward.launches = 0   # backward calls (four kernels each)
 
 
 def launch_floor(plan: NormPlan) -> None:

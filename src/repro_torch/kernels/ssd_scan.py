@@ -15,6 +15,12 @@ blocking; the kernel walks the sequence in chunks of its own (64 tokens,
 see the source), and any chunk length gives the same scan.  In bf16 the
 kernel runs its chunk products on the tensor cores, one block of 4 warps
 per (head, sequence), two blocks an SM (`blocks_per_sm` asks CUDA).
+
+On the card, ``ssd_scan`` is differentiable when an input requires grad:
+`_SsdScan` runs the forward kernel, then the backward kernels of the same
+source (`ssd_scan_backward`) for the output gradients; a final state that
+the loss does not use (a training loss never does) gets no gradient and
+costs nothing.  Its plain version is `ref.ssd_chunked_backward`.
 """
 from __future__ import annotations
 
@@ -23,14 +29,16 @@ import ctypes
 import torch
 
 from . import build
-from .ref import ssd_chunked
+from .ref import ssd_chunked, ssd_chunked_backward
 
-__all__ = ["blocks_per_sm", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["blocks_per_sm", "ssd_scan", "ssd_scan_backward", "ssd_scan_plain"]
 
 MAX_HEAD_DIM = 64    # P: zero-padded to 64, 16 rows a warp (bf16); 4 columns a thread (float32)
 MAX_STATE = 128      # N: zero-padded to 128 (bf16); 8 state columns a thread (float32)
 
 _ARGS = [build.P] * 7 + [build.I] * 5 + [build.L] * 10 + [build.P]
+_BWD_ARGS = [build.P] * 16 + [build.I] * 5 + [build.L] * 10 + [build.P]
+CHUNK = 64           # the kernels' own chunk of tokens
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
@@ -38,44 +46,122 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
     return ssd_chunked(x, dt, a, b, c, chunk=chunk)
 
 
-def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
-    """x (B, L, H, P); dt (B, L, H); a (H,) float32; b, c (B, L, N) ->
-    y (B, L, H, P) in x's dtype, final state (B, H, P, N) float32."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
-    build.refuse_grad("ssd_scan", x, dt, a, b, c)
-    if chunk < 1:
-        raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
+def _check(name: str, x, dt, a, b, c) -> None:
     B, L, H, P = x.shape
     N = b.shape[-1]
-    dt = dt.float()          # bf16 timesteps are widened, as the plain version does
     devices = {t.device for t in (x, dt, a, b, c)}
     if len(devices) != 1:
-        raise ValueError(f"ssd_scan: every tensor must be on one CUDA device, got {devices}")
+        raise ValueError(f"{name}: every tensor must be on one CUDA device, got {devices}")
     if (x.dtype not in build.DTYPE_SUFFIX or b.dtype != x.dtype or c.dtype != x.dtype
             or a.dtype != torch.float32 or dt.shape != (B, L, H) or a.shape != (H,)
             or b.shape != (B, L, N) or c.shape != (B, L, N) or not 1 <= P <= MAX_HEAD_DIM
             or not 1 <= N <= MAX_STATE):
         raise ValueError(
-            f"ssd_scan: x (B,L,H,P) and b, c (B,L,N) of one dtype (bf16/float32), dt "
+            f"{name}: x (B,L,H,P) and b, c (B,L,N) of one dtype (bf16/float32), dt "
             f"(B,L,H), a (H,) float32, P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got x "
             f"{x.dtype} {tuple(x.shape)}, dt {tuple(dt.shape)}, a {a.dtype} "
             f"{tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}, c {tuple(c.shape)}")
     if x.stride(3) != 1 or b.stride(2) != 1 or c.stride(2) != 1 or not a.is_contiguous():
-        raise ValueError("ssd_scan: the last axis of x, b and c, and a, must be contiguous")
+        raise ValueError(f"{name}: the last axis of x, b and c, and a, must be contiguous")
+
+
+def _strides(x, dt, b, c) -> tuple:
+    return (x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1))
+
+
+def _forward(x, dt, a, b, c):
+    _check("ssd_scan", x, dt, a, b, c)
+    B, L, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     build.call(f"ssd_scan_{build.DTYPE_SUFFIX[x.dtype]}", _ARGS,
                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-               y.data_ptr(), state.data_ptr(), B, L, H, P, N,
-               x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
-               dt.stride(2), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+               y.data_ptr(), state.data_ptr(), B, L, H, P, N, *_strides(x, dt, b, c),
                build.stream(x.device))
     build.count(ssd_scan)
     return y, state
 
 
-ssd_scan.launches = 0   # kernel launches, for showing a run went through it
+def ssd_scan_backward(x, dt, a, b, c, dy, d_state=None):
+    """dx, ddt, da, db, dc of ``ssd_scan(x, dt, a, b, c)`` for dy (y's
+    shape) and d_state (the final state's gradient; None: zero).  dx, db,
+    dc in x's dtype and ddt, da float32, all contiguous.  CUDA tensors: the
+    backward kernels (four launches, see the source); CPU tensors: the
+    plain version, `ref.ssd_chunked_backward`."""
+    if x.device.type == "cpu":
+        return ssd_chunked_backward(x, dt, a, b, c, dy, d_state, chunk=CHUNK)
+    dt = dt.float()
+    _check("ssd_scan_backward", x, dt, a, b, c)
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or (d_state is not None and (d_state.shape != (B, H, P, N)
+                                         or d_state.dtype != torch.float32
+                                         or d_state.device != x.device))):
+        raise ValueError(f"ssd_scan_backward: dy as x {x.dtype} {tuple(x.shape)} and d_state "
+                         f"float32 {(B, H, P, N)} or None; got dy {dy.dtype} "
+                         f"{tuple(dy.shape)}, d_state "
+                         f"{None if d_state is None else (d_state.dtype, tuple(d_state.shape))}")
+    dy = dy.contiguous()
+    d_state = None if d_state is None else d_state.contiguous()
+    dev = x.device
+    dx = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    da = torch.zeros((H,), dtype=torch.float32, device=dev)
+    db = torch.empty((B, L, N), dtype=x.dtype, device=dev)
+    dc = torch.empty((B, L, N), dtype=x.dtype, device=dev)
+    if B * L == 0:
+        return dx, ddt, da, db, dc
+    chunks = -(-L // CHUNK)
+    starts = torch.empty((B, H, chunks, P, N), dtype=torch.float32, device=dev)
+    dstates = torch.empty_like(starts)
+    tots = torch.empty((B, H, chunks), dtype=torch.float32, device=dev)
+    da_part = torch.empty((B, chunks, H), dtype=torch.float32, device=dev)
+    build.call(f"ssd_scan_bwd_{build.DTYPE_SUFFIX[x.dtype]}", _BWD_ARGS,
+               x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+               dy.data_ptr(), None if d_state is None else d_state.data_ptr(),
+               starts.data_ptr(), dstates.data_ptr(), tots.data_ptr(), da_part.data_ptr(),
+               dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+               B, L, H, P, N, *_strides(x, dt, b, c), build.stream(dev))
+    build.count(ssd_scan_backward)
+    return dx, ddt, da, db, dc
+
+
+class _SsdScan(torch.autograd.Function):
+    """The forward kernel and the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.set_materialize_grads(False)     # an unused final state: no gradient, no zeros
+        ctx.save_for_backward(x, dt, a, b, c)
+        return _forward(x, dt, a, b, c)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, a, b, c = ctx.saved_tensors
+        return ssd_scan_backward(x, dt, a, b, c, torch.zeros_like(x) if dy is None else dy,
+                                 d_state)
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
+    """x (B, L, H, P); dt (B, L, H); a (H,) float32; b, c (B, L, N) ->
+    y (B, L, H, P) in x's dtype, final state (B, H, P, N) float32.  On the
+    card, differentiable through the backward kernels when an input
+    requires grad; otherwise one forward launch."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
+    dt = dt.float()          # bf16 timesteps are widened, as the plain version does
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        return _SsdScan.apply(x, dt, a, b, c)
+    return _forward(x, dt, a, b, c)
+
+
+ssd_scan.launches = 0            # forward kernel launches, for showing a run went through it
+ssd_scan_backward.launches = 0   # backward calls (four kernels each)
 
 
 def blocks_per_sm(dtype: torch.dtype, P: int = MAX_HEAD_DIM, N: int = MAX_STATE) -> int:

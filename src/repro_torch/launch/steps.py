@@ -10,9 +10,14 @@ micro-batch's loss is differentiated in turn; with float32 masters the
 gradients accumulate in float32 in ``.grad`` (the first micro-batch's
 gradient, then each next one added, as JAX's ``_tree_add`` over zeros),
 then the sum is divided by ``accum`` and one optimizer update is applied.
-The gradients stay in ``.grad`` after the step, for inspection.
+A parameter the loss does not reach (the norm of a width-0 MLP, as in
+mamba2-370m) gets a zero gradient, as ``jax.grad`` gives it, and takes the
+optimizer's update (its weight decay) like every other.  The gradients
+stay in ``.grad`` after the step, for inspection.
 """
 from __future__ import annotations
+
+import torch
 
 from ..configs.base import ModelConfig
 from ..models import lm
@@ -42,6 +47,9 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, warmup: int = 2000,
             loss, _ = lm.loss_fn(cfg, model, mb, impl=impl)
             loss.backward()
             lsum = lsum + loss.detach()
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = {k: p.grad for k, p in params.items()}
         if accum > 1:
             for g in grads.values():

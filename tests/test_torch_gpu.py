@@ -26,8 +26,9 @@ from repro_torch.kernels.fused_decode import (fused_decode, fused_decode_plain, 
                                               out_residual_plain, qkv_plain, qkv_rope)
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward, rmsnorm_gated,
-                                         rmsnorm_gated_plain, rmsnorm_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+                                         rmsnorm_gated_backward, rmsnorm_gated_plain,
+                                         rmsnorm_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_plain
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.gpu
@@ -744,9 +745,9 @@ def _grads(fn, q, k, v, do, kw):
     return out.detach(), [t.grad for t in leaves]
 
 
-def _close_scaled(got, want, tol):
+def _close_scaled(got, want, tol, floor=0.0):
     torch.testing.assert_close(got.float(), want.float(),
-                               atol=tol * float(want.float().abs().max()), rtol=tol)
+                               atol=tol * float(want.float().abs().max()) + floor, rtol=tol)
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES)
@@ -862,26 +863,146 @@ def test_rmsnorm_backward_takes_rows_off_16_bytes(cuda, dtype):
     _close_scaled(dw, wl.grad, 1e-4 if dtype == torch.float32 else BWD_TOL[dtype])
 
 
+# the SSD scan's backward at mamba2-370m's training shape (B2 L4096 H32 P64
+# N128), a ragged length, the edges of the kernels' chunk of 64 tokens (L 1,
+# L 65), the reduced config's widths (P8 N16) and P, N off the thread tiles;
+# b and c are column slices of one projection, as `Mamba._proj` gives them
+SSD_BWD_SHAPES = [(2, 4096, 32, 64, 128), (2, 129, 32, 64, 128), (2, 1, 32, 64, 128),
+                  (2, 65, 32, 64, 128), (2, 100, 16, 8, 16), (2, 70, 3, 20, 40)]
+# the backward kernels against the plain version's autograd, a share of the
+# gradient's largest entry: float32, sums of float32 products over up to
+# 4096 tokens and 32 heads in another order; bf16, both round each gradient
+# to bf16 once from float32 values that differ in their last bits.  da at L
+# 1 is 0 in exact arithmetic (no token decays another): the plain version
+# gives float32 noise of the terms that cancel there (up to 1.8e-4 seen), so
+# it is held to 0, within float32 noise of its own
+MAMBA_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+VANISHING = 1e-5
+
+
+def _ssd_bwd_inputs(shape, dtype, cuda, memory="long"):
+    B, L, H, P, N = shape
+    rng = np.random.default_rng(L * 5 + P)
+    shift, log_a = (0.0, 0.0) if memory == "short" else (4.0, -2.0)
+    x = _rand(rng, (B, L, H, P), dtype, cuda)
+    dt = torch.nn.functional.softplus(_rand(rng, (B, L, H), torch.float32, cuda) - shift)
+    a = -torch.exp(log_a + 0.5 * _rand(rng, (H,), torch.float32, cuda))
+    bc = _rand(rng, (B, L, 2 * N + H), dtype, cuda)
+    return x, dt, a, bc, _rand(rng, (B, L, H, P), dtype, cuda), _rand(rng, (B, H, P, N),
+                                                                       torch.float32, cuda)
+
+
+def _ssd_grads(fn, x, dt, a, bc, dy, ds):
+    """Gradients of x, dt, a and the projection bc, whose column slices are
+    b and c; ds None: the loss does not use the final state."""
+    n = (bc.shape[-1] - x.shape[2]) // 2
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, a, bc)]
+    y, s = fn(*leaves[:3], leaves[3][..., :n], leaves[3][..., n:2 * n])
+    torch.autograd.backward([y] if ds is None else [y, s], [dy] if ds is None else [dy, ds])
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", ["short", "long"])
+def test_ssd_scan_backward_matches_plain_autograd(cuda, shape, dtype, memory):
+    x, dt, a, bc, dy, ds = _ssd_bwd_inputs(shape, dtype, cuda, memory)
+    fwd, bwd = ssd_scan.launches, ssd_scan_backward.launches
+    got = _ssd_grads(ssd_scan, x, dt, a, bc, dy, ds)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_backward.launches) == (fwd + 1, bwd + 1)
+    want = _ssd_grads(ssd_scan_plain, x, dt, a, bc, dy, ds)
+    if shape[1] == 1:
+        want[2] = torch.zeros_like(want[2])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_scaled(g, w, MAMBA_BWD_TOL[dtype], VANISHING)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_is_deterministic_without_a_state_gradient(cuda, dtype):
+    """Two calls give the same bits (no atomics: db and dc are summed over
+    the heads in order); a loss that does not use the final state gets the
+    gradients of a zero state gradient, from one backward call."""
+    x, dt, a, bc, dy, _ = _ssd_bwd_inputs((2, 300, 32, 64, 128), dtype, cuda)
+    n = 128
+    first = ssd_scan_backward(x, dt, a, bc[..., :n], bc[..., n:2 * n], dy)
+    second = ssd_scan_backward(x, dt, a, bc[..., :n], bc[..., n:2 * n], dy)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    before = ssd_scan_backward.launches
+    got = _ssd_grads(ssd_scan, x, dt, a, bc, dy, None)
+    assert ssd_scan_backward.launches == before + 1
+    want = _ssd_grads(ssd_scan_plain, x, dt, a, bc, dy, None)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, MAMBA_BWD_TOL[dtype])
+    assert all(torch.equal(g, f) for g, f in zip(got[:3], first[:3]))
+    assert torch.equal(got[3][..., :n], first[3]) and torch.equal(got[3][..., n:2 * n], first[4])
+
+
+def _gated_bwd_inputs(lead, h, p, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed + h * p)
+    return (_rand(rng, (*lead, h, p), dtype, cuda), _rand(rng, (*lead, h, p), dtype, cuda),
+            1.0 + 0.1 * _rand(rng, (h,), torch.float32, cuda),
+            _rand(rng, (*lead, 2 * h * p), dtype, cuda),
+            1.0 + 0.1 * _rand(rng, (h * p,), torch.float32, cuda),
+            _rand(rng, (*lead, h * p), dtype, cuda))
+
+
+def _gated_grads(fn, y, xh, d, xz, w, g):
+    """Gradients of y, xh, d_skip, the projection xz (z its second half, as
+    ``torch.chunk`` gives it) and w."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (y, xh, d, xz, w)]
+    fn(*leaves[:3], torch.chunk(leaves[3], 2, dim=-1)[1], leaves[4]).backward(g)
+    return [t.grad for t in leaves]
+
+
+# (lead, H, P): mamba2-370m's training rows (8192 of 2048) and a decode
+# step's 8, a width of a ragged number of pieces (1000), mamba2-2.7b's width
+# (5120: the wide kernel) and a width off 16 bytes (60: the wide kernel)
+@pytest.mark.parametrize("lead,h,p", [((2, 4096), 32, 64), ((8,), 32, 64), ((3, 5), 4, 250),
+                                      ((2, 3), 80, 64), ((4, 7), 3, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gated_backward_matches_plain_autograd(cuda, lead, h, p, dtype):
+    y, xh, d, xz, w, g = _gated_bwd_inputs(lead, h, p, dtype, cuda)
+    fwd, bwd = rmsnorm_gated.launches, rmsnorm_gated_backward.launches
+    got = _gated_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+    torch.cuda.synchronize()
+    assert (rmsnorm_gated.launches, rmsnorm_gated_backward.launches) == (fwd + 1, bwd + 1)
+    want = _gated_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+    for got_, want_ in zip(got, want):
+        assert got_.dtype == want_.dtype and got_.shape == want_.shape
+        _close_scaled(got_, want_, MAMBA_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gated_backward_is_deterministic_and_takes_rows_off_16_bytes(cuda, dtype):
+    y, xh, d, xz, w, g = _gated_bwd_inputs((2, 512), 32, 64, dtype, cuda)
+    z = torch.chunk(xz, 2, dim=-1)[1]
+    first = rmsnorm_gated_backward(y, xh, d, z, w, g)
+    second = rmsnorm_gated_backward(y, xh, d, z, w, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    y_off = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)[1:].view(y.shape)
+    y_off.copy_(y)
+    assert y_off.data_ptr() % 16
+    got = rmsnorm_gated_backward(y_off, xh, d, z, w, g)      # the wide kernel
+    leaves = [t.detach().clone().requires_grad_(True) for t in (y, xh, d, z, w)]
+    rmsnorm_gated_plain(*leaves).backward(g)
+    for got_, leaf in zip(got, leaves):
+        _close_scaled(got_, leaf.grad, MAMBA_BWD_TOL[dtype])
+
+
 def test_kernels_without_backward_refuse_grad(cuda):
-    """The SSD scan, the gated norm, decode attention and the fused chain
-    raise on inputs that require grad (no silent detach, no plain-version
-    fallback) and launch nothing."""
+    """Decode attention and the fused chain, which serve only, raise on
+    inputs that require grad (no silent detach, no plain-version fallback)
+    and launch nothing."""
     rng = np.random.default_rng(0)
     f32 = torch.float32
-    x = _rand(rng, (1, 8, 2, 8), f32, cuda).requires_grad_(True)
-    before = ssd_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_scan(x, torch.ones(1, 8, 2, device=cuda), -torch.ones(2, device=cuda),
-                 _rand(rng, (1, 8, 16), f32, cuda), _rand(rng, (1, 8, 16), f32, cuda))
-    assert ssd_scan.launches == before
-    y = _rand(rng, (3, 2, 8), f32, cuda)
-    w = torch.ones(16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rmsnorm_gated(y, y, torch.ones(2, device=cuda), _rand(rng, (3, 16), f32, cuda), w)
     q = _rand(rng, (1, 4, 16), f32, cuda).requires_grad_(True)
     kc = _rand(rng, (1, 8, 2, 16), f32, cuda)
+    before = decode_attention.launches
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode_attention(q, kc, kc, torch.tensor(3, dtype=torch.int32, device=cuda))
+    assert decode_attention.launches == before
     xd, k, v, wts = _sublayer(rng, 64, 8, 2, 16, 8, True, f32, cuda)
     wts["wq"].requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -920,17 +1041,20 @@ def _train_grads(cfg, device, impl=None, seed=0):
     return float(loss), {k: p.grad for k, p in model.named_parameters()}
 
 
-@pytest.mark.parametrize("name", ["tiny", "qwen2.5-3b-smoke", "h2o-danube-3-4b-smoke"])
+@pytest.mark.parametrize("name", ["tiny", "qwen2.5-3b-smoke", "h2o-danube-3-4b-smoke",
+                                  "mamba2-370m-smoke"])
 def test_training_kernel_route_matches_ref_route_on_card(cuda, name):
-    """Loss and every gradient leaf of the kernel route (the flash and
-    rmsnorm forward and backward kernels) against ``impl="ref"``, float32
-    compute, within 1e-4 of the leaf's largest entry."""
+    """Loss and every gradient leaf of the kernel route (the forward and
+    backward kernels of flash attention and rmsnorm; for mamba2-370m, of
+    rmsnorm, the SSD scan and the gated norm) against ``impl="ref"``,
+    float32 compute, within 1e-4 of the leaf's largest entry."""
     cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
-    counts = [f.launches for f in (flash_attention, flash_attention_backward, rmsnorm,
-                                   rmsnorm_backward)]
+    kernels = ((rmsnorm, rmsnorm_backward, ssd_scan, ssd_scan_backward, rmsnorm_gated,
+                rmsnorm_gated_backward) if name.startswith("mamba") else
+               (flash_attention, flash_attention_backward, rmsnorm, rmsnorm_backward))
+    counts = [f.launches for f in kernels]
     loss, got = _train_grads(cfg, cuda)
-    after = [f.launches for f in (flash_attention, flash_attention_backward, rmsnorm,
-                                  rmsnorm_backward)]
+    after = [f.launches for f in kernels]
     assert all(a > b for a, b in zip(after, counts))
     want_loss, want = _train_grads(cfg, cuda, impl="ref")
     assert loss == pytest.approx(want_loss, rel=1e-5)
@@ -952,9 +1076,13 @@ def test_training_remat_modes_are_bitwise_on_card(cuda, compute_dtype):
         assert all(torch.equal(got[k], want[k]) for k in want), remat
 
 
-def test_mamba_training_on_card_refuses(cuda):
-    """The SSD scan and the gated norm have no backward kernel yet: a Mamba2
-    loss on trainable parameters raises instead of training nothing."""
-    cfg = get_config("mamba2-370m-smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _train_grads(cfg, cuda)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_mamba_training_remat_modes_are_bitwise_on_card(cuda, compute_dtype):
+    """mamba2-370m-smoke: the SSD scan's and the gated norm's backward
+    kernels are deterministic, so the recomputation under ``full`` gives
+    the gradients of ``none`` bitwise."""
+    cfg = dataclasses.replace(get_config("mamba2-370m-smoke"), compute_dtype=compute_dtype)
+    loss, want = _train_grads(dataclasses.replace(cfg, remat="none"), cuda)
+    got_loss, got = _train_grads(dataclasses.replace(cfg, remat="full"), cuda)
+    assert got_loss == loss
+    assert all(torch.equal(got[k], want[k]) for k in want)
