@@ -147,6 +147,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
+SPIN_HZ = 2e9                   # clocks a second of `torch.cuda._sleep`: at least the H100's 1.98 GHz
 
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
@@ -552,16 +553,25 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
 
     def timed(fn, arg_sets, iters=10):
         """Device ms a call: CUDA events around ``iters`` calls cycling
-        through ``arg_sets``, after a call on each.  These calls take 0.07 ms
-        and more, so the host queues the next before the card is done, and
-        the events read the card's time; ``torch.profiler`` read less kernel
-        time than the calls take here once phase 8 had run (PERF.md §7)."""
+        through ``arg_sets``, after a call on each, queued while the card
+        spins (`torch.cuda._sleep`) for twice the time the host took to
+        issue them once: the card then runs them back to back, and the
+        events read its time, not the host's, however short a call (one
+        launch of a backward's passes takes less than its wrapper's host
+        work).  ``torch.profiler`` read less kernel time than the calls
+        take here once phase 8 had run (PERF.md §7)."""
         if device != "cuda":          # a rehearsal on the CPU times nothing
             return 0.0
         for args in arg_sets:
             fn(*args)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * host_s * SPIN_HZ))
         start.record()
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
@@ -772,11 +782,26 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     ssets = copies(lambda: (lambda x, dt, a, bc, dy: (x, dt, a, bc[..., :n], bc[..., n:2 * n], dy))(
         *ssd_in(b, L, h, p, n, bf16)), ssd_bytes)
     b_ms, b_by = bound(ssd_bytes, ssd_flops, BF16_FLOP_PER_S)
+    # the design's own floor: the states, each chunk's S and dS (32 KB a
+    # slot: float32, or bf16 hi + lo) written once by the states pass and
+    # read once by the chunk kernel
+    state_bytes = 2 * 2 * 4 * b * h * chunks * ss.SLOT
+
+    def scan_pass(mask):
+        return lambda *a: ssd_scan_backward(*a, passes=mask)
+
     scan = dict(ms=timed(ssd_scan_backward, ssets, iters=10),
                 plain_ms=timed(backward_only, [with_graph(
                     lambda *t: ssd_scan_plain(*t)[0], *ssets[0][:5])], iters=2),
                 library_ms=None, library="none: no single PyTorch call computes this function",
-                bound_ms=b_ms, bound_by=b_by, bytes=ssd_bytes, flops=ssd_flops)
+                bound_ms=b_ms, bound_by=b_by, bytes=ssd_bytes, flops=ssd_flops,
+                state_bytes=state_bytes, state_floor_ms=state_bytes / HBM_BYTES_PER_S * 1e3,
+                # each launch alone, by CUDA events (the chunk kernel and da
+                # read the scratch the last whole call left)
+                parts={name: dict(ms=timed(scan_pass(mask), ssets, iters=10)) for name, mask in (
+                    ("ssd_bwd_states_kernel", ss.STATES_PASS),
+                    ("ssd_bwd_chunk_mma_kernel", ss.CHUNK_PASS),
+                    ("ssd_bwd_da_kernel", ss.DA_PASS))})
     emit("train_kernel_time", kernel="ssd_scan backward",
          shape=f"B{b} L{L} H{h} P{p} N{n} bf16, b and c strided", card=smi, **scan)
     del ssets
@@ -791,11 +816,21 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
                                                         w, g))(*gate_in(lead, h, p, bf16)),
                    gate_bytes)
     b_ms, b_by = bound(gate_bytes, 30 * n * dn, F32_FLOP_PER_S)
+
+    def gate_pass(mask):
+        return lambda *a: rmsnorm_gated_backward(*a, passes=mask)
+
     gate = dict(ms=timed(rmsnorm_gated_backward, gsets),
                 plain_ms=timed(backward_only, [with_graph(rmsnorm_gated_plain, *t[:5])
                                                for t in gsets]),
                 library_ms=None, library="none: no single PyTorch call computes this function",
-                bound_ms=b_ms, bound_by=b_by, bytes=gate_bytes)
+                bound_ms=b_ms, bound_by=b_by, bytes=gate_bytes,
+                plan=rn.norm_bwd_plan(n, dn, 2, aligned=True, card=rn.card_of(0) if
+                                      device == "cuda" else rn.Card(132, 2048, 65536),
+                                      gated=True)._asdict(),
+                parts={name: dict(ms=timed(gate_pass(mask), gsets)) for name, mask in (
+                    ("rmsnorm_gated_bwd_rows_kernel", rn.GATED_ROWS_PASS),
+                    ("rmsnorm_gated_tail_kernel", rn.GATED_TAIL_PASS))})
     emit("train_kernel_time", kernel="rmsnorm_gated backward",
          shape=f"({n}, {dn}) bf16, H{h} P{p}, z rows {2 * dn} apart", card=smi, **gate)
     del gsets
@@ -2064,10 +2099,10 @@ def main() -> int:
                                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dot_kernel",
                                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
         "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"],
-        "ssd_scan_bwd": ["ssd_bwd_deltas_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
-                         "ssd_bwd_da_kernel"],
+        "ssd_scan_bwd": ["ssd_bwd_states_kernel", "ssd_bwd_chunk_mma_kernel", "ssd_bwd_da_kernel",
+                         "ssd_bwd_chunk_kernel"],
         "rmsnorm_gated_bwd": ["rmsnorm_gated_bwd_rows_kernel", "rmsnorm_gated_bwd_kernel",
-                              "rmsnorm_dw_kernel", "rmsnorm_dskip_kernel"]}
+                              "rmsnorm_gated_tail_kernel"]}
     backward = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd", "rmsnorm_gated_bwd")
     not_served = dict.fromkeys(backward, 0)
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
@@ -2096,9 +2131,10 @@ def main() -> int:
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (
              "ms", "floor_ms", "plain_ms", "bound_ms", "library_ms")} for s, v in
              t["by_shape"].items()}} if "by_shape" in t else {}),
-         **({"parts": [dict(name=part, launches=launches[part], **{
-             k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-             **({"yardstick_ms": p["yardstick_ms"]} if "yardstick_ms" in p else {}))
+         **({"parts": [dict(name=part, **({"launches": launches[part]} if part in launches
+                                          else {}), **{
+             k: p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "yardstick_ms") if k in p})
              for part, p in t["parts"].items()]} if "parts" in t else {})}
         for name, source, replaces, t in rows]}), flush=True)
     emit("elapsed", seconds=round(time.perf_counter() - t_start, 1))

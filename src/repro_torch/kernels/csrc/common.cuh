@@ -291,6 +291,16 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// `bytes` (a multiple of 16) from shared memory at `src` to device memory at
+// `dst` (both 16-byte aligned) by the copy engine, committed to this
+// thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
 // Waits until this thread's bulk stores are done.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");

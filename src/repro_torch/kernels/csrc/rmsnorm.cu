@@ -50,6 +50,13 @@
 // rounded product.  A lane keeps its columns' d_skip in registers too.
 #include "common.cuh"
 
+// 1 keeps only the gated backward row kernel's loads and stores (it writes
+// its pieces of y, xh and z as dy, dxh and dz): a variant that
+// `repro_torch.probes.train_bwd` builds to time the kernel's memory side.
+#ifndef GATED_BWD_NO_MATH
+#define GATED_BWD_NO_MATH 0
+#endif
+
 namespace {
 
 using repro::from_float;
@@ -581,8 +588,8 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
 //   dd_skip = sum over rows and a head's P columns of dy xh,
 // rounded where autograd of the op-by-op torch body rounds; dw and dd_skip
 // are float32 sums.  Bound on the H100: bytes (y, xh, z and g read, dy, dxh
-// and dz written, once each): 0.060 ms at mamba2-370m's 8192 rows of 2048
-// bf16.
+// and dz written, once each: 7 x 2 x 8192 x 2048 = 235 MB): 0.070 ms at
+// mamba2-370m's 8192 rows of 2048 bf16.
 //
 // rmsnorm_gated_bwd_rows_kernel, for rows the row layout takes: the
 // backward's (`rmsnorm.norm_bwd_plan`, gated), one 16-byte piece of each of
@@ -590,10 +597,19 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
 // pieces in flight while this one is reduced; the gate is recomputed from
 // y, xh and z in registers; u's two sums go through `row_sums`; a lane's
 // float32 shares of dw and of dd_skip's columns stay in registers and are
-// folded into one partial row each a block at the end.  Other rows take
+// folded into one partial row each a block at the end.  Two blocks an SM,
+// at the 128-register cap with 4 bytes of spill.  At mamba2-370m's rows
+// its loads and stores alone (GATED_BWD_NO_MATH) take 85% of its time
+// (`probes.train_bwd`); two redesigns ran slower: rows by bulk copies into
+// a ring of three stages, three blocks an SM; and g1 and silu(z) kept
+// packed with sigmoid(z) computed again after the row's sums, which ended
+// the spill but added to the element arithmetic (roundings to the input
+// type, exponentials and reciprocals).  Other rows take
 // rmsnorm_gated_bwd_kernel: a block walks rows, element by element, two
-// passes a row.  Then rmsnorm_dw_kernel sums each partial (dw, and dd_skip's
-// columns) in a fixed order, and rmsnorm_dskip_kernel a head's columns.
+// passes a row.  Then one launch, rmsnorm_gated_tail_kernel, sums the
+// partial rows a column in a fixed order (dw, and dd_skip's columns) and
+// d_skip's gradient over each head's columns: a block a head (or a few
+// narrow heads), no atomics.
 
 struct GatedBwdArgs {
   const void *y, *xh, *z, *g;   // g (rows, D) contiguous; z rows z_stride apart
@@ -686,6 +702,8 @@ __device__ __forceinline__ void gated_bwd_row(const uint4 (&p)[4], const GatedBw
   }
 }
 
+// Rows of 2^log_warps warps each, `blockDim.x / 32 >> log_warps` row
+// groups a block, grid-stride over the rows.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     rmsnorm_gated_bwd_rows_kernel(const GatedBwdArgs a, int log_warps) {
@@ -714,15 +732,27 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 
   int parity = 0;
+  auto step = [&](const uint4 (&p)[4], long r) {
+    if constexpr (GATED_BWD_NO_MATH) {
+      if (l.first < l.units) {
+        const long o = r * a.D + l.first * E;
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dy) + o) = p[0];
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dxh) + o) = p[1];
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dz) + o) = p[2];
+      }
+    } else {
+      gated_bwd_row<T>(p, a, r, l, w, ds, dw, dd, part, log_warps, parity);
+    }
+  };
   while (row < a.rows) {   // two buffers: the next row loads while this one is reduced
     long next = row + stride;
     if (next < a.rows) load_gated<T>(p1, a, next, l);
-    gated_bwd_row<T>(p0, a, row, l, w, ds, dw, dd, part, log_warps, parity);
+    step(p0, row);
     row = next;
     if (row >= a.rows) break;
     next = row + stride;
     if (next < a.rows) load_gated<T>(p0, a, next, l);
-    gated_bwd_row<T>(p1, a, row, l, w, ds, dw, dd, part, log_warps, parity);
+    step(p1, row);
     row = next;
   }
 
@@ -786,40 +816,85 @@ __global__ void rmsnorm_gated_bwd_kernel(const GatedBwdArgs a) {
   }
 }
 
-// dd_skip[h] = the P columns of head h summed in order
-__global__ void rmsnorm_dskip_kernel(const float* __restrict__ col, float* __restrict__ dd,
-                                     int H, int P) {
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+// dw, and dd_skip, from the partial rows: block b takes heads [b hpb, (b +
+// 1) hpb) and their columns, 32 at a time, each summed over 32 slices of the
+// parts (slice j: parts j, j + 32, ...) added in order; the dd_skip columns
+// go to shared memory, and one thread a head adds its P of them in order.
+constexpr int TAIL_SLICES = 32;
+__global__ void __launch_bounds__(TAIL_SLICES * 32)
+rmsnorm_gated_tail_kernel(const float* __restrict__ dw_part, const float* __restrict__ dd_part,
+                          float* __restrict__ dw, float* __restrict__ dd, int parts, int D,
+                          int H, int P, int hpb) {
+  extern __shared__ float colsum[];   // hpb * P: this block's dd_skip columns
+  __shared__ float slice[2][TAIL_SLICES][33];
+  const int lane = threadIdx.x & 31, j = threadIdx.x >> 5;
+  const int h0 = blockIdx.x * hpb, h1 = min(H, h0 + hpb), c0 = h0 * P, c1 = h1 * P;
+  for (int base = c0; base < c1; base += 32) {
+    const int col = base + lane;
+    float sw = 0.f, sd = 0.f;
+    if (col < c1) {
+#pragma unroll 4
+      for (int p = j; p < parts; p += TAIL_SLICES) {
+        sw += dw_part[static_cast<long>(p) * D + col];
+        sd += dd_part[static_cast<long>(p) * D + col];
+      }
+    }
+    slice[0][j][lane] = sw;
+    slice[1][j][lane] = sd;
+    __syncthreads();
+    if (j == 0 && col < c1) {
+      float tw = 0.f, td = 0.f;
+#pragma unroll
+      for (int i = 0; i < TAIL_SLICES; ++i) {
+        tw += slice[0][i][lane];
+        td += slice[1][i][lane];
+      }
+      dw[col] = tw;
+      colsum[col - c0] = td;
+    }
+    __syncthreads();
+  }
+  for (int h = h0 + threadIdx.x; h < h1; h += blockDim.x) {
     float s = 0.f;
-    for (int c = 0; c < P; ++c) s += col[h * P + c];
+    for (int c = 0; c < P; ++c) s += colsum[(h - h0) * P + c];
     dd[h] = s;
   }
 }
 
+constexpr int GATED_PASS_ROWS = 1, GATED_PASS_TAIL = 2;
+
 // warps 0: the wide kernel on `blocks` blocks; else the row kernel (one
-// piece a lane) with the plan's warps a row, row groups a block and blocks
+// piece a lane) with the plan's warps a row, row groups a block and blocks;
+// then the tail (hpb heads a block).  passes: which of the two launch.
 template <typename T>
-int launch_gated_bwd(const GatedBwdArgs& a, float* col, float* dw, float* dd, int H, int warps,
-                     int units, int groups, int blocks, void* stream) {
+int launch_gated_bwd(const GatedBwdArgs& a, float* dw, float* dd, int H, int hpb, int warps,
+                     int units, int groups, int blocks, int passes, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (warps == 0) {
-    const size_t smem = 2 * sizeof(float) * a.D;
-    if ((err = repro::allow_shared(rmsnorm_gated_bwd_kernel<T>, smem)) != cudaSuccess)
-      return static_cast<int>(err);
-    rmsnorm_gated_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(a);
-  } else {
-    if (units != 1 || warps > MAX_WARPS || (warps & (warps - 1)) || groups * warps > MAX_WARPS ||
-        2 * groups * a.D > FOLD_FLOATS)
-      return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_gated_bwd_rows_kernel<T><<<blocks, groups * warps * 32, 0, s>>>(
-        a, __builtin_ctz(warps));
+  if (passes & GATED_PASS_ROWS) {
+    if (warps == 0) {
+      const size_t smem = 2 * sizeof(float) * a.D;
+      if ((err = repro::allow_shared(rmsnorm_gated_bwd_kernel<T>, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      rmsnorm_gated_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(a);
+    } else {
+      if (units != 1 || warps > MAX_WARPS || (warps & (warps - 1)) ||
+          groups * warps > MAX_WARPS || 2 * groups * a.D > FOLD_FLOATS)
+        return static_cast<int>(cudaErrorInvalidValue);
+      rmsnorm_gated_bwd_rows_kernel<T><<<blocks, groups * warps * 32, 0, s>>>(
+          a, __builtin_ctz(warps));
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dw_kernel<<<(a.D + 31) / 32, 256, 0, s>>>(a.dw_part, dw, blocks, a.D);
-  rmsnorm_dw_kernel<<<(a.D + 31) / 32, 256, 0, s>>>(a.dd_part, col, blocks, a.D);
-  rmsnorm_dskip_kernel<<<1, 256, 0, s>>>(col, dd, H, a.P);
-  return static_cast<int>(cudaGetLastError());
+  if (passes & GATED_PASS_TAIL) {
+    const size_t smem = sizeof(float) * hpb * a.P;
+    if (hpb < 1 || (err = repro::allow_shared(rmsnorm_gated_tail_kernel, smem)) != cudaSuccess)
+      return static_cast<int>(hpb < 1 ? cudaErrorInvalidValue : err);
+    rmsnorm_gated_tail_kernel<<<(H + hpb - 1) / hpb, TAIL_SLICES * 32, smem, s>>>(
+        a.dw_part, a.dd_part, dw, dd, blocks, a.D, H, a.P, hpb);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -859,20 +934,20 @@ RMSNORM_BWD_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_BWD_ENTRY(f32, float)
 
 // dy, dxh laid out as y; dz (rows, D) contiguous; dw_part, dd_part float32
-// (blocks, D) and col (D,) scratch; dw (D,), dd (H,) float32
+// (blocks, D) scratch; dw (D,), dd (H,) float32; hpb: heads a tail block;
+// passes: 1 the rows, 2 the tail
 #define RMSNORM_GATED_BWD_ENTRY(SUFFIX, T)                                                     \
   extern "C" int rmsnorm_gated_bwd_##SUFFIX(                                                   \
       const void* y, const void* xh, const void* d_skip, const void* z, long z_stride, int P,  \
       const void* w, const void* g, void* dy, void* dxh, void* dz, void* dw_part,              \
-      void* dd_part, void* col, void* dw, void* dd, int rows, int D, float eps, int H,         \
-      int warps, int units, int groups, int blocks, void* stream) {                           \
+      void* dd_part, void* dw, void* dd, int rows, int D, float eps, int H, int hpb,           \
+      int warps, int units, int groups, int blocks, int passes, void* stream) {               \
     const GatedBwdArgs a{y, xh, z, g, static_cast<const float*>(d_skip),                       \
                          static_cast<const float*>(w), dy, dxh, dz,                            \
                          static_cast<float*>(dw_part), static_cast<float*>(dd_part), z_stride, \
                          rows, D, P, eps};                                                     \
-    return launch_gated_bwd<T>(a, static_cast<float*>(col), static_cast<float*>(dw),           \
-                               static_cast<float*>(dd), H, warps, units, groups, blocks,       \
-                               stream);                                                        \
+    return launch_gated_bwd<T>(a, static_cast<float*>(dw), static_cast<float*>(dd), H, hpb,    \
+                               warps, units, groups, blocks, passes, stream);                  \
   }
 
 RMSNORM_GATED_BWD_ENTRY(bf16, __nv_bfloat16)

@@ -329,7 +329,7 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, unsigned& hi, uns
 // `cols` and `valid`: the path for tensors the copy engine cannot map.
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long stride, int valid,
                                           int cols, int width) {
-  for (int idx = threadIdx.x; idx < Q * width; idx += MMA_THREADS) {
+  for (int idx = threadIdx.x; idx < Q * width; idx += blockDim.x) {
     const int row = idx / width, col = idx % width;
     dst[sw_at(row, col / 8) + col % 8] =
         row < valid && col < cols ? src[row * stride + col] : __float2bfloat16_rn(0.f);
@@ -810,51 +810,97 @@ int occupancy(int P, int N, int* blocks) {
 // Bound on the H100: at mamba2-370m's training shape (B2 L4096 H32 P64 N128,
 // bf16) the call must read x, dy, b, c, dt and write dx, db, dc, ddt: ~111 MB,
 // 0.033 ms; its products, ~28 GFLOP, take 0.028 ms at the bf16 tensor-core
-// rate.  Bytes bound it; the float32 states this design keeps between its
-// launches add ~0.8 GB of traffic.
+// rate.  Bytes bound it.  This design's own floor is its float32 states:
+// each chunk's S and dS (B H chunks 64 x 128 floats each, 268 MB) written
+// once and read once, 0.54 GB, 0.16 ms at 3.35 TB/s.
 //
-// Four launches, every product on the tensor cores in TF32 (mma.sync
-// m16n8k8, float32 sums).  In the bf16 instance x, dy, b and c are exact in
-// TF32 and the float32 operands (M, W, S, dS, x rem dt) round to its 10-bit
-// mantissa, 2^-11 of a term, below the gradients' own bf16 rounding (2^-9).
-// The float32 instance splits every operand into a TF32 hi + lo pair and
-// takes three products (~2^-22 of a term), to hold its 2e-4 checks.
-//  1. `ssd_bwd_deltas_kernel`: one block of 256 threads per (chunk,
-//     sequence, head): each chunk's own state increment,
-//     sum_j rem_j dt_j x_j B_j^T, and its own share of the state gradient,
-//     sum_i e^(cs_i) dy_i C_i^T, into float32 scratch (B, H, chunks, P, N),
-//     and the chunk's total cs_last.
-//  2. `ssd_bwd_pass_kernel`: the states passed from chunk to chunk, S' =
-//     e^(cs_last) S + increment in order and dS' = e^(cs_last) dS + share in
-//     reverse, a thread an element, 16 chunks' loads in flight, in place:
-//     the scratch then holds the state entering and the gradient leaving
-//     every chunk.  (A block a (head, sequence) sweeping the chunks in order
-//     took 0.92 ms at the training shape, waiting on each chunk's loads.)
-//  3. `ssd_bwd_chunk_kernel`: one block of 512 threads per (chunk,
-//     sequence), walking the heads in order.  C B^T is the same for every
-//     head and is formed once; db and dc, shared by the heads, are summed
-//     over them in the block's registers and written once, so no per-head
-//     partial of them reaches device memory and two calls give the same
-//     bits (no atomics).  The chunk's d(cs) suffix sum is one warp's
-//     shuffle scan; each head's share of da goes to a (B, chunks, H) row.
-//  4. `ssd_bwd_da_kernel`: da summed over those rows in a fixed order.
-// In the tile kernels a warp owns 16 output rows of every product and half
-// (deltas) or a quarter (chunk) of its columns; its fragments are read from float32
-// shared memory element by element.  Tiles are padded 4 floats a row, so the
-// 8 rows by 4 columns of a fragment load fall in 32 different banks where
-// the row index is the fragment's, two-way where it is the reduction's.
+// Three launches:
+//  1. `ssd_bwd_states_kernel`: S entering and dS leaving every chunk.  Two
+//     blocks of 8 warps a chain (S of a (sequence, head) in chunk order, dS
+//     in reverse), each 64 of the state's 128 columns: 4 B H blocks, two an
+//     SM.  The state stays float32 in the blocks' registers from the first
+//     chunk to the last (a bf16 rounding of S breaks the forward's y,
+//     above); each chunk adds its own increment (sum_j rem_j dt_j x_j B_j^T)
+//     or state-gradient share (sum_i e^(cs_i) dy_i C_i^T) to the decayed
+//     state, so the increments never reach device memory, and each chunk's
+//     slot is written once.  The chunk's x (or dy) and the block's half of b
+//     (or c) come by tensor copies into a ring of three stages, two chunks
+//     ahead; the product is the forward's state update (x^T by
+//     ldmatrix.trans, scaled a token each, split hi + lo).  The recurrence
+//     runs in chunk order, so two calls give the same bits.  In bf16 a slot
+//     holds the state split as the chunk kernel's products take it, hi + lo
+//     bf16 (~2^-17 of it), laid out as its shared memory wants it: two
+//     tiles of two boxes of 64 columns by 64 rows in the 128-byte swizzle
+//     (`split_at`), 32 KB that one bulk copy brings and `ldmatrix` reads
+//     without bank conflicts.  Each block builds its half of a slot in
+//     shared memory and the copy engine stores it whole, one while the next
+//     is built.  The float32 instance writes float32 rows (`slab_at`).
+//     Measured at the training shape (`probes.train_bwd`): a decoupled
+//     look-back across blocks, a block a chunk waiting on its predecessor's
+//     flag, took 0.354 ms (64 steps of ~5.5 us); slots written from the
+//     lanes' registers, 0.306-0.383 ms (32-byte sectors written in part, or
+//     in two halves); one block a chain, the same time as two.
+//  2. `ssd_bwd_chunk_mma_kernel` (bf16): a block of 16 warps per (chunk,
+//     sequence), walking the heads in order with db (warps 0-7) and dc
+//     (warps 8-15) summed in registers, so no per-head partial reaches
+//     device memory and there are no atomics.  (The heads split over the
+//     blocks of a thread block cluster, summed through distributed shared
+//     memory, took as long or longer at the training shape, whose 128
+//     blocks nearly fill the 132 SMs.)  C, B (once), x and dy stay
+//     bf16 in shared memory (tensor copies in the 128-byte swizzle,
+//     `ldmatrix`), x and dy in two stages, head u + 2's loading while heads
+//     u and u + 1 compute; S and dS come by bulk copies into one stage,
+//     refilled with head u + 1's once head u's last product that reads them
+//     is done, and first read after head u + 1's G, W and M.  Every product is
+//     `mma.sync.m16n8k16` in bf16 with float32 sums: C B^T and G = dy x^T
+//     take their exact bf16 operands as they are; a float32 operand (M, W,
+//     S, dS) is split as hi + lo bf16 and multiplied twice (~2^-17 of a
+//     term, finer than TF32's 2^-11), through bf16 hi and lo tiles in shared
+//     memory that every product reads by `ldmatrix`: M and W from the
+//     warps' registers, S and dS as the states pass wrote them.  (Each warp
+//     splitting its own fragments from float32 took the kernel 0.32 ms;
+//     all the threads splitting a head's S and dS once, 0.34.)
+//     The per-token scales (dt, rem dt, e^cs) multiply rows or columns of
+//     results, so x, dy, b and c are never rounded.  Shared memory: C and
+//     B (32 KB), two stages of x and dy (32 KB), one of S and dS (64 KB), M
+//     and W hi + lo (32 KB), the per-token partial sums twice (12 KB); dx
+//     goes out through M's hi tile by one tensor store.  One block of 16
+//     warps an SM (128 registers a thread).  The float32 instance (`ssd_bwd_chunk_kernel<float>`,
+//     tests and the float32 A/B) keeps the first version's body: a block
+//     per (chunk, sequence), the heads in order, TF32 hi + lo products
+//     (three each) from float32 shared memory.
+//  3. `ssd_bwd_da_kernel`: da summed over the (B, chunks, H) rows of the
+//     chunk kernel's shares in a fixed order.
 
 constexpr int PAD = 4;
+constexpr int SLAB = MAX_P * MAX_N;          // floats of a state slot
+constexpr int SLAB_BYTES = SLAB * 4;
+constexpr int STATES_PASS = 1, CHUNK_PASS = 2, DA_PASS = 4;
+constexpr int BT_X = 1, BT_BC = 2, BT_DY = 4, BT_DX = 8;   // which tensors go by tensor copies
+
+// Float offset of state element (p, n) in a float32 slot: rows of 128
+// floats (512 bytes: a quad of lanes writes one whole 32-byte sector).
+__device__ __forceinline__ int slab_at(int p, int n) { return p * MAX_N + n; }
+
+// Element offset of state element (p, n) in a bf16 slot's hi tile (its lo
+// tile follows, 2 BOX elements on): two boxes of 64 columns by 64 rows in the
+// 128-byte swizzle, as the chunk kernel's ldmatrix reads them.
+__device__ __forceinline__ int split_at(int p, int n) { return sw_at(p, n >> 3) + (n & 7); }
 
 struct BwdArgs {
   const void *x, *b, *c, *dy;             // dy (B, L, H, P) contiguous
   const float *dt, *a, *d_state;          // d_state (B, H, P, N), or null for zero
-  float *starts, *dstates;                // scratch (B, H, chunks, P, N)
-  float *tots, *da_part;                  // scratch (B, H, chunks), (B, chunks, H)
+  float *starts, *dstates;                // scratch (B, H, chunks) slots of SLAB floats
+  float* da_part;                         // scratch (B, chunks, H)
   void *dx, *db, *dc;                     // dx (B, L, H, P), db, dc (B, L, N) contiguous
   float *ddt, *da;                        // ddt (B, L, H) contiguous, da (H,)
   int B, L, H, P, N, chunks;
   long xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b, bs_l, cs_b, cs_l;
+};
+
+// The tensor maps of x, dy, b, c and dx (bf16), where the host could make them.
+struct BwdMaps {
+  CUtensorMap x, dy, b, c, dx;
 };
 
 // The chunk's inclusive cumsum of dt * a into cs, by one warp, two tokens a
@@ -878,6 +924,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The 8 lanes of a fragment column (the gr of a tq) add v.
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
 __device__ __forceinline__ unsigned to_tf32(float x) {
   unsigned r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -896,8 +949,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
 // acc[t] += A (16 rows, K deep) x B (K deep, columns 8 t .. 8 t + 7), K a
 // multiple of 8; a(r, k) and b(k, c) read the operands.  acc[t]'s element e
 // is row gr + 8 (e / 2), column 8 t + 2 tq + e % 2 (gr = lane / 4, tq =
-// lane % 4).  SPLIT: each operand as TF32 hi + lo, three products.
-template <bool SPLIT, int NT, typename FA, typename FB>
+// lane % 4).  Each operand as TF32 hi + lo, three products: the float32
+// instance's precision.
+template <int NT, typename FA, typename FB>
 __device__ __forceinline__ void mma_rows(float (&acc)[NT][4], int K, FA a, FB b) {
   const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
   for (int k0 = 0; k0 < K; k0 += 8) {
@@ -907,17 +961,15 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NT][4], int K, FA a, FB b)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       hi[q] = to_tf32(av[q]);
-      lo[q] = SPLIT ? to_tf32(av[q] - __uint_as_float(hi[q])) : 0u;
+      lo[q] = to_tf32(av[q] - __uint_as_float(hi[q]));
     }
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const float b0 = b(k0 + tq, 8 * t + gr), b1 = b(k0 + tq + 4, 8 * t + gr);
       const unsigned h0 = to_tf32(b0), h1 = to_tf32(b1);
       mma_tf32(acc[t], hi, h0, h1);
-      if constexpr (SPLIT) {
-        mma_tf32(acc[t], lo, h0, h1);
-        mma_tf32(acc[t], hi, to_tf32(b0 - __uint_as_float(h0)), to_tf32(b1 - __uint_as_float(h1)));
-      }
+      mma_tf32(acc[t], lo, h0, h1);
+      mma_tf32(acc[t], hi, to_tf32(b0 - __uint_as_float(h0)), to_tf32(b1 - __uint_as_float(h1)));
     }
   }
 }
@@ -945,106 +997,840 @@ __device__ __forceinline__ float chunk_decay(const BwdArgs& g, int b, int h, int
   return tot;
 }
 
-size_t deltas_shared_floats(int P, int N) {
-  // Cs, Bs [Q][N+4]; Xs, Ys [Q][P+4]; dt, cs, e^cs, rem, rem dt [Q]
-  return 2 * Q * (N + PAD) + 2 * Q * (P + PAD) + 5 * Q;
-}
+// -- 1. the states: two blocks a chain, the state in registers -------------
+
+constexpr int ST_THREADS = 256;   // 8 warps: rows p 16 (w % 4) .., columns n 32 (w / 4) .. of a half
+constexpr int ST_STAGES = 3;      // chunks whose tiles are in flight or resident
+// bf16: a ring of stages, each the block's half of the N-wide tile (b or c,
+// a box) and the P-wide one (x or dy, a box); then two shared slots (the
+// block's half of S or dS split: a hi box, a lo box), stored by the copy
+// engine one while the other is filled; an mbarrier a stage
+constexpr int ST_STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int ST_OUT = ST_STAGES * ST_STAGE_BYTES;
+constexpr int ST_BAR = ST_OUT + 2 * 2 * BOX_BYTES;
+constexpr size_t ST_SMEM_BF16 = ST_BAR + ST_STAGES * 8 + 1024;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ssd_bwd_deltas_kernel(const BwdArgs g) {
-  constexpr bool SPLIT = std::is_same_v<T, float>;
-  extern __shared__ float deltas_smem[];
-  const int k = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, tq = lane & 3, r0 = 16 * (warp >> 1), ch = warp & 1;
-  const int P = g.P, N = g.N, ns = N + PAD, ps = P + PAD;
-  const int l0 = k * Q, valid = min(Q, g.L - l0);
-  float* Cs = deltas_smem;         // [Q][N+4]
-  float* Bs = Cs + Q * ns;         // [Q][N+4]
-  float* Xs = Bs + Q * ns;         // [Q][P+4]
-  float* Ys = Xs + Q * ps;         // [Q][P+4]: dy
-  float* dts = Ys + Q * ps;        // [Q] each below
-  float* cs = dts + Q;
-  float* ecs = cs + Q;
-  float* rem = ecs + Q;
-  float* sc = rem + Q;
+size_t states_smem(int P, int N) {
+  // float32: the tiles as floats [Q][N+4], [Q][P+4], then dt, cs, e^cs, rem, rem dt [Q]
+  return std::is_same_v<T, bf16> ? ST_SMEM_BF16
+                                 : (Q * (N + PAD) + Q * (P + PAD) + 5 * Q) * sizeof(float);
+}
+
+// Columns [64 half, 64 half + 64) of chain `blockIdx.x / 2` (S of (sequence,
+// head) c, or dS of c - B H), half = blockIdx.x % 2, over its chunks in
+// order (S) or in reverse (dS): writes each chunk's slot, then adds the
+// chunk's own increment (share) to the decayed state.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS, 2) ssd_bwd_states_kernel(const BwdArgs g,
+                                                                       const __grid_constant__ BwdMaps maps,
+                                                                       int flags) {
+  constexpr bool MMA = std::is_same_v<T, bf16>;
+  extern __shared__ __align__(1024) unsigned char st_raw[];
+  unsigned char* smem = st_raw + (MMA ? (1024 - (repro::smem_addr(st_raw) & 1023)) & 1023 : 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int BH = g.B * g.H, P = g.P, N = g.N, chunks = g.chunks, last = chunks - 1;
+  const int chain = blockIdx.x >> 1, half = blockIdx.x & 1;
+  const bool grad = chain >= BH;
+  const int bh = grad ? chain - BH : chain, b = bh / g.H, h = bh - b * g.H;
+  float* slots = (grad ? g.dstates : g.starts) + static_cast<long>(bh) * chunks * SLAB;
+  const int r0 = 16 * (warp & 3), cb = 32 * (warp >> 2), c0 = 64 * half + cb;
+  // this thread's elements: tile t's half v at (r0 + gr + 8 v, c0 + 8 t + 2 tq (+1));
+  // in bf16 their places in the shared slot's hi box (the lo box follows)
+  int at[4][2];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int p = r0 + gr + 8 * v;
+      at[t][v] = MMA ? split_at(p, cb + 8 * t + 2 * tq) : slab_at(p, c0 + 8 * t + 2 * tq);
+    }
+  float s[4][4];                             // S entering the chunk (0), dS leaving it (d_state)
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = r0 + gr + 8 * (e >> 1), n = c0 + 8 * t + 2 * tq + (e & 1);
+      s[t][e] = grad && g.d_state && p < P && n < N
+                    ? g.d_state[(static_cast<long>(bh) * P + p) * N + n] : 0.f;
+    }
+  const float ah = g.a[h];
   const long y_l = static_cast<long>(g.H) * P;
-  repro::load_tile(Cs, ns, static_cast<const T*>(g.c) + b * g.cs_b + l0 * g.cs_l, g.cs_l, Q,
-                   valid, N, 1.f);
-  repro::load_tile(Bs, ns, static_cast<const T*>(g.b) + b * g.bs_b + l0 * g.bs_l, g.bs_l, Q,
-                   valid, N, 1.f);
-  repro::load_tile(Xs, ps, static_cast<const T*>(g.x) + b * g.xs_b + l0 * g.xs_l + h * g.xs_h,
-                   g.xs_l, Q, valid, P, 1.f);
-  repro::load_tile(Ys, ps, static_cast<const T*>(g.dy) + (static_cast<long>(b) * g.L + l0) * y_l +
-                   static_cast<long>(h) * P, y_l, Q, valid, P, 1.f);
-  const float tot = chunk_decay(g, b, h, l0, valid, dts, cs, ecs, rem, sc);
-  const long at = (static_cast<long>(b) * g.H + h) * g.chunks + k;
-  if (threadIdx.x == 0) g.tots[at] = tot;
-  if (r0 >= P) return;             // rows p past P: nothing to write
-  // rows p, columns n = 64 ch ..: sum_j (rem dt x)_jp B_jn and sum_i (e^cs dy)_ip C_in
-  float ds[8][4] = {}, dd[8][4] = {};
-  mma_rows<SPLIT>(ds, Q, [&](int r, int j) { return r0 + r < P ? Xs[j * ps + r0 + r] * sc[j] : 0.f; },
-                  [&](int j, int c) { return 64 * ch + c < N ? Bs[j * ns + 64 * ch + c] : 0.f; });
-  mma_rows<SPLIT>(dd, Q, [&](int r, int i) { return r0 + r < P ? Ys[i * ps + r0 + r] * ecs[i] : 0.f; },
-                  [&](int i, int c) { return 64 * ch + c < N ? Cs[i * ns + 64 * ch + c] : 0.f; });
-  float* s_out = g.starts + at * P * N;
-  float* d_out = g.dstates + at * P * N;
+  auto chunk_of = [&](int i) { return grad ? last - i : i; };   // the chain's i-th chunk
+  // a chunk's b (or c) rows and x (or dy) rows
+  auto wide_at = [&](int k) {
+    return static_cast<const T*>(grad ? g.c : g.b) + b * (grad ? g.cs_b : g.bs_b) +
+           static_cast<long>(k) * Q * (grad ? g.cs_l : g.bs_l);
+  };
+  auto narrow_at = [&](int k) {
+    return grad ? static_cast<const T*>(g.dy) + (static_cast<long>(b) * g.L + k * Q) * y_l +
+                      static_cast<long>(h) * P
+                : static_cast<const T*>(g.x) + b * g.xs_b + static_cast<long>(k) * Q * g.xs_l +
+                      h * g.xs_h;
+  };
+  const long wide_l = grad ? g.cs_l : g.bs_l, narrow_l = grad ? y_l : g.xs_l;
+  // the state into chunk k's slot: float32 rows straight to device memory;
+  // in bf16, split into the block's hi and lo boxes (`split_at`) of shared
+  // slot `out` (0 or 1), which the caller stores by the copy engine after a
+  // barrier (`send`)
+  auto store_slot = [&](int k, int out) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if constexpr (MMA) {
+          unsigned hi, lo;
+          split_bf16(s[t][2 * v], s[t][2 * v + 1], hi, lo);
+          bf16* box = reinterpret_cast<bf16*>(smem + ST_OUT + out * 2 * BOX_BYTES);
+          *reinterpret_cast<unsigned*>(box + at[t][v]) = hi;
+          *reinterpret_cast<unsigned*>(box + BOX + at[t][v]) = lo;
+        } else {
+          *reinterpret_cast<float2*>(slots + static_cast<long>(k) * SLAB + at[t][v]) =
+              make_float2(s[t][2 * v], s[t][2 * v + 1]);
+        }
+      }
+    if constexpr (MMA) repro::fence_proxy_async();   // before the copy engine reads the slot
+  };
+  auto send = [&](int k, int out) {          // thread 0: the block's boxes of chunk k's slot
+    bf16* slot = reinterpret_cast<bf16*>(slots + static_cast<long>(k) * SLAB);
+    const unsigned char* box = smem + ST_OUT + out * 2 * BOX_BYTES;
+    repro::bulk_store(slot + half * BOX, box, BOX_BYTES);
+    repro::bulk_store(slot + 2 * BOX + half * BOX, box + BOX_BYTES, BOX_BYTES);
+  };
+
+  if constexpr (MMA) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + ST_BAR);
+    const bool tma_w = flags & BT_BC, tma_n = flags & (grad ? BT_DY : BT_X);
+    const bool wide_in = 64 * half < N;       // the half holds columns of b (c)
+    if (tid == 0) {
+      for (int i = 0; i < ST_STAGES; ++i) repro::mbar_init(&bar[i], 1);
+      repro::mbar_fence_init();
+    }
+    if (!wide_in) {                           // a box no copy writes stays zero
+      for (int st = 0; st < ST_STAGES; ++st)
+        for (int i = tid; i < BOX_BYTES / 16; i += ST_THREADS)
+          reinterpret_cast<uint4*>(smem + st * ST_STAGE_BYTES)[i] = make_uint4(0, 0, 0, 0);
+      repro::fence_proxy_async();
+    }
+    __syncthreads();
+    // chunk i of the chain into stage i % ST_STAGES: tensor copies by thread
+    // 0, or element loads by every thread
+    auto issue = [&](int i) {
+      const int k = chunk_of(i), st = i % ST_STAGES, l0 = k * Q, valid = min(Q, g.L - l0);
+      bf16* Ws = reinterpret_cast<bf16*>(smem + st * ST_STAGE_BYTES);
+      bf16* Ns = Ws + BOX;
+      const bool w_tma = tma_w && wide_in;
+      if (tid == 0) {
+        repro::mbar_arrive_expect_tx(&bar[st], (w_tma ? BOX_BYTES : 0) + (tma_n ? BOX_BYTES : 0));
+        if (w_tma)
+          repro::tensor_load_3d(Ws, grad ? &maps.c : &maps.b, 64 * half, l0, b, &bar[st]);
+        if (tma_n) repro::tensor_load_4d(Ns, grad ? &maps.dy : &maps.x, 0, h, l0, b, &bar[st]);
+      }
+      if (!tma_w && wide_in)
+        copy_rows(Ws, wide_at(k) + 64 * half, wide_l, valid, min(64, N - 64 * half), 64);
+      if (!tma_n) copy_rows(Ns, narrow_at(k), narrow_l, valid, P, MAX_P);
+    };
+    for (int i = 0; i < ST_STAGES - 1 && i < last; ++i) issue(i);
+    // dt of the chain's chunk i, tokens 2 lane and 2 lane + 1 (zero past L)
+    auto load_dt = [&](int i, float& d0, float& d1) {
+      const int k = chunk_of(i), t0 = k * Q + 2 * lane;
+      const float* d = g.dt + b * g.ds_b + h * g.ds_h;
+      d0 = t0 < g.L ? d[static_cast<long>(t0) * g.ds_l] : 0.f;
+      d1 = t0 + 1 < g.L ? d[static_cast<long>(t0 + 1) * g.ds_l] : 0.f;
+    };
+    float nd0 = 0.f, nd1 = 0.f;
+    if (last > 0) load_dt(0, nd0, nd1);
+    for (int i = 0; i < chunks; ++i) {
+      const int k = chunk_of(i);
+      if (tid == 0) repro::bulk_wait_read();  // shared slot i % 2's last stores have read it
+      __syncthreads();                        // element loads are in; stage (i - 1) % 3 is
+                                              // free; shared slot (i - 1) % 2 is whole
+      if (tid == 0 && i > 0) send(chunk_of(i - 1), (i - 1) & 1);
+      store_slot(k, i & 1);
+      if (i == last) break;                   // no next slot
+      if (i + ST_STAGES - 1 < last) issue(i + ST_STAGES - 1);
+      const float d0 = nd0, d1 = nd1;
+      if (i + 1 < last) load_dt(i + 1, nd0, nd1);
+      // the chunk's cumsum of dt a (each warp its own), then the per-token scale
+      const float v1 = d1 * ah;
+      float run = d0 * ah + v1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float w = __shfl_up_sync(0xffffffffu, run, o);
+        if (lane >= o) run += w;
+      }
+      const float cs1 = run, cs0 = run - v1, tot = __shfl_sync(0xffffffffu, run, 31);
+      const float f0 = grad ? expf(cs0) : expf(tot - cs0) * d0;   // e^cs (dS) or rem dt (S)
+      const float f1 = grad ? expf(cs1) : expf(tot - cs1) * d1;
+      const int st = i % ST_STAGES;
+      const bf16* Ws = reinterpret_cast<const bf16*>(smem + st * ST_STAGE_BYTES);
+      const bf16* Ns = Ws + BOX;
+      repro::mbar_wait_or_trap(&bar[st], (i / ST_STAGES) & 1);
+      // s = e^(cs_last) s + (scale o narrow)^T wide: narrow^T's A fragments
+      // by ldmatrix.trans, scaled a token each, split hi + lo
+      const float dec = expf(tot);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] *= dec;
+      __syncwarp();                          // one warp again before ldmatrix, mma.sync
+#pragma unroll
+      for (int J = 0; J < QT; ++J) {
+        unsigned xa[4];
+        repro::ldmatrix_x4_trans(xa, Ns + sw_at(J * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                2 * (warp & 3) + ((lane >> 3) & 1)));
+        // tokens 16 J + 2 tq (+1) and those + 8
+        const int src = 8 * J + tq;
+        const float g0 = __shfl_sync(0xffffffffu, f0, src), g1 = __shfl_sync(0xffffffffu, f1, src);
+        const float g2 = __shfl_sync(0xffffffffu, f0, src + 4);
+        const float g3 = __shfl_sync(0xffffffffu, f1, src + 4);
+        unsigned hi[4], lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[q]));
+          split_bf16(v.x * (q < 2 ? g0 : g2), v.y * (q < 2 ? g1 : g3), hi[q], lo[q]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          unsigned fb[4];
+          repro::ldmatrix_x4_trans(fb, Ws + sw_at(J * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                  cb / 8 + nb * 2 + (lane >> 4)));
+          repro::mma_bf16(s[2 * nb], hi, fb[0], fb[1]);
+          repro::mma_bf16(s[2 * nb + 1], hi, fb[2], fb[3]);
+          repro::mma_bf16(s[2 * nb], lo, fb[0], fb[1]);
+          repro::mma_bf16(s[2 * nb + 1], lo, fb[2], fb[3]);
+        }
+      }
+    }
+    __syncthreads();                          // the last shared slot is whole
+    if (tid == 0) {
+      send(chunk_of(last), last & 1);
+      repro::bulk_wait();                     // every slot is stored
+    }
+  } else {
+    float* Ws = reinterpret_cast<float*>(smem);   // [Q][N+4]
+    float* Ns = Ws + Q * (N + PAD);               // [Q][P+4]
+    float* dts = Ns + Q * (P + PAD);              // [Q] each below
+    float *cs = dts + Q, *ecs = cs + Q, *rem = ecs + Q, *sc = rem + Q;
+    const float* scale = grad ? ecs : sc;
+    const int ns = N + PAD, ps = P + PAD;
+    for (int i = 0; i < chunks; ++i) {
+      const int k = chunk_of(i), l0 = k * Q, valid = min(Q, g.L - l0);
+      store_slot(k, 0);
+      if (i == last) break;
+      __syncthreads();                        // the last chunk is done with the tiles
+      repro::load_tile(Ws, ns, wide_at(k), wide_l, Q, valid, N, 1.f);
+      repro::load_tile(Ns, ps, narrow_at(k), narrow_l, Q, valid, P, 1.f);
+      chunk_decay(g, b, h, l0, valid, dts, cs, ecs, rem, sc);
+      const float dec = expf(cs[Q - 1]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] *= dec;
+      mma_rows(s, Q, [&](int r, int j) { return r0 + r < P ? Ns[j * ps + r0 + r] * scale[j] : 0.f; },
+               [&](int j, int c) { return c0 + c < N ? Ws[j * ns + c0 + c] : 0.f; });
+    }
+  }
+}
+
+// -- 2. the chunks: bf16 on the tensor cores ---------------------------------
+
+constexpr int CK_WARPS = 16, CK_THREADS = CK_WARPS * 32;
+constexpr int SPLIT_VEC = 2 * BOX * 2 / 16 / CK_THREADS;   // 16-byte pieces of a hi tile a thread reads
+// shared memory, bytes from a 1024-byte aligned base: c, b (two boxes
+// each), two stages of x and dy (a box each), one of S and dS slots, M hi,
+// M lo, W hi, W lo (a box each), the per-token partial sums twice (by head
+// parity), the mbarriers (c and b; the two x and dy stages; S and dS)
+constexpr int CK_C = 0, CK_B = 2 * BOX_BYTES, CK_XY = 4 * BOX_BYTES;
+constexpr int CK_ST = CK_XY + 4 * BOX_BYTES;
+constexpr int CK_MW = CK_ST + 2 * SLAB_BYTES;
+constexpr int CK_PART = CK_MW + 4 * BOX_BYTES;
+// a set of partials: row sums of C B^T o W [4 column tiles][Q], its column
+// sums [4 row tiles][Q], C_i.(S^T dy_i) [8 row tiles of n][Q], x.(M^T dy)
+// and x.(dS B) [4 row tiles][Q] each, <dS, S> [16 warps]
+constexpr int PT_RT = 0, PT_CT = 4 * Q, PT_YI = 8 * Q, PT_A1 = 16 * Q, PT_A2 = 20 * Q,
+              PT_DOT = 24 * Q, PT_FLOATS = 24 * Q + CK_WARPS;
+constexpr int CK_BAR = CK_PART + 2 * PT_FLOATS * 4;
+constexpr size_t CK_SMEM = CK_BAR + 4 * 8 + 1024;
+// at the end, over the x, dy and S, dS stages: the block's db^T and dc^T as
+// [Q][MAX_N + 4] floats
+constexpr int RED_STRIDE = MAX_N + 4;
+static_assert(2 * Q * RED_STRIDE * 4 <= CK_MW - CK_XY, "the partials fit the stages");
+static_assert(CK_SMEM <= 232448, "the chunk kernel's shared memory");
+
+// Token i's value of a per-token quantity that each lane holds for two
+// tokens (tokens 2 l and 2 l + 1 in lane l, as v0 and v1); every lane calls
+// it.  (Tokens j, j + 1 with j even: one lane's v0 and v1, by two shuffles.)
+__device__ __forceinline__ float token(float v0, float v1, int i) {
+  const float a = __shfl_sync(0xffffffffu, v0, i >> 1), c = __shfl_sync(0xffffffffu, v1, i >> 1);
+  return (i & 1) ? c : a;
+}
+
+// A bf16 pair as two floats.
+__device__ __forceinline__ float2 unpack(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Warp w: the [Q][Q] and [P][Q] products' rows 16 (w % 4) .., columns
+// 16 (w / 4) .. (two n-tiles); the [N][Q] ones' rows 16 (w % 8) .., every
+// column, db^T's for warps 0-7 and dc^T's for warps 8-15.
+__global__ void __launch_bounds__(CK_THREADS, 1)
+ssd_bwd_chunk_mma_kernel(const BwdArgs g, const __grid_constant__ BwdMaps maps, int flags) {
+  // bwd-stamp 0
+  extern __shared__ __align__(1024) unsigned char ck_raw[];
+  unsigned char* smem = ck_raw + ((1024 - (repro::smem_addr(ck_raw) & 1023)) & 1023);
+  const int k = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int mt = warp & 3, cq = warp >> 2;   // [Q][Q] and [P][Q] tiles
+  const int nr = warp & 7;                    // [N][Q] tiles: rows 16 nr ..
+  const bool dc_side = warp >= 8;             // warps 8-15 carry dc^T, 0-7 db^T
+  const int P = g.P, N = g.N, H = g.H;
+  const int l0 = k * Q, valid = min(Q, g.L - l0);
+  const int nh = H;
+  bf16* Cs = reinterpret_cast<bf16*>(smem + CK_C);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + CK_B);
+  bf16* Mhi = reinterpret_cast<bf16*>(smem + CK_MW);
+  bf16 *Mlo = Mhi + BOX, *Whi = Mlo + BOX, *Wlo = Whi + BOX;
+  float* parts = reinterpret_cast<float*>(smem + CK_PART);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + CK_BAR);
+  const bool tma_bc = flags & BT_BC, tma_x = flags & BT_X, tma_dy = flags & BT_DY;
+  const int bc_boxes = N > 64 ? 2 : 1;
+  const long y_l = static_cast<long>(H) * P;   // dy and dx are contiguous
+  // x and dy of head u: stage u % 2
+  auto xs_of = [&](int u) { return reinterpret_cast<bf16*>(smem + CK_XY + (u & 1) * 2 * BOX_BYTES); };
+
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) repro::mbar_init(&bar[i], 1);
+    repro::mbar_fence_init();
+  }
+  if (bc_boxes == 1) {                       // the boxes no copy writes stay zero
+    for (int i = tid; i < BOX_BYTES / 16; i += CK_THREADS) {
+      reinterpret_cast<uint4*>(Cs + BOX)[i] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(Bs + BOX)[i] = make_uint4(0, 0, 0, 0);
+    }
+    repro::fence_proxy_async();
+  }
+  __syncthreads();
+
+  auto issue_xy = [&](int u) {               // head u's x and dy into stage u % 2
+    const int h = u;
+    bf16* Xs = xs_of(u);
+    bf16* Ys = Xs + BOX;
+    uint64_t* full = &bar[1 + (u & 1)];
+    if (tid == 0) {
+      repro::mbar_arrive_expect_tx(full, (tma_x ? BOX_BYTES : 0) + (tma_dy ? BOX_BYTES : 0));
+      if (tma_x) repro::tensor_load_4d(Xs, &maps.x, 0, h, l0, b, full);
+      if (tma_dy) repro::tensor_load_4d(Ys, &maps.dy, 0, h, l0, b, full);
+    }
+    if (!tma_x)
+      copy_rows(Xs, static_cast<const bf16*>(g.x) + b * g.xs_b + l0 * g.xs_l + h * g.xs_h,
+                g.xs_l, valid, P, MAX_P);
+    if (!tma_dy)
+      copy_rows(Ys, static_cast<const bf16*>(g.dy) + (static_cast<long>(b) * g.L + l0) * y_l +
+                        static_cast<long>(h) * P, y_l, valid, P, MAX_P);
+  };
+  auto issue_states = [&](int u) {           // head u's S and dS
+    if (tid != 0) return;
+    const int h = u;
+    const long slot = ((static_cast<long>(b) * H + h) * g.chunks + k) * SLAB;
+    float* st = reinterpret_cast<float*>(smem + CK_ST);
+    uint64_t* full = &bar[3];
+    repro::mbar_arrive_expect_tx(full, 2 * SLAB_BYTES);
+    for (int half = 0; half < 2; ++half) {
+      repro::bulk_load(st + half * SLAB / 2, g.starts + slot + half * SLAB / 2, SLAB_BYTES / 2, full);
+      repro::bulk_load(st + SLAB + half * SLAB / 2, g.dstates + slot + half * SLAB / 2,
+                       SLAB_BYTES / 2, full);
+    }
+  };
+
+  float acc[8][4];              // db^T (warps 0-7) or dc^T (8-15): rows n 16 nr .., columns 8 t ..
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = r0 + gr + 8 * (e >> 1), n = 64 * ch + 8 * t + 2 * tq + (e & 1);
-      if (p < P && n < N) {
-        s_out[p * N + n] = ds[t][e];
-        d_out[p * N + n] = dd[t][e];
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  float cb[2][4];               // C B^T: rows i 16 mt .., columns j 16 cq + 8 t ..
+  float nd0 = 0.f, nd1 = 0.f, nah = 0.f;   // the next head's dt (tokens 2 lane, 2 lane + 1), a
+  auto load_dt = [&](int u) {
+    const int h = u, i = 2 * lane;
+    const float* d = g.dt + b * g.ds_b + l0 * g.ds_l + h * g.ds_h;
+    nd0 = i < valid ? d[i * g.ds_l] : 0.f;
+    nd1 = i + 1 < valid ? d[(i + 1) * g.ds_l] : 0.f;
+    nah = g.a[h];
+  };
+  if (nh > 0) {
+    if (tid == 0) {
+      repro::mbar_arrive_expect_tx(&bar[0], tma_bc ? 2 * bc_boxes * BOX_BYTES : 0);
+      if (tma_bc)
+        for (int box = 0; box < bc_boxes; ++box) {
+          repro::tensor_load_3d(Cs + box * BOX, &maps.c, box * 64, l0, b, &bar[0]);
+          repro::tensor_load_3d(Bs + box * BOX, &maps.b, box * 64, l0, b, &bar[0]);
+        }
+    }
+    if (!tma_bc) {
+      copy_rows(Cs, static_cast<const bf16*>(g.c) + b * g.cs_b + l0 * g.cs_l, g.cs_l, valid, N, MAX_N);
+      copy_rows(Bs, static_cast<const bf16*>(g.b) + b * g.bs_b + l0 * g.bs_l, g.bs_l, valid, N, MAX_N);
+    }
+    issue_xy(0);
+    if (nh > 1) issue_xy(1);
+    issue_states(0);
+    load_dt(0);
+  }
+  __syncthreads();                           // the element copies are in
+  if (nh > 0) {
+    repro::mbar_wait_or_trap(&bar[0], 0);
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cb[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NCH / 2; ++kk) {
+      unsigned fa[4], fb[4];
+      repro::ldmatrix_x4(fa, Cs + sw_at(16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                        kk * 2 + (lane >> 4)));
+      repro::ldmatrix_x4(fb, Bs + sw_at(16 * cq + (lane & 7) + (lane >> 4) * 8,
+                                        kk * 2 + ((lane >> 3) & 1)));
+      repro::mma_bf16(cb[0], fa, fb[0], fb[1]);
+      repro::mma_bf16(cb[1], fa, fb[2], fb[3]);
+    }
+  }
+
+  // 8. d(cs), its suffix sum R within the chunk, ddt and da's share of
+  //    head u (its partials, and each lane's dt and cumsum of its two
+  //    tokens): warp 0, two tokens a lane, in the next head's slack
+  auto scan = [&](int u, float d0, float d1, float c0, float c1) {
+    const int h = u;
+    const float* pt = parts + (u & 1) * PT_FLOATS;
+    const float ah = g.a[h], tot = __shfl_sync(0xffffffffu, c1, 31);
+    float dot = 0.f;
+    for (int w_ = 0; w_ < CK_WARPS; ++w_) dot += pt[PT_DOT + w_];
+    const float ecs[2] = {expf(c0), expf(c1)}, rem[2] = {expf(tot - c0), expf(tot - c1)};
+    const float dd[2] = {d0, d1};
+    float a1[2], a2[2], u_[2], dcs[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * lane + e;
+      float rt = 0.f, ct = 0.f, yi = 0.f;
+      a1[e] = a2[e] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {          // the tiles' shares, in order
+        rt += pt[PT_RT + q * Q + i];
+        ct += pt[PT_CT + q * Q + i];
+        a1[e] += pt[PT_A1 + q * Q + i];
+        a2[e] += pt[PT_A2 + q * Q + i];
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) yi += pt[PT_YI + q * Q + i];
+      u_[e] = rem[e] * dd[e] * a2[e];
+      dcs[e] = rt - ct + ecs[e] * yi - u_[e];
+    }
+    const float usum = repro::warp_sum(u_[0] + u_[1]);
+    if (lane == 31) dcs[1] += expf(tot) * dot + usum;   // the chunk's last token
+    float suf = dcs[0] + dcs[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, suf, o);
+      if (lane + o < 32) suf += v;
+    }
+    const float R[2] = {suf, suf - dcs[0]};
+    float da = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * lane + e;
+      if (i < valid)
+        g.ddt[(static_cast<long>(b) * g.L + l0 + i) * H + h] = a1[e] + rem[e] * a2[e] + ah * R[e];
+      da += dd[e] * R[e];
+    }
+    da = repro::warp_sum(da);
+    if (lane == 0) g.da_part[(static_cast<long>(b) * g.chunks + k) * H + h] = da;
+  };
+  float pd0 = 0.f, pd1 = 0.f, pc0 = 0.f, pc1 = 0.f;   // the last head's, for its scan
+
+  for (int u = 0; u < nh; ++u) {
+    // bwd-stamp 1
+    const int h = u, par = u & 1;
+    float* pt = parts + par * PT_FLOATS;
+    const bf16* Xs = xs_of(u);
+    const bf16* Ys = Xs + BOX;
+    // S and dS as split tiles: hi, then lo 2 BOX elements on
+    const bf16* Shi = reinterpret_cast<const bf16*>(smem + CK_ST);
+    const bf16* dShi = Shi + 4 * BOX;
+    // the chunk's cumsum of dt a, each warp its own copy, two tokens a lane
+    const float d0 = nd0, d1 = nd1, ah = nah;
+    if (u + 1 < nh) load_dt(u + 1);
+    const float v1 = d1 * ah;
+    float run = d0 * ah + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float w_ = __shfl_up_sync(0xffffffffu, run, o);
+      if (lane >= o) run += w_;
+    }
+    const float c1 = run, c0 = run - v1, tot = __shfl_sync(0xffffffffu, run, 31);
+    const float rem0 = expf(tot - c0), rem1 = expf(tot - c1);
+
+    repro::mbar_wait_or_trap(&bar[1 + par], (u >> 1) & 1);   // x, dy
+    // the warp as one again before ldmatrix and mma.sync (.aligned): the
+    // waits and thread 0's copies part its lanes (below too)
+    __syncwarp();
+    // bwd-stamp 2
+    // 1. G = dy x^T, then W = G o decay o dt_j and M = C B^T o decay on and
+    //    below the diagonal (zero above it); the row and column sums of
+    //    C B^T o W
+    float w[2][4], m[2][4];
+    {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MAX_P / 16; ++kk) {
+        unsigned fa[4], fb[4];
+        repro::ldmatrix_x4(fa, Ys + sw_at(16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          kk * 2 + (lane >> 4)));
+        repro::ldmatrix_x4(fb, Xs + sw_at(16 * cq + (lane & 7) + (lane >> 4) * 8,
+                                          kk * 2 + ((lane >> 3) & 1)));
+        repro::mma_bf16(w[0], fa, fb[0], fb[1]);
+        repro::mma_bf16(w[1], fa, fb[2], fb[3]);
+      }
+      float cj[2][2], dj[2][2];              // this thread's columns' cs log2(e) and dt
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int src = 8 * cq + 4 * t + tq;   // the lane of tokens 16 cq + 8 t + 2 tq (+1)
+        cj[t][0] = __shfl_sync(0xffffffffu, c0, src) * LOG2E;
+        cj[t][1] = __shfl_sync(0xffffffffu, c1, src) * LOG2E;
+        dj[t][0] = __shfl_sync(0xffffffffu, d0, src);
+        dj[t][1] = __shfl_sync(0xffffffffu, d1, src);
+      }
+      float rs[2] = {0.f, 0.f}, csum[2][2] = {};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + gr + 8 * r;
+        const float ci = token(c0, c1, i) * LOG2E;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int j = 16 * cq + 8 * t + 2 * tq;
+          const float e0 = exp2f(fminf(ci - cj[t][0], 0.f)) * static_cast<float>(j <= i);
+          const float e1 = exp2f(fminf(ci - cj[t][1], 0.f)) * static_cast<float>(j < i);
+          w[t][2 * r] *= e0 * dj[t][0];
+          w[t][2 * r + 1] *= e1 * dj[t][1];
+          m[t][2 * r] = cb[t][2 * r] * e0;
+          m[t][2 * r + 1] = cb[t][2 * r + 1] * e1;
+          const float q0 = cb[t][2 * r] * w[t][2 * r], q1 = cb[t][2 * r + 1] * w[t][2 * r + 1];
+          rs[r] += q0 + q1;
+          csum[t][0] += q0;
+          csum[t][1] += q1;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v = quad_sum(rs[r]);
+        if (tq == 0) pt[PT_RT + cq * Q + 16 * mt + gr + 8 * r] = v;
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = column_sum(csum[t][e]);
+          if (gr == 0) pt[PT_CT + mt * Q + 16 * cq + 8 * t + 2 * tq + e] = v;
+        }
+    }
+    // bwd-stamp 3
+    if (tid == 0) repro::bulk_wait_read();   // the last head's dx store has read M's hi tile
+    __syncthreads();                         // M and W are free
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int o = sw_at(16 * mt + gr + 8 * r, 2 * cq + t) + 2 * tq;
+        unsigned hi, lo;
+        split_bf16(m[t][2 * r], m[t][2 * r + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(Mhi + o) = hi;
+        *reinterpret_cast<unsigned*>(Mlo + o) = lo;
+        split_bf16(w[t][2 * r], w[t][2 * r + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(Whi + o) = hi;
+        *reinterpret_cast<unsigned*>(Wlo + o) = lo;
+      }
+    __syncthreads();                         // M and W are whole
+    // bwd-stamp 4
+    repro::mbar_wait_or_trap(&bar[3], u & 1);   // S, dS
+    __syncwarp();
+    // <dS, S> from the split tiles, this thread's 16 elements of each
+    {
+      float dot = 0.f;
+      const uint4* s4 = reinterpret_cast<const uint4*>(Shi);
+      const uint4* d4 = reinterpret_cast<const uint4*>(dShi);
+#pragma unroll
+      for (int q = 0; q < SPLIT_VEC; ++q) {
+        const int v = tid + q * CK_THREADS;   // a piece of the hi tiles; the lo ones 2 BOX on
+        const uint4 sh = s4[v], sl = s4[v + BOX / 4], dh = d4[v], dl = d4[v + BOX / 4];
+        const unsigned* a = &sh.x;
+        const unsigned* a2 = &sl.x;
+        const unsigned* c = &dh.x;
+        const unsigned* c2 = &dl.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x0 = unpack(a[e]), x1 = unpack(a2[e]), y0 = unpack(c[e]), y1 = unpack(c2[e]);
+          dot += (x0.x + x1.x) * (y0.x + y1.x) + (x0.y + x1.y) * (y0.y + y1.y);
+        }
+      }
+      dot = repro::warp_sum(dot);
+      if (lane == 0) pt[PT_DOT + warp] = dot;
+    }
+
+    // bwd-stamp 5
+
+    // 2. (warps 0-7) db^T += (dS^T x^T) o rem dt (columns), rows n 16 nr ..;
+    // 3. (warps 8-15) F = S^T dy^T: dc^T += F o e^cs (columns), and
+    //    C_i.F_i for d(cs)
+    {
+      float ee[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ee[t][e] = 0.f;
+      const bf16* src = dc_side ? Shi : dShi;
+      const bf16* rows = dc_side ? Ys : Xs;
+#pragma unroll
+      for (int kk = 0; kk < MAX_P / 16; ++kk) {
+        unsigned hi[4], lo[4];               // S^T or dS^T: rows n 16 nr .., columns p 16 kk ..
+        const int o = sw_at(16 * kk + (lane & 7) + (lane >> 4) * 8, 2 * nr + ((lane >> 3) & 1));
+        repro::ldmatrix_x4_trans(hi, src + o);
+        repro::ldmatrix_x4_trans(lo, src + 2 * BOX + o);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          unsigned fb[4];
+          repro::ldmatrix_x4(fb, rows + sw_at(16 * v + (lane & 7) + (lane >> 4) * 8,
+                                              kk * 2 + ((lane >> 3) & 1)));
+          repro::mma_bf16(ee[2 * v], hi, fb[0], fb[1]);
+          repro::mma_bf16(ee[2 * v + 1], hi, fb[2], fb[3]);
+          repro::mma_bf16(ee[2 * v], lo, fb[0], fb[1]);
+          repro::mma_bf16(ee[2 * v + 1], lo, fb[2], fb[3]);
+        }
+      }
+      // the column scale: rem dt (db) or e^cs (dc), token 8 t + 2 tq (+1)
+      const float f0 = dc_side ? expf(c0) : rem0 * d0, f1 = dc_side ? expf(c1) : rem1 * d1;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float s0 = __shfl_sync(0xffffffffu, f0, 4 * t + tq);
+        const float s1 = __shfl_sync(0xffffffffu, f1, 4 * t + tq);
+        acc[t][0] += s0 * ee[t][0];
+        acc[t][1] += s1 * ee[t][1];
+        acc[t][2] += s0 * ee[t][2];
+        acc[t][3] += s1 * ee[t][3];
+      }
+      __syncwarp();
+      if (dc_side) {
+        // C[i][n] at F's elements: C^T's 8 x 8 tiles by ldmatrix.trans
+#pragma unroll
+        for (int t = 0; t < 8; t += 2) {
+          unsigned cf[4];
+          const int mtx = lane >> 3;
+          repro::ldmatrix_x4_trans(cf, Cs + sw_at(8 * (t + (mtx >> 1)) + (lane & 7),
+                                                  2 * nr + (mtx & 1)));
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float2 lo_ = unpack(cf[2 * q]), hi_ = unpack(cf[2 * q + 1]);   // rows n, n + 8
+            const float y0 = column_sum(lo_.x * ee[t + q][0] + hi_.x * ee[t + q][2]);
+            const float y1 = column_sum(lo_.y * ee[t + q][1] + hi_.y * ee[t + q][3]);
+            if (gr == 0) {
+              pt[PT_YI + nr * Q + 8 * (t + q) + 2 * tq] = y0;
+              pt[PT_YI + nr * Q + 8 * (t + q) + 2 * tq + 1] = y1;
+            }
+          }
+        }
       }
     }
+
+    if (warp == 0 && u > 0) scan(u - 1, pd0, pd1, pc0, pc1);   // warps 0-7 wait here anyway
+    // bwd-stamp 6
+    // 4. ex = dS B^T: rows p 16 mt .., columns j 16 cq .. (for dx and x.(dS B))
+    __syncwarp();
+    float ex[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ex[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NCH / 2; ++kk) {
+      unsigned hi[4], lo[4], fb[4];          // dS: rows p 16 mt .., columns n 16 kk ..
+      const int o = sw_at(16 * mt + (lane & 7) + ((lane >> 3) & 1) * 8, kk * 2 + (lane >> 4));
+      repro::ldmatrix_x4(hi, dShi + o);
+      repro::ldmatrix_x4(lo, dShi + 2 * BOX + o);
+      repro::ldmatrix_x4(fb, Bs + sw_at(16 * cq + (lane & 7) + (lane >> 4) * 8,
+                                        kk * 2 + ((lane >> 3) & 1)));
+      repro::mma_bf16(ex[0], hi, fb[0], fb[1]);
+      repro::mma_bf16(ex[1], hi, fb[2], fb[3]);
+      repro::mma_bf16(ex[0], lo, fb[0], fb[1]);
+      repro::mma_bf16(ex[1], lo, fb[2], fb[3]);
+    }
+
+    // bwd-stamp 7
+    __syncthreads();                         // S and dS are free
+    if (u + 1 < nh) issue_states(u + 1);
+    __syncwarp();
+    // bwd-stamp 8
+
+    // 5. dx^T = (dy^T M + ex o rem) o dt (columns), rows p 16 mt .., columns
+    //    j 16 cq ..; and x_j.(M^T dy)_j, x_j.(dS B_j), this row tile's share
+    unsigned dxp[4];
+    {
+      float in[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) in[t][e] = 0.f;
+#pragma unroll
+      for (int I = 0; I < QT; ++I) {
+        if (I < cq) continue;                // M[i][j] = 0 for j > i
+        unsigned ya[4], mh[4], ml[4];
+        repro::ldmatrix_x4_trans(ya, Ys + sw_at(I * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                2 * mt + ((lane >> 3) & 1)));
+        const int o = sw_at(I * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * cq + (lane >> 4));
+        repro::ldmatrix_x4_trans(mh, Mhi + o);
+        repro::ldmatrix_x4_trans(ml, Mlo + o);
+        repro::mma_bf16(in[0], ya, mh[0], mh[1]);
+        repro::mma_bf16(in[1], ya, mh[2], mh[3]);
+        repro::mma_bf16(in[0], ya, ml[0], ml[1]);
+        repro::mma_bf16(in[1], ya, ml[2], ml[3]);
+      }
+      // x^T at these elements: (t, rows p, p + 8) by ldmatrix.trans
+      unsigned xf[4];
+      {
+        const int mtx = lane >> 3;
+        repro::ldmatrix_x4_trans(xf, Xs + sw_at(16 * cq + 8 * (mtx >> 1) + (lane & 7),
+                                                2 * mt + (mtx & 1)));
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int src = 8 * cq + 4 * t + tq, j = 16 * cq + 8 * t + 2 * tq;
+        const float dj0 = __shfl_sync(0xffffffffu, d0, src), dj1 = __shfl_sync(0xffffffffu, d1, src);
+        const float rj0 = __shfl_sync(0xffffffffu, rem0, src);
+        const float rj1 = __shfl_sync(0xffffffffu, rem1, src);
+        const float2 xa = unpack(xf[2 * t]), xb = unpack(xf[2 * t + 1]);   // rows p, p + 8
+        const float a10 = column_sum(xa.x * in[t][0] + xb.x * in[t][2]);
+        const float a11 = column_sum(xa.y * in[t][1] + xb.y * in[t][3]);
+        const float a20 = column_sum(xa.x * ex[t][0] + xb.x * ex[t][2]);
+        const float a21 = column_sum(xa.y * ex[t][1] + xb.y * ex[t][3]);
+        if (gr == 0) {
+          pt[PT_A1 + mt * Q + j] = a10;
+          pt[PT_A1 + mt * Q + j + 1] = a11;
+          pt[PT_A2 + mt * Q + j] = a20;
+          pt[PT_A2 + mt * Q + j + 1] = a21;
+        }
+        dxp[2 * t] = repro::pack_bf16(dj0 * (in[t][0] + rj0 * ex[t][0]),
+                                      dj1 * (in[t][1] + rj1 * ex[t][1]));
+        dxp[2 * t + 1] = repro::pack_bf16(dj0 * (in[t][2] + rj0 * ex[t][2]),
+                                          dj1 * (in[t][3] + rj1 * ex[t][3]));
+      }
+    }
+    // bwd-stamp 9
+    __syncthreads();                         // every warp is done with x, dy and M
+    if (u + 2 < nh) issue_xy(u + 2);
+    __syncwarp();
+    // dx through M's hi tile, rows j, columns p (stmatrix transposes the
+    // fragments into rows)
+    {
+      const int mtx = lane >> 3;
+      repro::stmatrix_x4_trans(Mhi + sw_at(16 * cq + 8 * (mtx >> 1) + (lane & 7), 2 * mt + (mtx & 1)),
+                               dxp[0], dxp[1], dxp[2], dxp[3]);
+    }
+    // bwd-stamp 10
+
+    if (!dc_side) {
+      // 6. db^T += C^T W, rows n 16 nr .., columns j
+#pragma unroll
+      for (int I = 0; I < QT; ++I) {
+        unsigned ca[4];
+        repro::ldmatrix_x4_trans(ca, Cs + sw_at(I * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                2 * nr + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (I < v) continue;               // W[i][j] = 0 for j > i
+          const int o = sw_at(I * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * v + (lane >> 4));
+          unsigned wh[4], wl[4];
+          repro::ldmatrix_x4_trans(wh, Whi + o);
+          repro::ldmatrix_x4_trans(wl, Wlo + o);
+          repro::mma_bf16(acc[2 * v], ca, wh[0], wh[1]);
+          repro::mma_bf16(acc[2 * v + 1], ca, wh[2], wh[3]);
+          repro::mma_bf16(acc[2 * v], ca, wl[0], wl[1]);
+          repro::mma_bf16(acc[2 * v + 1], ca, wl[2], wl[3]);
+        }
+      }
+    } else {
+      // 7. dc^T += B^T W^T, rows n 16 nr .., columns i
+#pragma unroll
+      for (int J = 0; J < QT; ++J) {
+        unsigned ba[4];
+        repro::ldmatrix_x4_trans(ba, Bs + sw_at(J * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                2 * nr + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (v < J) continue;               // W[i][j] = 0 for j > i
+          const int o = sw_at(16 * v + (lane & 7) + (lane >> 4) * 8, 2 * J + ((lane >> 3) & 1));
+          unsigned wh[4], wl[4];
+          repro::ldmatrix_x4(wh, Whi + o);
+          repro::ldmatrix_x4(wl, Wlo + o);
+          repro::mma_bf16(acc[2 * v], ba, wh[0], wh[1]);
+          repro::mma_bf16(acc[2 * v + 1], ba, wh[2], wh[3]);
+          repro::mma_bf16(acc[2 * v], ba, wl[0], wl[1]);
+          repro::mma_bf16(acc[2 * v + 1], ba, wl[2], wl[3]);
+        }
+      }
+    }
+    // bwd-stamp 11
+    repro::fence_proxy_async();              // the dx tile, before its tensor store
+    __syncthreads();                         // the partials and the dx tile are whole
+    // bwd-stamp 12
+
+    if (flags & BT_DX) {
+      if (tid == 0) repro::tensor_store_4d(&maps.dx, Mhi, 0, h, l0, b);
+    } else {
+      for (int idx = tid; idx < valid * P; idx += CK_THREADS) {
+        const int j = idx / P, p = idx - j * P;
+        static_cast<bf16*>(g.dx)[(static_cast<long>(b) * g.L + l0 + j) * y_l +
+                                 static_cast<long>(h) * P + p] = Mhi[sw_at(j, p >> 3) + (p & 7)];
+      }
+    }
+
+    pd0 = d0, pd1 = d1, pc0 = c0, pc1 = c1;
+    // bwd-stamp 13
+  }
+  if (warp == 0 && nh > 0) scan(nh - 1, pd0, pd1, pc0, pc1);
+
+  // db and dc: summed over the heads in the warps' registers, out through
+  // shared memory (as [token][n] floats over the x, dy and S, dS stages,
+  // which no copy writes now) in rows of 16 bytes
+  float* red = reinterpret_cast<float*>(smem + CK_XY) + (dc_side ? Q * RED_STRIDE : 0);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(8 * t + 2 * tq + (e & 1)) * RED_STRIDE + 16 * nr + gr + 8 * (e >> 1)] = acc[t][e];
+  if (tid == 0) repro::bulk_wait();          // the last dx store is done
+  __syncthreads();
+  const float* all = reinterpret_cast<const float*>(smem + CK_XY);
+  constexpr int NC = MAX_N / 8;
+  for (int it = tid; it < 2 * valid * NC; it += CK_THREADS) {
+    const int which = it / (valid * NC), rest = it - which * valid * NC;
+    const int j = rest / NC, n = (rest % NC) * 8;
+    if (n >= N) continue;
+    const float* src = all + (which * Q + j) * RED_STRIDE + n;
+    const float4 x0 = *reinterpret_cast<const float4*>(src);
+    const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
+    const float sum[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    bf16* out = static_cast<bf16*>(which ? g.dc : g.db) + (static_cast<long>(b) * g.L + l0 + j) * N + n;
+    if (N % 8 == 0) {
+      *reinterpret_cast<uint4*>(out) =
+          make_uint4(repro::pack_bf16(sum[0], sum[1]), repro::pack_bf16(sum[2], sum[3]),
+                     repro::pack_bf16(sum[4], sum[5]), repro::pack_bf16(sum[6], sum[7]));
+    } else {
+      for (int e = 0; e < 8 && n + e < N; ++e) out[e] = __float2bfloat16_rn(sum[e]);
+    }
+  }
+  // bwd-stamp 14
 }
 
-constexpr int PASS_BATCH = 16;   // chunks whose loads the pass issues before it uses any
-
-// Each thread one element (p, n) of one (head, sequence)'s state: the
-// increments become the states entering each chunk, in order, and the
-// shares the gradients leaving each chunk, in reverse; a batch of chunks'
-// loads in flight at a time.
-__global__ void ssd_bwd_pass_kernel(const BwdArgs g) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const long PN = static_cast<long>(g.P) * g.N;
-  if (e >= PN) return;
-  const long first = (static_cast<long>(b) * g.H + h) * g.chunks;
-  float s = 0.f;
-  for (int k0 = 0; k0 < g.chunks; k0 += PASS_BATCH) {
-    float inc[PASS_BATCH], dec[PASS_BATCH];
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u)
-      if (k0 + u < g.chunks) {
-        inc[u] = g.starts[(first + k0 + u) * PN + e];
-        dec[u] = expf(g.tots[first + k0 + u]);
-      }
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u)
-      if (k0 + u < g.chunks) {
-        g.starts[(first + k0 + u) * PN + e] = s;
-        s = dec[u] * s + inc[u];
-      }
-  }
-  float d = g.d_state ? g.d_state[(static_cast<long>(b) * g.H + h) * PN + e] : 0.f;
-  for (int k0 = g.chunks - 1; k0 >= 0; k0 -= PASS_BATCH) {
-    float share[PASS_BATCH], dec[PASS_BATCH];
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u)
-      if (k0 - u >= 0) {
-        share[u] = g.dstates[(first + k0 - u) * PN + e];
-        dec[u] = expf(g.tots[first + k0 - u]);
-      }
-#pragma unroll
-    for (int u = 0; u < PASS_BATCH; ++u)
-      if (k0 - u >= 0) {
-        g.dstates[(first + k0 - u) * PN + e] = d;
-        d = dec[u] * d + share[u];
-      }
-  }
-}
+// -- 2'. the chunks, float32: the first version's body -----------------------
 
 constexpr int CHUNK_THREADS = 512;   // 16 warps: a quarter of a product's columns each
 constexpr int QUARTERS = 4;
@@ -1059,7 +1845,6 @@ size_t chunk_shared_floats(int P, int N) {
 
 template <typename T>
 __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const BwdArgs g) {
-  constexpr bool SPLIT = std::is_same_v<T, float>;
   extern __shared__ float chunk_smem[];
   const int k = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, tq = lane & 3;
@@ -1095,8 +1880,8 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
   __syncthreads();
   {  // C B^T, the same for every head: rows r0 .., columns 16 cq ..
     float acc[2][4] = {};
-    mma_rows<SPLIT>(acc, KN, [&](int r, int kk) { return kk < N ? Cs[(r0 + r) * ns + kk] : 0.f; },
-                    [&](int kk, int c) { return kk < N ? Bs[(16 * cq + c) * ns + kk] : 0.f; });
+    mma_rows(acc, KN, [&](int r, int kk) { return kk < N ? Cs[(r0 + r) * ns + kk] : 0.f; },
+             [&](int kk, int c) { return kk < N ? Bs[(16 * cq + c) * ns + kk] : 0.f; });
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -1109,21 +1894,24 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
   const long y_l = static_cast<long>(g.H) * P;    // dy and dx are contiguous
   for (int h = 0; h < g.H; ++h) {
     __syncthreads();               // the last head is done with the tiles; C B^T is whole
-    const long slot = ((static_cast<long>(b) * g.H + h) * g.chunks + k) * P * N;
+    const long slot = ((static_cast<long>(b) * g.H + h) * g.chunks + k) * SLAB;
     repro::load_tile(Xs, ps, static_cast<const T*>(g.x) + b * g.xs_b + l0 * g.xs_l + h * g.xs_h,
                      g.xs_l, Q, valid, P, 1.f);
     repro::load_tile(Ys, ps, static_cast<const T*>(g.dy) + (static_cast<long>(b) * g.L + l0) *
                      y_l + static_cast<long>(h) * P, y_l, Q, valid, P, 1.f);
-    repro::load_tile(Ss, ns, g.starts + slot, N, P, P, N, 1.f);
-    repro::load_tile(dSs, ns, g.dstates + slot, N, P, P, N, 1.f);
+    for (int idx = tid; idx < P * N; idx += CHUNK_THREADS) {
+      const int p = idx / N, n = idx - p * N;
+      Ss[p * ns + n] = g.starts[slot + slab_at(p, n)];
+      dSs[p * ns + n] = g.dstates[slot + slab_at(p, n)];
+    }
     const float tot = chunk_decay(g, b, h, l0, valid, dts, cs, ecs, rem, sc);   // warp 0's
 
     // 1. G = dy x^T (rows i, columns j); W = decay o dt_j o G and M = C B^T
     //    o decay on and below the diagonal (zero above it)
     {
       float acc[2][4] = {};
-      mma_rows<SPLIT>(acc, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
-                      [&](int kk, int c) { return kk < P ? Xs[(16 * cq + c) * ps + kk] : 0.f; });
+      mma_rows(acc, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
+               [&](int kk, int c) { return kk < P ? Xs[(16 * cq + c) * ps + kk] : 0.f; });
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -1152,12 +1940,12 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
     //    a token's x.(M^T dy) and x.(dS B), this column quarter's share
     {
       float in[2][4] = {}, ex[2][4] = {};
-      mma_rows<SPLIT>(in, Q, [&](int r, int kk) { return Mt[kk * qs + r0 + r]; },
-                      [&](int kk, int c) { return 16 * cq + c < P ? Ys[kk * ps + 16 * cq + c] : 0.f; });
-      mma_rows<SPLIT>(ex, KN, [&](int r, int kk) { return kk < N ? Bs[(r0 + r) * ns + kk] : 0.f; },
-                      [&](int kk, int c) {
-                        return kk < N && 16 * cq + c < P ? dSs[(16 * cq + c) * ns + kk] : 0.f;
-                      });
+      mma_rows(in, Q, [&](int r, int kk) { return Mt[kk * qs + r0 + r]; },
+               [&](int kk, int c) { return 16 * cq + c < P ? Ys[kk * ps + 16 * cq + c] : 0.f; });
+      mma_rows(ex, KN, [&](int r, int kk) { return kk < N ? Bs[(r0 + r) * ns + kk] : 0.f; },
+               [&](int kk, int c) {
+                 return kk < N && 16 * cq + c < P ? dSs[(16 * cq + c) * ns + kk] : 0.f;
+               });
       float s1[2] = {}, s2[2] = {};
 #pragma unroll
       for (int t = 0; t < 2; ++t)
@@ -1185,22 +1973,17 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
     }
 
     // 4. db += W^T C + (rem dt o x) dS, rows j, columns n = 32 cq ..
-    mma_rows<SPLIT>(dB, Q, [&](int r, int kk) { return Wt[kk * qs + r0 + r]; },
-                    [&](int kk, int c) { return 32 * cq + c < N ? Cs[kk * ns + 32 * cq + c] : 0.f; });
-    mma_rows<SPLIT>(dB, KP,
-                    [&](int r, int kk) { return kk < P ? Xs[(r0 + r) * ps + kk] * sc[r0 + r] : 0.f; },
-                    [&](int kk, int c) {
-                      return kk < P && 32 * cq + c < N ? dSs[kk * ns + 32 * cq + c] : 0.f;
-                    });
+    mma_rows(dB, Q, [&](int r, int kk) { return Wt[kk * qs + r0 + r]; },
+             [&](int kk, int c) { return 32 * cq + c < N ? Cs[kk * ns + 32 * cq + c] : 0.f; });
+    mma_rows(dB, KP, [&](int r, int kk) { return kk < P ? Xs[(r0 + r) * ps + kk] * sc[r0 + r] : 0.f; },
+             [&](int kk, int c) { return kk < P && 32 * cq + c < N ? dSs[kk * ns + 32 * cq + c] : 0.f; });
 
     // 5. dc += e^cs o (dy S) + W B, rows i, columns n = 32 cq ..; and y's
     //    inter term, this column quarter's share
     {
       float t4[4][4] = {};
-      mma_rows<SPLIT>(t4, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
-                      [&](int kk, int c) {
-                        return kk < P && 32 * cq + c < N ? Ss[kk * ns + 32 * cq + c] : 0.f;
-                      });
+      mma_rows(t4, KP, [&](int r, int kk) { return kk < P ? Ys[(r0 + r) * ps + kk] : 0.f; },
+               [&](int kk, int c) { return kk < P && 32 * cq + c < N ? Ss[kk * ns + 32 * cq + c] : 0.f; });
       float u[2] = {};
 #pragma unroll
       for (int t = 0; t < 4; ++t)
@@ -1216,8 +1999,8 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
         if (tq == 0) yp[cq * Q + r0 + gr + 8 * v] = ecs[r0 + gr + 8 * v] * w;
       }
     }
-    mma_rows<SPLIT>(dC, Q, [&](int r, int kk) { return Wt[(r0 + r) * qs + kk]; },
-                    [&](int kk, int c) { return 32 * cq + c < N ? Bs[kk * ns + 32 * cq + c] : 0.f; });
+    mma_rows(dC, Q, [&](int r, int kk) { return Wt[(r0 + r) * qs + kk]; },
+             [&](int kk, int c) { return 32 * cq + c < N ? Bs[kk * ns + 32 * cq + c] : 0.f; });
 
     // 6. <dS, S>, a warp's share each
     {
@@ -1283,7 +2066,7 @@ __global__ void __launch_bounds__(CHUNK_THREADS, 1) ssd_bwd_chunk_kernel(const B
     }
 }
 
-// da = the rows of da_part summed in order
+// -- 3. da = the rows of da_part summed in order ------------------------------
 __global__ void ssd_bwd_da_kernel(const float* __restrict__ part, float* __restrict__ da,
                                   int parts, int H) {
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
@@ -1294,23 +2077,57 @@ __global__ void ssd_bwd_da_kernel(const float* __restrict__ part, float* __restr
 }
 
 template <typename T>
-int launch_bwd(const BwdArgs& g, void* stream) {
+int launch_bwd(const BwdArgs& g, int passes, void* stream) {
   if (g.P > MAX_P || g.N > MAX_N || g.P < 1 || g.N < 1 || g.L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t deltas = deltas_shared_floats(g.P, g.N) * sizeof(float);
-  const size_t chunk = chunk_shared_floats(g.P, g.N) * sizeof(float);
-  cudaError_t err = repro::allow_shared(ssd_bwd_deltas_kernel<T>, deltas);
-  if (err == cudaSuccess) err = repro::allow_shared(ssd_bwd_chunk_kernel<T>, chunk);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_deltas_kernel<T><<<dim3(g.chunks, g.B, g.H), THREADS, deltas, s>>>(g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_pass_kernel<<<dim3((g.P * g.N + 255) / 256, g.H, g.B), 256, 0, s>>>(g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk_kernel<T><<<dim3(g.chunks, g.B), CHUNK_THREADS, chunk, s>>>(g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_da_kernel<<<1, 256, 0, s>>>(g.da_part, g.da, g.B * g.chunks, g.H);
-  return static_cast<int>(cudaGetLastError());
+  constexpr bool MMA = std::is_same_v<T, bf16>;
+  BwdMaps maps = {};
+  int flags = 0;
+  if (MMA) {
+    repro::bind_context();
+    // b, c: (n, l, b) boxes of 64 columns by the chunk's 64 rows; x, dy,
+    // dx: (p, h, l, b) boxes of one head's 64 columns by 64 rows
+    const long bc_dims[3] = {g.N, g.L, g.B}, c_strides[2] = {g.cs_l, g.cs_b},
+               b_strides[2] = {g.bs_l, g.bs_b};
+    const long x_dims[4] = {g.P, g.H, g.L, g.B}, x_strides[3] = {g.xs_h, g.xs_l, g.xs_b};
+    const long y_strides[3] = {g.P, static_cast<long>(g.H) * g.P,
+                               static_cast<long>(g.L) * g.H * g.P};
+    const unsigned bc_box[3] = {64, Q, 1}, x_box[4] = {64, 1, Q, 1};
+    if (make_map(&maps.c, g.c, 3, bc_dims, c_strides, bc_box) &&
+        make_map(&maps.b, g.b, 3, bc_dims, b_strides, bc_box))
+      flags |= BT_BC;
+    if (make_map(&maps.x, g.x, 4, x_dims, x_strides, x_box)) flags |= BT_X;
+    if (make_map(&maps.dy, g.dy, 4, x_dims, y_strides, x_box)) flags |= BT_DY;
+    if (make_map(&maps.dx, g.dx, 4, x_dims, y_strides, x_box)) flags |= BT_DX;
+  }
+  cudaError_t err = cudaSuccess;
+  if (passes & STATES_PASS) {
+    const size_t smem = states_smem<T>(g.P, g.N);
+    if ((err = repro::allow_shared(ssd_bwd_states_kernel<T>, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    ssd_bwd_states_kernel<T><<<4 * g.B * g.H, ST_THREADS, smem, s>>>(g, maps, flags);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & CHUNK_PASS) {
+    if constexpr (MMA) {
+      if ((err = repro::allow_shared(ssd_bwd_chunk_mma_kernel, CK_SMEM)) != cudaSuccess)
+        return static_cast<int>(err);
+      ssd_bwd_chunk_mma_kernel<<<dim3(g.chunks, g.B), CK_THREADS, CK_SMEM, s>>>(g, maps, flags);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    } else {
+      const size_t chunk = chunk_shared_floats(g.P, g.N) * sizeof(float);
+      if ((err = repro::allow_shared(ssd_bwd_chunk_kernel<T>, chunk)) != cudaSuccess)
+        return static_cast<int>(err);
+      ssd_bwd_chunk_kernel<T><<<dim3(g.chunks, g.B), CHUNK_THREADS, chunk, s>>>(g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  if (passes & DA_PASS) {
+    ssd_bwd_da_kernel<<<1, 256, 0, s>>>(g.da_part, g.da, g.B * g.chunks, g.H);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1330,23 +2147,25 @@ int launch_bwd(const BwdArgs& g, void* stream) {
 SSD_ENTRY(ssd_scan_bf16, __nv_bfloat16)
 SSD_ENTRY(ssd_scan_f32, float)
 
-// starts, dstates: float32 scratch (B, H, chunks, P, N); tots (B, H, chunks)
-// and da_part (B, chunks, H) float32 scratch; dy contiguous; d_state null for
-// a zero gradient of the final state
+// starts, dstates: float32 scratch of B H chunks slots (64 x 128 floats each);
+// da_part (B, chunks, H) float32 scratch; dy contiguous; d_state null for a
+// zero gradient of the final state; passes: which launches run (1 states,
+// 2 chunks, 4 da)
 #define SSD_BWD_ENTRY(NAME, T)                                                                \
   extern "C" int NAME(const void* x, const void* dt, const void* a, const void* b,            \
                       const void* c, const void* dy, const void* d_state, void* starts,       \
-                      void* dstates, void* tots, void* da_part, void* dx, void* ddt,          \
+                      void* dstates, void* da_part, void* dx, void* ddt,                      \
                       void* da, void* db, void* dc, int B, int L, int H, int P, int N,        \
                       long xs_b, long xs_l, long xs_h, long ds_b, long ds_l, long ds_h,       \
-                      long bs_b, long bs_l, long cs_b, long cs_l, void* stream) {             \
+                      long bs_b, long bs_l, long cs_b, long cs_l, int passes,                 \
+                      void* stream) {                                                         \
     const BwdArgs g{x, b, c, dy, static_cast<const float*>(dt), static_cast<const float*>(a), \
                     static_cast<const float*>(d_state), static_cast<float*>(starts),          \
-                    static_cast<float*>(dstates), static_cast<float*>(tots),                  \
-                    static_cast<float*>(da_part), dx, db, dc, static_cast<float*>(ddt),       \
-                    static_cast<float*>(da), B, L, H, P, N, (L + Q - 1) / Q, xs_b, xs_l,      \
-                    xs_h, ds_b, ds_l, ds_h, bs_b, bs_l, cs_b, cs_l};                          \
-    return launch_bwd<T>(g, stream);                                                          \
+                    static_cast<float*>(dstates), static_cast<float*>(da_part),               \
+                    dx, db, dc, static_cast<float*>(ddt), static_cast<float*>(da), B, L, H,   \
+                    P, N, (L + Q - 1) / Q, xs_b, xs_l, xs_h, ds_b, ds_l, ds_h, bs_b, bs_l,    \
+                    cs_b, cs_l};                                                              \
+    return launch_bwd<T>(g, passes, stream);                                                  \
   }
 
 SSD_BWD_ENTRY(ssd_scan_bwd_bf16, __nv_bfloat16)

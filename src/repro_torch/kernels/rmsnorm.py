@@ -30,7 +30,7 @@ from .ref import rmsnorm_gated_backward as rmsnorm_gated_backward_plain
 from .ref import rmsnorm_reference as rmsnorm_plain  # the kernel's plain version
 
 __all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_backward",
-           "rmsnorm_gated_plain", "rmsnorm_plain", "norm_bwd_plan", "norm_plan"]
+           "rmsnorm_gated_plain", "rmsnorm_plain", "norm_bwd_plan", "norm_plan", "tail_heads"]
 
 THREADS = 256      # a block of the row kernel at most (its launch bounds)
 REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an SM
@@ -46,9 +46,13 @@ MAX_BWD_WIDTH = 50_000   # the wide backward keeps a float32 partial of dw a col
 FOLD_FLOATS = 8 * 32 * 2 * 8   # the backward's row groups' dw shares in shared memory, at most
 _GATED_ARGS = ([build.P] * 4 + [build.L, build.I, build.P, build.P, build.I, build.I, build.F]
                + [build.I] * 4 + [build.P])
-_GATED_BWD_ARGS = ([build.P] * 4 + [build.L, build.I] + [build.P] * 10
-                   + [build.I, build.I, build.F] + [build.I] * 5 + [build.P])
+_GATED_BWD_ARGS = ([build.P] * 4 + [build.L, build.I] + [build.P] * 9
+                   + [build.I, build.I, build.F] + [build.I] * 7 + [build.P])
 MAX_GATED_BWD_WIDTH = 25_000   # its wide kernel keeps two float32 partials a column in shared memory
+# its launches: the rows, then the tail (dw and d_skip's gradient from the
+# partial rows)
+GATED_ROWS_PASS, GATED_TAIL_PASS = 1, 2
+GATED_ALL_PASSES = GATED_ROWS_PASS | GATED_TAIL_PASS
 
 
 class Card(NamedTuple):
@@ -283,14 +287,22 @@ def _gated_forward(y, xh, d_skip, z, w, eps):
     return out
 
 
-def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5):
+def tail_heads(p: int) -> int:
+    """Heads a block of the gated backward's tail takes: enough for 32
+    columns (a warp's), at least one."""
+    return max(1, 32 // p)
+
+
+def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5,
+                           passes: int = GATED_ALL_PASSES):
     """dy, dxh (y's shape and dtype), dd_skip (H,) float32, dz (z's shape,
     contiguous) and dw (H*P,) float32 of ``rmsnorm_gated(y, xh, d_skip, z,
     w)`` for the output gradient ``g`` (z's shape and dtype).  CUDA
     tensors: the backward kernel on `norm_bwd_plan`'s gated launch, then
-    the fixed-order sums of its per-block partial rows of dw and of
-    d_skip's gradient a column, then d_skip's over each head's columns (no
-    atomics); CPU tensors: the plain version."""
+    one launch of the fixed-order sums of its per-block partial rows of dw
+    and of d_skip's gradient a column, and of d_skip's over each head's
+    columns (no atomics; ``passes`` launches only one of the two, to time
+    them apart); CPU tensors: the plain version."""
     if y.device.type == "cpu":
         return rmsnorm_gated_backward_plain(y, xh, d_skip, z, w, g, eps=eps)
     zs = _gated_check("rmsnorm_gated_backward", y, xh, d_skip, z, w)
@@ -310,13 +322,12 @@ def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5):
     plan = norm_bwd_plan(rows, d, y.element_size(), aligned=aligned,
                          card=card_of(y.device.index), gated=True)
     part = torch.empty((2, plan.blocks, d), dtype=torch.float32, device=y.device)
-    col = torch.empty((d,), dtype=torch.float32, device=y.device)
     dd, dw = torch.empty_like(d_skip), torch.empty_like(w)
     build.call(f"rmsnorm_gated_bwd_{build.DTYPE_SUFFIX[y.dtype]}", _GATED_BWD_ARGS,
                y.data_ptr(), xh.data_ptr(), d_skip.data_ptr(), z.data_ptr(), zs, p,
                w.data_ptr(), g.data_ptr(), dy.data_ptr(), dxh.data_ptr(), dz.data_ptr(),
-               part[0].data_ptr(), part[1].data_ptr(), col.data_ptr(), dw.data_ptr(),
-               dd.data_ptr(), rows, d, eps, h, *plan, build.stream(y.device))
+               part[0].data_ptr(), part[1].data_ptr(), dw.data_ptr(), dd.data_ptr(), rows, d,
+               eps, h, tail_heads(p), *plan, passes, build.stream(y.device))
     build.count(rmsnorm_gated_backward)
     return dy, dxh, dd, dz, dw
 
@@ -351,7 +362,7 @@ def rmsnorm_gated(y, xh, d_skip, z, w, *, eps: float = 1e-5):
 
 
 rmsnorm_gated.launches = 0            # kernel launches, for showing a run went through it
-rmsnorm_gated_backward.launches = 0   # backward calls (four kernels each)
+rmsnorm_gated_backward.launches = 0   # backward calls (two kernels each)
 
 
 def launch_floor(plan: NormPlan) -> None:

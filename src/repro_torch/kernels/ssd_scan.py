@@ -25,20 +25,33 @@ costs nothing.  Its plain version is `ref.ssd_chunked_backward`.
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from . import build
 from .ref import ssd_chunked, ssd_chunked_backward
 
-__all__ = ["blocks_per_sm", "ssd_scan", "ssd_scan_backward", "ssd_scan_plain"]
+__all__ = ["blocks_per_sm", "bwd_scratch_shapes", "ssd_scan", "ssd_scan_backward",
+           "ssd_scan_plain"]
 
 MAX_HEAD_DIM = 64    # P: zero-padded to 64, 16 rows a warp (bf16); 4 columns a thread (float32)
 MAX_STATE = 128      # N: zero-padded to 128 (bf16); 8 state columns a thread (float32)
 
 _ARGS = [build.P] * 7 + [build.I] * 5 + [build.L] * 10 + [build.P]
-_BWD_ARGS = [build.P] * 16 + [build.I] * 5 + [build.L] * 10 + [build.P]
+_BWD_ARGS = [build.P] * 15 + [build.I] * 5 + [build.L] * 10 + [build.I, build.P]
 CHUNK = 64           # the kernels' own chunk of tokens
+SLOT = MAX_HEAD_DIM * MAX_STATE   # floats of a state in the backward's scratch (zero-padded)
+# the backward's launches (csrc/ssd_scan.cu): the states, the chunks, da
+STATES_PASS, CHUNK_PASS, DA_PASS = 1, 2, 4
+ALL_PASSES = STATES_PASS | CHUNK_PASS | DA_PASS
+
+
+def bwd_scratch_shapes(batch: int, length: int, heads: int) -> dict:
+    """The backward's float32 buffers: the state entering and the state
+    gradient leaving every chunk (a slot each: 64 rows of 128 floats, zero
+    past P and N), and the chunks' shares of da."""
+    chunks = -(-length // CHUNK)
+    return {"starts": (batch, heads, chunks, SLOT), "dstates": (batch, heads, chunks, SLOT),
+            "da_part": (batch, chunks, heads)}
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
@@ -84,12 +97,13 @@ def _forward(x, dt, a, b, c):
     return y, state
 
 
-def ssd_scan_backward(x, dt, a, b, c, dy, d_state=None):
+def ssd_scan_backward(x, dt, a, b, c, dy, d_state=None, *, passes: int = ALL_PASSES):
     """dx, ddt, da, db, dc of ``ssd_scan(x, dt, a, b, c)`` for dy (y's
     shape) and d_state (the final state's gradient; None: zero).  dx, db,
     dc in x's dtype and ddt, da float32, all contiguous.  CUDA tensors: the
-    backward kernels (four launches, see the source); CPU tensors: the
-    plain version, `ref.ssd_chunked_backward`."""
+    backward kernels (three launches, see the source; ``passes`` launches
+    only some, to time them apart); CPU tensors: the plain version,
+    `ref.ssd_chunked_backward`."""
     if x.device.type == "cpu":
         return ssd_chunked_backward(x, dt, a, b, c, dy, d_state, chunk=CHUNK)
     dt = dt.float()
@@ -114,17 +128,17 @@ def ssd_scan_backward(x, dt, a, b, c, dy, d_state=None):
     dc = torch.empty((B, L, N), dtype=x.dtype, device=dev)
     if B * L == 0:
         return dx, ddt, da, db, dc
-    chunks = -(-L // CHUNK)
-    starts = torch.empty((B, H, chunks, P, N), dtype=torch.float32, device=dev)
+    shapes = bwd_scratch_shapes(B, L, H)
+    starts = torch.empty(shapes["starts"], dtype=torch.float32, device=dev)
     dstates = torch.empty_like(starts)
-    tots = torch.empty((B, H, chunks), dtype=torch.float32, device=dev)
-    da_part = torch.empty((B, chunks, H), dtype=torch.float32, device=dev)
+    da_part = torch.empty(shapes["da_part"], dtype=torch.float32, device=dev)
     build.call(f"ssd_scan_bwd_{build.DTYPE_SUFFIX[x.dtype]}", _BWD_ARGS,
                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                dy.data_ptr(), None if d_state is None else d_state.data_ptr(),
-               starts.data_ptr(), dstates.data_ptr(), tots.data_ptr(), da_part.data_ptr(),
-               dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-               B, L, H, P, N, *_strides(x, dt, b, c), build.stream(dev))
+               starts.data_ptr(), dstates.data_ptr(), da_part.data_ptr(), dx.data_ptr(),
+               ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+               B, L, H, P, N, *_strides(x, dt, b, c), passes,
+               build.stream(dev))
     build.count(ssd_scan_backward)
     return dx, ddt, da, db, dc
 
@@ -161,7 +175,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0            # forward kernel launches, for showing a run went through it
-ssd_scan_backward.launches = 0   # backward calls (four kernels each)
+ssd_scan_backward.launches = 0   # backward calls (three kernels each)
 
 
 def blocks_per_sm(dtype: torch.dtype, P: int = MAX_HEAD_DIM, N: int = MAX_STATE) -> int:

@@ -866,9 +866,11 @@ def test_rmsnorm_backward_takes_rows_off_16_bytes(cuda, dtype):
 # the SSD scan's backward at mamba2-370m's training shape (B2 L4096 H32 P64
 # N128), a ragged length, the edges of the kernels' chunk of 64 tokens (L 1,
 # L 65), the reduced config's widths (P8 N16) and P, N off the thread tiles;
-# b and c are column slices of one projection, as `Mamba._proj` gives them
+# head counts 3, 6 and 9, odd and not powers of two; b and c are column
+# slices of one projection, as `Mamba._proj` gives them
 SSD_BWD_SHAPES = [(2, 4096, 32, 64, 128), (2, 129, 32, 64, 128), (2, 1, 32, 64, 128),
-                  (2, 65, 32, 64, 128), (2, 100, 16, 8, 16), (2, 70, 3, 20, 40)]
+                  (2, 65, 32, 64, 128), (2, 100, 16, 8, 16), (2, 70, 3, 20, 40),
+                  (2, 200, 6, 64, 128), (1, 130, 9, 64, 128)]
 # the backward kernels against the plain version's autograd, a share of the
 # gradient's largest entry: float32, sums of float32 products over up to
 # 4096 tokens and 32 heads in another order; bf16, both round each gradient
@@ -939,6 +941,39 @@ def test_ssd_scan_backward_is_deterministic_without_a_state_gradient(cuda, dtype
     assert torch.equal(got[3][..., :n], first[3]) and torch.equal(got[3][..., n:2 * n], first[4])
 
 
+@pytest.mark.parametrize("shape", [(8, 4096, 32, 64, 128), (1, 16384, 32, 64, 128)])
+def test_ssd_scan_backward_on_a_grid_larger_than_the_card(cuda, shape):
+    """The states pass at B 8 (512 chains, a block each: four times the
+    card's SMs) and at L 16384 (chains of 256 chunks), and the chunk kernel
+    at 4096 blocks: against the plain autograd."""
+    x, dt, a, bc, dy, _ = _ssd_bwd_inputs(shape, torch.bfloat16, cuda)
+    got = _ssd_grads(ssd_scan, x, dt, a, bc, dy, None)
+    want = _ssd_grads(ssd_scan_plain, x, dt, a, bc, dy, None)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, MAMBA_BWD_TOL[torch.bfloat16])
+
+
+def test_ssd_scan_backward_on_two_streams_at_once(cuda):
+    """Two streams run the backward on one shape at once: each gives the
+    bits of the same call alone."""
+    n = 128
+    cases = [_ssd_bwd_inputs((2, 1000, 32, 64, 128), torch.bfloat16, cuda) for _ in range(2)]
+    cases[1] = tuple(t * 0.5 for t in cases[1][:1]) + cases[1][1:]
+    args = [(x, dt, a, bc[..., :n], bc[..., n:2 * n], dy) for x, dt, a, bc, dy, _ in cases]
+    alone = [ssd_scan_backward(*a_) for a_ in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in args]
+    outs = [None, None]
+    for _ in range(3):
+        for i, (st, a_) in enumerate(zip(streams, args)):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                outs[i] = ssd_scan_backward(*a_)
+        torch.cuda.synchronize()
+        for got, want in zip(outs, alone):
+            assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
 def _gated_bwd_inputs(lead, h, p, dtype, cuda, seed=0):
     rng = np.random.default_rng(seed + h * p)
     return (_rand(rng, (*lead, h, p), dtype, cuda), _rand(rng, (*lead, h, p), dtype, cuda),
@@ -972,6 +1007,21 @@ def test_rmsnorm_gated_backward_matches_plain_autograd(cuda, lead, h, p, dtype):
     for got_, want_ in zip(got, want):
         assert got_.dtype == want_.dtype and got_.shape == want_.shape
         _close_scaled(got_, want_, MAMBA_BWD_TOL[dtype])
+
+
+# rows and widths either side of the gated backward's plan changes: 131 and
+# 132 rows (a row's warps double below the SM count), 265 and 793 (one
+# row more than the 264 blocks, two blocks an SM, take at once, and than
+# three rounds of them); widths of 1024 (4 warps a row), 2048 (8) and 2056
+# (past 8 warps: the wide kernel)
+@pytest.mark.parametrize("rows", [131, 132, 265, 793])
+@pytest.mark.parametrize("h,p", [(16, 64), (32, 64), (8, 257)])
+def test_rmsnorm_gated_backward_either_side_of_its_plan(cuda, rows, h, p):
+    y, xh, d, xz, w, g = _gated_bwd_inputs((rows,), h, p, torch.bfloat16, cuda, seed=rows)
+    got = _gated_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+    want = _gated_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+    for got_, want_ in zip(got, want):
+        _close_scaled(got_, want_, MAMBA_BWD_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

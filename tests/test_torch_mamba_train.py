@@ -279,6 +279,33 @@ def test_gated_bwd_plan_at_mamba_training_rows():
         rn.NormPlan(0, 0, 0, 264)
 
 
+@pytest.mark.parametrize("h,p", [(32, 64), (4, 250), (3, 20), (64, 8), (5, 3), (1, 25_000)])
+def test_gated_bwd_tail_covers_every_head_once(h, p):
+    """The tail's blocks take tail_heads(P) heads each, at least 32 columns
+    where a head is narrower, and every head falls in exactly one block;
+    their columns fit the block's shared memory."""
+    hpb = rn.tail_heads(p)
+    blocks = -(-h // hpb)
+    owners = [hd // hpb for hd in range(h)]
+    assert sorted(set(owners)) == list(range(blocks))
+    assert hpb * p >= min(32, p) and (hpb == 1 or hpb * p <= 32)
+    assert 4 * hpb * p <= 232_448
+
+
+@pytest.mark.parametrize("batch,length,heads", [(2, 4096, 32), (1, 1, 3), (2, 65, 16),
+                                                (8, 4096, 32), (1, 16384, 32)])
+def test_ssd_bwd_scratch_follows_from_the_shapes(batch, length, heads):
+    """The states' scratch: a float32 slot of 64 rows of 128 floats (the
+    kernel's `SLAB`) a (sequence, head, chunk of 64 tokens), twice; da's
+    shares a (sequence, chunk, head)."""
+    shapes = ss.bwd_scratch_shapes(batch, length, heads)
+    chunks = -(-length // 64)
+    assert ss.CHUNK == 64 and ss.SLOT == 64 * 128
+    assert shapes == {"starts": (batch, heads, chunks, 8192),
+                      "dstates": (batch, heads, chunks, 8192),
+                      "da_part": (batch, chunks, heads)}
+
+
 def _mamba_smoke(compute_dtype, **kw):
     """mamba2-370m-smoke in both packages from one JAX ``init_params`` (its
     Mamba scalars and norms made random with numpy), and a batch."""
