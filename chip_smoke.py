@@ -26,7 +26,10 @@ script exits non-zero without its result line.  The phases:
     workspace), the fused attention-sublayer chain in the growing,
     boundary and wrapped ring states, the SSD scan at mamba2-370m's
     prefill, at a ragged length, at the edges of its own chunk of 64
-    tokens (L 1, L 65) and at the reduced config's widths (P8 N16);
+    tokens (L 1, L 65) and at the reduced config's widths (P8 N16); and
+    nemotron-4-15b's and deepseek-coder-33b's serving shapes: the chain at
+    widths 6144 and 7168 at B 8 and 16, flash prefill and decode attention
+    at H48/KV8 and H56/KV8;
  4. serving: the port's ``LMServer`` on qwen2.5-3b and on mamba2-370m, each
     at full width, random weights from a seed, 8 requests of 64-400 prompt
     tokens, 32 new tokens each; the launch counts are reset just before
@@ -55,6 +58,8 @@ script exits non-zero without its result line.  The phases:
     1024), (8, 2048) and (4096, 2048) and its gated form at (8, 2048) and
     (4096, 2048), each beside an empty kernel on the same grid (the launch
     floor), and rmsnorm's time with other plans (``rmsnorm_scaling``);
+    flash, decode attention and the chain's GEMVs also at the two large
+    dense decoders' serving shapes (``times_large``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
@@ -125,7 +130,28 @@ script exits non-zero without its result line.  The phases:
     drill on qwen2.5-3b ``reduced()`` (checkpoint every 2 steps, crash at
     step 3) whose final float32 parameters must be bitwise an
     uninterrupted run's;
-11. the ``kernels`` record, the card's name and power limit, and last the
+11. the paper's STG path on the host: JPEG planned by the heuristic and
+    the ILP at v 4, each plan materialised and streamed through the
+    interpreter (sink streams bitwise ``simulate.run_functional``'s and
+    ``jpeg.reference_pipeline``'s, measured inverse throughput within 15%
+    of ``throughput.analyze``), the same for StreamIt's FFT, filterbank and
+    autocorrelation, 1F1B and interleaved 1F1B simulated against their
+    bubble models, ``verify_graph`` on each committed graph; each part's
+    seconds;
+12. the two large dense decoders, after training is freed:
+    nemotron-4-15b (32 layers, d_model 6144, 48 heads on 8, vocab 256000)
+    and deepseek-coder-33b (62 layers, d_model 7168, 56 heads on 8) at
+    full width and depth on random bf16 weights, one at a time (the
+    memory allocated before each must be under 2 GB): nemotron-4-15b
+    first through ``repro_torch.launch.serve.main``, then phase 4's
+    traffic at ``max_batch`` 8 for both and 16 requests at ``max_batch``
+    16 for deepseek-coder-33b, every kernel of the path launched in each
+    counted round and the decode step always through the fused chain;
+    the A/B of phase 5 (on fewer layers where the full stack spreads
+    more, beside the full-depth spread); tok/s, decode step p50 / p90,
+    resident weights and peak memory over them, a profiled decode step's
+    idle share;
+13. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -148,6 +174,9 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 SPIN_HZ = 2e9                   # clocks a second of `torch.cuda._sleep`: at least the H100's 1.98 GHz
+# (d_model, heads, KV heads, head dim) of the two large dense decoders that
+# phase 12 serves
+LARGE_SHAPES = {"nemotron-4-15b": (6144, 48, 8, 128), "deepseek-coder-33b": (7168, 56, 8, 128)}
 
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
@@ -1047,6 +1076,261 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     return rows, timed_launches
 
 
+def stg_phase() -> None:
+    """Phase 11: the paper's own STG path on this machine's host (Python,
+    numpy and the scipy the ILP solves with).  JPEG planned with the
+    heuristic and the ILP at v 4 under the calibrated router model, each
+    selection materialised and streamed through the interpreter: its sink
+    stream must equal `simulate.run_functional` and the materialised
+    graph's, and `jpeg.reference_pipeline`, bitwise, and its measured
+    inverse throughput `throughput.analyze`'s within 15%.  The same for
+    StreamIt's FFT, filterbank and autocorrelation under the literal
+    router model.  Then 1F1B and interleaved 1F1B simulated as data
+    against their bubble models, and `verify_graph` on each committed
+    graph.  Prints each part's seconds."""
+    import numpy as np
+
+    from repro_torch.core import heuristic, ilp, simulate, throughput, transform, verify
+    from repro_torch.core.fork_join import JPEG_CALIBRATED, LITERAL
+    from repro_torch.core.stg import Selection
+    from repro_torch.graphs import jpeg, nbody, streamit
+    from repro_torch.runtime.pipeline import (compare, execute, interleaved_1f1b,
+                                              interleaved_bubble, one_f_one_b,
+                                              simulate_schedule)
+
+    def same(a, b) -> bool:
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            a, b = np.asarray(a), np.asarray(b)
+            return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+        if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return type(a) is type(b) and a == b
+
+    def streamed(name, g, src, sink, blocks, v_tgt, fj, reference=None):
+        """Plan ``g`` with both solvers at ``v_tgt``; run each plan."""
+        for solver in (heuristic, ilp):
+            t0 = time.perf_counter()
+            res = solver.min_area(g, v_tgt, fj)
+            plan_s = time.perf_counter() - t0
+            if not res.feasible:
+                raise AssertionError(f"{name}: {solver.__name__} found no plan at v {v_tgt}")
+            rg = transform.materialize(g, res.selection, fj)
+            t0 = time.perf_counter()
+            run = execute(g, res.selection, {src: blocks}, fj=fj)
+            run_s = time.perf_counter() - t0
+            want = simulate.run_functional(g, res.selection, {src: blocks})[sink]
+            replicated = simulate.run_functional(rg.stg, rg.selection, {src: blocks})[sink]
+            rep = compare(g, res.selection, run)
+            v_app = throughput.analyze(g, res.selection).v_app
+            ok = {"simulator": same(run.outputs[sink], want),
+                  "materialised_graph": same(replicated, want),
+                  "reference": reference is None or same(want, reference(blocks)),
+                  "throughput": abs(rep.v_app_measured - v_app) <= 0.15 * v_app}
+            emit("stg", graph=name, solver=solver.__name__.rsplit(".", 1)[1], v_tgt=v_tgt,
+                 total_area=res.total_area, overhead_area=res.overhead_area,
+                 replicas={n: nr for n, (_, nr) in res.selection.choices.items() if nr > 1},
+                 tokens=len(blocks), sink_tokens=len(run.outputs[sink]),
+                 v_app_analytic=v_app, v_app_measured=rep.v_app_measured,
+                 cycles=run.cycles, plan_s=plan_s, execute_s=run_s, ok=ok)
+            if not all(ok.values()):
+                raise AssertionError(f"{name} under the {solver.__name__} plan: {ok}")
+
+    t0 = time.perf_counter()
+    streamed("jpeg", jpeg.build_stg(), "camera", "bitstream", jpeg.random_blocks(192), 4,
+             JPEG_CALIBRATED, jpeg.reference_pipeline)
+    jpeg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    for name, g, n_in in (("fft", streamit.build_fft(), 8),
+                          ("filterbank", streamit.build_filterbank(), 16),
+                          ("autocor", streamit.build_autocor(), 16)):
+        streamed(name, g, "src", "out", [rng.normal(size=n_in) for _ in range(96)], 4, LITERAL)
+    streamit_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    p, m, v = 4, 8, 2
+    runs = {"1f1b": (simulate_schedule(one_f_one_b(p, m), f_cost=float(v)),
+                     interleaved_bubble(p, m, 1)),
+            "interleaved_1f1b": (simulate_schedule(interleaved_1f1b(p, m, v)),
+                                 interleaved_bubble(p, m, v))}
+    sched_s = time.perf_counter() - t0
+    emit("stg_schedules", stages=p, micro=m, chunks=v, seconds=sched_s,
+         **{k: dict(makespan=r.makespan, bubble=r.bubble, analytic_bubble=b)
+            for k, (r, b) in runs.items()})
+    if any(abs(r.bubble - b) > 1e-9 for r, b in runs.values()) or \
+            not runs["interleaved_1f1b"][0].bubble < runs["1f1b"][0].bubble:
+        raise AssertionError(f"simulated bubbles off their models: {runs}")
+
+    t0 = time.perf_counter()
+    graphs = {"jpeg": jpeg.build_stg(), "fft": streamit.build_fft(),
+              "filterbank": streamit.build_filterbank(), "autocor": streamit.build_autocor(),
+              "nbody": nbody.build_stg()}
+    reports = {n: verify.verify_graph(g, Selection.fastest(g)) for n, g in graphs.items()}
+    verify_s = time.perf_counter() - t0
+    emit("stg_verify", seconds=verify_s, errors={n: len(r.errors()) for n, r in reports.items()},
+         checks={n: r.checks for n, r in reports.items()})
+    bad = {n: r.render() for n, r in reports.items() if not r.ok()}
+    if bad:
+        raise AssertionError(f"verify_graph refused committed graphs: {bad}")
+    emit("stg_phase", jpeg_s=jpeg_s, streamit_s=streamit_s, schedules_s=sched_s,
+         verify_s=verify_s)
+
+
+def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True):
+    """Phase 12: nemotron-4-15b and then deepseek-coder-33b served at full
+    width and depth on random bf16 weights from a seed, each built only
+    once nothing else is resident (the memory allocated is printed first,
+    and above 2 GB the phase refuses to start) and freed before the next.
+    nemotron-4-15b is built and first served through the entry point,
+    ``repro_torch.launch.serve.main`` (8 requests of 4-400 prompt tokens,
+    32 new each); both then serve phase 4's traffic (8 requests of 64-400
+    prompt tokens, 32 new tokens each, greedy) at ``max_batch`` 8 after a
+    warm-up round, and deepseek-coder-33b 16 such requests at ``max_batch``
+    16 (two batch groups in the chain's GEMVs).  Around each counted serve
+    the launch counts are set to 0 just before and read just after: flash,
+    rmsnorm, decode attention, ``qkv_rope`` and ``out_residual`` must all
+    launch, and ``_composed_step`` never run.  Each model's A/B (phase 5's,
+    two requests, both routes in lockstep) is held to eight bf16 steps at
+    the logits' magnitude; where the full stack spreads more than that, it
+    is printed and the A/B runs again at full width on half as many layers
+    until it holds.  Prints tok/s, the decode step's p50 / p90, the weights
+    resident and the peak over them, and one profiled decode step's idle
+    share, each with the card's name and power limit.  ``full`` False:
+    the ``reduced()`` forms, for a rehearsal on the CPU.  Returns the
+    launches of each counted round, by round."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
+
+    gb = 1e9
+    prompt_lens = np.random.default_rng(0).integers(64, 401, 8)      # phase 4's traffic
+    more_lens = np.random.default_rng(1).integers(64, 401, 8)
+    rounds = {}
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+        fd._composed_step.calls = 0
+
+    def read(what):
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing or fd._composed_step.calls or \
+                launches["fused_qkv_rope"] != launches["fused_out_residual"]:
+            raise AssertionError(f"{what}: launches {launches}, _composed_step called "
+                                 f"{fd._composed_step.calls} times: the path left its kernels")
+        return launches
+
+    def sms():
+        return torch.cuda.get_device_properties(0).multi_processor_count if full else 132
+
+    def counted(server, prompts, resident):
+        reqs = [Request(uid=i, prompt=p_, max_new=32) for i, p_ in enumerate(prompts)]
+        server.serve([Request(uid=r.uid, prompt=r.prompt, max_new=2) for r in reqs])
+        server.stats = ServeStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        outs = server.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cfg = server.cfg
+        launches = read(f"{cfg.name} at max_batch {server.max_batch}")
+        for o in outs:
+            if not 1 <= len(o.tokens) <= 32 or not all(0 <= t < cfg.padded_vocab
+                                                         for t in o.tokens):
+                raise AssertionError(f"{cfg.name} request {o.uid}: bad completion {o.tokens}")
+        steps = np.array(server.stats.decode_step_s)
+        summary = server.stats.summary()
+        groups = -(-min(server.max_batch, len(reqs)) // fd.BATCH_GROUP)
+        a = cfg.attn
+        emit("large_serve", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+             heads=a.n_heads, kv_heads=a.n_kv_heads, max_batch=server.max_batch,
+             requests=len(reqs), prompt_lens=[len(p_) for p_ in prompts],
+             bucket=_bucket(max(map(len, prompts))), completion_lens=[len(o.tokens) for o in outs],
+             serve_s=wall, prefill_tok_per_s=summary["prefill_tok_per_s"],
+             decode_tok_per_s=summary["decode_tok_per_s"], decode_steps=len(steps),
+             decode_step_p50_ms=float(np.percentile(steps, 50) * 1e3),
+             decode_step_p90_ms=float(np.percentile(steps, 90) * 1e3),
+             prefill_s=server.stats.prefill_s, weights_resident_gb=resident / gb,
+             peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / gb,
+             launches=launches, composed_step_calls=fd._composed_step.calls,
+             qkv_rope_plan=fd.gemv_plan(a.n_heads + 2 * a.n_kv_heads, fd.tile_width(a.head_dim),
+                                        cfg.d_model, groups, sms(), norm=True)._asdict(),
+             card=smi)
+        return launches
+
+    for name in LARGE_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        emit("large_serve_start", config=name, memory_allocated_gb=before / gb, card=smi)
+        if before > 2 * gb:
+            raise AssertionError(f"{name}: {before / gb:.2f} GB already allocated; the model "
+                                 f"does not fit beside it")
+        cfg = get_config(name) if full else get_config(name).reduced()
+        argv = ["--arch", name, "--max-new", "32", "--prompt-len", "400", "--seed", "0",
+                "--device", device] + ([] if full else ["--reduced"])
+        t0 = time.perf_counter()
+        if name == "nemotron-4-15b":
+            reset()
+            server, outs = serve_cli.main(argv + ["--requests", "8", "--max-batch", "8"])
+            torch.cuda.synchronize()
+            rounds[f"{name} serve.main"] = read(f"serve.main {name}")
+            emit("large_serve_cli", config=cfg.name, argv=argv + ["--requests", "8"],
+                 seconds=time.perf_counter() - t0, completion_lens=[len(o.tokens) for o in outs],
+                 stats=server.stats.summary(), launches=rounds[f"{name} serve.main"], card=smi)
+        else:
+            server = LMServer(cfg, max_batch=8, seed=0, device=device)
+            torch.cuda.synchronize()
+            emit("large_serve_init", config=cfg.name, seconds=time.perf_counter() - t0)
+        params = server.params
+        resident = sum(t.numel() * t.element_size() for t in params.parameters())
+        prompts = [np.random.default_rng(n).integers(2, cfg.vocab, n).tolist()
+                   for n in prompt_lens]
+        rounds[f"{name} B8"] = counted(server, prompts, resident)
+        if name == "deepseek-coder-33b":
+            more = [np.random.default_rng(1000 + n).integers(2, cfg.vocab, n).tolist()
+                    for n in more_lens]
+            wide = LMServer(cfg, max_batch=16, params=params, device=device)
+            rounds[f"{name} B16"] = counted(wide, prompts + more, resident)
+            del wide
+        del server
+
+        # the A/B: eight bf16 steps at the logits' magnitude (phase 5's rule:
+        # LOGIT_TOL is that at ~4); on fewer layers where the full stack
+        # spreads more
+        def tol_of(ref_logits):
+            return max(LOGIT_TOL, float(ref_logits.abs().max()) / 16)
+
+        layers = cfg.n_layers
+        full_ok = ab(cfg, params, prompts, tol_of, strict=False)
+        ok = full_ok
+        while not ok and layers > 1:
+            layers //= 2
+            cut = types.SimpleNamespace(embed=params.embed, final_norm=params.final_norm,
+                                        head=params.head, layers=params.layers[:layers])
+            ok = ab(dataclasses.replace(cfg, n_layers=layers), cut, prompts, tol_of,
+                    strict=False)
+        emit("large_ab", config=cfg.name, full_depth_ok=full_ok, layers_held=layers if ok
+             else None, full_layers=cfg.n_layers)
+        if not ok:
+            raise AssertionError(f"A/B {cfg.name}: not even one layer holds")
+        profile_decode(cfg, params, prompts)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rounds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1260,6 +1544,32 @@ def main() -> int:
             if not (torch.equal(kc[:, rest], k0[:, rest]) and torch.equal(vc[:, rest], v0[:, rest])):
                 raise AssertionError(f"fused_decode {case}: a slot other than pos % C changed")
 
+    # nemotron-4-15b's and deepseek-coder-33b's serving shapes (phase 12):
+    # the chain at widths 6144 and 7168 (qkv_rope's 64 and 72 tiles, at B 16
+    # two batch groups, where deepseek-coder-33b's block needs two splits to
+    # fit shared memory), flash prefill and decode attention at H48/KV8 and
+    # H56/KV8, hd 128
+    for label, (d, h, kv, hd) in LARGE_SHAPES.items():
+        for b_ in (8, 16):
+            x, kc, vc, kw = sublayer(b_, d, h, kv, hd, 544, False)
+            p = torch.tensor(543, dtype=torch.int32, device=dev)
+            want, k_new, v_new = fused_decode_plain(x[:, 0], kc, vc, p, **kw)
+            got = fused_decode(x, kc, vc, p, **kw)
+            case = f"{label} B{b_} D{d} H{h} KV{kv} hd{hd} C544 pos 543"
+            check("fused_decode", case + ": out", got[:, 0], want)
+            check("fused_decode", case + ": slot k", kc[:, 543], k_new)
+            check("fused_decode", case + ": slot v", vc[:, 543], v_new)
+            del x, kc, vc, kw
+        q, k, v = randn(2, 512, h, hd), randn(2, 512, kv, hd), randn(2, 512, kv, hd)
+        check("flash_attention", f"{label} B2 S512 H{h} KV{kv} D{hd} causal",
+              flash_attention(q, k, v), flash_attention_plain(q, k, v))
+        q, kc, vc = randn(8, h, hd), randn(8, 544, kv, hd), randn(8, 544, kv, hd)
+        for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            check("decode_attention", f"{label} B8 H{h} KV{kv} hd{hd} C544 cache_len={lens}",
+                  decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen))
+        del q, k, v, kc, vc
+
     # the SSD scan at mamba2-370m's prefill (B8 L512 H32 P64 N128) and a
     # ragged length; b and c are strided slices of one projection, as there.
     # Short memory (dt ~ 0.8, a ~ -1: the state decays ~e^-50 over a chunk of
@@ -1350,16 +1660,19 @@ def main() -> int:
         "mamba2-370m", {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated, "ssd_scan": ssd_scan})
 
     # -- 5. A/B: oracle route vs kernel route, lockstep --------------------
-    def ab(cfg, params, prompts, tol_of):
+    def ab(cfg, params, prompts, tol_of, strict=True):
         """Prefill and 8 decode steps of two requests through both routes,
         each fed the oracle's tokens; ``tol_of(ref_logits)`` is the bound on
-        the logits' difference at a step, twice it the near-tie margin."""
+        the logits' difference at a step, twice it the near-tie margin.
+        ``strict`` False: a step out of those bounds is recorded, not
+        raised.  Returns whether every step held."""
         ab = prompts[:2]
         bucket = _bucket(max(map(len, ab)))
         toks = np.zeros((2, bucket), np.int64)
         for i, p in enumerate(ab):
             toks[i, bucket - len(p):] = p
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        failure = None
         with torch.no_grad():
             runs = {impl: lm.prefill(cfg, params, batch, capacity=bucket + 8, impl=impl)
                     for impl in (None, "ref")}
@@ -1379,19 +1692,23 @@ def main() -> int:
                         agree[i] += 1
                     elif margin[i] < 2 * tols[-1]:
                         parted[i] = True
-                    else:
-                        raise AssertionError(f"A/B {cfg.name}: row {i} step {step}: tokens "
-                                             f"{tk[i]} vs {tr[i]} at top-2 margin {margin[i]}")
-                if diffs[-1] > tols[-1]:
-                    raise AssertionError(f"A/B {cfg.name}: step {step}: logits differ by "
-                                         f"{diffs[-1]} > {tols[-1]}")
+                    elif failure is None:
+                        failure = (f"A/B {cfg.name}: row {i} step {step}: tokens {tk[i]} vs "
+                                   f"{tr[i]} at top-2 margin {margin[i]}")
+                if diffs[-1] > tols[-1] and failure is None:
+                    failure = (f"A/B {cfg.name}: step {step}: logits differ by {diffs[-1]} > "
+                               f"{tols[-1]}")
+                if failure is not None and strict:
+                    raise AssertionError(failure)
                 feed = torch.tensor(tr, device=dev)[:, None]  # both routes get the oracle's
                 runs = {impl: lm.decode_step(cfg, params, runs[impl][1], feed, impl=impl)
                         for impl in runs}
-        emit("ab", config=cfg.name, requests=2, steps=8, max_abs_logit_diff=diffs,
-             logit_tol=tols, min_top2_margin=margins, tie_margin=[2 * t for t in tols],
-             tokens_agreeing=agree, parted_at_near_tie=parted,
-             logits_abs_max=float(lr.abs().max()))
+        emit("ab", config=cfg.name, layers=cfg.n_layers, requests=2, steps=8,
+             max_abs_logit_diff=diffs, logit_tol=tols, min_top2_margin=margins,
+             tie_margin=[2 * t for t in tols], tokens_agreeing=agree,
+             parted_at_near_tie=parted, logits_abs_max=float(lr.abs().max()),
+             ok=failure is None, failure=failure)
+        return failure is None
 
     ab(cfg, params, prompts, lambda ref_logits: LOGIT_TOL)
 
@@ -1726,6 +2043,58 @@ def main() -> int:
             bytes=out_bytes)}
     times["fused_decode"]["parts"] = chain_parts
 
+    # the same kernels at the two large dense decoders' serving shapes (phase
+    # 12): flash over the prefill bucket (B8 S512), decode attention at the
+    # round's last step (C544) and the chain's GEMVs at B 8, each beside its
+    # bound, its plain version and the library call; bounds as above
+    for label, (d_, h_, kv_, hd_) in LARGE_SHAPES.items():
+        b_, s_, c_ = 8, 512, 544
+        nb = 2 * (2 * b_ * s_ * h_ * hd_ + 2 * b_ * s_ * kv_ * hd_)
+        sets = copies(lambda: (randn(b_, s_, h_, hd_), randn(b_, s_, kv_, hd_),
+                               randn(b_, s_, kv_, hd_)), nb)
+        b_ms, b_by = bound(nb, 4 * hd_ * b_ * h_ * (s_ * (s_ + 1) // 2), BF16_FLOP_PER_S)
+        times["flash_attention"].setdefault("large_shapes", {})[
+            f"{label} B{b_} S{s_} H{h_} KV{kv_} D{hd_} causal"] = dict(
+            ms=timed(lambda q, k, v: flash_attention(q, k, v), sets, iters=10),
+            plain_ms=timed(lambda q, k, v: flash_attention_plain(q, k, v), sets, iters=10),
+            library_ms=timed(lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True), sets, iters=10),
+            bound_ms=b_ms, bound_by=b_by)
+        clen_ = torch.tensor(c_, dtype=torch.int32, device=dev)
+        nb = 2 * (2 * b_ * h_ * hd_ + 2 * b_ * c_ * kv_ * hd_)
+        sets = copies(lambda: (randn(b_, h_, hd_), randn(b_, c_, kv_, hd_),
+                               randn(b_, c_, kv_, hd_)), nb)
+        b_ms, b_by = bound(nb, 4 * hd_ * h_ * b_ * c_, BF16_FLOP_PER_S)
+        times["decode_attention"].setdefault("large_shapes", {})[
+            f"{label} B{b_} H{h_} KV{kv_} hd{hd_} C{c_}"] = dict(
+            ms=timed(lambda q, k, v: decode_attention(q, k, v, clen_), sets),
+            plain_ms=timed(lambda q, k, v: decode_attention_plain(q, k, v, clen_), sets),
+            library_ms=timed(lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), sets),
+            bound_ms=b_ms, bound_by=b_by)
+        q_sets, q_bytes, o_sets, o_bytes = gemv_sets(b_, d_, h_, kv_, hd_, bias=False)
+        q_cat = [(x2, kw["norm"].to(bf16), torch.cat([kw["wq"], kw["wk"], kw["wv"]], 1))
+                 for x2, _, _, kw in q_sets]
+        qb_ms, qb_by = bound(q_bytes, 2 * b_ * d_ * (h_ + 2 * kv_) * hd_, BF16_FLOP_PER_S)
+        ob_ms, ob_by = bound(o_bytes, 2 * b_ * h_ * hd_ * d_, BF16_FLOP_PER_S)
+        times["fused_decode"].setdefault("large_shapes", {})[f"{label} B{b_} D{d_}"] = {
+            "fused_qkv_rope": dict(
+                ms=timed(run_qkv, q_sets), plain_ms=timed(plain_qkv, q_sets), library_ms=None,
+                yardstick_ms=timed(lambda x2, nw, w: F.rms_norm(x2, (d_,), nw, 1e-6) @ w, q_cat),
+                yardstick="F.rms_norm + torch.mm over wq|wk|wv (no rope, no slot write)",
+                bound_ms=qb_ms, bound_by=qb_by, bytes=q_bytes, plan=fd.gemv_plan(
+                    h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms, norm=True)._asdict()),
+            "fused_out_residual": dict(
+                ms=timed(out_residual, o_sets), plain_ms=timed(fd.out_residual_plain, o_sets),
+                library_ms=timed(lambda o, wo, x2: torch.addmm(x2, o, wo), o_sets),
+                library="torch.addmm(x, o, wo)", bound_ms=ob_ms, bound_by=ob_by,
+                bytes=o_bytes, plan=fd.gemv_plan(-(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_,
+                                                 1, sms, norm=False)._asdict())}
+        del sets, q_sets, o_sets, q_cat
+    emit("times_large", card=smi, **{k: times[k]["large_shapes"] for k in (
+        "flash_attention", "decode_attention", "fused_decode")})
+
     # what sets the GEMVs' time: qwen's and danube's widths at B 1 and 8,
     # with the split plans taken; one block alone streaming a 128-column
     # tile of 256 and of 2048 rows (out_residual, its plan swapped for one
@@ -1749,7 +2118,7 @@ def main() -> int:
         splits."""
         plan = fd.gemv_plan
 
-        def forced(tiles, width, rows, groups, sm_count):
+        def forced(tiles, width, rows, groups, sm_count, **_):
             slice_ = -(-rows // splits)
             return fd.GemvPlan(width, -(-slice_ // 16) * 16 if splits > 1 else rows, splits)
         fd.gemv_plan = forced
@@ -1776,6 +2145,16 @@ def main() -> int:
             splits_, out_residual, out_sets)
         gemv_ms[f"qkv_rope qwen B8 D2048 splits {splits_}"] = timed_with_splits(
             splits_, run_qkv, qkv_sets)
+    # the large decoders' qkv_rope at B 8 with other split counts than the
+    # plan's 2: at one block an SM (over 116 KB of shared memory a block up
+    # to 4 splits), 72 tiles x 2 splits is 144 blocks, 12 past one wave of
+    # 132, where nemotron-4-15b's 64 x 2 fit one
+    for label, (d_, h_, kv_, hd_) in LARGE_SHAPES.items():
+        q_sets, _, _, _ = gemv_sets(8, d_, h_, kv_, hd_, bias=False)
+        for splits_ in (2, 3, 4, 8):
+            gemv_ms[f"qkv_rope {label} B8 D{d_} splits {splits_}"] = timed_with_splits(
+                splits_, run_qkv, q_sets)
+        del q_sets
     emit("gemv_scaling", ms=gemv_ms, plans=gemv_plans, sms=sms, dtype="bf16", card=smi)
 
     # the SSD scan at mamba2-370m's prefill; operations as the kernel's
@@ -2075,7 +2454,17 @@ def main() -> int:
     rows.extend(train_rows)
     emit("train_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 11. the record of the kernels, the card, the result ----------------
+    # -- 11. the paper's STG path on the host --------------------------------
+    t_phase = time.perf_counter()
+    stg_phase()
+    emit("stg_phase_seconds", seconds=time.perf_counter() - t_phase)
+
+    # -- 12. the two large dense decoders, served at full width and depth ----
+    t_phase = time.perf_counter()
+    large_rounds = large_serving(ab, profile_decode, qwen_kernels, smi)
+    emit("large_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 13. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
@@ -2086,7 +2475,8 @@ def main() -> int:
     # from the 4 timed steps of qwen2.5-3b's training (phase 10), and of
     # mamba2-370m's for the SSD scan, the gated norm and their backward;
     # the backward kernels' ``launches`` come from there (each of their calls
-    # launches the kernels listed)
+    # launches the kernels listed); ``large_launches`` from each counted
+    # round of phase 12
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -2123,9 +2513,12 @@ def main() -> int:
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
          "pipeline_launches": piped[name], "drill_launches": drilled[name],
          "replay_launches": replayed[name], "train_launches": train_launches.get(name, 0),
+         "large_launches": {r: dict(n, fused_decode=n["fused_qkv_rope"]).get(name, 0)
+                            for r, n in large_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
+         **({"large_shapes": t["large_shapes"]} if "large_shapes" in t else {}),
          **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
          **{k: t[k] for k in ("rows_ms", "dkdv_ms", "dq_ms") if k in t},
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (

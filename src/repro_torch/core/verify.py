@@ -1,11 +1,13 @@
-"""Static plan verification of a decode serve: prove it safe before it runs.
+"""Static plan verification: prove a plan safe before anything runs.
 
-Ported from the decode half of ``repro/core/verify.py``.  The executors
-discover unsafe plans at run time — `Engine._deadlock_detail` forensics
-after a wedge, `Fifo` overflow raises.  The KPN/STG abstraction makes
-that analyzable *up front*: this module takes a `DecodePipeline` serve's
-plan tuple — stage chain, fusion plan, placement, channel capacities,
-group shapes — and returns a structured report of ERROR/WARN findings.
+Ported from ``repro/core/verify.py``.  The executors discover unsafe
+plans at run time — `Engine._deadlock_detail` forensics after a wedge,
+`Fifo` overflow raises.  The KPN/STG abstraction makes that analyzable
+*up front*: this module takes a plan tuple — a bare (STG, Selection)
+pair, a schedule's op order against its FIFO capacities, or a
+`DecodePipeline` serve's stage chain, fusion plan, placement, channel
+capacities and group shapes — and returns a structured report of
+ERROR/WARN findings.
 
 Three check families:
 
@@ -15,10 +17,17 @@ Three check families:
     the classic SDF bound ``block + burst - gcd(block, burst)``; an
     unconditional-push edge (the head→embed token feedback stream) must
     absorb its worst-case in-flight burst; every cycle must keep at least
-    one free credit.
-  * **plan-consistency** — fusion groups re-checked against
-    `enumerate_fusions`' heavy-set rule, replica counts vs placement
-    slices.
+    one free credit; and a schedule's exact op order is *simulated*
+    against integer credits (`simulate_credit_schedule`) — exact for
+    these graphs because every FIFO has a single producer and a single
+    consumer stage, which makes the credit net a marked graph: enabled
+    ops stay enabled until they fire, so greedy exploration decides
+    deadlock-freedom, and a wedge names the wait-for cycle plus the
+    minimum viable capacity that unblocks it.
+  * **plan-consistency** — schedule shape vs the built stage count,
+    `Schedule.validate()` invariants, fusion groups re-checked against
+    `enumerate_fusions`' heavy-set rule / `validate_restructure`, replica
+    counts vs placement slices.
   * **the cache contract** — the port updates cache slices in place and
     donates nothing, so where the JAX package proves cache-out ==
     cache-in avals (its donation contract), this proves that a block
@@ -34,9 +43,8 @@ hook (on by default) and raises `PlanVerificationError` on any ERROR;
 the accepted report rides into the engine so a runtime deadlock can be
 cross-referenced against the static analysis.
 
-Not ported: the training half (schedule credit simulation, schedule
-consistency, `verify_lm_plan`, the donated-accumulate check) and
-`verify_graph` / `verify_graph_fusion` (``ROADMAP.md``).
+Not ported yet: `verify_lm_plan` and its donated-accumulate check, which
+belong to the microbatch training pipeline (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ WARN = "WARN"
 @dataclass(frozen=True)
 class Finding:
     """One verification finding.  ``check`` is a dotted family name
-    (``deadlock.*`` / ``channel.*`` / ``plan.*`` / ``cache.*``);
+    (``deadlock.*`` / ``channel.*`` / ``plan.*`` / ``cache.*`` /
+    ``graph.*``);
     ``subject`` names the edge, cycle, stage, or group the
     finding is about; ``min_viable`` is the smallest capacity that fixes
     a sized finding (None when not a sizing issue)."""
@@ -299,6 +308,231 @@ def check_cycles(edges: list[EdgeSpec], tokens_in_flight: int,
 
 
 # ===========================================================================
+# schedule-order credit simulation
+# ===========================================================================
+@dataclass(frozen=True)
+class SimOp:
+    """One scheduled op in credit terms: which edges it pops from and
+    pushes to (edge index, token count)."""
+    label: str
+    pops: tuple = ()
+    pushes: tuple = ()
+
+
+@dataclass
+class Wedge:
+    """A credit simulation that stopped making progress: the per-stage
+    positions, why each stuck stage is blocked, the wait-for cycle, and
+    the minimum viable capacities that let the same op order complete."""
+    positions: list[int]
+    blockers: list[tuple]       # (stage, op label, reason, edge index)
+    cycle: list[str]            # wait-for cycle through stages/edges
+    min_viable: dict[int, int]  # edge index -> capacity that unblocks
+
+    def describe(self, edge_names: list[str]) -> str:
+        why = "; ".join(
+            f"stage{s} at {lbl}: {reason} on {edge_names[ei]}"
+            for s, lbl, reason, ei in self.blockers)
+        fix = ", ".join(f"{edge_names[ei]}>={cap}"
+                        for ei, cap in sorted(self.min_viable.items()))
+        cyc = f" wait-for cycle: {' -> '.join(self.cycle)};" \
+            if self.cycle else ""
+        return f"{why};{cyc} minimum viable: {fix or 'n/a'}"
+
+
+def simulate_credit_schedule(op_streams: list[list[SimOp]],
+                             capacities: list[int]) -> Wedge | None:
+    """Run the schedule's exact op order against integer channel credits.
+
+    Exact, not heuristic: every edge has one producer stage and one
+    consumer stage, so token counts only grow until the consumer itself
+    pops and credits only shrink when the producer itself fires — an
+    enabled op stays enabled until it fires (marked-graph persistence),
+    which makes greedy exploration order-independent.  ``None`` means
+    the schedule provably runs to completion under these capacities;
+    a `Wedge` is a proven deadlock for this op order."""
+    wedge = _simulate(op_streams, capacities)
+    if wedge is None:
+        return None
+    wedge.min_viable = _min_viable(op_streams, capacities, wedge)
+    return wedge
+
+
+def _simulate(op_streams, capacities) -> Wedge | None:
+    counts = [0] * len(capacities)
+    pos = [0] * len(op_streams)
+    remaining = sum(len(s) for s in op_streams)
+    while remaining:
+        progressed = False
+        for s, stream in enumerate(op_streams):
+            while pos[s] < len(stream):
+                op = stream[pos[s]]
+                if any(counts[ei] < n for ei, n in op.pops) or any(
+                        capacities[ei] - counts[ei] < n
+                        for ei, n in op.pushes):
+                    break
+                for ei, n in op.pops:
+                    counts[ei] -= n
+                for ei, n in op.pushes:
+                    counts[ei] += n
+                pos[s] += 1
+                remaining -= 1
+                progressed = True
+        if not progressed:
+            return _wedge_info(op_streams, capacities, counts, pos)
+    return None
+
+
+def _wedge_info(op_streams, capacities, counts, pos) -> Wedge:
+    blockers = []
+    waits: dict[int, tuple[str, int]] = {}    # stage -> (reason, edge)
+    producer_of: dict[int, int] = {}
+    consumer_of: dict[int, int] = {}
+    for s, stream in enumerate(op_streams):
+        for op in stream:
+            for ei, _ in op.pushes:
+                producer_of[ei] = s
+            for ei, _ in op.pops:
+                consumer_of[ei] = s
+    for s, stream in enumerate(op_streams):
+        if pos[s] >= len(stream):
+            continue
+        op = stream[pos[s]]
+        for ei, n in op.pops:
+            if counts[ei] < n:
+                blockers.append((s, op.label, "starved", ei))
+                waits.setdefault(s, ("starved", ei))
+        for ei, n in op.pushes:
+            if capacities[ei] - counts[ei] < n:
+                blockers.append((s, op.label, "no credits", ei))
+                waits.setdefault(s, ("no credits", ei))
+    # wait-for cycle: stage -> blocking edge -> the stage that could
+    # unblock it (the producer of a starved edge, the consumer of a
+    # full one); a cycle in that graph is the deadlock's shape
+    cycle: list[str] = []
+    if waits:
+        start = min(waits)
+        seen: dict[int, int] = {}
+        chain: list[tuple[int, str, int]] = []
+        s = start
+        while s in waits and s not in seen:
+            seen[s] = len(chain)
+            reason, ei = waits[s]
+            chain.append((s, reason, ei))
+            s = producer_of.get(ei, s) if reason == "starved" \
+                else consumer_of.get(ei, s)
+        if s in seen:
+            for st, reason, ei in chain[seen[s]:]:
+                cycle.append(f"stage{st}")
+                cycle.append(f"edge{ei}({reason})")
+            cycle.append(f"stage{s}")
+    return Wedge(positions=list(pos), blockers=blockers, cycle=cycle,
+                 min_viable={})
+
+
+def _min_viable(op_streams, capacities, wedge: Wedge,
+                max_bumps: int = 256) -> dict[int, int]:
+    caps = list(capacities)
+    w = wedge
+    for _ in range(max_bumps):
+        full = [ei for _s, _l, reason, ei in w.blockers
+                if reason == "no credits"]
+        if not full:
+            break
+        for ei in full:
+            caps[ei] += 1
+        w = _simulate(op_streams, caps)
+        if w is None:
+            break
+    return {ei: caps[ei] for ei in range(len(caps))
+            if caps[ei] != capacities[ei]}
+
+
+def schedule_sim_ops(schedule) -> tuple[list[list[SimOp]], list[str]]:
+    """Lower a `runtime.pipeline.schedule.Schedule` to credit-sim op
+    streams over its act/grd edges (the edge layout
+    `schedule.schedule_programs` builds: ``act[i]`` between model stages
+    i and i+1 forward, ``grd[i]`` backward)."""
+    M = schedule.n_model_stages
+    n_act = max(0, M - 1)
+    edge_names = [f"act{i}" for i in range(n_act)]
+    if schedule.trains:
+        edge_names += [f"grd{i}" for i in range(n_act)]
+
+    def act(i):
+        return i
+
+    def grd(i):
+        return n_act + i
+
+    streams: list[list[SimOp]] = []
+    for s, ops in enumerate(schedule.stage_ops):
+        stream = []
+        for op in ops:
+            ms = schedule.model_stage(s, op.chunk)
+            if op.kind == "F":
+                pops = ((act(ms - 1), 1),) if ms > 0 else ()
+                pushes = ((act(ms), 1),) if ms < M - 1 else ()
+            else:
+                pops = ((grd(ms), 1),) if ms < M - 1 else ()
+                pushes = ((grd(ms - 1), 1),) if ms > 0 else ()
+            stream.append(SimOp(
+                label=f"{op.kind}(mb={op.mb},chunk={op.chunk})",
+                pops=pops, pushes=pushes))
+        streams.append(stream)
+    return streams, edge_names
+
+
+def verify_schedule_credits(schedule, act_capacities, grd_capacities,
+                            report: VerificationReport) -> None:
+    """Prove the schedule's op order completes under the given per-edge
+    FIFO capacities (ERROR with the wait-for cycle and minimum viable
+    capacities otherwise)."""
+    report.ran("schedule-credits")
+    streams, edge_names = schedule_sim_ops(schedule)
+    caps = list(act_capacities)
+    if schedule.trains:
+        caps += list(grd_capacities)
+    if len(caps) != len(edge_names):
+        report.add(ERROR, "plan.edge-count", schedule.name,
+                   f"{len(caps)} capacities for {len(edge_names)} edges")
+        return
+    wedge = simulate_credit_schedule(streams, caps)
+    if wedge is not None:
+        report.add(
+            ERROR, "deadlock.schedule-credits", schedule.name,
+            f"op order wedges under the planned FIFO capacities — "
+            f"{wedge.describe(edge_names)}",
+            min_viable=min(wedge.min_viable.values())
+            if wedge.min_viable else None)
+
+
+def verify_schedule_consistency(schedule, *, n_stages_built: int,
+                                n_micro: int, train: bool,
+                                report: VerificationReport) -> None:
+    """The shape/coverage contract a microbatch pipeline enforces on its
+    schedule at run time, as static findings."""
+    report.ran("schedule-consistency")
+    if schedule.n_model_stages != n_stages_built:
+        report.add(ERROR, "plan.schedule-shape", schedule.name,
+                   f"covers {schedule.n_stages} x {schedule.n_chunks} = "
+                   f"{schedule.n_model_stages} model stages; the pipeline "
+                   f"built {n_stages_built}")
+    if schedule.n_micro != n_micro:
+        report.add(ERROR, "plan.schedule-micro", schedule.name,
+                   f"schedules {schedule.n_micro} microbatches; the run "
+                   f"has {n_micro}")
+    if schedule.trains != train:
+        what = "has no backward ops" if train else "schedules backward"
+        report.add(ERROR, "plan.schedule-train", schedule.name,
+                   f"{what} — mismatched with train={train}")
+    try:
+        schedule.validate()
+    except ValueError as e:
+        report.add(ERROR, "plan.schedule-invalid", schedule.name, str(e))
+
+
+# ===========================================================================
 # fusion legality
 # ===========================================================================
 def verify_fusion(names, groups, *, heavy=(),
@@ -327,6 +561,27 @@ def verify_fusion(names, groups, *, heavy=(),
                 f"groups {len(heavies)} state-owning stages {heavies}: "
                 f"`enumerate_fusions` excludes multi-heavy groups (that "
                 f"axis is periods_per_stage, not combining)")
+
+
+def verify_graph_fusion(stg, sel, groups,
+                        report: VerificationReport) -> None:
+    """Graph-level fusion check: actually apply `restructure.combine` to
+    each multi-member group and run `validate_restructure` — the rewrite
+    either round-trips or the combine/validate error becomes a
+    finding."""
+    from . import restructure
+    report.ran("fusion-restructure")
+    for g in groups:
+        g = (g,) if isinstance(g, str) else tuple(g)
+        if len(g) < 2:
+            continue
+        try:
+            rg = restructure.combine(stg, sel, list(g))
+            fused = next(iter(rg.groups))
+            restructure.validate_restructure(stg, rg,
+                                             touched=set(g) | {fused})
+        except (ValueError, KeyError) as e:
+            report.add(ERROR, "plan.fusion-illegal", "+".join(g), str(e))
 
 
 # ===========================================================================
@@ -444,8 +699,54 @@ def verify_placement(stg, sel, placement,
 
 
 # ===========================================================================
-# the plan-level entry point
+# plan-level entry points
 # ===========================================================================
+def verify_graph(stg, sel=None, *, capacity_blocks: int = 2,
+                 fusion_groups=None) -> VerificationReport:
+    """Static analysis of a bare (STG, Selection) pair: graph structural
+    validity, rate consistency, per-channel capacity under the
+    `ChannelSet.for_graph` sizing, selection coverage, and (optionally)
+    graph-level fusion legality."""
+    report = VerificationReport(
+        plan=f"graph<{len(stg.nodes)} nodes, {len(stg.channels)} "
+             f"channels> @ capacity_blocks={capacity_blocks}")
+    report.ran("graph-structure")
+    try:
+        stg.validate()
+        stg.topo_order()
+        q = stg.repetition_vector()
+    except (ValueError, KeyError) as e:
+        report.add(ERROR, "graph.invalid", "stg", str(e))
+        return report
+    if sel is not None:
+        report.ran("selection-coverage")
+        for name in stg.topo_order():
+            try:
+                sel.impl_of(stg, name)
+            except (KeyError, ValueError) as e:
+                report.add(ERROR, "plan.selection", name, str(e))
+                continue
+            if sel.replicas(name) < 1:
+                report.add(ERROR, "plan.replicas", name,
+                           f"{sel.replicas(name)} replicas")
+    # channel capacities under the executor's actual sizing rule — build
+    # the real ChannelSet so the analysis can never drift from the code
+    from ..runtime.pipeline.channels import ChannelSet
+    cs = ChannelSet.for_graph(stg, capacity_blocks=capacity_blocks)
+    edges = []
+    for ch in stg.channels:
+        block = max(1, stg.nodes[ch.dst].in_rates[ch.dst_port])
+        burst = max(1, stg.nodes[ch.src].out_rates[ch.src_port])
+        edges.append(EdgeSpec(
+            src=ch.src, dst=ch.dst, capacity=cs[ch.key()].capacity,
+            label=f"{ch.src}->{ch.dst}", block=block, burst=burst))
+    check_channel_capacities(edges, report)
+    del q
+    if fusion_groups and sel is not None:
+        verify_graph_fusion(stg, sel, fusion_groups, report)
+    return report
+
+
 def verify_decode_plan(pipe, *, n_groups: int, capacity_blocks: int = 2,
                        feedback_capacity: int | None = None,
                        group_shapes=(), check_cache: bool = True
@@ -497,7 +798,10 @@ def verify_decode_plan(pipe, *, n_groups: int, capacity_blocks: int = 2,
 
 __all__ = [
     "ERROR", "WARN", "Finding", "PlanVerificationError",
-    "VerificationReport", "EdgeSpec", "channel_liveness_floor",
-    "check_channel_capacities", "check_cycles", "verify_fusion",
-    "verify_decode_cache_contract", "verify_placement", "verify_decode_plan",
+    "VerificationReport", "EdgeSpec", "SimOp", "Wedge",
+    "channel_liveness_floor", "check_channel_capacities", "check_cycles",
+    "simulate_credit_schedule", "schedule_sim_ops",
+    "verify_schedule_credits", "verify_schedule_consistency",
+    "verify_fusion", "verify_graph_fusion", "verify_decode_cache_contract",
+    "verify_placement", "verify_graph", "verify_decode_plan",
 ]

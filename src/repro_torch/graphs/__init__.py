@@ -1,2 +1,3 @@
-"""Task graphs the planner runs on: the LM graph (`lm_graph`)."""
-from . import lm_graph  # noqa: F401
+"""Task graphs the planner runs on: the LM graph (`lm_graph`) and the
+paper's own benchmarks (`jpeg`, `nbody`, `streamit`)."""
+from . import jpeg, lm_graph, nbody, streamit  # noqa: F401

@@ -81,7 +81,8 @@ def tile_width(columns: int) -> int:
     return width
 
 
-def gemv_plan(tiles: int, width: int, rows: int, groups: int, sm_count: int) -> GemvPlan:
+def gemv_plan(tiles: int, width: int, rows: int, groups: int, sm_count: int, *,
+              dtype: torch.dtype = torch.bfloat16, norm: bool = True) -> GemvPlan:
     """The fewest splits of the ``rows`` weight rows, a power of two up to
     MAX_SPLITS (a portable cluster), that give 7/8 of the SMs a block
     (tiles x splits x batch groups), none shorter than K_STEP rows.  On the
@@ -90,15 +91,35 @@ def gemv_plan(tiles: int, width: int, rows: int, groups: int, sm_count: int) -> 
     qwen2.5-3b's GEMVs (20 heads, 16 tiles; its qkv_rope 0.0124 ms at 8,
     0.0128 at 4, 0.0150 at 6), 4 for danube's (48 heads, 30 tiles; its
     qkv_rope ~0.026 ms at 4, 0.034 at 8, 0.032 at 2): fewer splits leave
-    SMs idle, more than fill the card stack blocks on an SM."""
+    SMs idle, more than fill the card stack blocks on an SM.
+
+    A block holds its split's slice of x's rows (and, with ``norm``, of the
+    norm's weight) in shared memory, so a wide row cut into few splits can
+    overflow it: deepseek-coder-33b's 7168 rows at two batch groups, where
+    the rule above takes one split, need 238,880 bytes.  Where the rule's
+    count does not fit, the splits double until `shared_bytes` of
+    ``dtype`` fits SHARED_LIMIT; past MAX_SPLITS this raises."""
+    def plan_of(splits):
+        slice_ = -(-rows // splits)
+        if splits > 1:
+            slice_ = -(-slice_ // K_STEP) * K_STEP
+        return GemvPlan(width, slice_, splits)
+
     splits = 1
     while splits < MAX_SPLITS and 8 * tiles * groups * splits < 7 * sm_count \
             and rows > splits * K_STEP:
         splits *= 2
-    slice_ = -(-rows // splits)
-    if splits > 1:
-        slice_ = -(-slice_ // K_STEP) * K_STEP
-    return GemvPlan(width, slice_, splits)
+    plan = plan_of(splits)
+    while shared_bytes(plan, dtype, norm) > SHARED_LIMIT:
+        if splits >= MAX_SPLITS:
+            raise ValueError(
+                f"fused_decode: no split of {rows} weight rows into at most {MAX_SPLITS} "
+                f"fits a block's {SHARED_LIMIT} bytes of shared memory ({dtype}, tile "
+                f"width {width}, norm={norm}: {shared_bytes(plan, dtype, norm)} bytes at "
+                f"{splits} splits)")
+        splits *= 2
+        plan = plan_of(splits)
+    return plan
 
 
 def shared_bytes(plan: GemvPlan, dtype: torch.dtype, norm: bool) -> int:
@@ -239,7 +260,7 @@ def qkv_rope(x2, k_cache, v_cache, pos, *, norm, wq, wk, wv, bq, bk, bv, n_heads
     clen = torch.empty((), dtype=torch.int32, device=x2.device)
     bias = [0 if b is None else b.data_ptr() for b in (bq, bk, bv)]
     plan = gemv_plan(n_heads + 2 * kv, tile_width(hd), D, -(-B // BATCH_GROUP),
-                     _sm_count(x2.device.index))
+                     _sm_count(x2.device.index), dtype=x2.dtype, norm=True)
     build.call(f"fused_qkv_rope_{build.DTYPE_SUFFIX[x2.dtype]}", _QKV_ARGS,
                x2.data_ptr(), norm.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
                *bias, pos.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -258,7 +279,8 @@ def out_residual(o, wo, x2):
     D = x2.shape[1]
     out = torch.empty_like(x2)
     width = min(OUT_WIDTH, tile_width(D))
-    plan = gemv_plan(-(-D // width), width, K, -(-B // BATCH_GROUP), _sm_count(x2.device.index))
+    plan = gemv_plan(-(-D // width), width, K, -(-B // BATCH_GROUP), _sm_count(x2.device.index),
+                     dtype=x2.dtype, norm=False)
     build.call(f"fused_out_residual_{build.DTYPE_SUFFIX[x2.dtype]}", _OUT_ARGS,
                o.data_ptr(), wo.data_ptr(), x2.data_ptr(), out.data_ptr(), B, K, D,
                plan.width, plan.slice, plan.splits, build.stream(x2.device))

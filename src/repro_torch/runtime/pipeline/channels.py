@@ -1,12 +1,12 @@
 """Bounded FIFO channels: a host queue with backpressure.
 
-Copied from ``repro/runtime/pipeline/channels.py``: `Fifo` and
-`StreamChannel`, with the names and behaviour unchanged.  Real
-inter-stage buffers hold a couple of rate-blocks (double buffering: the
-consumer drains block ``i`` while the producer fills ``i+1``), and a full
-buffer *stalls the producer* (backpressure), so a plan whose stage rates
-are mismatched shows the stall where it would really happen instead of
-growing a queue without bound.
+Copied from ``repro/runtime/pipeline/channels.py``: `Fifo`,
+`StreamChannel` and `ChannelSet`, with the names and behaviour
+unchanged.  Real inter-stage buffers hold a couple of rate-blocks (double
+buffering: the consumer drains block ``i`` while the producer fills
+``i+1``), and a full buffer *stalls the producer* (backpressure), so a
+plan whose stage rates are mismatched shows the stall where it would
+really happen instead of growing a queue without bound.
 
 Under asynchronous dispatch a slot is occupied from the moment the
 producer's op is *dispatched* until the consumer's op that ate the token
@@ -30,7 +30,8 @@ counters feed the measurement layer.
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from math import gcd
 
 
 @dataclass
@@ -232,3 +233,36 @@ class StreamChannel(Fifo):
                 f"push of {len(tokens)} token(s) after close() — the "
                 f"producer declared end-of-stream")
         super()._append(tokens, ready_time)
+
+
+@dataclass
+class ChannelSet:
+    """All fifos of one materialised graph, keyed by Channel.key()."""
+    fifos: dict[tuple, Fifo] = field(default_factory=dict)
+
+    @classmethod
+    def for_graph(cls, stg, capacity_blocks: int = 2) -> "ChannelSet":
+        cs = cls()
+        for ch in stg.channels:
+            block = max(1, stg.nodes[ch.dst].in_rates[ch.dst_port])
+            out_rate = max(1, stg.nodes[ch.src].out_rates[ch.src_port])
+            # multirate floors: capacity_blocks bursts of the larger side,
+            # and never below the two-actor SDF liveness bound
+            # block + burst - gcd(block, burst) — below it a rate-changing
+            # edge wedges with the producer short of free slots and the
+            # consumer short of a full block (core.verify proves this
+            # statically; capacity_blocks=1 used to violate it)
+            floor = block + out_rate - gcd(block, out_rate)
+            cs.fifos[ch.key()] = Fifo(
+                block=block, capacity_blocks=capacity_blocks,
+                min_capacity=max(out_rate * capacity_blocks, floor))
+        return cs
+
+    def __getitem__(self, key: tuple) -> Fifo:
+        return self.fifos[key]
+
+    def total_stalls(self) -> int:
+        return sum(f.stats.producer_stalls for f in self.fifos.values())
+
+    def occupancy(self) -> dict[tuple, int]:
+        return {k: f.stats.high_water for k, f in self.fifos.items()}

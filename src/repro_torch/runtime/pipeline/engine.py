@@ -1,11 +1,10 @@
-"""The executor core: one Program protocol and its wall-clock driver.
+"""The executor core: one Program protocol and two clock drivers.
 
 Copied from ``repro/runtime/pipeline/engine.py``: `Program`, `Op`,
-`Driver`, `Engine`, `EngineResult`, the deadlock diagnostics and replica
-failover, with the names and behaviour unchanged.  The virtual-clock
-driver (``EventLoop``) is not copied: its users, the host interpreter
-and the schedules as data, are not ported.  What changes is how an op says its device work is done:
-a `DeviceWatch`, a CUDA event recorded on the stage's stream after the op
+`Driver`, `Engine`, `EngineResult`, the deadlock diagnostics, replica
+failover and the virtual-clock `EventLoop`, with the names and behaviour
+unchanged.  What changes is how an op says its device work is done: a
+`DeviceWatch`, a CUDA event recorded on the stage's stream after the op
 body, where the JAX package watches a `jax.Array`.
 
   * A `Program` is an op stream with ``ready``/``dispatch``/``retire``
@@ -26,8 +25,15 @@ body, where the JAX package watches a `jax.Array`.
     `AsyncResult` — "launched on the device, not complete": the worker
     returns immediately (no per-op host sync) and the engine retires the
     op when its watch set reports ready, so a worker launches the next op
-    while the previous one still runs.  Backend: `decode.DecodePipeline`
-    (prefill/decode serving).
+    while the previous one still runs.  Backends: `decode.DecodePipeline`
+    (prefill/decode serving) and `schedule.ScheduleProgram`.
+
+  * **`run_event_loop`** (virtual clock) — the discrete-event driver.
+    Owns the heap, candidate re-queueing, wake-set propagation, and the
+    firing/cycle caps; programs own rates, busy clocks, and token
+    semantics.  Backends: the host interpreter's per-node programs and
+    `schedule.ScheduleProgram` (schedules simulated as data).  A program
+    written once runs under either clock and emits the same events.
 
   * **Failover.**  A `failures.ReplicaFaultPlan` (``injector=``) is
     consulted before every dispatch: a firing ``crash`` kills the op's
@@ -54,13 +60,14 @@ may still be running there after its body returned: the program's
 (`decode.DecodePipeline`).  The lanes belong to the caller and outlive a
 `PipelineFailure`: the next run on them starts clean.
 
-The measurement surface is per-stage streams of completion times whose
-steady-state gap is the stage's measured inverse throughput
+The measurement surface is per-stage streams of completion (or firing)
+times whose steady-state gap is the stage's measured inverse throughput
 (`steady_inverse`); a replicated stage's streams merge, so the measured
-value reads ii/nr.
+value reads ii/nr in either clock domain.
 """
 from __future__ import annotations
 
+import heapq
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -790,3 +797,196 @@ class Engine(Driver):
                 lanes.close()
         self.result.wall_s = time.perf_counter() - self.t0
         return self.result
+
+
+# ===========================================================================
+# virtual-clock driver: discrete-event loop
+# ===========================================================================
+@dataclass
+class EventLoopStats:
+    fire_times: dict[str, list[float]] = field(default_factory=dict)
+    fired: dict[str, int] = field(default_factory=dict)
+    busy_cycles: dict[str, float] = field(default_factory=dict)
+    cycles: float = 0.0
+    total_fired: int = 0
+    hit_cycle_cap: bool = False
+    wait_cycles: dict[str, dict[str, float]] = field(default_factory=dict)
+    # stage -> {reason: cycles blocked} — the virtual-clock twin of
+    # `EngineResult.stage_wait_s`; populated only under a tracer
+    failovers: list = field(default_factory=list)
+    # survived replica faults, as in `EngineResult.failovers` (virtual
+    # clock: recovery is instantaneous and nothing is in flight, so the
+    # entries carry t_fault_cycles and replayed_ops only)
+    skipped_faults: list = field(default_factory=list)
+    # stall specs the virtual clock cannot honor (no host time to burn)
+
+
+class EventLoop(Driver):
+    """Virtual-clock driver of the same `Program` protocol.
+
+    Deterministic: among fireable programs the earliest (t, insertion
+    seq) fires.  A popped candidate is re-checked (it may have been
+    blocked by an earlier firing) and either fires, re-queues at its new
+    ready time, or is dropped — a wake from a later retirement re-queues
+    it.  Programs call ``driver.wake(names...)`` in ``retire`` to name
+    whose readiness may have changed, read ``driver.now`` for the firing
+    time, and report ``driver.note_busy`` cycles for the utilisation
+    stats."""
+
+    virtual = True
+
+    def __init__(self, programs: dict[str, Program], tracer=None,
+                 injector=None):
+        """``injector``: optional `failures.ReplicaFaultPlan` — same
+        dispatch-time consultation as the wall-clock engine, so a chaos
+        drill fires at the identical op coordinate on the simulator.
+        Crash faults fail over synchronously (the virtual clock has no
+        in-flight ops to drain); stall faults are recorded in
+        ``stats.skipped_faults`` — there is no host time to burn."""
+        super().__init__(tracer)
+        self.programs = dict(programs)
+        self.injector = injector
+        self.now = 0.0
+        self._wake: set[str] = set()
+
+    def wake(self, *names: str) -> None:
+        self._wake.update(names)
+
+    def note_busy(self, name: str, amount: float) -> None:
+        self.stats.busy_cycles[name] += amount
+
+    def _replica_fault(self, name: str, rep: int, kind: str) -> None:
+        """Virtual-clock failover: nothing is ever in flight (dispatch
+        and retire are one synchronous step), so a fault only remaps
+        routing — the about-to-fire op re-peeks onto a survivor."""
+        prog = self.programs[name]
+        fail = getattr(prog, "fail_replica", None)
+        try:
+            if fail is None:
+                raise PipelineFailure(
+                    f"stage {name}: replica r{rep} died ({kind}) and "
+                    f"the program has no failover hook",
+                    stage=name, replica=rep, reason=kind)
+            fail(rep, self, [])
+        except PipelineFailure as e:
+            e.reason = e.reason or kind
+            e.diagnostics.setdefault(
+                "schedule", [p.describe() for p in self.programs.values()])
+            e.diagnostics.setdefault("reorder_occupancy",
+                                     self.reorder_occupancy())
+            e.diagnostics.setdefault("failovers",
+                                     list(self.stats.failovers))
+            raise
+        self.stats.failovers.append({
+            "stage": name, "replica": rep, "kind": kind,
+            "t_fault_cycles": self.now, "replayed_ops": 0})
+        if self.tracer is not None:
+            self.tracer.failover(name, rep, kind, self.now, self.now, 0)
+
+    def run(self, *, max_firings: int = 1_000_000,
+            max_cycles: float = 1e12) -> EventLoopStats:
+        programs = self.programs
+        self.stats = stats = EventLoopStats()
+        tr = self.tracer
+        if tr is not None:
+            tr.bind_virtual(self)
+        # open blocked spans, as in the wall-clock engine: set on the
+        # heap-pop re-check (a *real* deferral, same count_stall
+        # semantics as FifoStats), closed at the next fire
+        wait_since: dict[str, tuple] = {}
+        for n in programs:
+            stats.fire_times[n] = []
+            stats.fired[n] = 0
+            stats.busy_cycles[n] = 0.0
+
+        seq = 0
+        heap: list[tuple[float, int, str]] = []
+
+        def push_candidate(name: str) -> None:
+            nonlocal seq
+            prog = programs[name]
+            op = prog.peek()
+            if op is None:
+                if tr is not None and name not in wait_since:
+                    r = self.idle_reason_of(prog)
+                    if r is not None:
+                        wait_since[name] = (self.now, r)
+                return
+            t = prog.ready(op)
+            if t is not None:
+                heapq.heappush(heap, (t, seq, name))
+                seq += 1
+            elif tr is not None and name not in wait_since:
+                # blocked at wake time: open its wait span now — a later
+                # wake (or pop re-check) requeues it and the span closes
+                # at its next fire
+                wait_since[name] = (self.now, self.wait_reason_of(prog))
+
+        for n in programs:
+            push_candidate(n)
+
+        while heap and stats.total_fired < max_firings:
+            now, _, name = heapq.heappop(heap)
+            if now > max_cycles:
+                stats.hit_cycle_cap = True
+                break
+            prog = programs[name]
+            op = prog.peek()
+            if op is None:
+                continue        # completed since queueing
+            t = prog.ready(op, count_stall=True)
+            if t is None:
+                if tr is not None and name not in wait_since:
+                    wait_since[name] = (now, self.wait_reason_of(prog))
+                continue        # became blocked; a wake requeues it
+            if t > now:
+                heapq.heappush(heap, (t, seq, name))
+                seq += 1
+                continue
+            self.now = now
+            self._wake = set()
+            if self.injector is not None:
+                spec = self.injector.check(name, op.rep, op.seq)
+                if spec is not None and spec.kind == "crash":
+                    self._replica_fault(name, op.rep, spec.kind)
+                    for c in self._wake | {name}:
+                        if c in programs:
+                            push_candidate(c)
+                    continue
+                elif spec is not None:
+                    stats.skipped_faults.append((name, op.rep, spec.kind))
+            fn, args = prog.dispatch(op, self)
+            op.t_dispatch = now
+            if tr is not None:
+                ws = wait_since.pop(name, None)
+                if ws is not None:
+                    t_w, (reason, edge) = ws
+                    tr.wait(name, reason, edge, t_w, now)
+                    d = stats.wait_cycles.setdefault(name, {})
+                    d[reason] = d.get(reason, 0.0) + (now - t_w)
+                tr.op_dispatch(name, op.rep, op.kind, op.seq, op.chunk, now)
+            result = fn(*args)
+            done = prog.retire(op, result, self)
+            if tr is not None:
+                tr.op_retire(name, op.rep, op.kind, op.seq, op.chunk,
+                             now, done)
+            for fifo, n_rel in op.releases:
+                fifo.release(n_rel)
+            stats.fired[name] += 1
+            stats.fire_times[name].append(now)
+            stats.total_fired += 1
+            stats.cycles = max(stats.cycles, done)
+            for c in self._wake | {name}:
+                if c in programs:
+                    push_candidate(c)
+        return stats
+
+
+def run_event_loop(programs: dict[str, Program], *,
+                   max_firings: int = 1_000_000,
+                   max_cycles: float = 1e12,
+                   tracer=None, injector=None) -> EventLoopStats:
+    """Drive `Program`s to quiescence under a virtual clock (the
+    functional entry point over `EventLoop`)."""
+    return EventLoop(programs, tracer, injector).run(max_firings=max_firings,
+                                                     max_cycles=max_cycles)

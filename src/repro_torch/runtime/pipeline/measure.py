@@ -1,23 +1,27 @@
 """Measurement layer: measured vs analytic throughput, and replan feedback.
 
-Ported from the wall-clock half of ``repro/runtime/pipeline/measure.py``.
-It closes the paper's loop: the solver promises an application inverse
-throughput (Eq. 1/5/6 via `core/throughput.analyze`); a pipelined serve
-measures what the pipeline actually sustains — per-stage streams of
-completion times whose steady-state gap is the stage's effective inverse
-throughput (ii/nr for replicated stages).  `_build_report` lines the
-measured values up against the analytic model and `compare_lm` adapts a
-`decode.ServeRunResult` to it.
+Ported from ``repro/runtime/pipeline/measure.py``.  It closes the paper's
+loop: the solver promises an application inverse throughput (Eq. 1/5/6
+via `core/throughput.analyze`); the executors measure what the pipeline
+actually sustains — per-stage streams of completion or firing times whose
+steady-state gap is the stage's effective inverse throughput (ii/nr for
+replicated stages).  `_build_report` lines the measured values up against
+the analytic model; ``compare()`` adapts a virtual-clock interpreter run
+(`interpreter.PipelineRun`) to it and ``compare_lm()`` a pipelined serve
+(`decode.ServeRunResult`).
 
 ``calibrate()`` scales each node's implementation library by its
-measured/analytic ratio, and ``measured_replan()`` re-runs the solver
-once on the calibrated graph.  Not ported (``ROADMAP.md``): ``compare``
-over the host interpreter's virtual-clock runs and the iterated
-``replan_to_fixed_point``, which need ``interpreter.py``.
+measured/analytic ratio; ``measured_replan()`` re-runs the solver once on
+the calibrated graph; and ``replan_to_fixed_point()`` iterates the whole
+loop — plan -> run -> measure -> replan — to a fixed point with geometric
+damping and an oscillation guard (a measured-slow stage gains replicas,
+which changes what is measured, which changes the plan ...; undamped, the
+solver can flip between two selections forever).
 """
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -25,6 +29,7 @@ from ...core import heuristic, ilp
 from ...core.fork_join import LITERAL, ForkJoinModel
 from ...core.stg import SINK, SOURCE, STG, Node, Selection, scale_impls
 from ...core.throughput import analyze
+from .interpreter import PipelineRun
 
 
 @dataclass
@@ -182,6 +187,52 @@ def _build_report(stg: STG, sel: Selection, *,
     return rep
 
 
+def compare(stg: STG, sel: Selection, run: PipelineRun,
+            warmup_frac: float = 0.25) -> PipelineReport:
+    """Per-stage measured-vs-analytic report for one interpreter run.
+
+    ``stg``/``sel`` are the *logical* graph and selection the plan was made
+    for; ``run`` is the executor's result on the materialised graph.
+    """
+    def measured_of(name: str) -> float | None:
+        try:
+            return run.stage_inverse_throughput(name, warmup_frac)
+        except (ValueError, KeyError):
+            return None
+
+    def firings_of(name: str) -> int:
+        workers = run.replica_map.get(name, [name])
+        return sum(len(run.fire_times.get(w, ())) for w in workers)
+
+    def util_of(name: str) -> float:
+        workers = run.replica_map.get(name, [name])
+        return (sum(run.utilization(w) for w in workers) / len(workers)
+                if workers else 0.0)
+
+    def hint(firings: dict) -> str:
+        shortfall = max(4 - c for c in firings.values()) if firings else 4
+        return (f" — stream at least {shortfall} more iteration(s) of "
+                f"tokens before measuring")
+
+    def wait_of(name: str, reasons: tuple) -> float | None:
+        # traced runs only: sum the stage's replicas' blocked cycles
+        if not run.wait_cycles:
+            return None
+        workers = run.replica_map.get(name, [name])
+        return sum(run.wait_cycles.get(w, {}).get(r, 0.0)
+                   for w in workers for r in reasons)
+
+    return _build_report(
+        stg, sel, measured_of=measured_of, firings_of=firings_of,
+        util_of=util_of,
+        stall_of=lambda n: wait_of(n, ("credit",)),
+        starve_of=lambda n: wait_of(n, ("starve", "reorder")),
+        fifo_stalls=run.channels.total_stalls() if run.channels else 0,
+        oversubscription=(run.placement.oversubscription
+                          if run.placement else 1.0),
+        err_noun="firings", err_hint=hint)
+
+
 def compare_lm(stg: STG, sel: Selection, res,
                stage_map: dict[str, str] | None = None) -> PipelineReport:
     """Per-stage measured-vs-analytic report for one pipelined serve.
@@ -253,12 +304,20 @@ def measured_bubble(run) -> float:
 
         1 - sum(per-stage busy) / (n_stages * makespan)
 
-    over an `engine.EngineResult` (or a `ServeRunResult`): busy =
-    ``stage_seconds``, makespan = ``wall_s``.  Wall-clock values on an
-    oversubscribed pool (every slice on one card) mix bubble with
-    time-sharing."""
-    busy, span, n = (sum(run.stage_seconds.values()), run.wall_s,
-                     len(run.stage_seconds))
+    Works on either clock domain's result — an `engine.EngineResult` (or
+    a backend result aliasing its fields: busy = ``stage_seconds``,
+    makespan = ``wall_s``) or an `engine.EventLoopStats` (busy =
+    ``busy_cycles``, makespan = ``cycles``) — and lines up against the
+    analytic `schedule.fill_drain_bubble` / `schedule.interleaved_bubble`
+    ceilings.  Wall-clock values on oversubscribed pools mix bubble with
+    time-sharing; the virtual-clock domain (`schedule.simulate_schedule`)
+    measures the schedule's own dynamics cleanly."""
+    if hasattr(run, "busy_cycles"):               # EventLoopStats
+        busy, span, n = (sum(run.busy_cycles.values()), run.cycles,
+                         len(run.busy_cycles))
+    else:                                         # EngineResult-shaped
+        busy, span, n = (sum(run.stage_seconds.values()), run.wall_s,
+                         len(run.stage_seconds))
     if span <= 0 or n == 0:
         return float("nan")
     return 1.0 - busy / (n * span)
@@ -301,3 +360,120 @@ def measured_replan(stg: STG, report: PipelineReport, *,
     if v_tgt is not None:
         return eng.min_area(g, v_tgt, fj)
     return eng.max_throughput(g, area_budget, fj)
+
+
+# ===========================================================================
+# measured-replan convergence loop
+# ===========================================================================
+@dataclass
+class FixedPointStep:
+    iteration: int
+    selection: dict                 # node -> (impl, nr) at this step
+    scale: dict[str, float]         # cumulative calibration applied
+    measured: dict[str, float]      # ratios the run reported (vs original)
+    residual: float                 # max |log(measured / scale)| this step
+    total_area: float
+    v_app: float
+
+
+@dataclass
+class FixedPointResult:
+    result: object                  # the final engine TradeoffResult
+    iterations: int
+    converged: bool
+    oscillated: bool                # a selection cycle was detected
+    scale: dict[str, float]         # final per-node calibration
+    history: list[FixedPointStep] = field(default_factory=list)
+
+    @property
+    def selection(self) -> Selection:
+        return self.result.selection
+
+
+def replan_to_fixed_point(stg: STG, run_fn, *,
+                          v_tgt: float | None = None,
+                          area_budget: float | None = None,
+                          fj: ForkJoinModel = LITERAL,
+                          engine: str = "heuristic",
+                          max_iters: int = 10, damping: float = 0.5,
+                          damping_floor: float = 0.1) -> FixedPointResult:
+    """Iterate plan -> run -> measure -> replan to a fixed point.
+
+    ``measured_replan`` is one feedback step; this is the loop.  Each
+    iteration solves the trade-off on the ``scale``-calibrated graph,
+    executes the chosen selection via ``run_fn(selection) ->
+    dict[node, measured/analytic ratio]`` (or a `PipelineReport`, whose
+    ``ratios()`` is used; ratios are vs the ORIGINAL graph's analytic
+    model), and folds the measurement into the calibration with
+    *geometric damping*:
+
+        scale <- scale^(1-a) * measured^a        (a = ``damping``)
+
+    ``damping=1`` is the undamped jump straight to the measured ratio —
+    which oscillates whenever the measured ratio is itself a function of
+    the selection (a stage measured slow at nr=1 gains a replica, then
+    measures fast, loses it again, forever); damping keeps the memory of
+    earlier measurements, so the calibration settles inside the band
+    where the solver's choice is stable.  The **oscillation guard**
+    detects a repeated non-consecutive selection, halves the damping, and
+    continues; if the cycle persists at ``damping_floor`` the loop stops
+    and returns the best (lowest measured bottleneck-v) selection seen,
+    flagged ``oscillated=True`` — never an infinite loop.
+
+    Converged when the solver returns the same selection twice in a row —
+    the fixed point of the plan -> run -> replan map is a *plan* the
+    re-solve reproduces (per-node log-residuals are recorded in
+    ``history`` for anyone polishing the calibration further).
+    """
+    if (v_tgt is None) == (area_budget is None):
+        raise ValueError("pass exactly one of v_tgt= / area_budget=")
+    eng = {"ilp": ilp, "heuristic": heuristic}[engine]
+
+    def solve(g):
+        return (eng.min_area(g, v_tgt, fj) if v_tgt is not None
+                else eng.max_throughput(g, area_budget, fj))
+
+    scale = {n: 1.0 for n in stg.nodes}
+    alpha = min(1.0, max(damping, 0.0))
+    history: list[FixedPointStep] = []
+    seen: dict[tuple, int] = {}            # selection key -> iteration
+    prev_key = None
+    best = None                            # (v_app, result, scale snapshot)
+    res = None
+    converged = oscillated = False
+
+    for it in range(max_iters):
+        res = solve(calibrate(stg, scale))
+        key = tuple(sorted(res.selection.choices.items()))
+        measured = run_fn(res.selection)
+        if hasattr(measured, "ratios"):
+            measured = measured.ratios()
+        measured = {n: r for n, r in measured.items()
+                    if stg.nodes[n].kind not in (SOURCE, SINK)}
+        residual = max((abs(math.log(max(r, 1e-9) / scale[n]))
+                        for n, r in measured.items()), default=0.0)
+        history.append(FixedPointStep(
+            iteration=it, selection=dict(res.selection.choices),
+            scale=dict(scale), measured=dict(measured), residual=residual,
+            total_area=res.total_area, v_app=res.v_app))
+        if best is None or res.v_app < best[0]:
+            best = (res.v_app, res, dict(scale))
+        if key == prev_key:
+            converged = True
+            break
+        if key in seen:
+            # revisited an earlier selection (an adjacent repeat already
+            # returned converged above): we are cycling.  Damp harder;
+            # below the floor, stop with the best seen.
+            oscillated = True
+            alpha = alpha / 2
+            if alpha < damping_floor:
+                _, res, scale = best
+                break
+        seen[key] = it
+        prev_key = key
+        for n, r in measured.items():
+            scale[n] = scale[n] ** (1 - alpha) * max(r, 1e-9) ** alpha
+    return FixedPointResult(result=res, iterations=len(history),
+                            converged=converged, oscillated=oscillated,
+                            scale=scale, history=history)

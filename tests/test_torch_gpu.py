@@ -382,6 +382,51 @@ def test_out_residual_kernel_matches_plain(cuda, shape, dtype):
     _close(got, x.float() + o.float() @ wo.float(), dtype)
 
 
+# nemotron-4-15b's and deepseek-coder-33b's serving shapes: the chain's two
+# GEMVs at widths 6144 and 7168 (64 and 72 qkv tiles, 48 and 56 out tiles)
+# at B 8 and B 16 (two batch groups, where deepseek-coder-33b's qkv_rope
+# takes two splits so that its block fits shared memory), decode attention
+# and flash prefill at H48/KV8 and H56/KV8, hd 128
+LARGE = {"nemotron-4-15b": (6144, 48, 8, 128), "deepseek-coder-33b": (7168, 56, 8, 128)}
+
+
+@pytest.mark.parametrize("name", list(LARGE))
+@pytest.mark.parametrize("batch", [8, 16])
+def test_chain_gemvs_at_the_large_dense_shapes(cuda, name, batch):
+    D, H, KV, hd = LARGE[name]
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(D + batch)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 48, False, dtype, cuda, B=batch)
+    pos = torch.tensor(47, dtype=torch.int32, device=cuda)
+    kw = {n: w[n] for n in ("norm", "wq", "wk", "wv", "bq", "bk", "bv")}
+    before = (qkv_rope.launches, out_residual.launches)
+    q, clen = qkv_rope(x[:, 0], k, v, pos, **kw, n_heads=H, eps=1e-5, theta=1e4)
+    o = _rand(rng, (batch, H * hd), dtype, cuda)
+    got = out_residual(o, w["wo"], x[:, 0])
+    torch.cuda.synchronize()
+    assert (qkv_rope.launches, out_residual.launches) == (before[0] + 1, before[1] + 1)
+    assert int(clen) == 48
+    wq, wk, wv = qkv_plain(x[:, 0], pos, **kw, n_heads=H, head_dim=hd, eps=1e-5, theta=1e4)
+    _close(q, wq, dtype)
+    _close(k[:, 47], wk, dtype)
+    _close(v[:, 47], wv, dtype)
+    _close(got, out_residual_plain(o, w["wo"], x[:, 0]), dtype)
+
+
+@pytest.mark.parametrize("name", list(LARGE))
+def test_attention_kernels_at_the_large_dense_heads(cuda, name):
+    _, H, KV, hd = LARGE[name]
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(H)
+    q, k, v = (_rand(rng, (2, 300, n, hd), dtype, cuda) for n in (H, KV, KV))
+    _close(flash_attention(q, k, v), flash_attention_plain(q, k, v), dtype)
+    q = _rand(rng, (8, H, hd), dtype, cuda)
+    kc, vc = (_rand(rng, (8, 544, KV, hd), dtype, cuda) for _ in range(2))
+    for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+        clen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _close(decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen), dtype)
+
+
 SSD_SHAPES = [
     # (B, L, H, P, N)
     (2, 16, 3, 8, 16),        # reduced(): P8 N16
