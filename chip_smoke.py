@@ -147,8 +147,7 @@ script exits non-zero without its result line.  The phases:
     traffic at ``max_batch`` 8 for both and 16 requests at ``max_batch``
     16 for deepseek-coder-33b, every kernel of the path launched in each
     counted round and the decode step always through the fused chain;
-    the A/B of phase 5 (on fewer layers where the full stack spreads
-    more, beside the full-depth spread); tok/s, decode step p50 / p90,
+    the A/B of phase 5 at full depth; tok/s, decode step p50 / p90,
     resident weights and peak memory over them, a profiled decode step's
     idle share;
 13. the ``kernels`` record, the card's name and power limit, and last the
@@ -174,9 +173,8 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 SPIN_HZ = 2e9                   # clocks a second of `torch.cuda._sleep`: at least the H100's 1.98 GHz
-# (d_model, heads, KV heads, head dim) of the two large dense decoders that
-# phase 12 serves
-LARGE_SHAPES = {"nemotron-4-15b": (6144, 48, 8, 128), "deepseek-coder-33b": (7168, 56, 8, 128)}
+# the two large dense decoders that phase 12 serves
+LARGE = ("nemotron-4-15b", "deepseek-coder-33b")
 
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
@@ -227,6 +225,14 @@ VANISHING_GRAD = 1e-5
 # chunk halved: what a change of summation order alone gives (its 2 layers
 # moved a leaf's norm by 1.4e-3 so in bf16 on the card)
 TRAIN_AB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def large_shapes() -> dict:
+    """(d_model, heads, KV heads, head dim) of each of LARGE, from its config."""
+    from repro_torch.configs import get_config
+
+    return {name: (cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim)
+            for name, cfg in ((n, get_config(n)) for n in LARGE)}
 
 
 def emit(phase: str, **record) -> None:
@@ -1176,7 +1182,7 @@ def stg_phase() -> None:
          verify_s=verify_s)
 
 
-def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True):
+def large_serving(ab, profile_decode, kernels, smi):
     """Phase 12: nemotron-4-15b and then deepseek-coder-33b served at full
     width and depth on random bf16 weights from a seed, each built only
     once nothing else is resident (the memory allocated is printed first,
@@ -1190,16 +1196,11 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
     the launch counts are set to 0 just before and read just after: flash,
     rmsnorm, decode attention, ``qkv_rope`` and ``out_residual`` must all
     launch, and ``_composed_step`` never run.  Each model's A/B (phase 5's,
-    two requests, both routes in lockstep) is held to eight bf16 steps at
-    the logits' magnitude; where the full stack spreads more than that, it
-    is printed and the A/B runs again at full width on half as many layers
-    until it holds.  Prints tok/s, the decode step's p50 / p90, the weights
-    resident and the peak over them, and one profiled decode step's idle
-    share, each with the card's name and power limit.  ``full`` False:
-    the ``reduced()`` forms, for a rehearsal on the CPU.  Returns the
-    launches of each counted round, by round."""
-    import types
-
+    two requests, both routes in lockstep) runs at full depth, held to
+    eight bf16 steps at the logits' magnitude.  Prints tok/s, the decode
+    step's p50 / p90, the weights resident and the peak over them, and one
+    profiled decode step's idle share, each with the card's name and power
+    limit.  Returns the launches of each counted round, by round."""
     import numpy as np
     import torch
 
@@ -1226,9 +1227,6 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
             raise AssertionError(f"{what}: launches {launches}, _composed_step called "
                                  f"{fd._composed_step.calls} times: the path left its kernels")
         return launches
-
-    def sms():
-        return torch.cuda.get_device_properties(0).multi_processor_count if full else 132
 
     def counted(server, prompts, resident):
         reqs = [Request(uid=i, prompt=p_, max_new=32) for i, p_ in enumerate(prompts)]
@@ -1264,11 +1262,13 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / gb,
              launches=launches, composed_step_calls=fd._composed_step.calls,
              qkv_rope_plan=fd.gemv_plan(a.n_heads + 2 * a.n_kv_heads, fd.tile_width(a.head_dim),
-                                        cfg.d_model, groups, sms(), norm=True)._asdict(),
+                                        cfg.d_model, groups, sms, dtype=torch.bfloat16,
+                                        norm=True)._asdict(),
              card=smi)
         return launches
 
-    for name in LARGE_SHAPES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in LARGE:
         gc.collect()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
@@ -1276,9 +1276,8 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
         if before > 2 * gb:
             raise AssertionError(f"{name}: {before / gb:.2f} GB already allocated; the model "
                                  f"does not fit beside it")
-        cfg = get_config(name) if full else get_config(name).reduced()
-        argv = ["--arch", name, "--max-new", "32", "--prompt-len", "400", "--seed", "0",
-                "--device", device] + ([] if full else ["--reduced"])
+        cfg = get_config(name)
+        argv = ["--arch", name, "--max-new", "32", "--prompt-len", "400", "--seed", "0"]
         t0 = time.perf_counter()
         if name == "nemotron-4-15b":
             reset()
@@ -1289,7 +1288,7 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
                  seconds=time.perf_counter() - t0, completion_lens=[len(o.tokens) for o in outs],
                  stats=server.stats.summary(), launches=rounds[f"{name} serve.main"], card=smi)
         else:
-            server = LMServer(cfg, max_batch=8, seed=0, device=device)
+            server = LMServer(cfg, max_batch=8, seed=0)
             torch.cuda.synchronize()
             emit("large_serve_init", config=cfg.name, seconds=time.perf_counter() - t0)
         params = server.params
@@ -1300,30 +1299,15 @@ def large_serving(ab, profile_decode, kernels, smi, *, device="cuda", full=True)
         if name == "deepseek-coder-33b":
             more = [np.random.default_rng(1000 + n).integers(2, cfg.vocab, n).tolist()
                     for n in more_lens]
-            wide = LMServer(cfg, max_batch=16, params=params, device=device)
+            wide = LMServer(cfg, max_batch=16, params=params)
             rounds[f"{name} B16"] = counted(wide, prompts + more, resident)
             del wide
         del server
 
-        # the A/B: eight bf16 steps at the logits' magnitude (phase 5's rule:
-        # LOGIT_TOL is that at ~4); on fewer layers where the full stack
-        # spreads more
-        def tol_of(ref_logits):
-            return max(LOGIT_TOL, float(ref_logits.abs().max()) / 16)
-
-        layers = cfg.n_layers
-        full_ok = ab(cfg, params, prompts, tol_of, strict=False)
-        ok = full_ok
-        while not ok and layers > 1:
-            layers //= 2
-            cut = types.SimpleNamespace(embed=params.embed, final_norm=params.final_norm,
-                                        head=params.head, layers=params.layers[:layers])
-            ok = ab(dataclasses.replace(cfg, n_layers=layers), cut, prompts, tol_of,
-                    strict=False)
-        emit("large_ab", config=cfg.name, full_depth_ok=full_ok, layers_held=layers if ok
-             else None, full_layers=cfg.n_layers)
-        if not ok:
-            raise AssertionError(f"A/B {cfg.name}: not even one layer holds")
+        # the A/B at full depth: eight bf16 steps at the logits' magnitude
+        # (phase 5's rule: LOGIT_TOL is that at ~4)
+        ab(cfg, params, prompts, lambda ref_logits: max(LOGIT_TOL,
+                                                        float(ref_logits.abs().max()) / 16))
         profile_decode(cfg, params, prompts)
         del params
     gc.collect()
@@ -1549,7 +1533,7 @@ def main() -> int:
     # two batch groups, where deepseek-coder-33b's block needs two splits to
     # fit shared memory), flash prefill and decode attention at H48/KV8 and
     # H56/KV8, hd 128
-    for label, (d, h, kv, hd) in LARGE_SHAPES.items():
+    for label, (d, h, kv, hd) in large_shapes().items():
         for b_ in (8, 16):
             x, kc, vc, kw = sublayer(b_, d, h, kv, hd, 544, False)
             p = torch.tensor(543, dtype=torch.int32, device=dev)
@@ -1660,19 +1644,16 @@ def main() -> int:
         "mamba2-370m", {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated, "ssd_scan": ssd_scan})
 
     # -- 5. A/B: oracle route vs kernel route, lockstep --------------------
-    def ab(cfg, params, prompts, tol_of, strict=True):
+    def ab(cfg, params, prompts, tol_of):
         """Prefill and 8 decode steps of two requests through both routes,
         each fed the oracle's tokens; ``tol_of(ref_logits)`` is the bound on
-        the logits' difference at a step, twice it the near-tie margin.
-        ``strict`` False: a step out of those bounds is recorded, not
-        raised.  Returns whether every step held."""
+        the logits' difference at a step, twice it the near-tie margin."""
         ab = prompts[:2]
         bucket = _bucket(max(map(len, ab)))
         toks = np.zeros((2, bucket), np.int64)
         for i, p in enumerate(ab):
             toks[i, bucket - len(p):] = p
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
-        failure = None
         with torch.no_grad():
             runs = {impl: lm.prefill(cfg, params, batch, capacity=bucket + 8, impl=impl)
                     for impl in (None, "ref")}
@@ -1692,23 +1673,19 @@ def main() -> int:
                         agree[i] += 1
                     elif margin[i] < 2 * tols[-1]:
                         parted[i] = True
-                    elif failure is None:
-                        failure = (f"A/B {cfg.name}: row {i} step {step}: tokens {tk[i]} vs "
-                                   f"{tr[i]} at top-2 margin {margin[i]}")
-                if diffs[-1] > tols[-1] and failure is None:
-                    failure = (f"A/B {cfg.name}: step {step}: logits differ by {diffs[-1]} > "
-                               f"{tols[-1]}")
-                if failure is not None and strict:
-                    raise AssertionError(failure)
+                    else:
+                        raise AssertionError(f"A/B {cfg.name}: row {i} step {step}: tokens "
+                                             f"{tk[i]} vs {tr[i]} at top-2 margin {margin[i]}")
+                if diffs[-1] > tols[-1]:
+                    raise AssertionError(f"A/B {cfg.name}: step {step}: logits differ by "
+                                         f"{diffs[-1]} > {tols[-1]}")
                 feed = torch.tensor(tr, device=dev)[:, None]  # both routes get the oracle's
                 runs = {impl: lm.decode_step(cfg, params, runs[impl][1], feed, impl=impl)
                         for impl in runs}
         emit("ab", config=cfg.name, layers=cfg.n_layers, requests=2, steps=8,
              max_abs_logit_diff=diffs, logit_tol=tols, min_top2_margin=margins,
              tie_margin=[2 * t for t in tols], tokens_agreeing=agree,
-             parted_at_near_tie=parted, logits_abs_max=float(lr.abs().max()),
-             ok=failure is None, failure=failure)
-        return failure is None
+             parted_at_near_tie=parted, logits_abs_max=float(lr.abs().max()))
 
     ab(cfg, params, prompts, lambda ref_logits: LOGIT_TOL)
 
@@ -2047,7 +2024,7 @@ def main() -> int:
     # 12): flash over the prefill bucket (B8 S512), decode attention at the
     # round's last step (C544) and the chain's GEMVs at B 8, each beside its
     # bound, its plain version and the library call; bounds as above
-    for label, (d_, h_, kv_, hd_) in LARGE_SHAPES.items():
+    for label, (d_, h_, kv_, hd_) in large_shapes().items():
         b_, s_, c_ = 8, 512, 544
         nb = 2 * (2 * b_ * s_ * h_ * hd_ + 2 * b_ * s_ * kv_ * hd_)
         sets = copies(lambda: (randn(b_, s_, h_, hd_), randn(b_, s_, kv_, hd_),
@@ -2084,13 +2061,15 @@ def main() -> int:
                 yardstick_ms=timed(lambda x2, nw, w: F.rms_norm(x2, (d_,), nw, 1e-6) @ w, q_cat),
                 yardstick="F.rms_norm + torch.mm over wq|wk|wv (no rope, no slot write)",
                 bound_ms=qb_ms, bound_by=qb_by, bytes=q_bytes, plan=fd.gemv_plan(
-                    h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms, norm=True)._asdict()),
+                    h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms, dtype=torch.bfloat16,
+                    norm=True)._asdict()),
             "fused_out_residual": dict(
                 ms=timed(out_residual, o_sets), plain_ms=timed(fd.out_residual_plain, o_sets),
                 library_ms=timed(lambda o, wo, x2: torch.addmm(x2, o, wo), o_sets),
                 library="torch.addmm(x, o, wo)", bound_ms=ob_ms, bound_by=ob_by,
                 bytes=o_bytes, plan=fd.gemv_plan(-(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_,
-                                                 1, sms, norm=False)._asdict())}
+                                                 1, sms, dtype=torch.bfloat16,
+                                                 norm=False)._asdict())}
         del sets, q_sets, o_sets, q_cat
     emit("times_large", card=smi, **{k: times[k]["large_shapes"] for k in (
         "flash_attention", "decode_attention", "fused_decode")})
@@ -2108,9 +2087,11 @@ def main() -> int:
             gemv_ms[f"qkv_rope {key}"] = timed(run_qkv, q_sets)
             gemv_ms[f"out_residual {key}"] = timed(out_residual, o_sets)
             gemv_plans[f"qkv_rope {key}"] = dict(fd.gemv_plan(
-                h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms)._asdict(), tiles=h_ + 2 * kv_)
+                h_ + 2 * kv_, fd.tile_width(hd_), d_, 1, sms, dtype=torch.bfloat16,
+                norm=True)._asdict(), tiles=h_ + 2 * kv_)
             gemv_plans[f"out_residual {key}"] = dict(fd.gemv_plan(
-                -(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_, 1, sms)._asdict(),
+                -(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_, 1, sms, dtype=torch.bfloat16,
+                norm=False)._asdict(),
                 tiles=-(-d_ // fd.OUT_WIDTH))
             del q_sets, o_sets
     def timed_with_splits(splits, fn, arg_sets):
@@ -2149,7 +2130,7 @@ def main() -> int:
     # plan's 2: at one block an SM (over 116 KB of shared memory a block up
     # to 4 splits), 72 tiles x 2 splits is 144 blocks, 12 past one wave of
     # 132, where nemotron-4-15b's 64 x 2 fit one
-    for label, (d_, h_, kv_, hd_) in LARGE_SHAPES.items():
+    for label, (d_, h_, kv_, hd_) in large_shapes().items():
         q_sets, _, _, _ = gemv_sets(8, d_, h_, kv_, hd_, bias=False)
         for splits_ in (2, 3, 4, 8):
             gemv_ms[f"qkv_rope {label} B8 D{d_} splits {splits_}"] = timed_with_splits(

@@ -82,7 +82,7 @@ def tile_width(columns: int) -> int:
 
 
 def gemv_plan(tiles: int, width: int, rows: int, groups: int, sm_count: int, *,
-              dtype: torch.dtype = torch.bfloat16, norm: bool = True) -> GemvPlan:
+              dtype: torch.dtype, norm: bool) -> GemvPlan:
     """The fewest splits of the ``rows`` weight rows, a power of two up to
     MAX_SPLITS (a portable cluster), that give 7/8 of the SMs a block
     (tiles x splits x batch groups), none shorter than K_STEP rows.  On the

@@ -114,7 +114,7 @@ def main() -> int:
                  torch.empty(B, D, device=dev, dtype=bf)) for _ in range(copies)]
         width = min(fd.OUT_WIDTH, fd.tile_width(D))
         tiles = -(-D // width)
-        plan = fd.gemv_plan(tiles, width, K, 1, sms)
+        plan = fd.gemv_plan(tiles, width, K, 1, sms, dtype=bf, norm=False)
         if splits is not None:
             plan = fd.GemvPlan(width, K if splits == 1 else -(-(-(-K // splits)) // 16) * 16,
                                splits)
@@ -139,7 +139,7 @@ def main() -> int:
                         clen=torch.empty((), dtype=torch.int32, device=dev))
         sets = [(one(),) for _ in range(copies)]
         tiles = H + 2 * KV
-        plan = fd.gemv_plan(tiles, fd.tile_width(hd), D, 1, sms)
+        plan = fd.gemv_plan(tiles, fd.tile_width(hd), D, 1, sms, dtype=bf, norm=True)
         names = ("x", "norm", "wq", "wk", "wv", "bq", "bk", "bv", "pos", "q", "kc", "vc", "clen")
 
         def launch(t):

@@ -179,7 +179,8 @@ def test_gemv_plan_keeps_its_split_where_it_fits_and_doubles_where_not():
     assert fd.shared_bytes(fd.GemvPlan(128, 7168, 1), torch.bfloat16, True) == 238_880
     assert _chain_plans(nem, 16)[0] == (fd.GemvPlan(128, 6144, 1), 218_400)
     assert _chain_plans(nem, 8)[0] == (fd.GemvPlan(128, 3072, 2), 156_960)
-    assert fd.gemv_plan(20, 128, 2048, 1, 132) == fd.GemvPlan(128, 256, 8)
+    assert fd.gemv_plan(20, 128, 2048, 1, 132, dtype=torch.bfloat16,
+                        norm=True) == fd.GemvPlan(128, 256, 8)
 
 
 def test_gemv_plan_raises_where_no_split_fits():

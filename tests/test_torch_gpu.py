@@ -387,13 +387,19 @@ def test_out_residual_kernel_matches_plain(cuda, shape, dtype):
 # at B 8 and B 16 (two batch groups, where deepseek-coder-33b's qkv_rope
 # takes two splits so that its block fits shared memory), decode attention
 # and flash prefill at H48/KV8 and H56/KV8, hd 128
-LARGE = {"nemotron-4-15b": (6144, 48, 8, 128), "deepseek-coder-33b": (7168, 56, 8, 128)}
+LARGE = ("nemotron-4-15b", "deepseek-coder-33b")
 
 
-@pytest.mark.parametrize("name", list(LARGE))
+def _large_shape(name):
+    """(d_model, heads, KV heads, head dim) of a registered config."""
+    cfg = get_config(name)
+    return cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
+
+
+@pytest.mark.parametrize("name", LARGE)
 @pytest.mark.parametrize("batch", [8, 16])
 def test_chain_gemvs_at_the_large_dense_shapes(cuda, name, batch):
-    D, H, KV, hd = LARGE[name]
+    D, H, KV, hd = _large_shape(name)
     dtype = torch.bfloat16
     rng = np.random.default_rng(D + batch)
     x, k, v, w = _sublayer(rng, D, H, KV, hd, 48, False, dtype, cuda, B=batch)
@@ -413,9 +419,9 @@ def test_chain_gemvs_at_the_large_dense_shapes(cuda, name, batch):
     _close(got, out_residual_plain(o, w["wo"], x[:, 0]), dtype)
 
 
-@pytest.mark.parametrize("name", list(LARGE))
+@pytest.mark.parametrize("name", LARGE)
 def test_attention_kernels_at_the_large_dense_heads(cuda, name):
-    _, H, KV, hd = LARGE[name]
+    _, H, KV, hd = _large_shape(name)
     dtype = torch.bfloat16
     rng = np.random.default_rng(H)
     q, k, v = (_rand(rng, (2, 300, n, hd), dtype, cuda) for n in (H, KV, KV))

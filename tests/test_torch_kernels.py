@@ -619,25 +619,26 @@ GEMV_SHAPES = {"tiny qkv": (16, 32, 256), "tiny out": (2, 128, 256),
 def test_gemv_plan_covers_every_row_once(shape, batch, sms):
     tiles, width, rows = GEMV_SHAPES[shape]
     groups = -(-batch // 8)
-    plan = gemv_plan(tiles, width, rows, groups, sms)
-    assert plan.width == width
-    # a power of two up to a portable cluster of 8
-    assert 1 <= plan.splits <= fd.MAX_SPLITS and plan.splits & (plan.splits - 1) == 0
-    # the kernels' ranges: split s takes rows [s * slice, min((s + 1) * slice, K))
-    cover = np.zeros(rows, np.int64)
-    for s in range(plan.splits):
-        cover[s * plan.slice:min((s + 1) * plan.slice, rows)] += 1
-    assert (cover == 1).all()
-    assert plan.splits == 1 or plan.slice % 16 == 0      # whole mma steps, 16-byte x loads
-    # 7/8 of the SMs get a block, unless the cluster or the mma step forbids
-    # more splits; with half as many splits they would not
-    blocks = tiles * plan.splits * groups
-    assert 8 * blocks >= 7 * sms or plan.splits == fd.MAX_SPLITS or rows <= plan.splits * 16
-    assert plan.splits == 1 or 8 * blocks // 2 < 7 * sms
-    # the sums a block receives fit its buffer
-    assert plan.splits * -(-8 // plan.splits) <= fd.RECV_ROWS
+    norm = shape.endswith("qkv")
     for dtype in (torch.bfloat16, torch.float32):
-        assert shared_bytes(plan, dtype, shape.endswith("qkv")) <= SHARED_LIMIT
+        plan = gemv_plan(tiles, width, rows, groups, sms, dtype=dtype, norm=norm)
+        assert plan.width == width
+        # a power of two up to a portable cluster of 8
+        assert 1 <= plan.splits <= fd.MAX_SPLITS and plan.splits & (plan.splits - 1) == 0
+        # the kernels' ranges: split s takes rows [s * slice, min((s + 1) * slice, K))
+        cover = np.zeros(rows, np.int64)
+        for s in range(plan.splits):
+            cover[s * plan.slice:min((s + 1) * plan.slice, rows)] += 1
+        assert (cover == 1).all()
+        assert plan.splits == 1 or plan.slice % 16 == 0      # whole mma steps, 16-byte x loads
+        # 7/8 of the SMs get a block, unless the cluster or the mma step forbids
+        # more splits; with half as many splits they would not
+        blocks = tiles * plan.splits * groups
+        assert 8 * blocks >= 7 * sms or plan.splits == fd.MAX_SPLITS or rows <= plan.splits * 16
+        assert plan.splits == 1 or 8 * blocks // 2 < 7 * sms
+        # the sums a block receives fit its buffer
+        assert plan.splits * -(-8 // plan.splits) <= fd.RECV_ROWS
+        assert shared_bytes(plan, dtype, norm) <= SHARED_LIMIT
 
 
 @pytest.mark.parametrize("columns,width", [(1, 16), (16, 16), (17, 32), (32, 32), (120, 128),
@@ -651,14 +652,15 @@ def test_gemv_plan_at_qwen_serving_shape():
     blocks), out_residual 16 tiles of 128 columns x 8 (128 blocks), danube's
     48 heads and 30 tiles x 4; each block's shared memory leaves room for
     two on an SM."""
-    assert gemv_plan(20, 128, 2048, 1, 132) == GemvPlan(128, 256, 8)
-    assert gemv_plan(16, 128, 2048, 1, 132) == GemvPlan(128, 256, 8)
-    assert gemv_plan(48, 128, 3840, 1, 132) == GemvPlan(128, 960, 4)
-    assert gemv_plan(30, 128, 3840, 1, 132) == GemvPlan(128, 960, 4)
+    bf = torch.bfloat16
+    assert gemv_plan(20, 128, 2048, 1, 132, dtype=bf, norm=True) == GemvPlan(128, 256, 8)
+    assert gemv_plan(16, 128, 2048, 1, 132, dtype=bf, norm=False) == GemvPlan(128, 256, 8)
+    assert gemv_plan(48, 128, 3840, 1, 132, dtype=bf, norm=True) == GemvPlan(128, 960, 4)
+    assert gemv_plan(30, 128, 3840, 1, 132, dtype=bf, norm=False) == GemvPlan(128, 960, 4)
     for tiles, rows, norm in ((20, 2048, True), (16, 2048, False), (48, 3840, True),
                               (30, 3840, False)):
-        plan = gemv_plan(tiles, 128, rows, 1, 132)
-        assert 2 * (shared_bytes(plan, torch.bfloat16, norm) + 1024) <= 233_472
+        plan = gemv_plan(tiles, 128, rows, 1, 132, dtype=bf, norm=norm)
+        assert 2 * (shared_bytes(plan, bf, norm) + 1024) <= 233_472
 
 
 SSD_SHAPES = [

@@ -7,6 +7,7 @@ JAX launcher makes (the same flags, prompts drawn the same way from
 run as a module prints the completions and the stats.
 """
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -61,8 +62,7 @@ def test_main_defaults_to_the_card():
 def test_run_as_a_module():
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                           "nemotron-4-15b", "--reduced", "--device", "cpu", "--requests", "2",
-                          "--max-new", "3"], cwd=ROOT, env={"PYTHONPATH": "src",
-                                                             "PATH": "/usr/bin:/bin"},
+                          "--max-new", "3"], cwd=ROOT, env={**os.environ, "PYTHONPATH": "src"},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.count("req ") == 2 and '"decode_tokens": 6' in out.stdout
