@@ -58,8 +58,8 @@ script exits non-zero without its result line.  The phases:
     1024), (8, 2048) and (4096, 2048) and its gated form at (8, 2048) and
     (4096, 2048), each beside an empty kernel on the same grid (the launch
     floor), and rmsnorm's time with other plans (``rmsnorm_scaling``);
-    flash, decode attention and the chain's GEMVs also at the two large
-    dense decoders' serving shapes (``times_large``);
+    flash, decode attention, the chain's GEMVs and rmsnorm (8 rows) also at
+    the two large dense decoders' serving shapes (``times_large``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
@@ -150,7 +150,27 @@ script exits non-zero without its result line.  The phases:
     the A/B of phase 5 at full depth; tok/s, decode step p50 / p90,
     resident weights and peak memory over them, a profiled decode step's
     idle share;
-13. the ``kernels`` record, the card's name and power limit, and last the
+13. training through the port's microbatch pipeline (``LMPipeline``), the
+    plan from the port's planner on a training shape priced on the H100,
+    every slice on the one card: qwen2.5-3b at full width and depth, 9
+    layers a stage, float32 masters and bf16 activations, 8 microbatches
+    of (1, 1024) tokens, the loss a float32 mean of the logits' squares,
+    through the sequential oracle, 1F1B, 1F1B with ``overlap=False``,
+    interleaved 1F1B (2 programs x 3 chunks: (3 x 2) would need a number
+    of microbatches that 3 divides) and a fill-drain serve; mamba2-370m at
+    full width and depth, 12 layers a stage, 8 microbatches of (1, 2048),
+    through the oracle and 1F1B.  Each run warmed, then counted (every
+    kernel of its path launched, no plain version called, ``late == 0``,
+    more than one stream when overlapped); every schedule's gradients and
+    losses bitwise the oracle's, the serve's logits bitwise
+    ``reference()``'s; tok/s and wall seconds beside the oracle's, stage
+    inverse and host µs, ``max_inflight``, peak memory over resident, the
+    bubble beside ``interleaved_bubble``, ``compare_lm``'s ratios, a
+    profiled 1F1B run's device idle share, and the memory left after
+    ``close()`` (within 64 MB of where it was); a 2-layer full-width
+    qwen2.5-3b pipeline, kernel route against ``impl="ref"``, the losses
+    and each leaf's gradient norm within phase 10's bf16 tolerance;
+14. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1082,6 +1102,280 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     return rows, timed_launches
 
 
+def pipelined_training(smi):
+    """Phase 13: training through the port's microbatch pipeline
+    (`LMPipeline`), the plan from the port's planner on a training shape
+    (B 8) priced on the H100 with every slice on the one card.
+    qwen2.5-3b at full width and depth, 9 layers a stage (embed, four
+    block stages, head), float32 masters, bf16 activations, 8 microbatches
+    of (1, 1024) tokens drawn from a seed, the loss a float32 mean of the
+    logits' squares: the sequential oracle (`LMPipeline.sequential`),
+    1F1B overlapped, 1F1B with ``overlap=False``, interleaved 1F1B (2
+    programs x 3 chunks) and a fill-drain serve; mamba2-370m at full width
+    and depth, 12 layers a stage, 8 microbatches of (1, 2048): the oracle
+    and 1F1B overlapped.  Every run is warmed first (``warm``) and
+    counted: the launch counts set to 0 just before it and read just
+    after, each plain version counted; every kernel of its path must
+    launch, no plain version be called, no program run a first call
+    inside it (``late == 0``) and, overlapped, more than one stream run
+    ops.  Gradients and losses of every schedule bitwise the oracle's, the
+    serve's logits bitwise ``reference()``'s.  Printed: tok/s and wall
+    seconds of each run beside the oracle's, stage inverse and host µs,
+    ``max_inflight``, peak memory over resident, the bubble measured
+    beside ``interleaved_bubble``, `compare_lm`'s per-stage ratios, the
+    device idle share of one more profiled 1F1B run; after ``close()``,
+    memory must be back within 64 MB of where it was before the pipeline
+    was built.  Then a 2-layer full-width qwen2.5-3b pipeline, kernel
+    route against ``impl="ref"`` on shared weights: the losses and each
+    leaf's gradient norm within phase 10's bf16 A/B tolerance.  Returns the
+    launches of qwen2.5-3b's 1F1B run, with mamba2-370m's for the scan
+    and the gated norm."""
+    import numpy as np
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward, rmsnorm_gated,
+                                             rmsnorm_gated_backward)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
+    from repro_torch.probes.busy import kernel_busy
+    from repro_torch.runtime.pipeline import (LMPipeline, build_lm_stages, compare_lm,
+                                              interleaved_1f1b, interleaved_bubble,
+                                              measured_bubble, selection_from_plan)
+
+    qwen_kernels = {"flash_attention": flash_attention,
+                    "flash_attention_bwd": flash_attention_backward,
+                    "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward}
+    mamba_kernels = {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward,
+                     "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_backward,
+                     "rmsnorm_gated": rmsnorm_gated,
+                     "rmsnorm_gated_bwd": rmsnorm_gated_backward}
+    qwen_plain = [(fa, "flash_attention_plain"), (rn, "rmsnorm_plain"),
+                  (ref, "mha_reference"), (ref, "rmsnorm_reference")]
+    mamba_plain = [(ss, "ssd_scan_plain"), (ss, "ssd_chunked_backward"), (ref, "ssd_chunked"),
+                   (rn, "rmsnorm_gated_plain"), (rn, "rmsnorm_gated_backward_plain"),
+                   (rn, "rmsnorm_plain"), (ref, "rmsnorm_reference")]
+
+    def loss_fn(lg):
+        return torch.mean(lg.float() ** 2)
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def counted_run(fn, kernels, plain_fns, need):
+        """``fn()`` once, the launch counts set to 0 just before it and read
+        just after, each plain version counted, the peak-memory mark
+        reset: (its result, a record).  On the card every kernel of
+        ``need`` must launch and no plain version be called."""
+        calls, originals = {}, {(m, a): getattr(m, a) for m, a in plain_fns}
+
+        def counting(name, f):
+            def wrapped(*a, **kw):
+                calls[name] = calls.get(name, 0) + 1
+                return f(*a, **kw)
+            return wrapped
+
+        for k in kernels.values():
+            k.launches = 0
+        resident = allocated()
+        stats0 = torch.cuda.memory_stats()
+        torch.cuda.reset_peak_memory_stats()
+        for m, a in plain_fns:
+            setattr(m, a, counting(a, originals[(m, a)]))
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for m, a in plain_fns:
+                setattr(m, a, originals[(m, a)])
+        peak = torch.cuda.max_memory_allocated()
+        stats = torch.cuda.memory_stats()
+        rec = dict(call_s=time.perf_counter() - t0,
+                   launches={n: k.launches for n, k in kernels.items()}, plain_calls=calls,
+                   max_memory_allocated=peak, peak_over_resident=peak - resident,
+                   reserved=torch.cuda.memory_reserved(),
+                   # the caching allocator meanwhile: flushes of its cache
+                   # (each a sync of every stream), device mallocs and frees
+                   allocator={k: stats.get(k, 0) - stats0.get(k, 0) for k in (
+                       "num_alloc_retries", "num_device_alloc", "num_device_free")})
+        missing = [n for n in need if rec["launches"][n] == 0]
+        if missing or calls:
+            raise AssertionError(f"a pipelined run launched no {missing} kernel or called "
+                                 f"a plain version: {calls}")
+        return out, rec
+
+    def host_copy(grads):
+        """The oracle's gradients in pinned host memory: the card holds one
+        run's gradients beside the masters, not two."""
+        out = {}
+        for n, t in grads.items():
+            out[n] = {}
+            for k, v in bridge.flat_tree(t).items():
+                out[n][k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                out[n][k].copy_(v)
+        return out
+
+    def differing(grads, want):
+        """The leaves of ``grads`` not bitwise ``want``'s, each compared on
+        the card against its host copy brought back."""
+        return [f"{n}.{k}" for n, t in grads.items() for k, v in bridge.flat_tree(t).items()
+                if not torch.equal(v, want[n][k].to(v.device, non_blocking=True))]
+
+    def one_model(name, lps, seq, runs, kernels, plain_fns):
+        cfg = get_config(name)
+        shape = ShapeCfg("train_pipe", seq, 8, "train")
+        t0 = time.perf_counter()
+        plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+        stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+        plan_s = time.perf_counter() - t0
+        rng = np.random.default_rng(2024)
+        mbs = [rng.integers(0, cfg.vocab, (1, seq)).astype(np.int32) for _ in range(8)]
+        gc.collect()
+        before = allocated()
+        pipe = LMPipeline(cfg, stg, plan, layers_per_stage=lps, device="cuda")
+        weights = allocated() - before
+        head = dict(config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}",
+                    layers_per_stage=lps, stages=[st.name for st in pipe.stages],
+                    replicas=[len(st.devices) for st in pipe.stages], microbatches=8,
+                    microbatch=[1, seq], card=smi)
+        emit("pipe_train_plan", **head, plan=plan.summary().splitlines()[0], plan_s=plan_s,
+             weights_bytes=weights)
+        pipe.sequential(mbs[:1], loss_fn=loss_fn)      # the oracle's first calls
+        (grads, losses), rec = counted_run(lambda: pipe.sequential(mbs, loss_fn=loss_fn),
+                                           kernels, plain_fns, kernels)
+        want, want_losses, oracle_s = host_copy(grads), losses, rec["call_s"]
+        del grads
+        emit("pipe_train_run", **head, run="sequential oracle", **rec,
+             tok_per_s=8 * seq / rec["call_s"])
+        launches = None
+        for label, kw in runs:
+            train = kw.get("train", False)
+            overlap = kw.get("overlap", True)
+            pipe.warm(mbs, **kw)
+            late0 = pipe.compile_stats.late
+            res, rec = counted_run(lambda: pipe.run(mbs, **kw), kernels, plain_fns,
+                                   [k for k in kernels if train or not k.endswith("_bwd")])
+            late = pipe.compile_stats.late - late0
+            sched = kw.get("schedule")
+            p, v = (sched.n_stages, sched.n_chunks) if sched else (pipe.n_stages, 1)
+            out = dict(**head, run=label, **rec, wall_s=res.wall_s, lanes=pipe.lanes.n,
+                       tok_per_s=res.tokens_per_s(seq), oracle_s=oracle_s,
+                       max_inflight=res.max_inflight, streams_used=res.streams_used,
+                       stage_inverse_us={n: res.stage_inverse_us(n) for n in res.stage_firings},
+                       stage_host_us={n: res.stage_host_us(n) for n in res.stage_firings},
+                       bubble_measured=measured_bubble(res),
+                       bubble_model=interleaved_bubble(p, 8, v), late=late,
+                       compile_stats=pipe.compile_stats.summary())
+            if train:
+                bad = differing(res.grads, want)
+                out.update(grad_leaves_differing=len(bad), losses_equal=res.losses == want_losses)
+                if bad or res.losses != want_losses:
+                    raise AssertionError(f"{cfg.name} {label}: gradients {bad[:3]} ({len(bad)} "
+                                         f"leaves) or losses differ from the sequential oracle")
+            else:
+                outs = pipe.reference(mbs)
+                same = all(torch.equal(a, b) for a, b in zip(res.outputs, outs))
+                out.update(outputs_equal_reference=same)
+                del outs
+                if not same:
+                    raise AssertionError(f"{cfg.name} {label}: logits differ from reference()")
+            if label == "1f1b":
+                launches = rec["launches"]
+                out["compare_lm_ratios"] = compare_lm(
+                    stg, selection_from_plan(plan), res,
+                    stage_map=pipe.graph_stage_map()).ratios()
+            emit("pipe_train_run", **out)
+            if late:
+                raise AssertionError(f"{cfg.name} {label}: {late} first calls inside the run")
+            if overlap and res.streams_used < 2:
+                raise AssertionError(f"{cfg.name} {label}: ops ran on {res.streams_used} "
+                                     f"stream(s)")
+            del res
+        # one more 1F1B run, profiled: the device's busy time (the union of
+        # kernel intervals over all streams) against the run's wall time
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = pipe.run(mbs, train=True, loss_fn=loss_fn)
+            torch.cuda.synchronize()
+        busy_ms, summed_ms, n_kern = kernel_busy(prof)
+        emit("pipe_train_profile", **head, run="1f1b, profiled", wall_s=res.wall_s,
+             device_busy_ms=busy_ms, kernel_ms_summed=summed_ms, kernels=n_kern,
+             device_idle_share=(max(0.0, 1 - busy_ms / 1e3 / res.wall_s)
+                                if busy_ms else None))
+        del res, prof, want
+        pipe.close()
+        del pipe
+        gc.collect()
+        left = allocated() - before
+        emit("pipe_train_close", **head, left_allocated=left)
+        if left > 64 << 20:
+            raise AssertionError(f"{cfg.name}: {left} bytes left allocated after close()")
+        return launches
+
+    train = dict(train=True, loss_fn=loss_fn)
+    t0 = time.perf_counter()
+    qwen = one_model("qwen2.5-3b", 9, 1024, [
+        ("1f1b", train), ("1f1b, overlap=False", dict(train, overlap=False)),
+        ("interleaved_1f1b(2, 8, 3)", dict(train, schedule=interleaved_1f1b(2, 8, 3))),
+        ("fill_drain serve", {})], qwen_kernels, qwen_plain)
+    qwen_s = time.perf_counter() - t0
+    mamba = one_model("mamba2-370m", 12, 2048, [("1f1b", train)],
+                      mamba_kernels, mamba_plain)
+    mamba_s = time.perf_counter() - t0 - qwen_s
+
+    # a 2-layer full-width qwen2.5-3b pipeline on shared weights, the kernel
+    # route against impl="ref": losses and each leaf's gradient norm
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    shape = ShapeCfg("train_pipe_ab", 1024, 8, "train")
+    plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+    stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+    _, modules = build_lm_stages(cfg, device="cuda", seed=7)
+    rng = np.random.default_rng(7)
+    mbs = [rng.integers(0, cfg.vocab, (1, shape.seq_len)).astype(np.int32) for _ in range(4)]
+    got = {}
+    for impl in (None, "ref"):
+        pipe = LMPipeline(cfg, stg, plan, params=modules, device="cuda", impl=impl)
+        res, rec = counted_run(lambda: pipe.run(mbs, train=True, loss_fn=loss_fn),
+                               qwen_kernels, [] if impl else qwen_plain,
+                               qwen_kernels if impl is None else ())
+        if impl == "ref" and any(rec["launches"].values()):
+            raise AssertionError(f"the impl='ref' pipeline launched kernels: {rec['launches']}")
+        got[impl] = (res.losses, {f"{n}.{k}": float(v.float().norm()) for n, t in
+                                  res.grads.items() for k, v in bridge.flat_tree(t).items()})
+        pipe.close()
+        del pipe, res
+    (lk, nk), (lr, nr) = got[None], got["ref"]
+    loss_rel = max(abs(lk[m] - lr[m]) / abs(lr[m]) for m in lr)
+    rel = {k: abs(nk[k] - nr[k]) / max(nr[k], 1e-30) for k in nr}
+    worst = max(rel, key=rel.get)
+    tol = TRAIN_AB_TOL["bfloat16"]
+    emit("pipe_train_ab", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}",
+         microbatches=4, microbatch=[1, shape.seq_len], loss_rel_diff=loss_rel,
+         worst_grad_norm_leaf=worst, worst_grad_norm_rel_diff=rel[worst], tolerance=tol,
+         leaves=len(rel), card=smi)
+    if loss_rel > tol or rel[worst] > tol:
+        raise AssertionError(f"pipelined {cfg.name}: kernel route and impl='ref' differ "
+                             f"(loss {loss_rel}, {worst} {rel[worst]})")
+    del modules
+    gc.collect()
+    emit("pipe_train_phase_parts", qwen_s=qwen_s, mamba_s=mamba_s,
+         ab_s=time.perf_counter() - t0 - qwen_s - mamba_s)
+    return dict(qwen, **{k: mamba[k] for k in ("ssd_scan", "ssd_scan_bwd", "rmsnorm_gated",
+                                                "rmsnorm_gated_bwd")})
+
+
 def stg_phase() -> None:
     """Phase 11: the paper's own STG path on this machine's host (Python,
     numpy and the scipy the ILP solves with).  JPEG planned with the
@@ -1351,6 +1645,7 @@ def main() -> int:
     from repro_torch.graphs import lm_graph
     from repro_torch.models import blocks, lm
     from repro_torch.runtime.pipeline import DecodePipeline, Tracer, stall_bottleneck
+    from repro_torch.probes.busy import kernel_busy
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
     dev = torch.device("cuda")
@@ -2071,8 +2366,21 @@ def main() -> int:
                                                  1, sms, dtype=torch.bfloat16,
                                                  norm=False)._asdict())}
         del sets, q_sets, o_sets, q_cat
+        # rmsnorm over a decode step's 8 rows at the model's width, as the
+        # serving-shape rows above (the empty kernel on its grid beside it)
+        nbytes = 2 * 8 * d_ * 2 + d_ * 4
+        sets = copies(lambda: (randn(8, d_), randn(d_, dtype=torch.float32)), nbytes)
+        plan = rn.norm_plan(8, d_, 2, gated=False, aligned=True, card=card)
+        b_ms, b_by = bound(nbytes, 4 * 8 * d_, F32_FLOP_PER_S)
+        times["rmsnorm"].setdefault("large_shapes", {})[f"{label} (8, {d_})"] = dict(
+            ms=timed(lambda x, w: rmsnorm(x, w), sets),
+            plain_ms=timed(lambda x, w: rmsnorm_plain(x, w), sets),
+            library_ms=timed(lambda x, w: F.rms_norm(x, (d_,), w, 1e-5), sets),
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets),
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nbytes)
+        del sets
     emit("times_large", card=smi, **{k: times[k]["large_shapes"] for k in (
-        "flash_attention", "decode_attention", "fused_decode")})
+        "flash_attention", "decode_attention", "fused_decode", "rmsnorm")})
 
     # what sets the GEMVs' time: qwen's and danube's widths at B 1 and 8,
     # with the split plans taken; one block alone streaming a 128-column
@@ -2256,18 +2564,6 @@ def main() -> int:
     # phase 6 (flash attention 0.013-0.032 ms where it takes 0.065, the
     # SSD scan 0.010-0.025 ms, under its bytes bound); the cause is not
     # known
-    def kernel_busy(prof):
-        """Device ms with a kernel running on any stream (the union of the
-        kernel intervals), the sum of kernel times, and the kernel count."""
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if str(e.device_type).endswith("CUDA"))
-        union, end = 0.0, float("-inf")
-        for a, b_ in spans:
-            if b_ > end:
-                union += b_ - max(a, end)
-                end = b_
-        return union / 1e3, sum(b_ - a for a, b_ in spans) / 1e3, len(spans)
-
     def timed_serve(server, reqs, kernels, profile=False):
         """One counted serve: launch counts and the peak-memory mark reset
         just before it, read just after (the peak, the peak over what was
@@ -2445,7 +2741,16 @@ def main() -> int:
     large_rounds = large_serving(ab, profile_decode, qwen_kernels, smi)
     emit("large_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 13. the record of the kernels, the card, the result ----------------
+    # -- 13. training through the microbatch pipeline -----------------------
+    # what phase 12 left cached goes back to the card first: the pipeline's
+    # stage streams draw on the cache of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    pipe_train_launches = pipelined_training(smi)
+    emit("pipe_train_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 14. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
@@ -2457,7 +2762,9 @@ def main() -> int:
     # mamba2-370m's for the SSD scan, the gated norm and their backward;
     # the backward kernels' ``launches`` come from there (each of their calls
     # launches the kernels listed); ``large_launches`` from each counted
-    # round of phase 12
+    # round of phase 12; ``pipe_train_launches`` from qwen2.5-3b's 1F1B run
+    # through the microbatch pipeline (phase 13), and mamba2-370m's for the
+    # SSD scan, the gated norm and their backward
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -2494,6 +2801,7 @@ def main() -> int:
          "cuda_kernels": cuda_kernels[name], "launches": served[name],
          "pipeline_launches": piped[name], "drill_launches": drilled[name],
          "replay_launches": replayed[name], "train_launches": train_launches.get(name, 0),
+         "pipe_train_launches": pipe_train_launches.get(name, 0),
          "large_launches": {r: dict(n, fused_decode=n["fused_qkv_rope"]).get(name, 0)
                             for r, n in large_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],

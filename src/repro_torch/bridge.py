@@ -1,4 +1,5 @@
-"""JAX parameter pytree -> the port's `models.lm.LM`.
+"""JAX parameter pytrees -> the port's modules: `models.lm.LM`, and the
+stage modules of `runtime.pipeline.lm_pipe` (`stages_from_jax`).
 
 Takes the pytree of ``repro.models.lm.init_params`` with its leaves as
 numpy arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
@@ -58,3 +59,49 @@ def from_jax(cfg: ModelConfig, params, *, device="cuda", param_dtype=None) -> LM
                                  f"port shape {tuple(dst[name].shape)}")
             dst[name].copy_(value)
     return model
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of leaves as {dotted path: leaf} (``l0.mix.wq``), the
+    names a module's ``named_parameters`` give the same tree."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flat_tree(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def stages_from_jax(cfg: ModelConfig, stage_params, *, device="cuda",
+                    layers_per_stage: int | None = None) -> dict:
+    """The port's stage modules ({name: module}, `lm_pipe.build_lm_stages`'s
+    layout) on ``device`` holding the JAX stage parameters: the third item
+    of JAX ``build_lm_stages(...)``, or {stage name: ``st.params[0]``} of a
+    JAX ``LMPipeline`` (a fused stage's tree is split into its members),
+    with numpy leaves.  Masters keep their dtype (float32 as float32)."""
+    from .runtime.pipeline.lm_pipe import build_lm_stages
+    src = {}
+    for name, tree in stage_params.items():
+        members = name.split("+")
+        for m in members:
+            src[m] = tree[m] if len(members) > 1 else tree
+    names, modules = build_lm_stages(cfg, layers_per_stage=layers_per_stage,
+                                     device=device, empty=True)
+    if sorted(src) != sorted(names):
+        raise ValueError(f"{cfg.name}: JAX stages {sorted(src)}, port stages {names}")
+    with torch.no_grad():
+        for name in names:
+            leaves = flat_tree(src[name])
+            dst = dict(modules[name].named_parameters())
+            if leaves.keys() != dst.keys():
+                raise ValueError(f"{name}: JAX leaves {sorted(leaves.keys() ^ dst.keys())} "
+                                 "have no counterpart")
+            for key, leaf in leaves.items():
+                value = torch.from_numpy(np.array(leaf, dtype=np.float32))
+                if value.shape != dst[key].shape:
+                    raise ValueError(f"{name}.{key}: JAX shape {tuple(value.shape)}, "
+                                     f"port shape {tuple(dst[key].shape)}")
+                dst[key].copy_(value)
+    return modules

@@ -43,8 +43,10 @@ hook (on by default) and raises `PlanVerificationError` on any ERROR;
 the accepted report rides into the engine so a runtime deadlock can be
 cross-referenced against the static analysis.
 
-Not ported yet: `verify_lm_plan` and its donated-accumulate check, which
-belong to the microbatch training pipeline (``ROADMAP.md``).
+`LMPipeline.run` calls `verify_lm_plan` the same way: schedule
+consistency, the credit simulation of the schedule's op order over the
+run's activation and gradient FIFO capacities, placement consistency,
+and (``deep=True``) the accumulate contract on ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -796,6 +798,81 @@ def verify_decode_plan(pipe, *, n_groups: int, capacity_blocks: int = 2,
     return report
 
 
+def _accumulate_violations(st) -> list[str]:
+    """What breaks stage ``st``'s accumulate contract, run on ``meta``
+    tensors shaped like its masters: the accumulator made from the first
+    microbatch's gradients (bfloat16 for the working copies of
+    `lm_pipe.working_params`, the master's dtype for the rest;
+    `lm_pipe.first_acc`) must have each master's shape and dtype, and keep
+    them and its storage through the stage's own fold program (``add_``
+    in place)."""
+    import torch
+
+    from ..runtime.pipeline.lm_pipe import first_acc, working_params
+
+    out = []
+    masters = [(n, p) for n, p in st.module.named_parameters()]
+    working = {id(p) for _, _, p in working_params(st.module)}
+    pb = [torch.empty(p.shape, dtype=torch.bfloat16 if id(p) in working else p.dtype,
+                      device="meta") for _, p in masters]
+    acc = first_acc(pb, [p.dtype for _, p in masters])
+    before = [(id(a), a.untyped_storage()._cdata) for a in acc]
+    folded = st.acc.fn(acc, pb)
+    for (name, p), b, a in zip(masters, before, folded):
+        if (id(a), a.untyped_storage()._cdata) != b:
+            out.append(f"{name}: the fold wrote a new tensor, not the accumulator")
+        if a.shape != p.shape or a.dtype != p.dtype:
+            out.append(f"{name}: accumulator {tuple(a.shape)} {a.dtype}, master "
+                       f"{tuple(p.shape)} {p.dtype}")
+    return out
+
+
+def verify_lm_plan(pipe, *, schedule, n_micro: int, train: bool,
+                   act_capacities=None, grd_capacities=None,
+                   deep: bool = False) -> VerificationReport:
+    """Static analysis of an `LMPipeline.run`: schedule consistency +
+    `validate()` invariants, the op order simulated against the act/grd
+    FIFO credits, replica/placement consistency, and (``deep=True``)
+    the accumulate contract: each stage's accumulator keeps its master's
+    shape and dtype, and its storage, through the fold, checked on
+    ``meta`` tensors (no data, no device).  The JAX package's
+    donated-accumulate aliasing check has no counterpart: an in-place
+    ``add_`` donates nothing, so there is no donation to get wrong."""
+    report = VerificationReport(
+        plan=f"lm plan: {pipe.n_stages} stage(s), schedule "
+             f"{schedule.name}, {n_micro} microbatch(es), train={train}")
+    verify_schedule_consistency(schedule, n_stages_built=pipe.n_stages,
+                                n_micro=n_micro, train=train,
+                                report=report)
+    if not report.ok():
+        return report          # shape mismatch: the credit sim's edge
+    #                            layout would be meaningless
+    M = pipe.n_stages
+    if act_capacities is None:
+        act_capacities = [pipe._edge_fifo(pipe.stages[i],
+                                          pipe.stages[i + 1]).capacity
+                          for i in range(M - 1)]
+    if grd_capacities is None:
+        grd_capacities = [pipe._edge_fifo(pipe.stages[i + 1],
+                                          pipe.stages[i]).capacity
+                          for i in range(M - 1)] if train else []
+    verify_schedule_credits(schedule, act_capacities, grd_capacities,
+                            report)
+    stg = getattr(pipe, "stg", None)
+    sel = getattr(pipe, "sel", None)
+    if stg is not None and sel is not None:
+        verify_placement(stg, sel, pipe.placement, report)
+    if deep and train:
+        report.ran("accumulate")
+        for st in pipe.stages:
+            bad = _accumulate_violations(st)
+            if bad:
+                report.add(
+                    ERROR, "accumulate.contract", st.name,
+                    f"gradient accumulator leaves break the in-place fold: {bad[:3]}")
+    return report
+
+
 __all__ = [
     "ERROR", "WARN", "Finding", "PlanVerificationError",
     "VerificationReport", "EdgeSpec", "SimOp", "Wedge",
@@ -803,5 +880,5 @@ __all__ = [
     "simulate_credit_schedule", "schedule_sim_ops",
     "verify_schedule_credits", "verify_schedule_consistency",
     "verify_fusion", "verify_graph_fusion", "verify_decode_cache_contract",
-    "verify_placement", "verify_graph", "verify_decode_plan",
+    "verify_placement", "verify_graph", "verify_decode_plan", "verify_lm_plan",
 ]

@@ -24,6 +24,12 @@ The port of ``repro/runtime/pipeline`` for serving:
                 the host under the virtual clock
   aot         — warm-up accounting: each stage program run once per
                 shape before a timed serve, first calls inside it counted
+  lm_pipe     — `LMPipeline`: the microbatch pipeline over the planner's
+                LM stages (1F1B, interleaved 1F1B and fill-drain
+                schedules, fused stages, replica round-robin, gradients
+                folded in microbatch order), one CUDA stream a stage
+                shared by its replicas and a lane thread per (stage,
+                replica); the port of ``jax_pipe``
   decode      — `DecodePipeline`: prefill/decode serving with per-stage
                 KV/SSM-cache residency, a CUDA stream per (stage,
                 replica) and a token feedback stream; replica failover
@@ -37,8 +43,6 @@ The port of ``repro/runtime/pipeline`` for serving:
                 to a fixed point (`replan_to_fixed_point`)
   trace, metrics — the typed event stream of a traced serve and the
                 metrics read from it (`serving_slo`)
-
-Not ported yet: ``jax_pipe``, the microbatch training pipeline.
 """
 
 
@@ -60,12 +64,6 @@ def as_selection(plan):
     return sel
 
 
-def selection_from_plan(plan):
-    """PlanResult -> Selection over the lm_graph node names (the same
-    rule as `as_selection`)."""
-    return as_selection(plan)
-
-
 from .aot import AotProgram, CompileStats  # noqa: E402
 from .channels import ChannelSet, Fifo, FifoStats, StreamChannel  # noqa: E402
 from .engine import (AsyncResult, DeviceWatch, Driver, Engine,  # noqa: E402
@@ -77,6 +75,8 @@ from .schedule import (SchedOp, Schedule, ScheduleProgram,  # noqa: E402
                        max_live_activations, max_live_by_chunk, one_f_one_b,
                        schedule_programs, simulate_schedule)
 from .interpreter import PipelineRun, execute, execute_materialized  # noqa: E402
+from .lm_pipe import (LMPipeline, LMPipelineResult, LMStage,  # noqa: E402
+                      build_lm_stages, selection_from_plan)
 from .decode import DecodePipeline, ResumeState, ServeRunResult  # noqa: E402
 from .health import HealthController  # noqa: E402
 from .measure import (FixedPointResult, PipelineReport,  # noqa: E402
@@ -103,6 +103,7 @@ __all__ = [
     "interleaved_bubble", "max_live_activations", "max_live_by_chunk",
     "one_f_one_b", "schedule_programs", "simulate_schedule",
     "PipelineRun", "execute", "execute_materialized",
+    "LMPipeline", "LMPipelineResult", "LMStage", "build_lm_stages",
     "DecodePipeline", "ResumeState", "ServeRunResult", "HealthController",
     "FixedPointResult", "PipelineReport", "StageMeasurement", "calibrate",
     "compare", "compare_lm", "measured_bubble", "measured_replan",

@@ -377,6 +377,16 @@ class Lanes:
     def submit(self, stage: int, rep: int, fn, *args):
         return self._pools[self.lane(stage, rep)].submit(fn, *args)
 
+    def relayout(self, replicas: list[int]) -> "Lanes":
+        """The same threads under another numbering of (stage, replica):
+        a microbatch pipeline's interleaved schedule runs several built
+        stages in one program.  The view does not own the threads: close
+        the lanes it came from."""
+        view = Lanes.__new__(Lanes)
+        view.n, view._pools = self.n, self._pools
+        view._base = [sum(replicas[:s]) for s in range(len(replicas))]
+        return view
+
     def close(self) -> None:
         for pool in self._pools:
             pool.shutdown(wait=True)

@@ -8,7 +8,7 @@ steady-state gap is the stage's effective inverse throughput (ii/nr for
 replicated stages).  `_build_report` lines the measured values up against
 the analytic model; ``compare()`` adapts a virtual-clock interpreter run
 (`interpreter.PipelineRun`) to it and ``compare_lm()`` a pipelined serve
-(`decode.ServeRunResult`).
+(`decode.ServeRunResult`) or microbatch run (`lm_pipe.LMPipelineResult`).
 
 ``calibrate()`` scales each node's implementation library by its
 measured/analytic ratio; ``measured_replan()`` re-runs the solver once on
@@ -235,9 +235,10 @@ def compare(stg: STG, sel: Selection, run: PipelineRun,
 
 def compare_lm(stg: STG, sel: Selection, res,
                stage_map: dict[str, str] | None = None) -> PipelineReport:
-    """Per-stage measured-vs-analytic report for one pipelined serve.
+    """Per-stage measured-vs-analytic report for one pipelined run.
 
-    ``res`` is a `decode.ServeRunResult`; measured inverse throughput
+    ``res`` is a `decode.ServeRunResult` (a serve) or a
+    `lm_pipe.LMPipelineResult` (a microbatch run); measured inverse throughput
     comes from each stage's completion-event stream (replicas dispatch
     concurrently under the overlapped executor, so a replicated stage
     reads its effective ii/nr).
@@ -246,7 +247,8 @@ def compare_lm(stg: STG, sel: Selection, res,
     per-stage ratios are exactly what
     ``planner.replan(measured_ratio=report.ratios())`` consumes.
     ``stage_map`` maps graph node -> executed stage name when a stage
-    owns several graph nodes (`DecodePipeline.graph_stage_map`);
+    owns several graph nodes (`DecodePipeline.graph_stage_map`,
+    `LMPipeline.graph_stage_map`);
     identity by default.
     """
     def exec_name(name: str) -> str:

@@ -1187,3 +1187,117 @@ def test_mamba_training_remat_modes_are_bitwise_on_card(cuda, compute_dtype):
     got_loss, got = _train_grads(dataclasses.replace(cfg, remat="full"), cuda)
     assert got_loss == loss
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ===========================================================================
+# the microbatch pipeline (`lm_pipe.LMPipeline`) on the card
+# ===========================================================================
+def _lm_pipeline(name, device, layers=4, **kw):
+    """A reduced config at ``layers`` layers, its training-shape plan with
+    two replicas on every block node (so several streams run each stage),
+    its pipeline on ``device`` and 6 microbatches of (2, 64) tokens."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.runtime.pipeline import LMPipeline, as_selection
+
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    shape = ShapeCfg("pipe_train_test", 64, 12, "train")
+    plan = planner.plan(cfg, shape, chips=2 * layers + 4, max_tp=4)
+    stg, _ = lm_graph.build_stg(cfg, shape, max_tp=4)
+    sel = as_selection(plan)
+    for n in stg.topo_order():
+        if n.startswith("block"):
+            sel.set(n, sel.choices[n][0], 2)
+    rng = np.random.default_rng(3)
+    mbs = [rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32) for _ in range(6)]
+    return cfg, LMPipeline(cfg, stg, sel, device=device, **kw), mbs
+
+
+def _pipe_loss(lg):
+    return torch.mean(lg.float() ** 2)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-3b-smoke", "mamba2-370m-smoke"])
+def test_lm_pipeline_1f1b_on_streams_matches_the_oracle(cuda, name):
+    """1F1B overlapped, each stage on its own stream and each (stage,
+    replica) on its own lane thread, against the sequential oracle on one
+    stream: the same kernels on the same inputs folded in the same order,
+    so losses and every gradient leaf bitwise equal; so are ``overlap=False`` and interleaved
+    1F1B; no first call inside a run; several streams ran ops; the serve
+    equals ``reference()`` bitwise."""
+    from repro_torch.runtime.pipeline import interleaved_1f1b
+
+    cfg, pipe, mbs = _lm_pipeline(name, cuda)
+    want, want_losses = pipe.sequential(mbs, loss_fn=_pipe_loss)
+    runs = [pipe.run(mbs, train=True, loss_fn=_pipe_loss),
+            pipe.run(mbs, train=True, loss_fn=_pipe_loss, overlap=False),
+            pipe.run(mbs, train=True, loss_fn=_pipe_loss, schedule=interleaved_1f1b(3, 6, 2))]
+    assert runs[0].streams_used > 1 and runs[1].streams_used == 1
+    for res in runs:
+        assert res.losses == want_losses
+        for stage, tree in res.grads.items():
+            assert all(torch.equal(g, want[stage][k]) for k, g in tree.items()), stage
+    served = pipe.run(mbs)
+    assert all(torch.equal(a, b) for a, b in zip(served.outputs, pipe.reference(mbs)))
+    assert pipe.compile_stats.late == 0
+    pipe.close()
+
+
+def test_lm_pipeline_close_gives_its_memory_back(cuda):
+    """After a 1F1B run on its lanes and streams, `close()` and dropping
+    the pipeline and its result bring the memory allocated back within 64
+    MB of where it was before the pipeline was built (the lanes' and the
+    autograd thread's cuBLAS workspaces included)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cfg, pipe, mbs = _lm_pipeline("qwen2.5-3b-smoke", cuda)
+    res = pipe.run(mbs, train=True, loss_fn=_pipe_loss)
+    assert res.streams_used > 1
+    pipe.close()
+    del pipe, res
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    assert left < 64 << 20, f"{left} bytes left after close"
+
+
+def test_lm_pipeline_backward_op_on_a_thread_new_to_cuda(cuda):
+    """A stage's B op body run on a thread whose first CUDA call it is
+    (autograd then runs the backward kernels on its device thread, the
+    gradients' tensor maps encoded there): its gradients equal those of
+    the same op on the main thread, bitwise."""
+    import threading
+
+    from repro_torch.runtime.pipeline import lm_pipe
+
+    cfg, pipe, mbs = _lm_pipeline("qwen2.5-3b-smoke", cuda, overlap=False)
+    st = pipe.stages[1]
+    x = pipe.stages[0].module(torch.from_numpy(mbs[0]).to(cuda, torch.long)).detach()
+    y_bar = torch.randn(x.shape, device=cuda).to(x.dtype)
+
+    def op():
+        fwd = lm_pipe._fwd_op(st, 0, x, True, True, cuda).payload
+        return lm_pipe._bwd_op(st, 0, fwd[1], y_bar, None, None, cuda).payload
+
+    want = op()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = op()
+        except Exception as e:   # reported below, on the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    assert "error" not in got, got.get("error")
+    (pb, xb, _), (pb_want, xb_want, _) = got["out"], want
+    assert torch.equal(xb, xb_want)
+    assert all(torch.equal(a, b) for a, b in zip(pb, pb_want))
+    pipe.close()

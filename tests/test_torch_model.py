@@ -232,7 +232,8 @@ assert not bad, bad
 # the paper's STG path and the serving CLI are among them
 new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "graphs.nbody",
        "graphs.streamit", "runtime.pipeline.interpreter", "runtime.pipeline.schedule",
-       "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b"]
+       "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b",
+       "runtime.pipeline.lm_pipe"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """
