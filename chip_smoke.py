@@ -29,7 +29,10 @@ script exits non-zero without its result line.  The phases:
     tokens (L 1, L 65) and at the reduced config's widths (P8 N16); and
     nemotron-4-15b's and deepseek-coder-33b's serving shapes: the chain at
     widths 6144 and 7168 at B 8 and 16, flash prefill and decode attention
-    at H48/KV8 and H56/KV8;
+    at H48/KV8 and H56/KV8; and seamless-m4t-medium's, in bf16 and float32:
+    flash not causal at H16 KV16 D64 with Sq = Sk = 1024, Sq 128 and 2048
+    against Sk 1024 and a ragged Sk 1000, decode attention over the cross
+    cache (B8, C 1024 and 1000) and the chain at D1024 H16 KV16 hd64;
  4. serving: the port's ``LMServer`` on qwen2.5-3b and on mamba2-370m, each
     at full width, random weights from a seed, 8 requests of 64-400 prompt
     tokens, 32 new tokens each; the launch counts are reset just before
@@ -59,7 +62,11 @@ script exits non-zero without its result line.  The phases:
     (4096, 2048), each beside an empty kernel on the same grid (the launch
     floor), and rmsnorm's time with other plans (``rmsnorm_scaling``);
     flash, decode attention, the chain's GEMVs and rmsnorm (8 rows) also at
-    the two large dense decoders' serving shapes (``times_large``);
+    the two large dense decoders' serving shapes (``times_large``), and
+    flash not causal (the encoder's B8 S1024 and the cross B8 Sq128 Sk1024,
+    H16 KV16 D64, beside SDPA not causal), decode attention over the cross
+    cache and the chain's GEMVs at seamless-m4t-medium's D1024
+    (``times_prefix``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
@@ -107,7 +114,9 @@ script exits non-zero without its result line.  The phases:
     against the plain version's autograd gradients in bf16 and float32:
     flash attention at qwen2.5-3b's training shape (B 2, S 4096, H 16, KV
     2, D 128, causal), danube's heads (D 120, window 256, S 1024), GQA 7
-    and a ragged S 129; rmsnorm at (8192, 2048), width 1000 and a row off
+    and a ragged S 129, and not causal at seamless-m4t-medium's encoder
+    (B 2, S 1024, H 16, KV 16, D 64) and at Sq != Sk (512 against 1024,
+    1024 against 1000); rmsnorm at (8192, 2048), width 1000 and a row off
     16 bytes; the SSD scan at mamba2-370m's training shape (B 2, L 4096, H
     32, P 64, N 128), L 129, L 1, L 65 and the reduced widths (P 8, N 16),
     b and c strided as ``Mamba._proj`` slices them; the gated norm at
@@ -170,7 +179,24 @@ script exits non-zero without its result line.  The phases:
     ``close()`` (within 64 MB of where it was); a 2-layer full-width
     qwen2.5-3b pipeline, kernel route against ``impl="ref"``, the losses
     and each leaf's gradient norm within phase 10's bf16 tolerance;
-14. the ``kernels`` record, the card's name and power limit, and last the
+14. the families that read an input other than tokens (`prefix_families`):
+    seamless-m4t-medium (12 encoder and 12 decoder layers, d_model 1024, 16
+    heads on 16, vocab 256206) served at full width and depth through
+    ``build_model(cfg).prefill`` / ``.decode_step`` (8 sequences of 128
+    tokens and 1024 frames, 31 greedy steps, the cross caches bitwise
+    unchanged by them), its A/B with frames, trained at full width and
+    depth through `make_train_step` (AdamW, float32 masters, grad_accum 4,
+    global batch 8 of 1024 tokens and 1024 frames: a warm-up and 3 timed
+    steps) and a 2 + 2-layer step A/B'd against ``impl="ref"``;
+    internvl2-26b (48 layers, d_model 6144, 48 heads on 8, 19.9 B
+    parameters) served at full width and depth, first text-only through
+    ``repro_torch.launch.serve.main``, then with 256 prefix embeddings ahead
+    of 8 prompts of 128 tokens, its A/B with the prefix strict at full
+    depth, a profiled decode step, and one train step of a 2-layer
+    full-width cut with the prefix A/B'd against ``impl="ref"``.  Every
+    counted run launches every kernel of its path and calls no plain
+    version;
+15. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -550,7 +576,8 @@ def resilience(cfg, params, prompts, pps, ctx, kernels, *, full, device="cuda",
 def training(check, copies, bound, smi, *, full=True, device="cuda"):
     """Phase 10: training.  The backward kernels against the plain version's
     autograd gradients (flash attention and rmsnorm at qwen2.5-3b's training
-    shapes; the SSD scan and the gated norm at mamba2-370m's, each also
+    shapes, flash also not causal at seamless-m4t-medium's encoder and
+    cross-attention shapes; the SSD scan and the gated norm at mamba2-370m's, each also
     called twice and compared bitwise), and their times at those shapes;
     one train step (accum 2) of qwen2.5-3b and of mamba2-370m at full width
     cut to 2 layers, kernel route against ``impl="ref"`` from the same
@@ -649,6 +676,10 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
                     ((2, 200, 14, 2, 128, None), "GQA 7"),
                     ((2, 129, 16, 2, 128, None), "ragged S 129")) if full else
                    (((1, 70, 4, 2, 16, None), "small"), ((1, 40, 4, 1, 16, 8), "small window")))
+    cross_shapes = ((((2, 1024, 1024, 16, 16, 64), "seamless's encoder"),
+                     ((2, 512, 1024, 16, 16, 64), "cross-attention, Sq < Sk"),
+                     ((2, 1024, 1000, 16, 16, 64), "cross-attention, a ragged Sk")) if full else
+                    (((1, 40, 24, 4, 4, 16), "small cross"),))
     width = 2048 if full else 64
     norm_shapes = ((((8192, 2048), "qwen's training rows"), ((8192, 1000), "width 1000"))
                    if full else (((64, 32), "small"),))
@@ -661,6 +692,17 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 check_grad("flash_attention_bwd", f"{label}: B{b} S{s_} H{h} KV{kv} D{d} "
                            f"causal window={window} {dtype}: {name}", g, w, dtype)
+            del q, k, v, do, got, want
+        # not causal, as seamless-m4t-medium trains it: its encoder's shape,
+        # and cross-attention's Sq != Sk
+        for (b, sq, sk, h, kv, d), label in cross_shapes:
+            q, k, v, do = (randn(b, sq, h, d, dtype=dtype), randn(b, sk, kv, d, dtype=dtype),
+                           randn(b, sk, kv, d, dtype=dtype), randn(b, sq, h, d, dtype=dtype))
+            got = grads(flash_attention, (q, k, v), do, causal=False)
+            want = grads(flash_attention_plain, (q, k, v), do, causal=False)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check_grad("flash_attention_bwd", f"{label}: B{b} Sq{sq} Sk{sk} H{h} KV{kv} "
+                           f"D{d} not causal {dtype}: {name}", g, w, dtype)
             del q, k, v, do, got, want
         cases = [(randn(*shape, dtype=dtype), label) for shape, label in norm_shapes]
         cases.append((randn(8 * width + 1, dtype=dtype)[1:].view(8, width),
@@ -1609,6 +1651,285 @@ def large_serving(ab, profile_decode, kernels, smi):
     return rounds
 
 
+def prefix_families(ab, profile_decode, kernels, smi):
+    """Phase 14: the two families that read an input other than tokens, at
+    full width and depth on random weights from a seed, one model at a time
+    (the memory allocated before each must be under 2 GB).
+
+    seamless-m4t-medium (12 encoder and 12 decoder layers, 0.88 B
+    parameters): served through ``build_model(cfg).prefill`` and
+    ``.decode_step`` (8 sequences of 128 tokens and 1024 frames of width
+    1024, capacity 160, 31 greedy steps; a warm-up round that also holds
+    the cross caches bitwise unchanged by the steps, then a counted one);
+    the A/B of phase 5 on 2 of them with their frames; trained through
+    `make_train_step` (AdamW on float32 masters, grad_accum 4, global batch
+    8 of 1024 frames and 1024 tokens, remat "full": one warm-up step and 3
+    counted); a 2 + 2-layer full-width step, kernel route against
+    ``impl="ref"`` (loss and each leaf's gradient norm).
+
+    internvl2-26b (48 layers, d_model 6144, 19.9 B parameters): first
+    through ``repro_torch.launch.serve.main`` text-only (8 requests, 32 new
+    tokens), then one prefill of 256 prefix embeddings ahead of 8 prompts
+    of 128 tokens and 31 greedy steps, counted; the A/B of phase 5, strict
+    at full depth, on 2 of them with their prefix; a profiled decode step;
+    then one train step of a full-width 2-layer cut with the prefix, kernel
+    route against ``impl="ref"``.
+
+    Every counted run: launch counts set to 0 just before and read just
+    after, every kernel of the path launched, no plain version called, and
+    ``_composed_step`` never run.  Returns each counted run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+
+    dev, bf16, f32, gb = torch.device("cuda"), torch.bfloat16, torch.float32, 1e9
+    train_kernels = {"flash_attention": kernels["flash_attention"],
+                     "flash_attention_bwd": flash_attention_backward,
+                     "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward}
+    plain = [(fa, "flash_attention_plain"), (da, "decode_attention_plain"),
+             (rn, "rmsnorm_plain"), (fd, "fused_decode_plain"), (fd, "qkv_plain"),
+             (fd, "out_residual_plain"), (ref, "mha_reference"), (ref, "decode_attention_ref"),
+             (ref, "rmsnorm_reference")]
+    rounds = {}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def run_counted(what, fn, kset):
+        """`counted`, with every plain version and `_composed_step` counted
+        too: none may run."""
+        calls, originals = {}, {(m, a): getattr(m, a) for m, a in plain}
+
+        def counting(name, f):
+            def wrapped(*a, **kw):
+                calls[name] = calls.get(name, 0) + 1
+                return f(*a, **kw)
+            return wrapped
+        for m, a in plain:
+            setattr(m, a, counting(a, originals[(m, a)]))
+        fd._composed_step.calls = 0
+        try:
+            out, rec = counted(fn, kset)
+        finally:
+            for m, a in plain:
+                setattr(m, a, originals[(m, a)])
+        if calls or fd._composed_step.calls:
+            raise AssertionError(f"{what}: plain versions called {calls}, _composed_step "
+                                 f"{fd._composed_step.calls} times: the path left its kernels")
+        rounds[what] = rec["launches"]
+        return out
+
+    def fresh(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        emit("prefix_start", config=name, memory_allocated_gb=before / gb, card=smi)
+        if before > 2 * gb:
+            raise AssertionError(f"{name}: {before / gb:.2f} GB already allocated")
+
+    def generate(model, params, batch, capacity, steps, check_cross=False):
+        """A prefill and ``steps`` greedy decode steps, each step's wall time
+        taken at its token read (one sync a step)."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, capacity=capacity)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            tokens = [tok.tolist()]
+            prefill_s = time.perf_counter() - t0
+            cross = [(c["cross_k"].clone(), c["cross_v"].clone()) for c in cache["layers"]
+                     ] if check_cross else []
+            step_s = []
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                tokens.append(tok.tolist())
+                step_s.append(time.perf_counter() - t1)
+            unchanged = all(torch.equal(k, c["cross_k"]) and torch.equal(v, c["cross_v"])
+                            for (k, v), c in zip(cross, cache["layers"]))
+            finite = bool(torch.isfinite(logits).all())
+        toks = np.array(tokens)[:, :, 0].T                         # (B, 1 + steps)
+        if not finite or toks.min() < 0 or toks.max() >= model.cfg.padded_vocab:
+            raise AssertionError(f"{model.cfg.name}: logits not finite or tokens out of range")
+        return dict(prefill_s=prefill_s, decode_steps=steps,
+                    decode_step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+                    decode_step_p90_ms=float(np.percentile(step_s, 90) * 1e3),
+                    decode_tok_per_s=toks.shape[0] * steps / sum(step_s),
+                    cross_caches_unchanged=unchanged if check_cross else None,
+                    first_tokens=toks[:2, :8].tolist())
+
+    def train_ab(cfg, batch, n_layers, enc_layers=0):
+        """One step (accum 2) of a full-width cut, kernel route against
+        impl="ref" from the same float32 masters and batch: the loss and
+        each leaf's gradient norm within phase 10's bf16 tolerance."""
+        cut = dataclasses.replace(cfg, n_layers=n_layers, enc_layers=enc_layers)
+        out = {}
+        for impl in (None, "ref"):
+            model = lm.init_params(cut, device=dev, param_dtype=f32, generator=gen(0))
+            opt, step_fn = make_train_step(cut, grad_accum=2, impl=impl, warmup=1)
+            state = opt.init(dict(model.named_parameters()))
+            if impl is None:
+                metrics = run_counted(f"{cfg.name} train A/B", lambda: step_fn(
+                    model, state, 0, batch), train_kernels)
+            else:
+                metrics, rec = counted(lambda: step_fn(model, state, 0, batch),
+                                       train_kernels, require=())
+                if any(rec["launches"].values()):
+                    raise AssertionError(f"the impl='ref' step launched kernels: "
+                                         f"{rec['launches']}")
+            out[impl] = (float(metrics["loss"]),
+                         {k: float(p.grad.norm()) for k, p in model.named_parameters()})
+            del model, state, opt
+        (loss_k, norms_k), (loss_r, norms_r) = out[None], out["ref"]
+        rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        tol = TRAIN_AB_TOL[cfg.compute_dtype]
+        ok = loss_rel <= tol and rel[worst] <= tol
+        emit("prefix_train_ab", config=f"{cfg.name}, {n_layers} + {enc_layers} layers, full "
+             "width", batch={k: list(v.shape) for k, v in batch.items()}, loss_kernels=loss_k,
+             loss_ref=loss_r, loss_rel_diff=loss_rel, worst_grad_norm_leaf=worst,
+             worst_grad_norm_rel_diff=rel[worst], leaves=len(rel), tolerance=tol, ok=ok,
+             card=smi)
+        if not ok:
+            raise AssertionError(f"train step of a {cfg.name} cut: kernel route and "
+                                 f"impl='ref' differ (loss {loss_k} vs {loss_r}; {worst} "
+                                 f"{rel[worst]})")
+
+    # -- seamless-m4t-medium: serving ---------------------------------------
+    cfg = get_config("seamless-m4t-medium")
+    fresh(cfg.name)
+    model = lm.build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(device=dev, generator=gen(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = sum(p.numel() * p.element_size() for p in params.parameters())
+    g = gen(1)
+    B, S, new = 8, 128, 32
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=g, device=dev),
+             "frames": torch.randn((B, cfg.num_prefix, cfg.d_model), generator=g,
+                                   device=dev).to(bf16)}
+    warm = generate(model, params, batch, S + new, new - 1, check_cross=True)
+    if not warm["cross_caches_unchanged"]:
+        raise AssertionError(f"{cfg.name}: a decode step wrote the cross caches")
+    rec = run_counted(f"{cfg.name} serve", lambda: generate(model, params, batch, S + new,
+                                                            new - 1), kernels)
+    emit("prefix_serve", config=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         d_model=cfg.d_model, heads=cfg.attn.n_heads, kv_heads=cfg.attn.n_kv_heads,
+         params=sum(p.numel() for p in params.parameters()), init_s=init_s, batch=B,
+         prompt_tokens=S, frames=cfg.num_prefix, capacity=S + new,
+         cross_caches_unchanged_by_decode=warm["cross_caches_unchanged"], **rec,
+         weights_resident_gb=resident / gb,
+         peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+         launches=rounds[f"{cfg.name} serve"], card=smi)
+    ab(cfg, params, batch["tokens"][:2].tolist(),
+       lambda ref_logits: max(LOGIT_TOL, float(ref_logits.abs().max()) / 16),
+       extra={"frames": batch["frames"][:2]})
+    del params, batch
+
+    # -- seamless-m4t-medium: training at full width and depth --------------
+    fresh(cfg.name + " training")
+    seq, gbatch, accum = 1024, 8, 4
+    master = lm.init_params(cfg, device=dev, param_dtype=f32, generator=gen(0))
+    opt, step_fn = make_train_step(cfg, grad_accum=accum, warmup=2)
+    state = opt.init(dict(master.named_parameters()))
+    resident = torch.cuda.memory_allocated()
+
+    def train_batch(step, lead=(accum, gbatch // accum), n_tok=seq):
+        g_ = gen(100 + step)
+        return {"tokens": torch.randint(0, cfg.vocab, (*lead, n_tok), generator=g_, device=dev),
+                "labels": torch.randint(0, cfg.vocab, (*lead, n_tok), generator=g_, device=dev),
+                "frames": torch.randn((*lead, cfg.num_prefix, cfg.d_model), generator=g_,
+                                      device=dev).to(bf16)}
+
+    losses, step_s = [], []
+
+    def steps(first, n):
+        for i in range(first, first + n):
+            b_ = train_batch(i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(step_fn(master, state, i, b_)["loss"]))
+            step_s.append(time.perf_counter() - t1)
+
+    steps(0, 1)                                  # the warm-up step
+    run_counted(f"{cfg.name} train", lambda: steps(1, 3), train_kernels)
+    median_s = sorted(step_s[1:])[1]
+    n_params = sum(p.numel() for p in master.parameters())
+    emit("prefix_train", config=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         params=n_params, optimizer=cfg.optimizer, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat, seq=seq, frames=cfg.num_prefix,
+         global_batch=gbatch, grad_accum=accum, losses=losses, step_s=step_s,
+         timed_steps=3, timed_step_s_median=median_s, tok_per_s=gbatch * seq / median_s,
+         frames_per_s=gbatch * cfg.num_prefix / median_s,
+         resident_gb=resident / gb,
+         peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+         launches=rounds[f"{cfg.name} train"], card=smi)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss of {cfg.name}: {losses}")
+    del master, state, opt
+    fresh(cfg.name + " training A/B")
+    train_ab(cfg, train_batch(0, lead=(2, 2)), 2, 2)
+
+    # -- internvl2-26b: serving at full width and depth ---------------------
+    cfg = get_config("internvl2-26b")
+    fresh(cfg.name)
+    argv = ["--arch", cfg.name, "--requests", "8", "--max-batch", "8", "--max-new", "32",
+            "--prompt-len", "400", "--seed", "0"]
+    t0 = time.perf_counter()
+    server, outs = run_counted(f"{cfg.name} serve.main", lambda: serve_cli.main(argv), kernels)
+    emit("prefix_serve_cli", config=cfg.name, argv=argv, seconds=time.perf_counter() - t0,
+         completion_lens=[len(o.tokens) for o in outs], stats=server.stats.summary(),
+         launches=rounds[f"{cfg.name} serve.main"], card=smi)
+    params, model = server.params, server.model
+    del server, outs
+    resident = sum(p.numel() * p.element_size() for p in params.parameters())
+    g = gen(2)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=g, device=dev),
+             "prefix_embeds": torch.randn((B, cfg.num_prefix, cfg.d_model), generator=g,
+                                          device=dev).to(bf16)}
+    capacity = cfg.num_prefix + S + new
+    generate(model, params, batch, capacity, 2)                  # warm-up
+    rec = run_counted(f"{cfg.name} prefix", lambda: generate(model, params, batch, capacity,
+                                                             new - 1), kernels)
+    emit("prefix_serve", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.attn.n_heads, kv_heads=cfg.attn.n_kv_heads,
+         params=sum(p.numel() for p in params.parameters()), batch=B, prompt_tokens=S,
+         prefix=cfg.num_prefix, capacity=capacity, **rec, weights_resident_gb=resident / gb,
+         peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+         launches=rounds[f"{cfg.name} prefix"], card=smi)
+    ab(cfg, params, batch["tokens"][:2].tolist(),
+       lambda ref_logits: max(LOGIT_TOL, float(ref_logits.abs().max()) / 16),
+       extra={"prefix_embeds": batch["prefix_embeds"][:2]})
+    profile_decode(cfg, params, batch["tokens"].tolist())
+    del params, model, batch
+
+    # -- internvl2-26b: one train step of a 2-layer full-width cut ----------
+    fresh(cfg.name + " training A/B")
+    g = gen(3)
+    lead = (2, 2)
+    train_ab(cfg, {"tokens": torch.randint(0, cfg.vocab, (*lead, 512), generator=g, device=dev),
+                   "labels": torch.randint(0, cfg.vocab, (*lead, 512), generator=g, device=dev),
+                   "prefix_embeds": torch.randn((*lead, cfg.num_prefix, cfg.d_model), generator=g,
+                                                device=dev).to(bf16)}, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rounds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1795,16 +2116,17 @@ def main() -> int:
     # the fused chain: qwen's sublayer (with bias) in the growing (C544 pos
     # 300), boundary (C64 pos 64) and wrapped (C64 pos 200) ring states,
     # and danube's (no bias, hd 120)
-    def sublayer(b, d, h, kv, hd, c, bias):
+    def sublayer(b, d, h, kv, hd, c, bias, dtype=bf16):
         def mat(*shape, fan=None):
             return (torch.randn(shape, generator=gen, device=dev) *
-                    (fan ** -0.5 if fan else 1.0)).to(bf16)
+                    (fan ** -0.5 if fan else 1.0)).to(dtype)
         w = dict(norm=1.0 + 0.1 * randn(d, dtype=torch.float32),
                  wq=mat(d, h * hd, fan=d), wk=mat(d, kv * hd, fan=d), wv=mat(d, kv * hd, fan=d),
                  wo=mat(h * hd, d, fan=h * hd), bq=mat(h * hd, fan=100) if bias else None,
                  bk=mat(kv * hd, fan=100) if bias else None,
                  bv=mat(kv * hd, fan=100) if bias else None)
-        return (randn(b, 1, d), randn(b, c, kv, hd), randn(b, c, kv, hd),
+        return (randn(b, 1, d, dtype=dtype), randn(b, c, kv, hd, dtype=dtype),
+                randn(b, c, kv, hd, dtype=dtype),
                 dict(w, n_heads=h, head_dim=hd, eps=1e-6, theta=1e6, scale=hd ** -0.5))
 
     for label, (d, h, kv, hd, bias) in (("qwen", (2048, 16, 2, 128, True)),
@@ -1848,6 +2170,38 @@ def main() -> int:
             check("decode_attention", f"{label} B8 H{h} KV{kv} hd{hd} C544 cache_len={lens}",
                   decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen))
         del q, k, v, kc, vc
+
+    # seamless-m4t-medium's shapes (phase 14), in bf16 and float32: flash not
+    # causal at the encoder's self-attention (Sq = Sk = 1024, H16 KV16 D64)
+    # and at cross-attention's Sq != Sk (128 and 2048 queries against 1024
+    # frames, 1024 against a ragged 1000); decode attention over the cross
+    # cache (B8, C 1024 and a ragged 1000, all of it live); the chain at
+    # D1024 H16 KV16 hd64 (GQA 1) in the growing and wrapped ring states
+    for dtype in (bf16, torch.float32):
+        tol = ATOL if dtype == bf16 else F32_TOL
+        for b, sq, sk in ((2, 1024, 1024), (2, 128, 1024), (1, 2048, 1024), (2, 1024, 1000)):
+            q = randn(b, sq, 16, 64, dtype=dtype)
+            k, v = randn(b, sk, 16, 64, dtype=dtype), randn(b, sk, 16, 64, dtype=dtype)
+            check("flash_attention", f"seamless B{b} Sq{sq} Sk{sk} H16 KV16 D64 not causal "
+                  f"{dtype}", flash_attention(q, k, v, causal=False),
+                  flash_attention_plain(q, k, v, causal=False), tol, tol)
+        for c in (1024, 1000):
+            q, kc, vc = (randn(8, 16, 64, dtype=dtype), randn(8, c, 16, 64, dtype=dtype),
+                         randn(8, c, 16, 64, dtype=dtype))
+            clen = torch.tensor(c, dtype=torch.int32, device=dev)
+            check("decode_attention", f"seamless cross B8 H16 KV16 hd64 C{c} cache_len={c} "
+                  f"{dtype}", decode_attention(q, kc, vc, clen),
+                  decode_attention_plain(q, kc, vc, clen), tol, tol)
+        for c, pos in ((160, 140), (64, 200)):
+            x, kc, vc, kw = sublayer(8, 1024, 16, 16, 64, c, False, dtype)
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            want, k_new, v_new = fused_decode_plain(x[:, 0], kc, vc, p, **kw)
+            got = fused_decode(x, kc, vc, p, **kw)
+            case = f"seamless B8 D1024 H16 KV16 hd64 C{c} pos {pos} {dtype}"
+            check("fused_decode", case + ": out", got[:, 0], want, tol, tol)
+            check("fused_decode", case + ": slot k", kc[:, pos % c], k_new, tol, tol)
+            check("fused_decode", case + ": slot v", vc[:, pos % c], v_new, tol, tol)
+        del q, k, v, kc, vc, x
 
     # the SSD scan at mamba2-370m's prefill (B8 L512 H32 P64 N128) and a
     # ragged length; b and c are strided slices of one projection, as there.
@@ -1939,18 +2293,22 @@ def main() -> int:
         "mamba2-370m", {"rmsnorm": rmsnorm, "rmsnorm_gated": rmsnorm_gated, "ssd_scan": ssd_scan})
 
     # -- 5. A/B: oracle route vs kernel route, lockstep --------------------
-    def ab(cfg, params, prompts, tol_of):
+    def ab(cfg, params, prompts, tol_of, extra=None):
         """Prefill and 8 decode steps of two requests through both routes,
         each fed the oracle's tokens; ``tol_of(ref_logits)`` is the bound on
-        the logits' difference at a step, twice it the near-tie margin."""
+        the logits' difference at a step, twice it the near-tie margin.
+        ``extra``: the two requests' frames or prefix embeddings, for the
+        batch."""
         ab = prompts[:2]
         bucket = _bucket(max(map(len, ab)))
         toks = np.zeros((2, bucket), np.int64)
         for i, p in enumerate(ab):
             toks[i, bucket - len(p):] = p
-        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        batch = dict(extra or {}, tokens=torch.from_numpy(toks).to(dev))
+        prefix = batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch else 0
         with torch.no_grad():
-            runs = {impl: lm.prefill(cfg, params, batch, capacity=bucket + 8, impl=impl)
+            runs = {impl: lm.prefill(cfg, params, batch, capacity=prefix + bucket + 8,
+                                     impl=impl)
                     for impl in (None, "ref")}
             diffs, tols, margins, parted, agree = [], [], [], [False, False], [0, 0]
             for step in range(8):
@@ -1980,7 +2338,8 @@ def main() -> int:
         emit("ab", config=cfg.name, layers=cfg.n_layers, requests=2, steps=8,
              max_abs_logit_diff=diffs, logit_tol=tols, min_top2_margin=margins,
              tie_margin=[2 * t for t in tols], tokens_agreeing=agree,
-             parted_at_near_tie=parted, logits_abs_max=float(lr.abs().max()))
+             parted_at_near_tie=parted, logits_abs_max=float(lr.abs().max()),
+             batch=sorted(batch), prefix=prefix)
 
     ab(cfg, params, prompts, lambda ref_logits: LOGIT_TOL)
 
@@ -2382,6 +2741,64 @@ def main() -> int:
     emit("times_large", card=smi, **{k: times[k]["large_shapes"] for k in (
         "flash_attention", "decode_attention", "fused_decode", "rmsnorm")})
 
+    # seamless-m4t-medium's shapes (phase 14's serving round): flash not
+    # causal over the encoder's 1024 frames (B8, H16 KV16 D64) and in the
+    # decoder's cross-attention (128 queries against them), decode attention
+    # over the cross cache (B8 C1024, all live) and the chain's GEMVs at
+    # D1024, H16 KV16 hd64, B 8; each beside its bound, its plain version and
+    # the library call (SDPA not causal; ``addmm``); bounds as above, the
+    # attention products over every (query, key) pair
+    def sdpa_full(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=False)
+
+    prefix_times = {k: {} for k in ("flash_attention", "decode_attention", "fused_decode")}
+    for label, (b_, sq_, sk_) in (("encoder", (8, 1024, 1024)), ("cross", (8, 128, 1024))):
+        nb = 2 * (2 * b_ * sq_ * 16 * 64 + 2 * b_ * sk_ * 16 * 64)
+        sets = copies(lambda: (randn(b_, sq_, 16, 64), randn(b_, sk_, 16, 64),
+                               randn(b_, sk_, 16, 64)), nb)
+        b_ms, b_by = bound(nb, 4 * 64 * b_ * 16 * sq_ * sk_, BF16_FLOP_PER_S)
+        prefix_times["flash_attention"][
+            f"seamless {label} B{b_} Sq{sq_} Sk{sk_} H16 KV16 D64 not causal"] = dict(
+            ms=timed(lambda q, k, v: flash_attention(q, k, v, causal=False), sets, iters=10),
+            plain_ms=timed(lambda q, k, v: flash_attention_plain(q, k, v, causal=False), sets,
+                           iters=10),
+            library_ms=timed(sdpa_full, sets, iters=10), bound_ms=b_ms, bound_by=b_by)
+        del sets
+    clen_ = torch.tensor(1024, dtype=torch.int32, device=dev)
+    nb = 2 * (2 * 8 * 16 * 64 + 2 * 8 * 1024 * 16 * 64)
+    sets = copies(lambda: (randn(8, 16, 64), randn(8, 1024, 16, 64), randn(8, 1024, 16, 64)),
+                  nb)
+    b_ms, b_by = bound(nb, 4 * 64 * 16 * 8 * 1024, BF16_FLOP_PER_S)
+    prefix_times["decode_attention"]["seamless cross B8 H16 KV16 hd64 C1024"] = dict(
+        ms=timed(lambda q, k, v: decode_attention(q, k, v, clen_), sets),
+        plain_ms=timed(lambda q, k, v: decode_attention_plain(q, k, v, clen_), sets),
+        library_ms=timed(lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), sets),
+        bound_ms=b_ms, bound_by=b_by, plan=split_plan(8, 16, 1024, sms)._asdict())
+    q_sets, q_bytes, o_sets, o_bytes = gemv_sets(8, 1024, 16, 16, 64, bias=False)
+    q_cat = [(x2, kw["norm"].to(bf16), torch.cat([kw["wq"], kw["wk"], kw["wv"]], 1))
+             for x2, _, _, kw in q_sets]
+    qb_ms, qb_by = bound(q_bytes, 2 * 8 * 1024 * 48 * 64, BF16_FLOP_PER_S)
+    ob_ms, ob_by = bound(o_bytes, 2 * 8 * 1024 * 1024, BF16_FLOP_PER_S)
+    prefix_times["fused_decode"]["seamless B8 D1024 H16 KV16 hd64"] = {
+        "fused_qkv_rope": dict(
+            ms=timed(run_qkv, q_sets), plain_ms=timed(plain_qkv, q_sets), library_ms=None,
+            yardstick_ms=timed(lambda x2, nw, w: F.rms_norm(x2, (1024,), nw, 1e-6) @ w, q_cat),
+            yardstick="F.rms_norm + torch.mm over wq|wk|wv (no rope, no slot write)",
+            bound_ms=qb_ms, bound_by=qb_by, bytes=q_bytes, plan=fd.gemv_plan(
+                48, fd.tile_width(64), 1024, 1, sms, dtype=torch.bfloat16, norm=True)._asdict()),
+        "fused_out_residual": dict(
+            ms=timed(out_residual, o_sets), plain_ms=timed(fd.out_residual_plain, o_sets),
+            library_ms=timed(lambda o, wo, x2: torch.addmm(x2, o, wo), o_sets),
+            library="torch.addmm(x, o, wo)", bound_ms=ob_ms, bound_by=ob_by, bytes=o_bytes,
+            plan=fd.gemv_plan(-(-1024 // fd.OUT_WIDTH), fd.OUT_WIDTH, 1024, 1, sms,
+                              dtype=torch.bfloat16, norm=False)._asdict())}
+    del sets, q_sets, o_sets, q_cat
+    for k_, v_ in prefix_times.items():
+        times[k_]["prefix_shapes"] = v_
+    emit("times_prefix", card=smi, **prefix_times)
+
     # what sets the GEMVs' time: qwen's and danube's widths at B 1 and 8,
     # with the split plans taken; one block alone streaming a 128-column
     # tile of 256 and of 2048 rows (out_residual, its plan swapped for one
@@ -2750,7 +3167,12 @@ def main() -> int:
     pipe_train_launches = pipelined_training(smi)
     emit("pipe_train_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 14. the record of the kernels, the card, the result ----------------
+    # -- 14. the prefix families: seamless-m4t-medium and internvl2-26b ------
+    t_phase = time.perf_counter()
+    prefix_rounds = prefix_families(ab, profile_decode, qwen_kernels, smi)
+    emit("prefix_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 15. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
@@ -2764,7 +3186,8 @@ def main() -> int:
     # launches the kernels listed); ``large_launches`` from each counted
     # round of phase 12; ``pipe_train_launches`` from qwen2.5-3b's 1F1B run
     # through the microbatch pipeline (phase 13), and mamba2-370m's for the
-    # SSD scan, the gated norm and their backward
+    # SSD scan, the gated norm and their backward; ``prefix_launches`` from
+    # each counted run of phase 14
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -2804,10 +3227,13 @@ def main() -> int:
          "pipe_train_launches": pipe_train_launches.get(name, 0),
          "large_launches": {r: dict(n, fused_decode=n["fused_qkv_rope"]).get(name, 0)
                             for r, n in large_rounds.items()},
+         "prefix_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
+                             for r, n in prefix_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
          **({"large_shapes": t["large_shapes"]} if "large_shapes" in t else {}),
+         **({"prefix_shapes": t["prefix_shapes"]} if "prefix_shapes" in t else {}),
          **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
          **{k: t[k] for k in ("rows_ms", "dkdv_ms", "dq_ms") if k in t},
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (

@@ -5,16 +5,17 @@ Takes the pytree of ``repro.models.lm.init_params`` with its leaves as
 numpy arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
 it) and imports nothing of JAX.  The per-layer leaves under
 ``params["layers"]["pos<i>"]`` (one entry a position of the block
-pattern) are stacked over layer periods along their leading axis; the
-bridge unstacks period p of position i into layer ``p * len(pattern) +
-i`` of the ``nn.ModuleList``.  Each value is cast to the port parameter's
-dtype (for serving the compute dtype for matrices, biases and the Mamba
-conv taps, float32 for norms and the Mamba ``dt_bias``, ``a_log`` and
-``d_skip``; for training ``param_dtype`` throughout but the float32
-ones), which is the cast the JAX code makes at every use, so both
-packages compute with the same numbers.  bf16 leaves pass
-through float32 on the way, because ``torch.from_numpy`` does not take
-ml_dtypes' bfloat16.
+pattern: ``mixer``, ``mlp`` and an encoder-decoder's ``cross``) are
+stacked over layer periods along their leading axis; the bridge unstacks
+period p of position i into layer ``p * len(pattern) + i`` of the
+``nn.ModuleList``, and the same for ``params["enc_layers"]``.  Each value
+is cast to the port parameter's dtype (for serving the compute dtype for
+matrices, biases and the Mamba conv taps, float32 for norms and the Mamba
+``dt_bias``, ``a_log`` and ``d_skip``; for training ``param_dtype``
+throughout but the float32 ones), which is the cast the JAX code makes at
+every use, so both packages compute with the same numbers.  bf16 leaves
+pass through float32 on the way, because ``torch.from_numpy`` does not
+take ml_dtypes' bfloat16.
 """
 from __future__ import annotations
 
@@ -32,12 +33,18 @@ def _flat_jax(cfg: ModelConfig, params) -> dict:
     if not cfg.tie_embeddings:
         out["head"] = params["head"]
     n = len(cfg.block_pattern)
-    for i in range(n):
-        period = params["layers"][f"pos{i}"]
-        for part in ("mixer", "mlp"):
-            for name, leaf in period[part].items():
-                for p in range(cfg.n_periods):
-                    out[f"layers.{p * n + i}.{part}.{name}"] = leaf[p]
+    stacks = [("layers", cfg.n_periods, ("mixer", "cross", "mlp") if cfg.encdec
+               else ("mixer", "mlp"))]
+    if cfg.encdec:
+        out["enc_norm"] = params["enc_norm"]
+        stacks.append(("enc_layers", cfg.enc_layers // n, ("mixer", "mlp")))
+    for stack, periods, parts in stacks:
+        for i in range(n):
+            period = params[stack][f"pos{i}"]
+            for part in parts:
+                for name, leaf in period[part].items():
+                    for p in range(periods):
+                        out[f"{stack}.{p * n + i}.{part}.{name}"] = leaf[p]
     return out
 
 

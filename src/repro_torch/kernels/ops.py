@@ -22,6 +22,7 @@ autograd.
 from __future__ import annotations
 
 from . import ref
+from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
 from .fused_decode import attn_decode_step  # noqa: F401
 from .rmsnorm import rmsnorm as _rmsnorm
@@ -62,3 +63,13 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str | None = None):
         return ref.rmsnorm_reference(x, w, eps=eps)
     return _rmsnorm(x, w, eps=eps)
 
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = None,
+                     scale: float | None = None, impl: str | None = None):
+    """Single-token decode attention over a resident cache.  q (B, H, hd);
+    caches (B, C, KV, hd); cache_len: the live slots, on the card a device
+    int32 tensor of shape () or (B,)."""
+    if check_impl(impl) == "ref":
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len, window=window,
+                                        scale=scale)
+    return _decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale)

@@ -1,6 +1,7 @@
-"""Transformer and Mamba2 blocks: attention, Mamba2 (SSD) and MLP sublayers.
+"""Transformer and Mamba2 blocks: attention, cross-attention, Mamba2 (SSD)
+and MLP sublayers.
 
-Ported from the dense-attention and Mamba2 parts of
+Ported from the dense-attention, cross-attention and Mamba2 parts of
 ``repro/models/blocks.py``.  Each sublayer is an ``nn.Module`` whose
 parameters keep the JAX names and layouts (``wq`` is (D, H*hd) and the
 projection is ``h @ wq``), so ``bridge.py`` maps a JAX pytree onto it
@@ -9,6 +10,9 @@ leaf for leaf:
   JAX                             port
   init_attn, _qkv, attn_forward   Attention.__init__, ._qkv, .forward
   attn_decode                     Attention.decode
+  init_attn (``cross``),          CrossAttention.__init__, .kv, .forward
+  cross_kv, cross_attn_forward
+  cross_attn_decode               CrossAttention.decode
   init_mamba, _mamba_proj,        Mamba.__init__, ._proj, .forward
   mamba_forward
   mamba_decode                    Mamba.decode
@@ -99,12 +103,15 @@ class Attention(nn.Module):
         k = rope(k.view(B, S, a.n_kv_heads, a.head_dim), positions, a.rope_theta)
         return q, k, v.view(B, S, a.n_kv_heads, a.head_dim)
 
-    def forward(self, x, positions, *, impl=None, return_kv=False):
-        """`attn_forward`, causal: x (B, S, D) at positions (S,) -> (B, S, D),
-        and with ``return_kv`` the roped keys and the values (B, S, KV, hd)."""
+    def forward(self, x, positions, *, causal=True, impl=None, return_kv=False):
+        """`attn_forward`: x (B, S, D) at positions (S,) -> (B, S, D), and
+        with ``return_kv`` the roped keys and the values (B, S, KV, hd).
+        Not ``causal`` (the encoder) every position sees every other, and a
+        window applies only to causal attention, as in the JAX code."""
         h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
         q, k, v = self._qkv(h, positions)
-        o = ops.attention(q, k, v, causal=True, window=self.cfg.attn.window, impl=impl)
+        o = ops.attention(q, k, v, causal=causal,
+                          window=self.cfg.attn.window if causal else None, impl=impl)
         B, S, _ = x.shape
         out = x + o.reshape(B, S, -1) @ self.wo.to(x.dtype)
         return (out, (k, v)) if return_kv else out
@@ -138,6 +145,50 @@ class Attention(nn.Module):
         cache_len = torch.clamp(pos + 1, max=C)
         o = ref.decode_attention_ref(q[:, 0], cache["k"], cache["v"], cache_len)
         return x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype), cache
+
+
+class CrossAttention(Attention):
+    """Pre-norm cross-attention sublayer with residual: the leaves of
+    `init_attn` (``cross``).  Its keys and values come from the encoder's
+    output through `kv`, with no norm and no rope; its queries from its own
+    norm of x, with no rope."""
+
+    def _q(self, x):
+        q = x @ self.wq.to(x.dtype)
+        return q + self.bq.to(x.dtype) if self.bq is not None else q
+
+    def kv(self, enc_out):
+        """`cross_kv`: K and V (B, Se, KV, hd) of the encoder's output
+        ``enc_out`` (B, Se, D)."""
+        a = self.cfg.attn
+        B, Se, _ = enc_out.shape
+        dt = enc_out.dtype
+        k = enc_out @ self.wk.to(dt)
+        v = enc_out @ self.wv.to(dt)
+        if self.bk is not None:
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        return k.view(B, Se, a.n_kv_heads, a.head_dim), v.view(B, Se, a.n_kv_heads, a.head_dim)
+
+    def forward(self, x, k, v, *, impl=None):
+        """`cross_attn_forward`: x (B, S, D) attends, not causal, to every
+        one of the encoder's K/V (B, Se, KV, hd) -> (B, S, D)."""
+        a = self.cfg.attn
+        B, S, _ = x.shape
+        q = self._q(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
+        o = ops.attention(q.view(B, S, a.n_heads, a.head_dim), k, v, causal=False, impl=impl)
+        return x + o.reshape(B, S, -1) @ self.wo.to(x.dtype)
+
+    def decode(self, x, k, v, cache_len, *, impl=None):
+        """`cross_attn_decode`: one token, x (B, 1, D), over the cached K/V
+        (B, Se, KV, hd), which it only reads.  ``cache_len``: Se, on the card
+        a () int32 device tensor (`ops.decode_attention`), made once a round
+        by `lm.init_cache`."""
+        a = self.cfg.attn
+        B = x.shape[0]
+        q = self._q(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
+        o = ops.decode_attention(q.view(B, a.n_heads, a.head_dim), k, v, cache_len, impl=impl)
+        return x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype)
 
 
 def attn_cache_capacity(cfg: ModelConfig, seq_len: int) -> int:

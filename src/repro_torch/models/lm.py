@@ -1,24 +1,31 @@
-"""Decoder-only LM: parameters, the full-sequence forward and loss
-(training), the prompt pass and the decode step (serving).
+"""The LM: parameters, the full-sequence forward and loss (training), the
+prompt pass and the decode step (serving).
 
-Ported from ``repro/models/lm.py`` for decoders whose layers are
-attention or Mamba2 mixers with a dense MLP (the dense configs and
-mamba2-370m); no MoE, no encoder, no multimodal prefix.  The JAX package
-stacks each parameter over layer periods of ``block_pattern`` and scans;
-here layer ``p * len(pattern) + i`` is built from ``block_pattern[i]``,
-the layers are an ``nn.ModuleList`` and the scan is a loop.
+Ported from ``repro/models/lm.py`` for stacks of attention or Mamba2
+mixers with dense MLPs: the decoders, the encoder-decoder family (an
+encoder of non-causal layers over ``batch["frames"]``, cross-attended by
+every decoder layer) and the prefix frontend (``batch["prefix_embeds"]``
+ahead of the tokens); no MoE.  The JAX package stacks each parameter over
+layer periods of ``block_pattern`` and scans; here layer ``p *
+len(pattern) + i`` is built from ``block_pattern[i]``, the layers are an
+``nn.ModuleList`` and the scan is a loop.
 
 Serving keeps the cache on the device between steps:
 
   * `prefill` allocates the cache once per round, at its full capacity
-    (prompt bucket + tokens still to come), and fills it in ring layout;
+    (prompt bucket, prefix included, + tokens still to come), and fills it
+    in ring layout;
   * `decode_step` writes one slot per layer in place and bumps the
     position in place: it allocates no cache, and the position stays a
     device scalar, so a step makes no host sync;
   * positions past the capacity wrap (slot ``pos % C``), which only a
     sliding-window config reaches;
   * a Mamba layer's cache is its conv tail and its SSM state, both
-    overwritten in place by each step.
+    overwritten in place by each step;
+  * an encoder-decoder layer's cache is {"self": its own, "cross_k",
+    "cross_v"}: the encoder output's K/V, written once by `prefill` and
+    only read by decode; their length is kept as a device scalar,
+    ``cache["cross_len"]``, for the decode attention kernel.
 
 Training runs `loss_fn` → `forward` → `_run_stack` over float32 masters
 (``init_params(..., param_dtype=torch.float32)``), each period of layers
@@ -40,29 +47,33 @@ from .common import chunked_lm_loss, dtype_of, rmsnorm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if any(mlp != "dense" for _, mlp in cfg.block_pattern) or cfg.encdec or cfg.frontend:
+    if any(mlp != "dense" for _, mlp in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders of attention and Mamba2 layers with "
-            "dense MLPs; MoE, encoder-decoder and multimodal frontends are not ported")
+            f"{cfg.name}: the port runs stacks of attention and Mamba2 layers with dense "
+            "MLPs (decoders, encoder-decoders, a prefix frontend); MoE is not ported")
 
 
 class DecoderLayer(nn.Module):
-    """One layer: the mixer (``attn`` or ``mamba``) then the MLP (``mlp``)."""
+    """One layer: the mixer (``attn`` or ``mamba``), with ``cross`` (a
+    decoder layer of an encoder-decoder) the cross-attention, then the MLP
+    (``mlp``), as JAX `_apply_period` orders them."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None,
-                 param_dtype=None):
+                 param_dtype=None, cross: bool = False):
         super().__init__()
         self.kind = kind
         mixer = blocks.Attention if kind == "attn" else blocks.Mamba
         kw = dict(device=device, generator=generator, param_dtype=param_dtype)
         self.mixer = mixer(cfg, **kw)
+        self.cross = blocks.CrossAttention(cfg, **kw) if cross else None
         self.mlp = blocks.MLP(cfg, **kw)
 
 
 class LM(nn.Module):
     """The parameters of `init_params`, under the JAX names: ``embed``
-    (Vp, D), ``final_norm`` (D,), ``head`` (D, Vp) unless tied, and
-    ``layers``.  With no generator the storage is left unset, for
+    (Vp, D), ``final_norm`` (D,), ``head`` (D, Vp) unless tied, ``layers``
+    and, for an encoder-decoder, ``enc_layers`` and ``enc_norm`` (D,)
+    (None otherwise).  With no generator the storage is left unset, for
     ``bridge.py`` to fill.  ``param_dtype``: None for serving (weights in
     the compute dtype, no gradients); a dtype for training (the masters
     the optimizer updates, with gradients)."""
@@ -78,10 +89,16 @@ class LM(nn.Module):
         self.final_norm = make.fill(1.0, (d,))
         self.head = None if cfg.tie_embeddings else make.weight((d, vp))
         pattern = cfg.block_pattern
+        kw = dict(device=device, generator=generator, param_dtype=param_dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, pattern[i % len(pattern)][0], device=device,
-                         generator=generator, param_dtype=param_dtype)
+            DecoderLayer(cfg, pattern[i % len(pattern)][0], cross=cfg.encdec, **kw)
             for i in range(cfg.n_layers))
+        self.enc_layers = self.enc_norm = None
+        if cfg.encdec:
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, pattern[i % len(pattern)][0], **kw)
+                for i in range(cfg.enc_layers))
+            self.enc_norm = make.fill(1.0, (d,))
 
 
 def init_params(cfg: ModelConfig, *, device, generator: torch.Generator,
@@ -96,8 +113,15 @@ def _head(cfg: ModelConfig, params: LM):
 
 
 def _embed_inputs(cfg: ModelConfig, params: LM, batch):
-    """Token embeddings (B, S, D) in the compute dtype."""
-    return params.embed[batch["tokens"]].to(dtype_of(cfg.compute_dtype))
+    """Token embeddings (B, S, D) in the compute dtype, after
+    ``batch["prefix_embeds"]`` (B, P, D) where the config has the prefix
+    frontend and the batch has them; and P (0 without)."""
+    dt = dtype_of(cfg.compute_dtype)
+    x = params.embed[batch["tokens"]].to(dt)
+    if cfg.frontend != "vit_stub" or "prefix_embeds" not in batch:
+        return x, 0
+    pre = batch["prefix_embeds"].to(dt)
+    return torch.cat([pre, x], dim=1), pre.shape[1]
 
 
 # ===========================================================================
@@ -128,74 +152,104 @@ def _remat(fn, mode: str):
     raise ValueError(f"remat must be none, dots or full, got {mode!r}")
 
 
-def _apply_period(layers, x, positions, *, impl=None):
+def _apply_period(layers, x, positions, enc_out, *, causal: bool = True, impl=None):
     for layer in layers:
         if layer.kind == "mamba":
             x, _ = layer.mixer(x, impl=impl)
         else:
-            x = layer.mixer(x, positions, impl=impl)
+            x = layer.mixer(x, positions, causal=causal, impl=impl)
+        if layer.cross is not None:
+            x = layer.cross(x, *layer.cross.kv(enc_out), impl=impl)
         x = layer.mlp(x, impl=impl)
     return x
 
 
-def _run_stack(cfg: ModelConfig, layers, x, positions, *, impl=None, remat: str | None = None):
-    """Every period of ``block_pattern`` in turn, each under `_remat`."""
+def _run_stack(cfg: ModelConfig, layers, x, positions, *, causal: bool = True, enc_out=None,
+               impl=None, remat: str | None = None):
+    """Every period of ``block_pattern`` in turn, each under `_remat`;
+    ``enc_out``: the encoder's output, for the layers' cross-attention."""
     n = len(cfg.block_pattern)
     periods = [layers[i:i + n] for i in range(0, len(layers), n)]
-    body = _remat(functools.partial(_apply_period, impl=impl),
+    body = _remat(functools.partial(_apply_period, causal=causal, impl=impl),
                   remat if remat is not None else cfg.remat)
     for period in periods:
-        x = body(period, x, positions)
+        x = body(period, x, positions, enc_out)
     return x
 
 
+def _encode(cfg: ModelConfig, params: LM, batch, *, impl=None, remat: str | None = None):
+    """The encoder over ``batch["frames"]`` (B, Se, D): its layers, not
+    causal, at positions ``arange(Se)``, then ``enc_norm``."""
+    frames = batch["frames"].to(dtype_of(cfg.compute_dtype))
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    enc = _run_stack(cfg, params.enc_layers, frames, positions, causal=False, impl=impl,
+                     remat=remat)
+    return rmsnorm(enc, params.enc_norm, cfg.norm_eps, impl)
+
+
 def forward(cfg: ModelConfig, params: LM, batch, *, impl=None, remat: str | None = None):
-    """Full-sequence forward: the final hidden states (B, S, D), after the
-    final norm."""
-    x = _embed_inputs(cfg, params, batch)
+    """Full-sequence forward: the final hidden states (B, P + S, D), after
+    the final norm, and the prefix length P (`_embed_inputs`)."""
+    enc_out = _encode(cfg, params, batch, impl=impl, remat=remat) if cfg.encdec else None
+    x, n_prefix = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(cfg, params.layers, x, positions, impl=impl, remat=remat)
-    return rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
+    x = _run_stack(cfg, params.layers, x, positions, enc_out=enc_out, impl=impl, remat=remat)
+    return rmsnorm(x, params.final_norm, cfg.norm_eps, impl), n_prefix
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch, *, impl=None):
     """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
-    ``batch["mask"]`` where given): (loss, {"loss": loss}); each period of
-    layers under ``cfg.remat``."""
-    x = forward(cfg, params, batch, impl=impl)
-    loss = chunked_lm_loss(x, _head(cfg, params), batch["labels"], batch.get("mask"))
+    ``batch["mask"]`` where given), the prefix rows left out: (loss,
+    {"loss": loss}); each period of layers under ``cfg.remat``."""
+    x, n_prefix = forward(cfg, params, batch, impl=impl)
+    loss = chunked_lm_loss(x[:, n_prefix:], _head(cfg, params), batch["labels"],
+                           batch.get("mask"))
     return loss, {"loss": loss}
 
 
 def logits_fn(cfg: ModelConfig, params: LM, batch, *, impl=None, last_only: bool = True):
-    x = forward(cfg, params, batch, impl=impl, remat="none")
+    x, _ = forward(cfg, params, batch, impl=impl, remat="none")
     h = x[:, -1:] if last_only else x
     return h @ _head(cfg, params).to(x.dtype)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device,
-               span: tuple[int, int] | None = None):
+               span: tuple[int, int] | None = None, enc_len: int | None = None):
     """``{"pos": () int32, "layers": [one cache a layer]}``, zeroed: {"k",
     "v"} for attention (a sliding-window config caps the capacity at its
-    window), {"conv", "ssm"} for Mamba.  ``span``: the layers [lo, hi) to
-    make caches for (a pipeline stage's); every layer by default."""
+    window), {"conv", "ssm"} for Mamba.  An encoder-decoder's layer cache
+    is {"self": that, "cross_k", "cross_v"} of (B, Se, KV, hd), Se =
+    ``enc_len`` or ``cfg.num_prefix``, and ``"cross_len"`` holds Se as a
+    () int32 device tensor.  ``span``: the layers [lo, hi) to make caches
+    for (a pipeline stage's); every layer by default."""
     cap = blocks.attn_cache_capacity(cfg, capacity)
     pattern = cfg.block_pattern
     lo, hi = span or (0, cfg.n_layers)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": [blocks.init_attn_cache(cfg, batch, cap, dtype, device)
-                       if pattern[i % len(pattern)][0] == "attn"
-                       else blocks.init_mamba_cache(cfg, batch, dtype, device)
-                       for i in range(lo, hi)]}
+    layers = [blocks.init_attn_cache(cfg, batch, cap, dtype, device)
+              if pattern[i % len(pattern)][0] == "attn"
+              else blocks.init_mamba_cache(cfg, batch, dtype, device)
+              for i in range(lo, hi)]
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device), "layers": layers}
+    if cfg.encdec:
+        se = enc_len or cfg.num_prefix
+        cross = (batch, se, cfg.attn.n_kv_heads, cfg.attn.head_dim)
+        cache["layers"] = [{"self": c, "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                            "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+                           for c in layers]
+        cache["cross_len"] = torch.full((), se, dtype=torch.int32, device=device)
+    return cache
 
 
-def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, impl=None):
+def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, enc_out=None,
+                   impl=None):
     """Prompt pass over ``layers``, filling each layer's cache in place:
     position p lands in slot p % C of an attention cache; a Mamba cache
-    takes the conv tail and the final SSM state.  Returns the hidden
-    states."""
+    takes the conv tail and the final SSM state; with ``enc_out`` (an
+    encoder-decoder) each layer's cross-attention K/V, in the compute
+    dtype.  Returns the hidden states."""
     S = x.shape[1]
-    for layer, c in zip(layers, caches):
+    for layer, cc in zip(layers, caches):
+        c = cc if layer.cross is None else cc["self"]
         if layer.kind == "mamba":
             x, (conv, ssm) = layer.mixer(x, impl=impl)
             c["conv"].copy_(conv)
@@ -210,6 +264,11 @@ def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, impl=None)
             else:              # the slots past the prompt stay zero
                 c["k"][:, :S].copy_(k)
                 c["v"][:, :S].copy_(v)
+        if layer.cross is not None:
+            k, v = layer.cross.kv(enc_out)
+            cc["cross_k"].copy_(k)
+            cc["cross_v"].copy_(v)
+            x = layer.cross(x, k, v, impl=impl)
         x = layer.mlp(x, impl=impl)
     return x
 
@@ -218,29 +277,38 @@ def prefill(cfg: ModelConfig, params: LM, batch, *, capacity: int | None = None,
             impl=None):
     """Prompt pass: last-token logits (B, 1, Vp) and a decode-ready cache.
 
-    ``capacity``: cache length to allocate (prompt + tokens still to be
-    generated); defaults to the prompt length."""
-    x = _embed_inputs(cfg, params, batch)
+    ``capacity``: cache length to allocate (prefix + prompt + tokens still
+    to be generated); defaults to the prefix and prompt's length.  An
+    encoder-decoder runs its encoder over ``batch["frames"]`` first, with
+    no recomputation."""
+    enc_out = _encode(cfg, params, batch, impl=impl, remat="none") if cfg.encdec else None
+    x, _ = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    cache = init_cache(cfg, B, capacity or S, dtype=x.dtype, device=x.device)
-    x = prefill_blocks(cfg, params.layers, x, positions, cache["layers"], impl=impl)
+    cache = init_cache(cfg, B, capacity or S, dtype=x.dtype, device=x.device,
+                       enc_len=enc_out.shape[1] if enc_out is not None else None)
+    x = prefill_blocks(cfg, params.layers, x, positions, cache["layers"], enc_out=enc_out,
+                       impl=impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
     logits = x[:, -1:] @ _head(cfg, params).to(x.dtype)
     cache["pos"].fill_(S)
     return logits, cache
 
 
-def decode_blocks(cfg: ModelConfig, layers, caches, x, pos, *, impl=None):
+def decode_blocks(cfg: ModelConfig, layers, caches, x, pos, *, cross_len=None, impl=None):
     """One decode step over ``layers``; each layer's cache is updated in
     place.  ``impl=None`` runs attention through `ops.attn_decode_step`
     (the chain of kernels on the card), ``"ref"`` through the op-by-op
-    oracle body."""
-    for layer, c in zip(layers, caches):
+    oracle body.  An encoder-decoder's layers attend to their cached
+    cross K/V (``cross_len`` of them), which they do not write."""
+    for layer, cc in zip(layers, caches):
+        c = cc if layer.cross is None else cc["self"]
         if layer.kind == "mamba":
             x, _ = layer.mixer.decode(x, c, impl=impl)
         else:
             x, _ = layer.mixer.decode(x, c, pos, impl=impl)
+        if layer.cross is not None:
+            x = layer.cross.decode(x, cc["cross_k"], cc["cross_v"], cross_len, impl=impl)
         x = layer.mlp(x, impl=impl)
     return x
 
@@ -251,7 +319,8 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, *, impl=None):
     slots and ``pos`` (+1)."""
     x = params.embed[tokens].to(dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
-    x = decode_blocks(cfg, params.layers, cache["layers"], x, pos, impl=impl)
+    x = decode_blocks(cfg, params.layers, cache["layers"], x, pos,
+                      cross_len=cache.get("cross_len"), impl=impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
     logits = x @ _head(cfg, params).to(x.dtype)
     pos.add_(1)
@@ -262,6 +331,8 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, *, impl=None):
 class Model:
     cfg: ModelConfig
     init: Callable
+    loss_fn: Callable
+    forward: Callable
     prefill: Callable
     decode_step: Callable
 
@@ -271,6 +342,8 @@ def build_model(cfg: ModelConfig, impl: str | None = None) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(init_params, cfg),
+        loss_fn=functools.partial(loss_fn, cfg, impl=impl),
+        forward=functools.partial(logits_fn, cfg, impl=impl),
         prefill=functools.partial(prefill, cfg, impl=impl),
         decode_step=functools.partial(decode_step, cfg, impl=impl),
     )

@@ -37,6 +37,6 @@ def get_optimizer(name: str, lr, **kw) -> Optimizer:
 def jax_rank(name: str, p) -> int:
     """The rank the JAX package's optimizer sees for parameter ``name``: it
     stacks each layer's leaves over layer periods, so a leaf under
-    ``layers.`` has one more axis there (a layer's norm or bias is a
-    matrix, and AdamW decays it)."""
-    return p.ndim + (1 if name.startswith("layers.") else 0)
+    ``layers.`` or ``enc_layers.`` has one more axis there (a layer's norm
+    or bias is a matrix, and AdamW decays it)."""
+    return p.ndim + (1 if name.startswith(("layers.", "enc_layers.")) else 0)

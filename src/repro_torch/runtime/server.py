@@ -115,7 +115,17 @@ class LMServer:
         pipelined backend only.  ``preflight``: statically verify each
         pipelined serve's plan (`core.verify`) before launch; False skips
         the check (the single-device backend has no plan to verify
-        either way)."""
+        either way).
+
+        A request carries tokens only, as the JAX server's do: a prefix
+        frontend's model (internvl2-26b) is served text-only, and an
+        encoder-decoder, whose prefill needs the encoder's frames, is
+        refused here (the JAX server fails in its prefill)."""
+        if cfg.encdec:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder's prefill needs batch['frames'], and a "
+                "request carries tokens only; run it through models.lm.build_model(cfg)"
+                ".prefill / .decode_step with frames in the batch")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch

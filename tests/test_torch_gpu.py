@@ -168,6 +168,13 @@ FLASH_SHAPES = [
     (1, 90, 90, 10, 2, 128, True, None),    # GQA 5
     (2, 77, 77, 14, 2, 64, True, None),     # GQA 7
     (1, 150, 150, 4, 2, 64, True, 40),      # D 64, window across a tile boundary
+    # seamless-m4t-medium's heads (H16 KV16 D64), not causal: the encoder's
+    # self-attention (Sq = Sk) and cross-attention (Sq != Sk, no kv_offset)
+    (1, 1024, 1024, 16, 16, 64, False, None),
+    (2, 128, 1024, 16, 16, 64, False, None),    # Sq < Sk
+    (1, 300, 100, 16, 16, 64, False, None),     # Sq > Sk
+    (2, 64, 1000, 16, 16, 64, False, None),     # a ragged Sk
+    (1, 77, 33, 16, 16, 64, False, None),       # both ragged, Sq > Sk
 ]
 
 
@@ -210,6 +217,11 @@ DECODE_SHAPES = [
     (2, 10, 2, 128, 90, 90, None),          # GQA 5
     (2, 12, 2, 64, 90, 57, None),           # GQA 6
     (1, 14, 2, 120, 130, 130, 50),          # GQA 7, danube's head dim, window
+    # seamless-m4t-medium's cross-attention decode: GQA 1, hd 64, over the
+    # 1024 encoder frames, and a ragged number of them
+    (8, 16, 16, 64, 1024, 1024, None),
+    (8, 16, 16, 64, 1000, 1000, None),
+    (2, 16, 16, 64, 1024, [1024, 1000], None),
 ]
 
 
@@ -287,10 +299,12 @@ def test_decode_attention_on_two_streams_at_once(cuda, dtype):
 
 
 SUBLAYERS = [
-    # (D, H, KV, hd): tiny (GQA 2), danube (GQA 4, hd 120), qwen (GQA 8)
+    # (D, H, KV, hd): tiny (GQA 2), danube (GQA 4, hd 120), qwen (GQA 8),
+    # seamless-m4t-medium's decoder (GQA 1, hd 64)
     (256, 8, 4, 32),
     (3840, 32, 8, 120),
     (2048, 16, 2, 128),
+    (1024, 16, 16, 64),
 ]
 
 
@@ -337,7 +351,8 @@ def test_fused_decode_chain_matches_plain(cuda, shape, bias, pos, dtype, batch):
 # (D, H, KV, hd, bias): SUBLAYERS' shapes, the reduced configs' hd 16, an
 # odd hd (the unrotated tail column, plain loads into the ring)
 QKV_SHAPES = [(256, 8, 4, 32, True), (3840, 32, 8, 120, False), (2048, 16, 2, 128, True),
-              (2048, 16, 2, 128, False), (64, 4, 2, 16, True), (96, 4, 2, 15, True)]
+              (2048, 16, 2, 128, False), (64, 4, 2, 16, True), (96, 4, 2, 15, True),
+              (1024, 16, 16, 64, False)]
 
 
 @pytest.mark.parametrize("shape", QKV_SHAPES)
@@ -496,6 +511,22 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                          torch.zeros(1, 8, 2, 16, device=cuda), 3)
 
 
+def test_decode_attention_op_refuses_a_host_length(cuda):
+    """`ops.decode_attention` (cross-attention decode) with card tensors and
+    the length as an int or a CPU tensor raises and launches nothing: no
+    plain-version fallback."""
+    from repro_torch.kernels import ops
+    q, kc = torch.zeros(2, 16, 64, device=cuda), torch.zeros(2, 100, 16, 64, device=cuda)
+    before = decode_attention.launches
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, kc, kc, 100)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(q, kc, kc, torch.tensor(100, dtype=torch.int32))
+    assert decode_attention.launches == before
+    ops.decode_attention(q, kc, kc, torch.tensor(100, dtype=torch.int32, device=cuda))
+    assert decode_attention.launches == before + 1
+
+
 @pytest.mark.parametrize("case", ["float16", "hd256", "rep16", "host_pos", "one_bias"])
 def test_fused_decode_refuses_what_it_does_not_take(cuda, case):
     D, H, KV, hd, dtype = 64, 8, 2, 16, torch.float32
@@ -563,6 +594,66 @@ def test_model_kernel_route_matches_ref_route_on_card(cuda, name):
     after = [f.launches for f in kernels]
     assert all(a > b for a, b in zip(after, counts))
     assert fd._composed_step.calls == composed          # the chain, never the composed step
+
+
+def _prefix_batch(cfg, device, b=2, s=80, seed=2):
+    """Tokens and labels, and the frames (an encoder-decoder, 100 of them)
+    or the prefix embeddings (the prefix frontend), from a seed."""
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(device)
+             for k in ("tokens", "labels")}
+    if cfg.encdec:
+        batch["frames"] = _rand(rng, (b, 100, cfg.d_model), torch.float32, device)
+    else:
+        batch["prefix_embeds"] = _rand(rng, (b, cfg.num_prefix, cfg.d_model), torch.float32,
+                                       device)
+    return batch
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium-smoke", "internvl2-26b-smoke"])
+def test_prefix_families_kernel_route_matches_ref_route_on_card(cuda, name):
+    """float32: prefill (the encoder not causal, the cross-attention at Sq
+    != Sk; or the prefix ahead of the tokens) and 4 decode steps (the chain
+    and, for the encoder-decoder, decode attention over the cross cache)
+    through the kernels == the oracle route; the cross caches untouched by
+    decode; then the loss and every gradient through the backward kernels
+    within 1e-4 of the leaf's largest entry."""
+    cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
+    params = lm.init_params(cfg, device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = _prefix_batch(cfg, cuda)
+    kernels = (rmsnorm, flash_attention, decode_attention, qkv_rope, out_residual)
+    counts = [f.launches for f in kernels]
+    out = {}
+    for impl in (None, "ref"):
+        logits, cache = lm.prefill(cfg, params, batch, capacity=cfg.num_prefix + 86, impl=impl)
+        cross = [(c["cross_k"].clone(), c["cross_v"].clone()) for c in cache["layers"]
+                 if "cross_k" in c]
+        steps = [logits]
+        tok = batch["tokens"][:, -1:]
+        for _ in range(4):
+            logits, cache = lm.decode_step(cfg, params, cache, tok, impl=impl)
+            steps.append(logits)
+        assert all(torch.equal(k, c["cross_k"]) and torch.equal(v, c["cross_v"])
+                   for (k, v), c in zip(cross, cache["layers"]))
+        out[impl] = steps
+    for a, b in zip(out[None], out["ref"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert all(a > b for a, b in zip((f.launches for f in kernels), counts))
+    grads = {}
+    for impl in (None, "ref"):
+        model = lm.init_params(cfg, device=cuda, param_dtype=torch.float32,
+                               generator=torch.Generator(device=cuda).manual_seed(0))
+        before = flash_attention_backward.launches
+        loss, _ = lm.loss_fn(cfg, model, batch, impl=impl)
+        loss.backward()
+        assert (flash_attention_backward.launches > before) == (impl is None)
+        grads[impl] = float(loss), {k: p.grad for k, p in model.named_parameters()}
+    assert grads[None][0] == pytest.approx(grads["ref"][0], rel=1e-5)
+    for k, g in grads[None][1].items():
+        want = grads["ref"][1][k]
+        torch.testing.assert_close(g, want, atol=1e-4 * float(want.abs().max()) + 1e-12,
+                                   rtol=0, msg=k)
 
 
 def test_mamba_layer_bf16_kernel_route_matches_ref_route_at_full_width(cuda):
@@ -769,6 +860,14 @@ BWD_SHAPES = [
     (1, 200, 4, 4, 32, None, 7, False),     # not causal, an offset
     (1, 129, 4, 2, 100, None, 0),        # a head dim off 16 bytes: the CUDA-core kernels
     (1, 100, 16, 1, 64, 30, 0),          # GQA 16: the CUDA-core kernels
+    # seamless-m4t-medium's heads (H16 KV16 D64), not causal: the encoder's
+    # shape, and cross-attention's Sq != Sk (Sk = S + offset; no mask reads
+    # the offset when not causal)
+    (2, 1024, 16, 16, 64, None, 0, False),
+    (2, 512, 16, 16, 64, None, 512, False),     # Sq 512, Sk 1024
+    (1, 1024, 16, 16, 64, None, -24, False),    # Sq 1024, Sk 1000
+    (1, 200, 16, 16, 64, None, -137, False),    # Sq 200, Sk 63: Sq > Sk, ragged
+    (1, 100, 48, 8, 128, None, 0),              # internvl2-26b's heads, GQA 6
 ]
 # float32: the kernel and the plain version's autograd sum float32 products
 # in another order; bf16: both take bf16 inputs and round each gradient to

@@ -196,7 +196,9 @@ def test_mamba_gate_goes_through_the_gated_norm_on_the_kernel_route(monkeypatch,
 
 
 def test_unported_families_are_refused():
-    for name in ("jamba-1.5-large-398b", "seamless-m4t-medium", "internvl2-26b"):
+    """The MoE configs (the two prefix families, seamless-m4t-medium and
+    internvl2-26b, are ported: ``tests/test_torch_encdec.py``)."""
+    for name in ("jamba-1.5-large-398b", "llama4-scout-17b-a16e"):
         with pytest.raises(NotImplementedError):
             lm.build_model(jax_get_config(name))
 
@@ -233,7 +235,7 @@ assert not bad, bad
 new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "graphs.nbody",
        "graphs.streamit", "runtime.pipeline.interpreter", "runtime.pipeline.schedule",
        "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b",
-       "runtime.pipeline.lm_pipe"]
+       "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """
