@@ -196,7 +196,22 @@ script exits non-zero without its result line.  The phases:
     full-width cut with the prefix A/B'd against ``impl="ref"``.  Every
     counted run launches every kernel of its path and calls no plain
     version;
-15. the ``kernels`` record, the card's name and power limit, and last the
+15. the MoE decoders (`moe_serving`), at full width on random bf16
+    weights, one at a time: llama4-scout-17b-a16e cut to 12 of its 48
+    layers (16 experts, top-1, a shared expert; 57 GB) and
+    llama4-maverick-400b-a17b cut to one (dense, MoE) period of 2 layers
+    (128 experts; 37 GB), each serving phase 4's traffic through
+    ``LMServer`` (counted: every attention kernel launched, no plain
+    version called); each MoE layer's prefill drops (the GShard capacity
+    a row, pads first) and the experts a decode step hits; phase 5's A/B
+    at full width with each MoE sublayer's routing compared under both
+    routes, and a float32 A/B of a 2-layer cut with every routing decision
+    equal; a profiled decode step (the expert products beside the bounds
+    of all experts' bytes and of the hit experts'); scout's 2-layer train
+    step, kernel route against ``impl="ref"``.  Phase 3 checks and phase
+    6 times (``times_moe``) their attention shape, H40 KV8 hd128 at
+    d_model 5120;
+16. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -221,6 +236,8 @@ L2_BYTES = 50 * 2 ** 20
 SPIN_HZ = 2e9                   # clocks a second of `torch.cuda._sleep`: at least the H100's 1.98 GHz
 # the two large dense decoders that phase 12 serves
 LARGE = ("nemotron-4-15b", "deepseek-coder-33b")
+# the two MoE decoders that phase 15 serves (their attention is one shape)
+MOE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b")
 
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
@@ -271,14 +288,22 @@ VANISHING_GRAD = 1e-5
 # chunk halved: what a change of summation order alone gives (its 2 layers
 # moved a leaf's norm by 1.4e-3 so in bf16 on the card)
 TRAIN_AB_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# the MoE decoders' 2-layer float32 A/B (phase 15): the routes sum float32
+# products in another order; ~1e-5 at logits of magnitude ~5, held to 1e-3
+MOE_F32_LOGIT_TOL = 1e-3
+
+
+def attention_shape(name: str) -> tuple:
+    """(d_model, heads, KV heads, head dim) of a registered config."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
 
 
 def large_shapes() -> dict:
     """(d_model, heads, KV heads, head dim) of each of LARGE, from its config."""
-    from repro_torch.configs import get_config
-
-    return {name: (cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim)
-            for name, cfg in ((n, get_config(n)) for n in LARGE)}
+    return {name: attention_shape(name) for name in LARGE}
 
 
 def emit(phase: str, **record) -> None:
@@ -385,6 +410,54 @@ def counted(fn, kernels, require=True):
     if missing:
         raise AssertionError(f"no {missing} kernel launched")
     return out, rec
+
+
+def run_counted(what, fn, kernels, rounds):
+    """`counted`, with every plain version and `_composed_step` counted too:
+    none may run.  Keeps the launches in ``rounds[what]``; returns ``fn``'s
+    result."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    plain = [(fa, "flash_attention_plain"), (da, "decode_attention_plain"),
+             (rn, "rmsnorm_plain"), (fd, "fused_decode_plain"), (fd, "qkv_plain"),
+             (fd, "out_residual_plain"), (ref, "mha_reference"), (ref, "decode_attention_ref"),
+             (ref, "rmsnorm_reference")]
+    calls, originals = {}, {(m, a): getattr(m, a) for m, a in plain}
+
+    def counting(name, f):
+        def wrapped(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return f(*a, **kw)
+        return wrapped
+    for m, a in plain:
+        setattr(m, a, counting(a, originals[(m, a)]))
+    fd._composed_step.calls = 0
+    try:
+        out, rec = counted(fn, kernels)
+    finally:
+        for m, a in plain:
+            setattr(m, a, originals[(m, a)])
+    if calls or fd._composed_step.calls:
+        raise AssertionError(f"{what}: plain versions called {calls}, _composed_step "
+                             f"{fd._composed_step.calls} times: the path left its kernels")
+    rounds[what] = rec["launches"]
+    return out
+
+
+def refuse_above_2gb(record: str, name: str, smi) -> None:
+    """Frees what the allocator caches, prints the memory allocated, and
+    refuses to build ``name`` beside more than 2 GB."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    emit(record, config=name, memory_allocated_gb=before / 1e9, card=smi)
+    if before > 2e9:
+        raise AssertionError(f"{name}: {before / 1e9:.2f} GB already allocated")
 
 
 def resilience(cfg, params, prompts, pps, ctx, kernels, *, full, device="cuda",
@@ -1605,13 +1678,7 @@ def large_serving(ab, profile_decode, kernels, smi):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in LARGE:
-        gc.collect()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        emit("large_serve_start", config=name, memory_allocated_gb=before / gb, card=smi)
-        if before > 2 * gb:
-            raise AssertionError(f"{name}: {before / gb:.2f} GB already allocated; the model "
-                                 f"does not fit beside it")
+        refuse_above_2gb("large_serve_start", name, smi)
         cfg = get_config(name)
         argv = ["--arch", name, "--max-new", "32", "--prompt-len", "400", "--seed", "0"]
         t0 = time.perf_counter()
@@ -1682,11 +1749,6 @@ def prefix_families(ab, profile_decode, kernels, smi):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_decode as fd
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.flash_attention import flash_attention_backward
     from repro_torch.kernels.rmsnorm import rmsnorm_backward
     from repro_torch.launch import serve as serve_cli
@@ -1697,46 +1759,13 @@ def prefix_families(ab, profile_decode, kernels, smi):
     train_kernels = {"flash_attention": kernels["flash_attention"],
                      "flash_attention_bwd": flash_attention_backward,
                      "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward}
-    plain = [(fa, "flash_attention_plain"), (da, "decode_attention_plain"),
-             (rn, "rmsnorm_plain"), (fd, "fused_decode_plain"), (fd, "qkv_plain"),
-             (fd, "out_residual_plain"), (ref, "mha_reference"), (ref, "decode_attention_ref"),
-             (ref, "rmsnorm_reference")]
     rounds = {}
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    def run_counted(what, fn, kset):
-        """`counted`, with every plain version and `_composed_step` counted
-        too: none may run."""
-        calls, originals = {}, {(m, a): getattr(m, a) for m, a in plain}
-
-        def counting(name, f):
-            def wrapped(*a, **kw):
-                calls[name] = calls.get(name, 0) + 1
-                return f(*a, **kw)
-            return wrapped
-        for m, a in plain:
-            setattr(m, a, counting(a, originals[(m, a)]))
-        fd._composed_step.calls = 0
-        try:
-            out, rec = counted(fn, kset)
-        finally:
-            for m, a in plain:
-                setattr(m, a, originals[(m, a)])
-        if calls or fd._composed_step.calls:
-            raise AssertionError(f"{what}: plain versions called {calls}, _composed_step "
-                                 f"{fd._composed_step.calls} times: the path left its kernels")
-        rounds[what] = rec["launches"]
-        return out
-
     def fresh(name):
-        gc.collect()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        emit("prefix_start", config=name, memory_allocated_gb=before / gb, card=smi)
-        if before > 2 * gb:
-            raise AssertionError(f"{name}: {before / gb:.2f} GB already allocated")
+        refuse_above_2gb("prefix_start", name, smi)
 
     def generate(model, params, batch, capacity, steps, check_cross=False):
         """A prefill and ``steps`` greedy decode steps, each step's wall time
@@ -1782,7 +1811,7 @@ def prefix_families(ab, profile_decode, kernels, smi):
             state = opt.init(dict(model.named_parameters()))
             if impl is None:
                 metrics = run_counted(f"{cfg.name} train A/B", lambda: step_fn(
-                    model, state, 0, batch), train_kernels)
+                    model, state, 0, batch), train_kernels, rounds)
             else:
                 metrics, rec = counted(lambda: step_fn(model, state, 0, batch),
                                        train_kernels, require=())
@@ -1826,7 +1855,7 @@ def prefix_families(ab, profile_decode, kernels, smi):
     if not warm["cross_caches_unchanged"]:
         raise AssertionError(f"{cfg.name}: a decode step wrote the cross caches")
     rec = run_counted(f"{cfg.name} serve", lambda: generate(model, params, batch, S + new,
-                                                            new - 1), kernels)
+                                                            new - 1), kernels, rounds)
     emit("prefix_serve", config=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
          d_model=cfg.d_model, heads=cfg.attn.n_heads, kv_heads=cfg.attn.n_kv_heads,
          params=sum(p.numel() for p in params.parameters()), init_s=init_s, batch=B,
@@ -1866,7 +1895,7 @@ def prefix_families(ab, profile_decode, kernels, smi):
             step_s.append(time.perf_counter() - t1)
 
     steps(0, 1)                                  # the warm-up step
-    run_counted(f"{cfg.name} train", lambda: steps(1, 3), train_kernels)
+    run_counted(f"{cfg.name} train", lambda: steps(1, 3), train_kernels, rounds)
     median_s = sorted(step_s[1:])[1]
     n_params = sum(p.numel() for p in master.parameters())
     emit("prefix_train", config=cfg.name, layers=cfg.n_layers, enc_layers=cfg.enc_layers,
@@ -1890,7 +1919,8 @@ def prefix_families(ab, profile_decode, kernels, smi):
     argv = ["--arch", cfg.name, "--requests", "8", "--max-batch", "8", "--max-new", "32",
             "--prompt-len", "400", "--seed", "0"]
     t0 = time.perf_counter()
-    server, outs = run_counted(f"{cfg.name} serve.main", lambda: serve_cli.main(argv), kernels)
+    server, outs = run_counted(f"{cfg.name} serve.main", lambda: serve_cli.main(argv), kernels,
+                               rounds)
     emit("prefix_serve_cli", config=cfg.name, argv=argv, seconds=time.perf_counter() - t0,
          completion_lens=[len(o.tokens) for o in outs], stats=server.stats.summary(),
          launches=rounds[f"{cfg.name} serve.main"], card=smi)
@@ -1904,7 +1934,7 @@ def prefix_families(ab, profile_decode, kernels, smi):
     capacity = cfg.num_prefix + S + new
     generate(model, params, batch, capacity, 2)                  # warm-up
     rec = run_counted(f"{cfg.name} prefix", lambda: generate(model, params, batch, capacity,
-                                                             new - 1), kernels)
+                                                             new - 1), kernels, rounds)
     emit("prefix_serve", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          heads=cfg.attn.n_heads, kv_heads=cfg.attn.n_kv_heads,
          params=sum(p.numel() for p in params.parameters()), batch=B, prompt_tokens=S,
@@ -1925,6 +1955,327 @@ def prefix_families(ab, profile_decode, kernels, smi):
                    "labels": torch.randint(0, cfg.vocab, (*lead, 512), generator=g, device=dev),
                    "prefix_embeds": torch.randn((*lead, cfg.num_prefix, cfg.d_model), generator=g,
                                                 device=dev).to(bf16)}, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rounds
+
+
+def moe_serving(ab, kernels, smi):
+    """Phase 15: the llama4 MoE decoders at full width on random bf16
+    weights from a seed, one model at a time (the memory allocated before
+    each must be under 2 GB): llama4-scout-17b-a16e cut to 12 of its 48
+    layers (57 GB of weights) and llama4-maverick-400b-a17b cut to one
+    (dense, MoE) period of 2 layers (37 GB).
+
+    Each serves phase 4's traffic through ``LMServer`` (8 requests of
+    64-400 prompt tokens, 32 new, greedy, ``max_batch`` 8) after a warm-up
+    round; around the counted round every launch count is set to 0 just
+    before and read just after: flash, rmsnorm, decode attention,
+    ``qkv_rope`` and ``out_residual`` must all launch, no plain version be
+    called and ``_composed_step`` never run.  For each MoE layer the
+    prefill's tokens routed and dropped (capacity 40 a row for scout, 5 for
+    maverick), the drops of pad positions and the pad expert's share of
+    the drops; the experts a decode step hits.  Then phase 5's A/B (two
+    requests, both routes in lockstep, logits within max(LOGIT_TOL,
+    |logits| / 16)) and each MoE sublayer's routing under both routes on
+    the kernel route's inputs (`routing_ab`); a float32 A/B of a 2-layer
+    cut in which every routing decision agrees; one profiled decode step
+    (idle share; the MoE's batched expert products beside the bounds of
+    all experts' bytes and of the hit experts'; the rest of the MoE:
+    routing, dispatch and combine).  scout also takes one train step of a
+    2-layer full-width cut (float32 masters, B 2 x S 1024, remat "full", no
+    optimizer state), kernel route against ``impl="ref"``: the loss and
+    each leaf's gradient norm within phase 10's bf16 tolerance.  Returns
+    each counted run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward
+    from repro_torch.models import blocks, lm
+    from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
+
+    dev, f32, gb = torch.device("cuda"), torch.float32, 1e9
+    train_kernels = {"flash_attention": kernels["flash_attention"],
+                     "flash_attention_bwd": flash_attention_backward,
+                     "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward}
+    prompt_lens = np.random.default_rng(0).integers(64, 401, 8)      # phase 4's traffic
+    rounds = {}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def moes(model):
+        return [layer.mlp for layer in model.layers if layer.moe]
+
+    def captured(model, fn):
+        """``fn()``'s result and the input of each MoE layer in its last call."""
+        seen = {}
+        hooks = [m.register_forward_pre_hook(lambda _m, args, i=i: seen.__setitem__(i, args[0]))
+                 for i, m in enumerate(moes(model))]
+        try:
+            out = fn()
+        finally:
+            for hook in hooks:
+                hook.remove()
+        return out, [seen[i] for i in range(len(hooks))]
+
+    def padded(prompts):
+        """The server's batch: prompts right-aligned in their bucket after
+        pad token 0; and the pad mask."""
+        bucket = _bucket(max(map(len, prompts)))
+        toks = np.zeros((len(prompts), bucket), np.int64)
+        for i, p_ in enumerate(prompts):
+            toks[i, bucket - len(p_):] = p_
+        return torch.from_numpy(toks).to(dev), torch.from_numpy(toks == 0).to(dev)
+
+    def routing_stats(cfg, params, prompts):
+        """Each MoE layer's prefill over the round's batch: tokens routed,
+        dropped, pads dropped, the drops on a row's pad expert; and the
+        experts one decode step hits."""
+        toks, pad = padded(prompts)
+        with torch.no_grad():
+            (_, cache), xs = captured(params, lambda: lm.prefill(
+                cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 1))
+            layers = []
+            for m, x in zip(moes(params), xs):
+                r = m.routing(x)
+                experts, dropped = r["experts"], ~r["kept"]               # (k, B, S)
+                pad_expert = experts[0, :, :1]                            # a row's pads' choice
+                on_pad = dropped & (experts == pad_expert) & pad.any(-1, keepdim=True)
+                layers.append(dict(routed=int(experts.numel()), dropped=int(dropped.sum()),
+                                   pads_dropped=int((dropped & pad).sum()),
+                                   dropped_on_pad_expert=int(on_pad.sum())))
+            feed = toks[:, -1:]
+            _, xs = captured(params, lambda: lm.decode_step(cfg, params, cache, feed))
+            hit = [int(torch.unique(m.routing(x)["experts"]).numel())
+                   for m, x in zip(moes(params), xs)]
+        drops = sum(l_["dropped"] for l_ in layers)
+        return dict(capacity_a_row=moes(params)[0].capacity(toks.shape[1]),
+                    bucket=toks.shape[1], prefill_layers=layers,
+                    routed=sum(l_["routed"] for l_ in layers), dropped=drops,
+                    dropped_share=drops / sum(l_["routed"] for l_ in layers),
+                    pad_expert_share_of_drops=sum(l_["dropped_on_pad_expert"] for l_ in layers)
+                    / max(drops, 1),
+                    decode_experts_hit=hit)
+
+    def routing_ab(cfg, params, prompts, strict):
+        """Each MoE sublayer fed its kernel-route input (a prefill of two
+        requests, then one decode step), its routing under both routes: a
+        differing expert fails unless its router logit is within 8 bf16
+        steps (at the row's largest logit) of the oracle's choice's;
+        ``strict``: any difference fails."""
+        toks, _ = padded(prompts[:2])
+        flips, worst, inputs = 0, 0.0, []
+        with torch.no_grad():
+            (_, cache), xs = captured(params, lambda: lm.prefill(
+                cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 1))
+            inputs += xs
+            _, xs = captured(params, lambda: lm.decode_step(cfg, params, cache, toks[:, -1:]))
+            inputs += xs
+            layers = moes(params) * 2
+            for m, x in zip(layers, inputs):
+                rk, rr = m.routing(x), m.routing(x, impl="ref")
+                diff = rk["experts"] != rr["experts"]
+                if not diff.any():
+                    continue
+                logits = rr["logits"][None].expand(*rk["experts"].shape, -1)
+                gap = (logits.gather(-1, rk["experts"][..., None]) -
+                       logits.gather(-1, rr["experts"][..., None]))[..., 0].abs()[diff]
+                top = logits.abs().amax(-1)[diff]
+                steps = 8 * torch.exp2(torch.floor(torch.log2(top)) - 7)
+                flips += int(diff.sum())
+                worst = max(worst, float(gap.max()))
+                if strict or bool((gap >= steps).any()):
+                    raise AssertionError(f"{cfg.name}: {int(diff.sum())} routing choices differ "
+                                         f"between the routes, router-logit gap up to "
+                                         f"{float(gap.max())}")
+        emit("moe_routing_ab", config=cfg.name, layers=cfg.n_layers,
+             compute_dtype=cfg.compute_dtype, sublayer_calls=len(inputs), flips=flips,
+             largest_flip_logit_gap=worst, strict=strict, card=smi)
+
+    def profile_step(cfg, params, prompts, hit):
+        """Decode steps after a prefill of the round's batch: the wall time
+        of unprofiled ones, then one profiled (``torch.profiler``, CPU and
+        CUDA): device busy and idle share; the MoE layers' batched expert
+        products (``moe.experts``), shared experts (``moe.shared``) and the
+        rest of the sublayer (``moe`` less both: norm, router, dispatch and
+        combine), each ms a step, ranges marked by ``record_function``
+        only for this step."""
+        toks, _ = padded(prompts)
+        e = cfg.moe
+        expert_bytes = 3 * cfg.d_model * e.d_ff * 2
+        n_moe = len(moes(params))
+        forward, ffn = blocks.MoE.forward, blocks.FFN.forward
+
+        def marked(name_of, f):
+            def wrapped(self, *a, **kw):
+                with torch.profiler.record_function(name_of(self)):
+                    return f(self, *a, **kw)
+            return wrapped
+        with torch.no_grad():
+            _, cache = lm.prefill(cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 16)
+            feed = toks[:, -1:]
+            lm.decode_step(cfg, params, cache, feed)
+            torch.cuda.synchronize()
+            n_steps = 4
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                lm.decode_step(cfg, params, cache, feed)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            blocks.MoE.forward = marked(lambda _: "moe", forward)
+            blocks.FFN.forward = marked(
+                lambda m: "moe.experts" if m.w_up.dim() == 3 else "moe.shared", ffn)
+            try:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    lm.decode_step(cfg, params, cache, feed)
+                    torch.cuda.synchronize()
+            finally:
+                blocks.MoE.forward, blocks.FFN.forward = forward, ffn
+        # kernels alone (the device's user-annotation ranges left out); each
+        # range's kernel time twice: from the kernels under its host range,
+        # and from the kernels inside its device range (none if the
+        # profiler records no device ranges)
+        names = ("moe", "moe.experts", "moe.shared")
+        kernels_, host, device = [], dict.fromkeys(names, 0.0), {n: [] for n in names}
+        for x in prof.events():
+            on_card = str(x.device_type).endswith("CUDA")
+            if on_card and x.is_user_annotation:
+                if x.name in device:
+                    device[x.name].append((x.time_range.start, x.time_range.end))
+            elif on_card:
+                kernels_.append((x.time_range.start, x.time_range.end))
+            elif x.name in host:
+                host[x.name] += x.device_time_total / 1e3
+        busy_ms = sum(b_ - a_ for a_, b_ in kernels_) / 1e3
+        ranged = {n: sum(b_ - a_ for a_, b_ in kernels_
+                         if any(s_ <= a_ and b_ <= t_ for s_, t_ in device[n])) / 1e3
+                  for n in names} if all(device.values()) else {}
+        span = ranged or host
+        emit("moe_profile", config=cfg.name, what=f"decode_step, B{toks.shape[0]}, cache "
+             f"{toks.shape[1] + 16}", wall_ms_per_step=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+             moe_ms=span["moe"], experts_ms=span["moe.experts"],
+             shared_ms=span["moe.shared"],
+             rest_ms=span["moe"] - span["moe.experts"] - span["moe.shared"],
+             ranges_from="device ranges" if ranged else "host ranges",
+             host_range_ms=host, device_range_ms=ranged or None,
+             experts_bound_all_ms=n_moe * e.n_experts * expert_bytes / HBM_BYTES_PER_S * 1e3,
+             experts_bound_hit_ms=sum(hit) * expert_bytes / HBM_BYTES_PER_S * 1e3,
+             experts_hit=hit, moe_layers=n_moe, experts=e.n_experts,
+             launches_per_step=len(kernels_), card=smi)
+
+    def serve(cfg):
+        """Phase 4's traffic through `LMServer` at full width, a warm-up
+        round, then a counted one; returns the weights and the prompts."""
+        refuse_above_2gb("moe_start", cfg.name, smi)
+        t0 = time.perf_counter()
+        server = LMServer(cfg, max_batch=8, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = server.params
+        resident = sum(p.numel() * p.element_size() for p in params.parameters())
+        prompts = [np.random.default_rng(n).integers(2, cfg.vocab, n).tolist()
+                   for n in prompt_lens]
+        reqs = [Request(uid=i, prompt=p_, max_new=32) for i, p_ in enumerate(prompts)]
+        server.serve([Request(uid=r.uid, prompt=r.prompt, max_new=2) for r in reqs])
+        server.stats = ServeStats()
+        outs = run_counted(f"{cfg.name} serve", lambda: server.serve(reqs), kernels, rounds)
+        for o in outs:
+            if not 1 <= len(o.tokens) <= 32 or not all(0 <= t < cfg.padded_vocab
+                                                         for t in o.tokens):
+                raise AssertionError(f"{cfg.name} request {o.uid}: bad completion {o.tokens}")
+        steps = np.array(server.stats.decode_step_s)
+        summary = server.stats.summary()
+        e = cfg.moe
+        emit("moe_serve", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+             experts=e.n_experts, top_k=e.top_k, pattern=cfg.block_pattern,
+             params=sum(p.numel() for p in params.parameters()), init_s=init_s,
+             max_batch=8, requests=len(reqs), prompt_lens=[len(p_) for p_ in prompts],
+             bucket=_bucket(max(map(len, prompts))), completion_lens=[len(o.tokens) for o in outs],
+             prefill_tok_per_s=summary["prefill_tok_per_s"],
+             decode_tok_per_s=summary["decode_tok_per_s"], decode_steps=len(steps),
+             decode_step_p50_ms=float(np.percentile(steps, 50) * 1e3),
+             decode_step_p90_ms=float(np.percentile(steps, 90) * 1e3),
+             prefill_s=server.stats.prefill_s, weights_resident_gb=resident / gb,
+             peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+             launches=rounds[f"{cfg.name} serve"], card=smi)
+        del server
+        return params, prompts
+
+    def float32_ab(cfg, prompts):
+        """Phase 5's A/B of a 2-layer full-width cut in float32, every
+        routing decision equal under both routes."""
+        cut = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+        refuse_above_2gb("moe_start", f"{cfg.name}, 2 layers, float32", smi)
+        params = lm.init_params(cut, device=dev, generator=gen(0))
+        ab(cut, params, prompts, lambda _: MOE_F32_LOGIT_TOL)
+        routing_ab(cut, params, prompts, strict=True)
+        del params
+
+    def train_ab(cfg):
+        """The loss and every gradient of a 2-layer full-width cut (float32
+        masters, B 2 x S 1024, remat "full", no optimizer state), kernel
+        route against ``impl="ref"``: the loss and each leaf's gradient norm
+        within phase 10's bf16 tolerance; only the first route's norms are
+        kept while the second runs."""
+        cut = dataclasses.replace(cfg, n_layers=2, remat="full")
+        g = gen(3)
+        batch = {k: torch.randint(0, cfg.vocab, (2, 1024), generator=g, device=dev)
+                 for k in ("tokens", "labels")}
+        out = {}
+        for impl in (None, "ref"):
+            refuse_above_2gb("moe_start", f"{cfg.name}, 2 layers, training, impl={impl}", smi)
+            model = lm.init_params(cut, device=dev, param_dtype=f32, generator=gen(0))
+            resident = torch.cuda.memory_allocated()
+
+            def step():
+                loss, _ = lm.loss_fn(cut, model, batch, impl=impl)
+                loss.backward()
+                return float(loss.detach())
+            if impl is None:
+                loss = run_counted(f"{cfg.name} train A/B", step, train_kernels, rounds)
+            else:
+                loss, rec = counted(step, train_kernels, require=())
+                if any(rec["launches"].values()):
+                    raise AssertionError(f"the impl='ref' step launched kernels: "
+                                         f"{rec['launches']}")
+            out[impl] = (loss, {k: float(p.grad.norm()) for k, p in model.named_parameters()},
+                         (torch.cuda.max_memory_allocated() - resident) / gb, resident / gb)
+            del model
+        (loss_k, norms_k, peak, res), (loss_r, norms_r, _, _) = out[None], out["ref"]
+        rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+        tol = TRAIN_AB_TOL[cfg.compute_dtype]
+        ok = loss_rel <= tol and rel[worst] <= tol
+        emit("moe_train_ab", config=f"{cfg.name}, 2 layers, full width", batch=[2, 1024],
+             remat="full", loss_kernels=loss_k, loss_ref=loss_r, loss_rel_diff=loss_rel,
+             worst_grad_norm_leaf=worst, worst_grad_norm_rel_diff=rel[worst], leaves=len(rel),
+             tolerance=tol, ok=ok, masters_resident_gb=res,
+             peak_over_resident_gb=peak, launches=rounds[f"{cfg.name} train A/B"], card=smi)
+        if not ok:
+            raise AssertionError(f"train step of a {cfg.name} cut: kernel route and "
+                                 f"impl='ref' differ (loss {loss_k} vs {loss_r}; {worst} "
+                                 f"{rel[worst]})")
+
+    for name, n_layers in zip(MOE, (12, 2)):
+        cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+        params, prompts = serve(cfg)
+        stats = routing_stats(cfg, params, prompts)
+        emit("moe_routing", config=cfg.name, layers=cfg.n_layers, card=smi, **stats)
+        ab(cfg, params, prompts, lambda ref_logits: max(LOGIT_TOL,
+                                                        float(ref_logits.abs().max()) / 16))
+        routing_ab(cfg, params, prompts, strict=False)
+        profile_step(cfg, params, prompts, stats["decode_experts_hit"])
+        del params
+        float32_ab(cfg, prompts)
+        if name == MOE[0]:
+            train_ab(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     return rounds
@@ -2170,6 +2521,37 @@ def main() -> int:
             check("decode_attention", f"{label} B8 H{h} KV{kv} hd{hd} C544 cache_len={lens}",
                   decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen))
         del q, k, v, kc, vc
+
+    # the llama4 MoE decoders' attention (phase 15): H40 KV8 hd128 (GQA 5) at
+    # d_model 5120, in bf16 and float32: flash causal over the prefill bucket
+    # (B8 S512) and a ragged length (B2 S300), decode attention at the
+    # round's last step (C544) and at ragged lengths, the chain at B 8 and 16
+    # (two batch groups of the GEMVs) at the round's last step
+    d, h, kv, hd = attention_shape(MOE[0])
+    for dtype in (bf16, torch.float32):
+        tol = ATOL if dtype == bf16 else F32_TOL
+        for b, s in ((8, 512), (2, 300)):
+            q = randn(b, s, h, hd, dtype=dtype)
+            k, v = randn(b, s, kv, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype)
+            check("flash_attention", f"llama4 B{b} S{s} H{h} KV{kv} D{hd} causal {dtype}",
+                  flash_attention(q, k, v), flash_attention_plain(q, k, v), tol, tol)
+        q, kc, vc = (randn(8, h, hd, dtype=dtype), randn(8, 544, kv, hd, dtype=dtype),
+                     randn(8, 544, kv, hd, dtype=dtype))
+        for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            check("decode_attention", f"llama4 B8 H{h} KV{kv} hd{hd} C544 cache_len={lens} "
+                  f"{dtype}", decode_attention(q, kc, vc, clen),
+                  decode_attention_plain(q, kc, vc, clen), tol, tol)
+        for b in (8, 16):
+            x, kc, vc, kw = sublayer(b, d, h, kv, hd, 544, False, dtype)
+            p = torch.tensor(543, dtype=torch.int32, device=dev)
+            want, k_new, v_new = fused_decode_plain(x[:, 0], kc, vc, p, **kw)
+            got = fused_decode(x, kc, vc, p, **kw)
+            case = f"llama4 B{b} D{d} H{h} KV{kv} hd{hd} C544 pos 543 {dtype}"
+            check("fused_decode", case + ": out", got[:, 0], want, tol, tol)
+            check("fused_decode", case + ": slot k", kc[:, 543], k_new, tol, tol)
+            check("fused_decode", case + ": slot v", vc[:, 543], v_new, tol, tol)
+        del q, k, v, kc, vc, x
 
     # seamless-m4t-medium's shapes (phase 14), in bf16 and float32: flash not
     # causal at the encoder's self-attention (Sq = Sk = 1024, H16 KV16 D64)
@@ -2675,41 +3057,42 @@ def main() -> int:
     times["fused_decode"]["parts"] = chain_parts
 
     # the same kernels at the two large dense decoders' serving shapes (phase
-    # 12): flash over the prefill bucket (B8 S512), decode attention at the
-    # round's last step (C544) and the chain's GEMVs at B 8, each beside its
-    # bound, its plain version and the library call; bounds as above
-    for label, (d_, h_, kv_, hd_) in large_shapes().items():
+    # 12) and at the llama4 MoE decoders' (phase 15): flash over the prefill
+    # bucket (B8 S512), decode attention at the round's last step (C544) and
+    # the chain's GEMVs at B 8, each beside its bound, its plain version and
+    # the library call; bounds as above
+    def shape_times(label, d_, h_, kv_, hd_) -> dict:
+        """{kernel: {case: record}} at one model's attention shape."""
+        out = {}
         b_, s_, c_ = 8, 512, 544
         nb = 2 * (2 * b_ * s_ * h_ * hd_ + 2 * b_ * s_ * kv_ * hd_)
         sets = copies(lambda: (randn(b_, s_, h_, hd_), randn(b_, s_, kv_, hd_),
                                randn(b_, s_, kv_, hd_)), nb)
         b_ms, b_by = bound(nb, 4 * hd_ * b_ * h_ * (s_ * (s_ + 1) // 2), BF16_FLOP_PER_S)
-        times["flash_attention"].setdefault("large_shapes", {})[
-            f"{label} B{b_} S{s_} H{h_} KV{kv_} D{hd_} causal"] = dict(
+        out["flash_attention"] = {f"{label} B{b_} S{s_} H{h_} KV{kv_} D{hd_} causal": dict(
             ms=timed(lambda q, k, v: flash_attention(q, k, v), sets, iters=10),
             plain_ms=timed(lambda q, k, v: flash_attention_plain(q, k, v), sets, iters=10),
             library_ms=timed(lambda q, k, v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
                 enable_gqa=True), sets, iters=10),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by)}
         clen_ = torch.tensor(c_, dtype=torch.int32, device=dev)
         nb = 2 * (2 * b_ * h_ * hd_ + 2 * b_ * c_ * kv_ * hd_)
         sets = copies(lambda: (randn(b_, h_, hd_), randn(b_, c_, kv_, hd_),
                                randn(b_, c_, kv_, hd_)), nb)
         b_ms, b_by = bound(nb, 4 * hd_ * h_ * b_ * c_, BF16_FLOP_PER_S)
-        times["decode_attention"].setdefault("large_shapes", {})[
-            f"{label} B{b_} H{h_} KV{kv_} hd{hd_} C{c_}"] = dict(
+        out["decode_attention"] = {f"{label} B{b_} H{h_} KV{kv_} hd{hd_} C{c_}": dict(
             ms=timed(lambda q, k, v: decode_attention(q, k, v, clen_), sets),
             plain_ms=timed(lambda q, k, v: decode_attention_plain(q, k, v, clen_), sets),
             library_ms=timed(lambda q, k, v: F.scaled_dot_product_attention(
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), sets),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by)}
         q_sets, q_bytes, o_sets, o_bytes = gemv_sets(b_, d_, h_, kv_, hd_, bias=False)
         q_cat = [(x2, kw["norm"].to(bf16), torch.cat([kw["wq"], kw["wk"], kw["wv"]], 1))
                  for x2, _, _, kw in q_sets]
         qb_ms, qb_by = bound(q_bytes, 2 * b_ * d_ * (h_ + 2 * kv_) * hd_, BF16_FLOP_PER_S)
         ob_ms, ob_by = bound(o_bytes, 2 * b_ * h_ * hd_ * d_, BF16_FLOP_PER_S)
-        times["fused_decode"].setdefault("large_shapes", {})[f"{label} B{b_} D{d_}"] = {
+        out["fused_decode"] = {f"{label} B{b_} D{d_}": {
             "fused_qkv_rope": dict(
                 ms=timed(run_qkv, q_sets), plain_ms=timed(plain_qkv, q_sets), library_ms=None,
                 yardstick_ms=timed(lambda x2, nw, w: F.rms_norm(x2, (d_,), nw, 1e-6) @ w, q_cat),
@@ -2723,7 +3106,7 @@ def main() -> int:
                 library="torch.addmm(x, o, wo)", bound_ms=ob_ms, bound_by=ob_by,
                 bytes=o_bytes, plan=fd.gemv_plan(-(-d_ // fd.OUT_WIDTH), fd.OUT_WIDTH, h_ * hd_,
                                                  1, sms, dtype=torch.bfloat16,
-                                                 norm=False)._asdict())}
+                                                 norm=False)._asdict())}}
         del sets, q_sets, o_sets, q_cat
         # rmsnorm over a decode step's 8 rows at the model's width, as the
         # serving-shape rows above (the empty kernel on its grid beside it)
@@ -2731,14 +3114,22 @@ def main() -> int:
         sets = copies(lambda: (randn(8, d_), randn(d_, dtype=torch.float32)), nbytes)
         plan = rn.norm_plan(8, d_, 2, gated=False, aligned=True, card=card)
         b_ms, b_by = bound(nbytes, 4 * 8 * d_, F32_FLOP_PER_S)
-        times["rmsnorm"].setdefault("large_shapes", {})[f"{label} (8, {d_})"] = dict(
+        out["rmsnorm"] = {f"{label} (8, {d_})": dict(
             ms=timed(lambda x, w: rmsnorm(x, w), sets),
             plain_ms=timed(lambda x, w: rmsnorm_plain(x, w), sets),
             library_ms=timed(lambda x, w: F.rms_norm(x, (d_,), w, 1e-5), sets),
             floor_ms=timed(lambda *_: rn.launch_floor(plan), sets),
-            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nbytes)
-        del sets
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nbytes)}
+        return out
+
+    for label, shape in large_shapes().items():
+        for k_, cases in shape_times(label, *shape).items():
+            times[k_].setdefault("large_shapes", {}).update(cases)
     emit("times_large", card=smi, **{k: times[k]["large_shapes"] for k in (
+        "flash_attention", "decode_attention", "fused_decode", "rmsnorm")})
+    for k_, cases in shape_times("llama4", *attention_shape(MOE[0])).items():
+        times[k_]["moe_shapes"] = cases
+    emit("times_moe", card=smi, **{k: times[k]["moe_shapes"] for k in (
         "flash_attention", "decode_attention", "fused_decode", "rmsnorm")})
 
     # seamless-m4t-medium's shapes (phase 14's serving round): flash not
@@ -3172,7 +3563,12 @@ def main() -> int:
     prefix_rounds = prefix_families(ab, profile_decode, qwen_kernels, smi)
     emit("prefix_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 15. the record of the kernels, the card, the result ----------------
+    # -- 15. the MoE decoders: llama4-scout (12 layers) and -maverick (2) ---
+    t_phase = time.perf_counter()
+    moe_rounds = moe_serving(ab, qwen_kernels, smi)
+    emit("moe_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 16. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
@@ -3187,7 +3583,7 @@ def main() -> int:
     # round of phase 12; ``pipe_train_launches`` from qwen2.5-3b's 1F1B run
     # through the microbatch pipeline (phase 13), and mamba2-370m's for the
     # SSD scan, the gated norm and their backward; ``prefix_launches`` from
-    # each counted run of phase 14
+    # each counted run of phase 14, ``moe_launches`` from each of phase 15
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -3229,11 +3625,14 @@ def main() -> int:
                             for r, n in large_rounds.items()},
          "prefix_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
                              for r, n in prefix_rounds.items()},
+         "moe_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
+                          for r, n in moe_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
          **({"large_shapes": t["large_shapes"]} if "large_shapes" in t else {}),
          **({"prefix_shapes": t["prefix_shapes"]} if "prefix_shapes" in t else {}),
+         **({"moe_shapes": t["moe_shapes"]} if "moe_shapes" in t else {}),
          **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
          **{k: t[k] for k in ("rows_ms", "dkdv_ms", "dq_ms") if k in t},
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (

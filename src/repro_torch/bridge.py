@@ -5,8 +5,10 @@ Takes the pytree of ``repro.models.lm.init_params`` with its leaves as
 numpy arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
 it) and imports nothing of JAX.  The per-layer leaves under
 ``params["layers"]["pos<i>"]`` (one entry a position of the block
-pattern: ``mixer``, ``mlp`` and an encoder-decoder's ``cross``) are
-stacked over layer periods along their leading axis; the bridge unstacks
+pattern: ``mixer``, ``mlp`` and an encoder-decoder's ``cross``; an MoE
+``mlp`` nests ``experts`` and ``shared``) are stacked over layer periods
+along their leading axis (an MoE's (P, E, D, F) experts unstack to
+(E, D, F)); the bridge unstacks
 period p of position i into layer ``p * len(pattern) + i`` of the
 ``nn.ModuleList``, and the same for ``params["enc_layers"]``.  Each value
 is cast to the port parameter's dtype (for serving the compute dtype for
@@ -42,7 +44,7 @@ def _flat_jax(cfg: ModelConfig, params) -> dict:
         for i in range(n):
             period = params[stack][f"pos{i}"]
             for part in parts:
-                for name, leaf in period[part].items():
+                for name, leaf in flat_tree(period[part]).items():
                     for p in range(periods):
                         out[f"{stack}.{p * n + i}.{part}.{name}"] = leaf[p]
     return out

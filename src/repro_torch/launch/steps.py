@@ -29,7 +29,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, warmup: int = 2000,
                     impl: str | None = None):
     """(optimizer, train_step) for ``cfg``: ``cfg.optimizer`` on the cosine
     schedule, as the JAX package wires it."""
-    opt = get_optimizer(cfg.optimizer, cosine_schedule(lr, warmup, total_steps))
+    opt = get_optimizer(cfg.optimizer, cosine_schedule(lr, warmup, total_steps), cfg=cfg)
     accum = grad_accum or cfg.grad_accum
 
     def train_step(model: lm.LM, opt_state: dict, step: int, batch: dict) -> dict:

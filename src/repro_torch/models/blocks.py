@@ -1,8 +1,8 @@
-"""Transformer and Mamba2 blocks: attention, cross-attention, Mamba2 (SSD)
-and MLP sublayers.
+"""Transformer and Mamba2 blocks: attention, cross-attention, Mamba2 (SSD),
+MLP and MoE sublayers.
 
-Ported from the dense-attention, cross-attention and Mamba2 parts of
-``repro/models/blocks.py``.  Each sublayer is an ``nn.Module`` whose
+Ported from ``repro/models/blocks.py`` (all but the MoE's multi-device
+``shard_map`` branch).  Each sublayer is an ``nn.Module`` whose
 parameters keep the JAX names and layouts (``wq`` is (D, H*hd) and the
 projection is ``h @ wq``), so ``bridge.py`` maps a JAX pytree onto it
 leaf for leaf:
@@ -16,8 +16,15 @@ leaf for leaf:
   init_mamba, _mamba_proj,        Mamba.__init__, ._proj, .forward
   mamba_forward
   mamba_decode                    Mamba.decode
-  init_mlp, _init_ffn, _ffn,      MLP.__init__, ._ffn, .forward
-  mlp_forward
+  init_mlp, mlp_forward           MLP.__init__, .forward
+  _init_ffn, _ffn                 FFN.__init__ (the experts' and the shared
+                                  expert's weights), _ffn
+  init_moe                        MoE.__init__
+  _expert_ffn, moe_forward        MoE._expert_ffn, .forward
+  _ffn2, _sorted_dispatch_local,  MoE._ffn2, ._sorted_dispatch_local,
+  moe_forward_sorted (local)      .forward_sorted
+  moe_decode                      MoE.decode
+  set_moe_impl                    set_moe_impl
   attn_cache_capacity,            the functions of the same names
   init_attn_cache, init_mamba_cache
 
@@ -30,7 +37,8 @@ weight to the compute dtype where it uses it, as the JAX code does
 (``.astype(x.dtype)``); ``Tensor.to`` of the same dtype returns the tensor
 itself, so serving pays nothing for it.  Norm weights and the Mamba
 ``dt_bias``, ``a_log`` and ``d_skip`` are float32 either way, as the JAX
-code uses them (``d_skip`` is cast at its use).
+code uses them (``d_skip`` is cast at its use), and so is the MoE's
+router, which routes in float32.
 """
 from __future__ import annotations
 
@@ -57,10 +65,12 @@ class Maker:
     def _param(self, t: torch.Tensor) -> nn.Parameter:
         return nn.Parameter(t, requires_grad=self.trainable)
 
-    def weight(self, shape, scale=None) -> nn.Parameter:
+    def weight(self, shape, scale=None, dtype=None) -> nn.Parameter:
+        """A matrix in ``param_dtype`` unless ``dtype`` (the float32 router)."""
+        dtype = dtype or self.dtype
         if self.generator is None:
-            return self._param(torch.empty(shape, dtype=self.dtype, device=self.device))
-        return self._param(dense_init(shape, self.dtype, generator=self.generator,
+            return self._param(torch.empty(shape, dtype=dtype, device=self.device))
+        return self._param(dense_init(shape, dtype, generator=self.generator,
                                       device=self.device, scale=scale))
 
     def fill(self, value: float, shape, dtype=None) -> nn.Parameter:
@@ -292,6 +302,33 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
                                device=device)}
 
 
+def _ffn(h, w_gate, w_up, w_down, act: str, mm=torch.matmul):
+    """`_ffn`: the feed-forward of h (gated where ``w_gate`` is given), each
+    weight cast to h's dtype at its use; ``mm`` the product (`torch.bmm`
+    for the experts' (E, R, D) rows, as `_expert_ffn` and `_ffn2`)."""
+    dt = h.dtype
+    if w_gate is not None:
+        return mm(F.silu(mm(h, w_gate.to(dt))) * mm(h, w_up.to(dt)), w_down.to(dt))
+    return mm(activation(act)(mm(h, w_up.to(dt))), w_down.to(dt))
+
+
+class FFN(nn.Module):
+    """The feed-forward weights of `_init_ffn`: ``w_gate`` (gated
+    activations only) and ``w_up`` (..., D, F), ``w_down`` (..., F, D),
+    with ``lead`` axes ahead (the experts')."""
+
+    def __init__(self, cfg: ModelConfig, make: Maker, d_ff: int, lead: tuple = ()):
+        super().__init__()
+        d = cfg.d_model
+        self.act = cfg.act
+        self.w_gate = make.weight((*lead, d, d_ff)) if cfg.act == "silu_glu" else None
+        self.w_up = make.weight((*lead, d, d_ff))
+        self.w_down = make.weight((*lead, d_ff, d))
+
+    def forward(self, h, mm=torch.matmul):
+        return _ffn(h, self.w_gate, self.w_up, self.w_down, self.act, mm)
+
+
 class MLP(nn.Module):
     """Pre-norm feed-forward sublayer with residual (`init_mlp`).  With
     ``d_ff == 0`` (attention-free Mamba2 stacks) it holds only ``norm``
@@ -309,14 +346,162 @@ class MLP(nn.Module):
         self.w_up = make.weight((d, f))
         self.w_down = make.weight((f, d))
 
-    def _ffn(self, h):
-        dt = h.dtype
-        if self.w_gate is not None:
-            return (F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))) @ self.w_down.to(dt)
-        return activation(self.cfg.act)(h @ self.w_up.to(dt)) @ self.w_down.to(dt)
-
     def forward(self, x, *, impl=None):
         """`mlp_forward`: x (B, S, D) -> (B, S, D)."""
         if self.cfg.d_ff == 0:
             return x
-        return x + self._ffn(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
+        return x + _ffn(h, self.w_gate, self.w_up, self.w_down, self.cfg.act)
+
+
+MOE_IMPL = "einsum"     # "einsum" (GShard capacity dispatch) | "sorted"
+
+
+def set_moe_impl(name: str) -> None:
+    """`set_moe_impl`: which dispatch `MoE.forward` runs."""
+    global MOE_IMPL
+    if name not in ("einsum", "sorted"):
+        raise ValueError(f"MoE dispatch must be einsum or sorted, got {name!r}")
+    MOE_IMPL = name
+
+
+class MoE(nn.Module):
+    """Pre-norm top-k mixture-of-experts sublayer with residual (`init_moe`):
+    ``norm`` (D,) and ``router`` (D, E) float32 whatever ``param_dtype``
+    (the router's logits and softmax are float32, and a bf16 router would
+    route other tokens); ``experts`` (E, D, F) / (E, F, D) and ``shared``
+    (the dense FFN's layout, where the config has a shared expert) in
+    ``param_dtype``.
+
+    The dispatch builds no (B, S, E, C) one-hot: each round's kept tokens
+    are copied into an (E, B * C, D) buffer, each expert's C slots of every
+    row side by side, the experts run as one batched product a weight, and
+    each token reads its slot's result back: every token touches one slot,
+    so dispatch and combine are exact and only the products round.  A
+    dropped token's index points at one row past the buffer, which
+    dispatch adds into and combine reads as zeros."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, param_dtype=None):
+        super().__init__()
+        make = Maker(cfg, device, generator, param_dtype)
+        e = cfg.moe
+        self.cfg = cfg
+        self.norm = make.fill(1.0, (cfg.d_model,))
+        self.router = make.weight((cfg.d_model, e.n_experts), scale=0.02, dtype=torch.float32)
+        self.experts = FFN(cfg, make, e.d_ff, (e.n_experts,))
+        self.shared = FFN(cfg, make, e.d_ff) if e.shared_expert else None
+
+    def capacity(self, seq: int) -> int:
+        """Slots an expert a row (einsum) or in all (sorted), from the length."""
+        e = self.cfg.moe
+        return max(1, int(seq * e.capacity_factor * e.top_k / e.n_experts))
+
+    def _probs(self, x, impl):
+        h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
+        return h, torch.softmax(h.float() @ self.router, dim=-1)
+
+    def _rounds(self, probs):
+        """The einsum path's routing, round by round: [(expert, gate, slot,
+        keep)], each (B, S).  Slots count a row's tokens an expert in
+        sequence order, the occupancy carried over from earlier rounds; a
+        slot at or past the capacity is dropped.  No host sync."""
+        B, S, E = probs.shape
+        cap = self.capacity(S)
+        experts = torch.arange(E, device=probs.device)
+        occupancy = torch.zeros((B, 1, E), dtype=torch.long, device=probs.device)
+        remaining, rounds = probs, []
+        for _ in range(self.cfg.moe.top_k):
+            idx = remaining.argmax(dim=-1)                              # (B, S)
+            gate = remaining.gather(-1, idx[..., None])[..., 0]
+            onehot = (idx[..., None] == experts).long()                 # (B, S, E)
+            pos = torch.cumsum(onehot, dim=1) - onehot + occupancy
+            slot = pos.gather(-1, idx[..., None])[..., 0]
+            keep = slot < cap
+            occupancy = occupancy + (onehot * keep[..., None]).sum(dim=1, keepdim=True)
+            remaining = remaining.scatter(-1, idx[..., None], 0.0)
+            rounds.append((idx, gate, slot, keep))
+        return rounds
+
+    def routing(self, x, *, impl=None) -> dict:
+        """What `forward` would route, for inspection: ``experts`` and
+        ``kept`` (top_k, B, S) and the float32 router ``logits`` (B, S, E)."""
+        h, probs = self._probs(x, impl)
+        rounds = self._rounds(probs)
+        return {"experts": torch.stack([r[0] for r in rounds]),
+                "kept": torch.stack([r[3] for r in rounds]),
+                "logits": h.float() @ self.router}
+
+    def _expert_ffn(self, xe):
+        """`_expert_ffn`: xe (E, R, D) -> (E, R, D), expert e's FFN on its rows."""
+        return self.experts(xe, mm=torch.bmm)
+
+    def forward(self, x, *, impl=None):
+        """`moe_forward` (GShard top-k with capacity): x (B, S, D) -> (B, S,
+        D); `forward_sorted` under ``set_moe_impl("sorted")``."""
+        if MOE_IMPL == "sorted":
+            return self.forward_sorted(x, impl=impl)
+        B, S, D = x.shape
+        E = self.cfg.moe.n_experts
+        h, probs = self._probs(x, impl)
+        cap = self.capacity(S)
+        rows = torch.arange(B, device=x.device)[:, None] * cap
+        out = torch.zeros_like(h)
+        for idx, gate, slot, keep in self._rounds(probs):
+            flat = torch.where(keep, idx * (B * cap) + rows + slot, E * B * cap).reshape(-1)
+            buf = h.new_zeros((E * B * cap + 1, D)).index_add(0, flat, h.reshape(-1, D))
+            ye = self._expert_ffn(buf[:-1].view(E, B * cap, D)).reshape(-1, D)
+            tok = torch.cat([ye, ye.new_zeros((1, D))]).index_select(0, flat)
+            out = out + tok.view(B, S, D) * gate.to(h.dtype)[..., None]
+        if self.shared is not None:
+            out = out + self.shared(h)
+        return x + out.to(x.dtype)
+
+    def _ffn2(self, buf):
+        """`_ffn2`: the experts' FFN on an (E, C, D) buffer."""
+        return self._expert_ffn(buf)
+
+    def _sorted_dispatch_local(self, h2, probs, cap: int):
+        """`_sorted_dispatch_local` on one device: h2 (N, D) normed tokens,
+        probs (N, E).  Each round sorts the tokens by expert (stable), ranks
+        them within it and keeps the first ``cap`` of all N; no occupancy
+        is carried from round to round."""
+        N, D = h2.shape
+        E = self.cfg.moe.n_experts
+        out = torch.zeros_like(h2)
+        remaining = probs
+        for _ in range(self.cfg.moe.top_k):
+            ids = remaining.argmax(dim=-1)                              # (N,)
+            gate = remaining.gather(-1, ids[:, None])[:, 0]
+            order = torch.argsort(ids, stable=True)
+            ids_s = ids[order]
+            counts = (ids[:, None] == torch.arange(E, device=ids.device)).sum(dim=0)
+            starts = torch.cumsum(counts, 0) - counts
+            slot = torch.arange(N, device=h2.device) - starts[ids_s]
+            flat = torch.where(slot < cap, ids_s * cap + slot, E * cap)
+            buf = h2.new_zeros((E * cap + 1, D)).index_add(0, flat, h2[order])
+            ye = self._ffn2(buf[:-1].view(E, cap, D)).reshape(-1, D)
+            tok = torch.cat([ye, ye.new_zeros((1, D))]).index_select(0, flat)
+            contrib = torch.zeros_like(h2).index_copy(0, order, tok)
+            out = out + contrib * gate.to(h2.dtype)[:, None]
+            remaining = remaining.scatter(-1, ids[:, None], 0.0)
+        return out
+
+    def forward_sorted(self, x, *, impl=None):
+        """`moe_forward_sorted`'s one-device branch: every B * S token in one
+        group, the capacity still taken from S."""
+        B, S, D = x.shape
+        h, probs = self._probs(x, impl)
+        out = self._sorted_dispatch_local(h.reshape(B * S, D),
+                                          probs.reshape(B * S, -1), self.capacity(S))
+        out = out.view(B, S, D)
+        if self.shared is not None:
+            out = out + self.shared(h).to(out.dtype)
+        return x + out.to(x.dtype)
+
+    def decode(self, x, *, impl=None):
+        """`moe_decode`: one token a row, x (B, 1, D), through `forward` at
+        S = 1 (a row's one token takes slot 0 of each expert it picks, so
+        none drops).  Every expert's slots are multiplied, as the einsum
+        does: the step reads all E experts' weights whichever it hits.
+        No host sync."""
+        return self(x, impl=impl)

@@ -2,10 +2,11 @@
 prompt pass and the decode step (serving).
 
 Ported from ``repro/models/lm.py`` for stacks of attention or Mamba2
-mixers with dense MLPs: the decoders, the encoder-decoder family (an
-encoder of non-causal layers over ``batch["frames"]``, cross-attended by
-every decoder layer) and the prefix frontend (``batch["prefix_embeds"]``
-ahead of the tokens); no MoE.  The JAX package stacks each parameter over
+mixers with dense or MoE MLPs (an MoE only after attention): the
+decoders, the MoE decoders, the encoder-decoder family (an encoder of
+non-causal layers over ``batch["frames"]``, cross-attended by every
+decoder layer) and the prefix frontend (``batch["prefix_embeds"]`` ahead
+of the tokens).  The JAX package stacks each parameter over
 layer periods of ``block_pattern`` and scans; here layer ``p *
 len(pattern) + i`` is built from ``block_pattern[i]``, the layers are an
 ``nn.ModuleList`` and the scan is a loop.
@@ -47,26 +48,27 @@ from .common import chunked_lm_loss, dtype_of, rmsnorm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if any(mlp != "dense" for _, mlp in cfg.block_pattern):
+    if ("mamba", "moe") in cfg.block_pattern:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs stacks of attention and Mamba2 layers with dense "
-            "MLPs (decoders, encoder-decoders, a prefix frontend); MoE is not ported")
+            f"{cfg.name}: an MoE MLP after a Mamba2 mixer (the hybrid family) is not "
+            "ported yet (ROADMAP.md, queue 1, item 2)")
 
 
 class DecoderLayer(nn.Module):
     """One layer: the mixer (``attn`` or ``mamba``), with ``cross`` (a
     decoder layer of an encoder-decoder) the cross-attention, then the MLP
-    (``mlp``), as JAX `_apply_period` orders them."""
+    (``mlp``: `blocks.MLP`, or `blocks.MoE` where ``mlp_kind`` is
+    ``"moe"``), as JAX `_apply_period` orders them."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None,
-                 param_dtype=None, cross: bool = False):
+    def __init__(self, cfg: ModelConfig, kind: str, mlp_kind: str = "dense", *, device,
+                 generator=None, param_dtype=None, cross: bool = False):
         super().__init__()
-        self.kind = kind
+        self.kind, self.moe = kind, mlp_kind == "moe"
         mixer = blocks.Attention if kind == "attn" else blocks.Mamba
         kw = dict(device=device, generator=generator, param_dtype=param_dtype)
         self.mixer = mixer(cfg, **kw)
         self.cross = blocks.CrossAttention(cfg, **kw) if cross else None
-        self.mlp = blocks.MLP(cfg, **kw)
+        self.mlp = (blocks.MoE if self.moe else blocks.MLP)(cfg, **kw)
 
 
 class LM(nn.Module):
@@ -91,12 +93,12 @@ class LM(nn.Module):
         pattern = cfg.block_pattern
         kw = dict(device=device, generator=generator, param_dtype=param_dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, pattern[i % len(pattern)][0], cross=cfg.encdec, **kw)
+            DecoderLayer(cfg, *pattern[i % len(pattern)], cross=cfg.encdec, **kw)
             for i in range(cfg.n_layers))
         self.enc_layers = self.enc_norm = None
         if cfg.encdec:
             self.enc_layers = nn.ModuleList(
-                DecoderLayer(cfg, pattern[i % len(pattern)][0], **kw)
+                DecoderLayer(cfg, *pattern[i % len(pattern)], **kw)
                 for i in range(cfg.enc_layers))
             self.enc_norm = make.fill(1.0, (d,))
 
@@ -309,7 +311,7 @@ def decode_blocks(cfg: ModelConfig, layers, caches, x, pos, *, cross_len=None, i
             x, _ = layer.mixer.decode(x, c, pos, impl=impl)
         if layer.cross is not None:
             x = layer.cross.decode(x, cc["cross_k"], cc["cross_v"], cross_len, impl=impl)
-        x = layer.mlp(x, impl=impl)
+        x = layer.mlp.decode(x, impl=impl) if layer.moe else layer.mlp(x, impl=impl)
     return x
 
 

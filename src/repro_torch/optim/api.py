@@ -8,6 +8,7 @@ the card beside them.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -24,12 +25,16 @@ class Optimizer:
     name: str = "opt"
 
 
-def get_optimizer(name: str, lr, **kw) -> Optimizer:
+def get_optimizer(name: str, lr, *, cfg=None, **kw) -> Optimizer:
+    """``cfg``: the model's config, for Adafactor's clip over the JAX
+    leaves (`jax_leaf_groups`)."""
     from .adafactor import adafactor
     from .adamw import adamw
     if name == "adamw":
         return adamw(lr, **kw)
     if name == "adafactor":
+        if cfg is not None:
+            kw.setdefault("leaf_groups", functools.partial(jax_leaf_groups, cfg))
         return adafactor(lr, **kw)
     raise ValueError(f"unknown optimizer {name}")
 
@@ -40,3 +45,20 @@ def jax_rank(name: str, p) -> int:
     ``layers.`` or ``enc_layers.`` has one more axis there (a layer's norm
     or bias is a matrix, and AdamW decays it)."""
     return p.ndim + (1 if name.startswith(("layers.", "enc_layers.")) else 0)
+
+
+def jax_leaf_groups(cfg, names) -> list:
+    """``names`` (the port's parameter names) grouped into the JAX
+    package's leaves: layer ``p * len(pattern) + i`` under ``layers.`` or
+    ``enc_layers.`` is period p of the leaf ``<stack>.pos<i>.<rest>``, so
+    each group holds one name at every period, in period order; every
+    other name is a group of its own."""
+    n = len(cfg.block_pattern)
+    groups: dict = {}
+    for name in names:
+        stack, _, rest = name.partition(".")
+        layer, _, leaf = rest.partition(".")
+        key = (stack, int(layer) % n, leaf) if stack in ("layers", "enc_layers") else name
+        groups.setdefault(key, []).append(name)
+    return [sorted(g, key=lambda k: int(k.split(".")[1])) if len(g) > 1 else g
+            for g in groups.values()]

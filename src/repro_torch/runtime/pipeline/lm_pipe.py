@@ -129,13 +129,14 @@ class EmbedStage(nn.Module):
 
 
 class BlockLayer(nn.Module):
-    """One layer of a block stage: ``mix`` (attention or Mamba2), ``mlp``."""
+    """One layer of a block stage: ``mix`` (attention or Mamba2), ``mlp``
+    (dense, or `blocks.MoE` for a ``"moe"`` layer)."""
 
-    def __init__(self, cfg: ModelConfig, mixer: str, **kw):
+    def __init__(self, cfg: ModelConfig, mixer: str, mlp: str, **kw):
         super().__init__()
         self.kind = mixer
         self.mix = (blocks.Attention if mixer == "attn" else blocks.Mamba)(cfg, **kw)
-        self.mlp = blocks.MLP(cfg, **kw)
+        self.mlp = (blocks.MoE if mlp == "moe" else blocks.MLP)(cfg, **kw)
 
 
 class BlockStage(nn.Module):
@@ -145,11 +146,7 @@ class BlockStage(nn.Module):
     def __init__(self, cfg: ModelConfig, mixers, **kw):
         super().__init__()
         for li, (mixer, mlp) in enumerate(mixers):
-            if mlp != "dense":
-                raise NotImplementedError(
-                    f"{cfg.name}: a {mlp} layer — the port's LM stages hold dense "
-                    f"MLPs only (MoE is not ported)")
-            self.add_module(f"l{li}", BlockLayer(cfg, mixer, **kw))
+            self.add_module(f"l{li}", BlockLayer(cfg, mixer, mlp, **kw))
 
     def forward(self, x, *, impl=None):
         positions = torch.arange(x.shape[1], device=x.device)
@@ -364,13 +361,15 @@ def working_params(module: nn.Module) -> list:
     holds as a bfloat16 working copy: the matrices (2 or more dims) of the
     block and head stages that are not bfloat16 already.  The embedding
     table stays float32: its gradient sums repeated rows, which a
-    bfloat16 table would round."""
+    bfloat16 table would round; so does an MoE's router, which routes in
+    float32."""
     if isinstance(module, EmbedStage):
         return []
     if isinstance(module, FusedStage):
         return [w for m in module.members.values() for w in working_params(m)]
     return [(sub, name, p) for sub in module.modules() for name, p in sub._parameters.items()
-            if p is not None and p.dim() >= 2 and p.dtype != torch.bfloat16]
+            if p is not None and p.dim() >= 2 and p.dtype != torch.bfloat16
+            and not (isinstance(sub, blocks.MoE) and name == "router")]
 
 
 def _seed(logits, loss_fn):

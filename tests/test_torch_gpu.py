@@ -29,7 +29,7 @@ from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward, rmsnorm_gate
                                          rmsnorm_gated_backward, rmsnorm_gated_plain,
                                          rmsnorm_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_plain
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 
 pytestmark = pytest.mark.gpu
 
@@ -649,6 +649,136 @@ def test_prefix_families_kernel_route_matches_ref_route_on_card(cuda, name):
         loss.backward()
         assert (flash_attention_backward.launches > before) == (impl is None)
         grads[impl] = float(loss), {k: p.grad for k, p in model.named_parameters()}
+    assert grads[None][0] == pytest.approx(grads["ref"][0], rel=1e-5)
+    for k, g in grads[None][1].items():
+        want = grads["ref"][1][k]
+        torch.testing.assert_close(g, want, atol=1e-4 * float(want.abs().max()) + 1e-12,
+                                   rtol=0, msg=k)
+
+
+# the llama4 MoE decoders (phase 15 of chip_smoke.py): their attention, H40
+# KV8 hd128 (GQA 5) at d_model 5120 (maverick's is scout's), the MoE
+# sublayer with drops and its decode step
+MOE_ARCH = "llama4-scout-17b-a16e"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [8, 16])
+def test_chain_at_the_moe_width(cuda, dtype, batch):
+    D, H, KV, hd = _large_shape(MOE_ARCH)
+    rng = np.random.default_rng(D + batch)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 48, False, dtype, cuda, B=batch)
+    kw = dict(w, n_heads=H, head_dim=hd, eps=1e-5, theta=5e5, scale=hd ** -0.5)
+    p = torch.tensor(47, dtype=torch.int32, device=cuda)
+    want, k_new, v_new = fused_decode_plain(x[:, 0], k, v, p, **kw)
+    before = (qkv_rope.launches, out_residual.launches)
+    got = fused_decode(x, k, v, p, **kw)
+    torch.cuda.synchronize()
+    assert (qkv_rope.launches, out_residual.launches) == (before[0] + 1, before[1] + 1)
+    _close(got[:, 0], want, dtype)
+    _close(k[:, 47], k_new, dtype)
+    _close(v[:, 47], v_new, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_moe_heads(cuda, dtype):
+    """Flash causal over the prefill bucket (B8 S512) and a ragged length,
+    decode attention over C544 at ragged lengths."""
+    _, H, KV, hd = _large_shape(MOE_ARCH)
+    rng = np.random.default_rng(H + KV)
+    for b, s in ((8, 512), (2, 300)):
+        q, k, v = (_rand(rng, (b, s, n, hd), dtype, cuda) for n in (H, KV, KV))
+        _close(flash_attention(q, k, v), flash_attention_plain(q, k, v), dtype)
+    q = _rand(rng, (8, H, hd), dtype, cuda)
+    kc, vc = (_rand(rng, (8, 544, KV, hd), dtype, cuda) for _ in range(2))
+    for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+        clen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _close(decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen), dtype)
+
+
+def _moe_layer(device, top_k=2, capacity_factor=1.25, compute_dtype="float32"):
+    """scout-smoke's MoE sublayer (4 experts), random from a seed, its router
+    at fan-in scale so that routing is decisive."""
+    cfg = get_config(MOE_ARCH + "-smoke")
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype, moe=dataclasses.replace(
+        cfg.moe, top_k=top_k, capacity_factor=capacity_factor))
+    layer = blocks.MoE(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    with torch.no_grad():
+        layer.router.mul_(cfg.d_model ** -0.5 / 0.02)
+    return cfg, layer
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.26])
+def test_moe_kernel_route_matches_ref_route_with_drops(cuda, capacity_factor):
+    """float32, top-2, rows led by pad positions: the kernel route (the norm
+    kernel) equals the oracle route within 1e-5, with the same expert
+    choices and kept masks, tokens dropped."""
+    cfg, layer = _moe_layer(cuda, capacity_factor=capacity_factor)
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (3, 64, cfg.d_model), torch.float32, cuda)
+    x[1, :20] = x[0, 0]
+    x[2, :40] = x[0, 0]
+    before = rmsnorm.launches
+    with torch.no_grad():
+        got, want = layer(x), layer(x, impl="ref")
+        rk, rr = layer.routing(x), layer.routing(x, impl="ref")
+    torch.cuda.synchronize()
+    assert rmsnorm.launches > before
+    assert torch.equal(rk["experts"], rr["experts"]) and torch.equal(rk["kept"], rr["kept"])
+    assert not bool(rk["kept"].all())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_moe_decode_makes_no_host_sync(cuda):
+    """`MoE.decode` in bf16 under ``set_sync_debug_mode("error")``: routing,
+    dispatch, the experts and combine stay on the device."""
+    cfg, layer = _moe_layer(cuda, top_k=1, compute_dtype="bfloat16")
+    x = _rand(np.random.default_rng(5), (8, 1, cfg.d_model), torch.bfloat16, cuda)
+    with torch.no_grad():
+        want = layer.decode(x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = layer.decode(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e-smoke", "llama4-maverick-400b-a17b-smoke"])
+def test_moe_models_kernel_route_matches_ref_route_on_card(cuda, name):
+    """float32: a prefill of prompts led by pad token 0 and 4 decode steps
+    through the kernels == the oracle route (1e-4); the loss and every
+    gradient (router and experts included) within 1e-4 of each leaf's
+    largest entry."""
+    cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
+    params = lm.init_params(cfg, device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 48))).to(cuda)
+    toks[1, :20] = 0
+    kernels = (rmsnorm, flash_attention, decode_attention, qkv_rope, out_residual)
+    counts = [f.launches for f in kernels]
+    out = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            logits, cache = lm.prefill(cfg, params, {"tokens": toks}, capacity=52, impl=impl)
+            steps = [logits]
+            for _ in range(4):
+                logits, cache = lm.decode_step(cfg, params, cache, toks[:, -1:], impl=impl)
+                steps.append(logits)
+            out[impl] = steps
+    for a, b in zip(out[None], out["ref"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert all(a > b for a, b in zip((f.launches for f in kernels), counts))
+    batch = {"tokens": toks, "labels": toks}
+    grads = {}
+    for impl in (None, "ref"):
+        model = lm.init_params(cfg, device=cuda, param_dtype=torch.float32,
+                               generator=torch.Generator(device=cuda).manual_seed(0))
+        loss, _ = lm.loss_fn(cfg, model, batch, impl=impl)
+        loss.backward()
+        grads[impl] = float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
     assert grads[None][0] == pytest.approx(grads["ref"][0], rel=1e-5)
     for k, g in grads[None][1].items():
         want = grads["ref"][1][k]

@@ -196,9 +196,10 @@ def test_mamba_gate_goes_through_the_gated_norm_on_the_kernel_route(monkeypatch,
 
 
 def test_unported_families_are_refused():
-    """The MoE configs (the two prefix families, seamless-m4t-medium and
-    internvl2-26b, are ported: ``tests/test_torch_encdec.py``)."""
-    for name in ("jamba-1.5-large-398b", "llama4-scout-17b-a16e"):
+    """The hybrid family, an MoE MLP after a Mamba2 mixer (the prefix
+    families are ported: ``tests/test_torch_encdec.py``; the llama4 MoE
+    decoders too: ``tests/test_torch_moe.py``)."""
+    for name in ("jamba-1.5-large-398b",):
         with pytest.raises(NotImplementedError):
             lm.build_model(jax_get_config(name))
 
@@ -235,7 +236,8 @@ assert not bad, bad
 new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "graphs.nbody",
        "graphs.streamit", "runtime.pipeline.interpreter", "runtime.pipeline.schedule",
        "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b",
-       "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b"]
+       "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b",
+       "configs.llama4_scout", "configs.llama4_maverick"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """
