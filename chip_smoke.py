@@ -211,7 +211,28 @@ script exits non-zero without its result line.  The phases:
     step, kernel route against ``impl="ref"``.  Phase 3 checks and phase
     6 times (``times_moe``) their attention shape, H40 KV8 hd128 at
     d_model 5120;
-16. the ``kernels`` record, the card's name and power limit, and last the
+16. the hybrid (`hybrid_serving`): jamba-1.5-large-398b cut to its first
+    four layers at full width (attention/dense, mamba/moe, mamba/dense,
+    mamba/moe; 256 SSM heads of 64, 16 experts top-2; 22.98 B parameters,
+    46 GB of bf16 weights) serving phase 4's traffic through ``LMServer``
+    (counted: every kernel launched, no plain version called), a profiled
+    decode step, each MoE sublayer's routing under both routes on one
+    input, phase 5's A/B in bf16 with every route on the oracle's routing
+    (the kernel route no farther from float32 than 1.25 times the bf16
+    oracle's largest distance), a float32 A/B
+    of a 2-layer cut with every routing decision equal, the
+    same requests through ``DecodePipeline`` (one period a stage) with the
+    single-device server's tokens, a train step of the 2-layer cut with
+    bf16 masters against ``impl="ref"``, and the host's FLOP and byte
+    counts (``step_cost.count_step`` on the meta device, ``analyze_step``)
+    of its decode step and prefill and of qwen2.5-3b's decode step beside
+    the measured times.  Phase 3 checks, and phase 6 (``times_hybrid``) and
+    10 (``train_kernel_time_hybrid``) time, its kernels' shapes: the scan
+    at B8 L512 H256 P64 N128 and its backward at B1 L4096, the gated norm
+    at width 16384 (8 and 4096 rows) and its backward, rmsnorm at (8,
+    8192), flash at B8 S512 H64 KV8 D128 and its backward, decode attention
+    at C544 and the chain at D 8192;
+17. the ``kernels`` record, the card's name and power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -238,6 +259,8 @@ SPIN_HZ = 2e9                   # clocks a second of `torch.cuda._sleep`: at lea
 LARGE = ("nemotron-4-15b", "deepseek-coder-33b")
 # the two MoE decoders that phase 15 serves (their attention is one shape)
 MOE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b")
+# the hybrid that phase 16 serves
+JAMBA = "jamba-1.5-large-398b"
 
 # kernel vs plain, bf16: |kernel - plain| <= ATOL + RTOL * |plain|, two bf16
 # steps at magnitude 1, since both round a float32 result to bf16
@@ -299,6 +322,14 @@ def attention_shape(name: str) -> tuple:
 
     cfg = get_config(name)
     return cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
+
+
+def jamba_mamba_shape() -> tuple:
+    """(SSM heads, head dim, state width) of jamba's Mamba2 mixers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(JAMBA)
+    return cfg.mamba.n_ssm_heads(cfg.d_model), cfg.mamba.head_dim, cfg.mamba.d_state
 
 
 def large_shapes() -> dict:
@@ -421,11 +452,13 @@ def run_counted(what, fn, kernels, rounds):
     from repro_torch.kernels import fused_decode as fd
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
 
     plain = [(fa, "flash_attention_plain"), (da, "decode_attention_plain"),
              (rn, "rmsnorm_plain"), (fd, "fused_decode_plain"), (fd, "qkv_plain"),
              (fd, "out_residual_plain"), (ref, "mha_reference"), (ref, "decode_attention_ref"),
-             (ref, "rmsnorm_reference")]
+             (ref, "rmsnorm_reference"), (ss, "ssd_scan_plain"), (ref, "ssd_chunked"),
+             (rn, "rmsnorm_gated_plain")]
     calls, originals = {}, {(m, a): getattr(m, a) for m, a in plain}
 
     def counting(name, f):
@@ -1006,6 +1039,93 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     del gsets
     rows.append(("rmsnorm_gated_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                  "src/repro/kernels/rmsnorm.py:18", gate))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- jamba-1.5-large's shapes (phase 16): checked, then timed ------------
+    # flash causal at its prefill bucket (B8 S512 H64 KV8 D128, GQA 8); the
+    # scan at one sequence of 4096 over its 256 heads of 64 (N 128); the
+    # gated norm over 4096 rows of width 16384; in bf16 and float32 against
+    # the plain versions' autograd, then each timed in bf16 beside its bound,
+    # its plain version's autograd and the library's (SDPA's backward)
+    jh, jkv, jd = 64, 8, 128
+    mh, mp, mn = jamba_mamba_shape()
+    jb, js, sb, sl, glead = 8, 512, 1, 4096, (1, 4096)
+    for dtype in (bf16, f32):
+        q, k, v, do = (randn(jb, js, jh, jd, dtype=dtype), randn(jb, js, jkv, jd, dtype=dtype),
+                       randn(jb, js, jkv, jd, dtype=dtype), randn(jb, js, jh, jd, dtype=dtype))
+        got = grads(flash_attention, (q, k, v), do)
+        want = grads(flash_attention_plain, (q, k, v), do)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check_grad("flash_attention_bwd", f"jamba B{jb} S{js} H{jh} KV{jkv} D{jd} causal "
+                       f"{dtype}: {name}", g, w, dtype)
+        del q, k, v, do, got, want
+        x, dt, a, bc, dy = ssd_in(sb, sl, mh, mp, mn, dtype)
+        got = ssd_grads(ssd_scan, x, dt, a, bc, dy)
+        want = ssd_grads(ssd_scan_plain, x, dt, a, bc, dy)
+        for name, g, w in zip(("dx", "ddt", "da", "d(b, c) projection"), got, want):
+            check_grad("ssd_scan_bwd", f"jamba B{sb} L{sl} H{mh} P{mp} N{mn} {dtype}, b and c "
+                       f"strided: {name}", g, w, dtype, VANISHING_GRAD)
+        del x, dt, a, bc, dy, got, want
+        y, xh, d, xz, w, g = gate_in(glead, mh, mp, dtype)
+        got = gate_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+        want = gate_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+        for name, a_, b_ in zip(("dy", "dxh", "dd_skip", "d(x, z) projection", "dw"), got, want):
+            check_grad("rmsnorm_gated_bwd", f"jamba {glead} H{mh} P{mp} {dtype}, z rows "
+                       f"{2 * mh * mp} apart: {name}", a_, b_, dtype)
+        del y, xh, d, xz, w, g, got, want
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    def bwd_row(name):
+        return next(t for n_, _, _, t in rows if n_ == name)
+
+    live = jb * jh * js * (js + 1) // 2
+    qkv_bytes = 2 * (jb * js * jh * jd + 2 * jb * js * jkv * jd)
+    sets = copies(lambda: (randn(jb, js, jh, jd), randn(jb, js, jkv, jd), randn(jb, js, jkv, jd)),
+                  qkv_bytes)
+    bwd_sets = []
+    for q, k, v in sets:
+        o, lse = flash_attention_forward(q, k, v, with_lse=True)
+        bwd_sets.append((q, k, v, o, randn(jb, js, jh, jd), lse))
+    b_ms, b_by = bound(2 * qkv_bytes + 2 * 2 * jb * js * jh * jd + 4 * jb * jh * js, 10 * jd * live,
+                       BF16_FLOP_PER_S)
+    bwd_row("flash_attention_bwd")["hybrid_shapes"] = {
+        f"jamba B{jb} S{js} H{jh} KV{jkv} D{jd} causal": dict(
+            ms=timed(flash_attention_backward, bwd_sets, iters=5),
+            plain_ms=timed(backward_only, [with_graph(flash_attention_plain, *sets[0])],
+                           iters=2),
+            library_ms=timed(backward_only, [with_graph(sdpa, *t) for t in sets], iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+            plan=fa.bwd_plan(jb, js, js, jh, jkv, jd, bf16=True, aligned=True)._asdict())}
+    del sets, bwd_sets
+    chunks, q_ = -(-sl // ss.CHUNK), ss.CHUNK
+    tri = q_ * (q_ + 1) // 2
+    sbytes = 3 * 2 * sb * sl * mh * mp + 4 * 2 * sb * sl * mn + 2 * 4 * sb * sl * mh + 2 * 4 * mh
+    sflops = sb * chunks * (mh * (4 * tri * mp + 4 * tri * mn + 10 * q_ * mp * mn) + 2 * tri * mn)
+    ssets = copies(lambda: (lambda x, dt, a, bc, dy: (x, dt, a, bc[..., :mn], bc[..., mn:2 * mn],
+                                                      dy))(*ssd_in(sb, sl, mh, mp, mn, bf16)),
+                   sbytes)
+    b_ms, b_by = bound(sbytes, sflops, BF16_FLOP_PER_S)
+    bwd_row("ssd_scan_bwd")["hybrid_shapes"] = {f"jamba B{sb} L{sl} H{mh} P{mp} N{mn}": dict(
+        ms=timed(ssd_scan_backward, ssets, iters=5),
+        plain_ms=timed(backward_only, [with_graph(lambda *t: ssd_scan_plain(*t)[0],
+                                                  *ssets[0][:5])], iters=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=sbytes, flops=sflops)}
+    del ssets
+    n, dn = glead[0] * glead[1], mh * mp
+    gbytes = 7 * 2 * n * dn + 2 * 4 * dn + 2 * 4 * mh
+    gsets = copies(lambda: (lambda y, xh, d, xz, w, g: (y, xh, d, torch.chunk(xz, 2, dim=-1)[1],
+                                                        w, g))(*gate_in(glead, mh, mp, bf16)),
+                   gbytes)
+    b_ms, b_by = bound(gbytes, 30 * n * dn, F32_FLOP_PER_S)
+    bwd_row("rmsnorm_gated_bwd")["hybrid_shapes"] = {f"jamba ({n}, {dn})": dict(
+        ms=timed(rmsnorm_gated_backward, gsets),
+        plain_ms=timed(backward_only, [with_graph(rmsnorm_gated_plain, *t[:5]) for t in gsets]),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=gbytes)}
+    del gsets
+    emit("train_kernel_time_hybrid", card=smi, **{k: bwd_row(k)["hybrid_shapes"] for k in (
+        "flash_attention_bwd", "ssd_scan_bwd", "rmsnorm_gated_bwd")})
     if device == "cuda":
         torch.cuda.empty_cache()
 
@@ -1960,6 +2080,156 @@ def prefix_families(ab, profile_decode, kernels, smi):
     return rounds
 
 
+def moe_layers(model):
+    """The MoE sublayers of a model, in layer order."""
+    return [layer.mlp for layer in model.layers if layer.moe]
+
+
+def captured(model, fn):
+    """``fn()``'s result and the input of each MoE layer in its last call."""
+    seen = {}
+    hooks = [m.register_forward_pre_hook(lambda _m, args, i=i: seen.__setitem__(i, args[0]))
+             for i, m in enumerate(moe_layers(model))]
+    try:
+        out = fn()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return out, [seen[i] for i in range(len(hooks))]
+
+
+def replayed_rounds(moe, probs, choices):
+    """`MoE._rounds` with each round's experts (B, S) taken from
+    ``choices``, as another run of the layer chose them, in place of the
+    argmax: gates, slots and drops follow from ``probs``."""
+    import torch
+
+    B, S, E = probs.shape
+    cap = moe.capacity(S)
+    experts = torch.arange(E, device=probs.device)
+    occupancy = torch.zeros((B, 1, E), dtype=torch.long, device=probs.device)
+    remaining, rounds = probs, []
+    for idx in choices:
+        gate = remaining.gather(-1, idx[..., None])[..., 0]
+        onehot = (idx[..., None] == experts).long()
+        pos = torch.cumsum(onehot, dim=1) - onehot + occupancy
+        slot = pos.gather(-1, idx[..., None])[..., 0]
+        keep = slot < cap
+        occupancy = occupancy + (onehot * keep[..., None]).sum(dim=1, keepdim=True)
+        remaining = remaining.scatter(-1, idx[..., None], 0.0)
+        rounds.append((idx, gate, slot, keep))
+    return rounds
+
+
+def padded(prompts, device):
+    """The server's batch: prompts right-aligned in their bucket after
+    pad token 0; and the pad mask."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.server import _bucket
+    bucket = _bucket(max(map(len, prompts)))
+    toks = np.zeros((len(prompts), bucket), np.int64)
+    for i, p_ in enumerate(prompts):
+        toks[i, bucket - len(p_):] = p_
+    return torch.from_numpy(toks).to(device), torch.from_numpy(toks == 0).to(device)
+
+
+def routing_ab(cfg, params, prompts, strict, smi):
+    """Each MoE sublayer fed its kernel-route input (a prefill of two
+    requests, then one decode step), its routing under both routes: a
+    differing expert fails unless its router logit is within 8 bf16
+    steps (at the row's largest logit) of the oracle's choice's;
+    ``strict``: any difference fails."""
+    import torch
+
+    from repro_torch.models import lm
+    toks, _ = padded(prompts[:2], params.embed.device)
+    flips, worst, inputs = 0, 0.0, []
+    with torch.no_grad():
+        (_, cache), xs = captured(params, lambda: lm.prefill(
+            cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 1))
+        inputs += xs
+        _, xs = captured(params, lambda: lm.decode_step(cfg, params, cache, toks[:, -1:]))
+        inputs += xs
+        layers = moe_layers(params) * 2
+        for m, x in zip(layers, inputs):
+            rk, rr = m.routing(x), m.routing(x, impl="ref")
+            diff = rk["experts"] != rr["experts"]
+            if not diff.any():
+                continue
+            logits = rr["logits"][None].expand(*rk["experts"].shape, -1)
+            gap = (logits.gather(-1, rk["experts"][..., None]) -
+                   logits.gather(-1, rr["experts"][..., None]))[..., 0].abs()[diff]
+            top = logits.abs().amax(-1)[diff]
+            steps = 8 * torch.exp2(torch.floor(torch.log2(top)) - 7)
+            flips += int(diff.sum())
+            worst = max(worst, float(gap.max()))
+            if strict or bool((gap >= steps).any()):
+                raise AssertionError(f"{cfg.name}: {int(diff.sum())} routing choices differ "
+                                     f"between the routes, router-logit gap up to "
+                                     f"{float(gap.max())}")
+    emit("moe_routing_ab", config=cfg.name, layers=cfg.n_layers,
+         compute_dtype=cfg.compute_dtype, sublayer_calls=len(inputs), flips=flips,
+         largest_flip_logit_gap=worst, strict=strict, card=smi)
+
+
+def cut_train_ab(cut, masters, kernels, rounds, record, smi):
+    """One train step of a full-width cut (B 2 x S 1024, no optimizer
+    state) from the same ``masters``-dtype weights and batch, kernel route
+    against ``impl="ref"``: the loss and each leaf's gradient norm within
+    phase 10's tolerance for the compute dtype; only the first route's
+    norms are kept while the second runs.  The kernel route is counted
+    (every kernel of ``kernels`` launched, no plain version called), the
+    oracle's launches none.  Prints ``<record>_train_ab``."""
+    import torch
+
+    from repro_torch.models import lm
+    dev, gb, seq = torch.device("cuda"), 1e9, 1024
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {k: torch.randint(0, cut.vocab, (2, seq), generator=g, device=dev)
+             for k in ("tokens", "labels")}
+    what = f"{cut.name} train A/B"
+    out = {}
+    for impl in (None, "ref"):
+        refuse_above_2gb(f"{record}_start", f"{cut.name}, {cut.n_layers} layers, training, "
+                         f"impl={impl}", smi)
+        model = lm.init_params(cut, device=dev, param_dtype=masters,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+        resident = torch.cuda.memory_allocated()
+
+        def step():
+            loss, _ = lm.loss_fn(cut, model, batch, impl=impl)
+            loss.backward()
+            return float(loss.detach())
+        if impl is None:
+            loss = run_counted(what, step, kernels, rounds)
+        else:
+            loss, rec = counted(step, kernels, require=())
+            if any(rec["launches"].values()):
+                raise AssertionError(f"the impl='ref' step launched kernels: {rec['launches']}")
+        out[impl] = (loss, {k: float(p.grad.float().norm()) for k, p in model.named_parameters()},
+                     (torch.cuda.max_memory_allocated() - resident) / gb, resident / gb)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    (loss_k, norms_k, peak, res), (loss_r, norms_r, _, _) = out[None], out["ref"]
+    rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    tol = TRAIN_AB_TOL[cut.compute_dtype]
+    ok = loss_rel <= tol and rel[worst] <= tol
+    emit(f"{record}_train_ab", config=f"{cut.name}, {cut.n_layers} layers, full width",
+         batch=[2, seq], remat=cut.remat, masters=str(masters).removeprefix("torch."),
+         loss_kernels=loss_k, loss_ref=loss_r, loss_rel_diff=loss_rel,
+         worst_grad_norm_leaf=worst, worst_grad_norm_rel_diff=rel[worst], leaves=len(rel),
+         tolerance=tol, ok=ok, masters_resident_gb=res, peak_over_resident_gb=peak,
+         launches=rounds[what], card=smi)
+    if not ok:
+        raise AssertionError(f"train step of a {cut.name} cut: kernel route and impl='ref' "
+                             f"differ (loss {loss_k} vs {loss_r}; {worst} {rel[worst]})")
+
+
 def moe_serving(ab, kernels, smi):
     """Phase 15: the llama4 MoE decoders at full width on random bf16
     weights from a seed, one model at a time (the memory allocated before
@@ -1996,7 +2266,7 @@ def moe_serving(ab, kernels, smi):
     from repro_torch.models import blocks, lm
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
-    dev, f32, gb = torch.device("cuda"), torch.float32, 1e9
+    dev, gb = torch.device("cuda"), 1e9
     train_kernels = {"flash_attention": kernels["flash_attention"],
                      "flash_attention_bwd": flash_attention_backward,
                      "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward}
@@ -2006,40 +2276,16 @@ def moe_serving(ab, kernels, smi):
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    def moes(model):
-        return [layer.mlp for layer in model.layers if layer.moe]
-
-    def captured(model, fn):
-        """``fn()``'s result and the input of each MoE layer in its last call."""
-        seen = {}
-        hooks = [m.register_forward_pre_hook(lambda _m, args, i=i: seen.__setitem__(i, args[0]))
-                 for i, m in enumerate(moes(model))]
-        try:
-            out = fn()
-        finally:
-            for hook in hooks:
-                hook.remove()
-        return out, [seen[i] for i in range(len(hooks))]
-
-    def padded(prompts):
-        """The server's batch: prompts right-aligned in their bucket after
-        pad token 0; and the pad mask."""
-        bucket = _bucket(max(map(len, prompts)))
-        toks = np.zeros((len(prompts), bucket), np.int64)
-        for i, p_ in enumerate(prompts):
-            toks[i, bucket - len(p_):] = p_
-        return torch.from_numpy(toks).to(dev), torch.from_numpy(toks == 0).to(dev)
-
     def routing_stats(cfg, params, prompts):
         """Each MoE layer's prefill over the round's batch: tokens routed,
         dropped, pads dropped, the drops on a row's pad expert; and the
         experts one decode step hits."""
-        toks, pad = padded(prompts)
+        toks, pad = padded(prompts, dev)
         with torch.no_grad():
             (_, cache), xs = captured(params, lambda: lm.prefill(
                 cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 1))
             layers = []
-            for m, x in zip(moes(params), xs):
+            for m, x in zip(moe_layers(params), xs):
                 r = m.routing(x)
                 experts, dropped = r["experts"], ~r["kept"]               # (k, B, S)
                 pad_expert = experts[0, :, :1]                            # a row's pads' choice
@@ -2050,50 +2296,15 @@ def moe_serving(ab, kernels, smi):
             feed = toks[:, -1:]
             _, xs = captured(params, lambda: lm.decode_step(cfg, params, cache, feed))
             hit = [int(torch.unique(m.routing(x)["experts"]).numel())
-                   for m, x in zip(moes(params), xs)]
+                   for m, x in zip(moe_layers(params), xs)]
         drops = sum(l_["dropped"] for l_ in layers)
-        return dict(capacity_a_row=moes(params)[0].capacity(toks.shape[1]),
+        return dict(capacity_a_row=moe_layers(params)[0].capacity(toks.shape[1]),
                     bucket=toks.shape[1], prefill_layers=layers,
                     routed=sum(l_["routed"] for l_ in layers), dropped=drops,
                     dropped_share=drops / sum(l_["routed"] for l_ in layers),
                     pad_expert_share_of_drops=sum(l_["dropped_on_pad_expert"] for l_ in layers)
                     / max(drops, 1),
                     decode_experts_hit=hit)
-
-    def routing_ab(cfg, params, prompts, strict):
-        """Each MoE sublayer fed its kernel-route input (a prefill of two
-        requests, then one decode step), its routing under both routes: a
-        differing expert fails unless its router logit is within 8 bf16
-        steps (at the row's largest logit) of the oracle's choice's;
-        ``strict``: any difference fails."""
-        toks, _ = padded(prompts[:2])
-        flips, worst, inputs = 0, 0.0, []
-        with torch.no_grad():
-            (_, cache), xs = captured(params, lambda: lm.prefill(
-                cfg, params, {"tokens": toks}, capacity=toks.shape[1] + 1))
-            inputs += xs
-            _, xs = captured(params, lambda: lm.decode_step(cfg, params, cache, toks[:, -1:]))
-            inputs += xs
-            layers = moes(params) * 2
-            for m, x in zip(layers, inputs):
-                rk, rr = m.routing(x), m.routing(x, impl="ref")
-                diff = rk["experts"] != rr["experts"]
-                if not diff.any():
-                    continue
-                logits = rr["logits"][None].expand(*rk["experts"].shape, -1)
-                gap = (logits.gather(-1, rk["experts"][..., None]) -
-                       logits.gather(-1, rr["experts"][..., None]))[..., 0].abs()[diff]
-                top = logits.abs().amax(-1)[diff]
-                steps = 8 * torch.exp2(torch.floor(torch.log2(top)) - 7)
-                flips += int(diff.sum())
-                worst = max(worst, float(gap.max()))
-                if strict or bool((gap >= steps).any()):
-                    raise AssertionError(f"{cfg.name}: {int(diff.sum())} routing choices differ "
-                                         f"between the routes, router-logit gap up to "
-                                         f"{float(gap.max())}")
-        emit("moe_routing_ab", config=cfg.name, layers=cfg.n_layers,
-             compute_dtype=cfg.compute_dtype, sublayer_calls=len(inputs), flips=flips,
-             largest_flip_logit_gap=worst, strict=strict, card=smi)
 
     def profile_step(cfg, params, prompts, hit):
         """Decode steps after a prefill of the round's batch: the wall time
@@ -2103,10 +2314,10 @@ def moe_serving(ab, kernels, smi):
         rest of the sublayer (``moe`` less both: norm, router, dispatch and
         combine), each ms a step, ranges marked by ``record_function``
         only for this step."""
-        toks, _ = padded(prompts)
+        toks, _ = padded(prompts, dev)
         e = cfg.moe
         expert_bytes = 3 * cfg.d_model * e.d_ff * 2
-        n_moe = len(moes(params))
+        n_moe = len(moe_layers(params))
         forward, ffn = blocks.MoE.forward, blocks.FFN.forward
 
         def marked(name_of, f):
@@ -2214,54 +2425,8 @@ def moe_serving(ab, kernels, smi):
         refuse_above_2gb("moe_start", f"{cfg.name}, 2 layers, float32", smi)
         params = lm.init_params(cut, device=dev, generator=gen(0))
         ab(cut, params, prompts, lambda _: MOE_F32_LOGIT_TOL)
-        routing_ab(cut, params, prompts, strict=True)
+        routing_ab(cut, params, prompts, strict=True, smi=smi)
         del params
-
-    def train_ab(cfg):
-        """The loss and every gradient of a 2-layer full-width cut (float32
-        masters, B 2 x S 1024, remat "full", no optimizer state), kernel
-        route against ``impl="ref"``: the loss and each leaf's gradient norm
-        within phase 10's bf16 tolerance; only the first route's norms are
-        kept while the second runs."""
-        cut = dataclasses.replace(cfg, n_layers=2, remat="full")
-        g = gen(3)
-        batch = {k: torch.randint(0, cfg.vocab, (2, 1024), generator=g, device=dev)
-                 for k in ("tokens", "labels")}
-        out = {}
-        for impl in (None, "ref"):
-            refuse_above_2gb("moe_start", f"{cfg.name}, 2 layers, training, impl={impl}", smi)
-            model = lm.init_params(cut, device=dev, param_dtype=f32, generator=gen(0))
-            resident = torch.cuda.memory_allocated()
-
-            def step():
-                loss, _ = lm.loss_fn(cut, model, batch, impl=impl)
-                loss.backward()
-                return float(loss.detach())
-            if impl is None:
-                loss = run_counted(f"{cfg.name} train A/B", step, train_kernels, rounds)
-            else:
-                loss, rec = counted(step, train_kernels, require=())
-                if any(rec["launches"].values()):
-                    raise AssertionError(f"the impl='ref' step launched kernels: "
-                                         f"{rec['launches']}")
-            out[impl] = (loss, {k: float(p.grad.norm()) for k, p in model.named_parameters()},
-                         (torch.cuda.max_memory_allocated() - resident) / gb, resident / gb)
-            del model
-        (loss_k, norms_k, peak, res), (loss_r, norms_r, _, _) = out[None], out["ref"]
-        rel = {k: abs(norms_k[k] - norms_r[k]) / max(norms_r[k], 1e-30) for k in norms_r}
-        worst = max(rel, key=rel.get)
-        loss_rel = abs(loss_k - loss_r) / abs(loss_r)
-        tol = TRAIN_AB_TOL[cfg.compute_dtype]
-        ok = loss_rel <= tol and rel[worst] <= tol
-        emit("moe_train_ab", config=f"{cfg.name}, 2 layers, full width", batch=[2, 1024],
-             remat="full", loss_kernels=loss_k, loss_ref=loss_r, loss_rel_diff=loss_rel,
-             worst_grad_norm_leaf=worst, worst_grad_norm_rel_diff=rel[worst], leaves=len(rel),
-             tolerance=tol, ok=ok, masters_resident_gb=res,
-             peak_over_resident_gb=peak, launches=rounds[f"{cfg.name} train A/B"], card=smi)
-        if not ok:
-            raise AssertionError(f"train step of a {cfg.name} cut: kernel route and "
-                                 f"impl='ref' differ (loss {loss_k} vs {loss_r}; {worst} "
-                                 f"{rel[worst]})")
 
     for name, n_layers in zip(MOE, (12, 2)):
         cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
@@ -2270,12 +2435,294 @@ def moe_serving(ab, kernels, smi):
         emit("moe_routing", config=cfg.name, layers=cfg.n_layers, card=smi, **stats)
         ab(cfg, params, prompts, lambda ref_logits: max(LOGIT_TOL,
                                                         float(ref_logits.abs().max()) / 16))
-        routing_ab(cfg, params, prompts, strict=False)
+        routing_ab(cfg, params, prompts, strict=False, smi=smi)
         profile_step(cfg, params, prompts, stats["decode_experts_hit"])
         del params
         float32_ab(cfg, prompts)
         if name == MOE[0]:
-            train_ab(cfg)
+            cut_train_ab(dataclasses.replace(cfg, n_layers=2, remat="full"), torch.float32,
+                         train_kernels, rounds, "moe", smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rounds
+
+
+def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
+    """Phase 16: jamba-1.5-large-398b (attention and Mamba2 mixers in one
+    stack, an MoE after every second layer) cut to its first four layers
+    at full width (attention/dense, mamba/moe, mamba/dense, mamba/moe:
+    22.98 B parameters, 46 GB of bf16 weights) on random bf16 weights from
+    a seed, with under 2 GB allocated before it.
+
+    Serves phase 4's traffic through ``LMServer`` at ``max_batch`` 8 after a
+    warm-up round; the counted round launches every kernel of the path
+    (flash, rmsnorm, the gated norm, the SSD scan, decode attention, the
+    chain's ``qkv_rope`` and ``out_residual``), calls no plain version and
+    never `_composed_step`; tok/s, decode step p50 / p90 beside its bound
+    (`decode_stage_bytes` of the bf16 weights: every weight but the
+    embedding table once, the SSM states and the KV cache, at the round's
+    last step) and beside the bytes as `MoE.decode` reads them (every
+    expert once a round), ``prefill_s``, the
+    resident weights and the peak over them; a profiled decode step (idle
+    share).  Each MoE sublayer's routing under both routes on the kernel
+    route's inputs (`routing_ab`: a differing choice only at a near-tie);
+    phase 5's A/B of the cut with every route on the oracle's routing
+    (`ab_on_oracle_routing`); a float32 A/B of a 2-layer cut (phase 5's
+    `ab`), every routing decision equal.  The same requests through ``LMServer(max_batch=4,
+    pipeline=DecodePipeline(...))``, one period (the cut's four layers) a
+    stage, planned on the H100: tokens equal to the single-device
+    ``LMServer(max_batch=4)``'s, ``late == 0``, every kernel launched.  One
+    train step of the 2-layer cut with bf16 masters and no optimizer state
+    (float32 ones and their gradients would take 95 GB), kernel route
+    against ``impl="ref"``: the loss and each leaf's gradient norm within
+    phase 10's bf16 tolerance.  And the host's counts (`count_step` of the
+    plain versions on the meta device, `analyze_step` on the H100's rates)
+    of the cut's decode step and prefill and of qwen2.5-3b's phase-4 decode
+    step, beside the measured times (``decode_ms``: qwen2.5-3b's p50 from
+    phase 4).  Returns each counted run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import HW_H100, analyze_step, count_step, decode_stage_bytes
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_gated_backward
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, lm
+    from repro_torch.runtime.pipeline import DecodePipeline
+    from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
+
+    dev, gb = torch.device("cuda"), 1e9
+    full = get_config(JAMBA)
+    cfg = first_layers(full, 4)
+    rounds = {}
+    prompt_lens = np.random.default_rng(0).integers(64, 401, 8)      # phase 4's traffic
+    prompts = [np.random.default_rng(n).integers(2, cfg.vocab, n).tolist() for n in prompt_lens]
+    bucket = _bucket(max(map(len, prompts)))
+
+    def requests(max_new):
+        return [Request(uid=i, prompt=p_, max_new=max_new) for i, p_ in enumerate(prompts)]
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def check_outs(outs, what):
+        for o in outs:
+            if not 1 <= len(o.tokens) <= 32 or not all(0 <= t < cfg.padded_vocab
+                                                         for t in o.tokens):
+                raise AssertionError(f"{what} request {o.uid}: bad completion {o.tokens}")
+
+    def ab_on_oracle_routing(cfg, params, prompts, steps=8):
+        """Phase 5's A/B in bf16 on the oracle's routing, beside float32: a
+        prefill of two requests and ``steps`` decode steps through the
+        kernel route, the oracle (``impl="ref"``) and the oracle in float32
+        on the same bf16 weights (each cast up at its use), all fed the
+        oracle's tokens.  At each step the bf16 oracle runs first and the
+        others replay its MoE sublayers' expert choices (`replayed_rounds`:
+        gates, slots and drops from their own probabilities), so that all
+        three are one model; `routing_ab` holds the routing itself, on one
+        input, and the float32 A/B of the 2-layer cut below holds every
+        choice.  The bf16 stack itself lies far from float32 (a bf16 step
+        of the Mamba2 mixers' large outputs, carried on in their states),
+        so the claim held is that the kernel route lies no farther: at
+        every step its largest logit distance from the float32 oracle
+        within 1.25 times the bf16 oracle's largest over the run.  How
+        many choices each bf16 route would have made otherwise on its own
+        input, counted."""
+        toks, _ = padded(prompts[:2], params.embed.device)
+        rounds = blocks.MoE._rounds
+        recorded, diffs, kernel_err, oracle_err = [], [], [], []
+        own = {"kernel": 0, "ref": 0}
+        cfgs = {"ref": cfg, "kernel": cfg,
+                "float32": dataclasses.replace(cfg, compute_dtype="float32")}
+        impls = {"ref": "ref", "kernel": None, "float32": "ref"}
+
+        def call(route, fn):
+            """``fn`` on ``route``: the bf16 oracle recording its choices,
+            or a route replaying them; and its MoE inputs."""
+            replay = iter(list(recorded))
+
+            def recording(self, probs):
+                out = rounds(self, probs)
+                recorded.append([r[0] for r in out])
+                return out
+
+            def replaying(self, probs):
+                return replayed_rounds(self, probs, next(replay))
+            if route == "ref":
+                recorded.clear()
+            blocks.MoE._rounds = recording if route == "ref" else replaying
+            try:
+                return captured(params, fn)
+            finally:
+                blocks.MoE._rounds = rounds
+        with torch.no_grad():
+            runs, xs = {}, {}
+            for r_ in impls:
+                runs[r_], xs[r_] = call(r_, lambda: lm.prefill(
+                    cfgs[r_], params, {"tokens": toks}, capacity=toks.shape[1] + steps,
+                    impl=impls[r_]))
+            for step in range(steps + 1):
+                for r_ in own:
+                    for m, x, want in zip(moe_layers(params), xs[r_], recorded):
+                        mine = m.routing(x, impl=impls[r_])["experts"]
+                        own[r_] += int((mine != torch.stack(want)).sum())
+                lk, lr, l32 = (runs[r_][0][:, -1].float() for r_ in ("kernel", "ref", "float32"))
+                diffs.append(float((lk - lr).abs().max()))
+                kernel_err.append(float((lk - l32).abs().max()))
+                oracle_err.append(float((lr - l32).abs().max()))
+                if step == steps:
+                    break
+                feed = lr.argmax(-1)[:, None]             # every route gets the oracle's
+                for r_ in impls:
+                    runs[r_], xs[r_] = call(r_, lambda: lm.decode_step(
+                        cfgs[r_], params, runs[r_][1], feed, impl=impls[r_]))
+        limit = 1.25 * max(oracle_err)
+        over = [t for t, e in enumerate(kernel_err) if e > limit]
+        emit("hybrid_ab", config=cfg.name, layers=cfg.n_layers, compute_dtype=cfg.compute_dtype,
+             requests=2, steps=steps, routing="the bf16 oracle's, replayed",
+             kernel_from_float32=kernel_err, oracle_from_float32=oracle_err,
+             kernel_from_float32_limit=limit, max_abs_logit_diff=diffs,
+             logits_abs_max=float(lr.abs().max()), other_choices_on_own_input=own,
+             ok=not over, card=smi)
+        if over:
+            raise AssertionError(f"A/B {cfg.name}: at steps {over} the kernel route lies "
+                                 f"{[kernel_err[t] for t in over]} from float32, beyond 1.25 "
+                                 f"times the bf16 oracle's largest distance ({limit})")
+
+    # -- the cut served ------------------------------------------------------
+    refuse_above_2gb("hybrid_start", f"{cfg.name}, 4 layers", smi)
+    t0 = time.perf_counter()
+    server = LMServer(cfg, max_batch=8, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = server.params
+    resident = sum(p.numel() * p.element_size() for p in params.parameters())
+    server.serve(requests(2))
+    server.stats = ServeStats()
+    outs = run_counted(f"{cfg.name} serve", lambda: server.serve(requests(32)), kernels, rounds)
+    check_outs(outs, cfg.name)
+    steps_s = np.array(server.stats.decode_step_s)
+    summary = server.stats.summary()
+    def served_bytes(c, cache_len):
+        """`decode_stage_bytes` of a decode step at B 8 over the weights as
+        the server holds them (the compute dtype, not float32 masters)."""
+        return decode_stage_bytes(dataclasses.replace(c, param_dtype=c.compute_dtype), 8,
+                                  cache_len, span=(0, c.n_periods), has_embed=True,
+                                  has_head=True)
+
+    step_bytes = served_bytes(cfg, bucket + 32)
+    # as `MoE.decode` reads them: every expert once a round (top-k rounds)
+    e = cfg.moe
+    expert_bytes = 3 * cfg.d_model * e.d_ff * 2 * e.n_experts
+    n_moe = sum(mlp == "moe" for _, mlp in cfg.block_pattern) * cfg.n_periods
+    read_bytes = step_bytes + (e.top_k - 1) * n_moe * expert_bytes
+    served = dict(
+        decode_step_p50_ms=float(np.percentile(steps_s, 50) * 1e3),
+        decode_step_p90_ms=float(np.percentile(steps_s, 90) * 1e3),
+        prefill_s=server.stats.prefill_s)
+    emit("hybrid_serve", config=cfg.name, layers=cfg.n_layers, pattern=cfg.block_pattern,
+         d_model=cfg.d_model, ssm_heads=cfg.mamba.n_ssm_heads(cfg.d_model),
+         experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         params=sum(p.numel() for p in params.parameters()), init_s=init_s, max_batch=8,
+         requests=len(prompts), prompt_lens=[len(p_) for p_ in prompts], bucket=bucket,
+         completion_lens=[len(o.tokens) for o in outs],
+         prefill_tok_per_s=summary["prefill_tok_per_s"],
+         decode_tok_per_s=summary["decode_tok_per_s"], decode_steps=len(steps_s),
+         decode_step_bytes=step_bytes,
+         decode_step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         decode_step_bytes_as_read=read_bytes,
+         decode_step_bound_as_read_ms=read_bytes / HBM_BYTES_PER_S * 1e3,
+         weights_resident_gb=resident / gb,
+         peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / gb,
+         launches=rounds[f"{cfg.name} serve"], card=smi, **served)
+    del server
+    profile_decode(cfg, params, prompts)
+    routing_ab(cfg, params, prompts, strict=False, smi=smi)
+    ab_on_oracle_routing(cfg, params, prompts)
+
+    # -- the same requests through the decode pipeline, one period a stage ---
+    t0 = time.perf_counter()
+    shape = ShapeCfg("serve_decode", 512, 4, "decode")
+    plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+    stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+    plan_s = time.perf_counter() - t0
+    single = LMServer(cfg, max_batch=4, params=params)
+    single.serve(requests(2))
+    want = [o.tokens for o in single.serve(requests(32))]
+    pipe = DecodePipeline(cfg, stg, plan, params=params, periods_per_stage=1)
+    try:
+        server = LMServer(cfg, max_batch=4, pipeline=pipe)
+        pipe.warm(prompts, 32, group_size=4)
+        got = run_counted(f"{cfg.name} pipelined serve", lambda: server.serve(requests(32)),
+                          kernels, rounds)
+        check_outs(got, f"{cfg.name} pipelined")
+        run, late = server.last_run, pipe.compile_stats.late
+        emit("hybrid_pipeline", config=cfg.name, stages=pipe.stage_names,
+             replicas=[len(d) for d in pipe.stage_devices], plan_s=plan_s,
+             groups=len(run.groups), streams_used=run.streams_used, wall_s=run.wall_s,
+             stage_seconds=run.stage_seconds, late=late,
+             tokens_equal=[o.tokens for o in got] == want,
+             launches=rounds[f"{cfg.name} pipelined serve"], card=smi)
+        if [o.tokens for o in got] != want:
+            bad = [j for j, o in enumerate(got) if o.tokens != want[j]]
+            raise AssertionError(f"{cfg.name} pipelined: requests {bad} differ from the "
+                                 f"single-device server")
+        if late:
+            raise AssertionError(f"{cfg.name} pipelined: {late} first launches inside the serve")
+    finally:
+        pipe.close()
+    del pipe, server, single
+
+    # -- the host's counts beside the measured steps --------------------------
+    def counted_cell(c, shape_, measured_s, bound_bytes=None):
+        b = steps.input_specs(c, shape_, impl="ref", serving=True)
+        t_ = time.perf_counter()
+        cost = count_step(b.fn, *b.arg_specs)
+        tokens = shape_.global_batch * (1 if shape_.kind == "decode" else shape_.seq_len)
+        rep = analyze_step(arch=c.name, shape_name=shape_.name, kind=shape_.kind, cfg=c,
+                           tokens=tokens, step_flops=cost.flops, step_bytes=cost.major_bytes)
+        emit("step_count", config=c.name, layers=c.n_layers, cell=shape_.name,
+             kind=shape_.kind, batch=shape_.global_batch, seq=shape_.seq_len,
+             flops=cost.flops, major_bytes=cost.major_bytes, count_s=time.perf_counter() - t_,
+             compute_ms=rep.compute_s * 1e3, memory_ms=rep.memory_s * 1e3,
+             bottleneck=rep.bottleneck, step_time_bound_ms=rep.step_time_bound_s * 1e3,
+             model_flops=rep.model_flops, useful_flops_ratio=rep.useful_flops_ratio,
+             measured_ms=measured_s * 1e3, measured_over_bound=measured_s / max(
+                 rep.step_time_bound_s, 1e-30),
+             decode_stage_bytes=bound_bytes, hw=HW_H100.name, note=rep.note, card=smi)
+
+    counted_cell(cfg, ShapeCfg(f"decode_B8_C{bucket + 32}", bucket + 32, 8, "decode"),
+                 served["decode_step_p50_ms"] / 1e3, step_bytes)
+    counted_cell(cfg, ShapeCfg(f"prefill_B8_S{bucket}", bucket, 8, "prefill"),
+                 served["prefill_s"])
+    qwen = get_config("qwen2.5-3b")
+    counted_cell(qwen, ShapeCfg("decode_B8_C544", 544, 8, "decode"), decode_ms / 1e3,
+                 served_bytes(qwen, 544))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- a float32 A/B of a 2-layer cut: every routing decision equal ---------
+    cut = dataclasses.replace(first_layers(full, 2), compute_dtype="float32")
+    refuse_above_2gb("hybrid_start", f"{cut.name}, 2 layers, float32", smi)
+    params = lm.init_params(cut, device=dev, generator=gen(0))
+    ab(cut, params, prompts, lambda _: MOE_F32_LOGIT_TOL)
+    routing_ab(cut, params, prompts, strict=True, smi=smi)
+    del params
+
+    # -- one train step of the 2-layer cut, bf16 masters ----------------------
+    train_kernels = dict(kernels, flash_attention_bwd=flash_attention_backward,
+                         rmsnorm_bwd=rmsnorm_backward, ssd_scan_bwd=ssd_scan_backward,
+                         rmsnorm_gated_bwd=rmsnorm_gated_backward)
+    for k in ("fused_qkv_rope", "fused_out_residual", "decode_attention"):
+        train_kernels.pop(k, None)
+    cut_train_ab(dataclasses.replace(first_layers(full, 2), remat="full"), torch.bfloat16,
+                 train_kernels, rounds, "hybrid", smi)
     gc.collect()
     torch.cuda.empty_cache()
     return rounds
@@ -2614,9 +3061,66 @@ def main() -> int:
         check("ssd_scan", case + ": state (float32)", s, want_s, STATE_ATOL * float(
             want_s.abs().max()), STATE_RTOL)
 
+    # jamba-1.5-large's shapes (phase 16), in bf16 and float32: the scan at
+    # its prefill (B8 L512, 256 heads of 64, N 128) and a ragged length;
+    # the gated norm at its decode and prefill rows (width 16384, z the
+    # second half of the in-projection); rmsnorm at its decode rows (width
+    # 8192); flash causal over the prefill bucket (B8 S512 H64 KV8 D128,
+    # GQA 8); decode attention at the round's last step (C544) and at
+    # ragged lengths; the chain at D 8192 (B 8 and 16)
+    d, h, kv, hd = attention_shape(JAMBA)
+    mh, mp, mn = jamba_mamba_shape()
+    for dtype in (bf16, torch.float32):
+        tol = ATOL if dtype == bf16 else F32_TOL
+        for b, L in ((8, 512), (8, 300)):
+            bc = randn(b, L, 2 * mn + mh, dtype=dtype)
+            args = (randn(b, L, mh, mp, dtype=dtype),
+                    F.softplus(randn(b, L, mh, dtype=torch.float32) - 4.0),
+                    -torch.exp(-2.0 + 0.5 * randn(mh, dtype=torch.float32)), bc[..., :mn],
+                    bc[..., mn:2 * mn])
+            (y, s_), (want_y, want_s) = ssd_scan(*args), ssd_scan_plain(*args, chunk=128)
+            case = f"jamba B{b} L{L} H{mh} P{mp} N{mn} {dtype}, long memory"
+            if dtype == bf16:
+                check("ssd_scan", case + ": y", y, want_y)
+            else:       # sums as large as the largest y in another order
+                check("ssd_scan", case + ": y", y, want_y,
+                      STATE_ATOL * float(want_y.abs().max()), STATE_RTOL)
+            check("ssd_scan", case + ": state (float32)", s_, want_s, STATE_ATOL * float(
+                want_s.abs().max()), STATE_RTOL)
+            del args, bc, y, s_, want_y, want_s
+        for lead in ((8,), (8, 512)):
+            args = gated_inputs(lead, mh, mp, dtype=dtype)
+            check("rmsnorm_gated", f"jamba {lead} H{mh} P{mp} {dtype}, z rows "
+                  f"{args[3].stride(-2)} apart", rmsnorm_gated(*args), rmsnorm_gated_plain(*args),
+                  tol, tol)
+        norm_check(f"jamba (8, {d})", randn(8, d, dtype=dtype), randn(d, dtype=torch.float32))
+        q = randn(8, 512, h, hd, dtype=dtype)
+        k, v = randn(8, 512, kv, hd, dtype=dtype), randn(8, 512, kv, hd, dtype=dtype)
+        check("flash_attention", f"jamba B8 S512 H{h} KV{kv} D{hd} causal {dtype}",
+              flash_attention(q, k, v), flash_attention_plain(q, k, v), tol, tol)
+        q, kc, vc = (randn(8, h, hd, dtype=dtype), randn(8, 544, kv, hd, dtype=dtype),
+                     randn(8, 544, kv, hd, dtype=dtype))
+        for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            check("decode_attention", f"jamba B8 H{h} KV{kv} hd{hd} C544 cache_len={lens} "
+                  f"{dtype}", decode_attention(q, kc, vc, clen),
+                  decode_attention_plain(q, kc, vc, clen), tol, tol)
+        for b in (8, 16):
+            x, kc, vc, kw = sublayer(b, d, h, kv, hd, 544, False, dtype)
+            p = torch.tensor(543, dtype=torch.int32, device=dev)
+            want, k_new, v_new = fused_decode_plain(x[:, 0], kc, vc, p, **kw)
+            got = fused_decode(x, kc, vc, p, **kw)
+            case = f"jamba B{b} D{d} H{h} KV{kv} hd{hd} C544 pos 543 {dtype}"
+            check("fused_decode", case + ": out", got[:, 0], want, tol, tol)
+            check("fused_decode", case + ": slot k", kc[:, 543], k_new, tol, tol)
+            check("fused_decode", case + ": slot v", vc[:, 543], v_new, tol, tol)
+        del q, k, v, kc, vc, x, kw
+    torch.cuda.empty_cache()
+
     # -- 4. serving at full width -------------------------------------------
     rng = np.random.default_rng(0)
     prompt_lens = rng.integers(64, 401, 8)
+    decode_p50_ms = {}
 
     def serve(name, kernels):
         """A warm-up round, then one counted round with every launch count
@@ -2641,6 +3145,7 @@ def main() -> int:
         launches = {k: fn.launches for k, fn in kernels.items()}
         steps = np.array(server.stats.decode_step_s)
         summary = server.stats.summary()
+        decode_p50_ms[cfg.name] = float(np.percentile(steps, 50) * 1e3)
         emit("serve", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
              params=n_params, weights_dtype=str(server.params.embed.dtype),
              init_s=round(init_s, 3), serve_s=round(serve_s, 3),
@@ -3278,6 +3783,50 @@ def main() -> int:
     emit("ssd_scaling", ms=ssd_ms, shape=f"H{h} P{p} N{n} bf16", sms=sms,
          blocks_per_sm=blocks_per_sm(bf16), blocks_per_sm_float32=blocks_per_sm(torch.float32),
          card=smi)
+    # jamba-1.5-large's shapes (phase 16): the attention kernels, the chain's
+    # GEMVs and rmsnorm at its D 8192, H64 KV8 hd128 (as above); the scan at
+    # its prefill (B8 L512, 256 heads of 64, N 128) and the gated norm at its
+    # decode and prefill rows (width 16384), bounds, plain versions and
+    # yardsticks as at mamba2-370m's shapes below
+    for k_, cases in shape_times("jamba", *attention_shape(JAMBA)).items():
+        times[k_]["hybrid_shapes"] = cases
+    mh, mp, mn = jamba_mamba_shape()
+    b_, L_, q_ = 8, 512, 64
+    nb = 2 * (2 * b_ * L_ * mh * mp + 2 * b_ * L_ * mn) + 4 * (b_ * L_ * mh + mh
+                                                                + b_ * mh * mp * mn)
+    fl = 2 * b_ * mh * (L_ // q_) * (q_ * q_ * mn + q_ * q_ * mp + 2 * q_ * mp * mn)
+    b_ms, b_by = bound(nb, fl, BF16_FLOP_PER_S)
+    sets = copies(lambda: ssd_inputs(b_, L_, mh, mp, mn, memory="long"), nb)
+    times["ssd_scan"]["hybrid_shapes"] = {f"jamba B{b_} L{L_} H{mh} P{mp} N{mn}": dict(
+        ms=timed(lambda *a: ssd_scan(*a), sets, iters=10),
+        plain_ms=timed(lambda *a: ssd_scan_plain(*a, chunk=128), sets[:2], iters=4),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=fl, bytes=nb)}
+    del sets
+    gated_jamba = {}
+    for lead in ((8,), (8, 512)):
+        n_rows = int(np.prod(lead))
+        dn = mh * mp
+        n = n_rows * dn
+        nb = 4 * n * 2 + dn * 4 + mh * 4
+        sets = copies(lambda: gated_inputs(lead, mh, mp), nb + n * 2)
+        plan = rn.norm_plan(n_rows, dn, 2, gated=True, aligned=True, card=card)
+        b_ms, b_by = bound(nb, 11 * n, F32_FLOP_PER_S)
+        gated_jamba[f"jamba ({n_rows}, {dn})"] = dict(
+            ms=timed(lambda *a: rmsnorm_gated(*a), sets),
+            plain_ms=timed(lambda *a: rmsnorm_gated_plain(*a), sets), library_ms=None,
+            yardstick_ms=timed(unfused, sets),
+            # a row of 16384 is past the row kernel: the wide kernel, whose
+            # grid is not the plan's, so no empty kernel stands beside it
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if plan.blocks else None,
+            kernel="row" if plan.blocks else "wide",
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nb)
+        del sets
+    times["rmsnorm_gated"]["hybrid_shapes"] = gated_jamba
+    emit("times_hybrid", card=smi, **{k: times[k]["hybrid_shapes"] for k in (
+        "flash_attention", "decode_attention", "fused_decode", "rmsnorm", "ssd_scan",
+        "rmsnorm_gated")})
+    torch.cuda.empty_cache()
+
     emit("times", shapes={"rmsnorm": "(8, 2048) decode (by_shape: also (8, 1024) and "
                                      "(4096, 2048) prefill), bf16, float32 weight",
                           "rmsnorm_gated": "(8, 2048) decode (by_shape: also (4096, 2048) "
@@ -3568,7 +4117,14 @@ def main() -> int:
     moe_rounds = moe_serving(ab, qwen_kernels, smi)
     emit("moe_phase", seconds=time.perf_counter() - t_phase)
 
-    # -- 16. the record of the kernels, the card, the result ----------------
+    # -- 16. the hybrid: jamba-1.5-large, its first four layers --------------
+    t_phase = time.perf_counter()
+    hybrid_rounds = hybrid_serving(
+        ab, profile_decode, dict(qwen_kernels, rmsnorm_gated=rmsnorm_gated, ssd_scan=ssd_scan),
+        smi, decode_ms=decode_p50_ms["qwen2.5-3b"])
+    emit("hybrid_phase", seconds=time.perf_counter() - t_phase)
+
+    # -- 17. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
     # first kernel; its other two launched as often), mamba2-370m's for the
@@ -3583,7 +4139,8 @@ def main() -> int:
     # round of phase 12; ``pipe_train_launches`` from qwen2.5-3b's 1F1B run
     # through the microbatch pipeline (phase 13), and mamba2-370m's for the
     # SSD scan, the gated norm and their backward; ``prefix_launches`` from
-    # each counted run of phase 14, ``moe_launches`` from each of phase 15
+    # each counted run of phase 14, ``moe_launches`` from each of phase 15,
+    # ``hybrid_launches`` from each of phase 16
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -3627,12 +4184,15 @@ def main() -> int:
                              for r, n in prefix_rounds.items()},
          "moe_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
                           for r, n in moe_rounds.items()},
+         "hybrid_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
+                             for r, n in hybrid_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),
          **({"large_shapes": t["large_shapes"]} if "large_shapes" in t else {}),
          **({"prefix_shapes": t["prefix_shapes"]} if "prefix_shapes" in t else {}),
          **({"moe_shapes": t["moe_shapes"]} if "moe_shapes" in t else {}),
+         **({"hybrid_shapes": t["hybrid_shapes"]} if "hybrid_shapes" in t else {}),
          **({"forward_with_lse": t["forward_with_lse"]} if "forward_with_lse" in t else {}),
          **{k: t[k] for k in ("rows_ms", "dkdv_ms", "dq_ms") if k in t},
          **({"floor_ms": t["floor_ms"], "by_shape": {s: {k: v[k] for k in (

@@ -1,13 +1,22 @@
-"""The card's published rates, and the bytes a decode stage must move.
+"""The card's published rates, a step's roofline, and the bytes a decode
+stage must move.
 
 Copied from ``repro/analysis/roofline.py``: `Hardware`,
-`decode_stage_bytes` and `fraction_of_roofline`, with the names and
-behaviour unchanged.  The JAX package's TPU table is not copied; the
-port's one entry is `HW_H100`.
+`RooflineReport`, `decode_stage_bytes` and `fraction_of_roofline`, with
+the names and behaviour unchanged.  `analyze_step` is the part of the
+JAX ``analyze_compiled`` that needs no compiled program: the compute and
+memory terms of a step's counts (`analysis.step_cost.count_step`) on one
+card, the bottleneck, the model's FLOPs (6 N D to train, 2 N D
+otherwise), and the bound on the step's time, tokens a second and MFU.
+The port runs on one card and has no partitioned program to parse, so
+the collective term is 0 (the JAX ``parse_collectives`` and ``hlo`` are
+not ported).  The JAX package's TPU table is not copied; the port's one
+entry is `HW_H100`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+from dataclasses import asdict, dataclass
 
 
 @dataclass(frozen=True)
@@ -26,6 +35,64 @@ class Hardware:
 # activations take to leave a chip, which moves them one way.
 HW_H100 = Hardware(name="h100-sxm", peak_flops=989e12, hbm_bw=3.35e12,
                    link_bw=450e9, hbm_bytes=80e9)
+
+
+@dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    n_devices: int
+    hlo_flops: float
+    hlo_bytes: float
+    wire_bytes: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    bottleneck: str
+    model_flops: float
+    useful_flops_ratio: float
+    collectives: dict
+    per_device_peak_memory: float | None = None
+    step_time_bound_s: float = 0.0
+    tokens_per_s: float = 0.0
+    mfu: float = 0.0
+    note: str = ""
+
+    def to_json(self) -> str:
+        return json.dumps(asdict(self), indent=1)
+
+
+def model_flops(cfg, kind: str, tokens: float) -> float:
+    """The model's FLOPs for ``tokens`` tokens: 6 N D to train, 2 N D to
+    serve, N the active parameters (`ModelConfig.active_param_count`)."""
+    return (6.0 if kind == "train" else 2.0) * cfg.active_param_count() * tokens
+
+
+def analyze_step(*, arch: str, shape_name: str, kind: str, cfg, tokens: float,
+                 step_flops: float, step_bytes: float,
+                 hw: Hardware = HW_H100) -> RooflineReport:
+    """The roofline of one step on one card of ``hw`` from its whole-step
+    counts (``step_flops`` / ``step_bytes``: `step_cost.count_step`):
+    compute = FLOPs / peak, memory = bytes / HBM rate, the larger the
+    bound on the step's time and the bottleneck."""
+    compute_s = step_flops / hw.peak_flops
+    memory_s = step_bytes / hw.hbm_bw
+    terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
+    bottleneck = max(terms, key=terms.get)
+    bound = max(terms.values())
+    useful = model_flops(cfg, kind, tokens)
+    return RooflineReport(
+        arch=arch, shape=shape_name, mesh="1", n_devices=1, hlo_flops=step_flops,
+        hlo_bytes=step_bytes, wire_bytes=0.0, compute_s=compute_s, memory_s=memory_s,
+        collective_s=0.0, bottleneck=bottleneck, model_flops=useful,
+        useful_flops_ratio=(useful / step_flops) if step_flops else 0.0,
+        collectives={"counts": {}, "wire_bytes": {}}, step_time_bound_s=bound,
+        tokens_per_s=(tokens / bound) if bound else 0.0,
+        mfu=(useful / hw.peak_flops) / bound if bound else 0.0,
+        note="one card: no collectives (the JAX package parses them from its "
+             "partitioned HLO, which the port has not); FLOPs and bytes from "
+             "step_cost.count_step over the plain versions on the meta device")
 
 
 def _dtype_size(name: str) -> int:

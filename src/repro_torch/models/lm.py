@@ -2,8 +2,9 @@
 prompt pass and the decode step (serving).
 
 Ported from ``repro/models/lm.py`` for stacks of attention or Mamba2
-mixers with dense or MoE MLPs (an MoE only after attention): the
-decoders, the MoE decoders, the encoder-decoder family (an encoder of
+mixers, each followed by a dense or an MoE MLP: the decoders, the Mamba2
+stack, the MoE decoders, the hybrid (attention and Mamba2 layers in one
+pattern, an MoE after either), the encoder-decoder family (an encoder of
 non-causal layers over ``batch["frames"]``, cross-attended by every
 decoder layer) and the prefix frontend (``batch["prefix_embeds"]`` ahead
 of the tokens).  The JAX package stacks each parameter over
@@ -47,13 +48,6 @@ from . import blocks
 from .common import chunked_lm_loss, dtype_of, rmsnorm
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if ("mamba", "moe") in cfg.block_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE MLP after a Mamba2 mixer (the hybrid family) is not "
-            "ported yet (ROADMAP.md, queue 1, item 2)")
-
-
 class DecoderLayer(nn.Module):
     """One layer: the mixer (``attn`` or ``mamba``), with ``cross`` (a
     decoder layer of an encoder-decoder) the cross-attention, then the MLP
@@ -83,7 +77,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, generator=None,
                  param_dtype: torch.dtype | None = None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.padded_vocab
         make = blocks.Maker(cfg, device, generator, param_dtype)
@@ -340,7 +333,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, impl: str | None = None) -> Model:
-    _check_supported(cfg)
     return Model(
         cfg=cfg,
         init=functools.partial(init_params, cfg),

@@ -40,10 +40,11 @@ Working copies.  For a run every matrix of the block and head stages is
 held as one bfloat16 copy of its float32 master (the dtype every stage
 computes in), so that no forward casts it again and autograd keeps no
 bfloat16 weights a microbatch: ~154 MB a (layer, microbatch) at
-qwen2.5-3b's width.  Each matrix is cast once a forward, so its copy's
-gradient has the bits that the cast's vjp hands the master; the fold
-adds it into the float32 accumulator (`first_acc`, `working_params`).
-The embedding table and the norms stay float32.
+qwen2.5-3b's width.  Each such matrix is cast once a forward, so its
+copy's gradient has the bits that the cast's vjp hands the master; the
+fold adds it into the float32 accumulator (`first_acc`,
+`working_params`).  The embedding table, the norms, an MoE's router and
+the experts of a top-k > 1 MoE (cast once a round) stay float32.
 
 Threads and streams.  Overlapped (the default), each stage launches on a
 CUDA stream of its own, which its replicas share as they share its
@@ -362,14 +363,19 @@ def working_params(module: nn.Module) -> list:
     block and head stages that are not bfloat16 already.  The embedding
     table stays float32: its gradient sums repeated rows, which a
     bfloat16 table would round; so does an MoE's router, which routes in
-    float32."""
+    float32, and a top-k > 1 MoE's experts: a forward casts them once a
+    round, and their masters' gradient sums the rounds' in float32, which
+    one copy's bfloat16 gradient would round."""
     if isinstance(module, EmbedStage):
         return []
     if isinstance(module, FusedStage):
         return [w for m in module.members.values() for w in working_params(m)]
+    kept = {id(m.router) for m in module.modules() if isinstance(m, blocks.MoE)}
+    kept |= {id(p) for m in module.modules() if isinstance(m, blocks.MoE)
+             and m.cfg.moe.top_k > 1 for p in m.experts.parameters()}
     return [(sub, name, p) for sub in module.modules() for name, p in sub._parameters.items()
             if p is not None and p.dim() >= 2 and p.dtype != torch.bfloat16
-            and not (isinstance(sub, blocks.MoE) and name == "router")]
+            and id(p) not in kept]
 
 
 def _seed(logits, loss_fn):

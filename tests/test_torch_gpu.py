@@ -1530,3 +1530,135 @@ def test_lm_pipeline_backward_op_on_a_thread_new_to_cuda(cuda):
     assert torch.equal(xb, xb_want)
     assert all(torch.equal(a, b) for a, b in zip(pb, pb_want))
     pipe.close()
+
+
+# the hybrid (phase 16 of chip_smoke.py): jamba-1.5-large's shapes, 256 SSM
+# heads of 64 (N 128, width 16384), attention H64 KV8 hd128 (GQA 8) at
+# d_model 8192; and its first two layers at full width, kernel route
+# against the oracle route
+JAMBA = "jamba-1.5-large-398b"
+
+
+def _jamba_mamba():
+    cfg = get_config(JAMBA)
+    return cfg.mamba.n_ssm_heads(cfg.d_model), cfg.mamba.head_dim, cfg.mamba.d_state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [512, 300])
+def test_ssd_scan_at_the_hybrid_heads(cuda, dtype, length):
+    """The scan at jamba's prefill (B8, 256 heads) and a ragged length,
+    long memory; tolerances as `test_ssd_scan_kernel_matches_plain`."""
+    H, P, N = _jamba_mamba()
+    x, dt, a, bc, _, _ = _ssd_bwd_inputs((8, length, H, P, N), dtype, cuda)
+    b, c = bc[..., :N], bc[..., N:2 * N]
+    before = ssd_scan.launches
+    y, s = ssd_scan(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_s = ssd_scan_plain(x, dt, a, b, c)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    else:
+        torch.testing.assert_close(y, want_y, atol=1e-4 * float(want_y.abs().max()), rtol=1e-4)
+    torch.testing.assert_close(s, want_s, atol=1e-4 * float(want_s.abs().max()), rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_at_the_hybrid_heads(cuda, dtype):
+    """One sequence of 4096 over jamba's 256 heads."""
+    H, P, N = _jamba_mamba()
+    x, dt, a, bc, dy, _ = _ssd_bwd_inputs((1, 4096, H, P, N), dtype, cuda)
+    got = _ssd_grads(ssd_scan, x, dt, a, bc, dy, None)
+    want = _ssd_grads(ssd_scan_plain, x, dt, a, bc, dy, None)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, MAMBA_BWD_TOL[dtype], VANISHING)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [(8,), (8, 512)])
+def test_gated_norm_at_the_hybrid_width(cuda, dtype, lead):
+    H, P, _ = _jamba_mamba()
+    y, xh, d, xz, w, _ = _gated_bwd_inputs(lead, H, P, dtype, cuda)
+    z = torch.chunk(xz, 2, dim=-1)[1]
+    _close(rmsnorm_gated(y, xh, d, z, w), rmsnorm_gated_plain(y, xh, d, z, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_norm_backward_at_the_hybrid_width(cuda, dtype):
+    H, P, _ = _jamba_mamba()
+    y, xh, d, xz, w, g = _gated_bwd_inputs((1, 4096), H, P, dtype, cuda)
+    got = _gated_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+    want = _gated_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+    for got_, want_ in zip(got, want):
+        _close_scaled(got_, want_, MAMBA_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_and_norm_at_the_hybrid_shapes(cuda, dtype):
+    """rmsnorm over a decode step's 8 rows of 8192; flash causal over the
+    prefill bucket (B8 S512 H64 KV8 D128) and its backward; decode
+    attention over C544 at ragged lengths."""
+    D, H, KV, hd = _large_shape(JAMBA)
+    rng = np.random.default_rng(D + H)
+    x, w = _rand(rng, (8, D), dtype, cuda), _rand(rng, (D,), torch.float32, cuda)
+    _close(rmsnorm(x, w), rmsnorm_plain(x, w), dtype)
+    q, k, v = (_rand(rng, (8, 512, n, hd), dtype, cuda) for n in (H, KV, KV))
+    do = _rand(rng, (8, 512, H, hd), dtype, cuda)
+    out, got = _grads(flash_attention, q, k, v, do, {})
+    want_out, want = _grads(flash_attention_plain, q, k, v, do, {})
+    _close(out, want_out, dtype)
+    for g, w_ in zip(got, want):
+        _close_scaled(g, w_, BWD_TOL[dtype])
+    q = _rand(rng, (8, H, hd), dtype, cuda)
+    kc, vc = (_rand(rng, (8, 544, KV, hd), dtype, cuda) for _ in range(2))
+    for lens in (544, [1, 37, 100, 255, 256, 400, 543, 544]):
+        clen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _close(decode_attention(q, kc, vc, clen), decode_attention_plain(q, kc, vc, clen), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [8, 16])
+def test_chain_at_the_hybrid_width(cuda, dtype, batch):
+    D, H, KV, hd = _large_shape(JAMBA)
+    rng = np.random.default_rng(D + batch)
+    x, k, v, w = _sublayer(rng, D, H, KV, hd, 48, False, dtype, cuda, B=batch)
+    kw = dict(w, n_heads=H, head_dim=hd, eps=1e-5, theta=1e4, scale=hd ** -0.5)
+    p = torch.tensor(47, dtype=torch.int32, device=cuda)
+    want, k_new, v_new = fused_decode_plain(x[:, 0], k, v, p, **kw)
+    got = fused_decode(x, k, v, p, **kw)
+    _close(got[:, 0], want, dtype)
+    _close(k[:, 47], k_new, dtype)
+    _close(v[:, 47], v_new, dtype)
+
+
+def test_hybrid_cut_kernel_route_matches_ref_route(cuda):
+    """jamba's first two layers (attention/dense, mamba/moe) at full width
+    in float32 (47.6 GB): prefill of two padded prompts and 4 decode steps,
+    logits within 1e-3 under both routes, every kernel of the path
+    launched on the kernel route and none on the oracle route."""
+    from repro_torch.configs import first_layers
+    cfg = dataclasses.replace(first_layers(get_config(JAMBA), 2), compute_dtype="float32")
+    model = lm.init_params(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = np.zeros((2, 128), np.int64)
+    toks[0] = rng.integers(2, cfg.vocab, 128)
+    toks[1, 50:] = rng.integers(2, cfg.vocab, 78)
+    feed = [torch.from_numpy(rng.integers(2, cfg.vocab, (2, 1))).to(cuda) for _ in range(4)]
+    kernels = (flash_attention, ssd_scan, rmsnorm_gated, qkv_rope, out_residual)
+    out = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            counts = [f.launches for f in kernels]
+            logits, cache = lm.prefill(cfg, model, {"tokens": torch.from_numpy(toks).to(cuda)},
+                                       capacity=132, impl=impl)
+            steps = [logits]
+            for tok in feed:
+                logits, cache = lm.decode_step(cfg, model, cache, tok, impl=impl)
+                steps.append(logits)
+            torch.cuda.synchronize()
+            launched = [f.launches > c for f, c in zip(kernels, counts)]
+            assert all(launched) if impl is None else not any(launched)
+            out[impl] = steps
+    for a, b in zip(out[None], out["ref"]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)

@@ -196,12 +196,18 @@ def test_mamba_gate_goes_through_the_gated_norm_on_the_kernel_route(monkeypatch,
 
 
 def test_unported_families_are_refused():
-    """The hybrid family, an MoE MLP after a Mamba2 mixer (the prefix
-    families are ported: ``tests/test_torch_encdec.py``; the llama4 MoE
-    decoders too: ``tests/test_torch_moe.py``)."""
-    for name in ("jamba-1.5-large-398b",):
-        with pytest.raises(NotImplementedError):
-            lm.build_model(jax_get_config(name))
+    """No family is refused any more: every architecture of the JAX
+    registry builds, the hybrid (an MoE MLP after a Mamba2 mixer,
+    ``tests/test_torch_hybrid.py``) among them, at full size on the meta
+    device (no storage)."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    for name in JAX_ARCHS:
+        cfg = get_config(name)
+        assert lm.build_model(cfg).cfg is cfg
+        params = lm.LM(cfg, device="meta")
+        assert all(p.is_meta for p in params.parameters())
+    jamba = lm.LM(get_config("jamba-1.5-large-398b"), device="meta")
+    assert type(jamba.layers[1].mixer).__name__ == "Mamba" and jamba.layers[1].moe
 
 
 def test_bridge_refuses_a_tree_of_another_config():
@@ -237,7 +243,8 @@ new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "gra
        "graphs.streamit", "runtime.pipeline.interpreter", "runtime.pipeline.schedule",
        "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b",
        "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b",
-       "configs.llama4_scout", "configs.llama4_maverick"]
+       "configs.llama4_scout", "configs.llama4_maverick", "configs.jamba_1_5_large",
+       "launch.steps", "analysis.step_cost"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """

@@ -528,10 +528,15 @@ def test_serve_cli_runs_scout():
 
 
 def test_build_model_takes_both_configs_and_refuses_jamba():
-    for name in (SCOUT, MAVERICK):
-        lm.build_model(get_config(name))
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        lm.build_model(jax_get_config("jamba-1.5-large-398b"))
+    """Both MoE decoders build, and so does jamba, whose MoE follows a
+    Mamba2 mixer (no longer refused: ``tests/test_torch_hybrid.py``)."""
+    for name in (SCOUT, MAVERICK, "jamba-1.5-large-398b"):
+        cfg = get_config(name)
+        assert lm.build_model(cfg).cfg is cfg
+    smoke = lm.init_params(get_config("jamba-1.5-large-398b-smoke"), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    assert isinstance(smoke.layers[1].mixer, blocks.Mamba)
+    assert isinstance(smoke.layers[1].mlp, blocks.MoE)
 
 
 def test_decode_pipeline_serves_scout_as_the_single_device_server():
