@@ -232,8 +232,20 @@ script exits non-zero without its result line.  The phases:
     at width 16384 (8 and 4096 rows) and its backward, rmsnorm at (8,
     8192), flash at B8 S512 H64 KV8 D128 and its backward, decode attention
     at C544 and the chain at D 8192;
-17. the ``kernels`` record, the card's name and power limit, and last the
-    result line ``{"ok": true, "device": {...}}``.
+18. the one-rank mesh (`mesh_phase`, run after 16): a NCCL process group
+    of world 1 and a (1, 1) ("data", "model") ``DeviceMesh``; qwen2.5-3b at
+    full width and depth trained by ``train_loop`` for 3 steps at phase
+    10's shape without a mesh and then with ``mesh=`` and ``fsdp=True``
+    (parameters and optimizer state DTensors placed by the JAX specs; the
+    losses bitwise or within 1e-3 relative, the record says which), and
+    served for one round of phase 4's requests by ``LMServer(seed=0)``
+    without and with ``mesh=`` (the tokens equal each other and phase
+    4's); the meshed runs counted (every kernel of the path launched, no
+    plain version called), the step and decode times of both beside the
+    card (DTensor's cost at world 1);
+17. the ``kernels`` record (with phase 18's ``mesh_launches``), the card's
+    name and power limit, and last the result line ``{"ok": true,
+    "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2728,6 +2740,129 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     return rounds
 
 
+def mesh_phase(cfg, prompts, smi, *, seq=4096, global_batch=8, grad_accum=4,
+               max_new=32):
+    """Phase 18: the one-rank mesh.  A process group of world 1 (NCCL on
+    the card, from a file store under ``build/``) and `local_mesh(1)`, a
+    (1, 1) ("data", "model") mesh; then
+
+      (a) ``cfg`` trained by `train_loop` for 3 steps (the bigram data at
+          ``seq``, ``global_batch``, ``grad_accum``; AdamW on float32
+          masters), first without a mesh, then with ``mesh=`` and
+          ``fsdp=True`` (parameters and optimizer state DTensors placed by
+          the JAX specs): the losses must be equal bitwise or within 1e-3
+          relative (the record says which);
+      (b) one round of ``prompts`` (B 8, ``max_new`` tokens each) through
+          ``LMServer(seed=0)`` without a mesh, then ``LMServer(seed=0,
+          mesh=)``, each after a warm-up round: the tokens must be equal;
+      (c) the meshed runs counted (`run_counted`): every kernel of the path
+          launched (flash forward and backward, rmsnorm and its backward;
+          rmsnorm, flash, decode attention and the chain's two GEMVs) and no
+          plain version or `_composed_step` called, so DTensor ran the
+          kernels on its local tensors and decomposed none;
+      (d) step and decode times with and without the mesh beside the card.
+
+    Returns (the meshed round's tokens, {"train": launches, "serve":
+    launches})."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from repro_torch.kernels.fused_decode import out_residual, qkv_rope
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.runtime.server import LMServer, Request
+    from repro_torch.runtime.trainer import TrainLoopConfig, local_mesh, train_loop
+
+    store = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    init_distributed("cuda", rank=0, world_size=1,
+                     store=dist.FileStore(str(store / "store"), 1))
+    rounds: dict = {}
+    try:
+        mesh = local_mesh(1, device="cuda")
+        backend = dist.get_backend()
+        # (a) training without and with the mesh
+        train_kernels = {"flash_attention": flash_attention,
+                         "flash_attention_bwd": flash_attention_backward,
+                         "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_backward}
+        base = dict(steps=3, seq_len=seq, global_batch=global_batch, grad_accum=grad_accum,
+                    lr=3e-4, warmup=2, log_interval=1, seed=0, data_kind="bigram")
+        plain = train_loop(cfg, TrainLoopConfig(**base), device="cuda")
+        plain_losses = [plain.losses[i] for i in range(3)]
+        plain_steps = [plain.step_seconds[i] for i in range(3)]
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        meshed = run_counted("train", lambda: train_loop(
+            cfg, TrainLoopConfig(**base, fsdp=True), device="cuda", mesh=mesh),
+            train_kernels, rounds)
+        mesh_losses = [meshed.losses[i] for i in range(3)]
+        layout = {k: [repr(x) for x in p.placements]
+                  for k, p in list(meshed.model.named_parameters())[:3]}
+        dtensors = all(hasattr(p, "placements") for p in meshed.model.parameters())
+        mesh_steps = [meshed.step_seconds[i] for i in range(3)]
+        del meshed
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, plain_losses))
+        bitwise = mesh_losses == plain_losses
+        emit("mesh_train", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}",
+             mesh=f"(1, 1) data x model, {backend} world 1", fsdp=True, remat=cfg.remat, seq=seq,
+             global_batch=global_batch, grad_accum=grad_accum, losses_plain=plain_losses,
+             losses_mesh=mesh_losses, bitwise=bitwise, max_rel_diff=rel, tolerance=1e-3,
+             params_are_dtensors=dtensors, placements=layout, step_s_plain=plain_steps,
+             step_s_mesh=mesh_steps, launches=rounds["train"], card=smi)
+        if not dtensors or not (bitwise or rel <= 1e-3):
+            raise AssertionError(f"the meshed loop's losses {mesh_losses} differ from "
+                                 f"{plain_losses} (rel {rel}), or its parameters are not "
+                                 f"DTensors ({dtensors})")
+
+        # (b) one serving round without and with the mesh
+        serve_kernels = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                         "fused_qkv_rope": qkv_rope, "decode_attention": decode_attention,
+                         "fused_out_residual": out_residual}
+        reqs = [Request(uid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
+        warm = [Request(uid=i, prompt=p, max_new=2) for i, p in enumerate(prompts)]
+        out = {}
+        for label, kw in (("plain", dict(device="cuda")), ("mesh", dict(mesh=mesh))):
+            server = LMServer(cfg, max_batch=8, seed=0, **kw)
+            server.serve(warm)
+            server.stats.decode_step_s.clear()
+            if label == "mesh":
+                comps = run_counted("serve", lambda: server.serve(reqs), serve_kernels, rounds)
+            else:
+                comps, rec = counted(lambda: server.serve(reqs), serve_kernels)
+            steps = np.array(server.stats.decode_step_s)
+            out[label] = dict(tokens=[c.tokens for c in comps],
+                              decode_step_p50_ms=float(np.percentile(steps, 50) * 1e3),
+                              decode_step_p90_ms=float(np.percentile(steps, 90) * 1e3),
+                              prefill_s=comps[0].prefill_s, decode_s=comps[0].decode_s,
+                              weights_are_dtensors=hasattr(server.params.embed, "placements"))
+            del server, comps
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = out["mesh"]["tokens"] == out["plain"]["tokens"]
+        emit("mesh_serve", config=f"{cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}",
+             mesh=f"(1, 1) data x model, {backend} world 1", batch=len(reqs), max_new=max_new,
+             tokens_equal=same, launches=rounds["serve"], card=smi,
+             **{f"{k}_{label}": v[k] for label, v in out.items() for k in (
+                 "decode_step_p50_ms", "decode_step_p90_ms", "prefill_s", "decode_s",
+                 "weights_are_dtensors")})
+        if not same or not out["mesh"]["weights_are_dtensors"]:
+            raise AssertionError("the meshed server's tokens differ from the plain server's, "
+                                 "or its weights are not DTensors")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out["mesh"]["tokens"], rounds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3121,6 +3256,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     prompt_lens = rng.integers(64, 401, 8)
     decode_p50_ms = {}
+    served_tokens = {}
 
     def serve(name, kernels):
         """A warm-up round, then one counted round with every launch count
@@ -3164,6 +3300,7 @@ def main() -> int:
         missing = [k for k, n in launches.items() if n == 0]
         if missing:
             raise AssertionError(f"the {name} serving path launched no {missing} kernel")
+        served_tokens[cfg.name] = [o.tokens for o in outs]
         return cfg, server.params, prompts, launches
 
     # `_composed_step` counts its own calls: both qwen rounds must make none
@@ -4124,6 +4261,16 @@ def main() -> int:
         smi, decode_ms=decode_p50_ms["qwen2.5-3b"])
     emit("hybrid_phase", seconds=time.perf_counter() - t_phase)
 
+    # -- 18. the one-rank mesh: qwen2.5-3b trained and served through it ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mesh_tokens, mesh_rounds = mesh_phase(get_config("qwen2.5-3b"), prompts, smi)
+    same = mesh_tokens == served_tokens["qwen2.5-3b"]
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase, tokens_equal_phase_4=same)
+    if not same:
+        raise AssertionError("the meshed server's tokens differ from phase 4's")
+
     # -- 17. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
@@ -4140,7 +4287,8 @@ def main() -> int:
     # through the microbatch pipeline (phase 13), and mamba2-370m's for the
     # SSD scan, the gated norm and their backward; ``prefix_launches`` from
     # each counted run of phase 14, ``moe_launches`` from each of phase 15,
-    # ``hybrid_launches`` from each of phase 16
+    # ``hybrid_launches`` from each of phase 16, ``mesh_launches`` from the
+    # meshed train loop and serving round of phase 18
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -4186,6 +4334,8 @@ def main() -> int:
                           for r, n in moe_rounds.items()},
          "hybrid_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
                              for r, n in hybrid_rounds.items()},
+         "mesh_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
+                           for r, n in mesh_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),

@@ -14,6 +14,14 @@ and the data position); a leaf is stored under its path of keys joined by
 A bf16 tensor is stored as float32 (numpy has no bf16; the cast is exact)
 and its dtype recorded; `restore_checkpoint` casts each leaf to the dtype
 of the ``like`` tree's leaf.
+
+Under a mesh (SPMD, one process a device) a DTensor leaf is saved as its
+full tensor, in the same one-shard format: the gather is a collective, so
+every rank of its mesh calls ``save``, and only the writer
+(``AsyncCheckpointer(write=True)``, the mesh's first rank) writes.
+`restore_checkpoint` with ``shardings`` places each full leaf by its
+`launch.sharding.NamedSharding` (every rank reads the file and keeps its
+shard), so a checkpoint taken on one mesh restores on another.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ _SHARD = "shard-00000.npz"
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):                # a DTensor: a collective
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -131,12 +141,16 @@ def _dtype_of(leaf):
     return np.asarray(leaf).dtype
 
 
-def restore_checkpoint(ckpt_dir: str | os.PathLike, like, *, step: int | None = None):
+def restore_checkpoint(ckpt_dir: str | os.PathLike, like, *, step: int | None = None,
+                       shardings=None):
     """Restores into the structure of ``like`` (a nested dict whose leaves
-    are tensors, arrays or numbers): each leaf a numpy array of the like
-    leaf's shape, or a CPU tensor where the like leaf is a tensor, in its
-    dtype.  Raises on a missing leaf or another shape.  Returns (tree,
-    meta)."""
+    are tensors, DTensors, arrays or numbers): each leaf a numpy array of
+    the like leaf's (global) shape, or a CPU tensor where the like leaf is
+    a tensor, in its dtype.  ``shardings``: a tree matching ``like`` whose
+    leaves are `launch.sharding.NamedSharding` (or None): those leaves come
+    back as DTensors placed by them, on their mesh's device (the elastic
+    reshard path).  Raises on a missing leaf or another shape.  Returns
+    (tree, meta)."""
     d = Path(ckpt_dir)
     if step is None:
         step = latest_step(d)
@@ -159,6 +173,13 @@ def restore_checkpoint(ckpt_dir: str | os.PathLike, like, *, step: int | None = 
         dt = _dtype_of(leaf)
         out[k] = (torch.from_numpy(np.array(arr)).to(dt) if isinstance(dt, torch.dtype)
                   else arr.astype(dt))
+    if shardings is not None:
+        from ..launch.sharding import place
+        for k, sh in _flatten(shardings).items():
+            if sh is not None:
+                x = out[k]
+                x = torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x
+                out[k] = place(x.to(sh.mesh.device_type), sh)
     return _unflatten(out), meta
 
 
@@ -169,12 +190,15 @@ class AsyncCheckpointer:
     device-to-host copy, so a later in-place update of a parameter or the
     optimizer state cannot reach the write), then queues the disk write;
     the loop blocks on I/O only while a previous save is still running.
-    ``close()`` drains; the trainer calls it on every exit.
+    ``close()`` drains; the trainer calls it on every exit.  ``write=False``
+    (a rank of a mesh other than its first) gathers DTensor leaves, which
+    is a collective, and writes nothing.
     """
 
     def __init__(self, ckpt_dir: str | os.PathLike, *, keep: int = 3,
-                 keep_every: int | None = None):
+                 keep_every: int | None = None, write: bool = True):
         self.ckpt_dir = Path(ckpt_dir)
+        self.write = write
         self.keep = keep
         self.keep_every = keep_every
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
@@ -184,6 +208,8 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, *, metadata: dict | None = None) -> None:
         flat = {k: np.array(_to_numpy(v), copy=True) for k, v in _flatten(tree).items()}
+        if not self.write:
+            return
         with self._lock:
             if self._inflight is not None:
                 self._inflight.result()              # back-pressure

@@ -18,9 +18,10 @@ stage boundaries (combining) and deletes routing cost the ILP must pay.
 
 ``plan_fusion()`` scores stage fusion for a decode pipeline, and
 ``replan()`` is the elastic-scaling entry point: the same graph re-solved
-for a new chip count.  The JAX package's projection of a plan onto one
-GSPMD mesh (``to_execution``, ``folded_tokens_per_s``) is not copied: the
-port has no multi-device launch yet.
+for a new chip count.  ``to_execution()`` projects a plan onto one
+("data", "model") mesh (what ``launch/train.py --use-planner`` and
+`runtime.elastic.rescale` build as a ``DeviceMesh``), and
+``folded_tokens_per_s()`` prices that folded layout.
 """
 from __future__ import annotations
 
@@ -193,6 +194,89 @@ def plan_fusion(cfg: ModelConfig, shape: ShapeCfg, plan_result: PlanResult, *,
                                    dev_us=dev_us, heavy=heavy,
                                    replicas=replicas, slack=slack,
                                    dev_in_score=host_us is not None)
+
+
+# ===========================================================================
+# execution projection + elastic replanning
+# ===========================================================================
+@dataclass(frozen=True)
+class ExecutionPlan:
+    """Homogeneous projection of a plan onto one mesh (what launch.*
+    consumes)."""
+    mesh_shape: tuple[int, ...]
+    mesh_axes: tuple[str, ...]
+    dp: int
+    tp: int
+    grad_accum: int
+    fsdp: bool
+    notes: str = ""
+
+
+def to_execution(p: PlanResult, *, cfg: ModelConfig | None = None,
+                 chips: int = 256) -> ExecutionPlan:
+    """Fold the spatial plan onto one fixed-size mesh.
+
+    The paper maps the STG *spatially* (each stage owns its PEs: pipeline
+    parallelism).  One SPMD program over a mesh instead *timeshares* all
+    stages over it; the planner still decides the policy: the modal
+    tensor-parallel degree of the block stages becomes the "model" axis,
+    the rest of the chip budget the "data" axis.  Heterogeneous residue
+    (stages preferring another layout) is reported in ``notes``.
+    """
+    blocks = [s for s in p.stages if s.name.startswith(("block", "enc"))]
+    if not blocks:
+        blocks = p.stages
+    from collections import Counter
+    tp, nr = Counter((s.tp, s.replicas) for s in blocks).most_common(1)[0][0]
+    residue = [s.name for s in blocks if (s.tp, s.replicas) != (tp, nr)]
+    hetero = ""
+    if residue:
+        hetero = (f"{len(residue)} stages prefer a different layout "
+                  f"(e.g. {residue[:3]}); homogeneous projection keeps "
+                  f"majority tp={tp}")
+    tp = min(tp, chips)
+    dp = max(1, chips // tp)
+    accum = cfg.grad_accum if cfg is not None else 1
+    big = cfg is not None and cfg.param_count() * 4 > 8e9
+    return ExecutionPlan(
+        mesh_shape=(dp, tp), mesh_axes=("data", "model"), dp=dp, tp=tp,
+        grad_accum=accum, fsdp=big or dp * tp >= 64, notes=hetero)
+
+
+def folded_tokens_per_s(cfg: ModelConfig, shape: ShapeCfg, *, chips: int,
+                        tp: int, hw: Hardware = HW_H100,
+                        mb_seqs: int | None = None) -> dict:
+    """Analytic throughput of the folded (single-mesh, timeshared) layout:
+    one microbatch per step over ALL chips, batch sharded dp = chips/tp,
+    features/experts sharded tp.  Per-chip TP-collective bytes are
+    ~ (tp-1) * toks_firing * d * b / chips per sync, so they GROW with tp
+    at fixed chips.  Stages whose state does not fit even fully sharded
+    are counted in ``fallbacks``."""
+    stages, info = lm_graph.stage_costs(cfg, shape, mb_seqs=mb_seqs)
+    dp = max(1, chips // tp)
+    total_us = 0.0
+    per_stage = {}
+    fallbacks = 0
+    train = info["train"]
+    for st in stages:
+        if st.state_bytes / chips > 0.75 * hw.hbm_bytes:
+            fallbacks += 1      # does not fit even fully sharded
+        compute_s = st.flops / (chips * hw.peak_flops)
+        memory_s = st.hbm_bytes / (chips * hw.hbm_bw)
+        if st.tp_collectives != "none" and tp > 1:
+            n_sync = 4 if train else 2
+            factor = 2 if st.tp_collectives == "megatron" else 1
+            per_chip = n_sync * factor * (tp - 1) / tp \
+                * st.act_out_bytes * tp / chips
+            coll_s = per_chip / hw.link_bw
+        else:
+            coll_s = 0.0
+        ii = max(compute_s, memory_s, coll_s) * 1e6
+        total_us += ii
+        per_stage[st.name] = ii
+    tps = info["toks_per_firing"] / total_us * 1e6
+    return {"tokens_per_s": tps, "firing_us": total_us, "dp": dp, "tp": tp,
+            "per_stage_us": per_stage, "fallbacks": fallbacks}
 
 
 def replan(cfg: ModelConfig, shape: ShapeCfg, old: PlanResult, *,

@@ -12,7 +12,10 @@ optimizer update is applied.  A parameter the loss does not reach (the
 norm of a width-0 MLP, as in mamba2-370m) gets a zero gradient, as
 ``jax.grad`` gives it, and takes the optimizer's update (its weight
 decay) like every other.  The gradients stay in ``.grad`` after the
-step, for inspection.  ``make_prefill_step`` and ``make_decode_step``
+step, for inspection.  Under a mesh the parameters are DTensors, and
+each gradient is redistributed to its parameter's placements before the
+update, as GSPMD gives a gradient its parameter's sharding.
+``make_prefill_step`` and ``make_decode_step``
 wrap `models.lm.prefill` and ``decode_step``.
 
 The abstract inputs are the JAX package's ``jax.ShapeDtypeStruct``
@@ -75,6 +78,10 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, warmup: int = 2000,
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif hasattr(p, "placements") and p.grad.placements != p.placements:
+                # a DTensor's gradient, partial where its use was split, takes
+                # the parameter's layout (a reduce-scatter or an all-reduce)
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         grads = {k: p.grad for k, p in params.items()}
         if accum > 1:
             for g in grads.values():

@@ -1,8 +1,7 @@
 """Transformer and Mamba2 blocks: attention, cross-attention, Mamba2 (SSD),
 MLP and MoE sublayers.
 
-Ported from ``repro/models/blocks.py`` (all but the MoE's multi-device
-``shard_map`` branch).  Each sublayer is an ``nn.Module`` whose
+Ported from ``repro/models/blocks.py``.  Each sublayer is an ``nn.Module`` whose
 parameters keep the JAX names and layouts (``wq`` is (D, H*hd) and the
 projection is ``h @ wq``), so ``bridge.py`` maps a JAX pytree onto it
 leaf for leaf:
@@ -22,7 +21,9 @@ leaf for leaf:
   init_moe                        MoE.__init__
   _expert_ffn, moe_forward        MoE._expert_ffn, .forward
   _ffn2, _sorted_dispatch_local,  MoE._ffn2, ._sorted_dispatch_local,
-  moe_forward_sorted (local)      .forward_sorted
+  moe_forward_sorted              .forward_sorted (its ``shard_map``
+                                  branch: ._sorted_sharded, a
+                                  ``local_map`` with explicit collectives)
   moe_decode                      MoE.decode
   set_moe_impl                    set_moe_impl
   attn_cache_capacity,            the functions of the same names
@@ -39,6 +40,12 @@ itself, so serving pays nothing for it.  Norm weights and the Mamba
 ``dt_bias``, ``a_log`` and ``d_skip`` are float32 either way, as the JAX
 code uses them (``d_skip`` is cast at its use), and so is the MoE's
 router, which routes in float32.
+
+The activation pins of the JAX code (``sc.act``) sit at the same places;
+under an active `sharding_ctx` they redistribute DTensor activations, and
+otherwise cost one ``None`` check.  The einsum MoE's pins of its
+dispatched (B, E, C, D) tensor have no counterpart: the port dispatches
+by index into an (E, B * C, D) buffer.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding_ctx as sc
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
 from .common import activation, dense_init, dtype_of, rmsnorm, rope
@@ -109,9 +117,10 @@ class Attention(nn.Module):
             q = q + self.bq.to(dt)
             k = k + self.bk.to(dt)
             v = v + self.bv.to(dt)
-        q = rope(q.view(B, S, a.n_heads, a.head_dim), positions, a.rope_theta)
-        k = rope(k.view(B, S, a.n_kv_heads, a.head_dim), positions, a.rope_theta)
-        return q, k, v.view(B, S, a.n_kv_heads, a.head_dim)
+        q = sc.act(q.view(B, S, a.n_heads, a.head_dim), "dp", None, "tp", None)
+        k = sc.act(k.view(B, S, a.n_kv_heads, a.head_dim), "dp", None, "tp", None)
+        v = sc.act(v.view(B, S, a.n_kv_heads, a.head_dim), "dp", None, "tp", None)
+        return rope(q, positions, a.rope_theta), rope(k, positions, a.rope_theta), v
 
     def forward(self, x, positions, *, causal=True, impl=None, return_kv=False):
         """`attn_forward`: x (B, S, D) at positions (S,) -> (B, S, D), and
@@ -123,7 +132,7 @@ class Attention(nn.Module):
         o = ops.attention(q, k, v, causal=causal,
                           window=self.cfg.attn.window if causal else None, impl=impl)
         B, S, _ = x.shape
-        out = x + o.reshape(B, S, -1) @ self.wo.to(x.dtype)
+        out = sc.act(x + o.reshape(B, S, -1) @ self.wo.to(x.dtype), "dp", "sp", None)
         return (out, (k, v)) if return_kv else out
 
     def decode(self, x, cache, pos, *, impl=None):
@@ -143,7 +152,7 @@ class Attention(nn.Module):
                 wk=self.wk, wv=self.wv, wo=self.wo, bq=self.bq, bk=self.bk,
                 bv=self.bv, n_heads=a.n_heads, head_dim=a.head_dim,
                 eps=self.cfg.norm_eps, rope_theta=a.rope_theta)
-            return out, cache
+            return sc.act(out, "dp", "sp", None), cache
         B = x.shape[0]
         h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
         positions = pos.reshape(1)
@@ -154,7 +163,7 @@ class Attention(nn.Module):
         cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         cache_len = torch.clamp(pos + 1, max=C)
         o = ref.decode_attention_ref(q[:, 0], cache["k"], cache["v"], cache_len)
-        return x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype), cache
+        return sc.act(x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype), "dp", "sp", None), cache
 
 
 class CrossAttention(Attention):
@@ -187,7 +196,7 @@ class CrossAttention(Attention):
         B, S, _ = x.shape
         q = self._q(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
         o = ops.attention(q.view(B, S, a.n_heads, a.head_dim), k, v, causal=False, impl=impl)
-        return x + o.reshape(B, S, -1) @ self.wo.to(x.dtype)
+        return sc.act(x + o.reshape(B, S, -1) @ self.wo.to(x.dtype), "dp", "sp", None)
 
     def decode(self, x, k, v, cache_len, *, impl=None):
         """`cross_attn_decode`: one token, x (B, 1, D), over the cached K/V
@@ -237,7 +246,9 @@ class Mamba(nn.Module):
         """`_mamba_proj`: x_in, z (..., di); b, c (..., N); dt float32 (..., H)."""
         N = self.cfg.mamba.d_state
         x_in, z = torch.chunk(h @ self.w_xz.to(h.dtype), 2, dim=-1)
-        bcdt = h @ self.w_bcdt.to(h.dtype)
+        x_in = sc.act(x_in, "dp", None, "tp")
+        z = sc.act(z, "dp", None, "tp")
+        bcdt = sc.act(h @ self.w_bcdt.to(h.dtype), "dp", "sp", None)
         b, c, dt_raw = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
         dt = F.softplus(dt_raw.float() + self.dt_bias)
         return x_in, z, b, c, dt
@@ -272,9 +283,10 @@ class Mamba(nn.Module):
         w = self.conv_w.to(x_in.dtype)
         for k in range(m.d_conv):
             conv = conv + padded[:, k:k + S] * w[k]
-        xh = F.silu(conv).reshape(B, S, H, m.head_dim)
+        xh = sc.act(F.silu(conv).reshape(B, S, H, m.head_dim), "dp", None, "tp", None)
         y, state = ops.ssd(xh, dt, -torch.exp(self.a_log), b, c, impl=impl)
-        return self._gate_out(x, y, xh, z, impl), (padded[:, S:], state)
+        out = sc.act(self._gate_out(x, y, xh, z, impl), "dp", "sp", None)
+        return out, (padded[:, S:], state)
 
     def decode(self, x, cache, *, impl=None):
         """`mamba_decode`: one token.  x (B, 1, D); cache {conv (B, d_conv -
@@ -290,8 +302,8 @@ class Mamba(nn.Module):
         hist.copy_(torch.cat([hist[:, 1:], x_in[:, None].to(hist.dtype)], dim=1))
         xh = F.silu(conv).reshape(B, H, m.head_dim)
         y, ssm = ref.ssd_decode_step(cache["ssm"], xh, dt, -torch.exp(self.a_log), b, c)
-        cache["ssm"].copy_(ssm)
-        return self._gate_out(x[:, 0], y, xh, z, impl)[:, None], cache
+        cache["ssm"].copy_(sc.act(ssm, "dp", "tp", None, None))
+        return sc.act(self._gate_out(x[:, 0], y, xh, z, impl)[:, None], "dp", "sp", None), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -305,11 +317,13 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
 def _ffn(h, w_gate, w_up, w_down, act: str, mm=torch.matmul):
     """`_ffn`: the feed-forward of h (gated where ``w_gate`` is given), each
     weight cast to h's dtype at its use; ``mm`` the product (`torch.bmm`
-    for the experts' (E, R, D) rows, as `_expert_ffn` and `_ffn2`)."""
+    for the experts' (E, R, D) rows, as `_expert_ffn` and `_ffn2`, which
+    pin nothing).  The dense form pins its hidden (B, S, F) over "tp"."""
     dt = h.dtype
+    pin = (lambda t: sc.act(t, "dp", None, "tp")) if mm is torch.matmul else (lambda t: t)
     if w_gate is not None:
-        return mm(F.silu(mm(h, w_gate.to(dt))) * mm(h, w_up.to(dt)), w_down.to(dt))
-    return mm(activation(act)(mm(h, w_up.to(dt))), w_down.to(dt))
+        return mm(pin(F.silu(mm(h, w_gate.to(dt)))) * pin(mm(h, w_up.to(dt))), w_down.to(dt))
+    return mm(pin(activation(act)(mm(h, w_up.to(dt)))), w_down.to(dt))
 
 
 class FFN(nn.Module):
@@ -351,7 +365,8 @@ class MLP(nn.Module):
         if self.cfg.d_ff == 0:
             return x
         h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
-        return x + _ffn(h, self.w_gate, self.w_up, self.w_down, self.cfg.act)
+        return sc.act(x + _ffn(h, self.w_gate, self.w_up, self.w_down, self.cfg.act),
+                      "dp", "sp", None)
 
 
 MOE_IMPL = "einsum"     # "einsum" (GShard capacity dispatch) | "sorted"
@@ -454,17 +469,24 @@ class MoE(nn.Module):
             out = out + tok.view(B, S, D) * gate.to(h.dtype)[..., None]
         if self.shared is not None:
             out = out + self.shared(h)
-        return x + out.to(x.dtype)
+        return sc.act(x + out.to(x.dtype), "dp", "sp", None)
 
-    def _ffn2(self, buf):
-        """`_ffn2`: the experts' FFN on an (E, C, D) buffer."""
-        return self._expert_ffn(buf)
+    def _ffn2(self, buf, experts=None):
+        """`_ffn2`: the experts' FFN on an (E, C, D) buffer; ``experts``:
+        local (w_gate, w_up, w_down) shards in place of the module's."""
+        if experts is None:
+            return self._expert_ffn(buf)
+        return _ffn(buf, *experts, self.cfg.act, torch.bmm)
 
-    def _sorted_dispatch_local(self, h2, probs, cap: int):
-        """`_sorted_dispatch_local` on one device: h2 (N, D) normed tokens,
-        probs (N, E).  Each round sorts the tokens by expert (stable), ranks
-        them within it and keeps the first ``cap`` of all N; no occupancy
-        is carried from round to round."""
+    def _sorted_dispatch_local(self, h2, probs, cap: int, *, experts=None, ep_group=None,
+                               n_ep: int = 1, tp_group=None):
+        """`_sorted_dispatch_local`: h2 (N, D) normed tokens, probs (N, E).
+        Each round sorts the tokens by expert (stable), ranks them within it
+        and keeps the first ``cap`` of all N; no occupancy is carried from
+        round to round.  On one shard of a mesh, ``experts`` are the local
+        weight shards (E / n_ep experts, F split over the model axis),
+        ``ep_group`` carries the two all-to-alls (expert parallelism) and
+        ``tp_group`` the within-expert sum."""
         N, D = h2.shape
         E = self.cfg.moe.n_experts
         out = torch.zeros_like(h2)
@@ -479,24 +501,81 @@ class MoE(nn.Module):
             slot = torch.arange(N, device=h2.device) - starts[ids_s]
             flat = torch.where(slot < cap, ids_s * cap + slot, E * cap)
             buf = h2.new_zeros((E * cap + 1, D)).index_add(0, flat, h2[order])
-            ye = self._ffn2(buf[:-1].view(E, cap, D)).reshape(-1, D)
+            buf = buf[:-1].view(E, cap, D)
+            if ep_group is not None:      # (E, C, D) -> (E / n_ep, n_ep * C, D)
+                buf = _all_to_all(buf, ep_group, n_ep).view(n_ep, E // n_ep, cap, D)
+                buf = buf.transpose(0, 1).reshape(E // n_ep, n_ep * cap, D)
+            if tp_group is not None:
+                buf = _CopyToGroup.apply(buf, tp_group)
+            ye = self._ffn2(buf, experts)
+            if tp_group is not None:
+                ye = _SumOverGroup.apply(ye, tp_group)                 # row-parallel F
+            if ep_group is not None:      # back: (E / n_ep, n_ep * C, D) -> (E, C, D)
+                ye = ye.view(E // n_ep, n_ep, cap, D).transpose(0, 1).contiguous()
+                ye = _all_to_all(ye, ep_group, n_ep)
+            ye = ye.reshape(-1, D)
             tok = torch.cat([ye, ye.new_zeros((1, D))]).index_select(0, flat)
             contrib = torch.zeros_like(h2).index_copy(0, order, tok)
             out = out + contrib * gate.to(h2.dtype)[:, None]
             remaining = remaining.scatter(-1, ids[:, None], 0.0)
         return out
 
+    def _sorted_sharded(self, h, probs, ctx):
+        """`moe_forward_sorted`'s ``shard_map`` branch: experts on "data",
+        F on "model" (the ``ep_axis="data"`` layout); each shard dispatches
+        its own tokens at a capacity from their count."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import local_map
+
+        from ..launch.sharding import P, to_placements
+        e = self.cfg.moe
+        mesh = ctx.mesh
+        n_ep = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))["data"]
+        if e.n_experts % n_ep:
+            raise ValueError(f"sorted MoE: {e.n_experts} experts must divide axis "
+                             f"'data' ({n_ep})")
+        if not isinstance(h, DTensor):
+            raise ValueError("the sharded sorted MoE takes DTensor activations")
+        tok = to_placements(P(ctx.dp, None, None), mesh)
+        w_in = to_placements(P(("data",), None, "model"), mesh)
+        w_out = to_placements(P(("data",), "model", None), mesh)
+        names = [n for n in ("w_gate", "w_up", "w_down") if getattr(self.experts, n) is not None]
+        weights = [getattr(self.experts, n) for n in names]
+        w_pl = [w_out if n == "w_down" else w_in for n in names]
+        ep_group, tp_group = mesh.get_group("data"), mesh.get_group("model")
+        D, E = h.shape[-1], e.n_experts
+
+        def body(hl, pl, *ws):
+            n = hl.shape[0] * hl.shape[1]
+            capl = max(1, int(n * e.capacity_factor * e.top_k / E))  # local tokens
+            local = dict(zip(names, ws))
+            experts = (local.get("w_gate"), local["w_up"], local["w_down"])
+            out = self._sorted_dispatch_local(hl.reshape(n, D), pl.reshape(n, E), capl,
+                                              experts=experts, ep_group=ep_group, n_ep=n_ep,
+                                              tp_group=tp_group)
+            return out.reshape(hl.shape)
+
+        return local_map(body, out_placements=tok, in_placements=(tok, tok, *w_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            h, probs.float(), *weights)
+
     def forward_sorted(self, x, *, impl=None):
-        """`moe_forward_sorted`'s one-device branch: every B * S token in one
-        group, the capacity still taken from S."""
+        """`moe_forward_sorted`: under an active sharding context over more
+        than one device, the dispatch runs on each shard (`_sorted_sharded`);
+        otherwise every B * S token is one group, the capacity still taken
+        from S."""
         B, S, D = x.shape
         h, probs = self._probs(x, impl)
-        out = self._sorted_dispatch_local(h.reshape(B * S, D),
-                                          probs.reshape(B * S, -1), self.capacity(S))
-        out = out.view(B, S, D)
+        ctx = sc.current()
+        if ctx is None or ctx.n_devices() == 1:
+            out = self._sorted_dispatch_local(h.reshape(B * S, D),
+                                              probs.reshape(B * S, -1), self.capacity(S))
+            out = out.view(B, S, D)
+        else:
+            out = self._sorted_sharded(h, probs, ctx)
         if self.shared is not None:
             out = out + self.shared(h).to(out.dtype)
-        return x + out.to(x.dtype)
+        return sc.act(x + out.to(x.dtype), "dp", "sp", None)
 
     def decode(self, x, *, impl=None):
         """`moe_decode`: one token a row, x (B, 1, D), through `forward` at
@@ -505,3 +584,44 @@ class MoE(nn.Module):
         does: the step reads all E experts' weights whichever it hits.
         No host sync."""
         return self(x, impl=impl)
+
+
+def _all_to_all(t, group, n: int):
+    """Exchanges the n equal slices of t's dim 0 across ``group`` (slice j
+    to its rank j; received slice i from rank i lands at i), with autograd
+    (``lax.all_to_all``, tiled, on dim 0)."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+    return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` (the input of a
+    product whose other operand is split over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """``lax.psum`` over ``group``; the gradient passes as it is (each rank
+    holds the whole summed result)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

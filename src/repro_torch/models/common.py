@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from .. import sharding_ctx as sc
 from ..kernels import ops
 
 
@@ -66,9 +67,17 @@ def activation(name: str):
 
 
 def _chunk_nll(xc, head_c, lc, mc):
-    logits = (xc @ head_c).float()
+    xc = sc.act(xc, "dp", None, None)
+    logits = sc.act((xc @ head_c).float(), "dp", None, "tp")
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+    if hasattr(logits, "placements"):
+        # a DTensor split over the vocabulary: the label's logit as a masked
+        # sum (exact: one term and zeros), which each vocab shard takes
+        # locally; DTensor's gather on a split dim is not used
+        pick = lc[..., None] == torch.arange(logits.shape[-1], device=lc.device)
+        ll = torch.where(pick, logits, 0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
     return ((lse - ll) * mc).sum(), mc.sum()
 
 

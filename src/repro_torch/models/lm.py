@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from .. import sharding_ctx as sc
 from ..configs.base import ModelConfig
 from . import blocks
 from .common import chunked_lm_loss, dtype_of, rmsnorm
@@ -112,7 +113,7 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch):
     ``batch["prefix_embeds"]`` (B, P, D) where the config has the prefix
     frontend and the batch has them; and P (0 without)."""
     dt = dtype_of(cfg.compute_dtype)
-    x = params.embed[batch["tokens"]].to(dt)
+    x = sc.act(params.embed[batch["tokens"]].to(dt), "dp", "sp", None)
     if cfg.frontend != "vit_stub" or "prefix_embeds" not in batch:
         return x, 0
     pre = batch["prefix_embeds"].to(dt)
@@ -175,7 +176,7 @@ def _run_stack(cfg: ModelConfig, layers, x, positions, *, causal: bool = True, e
 def _encode(cfg: ModelConfig, params: LM, batch, *, impl=None, remat: str | None = None):
     """The encoder over ``batch["frames"]`` (B, Se, D): its layers, not
     causal, at positions ``arange(Se)``, then ``enc_norm``."""
-    frames = batch["frames"].to(dtype_of(cfg.compute_dtype))
+    frames = sc.act(batch["frames"].to(dtype_of(cfg.compute_dtype)), "dp", "sp", None)
     positions = torch.arange(frames.shape[1], device=frames.device)
     enc = _run_stack(cfg, params.enc_layers, frames, positions, causal=False, impl=impl,
                      remat=remat)
@@ -248,9 +249,10 @@ def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, enc_out=No
         if layer.kind == "mamba":
             x, (conv, ssm) = layer.mixer(x, impl=impl)
             c["conv"].copy_(conv)
-            c["ssm"].copy_(ssm)
+            c["ssm"].copy_(sc.act(ssm, "dp", "tp", None, None))
         else:
             x, (k, v) = layer.mixer(x, positions, impl=impl, return_kv=True)
+            k, v = sc.act(k, "dp", None, "tp", None), sc.act(v, "dp", None, "tp", None)
             cap = c["k"].shape[1]
             if S >= cap:       # ring layout: the last cap positions, rolled
                 shift = (S - cap) % cap
@@ -280,8 +282,9 @@ def prefill(cfg: ModelConfig, params: LM, batch, *, capacity: int | None = None,
     x, _ = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    cache = init_cache(cfg, B, capacity or S, dtype=x.dtype, device=x.device,
-                       enc_len=enc_out.shape[1] if enc_out is not None else None)
+    cache = sc.place_cache(cfg, init_cache(
+        cfg, B, capacity or S, dtype=x.dtype, device=x.device,
+        enc_len=enc_out.shape[1] if enc_out is not None else None))
     x = prefill_blocks(cfg, params.layers, x, positions, cache["layers"], enc_out=enc_out,
                        impl=impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps, impl)
@@ -312,7 +315,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, *, impl=None):
     """One token for every sequence.  tokens: (B, 1) integer device tensor.
     Returns logits (B, 1, Vp) and ``cache``, updated in place: the ring
     slots and ``pos`` (+1)."""
-    x = params.embed[tokens].to(dtype_of(cfg.compute_dtype))
+    x = sc.act(params.embed[tokens].to(dtype_of(cfg.compute_dtype)), "dp", None, None)
     pos = cache["pos"]
     x = decode_blocks(cfg, params.layers, cache["layers"], x, pos,
                       cross_len=cache.get("cross_len"), impl=impl)

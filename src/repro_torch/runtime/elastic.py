@@ -1,14 +1,28 @@
-"""Elastic scaling of a live serving pool: re-plan, rebuild, resume.
+"""Elastic scaling: re-plan and reshard when the chip budget changes;
+ported from ``repro/runtime/elastic.py``.
 
-Ported from the serving half of ``repro/runtime/elastic.py``.  The paper's
-motivation is exactly this ("scaling a program to a larger or smaller
-processor array requires manually re-programming all objects and
-channels"): here the planner re-solves the trade-off for the new budget
-and a successor `DecodePipeline` is built on the same weights, ready to
-adopt the drained pool's live state.
+The paper's motivation is exactly this ("scaling a program to a larger or
+smaller processor array requires manually re-programming all objects and
+channels"); here the planner re-solves the trade-off and the checkpoint
+layer reshards the state.
 
-Not ported (``ROADMAP.md``): ``rescale`` and ``reshard_tree``, which
-re-plan a trainer and build a device mesh for its checkpointed state.
+A trainer (`rescale`, `reshard_tree`):
+
+    1. drain + checkpoint (atomic)
+    2. planner.replan(cfg, shape, old_plan, new_chips)  -> new ExecutionPlan
+    3. build the new mesh and shardings; restore the checkpoint against
+       them (restore_checkpoint(..., shardings=new))   -> resharded state
+    4. resume the step loop
+
+The SPMD difference: JAX builds the new mesh over any devices of its one
+process; here the new ``DeviceMesh`` covers the ranks ``ranks`` of the
+running world, every rank of the world takes part in building it, and a
+rank outside it holds no shard (its local tensors are empty) until a
+later rescale takes it back in.
+
+A live serving pool (`rescale_serving`): the planner re-solves for the new
+budget and a successor `DecodePipeline` is built on the same weights,
+ready to adopt the drained pool's live state.
 """
 from __future__ import annotations
 
@@ -16,11 +30,62 @@ from dataclasses import dataclass
 
 from ..configs.base import ModelConfig, ShapeCfg
 from ..core import planner
+from ..launch import sharding as shd
+
+
+@dataclass
+class RescaleResult:
+    plan: planner.PlanResult
+    execution: planner.ExecutionPlan
+    mesh: object
+    diff: dict
+
+    def summary(self) -> str:
+        o, n = self.diff["chips"]
+        return (f"rescale: {o:.0f} -> {n:.0f} chips, "
+                f"throughput x{self.diff['throughput_ratio']:.2f}, "
+                f"{len(self.diff['stages_changed'])} stages re-laid-out, "
+                f"mesh {self.execution.mesh_shape}")
 
 
 def plan_for_chips(cfg: ModelConfig, shape: ShapeCfg, chips: int,
                    engine: str = "heuristic") -> planner.PlanResult:
     return planner.plan(cfg, shape, chips=chips, engine=engine)
+
+
+def rescale(cfg: ModelConfig, shape: ShapeCfg, old_plan: planner.PlanResult, *,
+            new_chips: int, ranks=None, engine: str = "heuristic",
+            device: str = "cuda") -> RescaleResult:
+    """Re-plan for ``new_chips`` and build the new mesh.
+
+    ``ranks``: the ranks to build the mesh over (all of the world by
+    default; after a repair, the surviving slice).  The logical (dp, tp)
+    comes from the plan projected onto however many ranks there are.
+    Every rank of the world calls this."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import device_mesh
+    new_plan, diff = planner.replan(cfg, shape, old_plan, new_chips=new_chips,
+                                    engine=engine)
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    ex = planner.to_execution(new_plan, cfg=cfg, chips=len(ranks))
+    mesh = device_mesh(ex.mesh_shape, ex.mesh_axes, ranks=ranks, device=device)
+    return RescaleResult(plan=new_plan, execution=ex, mesh=mesh, diff=diff)
+
+
+def reshard_tree(tree, mesh, cfg: ModelConfig, policy: shd.ShardingPolicy | None = None):
+    """Places an existing (restored) tree on a new mesh: its full tensors
+    (every rank holds them) or DTensors on another mesh of the same
+    ranks.  Returns (tree, shardings)."""
+    policy = policy or shd.ShardingPolicy()
+    sh = shd.tree_shardings(tree, mesh, cfg, policy)
+    return shd.tree_map(_reshard, tree, sh), sh
+
+
+def _reshard(x, sharding):
+    if hasattr(x, "full_tensor") and x.device_mesh != sharding.mesh:
+        x = x.full_tensor()
+    return shd.place(x, sharding)
 
 
 @dataclass

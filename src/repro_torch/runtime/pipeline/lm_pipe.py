@@ -74,9 +74,12 @@ the scheduler thread), through `aot.AotProgram`'s accounting, so
 
 On one card every placement slice is the card: JAX's per-stage sub-meshes
 (``submesh_of``), ``stage_param_shardings`` and the sharding ``policy``
-fold away, and so do its on-device prefetch and its ``_act_barrier`` (an
-eager boundary between fused members is already a materialisation
-point).  A pool of several devices is refused (``ROADMAP.md``).
+fold away (their ports, `launch.mesh.submesh_of` and
+`launch.sharding.stage_param_shardings`, are SPMD over processes, which
+this one-process runtime is not), and so do its on-device prefetch and
+its ``_act_barrier`` (an eager boundary between fused members is already
+a materialisation point).  A pool of several devices is refused
+(``ROADMAP.md``).
 
 Every run is preflighted (`core.verify.verify_lm_plan`, ``preflight=``):
 schedule consistency and the credit simulation over this run's FIFO

@@ -23,6 +23,14 @@ per decode step is the read of the sampled tokens that the EOS and
 budget bookkeeping needs.  Throughput accounting separates prompt
 (prefill) tokens from generated (decode) tokens, and every decode step's
 wall time is kept in ``ServeStats.decode_step_s``.
+
+With ``mesh=`` (a ("data", "model") ``DeviceMesh``) every rank of the mesh
+runs the same server on the same requests (SPMD): the weights are placed
+by `launch.sharding.tree_shardings`, each round runs under
+``sharding_ctx.activate(from_mesh(mesh))``, the prompts and tokens are
+placed by ``batch_specs`` and the caches by ``cache_specs``
+(`sharding_ctx.place_cache`), and every rank reads the whole logits of
+each step to sample, so all ranks hold the same completions.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .. import sharding_ctx as sctx
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..models import build_model
@@ -96,7 +105,8 @@ class LMServer:
     def __init__(self, cfg: ModelConfig, *, max_batch: int = 8, eos_id: int = 1,
                  params=None, seed: int = 0, temperature: float = 0.0,
                  impl: str | None = None, device="cuda", pipeline=None,
-                 tracer=None, injector=None, health=None, preflight: bool = True):
+                 tracer=None, injector=None, health=None, preflight: bool = True,
+                 mesh=None):
         """``device``: where the model runs; the card unless the caller asks
         for the CPU, and without a card this raises.  ``params``: an
         `models.lm.LM` on that device (e.g. from `bridge.from_jax`); else
@@ -120,13 +130,23 @@ class LMServer:
         A request carries tokens only, as the JAX server's do: a prefix
         frontend's model (internvl2-26b) is served text-only, and an
         encoder-decoder, whose prefill needs the encoder's frames, is
-        refused here (the JAX server fails in its prefill)."""
+        refused here (the JAX server fails in its prefill).
+
+        ``mesh``: serve SPMD over this ("data", "model") ``DeviceMesh``, on
+        its device type (``device`` is then ignored); every rank of it
+        builds the server with the same ``params`` or ``seed``.  The weights
+        are tensor parallel over "model", without FSDP."""
         if cfg.encdec:
             raise ValueError(
                 f"{cfg.name}: an encoder-decoder's prefill needs batch['frames'], and a "
                 "request carries tokens only; run it through models.lm.build_model(cfg)"
                 ".prefill / .decode_step with frames in the batch")
+        if mesh is not None and pipeline is not None:
+            raise ValueError("a server takes a mesh or a pipeline, not both")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            device = "cpu" if mesh.device_type == "cpu" else "cuda"
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.eos_id = eos_id
@@ -150,11 +170,30 @@ class LMServer:
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, the server on "
                              f"{self.device}")
+        if mesh is not None:
+            from ..launch import sharding as shd
+            policy = shd.ShardingPolicy(fsdp=False)
+            shd.distribute_params(params, shd.tree_shardings(params, mesh, cfg, policy))
         self.params = params
         self.stats = ServeStats()
         self._gen = torch.Generator(device=self.device).manual_seed(seed ^ 0xC0FFEE)
 
+    def _context(self):
+        if self.mesh is None:
+            return sctx.activate(None)
+        return sctx.activate(sctx.from_mesh(self.mesh))
+
+    def _place(self, tokens):
+        """Tokens (B, S) as the batch's spec lays them out on the mesh."""
+        if self.mesh is None:
+            return tokens
+        from ..launch import sharding as shd
+        spec = shd.batch_specs(self.mesh, {"t": tokens})["t"]
+        return shd.place(tokens, shd.NamedSharding(self.mesh, spec))
+
     def _sample(self, logits):
+        if hasattr(logits, "full_tensor"):
+            logits = logits.full_tensor()        # every rank samples the same
         last = logits[:, -1, :]                  # over the padded vocab
         if self.temperature <= 0.0:
             return torch.argmax(last, dim=-1)
@@ -163,6 +202,10 @@ class LMServer:
 
     @torch.no_grad()
     def serve_round(self, reqs: list[Request]) -> list[Completion]:
+        with self._context():
+            return self._serve_round(reqs)
+
+    def _serve_round(self, reqs: list[Request]) -> list[Completion]:
         if not 0 < len(reqs) <= self.max_batch:
             raise ValueError(f"a round takes 1..{self.max_batch} requests, got {len(reqs)}")
         B = len(reqs)
@@ -171,7 +214,7 @@ class LMServer:
         toks = np.zeros((B, bucket), np.int64)
         for i, r in enumerate(reqs):                 # right-align prompts so
             toks[i, bucket - len(r.prompt):] = r.prompt   # last token is real
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": self._place(torch.from_numpy(toks).to(self.device))}
 
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(self.params, batch, capacity=cap)
@@ -186,7 +229,7 @@ class LMServer:
         steps = 0
         cur = last[:, None]
         while not done.all() and steps < budget.max() - 1:
-            logits, cache = self.model.decode_step(self.params, cache, cur)
+            logits, cache = self.model.decode_step(self.params, cache, self._place(cur))
             nxt = self._sample(logits)
             steps += 1
             for i, tok in enumerate(nxt.tolist()):   # the step's one host sync

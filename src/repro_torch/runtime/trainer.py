@@ -11,10 +11,19 @@ Determinism contract: data batch ``i`` is a pure function of (seed, i),
 the parameters come from a seeded ``torch.Generator``, and the step's
 kernels use no atomics, so a restart replays the exact token stream from
 the restored step and training curves across failures are
-bitwise-reproducible on the same device.
+bitwise-reproducible on the same device and mesh.
 
-One device only: ``tp`` must be 1 and ``fsdp`` False (multi-device
-training is queue 1, item 7 of ROADMAP.md).
+Under a mesh (``mesh=``, or ``tp > 1`` / ``fsdp``, which build
+`local_mesh`) the loop is SPMD: every rank of the mesh runs it.  Each
+builds the same seeded parameters (or restores the same checkpoint), and
+keeps its shards: parameters and optimizer state are placed by
+`launch.sharding.tree_shardings` under ``ShardingPolicy(fsdp=loop.fsdp,
+tp=loop.tp > 1)``, each batch by ``batch_specs(accum=True)``, and the step
+runs under ``sharding_ctx.activate(from_mesh(mesh))``.  A checkpoint
+gathers every leaf to its full tensor on every rank (a collective) and
+the mesh's first rank writes it, in the one-device format, so a
+checkpoint taken on one mesh restores on another.  The first rank alone
+writes the metrics.
 """
 from __future__ import annotations
 
@@ -28,14 +37,31 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .. import sharding_ctx as sctx
 from ..checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..configs.base import ModelConfig, ShapeCfg
 from ..data import DataState, make_pipeline
+from ..launch import sharding as shd
+from ..launch.mesh import device_mesh, mesh_ranks
 from ..launch.steps import make_train_step
 from ..models import lm
 from ..models.common import dtype_of
 from .failures import FailureInjector, SimulatedNodeFailure
 from .straggler import StragglerMonitor
+
+
+def local_mesh(tp: int = 1, *, device="cuda"):
+    """A ("data", "model") mesh of (world // tp, tp) over the world's ranks
+    (JAX: over this process's devices).  Needs the default process group
+    (`launch.mesh.init_distributed`)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs the default process group: call "
+                           "launch.mesh.init_distributed (or run under torchrun) first")
+    n = dist.get_world_size()
+    if n % tp:
+        raise ValueError(f"{n} ranks not divisible by tp={tp}")
+    return device_mesh((n // tp, tp), ("data", "model"), device=device)
 
 
 @dataclass
@@ -91,13 +117,6 @@ def _writer(path: str | None):
     return write, fh.close
 
 
-def _check_one_device(loop: TrainLoopConfig) -> None:
-    if loop.tp != 1 or loop.fsdp:
-        raise NotImplementedError(
-            f"the port trains on one device: tp must be 1 and fsdp False, got tp={loop.tp} "
-            f"fsdp={loop.fsdp} (multi-device training is ROADMAP.md queue 1, item 7)")
-
-
 def state_tree(model: lm.LM, opt_state: dict, step: int, data_state: DataState) -> dict:
     """What a checkpoint holds: the trainable parameters and the optimizer
     state under their names, the step and the data position."""
@@ -106,10 +125,30 @@ def state_tree(model: lm.LM, opt_state: dict, step: int, data_state: DataState) 
             "data_step": np.int64(data_state.step)}
 
 
-def train_loop(cfg: ModelConfig, loop: TrainLoopConfig, *, device="cuda") -> TrainSummary:
+def _mesh_barrier(mesh) -> None:
+    """Waits for every rank of ``mesh`` (an all-reduce on each of its dims)."""
+    import torch.distributed as dist
+    dev = "cuda" if mesh.device_type == "cuda" else "cpu"
+    for i in range(mesh.ndim):
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(i))
+
+
+def _scalar(t) -> float:
+    """A replicated (DTensor or plain) scalar on the host: the step barrier."""
+    return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def train_loop(cfg: ModelConfig, loop: TrainLoopConfig, *, device="cuda",
+               mesh=None) -> TrainSummary:
     """One incarnation: restore (or init from ``loop.seed``) -> step until
-    ``loop.steps`` or a failure."""
-    _check_one_device(loop)
+    ``loop.steps`` or a failure.  ``mesh``: a ("data", "model")
+    ``DeviceMesh`` to train over (every rank of it calls this); without one,
+    ``loop.tp > 1`` or ``loop.fsdp`` build `local_mesh`, and otherwise the
+    loop runs on ``device`` alone."""
+    if mesh is None and (loop.tp != 1 or loop.fsdp):
+        mesh = local_mesh(loop.tp, device=device)
+    if mesh is not None:
+        device = "cpu" if mesh.device_type == "cpu" else "cuda"
     dev = resolve_device(device)
     shape = ShapeCfg("custom", loop.seq_len, loop.global_batch, "train")
     opt, step_fn = make_train_step(cfg, lr=loop.lr, warmup=loop.warmup,
@@ -135,10 +174,20 @@ def train_loop(cfg: ModelConfig, loop: TrainLoopConfig, *, device="cuda") -> Tra
         data_state = DataState(step=int(tree["data_step"]), seed=loop.seed)
         restored_from = start_step
 
-    write, close_writer = _writer(loop.metrics_path)
+    ctx, batch_sh, first = None, None, True
+    if mesh is not None:
+        policy = shd.ShardingPolicy(fsdp=loop.fsdp, tp=loop.tp > 1)
+        opt_sh = shd.tree_shardings(opt_state, mesh, cfg, policy)
+        shd.distribute_params(model, shd.tree_shardings(model, mesh, cfg, policy))
+        params = {k: p for k, p in model.named_parameters() if p.requires_grad}
+        opt_state = shd.tree_map(shd.place, opt_state, opt_sh)
+        ctx = sctx.from_mesh(mesh)
+        first = mesh_ranks(mesh)[0] == torch.distributed.get_rank()
+    write, close_writer = _writer(loop.metrics_path if first else None)
     summary = TrainSummary(steps_run=0, final_step=start_step, restored_from=restored_from,
                            model=model)
-    ckpt = AsyncCheckpointer(loop.ckpt_dir, keep=loop.keep) if loop.ckpt_dir else None
+    ckpt = (AsyncCheckpointer(loop.ckpt_dir, keep=loop.keep, write=first)
+            if loop.ckpt_dir else None)
 
     def save(step_i):
         if ckpt is None:
@@ -153,11 +202,16 @@ def train_loop(cfg: ModelConfig, loop: TrainLoopConfig, *, device="cuda") -> Tra
         for i in range(start_step, loop.steps):
             batch = {k: torch.from_numpy(v).to(dev, torch.long)
                      for k, v in pipe.host_batch(data_state).items()}
+            if mesh is not None:
+                if batch_sh is None:
+                    batch_sh = shd.named(mesh, shd.batch_specs(mesh, batch, accum=True))
+                batch = shd.tree_map(shd.place, batch, batch_sh)
             t0 = time.perf_counter()
             if loop.failures is not None:
                 loop.failures.maybe_fail(i)   # a crash raises; a stall is timed
-            metrics = step_fn(model, opt_state, i, batch)
-            loss = float(metrics["loss"])     # waits for the device: the step barrier
+            with sctx.activate(ctx):
+                metrics = step_fn(model, opt_state, i, batch)
+            loss = _scalar(metrics["loss"])   # waits for the device: the step barrier
             dt = time.perf_counter() - t0
             if loop.straggler is not None:
                 loop.straggler.observe(i, dt)
@@ -179,6 +233,8 @@ def train_loop(cfg: ModelConfig, loop: TrainLoopConfig, *, device="cuda") -> Tra
         try:
             if ckpt is not None:
                 ckpt.close()
+            if ckpt is not None and mesh is not None:
+                _mesh_barrier(mesh)           # every rank sees the committed step
         finally:
             close_writer()
             if loop.straggler is not None:
@@ -196,7 +252,7 @@ def _copy_into(dst, src) -> None:
 
 
 def run_resilient(cfg: ModelConfig, loop: TrainLoopConfig, *, max_restarts: int = 3,
-                  device="cuda") -> dict:
+                  device="cuda", mesh=None) -> dict:
     """The job-controller contract: restart from the last committed
     checkpoint on a (simulated) node failure, up to ``max_restarts`` times."""
     if not loop.ckpt_dir:
@@ -205,7 +261,7 @@ def run_resilient(cfg: ModelConfig, loop: TrainLoopConfig, *, max_restarts: int 
     restarts = 0
     while True:
         try:
-            incarnations.append(train_loop(cfg, loop, device=device))
+            incarnations.append(train_loop(cfg, loop, device=device, mesh=mesh))
             break
         except SimulatedNodeFailure:
             restarts += 1

@@ -1662,3 +1662,26 @@ def test_hybrid_cut_kernel_route_matches_ref_route(cuda):
             out[impl] = steps
     for a, b in zip(out[None], out["ref"]):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+
+
+def test_mesh_phase_at_a_two_layer_cut(cuda):
+    """``chip_smoke.py``'s phase 18, (a) to (c), at qwen2.5-3b's full width
+    cut to 2 layers: 3 `train_loop` steps without and with a (1, 1) mesh
+    (NCCL, world 1) and ``fsdp=True``, equal losses; one serving round
+    without and with ``mesh=``, equal tokens; each meshed run launched
+    every kernel of its path and called no plain version."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_mesh", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist() for n in rng.integers(64, 401, 8)]
+    tokens, rounds = smoke.mesh_phase(cfg, prompts, "test", seq=1024, global_batch=4,
+                                      grad_accum=2, max_new=8)
+    assert len(tokens) == 8 and all(1 <= len(t) <= 8 for t in tokens)
+    assert set(rounds) == {"train", "serve"}
+    assert all(n > 0 for r in rounds.values() for n in r.values()), rounds

@@ -238,13 +238,14 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len([k for k in sys.modules if k.startswith("repro_torch")]), bad)
 assert not bad, bad
-# the paper's STG path and the serving CLI are among them
+# the paper's STG path, the serving CLI and the mesh modules are among them
 new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "graphs.nbody",
        "graphs.streamit", "runtime.pipeline.interpreter", "runtime.pipeline.schedule",
        "launch.serve", "configs.nemotron4_15b", "configs.deepseek_coder_33b",
        "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b",
        "configs.llama4_scout", "configs.llama4_maverick", "configs.jamba_1_5_large",
-       "launch.steps", "analysis.step_cost"]
+       "launch.steps", "analysis.step_cost", "launch.mesh", "launch.sharding",
+       "sharding_ctx", "optim.compress"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """

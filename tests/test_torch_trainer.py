@@ -22,6 +22,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import train as train_cli
 from repro_torch.runtime.failures import FailureInjector, SimulatedNodeFailure
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.runtime import failures as failures_mod
+from repro_torch.runtime import trainer as trainer_mod
 from repro_torch.runtime.trainer import TrainLoopConfig, run_resilient, train_loop
 
 CFG = get_config("qwen2.5-3b").reduced()
@@ -29,9 +31,8 @@ CFG = get_config("qwen2.5-3b").reduced()
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """The loop tests read wall-clock step times (the straggler test) and
-    run beside other test workers: one torch thread a worker keeps a busy
-    machine from stretching some steps far more than others."""
+    """The loop tests run beside other test workers: one torch thread a
+    worker keeps them from crowding the machine."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -187,11 +188,34 @@ def test_seed_determinism(tmp_path):
     assert a.losses != c.losses
 
 
-def test_straggler_flagged_and_median_stable(tmp_path):
+class _StepClock:
+    """A clock for the loop: each read advances it 10 ms and each sleep by
+    its length, so a step takes 10 ms plus its stall whatever the load of
+    the machine running the test."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += 0.01
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+
+
+def test_straggler_flagged_and_median_stable(tmp_path, monkeypatch):
+    """The stalled step, and it alone, is flagged, timed on `_StepClock`
+    (the loop times its steps and the injector stalls through the module
+    attribute ``time``)."""
+    clock = _StepClock()
+    monkeypatch.setattr(trainer_mod, "time", clock)
+    monkeypatch.setattr(failures_mod, "time", clock)
     mon = StragglerMonitor(threshold=3.0)
     train_loop(CFG, _loop(tmp_path, steps=12, failures=FailureInjector({8: "stall:0.6"}),
                           straggler=mon), device="cpu")
     assert [e.step for e in mon.events] == [8]
+    assert mon.events[0].duration == pytest.approx(0.61)
     assert mon.median < 0.3          # the stall did not poison the median
 
 
@@ -203,8 +227,11 @@ def test_loss_decreases_on_bigram(tmp_path):
 
 
 def test_multi_device_options_raise(tmp_path):
+    """``tp > 1`` and ``fsdp`` train over `local_mesh`, which needs the
+    default process group: without one they raise, naming the way in
+    (`tests/test_torch_distributed.py` trains with them)."""
     for kw in ({"tp": 2}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(RuntimeError, match="init_distributed"):
             train_loop(CFG, _loop(tmp_path, **kw), device="cpu")
 
 
