@@ -243,9 +243,28 @@ script exits non-zero without its result line.  The phases:
     4's); the meshed runs counted (every kernel of the path launched, no
     plain version called), the step and decode times of both beside the
     card (DTensor's cost at world 1);
-17. the ``kernels`` record (with phase 18's ``mesh_launches``), the card's
-    name and power limit, and last the result line ``{"ok": true,
-    "device": {...}}``.
+19. the pipelines over ranks (`ranks_phase`, run after 18): two processes
+    share the card as ranks 0 and 1 of a gloo group (NCCL refuses two ranks
+    on one card; gloo sends host copies of the card's tensors; two
+    processes on one card are not a multi-card measurement), each loading
+    the kernel library phase 2 built; the card's compute mode recorded (a
+    refused second context fails the phase).  qwen2.5-3b at full width cut
+    to 8 layers through an `LMPipeline` over both ranks (a stage a layer,
+    the plan's slices alternating ranks), 1F1B and interleaved 1F1B, 8
+    microbatches of (1, 1024), its losses and every gradient bitwise the
+    one-rank `LMPipeline`'s run after it in rank 0; qwen2.5-3b and
+    mamba2-370m at full width and depth through a `DecodePipeline` over
+    both ranks (9 and 12 layers a stage) with phase 4's 8 requests in one
+    group: tokens equal to phase 4's and to the one-rank pipeline's; each
+    two-rank run with every rank's plain versions counted (none may run)
+    and every kernel of each rank's stages launched there.  Recorded: wall
+    seconds and tok/s beside the one-rank pipeline's, the bytes each rank
+    sent, launches and host seconds by rank, peak memory by rank.  tp > 1
+    needs collectives that gloo lacks for CUDA tensors: it runs on the CPU
+    only (``tests/test_torch_pipe_ranks.py``);
+17. the ``kernels`` record (with phase 18's ``mesh_launches`` and phase
+    19's ``rank_launches``), the card's name and power limit, and last the
+    result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2863,6 +2882,331 @@ def mesh_phase(cfg, prompts, smi, *, seq=4096, global_batch=8, grad_accum=4,
     return out["mesh"]["tokens"], rounds
 
 
+# -- phase 19: the pipelines over two ranks that share the card ---------------
+# each rank's checks: the plain versions and `_composed_step` counted, set by
+# `rank_count_begin` and read by `rank_count_end` on every rank's worker thread
+
+
+def _plain_versions() -> list:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    return [(fa, "flash_attention_plain"), (da, "decode_attention_plain"),
+            (rn, "rmsnorm_plain"), (fd, "fused_decode_plain"), (fd, "qkv_plain"),
+            (fd, "out_residual_plain"), (ref, "mha_reference"), (ref, "decode_attention_ref"),
+            (ref, "rmsnorm_reference"), (ss, "ssd_scan_plain"), (ref, "ssd_chunked"),
+            (rn, "rmsnorm_gated_plain"), (ss, "ssd_chunked_backward"),
+            (rn, "rmsnorm_gated_backward_plain")]
+
+
+def rank_count_begin(pipe) -> None:
+    """On one rank: every plain version counted from now on."""
+    from repro_torch.kernels import fused_decode as fd
+    calls = {}
+    originals = {(m, a): getattr(m, a) for m, a in _plain_versions()}
+
+    def counting(name, f):
+        def wrapped(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return f(*a, **kw)
+        return wrapped
+    for (m, a), f in originals.items():
+        setattr(m, a, counting(a, f))
+    fd._composed_step.calls = 0
+    pipe.plain_counted = (calls, originals)
+
+
+def rank_count_end(pipe) -> dict:
+    """On one rank: the plain versions restored; how often each ran, and
+    `_composed_step`."""
+    from repro_torch.kernels import fused_decode as fd
+    calls, originals = pipe.plain_counted
+    for (m, a), f in originals.items():
+        setattr(m, a, f)
+    return {"plain_calls": dict(calls), "composed_step": fd._composed_step.calls}
+
+
+def rank_loss(lg):
+    return (lg.float() ** 2).mean()
+
+
+def _rank_kernels(pipe, names: list, res) -> dict:
+    """{rank: kernels its ops must have launched}: the block stages'
+    (``names``), and rmsnorm for the head; a serve's from the replicas its
+    ops ran on (``res.op_trace``), a training run's from every replica (its
+    microbatches reach each)."""
+    out = {}
+    if hasattr(pipe, "stage_ranks"):
+        ran = {(name, rep) for name, _, _, rep, _, _ in res.op_trace}
+        pairs = [(desc.span is not None, desc.has_head,
+                  {ranks[rep] for rep in range(len(ranks)) if (desc.name, rep) in ran})
+                 for desc, ranks in zip(pipe.stage_descs, pipe.stage_ranks)]
+    else:
+        pairs = [(st.name.startswith("block"), st.name == "head",
+                  {r for sl in st.ranks for r in sl}) for st in pipe.stages]
+    for blocks_, head, ranks in pairs:
+        for r in ranks:
+            need = out.setdefault(r, set())
+            need |= set(names) if blocks_ else set()
+            need |= {"rmsnorm"} if head else set()
+    return {r: sorted(v) for r, v in out.items()}
+
+
+def _rank_counted(pipe, fn, names, what):
+    """Run ``fn`` on the controller with each rank's plain versions counted
+    (none may run) and its launches read from the run's per-rank record;
+    every rank must have launched the kernels of its stages."""
+    pipe.call_ranks(rank_count_begin)
+    try:
+        out = fn()
+    finally:
+        counts = pipe.call_ranks(rank_count_end)
+    costs = out.ranks
+    need = _rank_kernels(pipe, names, out)
+    for r, c in counts.items():
+        if c["plain_calls"] or c["composed_step"]:
+            raise AssertionError(f"{what}: rank {r} ran plain versions {c['plain_calls']}, "
+                                 f"_composed_step {c['composed_step']} times")
+        missing = [k for k in need.get(r, ()) if not costs[r]["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{what}: rank {r} launched no {missing}: "
+                                 f"{costs[r]['launches']}")
+    return out, {r: costs[r]["launches"] for r in sorted(costs)}
+
+
+def ranks_child(rank: int, spec: dict) -> None:
+    """One of the two ranks of phase 19 (a process of its own): a gloo group
+    of world 2 on the one card, a pool of both ranks with host-staged gloo
+    transfers; (i) training, (ii) and (iii) serving, as `ranks_phase`
+    says.  Rank 0 writes what it measured to ``spec["out"]``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed, rank_pool
+    from repro_torch.runtime.pipeline import (DecodePipeline, LMPipeline, interleaved_1f1b,
+                                              selection_from_plan)
+    from repro_torch.runtime.server import Request
+
+    torch.set_num_threads(4)
+    init_distributed("cuda", rank=rank, world_size=2, backend="gloo", card=0,
+                     init_method=f"file://{spec['store']}")
+    out = {"rank": rank, "device": torch.cuda.get_device_name(0)}
+    try:
+        lib = build.BUILD_ROOT / build._digest() / "libkernels.so"
+        out["library"] = {"path": str(lib.relative_to(ROOT)), "built_before": lib.exists()}
+        build.library()
+        pool = rank_pool(device="cuda", transport="gloo", timeout_s=900)
+        train_kernels = ["flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"]
+
+        # (i) training, qwen2.5-3b at full width cut in depth
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=spec["layers"])
+        shape = ShapeCfg("train_rank", 1024, 8, "train")
+        plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+        stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+        sel = selection_from_plan(plan)
+        M = cfg.n_layers + 2
+        rng = np.random.default_rng(19)
+        mbs = [rng.integers(0, cfg.vocab, (1, 1024)).astype(np.int64) for _ in range(8)]
+        sched = interleaved_1f1b(2, 8, M // 2)
+        pipe = LMPipeline(cfg, stg, sel, devices=pool)
+        train = {"config": f"{cfg.name} cut to {cfg.n_layers} layers, d_model {cfg.d_model}",
+                 "stages": M, "slices": [st.ranks for st in pipe.stages],
+                 "held": {rank: sorted(pipe.modules)}}
+        if rank != 0:
+            pipe.work()
+        else:
+            runs = {}
+            for label, kw in (("1f1b", {}), ("interleaved", {"schedule": sched})):
+                pipe.warm(mbs, train=True, loss_fn=rank_loss, **kw)
+                res, launches = _rank_counted(
+                    pipe, lambda: pipe.run(mbs, train=True, loss_fn=rank_loss, **kw),
+                    train_kernels, f"2-rank {label}")
+                runs[label] = res
+                train[label] = {"wall_s": res.wall_s, "tok_per_s": res.tokens_per_s(1024),
+                                "launches_by_rank": launches,
+                                "bytes_sent_by_rank": {r: c["bytes_sent"]
+                                                       for r, c in res.ranks.items()},
+                                "host_s_by_rank": {r: c["host_s"] for r, c in res.ranks.items()},
+                                "late": pipe.compile_stats.late, "streams": res.streams_used}
+            pipe.close()
+            del pipe
+            gc.collect()
+            one = LMPipeline(cfg, stg, sel, devices=["cuda"])
+            for label, kw in (("1f1b", {}), ("interleaved", {"schedule": sched})):
+                one.warm(mbs, train=True, loss_fn=rank_loss, **kw)
+                ref = one.run(mbs, train=True, loss_fn=rank_loss, **kw)
+                got = runs[label]
+                differ = [f"{n}.{k}" for n, tree in ref.grads.items() for k, g in tree.items()
+                          if not torch.equal(g, got.grads[n][k])]
+                train[label].update(one_rank_wall_s=ref.wall_s,
+                                    one_rank_tok_per_s=ref.tokens_per_s(1024),
+                                    losses_bitwise=got.losses == ref.losses,
+                                    grads_bitwise=not differ, grads_differ=differ[:8],
+                                    n_grad_leaves=sum(len(t) for t in ref.grads.values()))
+                del ref
+            one.close()
+            del one, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = train
+
+        # (ii), (iii) serving at full width and depth, phase 4's requests
+        for name, pps, names in (("qwen2.5-3b", 9, ["rmsnorm", "flash_attention",
+                                                     "fused_qkv_rope", "decode_attention",
+                                                     "fused_out_residual"]),
+                                 ("mamba2-370m", 12, ["rmsnorm", "ssd_scan", "rmsnorm_gated"])):
+            cfg = get_config(name)
+            if spec["serve_layers"]:
+                cfg = dataclasses.replace(cfg, n_layers=spec["serve_layers"])
+            pps = min(pps, cfg.n_periods)
+            shape = ShapeCfg("serve_decode", 512, 8, "decode")
+            plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+            stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+            reqs = [Request(uid=i, prompt=p, max_new=32)
+                    for i, p in enumerate(spec["prompts"][name])]
+            pipe = DecodePipeline(cfg, stg, plan, devices=pool, seed=0, periods_per_stage=pps)
+            rec = {"stages": pipe.stage_names, "stage_ranks": pipe.stage_ranks,
+                   "held": {rank: sum(p.numel() for p in pipe.params.parameters()
+                                      if p.device.type != "meta")}}
+            if rank != 0:
+                pipe.work()
+            else:
+                prompts = [r.prompt for r in reqs]
+                pipe.warm(prompts, 32, group_size=8)
+                res, launches = _rank_counted(
+                    pipe, lambda: pipe.serve(prompts, 32, group_size=8),
+                    names, f"2-rank {name} serve")
+                gen = res.decode_tokens
+                rec.update(tokens=res.tokens, wall_s=res.wall_s, generated=gen,
+                           tok_per_s=gen / res.wall_s, launches_by_rank=launches,
+                           bytes_sent_by_rank={r: c["bytes_sent"] for r, c in res.ranks.items()},
+                           host_s_by_rank={r: c["host_s"] for r, c in res.ranks.items()},
+                           late=pipe.compile_stats.late, streams=res.streams_used)
+                pipe.close()
+                del pipe
+                gc.collect()
+                one = DecodePipeline(cfg, stg, plan, devices=["cuda"], seed=0,
+                                     periods_per_stage=pps)
+                one.warm(prompts, 32, group_size=8)
+                ref = one.serve(prompts, 32, group_size=8)
+                rec.update(one_rank_wall_s=ref.wall_s,
+                           one_rank_tok_per_s=ref.decode_tokens / ref.wall_s,
+                           one_rank_tokens_equal=ref.tokens == res.tokens)
+                one.close()
+                del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[name] = rec
+        out["peak_memory"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    with open(spec["out"] + f".rank{rank}", "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def ranks_phase(smi, prompts: dict, *, layers: int = 8,
+                serve_layers: int | None = None) -> tuple[dict, dict]:
+    """Phase 19: the pipelines over ranks, two processes sharing the one card
+    (gloo: NCCL refuses two ranks on one card, and gloo sends host copies
+    of the card's tensors).  ``prompts``: phase 4's, by model.  The ranks
+    (`ranks_child`) run
+      (i) qwen2.5-3b at full width cut to ``layers`` layers, an
+          `LMPipeline` over both ranks (the stage a layer, the plan's slices
+          alternating ranks), 1F1B and interleaved 1F1B (2 programs),
+          8 microbatches of (1, 1024), then the one-rank `LMPipeline` on the
+          same weights in rank 0: losses and every gradient bitwise;
+      (ii) qwen2.5-3b and (iii) mamba2-370m at full width and depth through
+          a `DecodePipeline` over both ranks (9 and 12 layers a stage),
+          phase 4's 8 requests in one group of 8, then the one-rank
+          pipeline in rank 0;
+    each two-rank run counted: every rank ran no plain version and launched
+    every kernel of its stages.  tp > 1 needs the collectives gloo lacks
+    for CUDA tensors, so it runs on the CPU only (tests).  Returns the
+    served tokens by model, and the per-rank launches by run.
+    ``serve_layers`` cuts (ii) and (iii) in depth (a card test's short
+    run)."""
+    import pickle
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import build
+    build.build()                         # the ranks load this library, built once
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    work = ROOT / "build" / "chip_smoke_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = {"store": str(work / "store"), "out": str(work / "out"), "layers": layers,
+            "prompts": prompts, "serve_layers": serve_layers}
+    t0 = time.perf_counter()
+    ctx = None
+    try:
+        ctx = mp.start_processes(ranks_child, args=(spec,), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 900
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 19's ranks did not finish in 900 s")
+        results = []
+        for r in range(2):
+            with open(spec["out"] + f".rank{r}", "rb") as fh:
+                results.append(pickle.load(fh))
+    finally:
+        for proc in ctx.processes if ctx is not None else ():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = results[0]
+    base = dict(card=smi, compute_mode=mode, world=2, transport="gloo, host-staged copies",
+                note="two processes on one card: not a multi-card measurement",
+                library={r["rank"]: r["library"] for r in results},
+                peak_memory_by_rank={r["rank"]: r["peak_memory"] for r in results})
+    train = dict(r0["train"])
+    for r in results[1:]:
+        train["held"].update(r["train"]["held"])
+    emit("ranks_train", **base, **train)
+    if not all(r["library"]["built_before"] for r in results):
+        raise AssertionError(f"a rank built its own kernel library: {base['library']}")
+    for label in ("1f1b", "interleaved"):
+        t = train[label]
+        if not (t["losses_bitwise"] and t["grads_bitwise"]) or t["late"]:
+            raise AssertionError(f"the 2-rank {label} run differs from the one-rank pipeline "
+                                 f"(losses bitwise {t['losses_bitwise']}, leaves "
+                                 f"{t['grads_differ']}) or made {t['late']} late calls")
+    tokens, launches = {}, {f"train {k}": train[k]["launches_by_rank"]
+                            for k in ("1f1b", "interleaved")}
+    for name in ("qwen2.5-3b", "mamba2-370m"):
+        rec = dict(r0[name])
+        for r in results[1:]:
+            rec["held"].update(r[name]["held"])
+        emit("ranks_serve", **base, config=name, **{k: v for k, v in rec.items()
+                                                    if k != "tokens"})
+        if not rec["one_rank_tokens_equal"] or rec["late"]:
+            raise AssertionError(f"the 2-rank {name} serve differs from the one-rank "
+                                 f"pipeline's, or made {rec['late']} late calls")
+        tokens[name] = rec["tokens"]
+        launches[f"serve {name}"] = rec["launches_by_rank"]
+    emit("ranks_phase_wall", seconds=wall, card=smi)
+    return tokens, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4271,6 +4615,18 @@ def main() -> int:
     if not same:
         raise AssertionError("the meshed server's tokens differ from phase 4's")
 
+    # -- 19. the pipelines over two ranks that share the card ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rank_tokens, rank_rounds = ranks_phase(smi, {"qwen2.5-3b": prompts,
+                                                 "mamba2-370m": m_prompts})
+    same = {name: rank_tokens[name] == served_tokens[name] for name in rank_tokens}
+    emit("ranks_phase", seconds=time.perf_counter() - t_phase, tokens_equal_phase_4=same,
+         card=smi)
+    if not all(same.values()):
+        raise AssertionError(f"the 2-rank pipelines' tokens differ from phase 4's: {same}")
+
     # -- 17. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the
     # attention kernels, rmsnorm and the chain (counted once a chain, by its
@@ -4288,7 +4644,8 @@ def main() -> int:
     # SSD scan, the gated norm and their backward; ``prefix_launches`` from
     # each counted run of phase 14, ``moe_launches`` from each of phase 15,
     # ``hybrid_launches`` from each of phase 16, ``mesh_launches`` from the
-    # meshed train loop and serving round of phase 18
+    # meshed train loop and serving round of phase 18, ``rank_launches``
+    # from each two-rank run of phase 19, by rank
     cuda_kernels = {
         "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
         "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
@@ -4336,6 +4693,8 @@ def main() -> int:
                              for r, n in hybrid_rounds.items()},
          "mesh_launches": {r: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(name, 0)
                            for r, n in mesh_rounds.items()},
+         "rank_launches": {run: {rank: dict(n, fused_decode=n.get("fused_qkv_rope", 0)).get(
+             name, 0) for rank, n in by_rank.items()} for run, by_rank in rank_rounds.items()},
          "max_abs_err": errors[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
          **({"yardstick_ms": t["yardstick_ms"]} if "yardstick_ms" in t else {}),

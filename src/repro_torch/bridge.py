@@ -84,12 +84,15 @@ def flat_tree(tree, prefix: str = "") -> dict:
 
 
 def stages_from_jax(cfg: ModelConfig, stage_params, *, device="cuda",
-                    layers_per_stage: int | None = None) -> dict:
+                    layers_per_stage: int | None = None, stages=None) -> dict:
     """The port's stage modules ({name: module}, `lm_pipe.build_lm_stages`'s
     layout) on ``device`` holding the JAX stage parameters: the third item
     of JAX ``build_lm_stages(...)``, or {stage name: ``st.params[0]``} of a
     JAX ``LMPipeline`` (a fused stage's tree is split into its members),
-    with numpy leaves.  Masters keep their dtype (float32 as float32)."""
+    with numpy leaves.  Masters keep their dtype (float32 as float32).
+    ``stages``: only these stages (one rank's of an `LMPipeline` over ranks,
+    which passes their names to a ``params`` function); the others are
+    neither built nor filled."""
     from .runtime.pipeline.lm_pipe import build_lm_stages
     src = {}
     for name, tree in stage_params.items():
@@ -97,9 +100,16 @@ def stages_from_jax(cfg: ModelConfig, stage_params, *, device="cuda",
         for m in members:
             src[m] = tree[m] if len(members) > 1 else tree
     names, modules = build_lm_stages(cfg, layers_per_stage=layers_per_stage,
-                                     device=device, empty=True)
+                                     device="meta" if stages is not None else device,
+                                     empty=True)
     if sorted(src) != sorted(names):
         raise ValueError(f"{cfg.name}: JAX stages {sorted(src)}, port stages {names}")
+    if stages is not None:
+        unknown = sorted(set(stages) - set(names))
+        if unknown:
+            raise ValueError(f"{cfg.name}: no stages {unknown} among {names}")
+        names = [n for n in names if n in stages]
+        modules = {n: modules[n].to_empty(device=resolve_device(device)) for n in names}
     with torch.no_grad():
         for name in names:
             leaves = flat_tree(src[name])

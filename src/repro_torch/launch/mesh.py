@@ -16,6 +16,7 @@ with none.  Every function here that reads a mesh takes either kind.
 from __future__ import annotations
 
 import os
+from collections.abc import Sequence
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -112,27 +113,31 @@ def _device_type(device) -> str:
 
 def init_distributed(device: str = "cuda", *, rank: int | None = None,
                      world_size: int | None = None, init_method: str | None = None,
-                     store=None, timeout_s: float = 600.0) -> tuple[int, int]:
+                     store=None, timeout_s: float = 600.0, backend: str | None = None,
+                     card: int | None = None) -> tuple[int, int]:
     """Joins (or finds) the default process group: NCCL on the card, gloo
-    on the CPU.  Rank and world come from the arguments or from
-    ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; a process
-    on the card takes card ``LOCAL_RANK``.  The rendezvous is ``store``,
-    ``init_method``, or ``torchrun``'s ``MASTER_ADDR`` / ``MASTER_PORT``;
-    a world of one with none of them uses a file store in a fresh
-    temporary directory.  Returns (rank, world)."""
+    on the CPU, or ``backend``.  Rank and world come from the arguments or
+    from ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; a
+    process on the card takes card ``card``, else ``LOCAL_RANK``.  The
+    rendezvous is ``store``, ``init_method``, or ``torchrun``'s
+    ``MASTER_ADDR`` / ``MASTER_PORT``; a world of one with none of them
+    uses a file store in a fresh temporary directory.  Returns (rank,
+    world).  Several processes on one card need ``backend="gloo"`` and
+    ``card=0``: NCCL refuses two ranks on one device."""
     kind = _device_type(device)
     if not dist.is_initialized():
         rank = int(os.environ.get("RANK", 0)) if rank is None else rank
         world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
         if kind == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) if card is None
+                                  else card)
         if store is None and init_method is None and "MASTER_ADDR" not in os.environ:
             if world_size != 1:
                 raise RuntimeError(f"a world of {world_size} needs a rendezvous: run under "
                                    "torchrun, or pass store= or init_method=")
             import tempfile
             store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
-        kw = dict(backend="nccl" if kind == "cuda" else "gloo", rank=rank,
+        kw = dict(backend=backend or ("nccl" if kind == "cuda" else "gloo"), rank=rank,
                   world_size=world_size, timeout=timedelta(seconds=timeout_s))
         if store is not None:
             kw["store"] = store
@@ -210,3 +215,108 @@ def _pool(mesh_or_devices) -> list:
     if hasattr(mesh_or_devices, "mesh_dim_names"):
         return mesh_ranks(mesh_or_devices)
     return list(mesh_or_devices)
+
+
+class RankPool(Sequence):
+    """The ranks a pipeline runs on, one rank standing for one JAX device,
+    and the two process groups its ranks talk over: ``control``, gloo,
+    for the controller's commands and the workers' reports, and ``data``,
+    the caller's ``transport``, for the activations, cotangents and
+    gradients that go from rank to rank.  As a sequence it is its ranks,
+    so `placement.place` lays slices over it as over any device list.
+
+    The pool's first rank is the controller (`runtime.pipeline.remote`);
+    ``device`` is the device of this process.  ``transport`` is "nccl"
+    (a card a rank) or "gloo": gloo sends CPU tensors only, so on the
+    card its tensors go through host copies (``host_staged``).
+    ``timeout_s`` bounds every wait on a peer: a receive, a report, the
+    next command."""
+
+    def __init__(self, ranks, device, transport: str, control, data, timeout_s: float):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.device = device
+        self.transport = transport
+        self.control = control
+        self.data = data
+        self.timeout_s = float(timeout_s)
+
+    def __len__(self) -> int:
+        return len(self.ranks)
+
+    def __getitem__(self, i):
+        return self.ranks[i]
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank()
+
+    @property
+    def controller(self) -> int:
+        return self.ranks[0]
+
+    @property
+    def is_controller(self) -> bool:
+        return self.rank == self.controller
+
+    @property
+    def host_staged(self) -> bool:
+        return self.transport == "gloo" and self.device.type == "cuda"
+
+
+def rank_pool(ranks=None, *, device: str = "cuda", transport: str | None = None,
+              timeout_s: float = 600.0) -> RankPool:
+    """A `RankPool` over ``ranks`` (the world by default, or a
+    ``DeviceMesh``'s ranks in its order), on this process's ``device``.
+    Every rank of the world calls it, in the same order (it makes the
+    pool's groups).  ``transport``: "gloo" on the CPU (the default there);
+    on the card the caller names it, "nccl" where each rank has a card of
+    its own, "gloo" where ranks share one.  A pool of several ranks needs
+    the default process group (`init_distributed`) first."""
+    from datetime import timedelta
+
+    from .. import resolve_device
+    if not dist.is_initialized():
+        raise RuntimeError("a pool of ranks needs a process group: call init_distributed "
+                           "first")
+    world = dist.get_world_size()
+    if ranks is None:
+        ranks = range(world)
+    elif hasattr(ranks, "mesh_dim_names"):
+        ranks = mesh_ranks(ranks)
+    ranks = [int(r) for r in ranks]
+    if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"ranks {ranks} are not distinct ranks of a world of {world}")
+    device = resolve_device(device)
+    if transport is None:
+        if device.type == "cuda":
+            raise ValueError("name the data transport on the card: 'nccl' (a card a rank) "
+                             "or 'gloo' (ranks sharing a card, host-staged)")
+        transport = "gloo"
+    if transport not in ("nccl", "gloo") or (transport == "nccl" and device.type != "cuda"):
+        raise ValueError(f"transport {transport!r} on {device.type}: NCCL moves CUDA "
+                         "tensors, gloo moves any")
+    timeout = timedelta(seconds=timeout_s)
+    control = dist.new_group(backend="gloo", timeout=timeout)
+    data = dist.new_group(backend=transport, timeout=timeout)
+    return RankPool(ranks, device, transport, control, data, timeout_s)
+
+
+def as_rank_pool(devices, device="cuda"):
+    """``devices`` as a `RankPool` when it names ranks: a pool, a
+    ``DeviceMesh`` or a list of ints (a pool over the default group, its
+    transport the default group's backend, the one the caller started it
+    with); None for a list of devices, which one process drives."""
+    if isinstance(devices, RankPool):
+        return devices
+    if hasattr(devices, "mesh_dim_names"):
+        kind = devices.device_type
+    elif devices is not None and len(devices) and all(
+            isinstance(d, int) and not isinstance(d, bool) for d in devices):
+        kind = torch.device(device).type
+    else:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(f"a pool of ranks {list(devices) if not hasattr(devices, 'mesh') else devices} "
+                           "needs a process group: call init_distributed first")
+    backend = str(dist.get_backend())
+    return rank_pool(devices, device=kind, transport=backend if kind == "cuda" else "gloo")

@@ -73,21 +73,33 @@ class LM(nn.Module):
     (None otherwise).  With no generator the storage is left unset, for
     ``bridge.py`` to fill.  ``param_dtype``: None for serving (weights in
     the compute dtype, no gradients); a dtype for training (the masters
-    the optimizer updates, with gradients)."""
+    the optimizer updates, with gradients).  ``keep``: None, or a test of
+    the names ``"embed"``, ``"final_norm"``, ``"head"`` and ``"layers.<i>"``;
+    what it leaves out is drawn all the same, so the rest are the whole
+    model's draws, and goes to the ``meta`` device at once."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, keep=None):
         super().__init__()
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.padded_vocab
+
+        def kept(name, x):
+            if x is None or keep is None or keep(name):
+                return x
+            if isinstance(x, nn.Module):
+                return x.to("meta")
+            return nn.Parameter(x.to("meta"), requires_grad=x.requires_grad)
+
         make = blocks.Maker(cfg, device, generator, param_dtype)
-        self.embed = make.weight((vp, d), scale=0.02)
-        self.final_norm = make.fill(1.0, (d,))
-        self.head = None if cfg.tie_embeddings else make.weight((d, vp))
+        self.embed = kept("embed", make.weight((vp, d), scale=0.02))
+        self.final_norm = kept("final_norm", make.fill(1.0, (d,)))
+        self.head = None if cfg.tie_embeddings else kept("head", make.weight((d, vp)))
         pattern = cfg.block_pattern
         kw = dict(device=device, generator=generator, param_dtype=param_dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, *pattern[i % len(pattern)], cross=cfg.encdec, **kw)
+            kept(f"layers.{i}",
+                 DecoderLayer(cfg, *pattern[i % len(pattern)], cross=cfg.encdec, **kw))
             for i in range(cfg.n_layers))
         self.enc_layers = self.enc_norm = None
         if cfg.encdec:
@@ -98,10 +110,11 @@ class LM(nn.Module):
 
 
 def init_params(cfg: ModelConfig, *, device, generator: torch.Generator,
-                param_dtype: torch.dtype | None = None) -> LM:
+                param_dtype: torch.dtype | None = None, keep=None) -> LM:
     """Random weights on ``device``, drawn from ``generator``; trainable
-    masters of ``param_dtype`` if one is given (`LM`)."""
-    return LM(cfg, device=device, generator=generator, param_dtype=param_dtype)
+    masters of ``param_dtype`` if one is given; only those ``keep`` passes
+    held (`LM`)."""
+    return LM(cfg, device=device, generator=generator, param_dtype=param_dtype, keep=keep)
 
 
 def _head(cfg: ModelConfig, params: LM):

@@ -2,8 +2,12 @@
 
 The port of ``repro/runtime/pipeline`` for serving:
 
-  placement   — partition the device set into per-stage slices sized
-                tp x replicas (on one card every slice is the card)
+  placement   — partition the device set (or the ranks of a
+                `launch.mesh.RankPool`) into per-stage slices sized
+                tp x replicas (in one process every slice is its device)
+  remote      — pipelines over ranks, a process a device: the
+                controller's commands, the workers' reports, the tensors
+                sent from rank to rank (`Controller`, `Worker`)
   channels    — bounded FIFOs with backpressure; capacity bounds in-flight
                 work; `StreamChannel` adds open-ended token streams
                 (decode feedback traffic)
@@ -83,6 +87,7 @@ from .measure import (FixedPointResult, PipelineReport,  # noqa: E402
                       StageMeasurement, calibrate, compare, compare_lm,
                       measured_bubble, measured_replan, replan_to_fixed_point)
 from .placement import Placement, StageSlice, place, tp_of  # noqa: E402
+from .remote import Controller, RankFailure, Ref, Worker  # noqa: E402
 from .trace import FifoWatch, TraceEvent, Tracer  # noqa: E402
 from .metrics import (BlameEntry, Counter, Gauge, Histogram,  # noqa: E402
                       MetricsRegistry, attribute_bottleneck,
@@ -109,6 +114,7 @@ __all__ = [
     "compare", "compare_lm", "measured_bubble", "measured_replan",
     "replan_to_fixed_point",
     "Placement", "StageSlice", "place", "tp_of",
+    "Controller", "RankFailure", "Ref", "Worker",
     "FifoWatch", "TraceEvent", "Tracer",
     "BlameEntry", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "attribute_bottleneck", "registry_from_trace", "serving_slo",

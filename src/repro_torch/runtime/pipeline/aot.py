@@ -17,6 +17,12 @@ stream.  So here:
     counted in the shared `CompileStats`, and *late* when it lands inside
     a timed window (the engine is running).  Pipelines expose this as
     ``pipe.compile_stats`` and tests assert ``late == 0`` after warm-up.
+
+Over ranks (`remote`) each rank keeps its own stats: it warms its own
+(stage, replica)s on their lanes, opens its window when the controller's
+run starts, and reports its first calls at the run's end, which the
+controller adds to its ``compile_stats`` (per rank in the result's
+``ranks``).
 """
 from __future__ import annotations
 

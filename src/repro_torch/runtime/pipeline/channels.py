@@ -23,6 +23,14 @@ A queued token is an activation that the producer no longer writes: the
 stage programs update only their own resident caches in place, never a
 tensor that crosses a FIFO.
 
+Over ranks (`remote`) a queued token is a `remote.Ref`: the tensor stays
+in its producer's rank until the consumer is dispatched, and the
+controller then posts the send to the consumer's rank and its receive
+together (`remote.Controller.inputs_for`): the cross-rank counterpart of
+the JAX pipeline's staging, issued at the pop instead of ahead of it, so
+that every pair of ranks posts its sends and receives in one order (NCCL
+matches them by order); a staging ahead of the pop is not done.
+
 Tokens are timestamped with their *visibility* time; capacity is counted
 in rate-blocks of the consumer's port rate.  Stall/occupancy/prefetch
 counters feed the measurement layer.

@@ -63,10 +63,18 @@ therefore marks its tensor inputs with ``Tensor.record_stream`` on its
 own stream.  A group's cache is made and used on one (stage, replica)
 stream at a time, and handed off as above when its owner changes.
 
-On one card every placement slice is the card: the replicas of a stage
-share the ``LM``'s tensors, so the weights live once however many
-replicas the plan asks for.  Encoder-decoder and multimodal frontends are
-rejected: the pipeline runs embed -> blocks -> head only.
+In one process every placement slice is its one device: the replicas of
+a stage share the ``LM``'s tensors, so the weights live once however many
+replicas the plan asks for.  Over several devices the pipeline runs a
+process a device (``devices=`` a `launch.mesh.RankPool`, `remote`): each
+replica of a stage on its placement slice's first rank (a tp > 1 slice
+folds there, as the JAX package folds it onto its first device), its
+caches resident there; the pool's first rank schedules and keeps the
+groups' bookkeeping, the head's rank reports each sampled token there,
+and it goes back to the embed stage in its next decode command.
+Failover, migration, pause and resume stay one-process (``ROADMAP.md``).
+Encoder-decoder and multimodal frontends are rejected: the pipeline runs
+embed -> blocks -> head only.
 
 Every serve is preflighted (`core.verify.verify_decode_plan`, ``preflight=``)
 as in the JAX module; the port has no buffer donation, so the cache
@@ -96,8 +104,9 @@ from ..server import _bucket            # one bucketing rule: token parity
 from .aot import AotProgram, CompileStats, _where
 from .channels import Fifo, StreamChannel
 from .engine import (AsyncResult, DeviceWatch, Engine, EngineResult, Lanes, Op,
-                     describe_position)
+                     RemoteLanes, describe_position)
 from .placement import Placement, place
+from .remote import OverRanks, Ref, meta_of, posted, stream_handle
 
 
 # ===========================================================================
@@ -206,6 +215,9 @@ class ServeRunResult(EngineResult):
     streams_used: int = 0              # distinct CUDA streams that ran ops
     paused: bool = False               # admission-paused mid-stream
     resume_state: object = None        # `ResumeState` when paused
+    ranks: dict = field(default_factory=dict)
+    # over ranks: rank -> {"host_s": its op bodies' host seconds, "late",
+    # "bytes_sent", "launches": kernel launches in the timed serve}
 
     @property
     def decode_tokens(self) -> int:
@@ -297,6 +309,10 @@ class _ServeStageProgram:
     def enqueue(self, kind: str, gid: int, seq: int, pos: int) -> None:
         self.queue.append((kind, gid, seq, pos))
 
+    def free(self, gid: int) -> None:
+        """A group is done: its cache slice here goes."""
+        self.caches.pop(gid, None)
+
     def pending(self) -> int:
         return len(self.queue) - self.pos_i + len(self.redo)
 
@@ -359,7 +375,7 @@ class _ServeStageProgram:
             kind, gid, seq, pos, payload = self.redo.pop(0)
             op.recover = (kind, gid, seq, pos, payload)
             self.inflight[gid] = self.inflight.get(gid, 0) + 1
-            return self._task_for(kind, gid, pos, payload, op.rep)
+            return self._task_for(kind, gid, seq, pos, payload, op.rep)
         kind, gid, seq, pos = self.queue[self.pos_i]
         self.pos_i += 1
         g = run.groups[gid]
@@ -382,9 +398,9 @@ class _ServeStageProgram:
             run.acts[s].reserve(1)
         op.recover = (kind, gid, seq, pos, payload)
         self.inflight[gid] = self.inflight.get(gid, 0) + 1
-        return self._task_for(kind, gid, pos, payload, op.rep)
+        return self._task_for(kind, gid, seq, pos, payload, op.rep)
 
-    def _task_for(self, kind: str, gid: int, pos: int, payload, rep: int):
+    def _task_for(self, kind: str, gid: int, seq: int, pos: int, payload, rep: int):
         """Build the op body from in-hand inputs (``payload`` is the
         prompt, the fed-back tokens or the popped hidden state) — shared
         by the normal dispatch path and failover redo, so a redo runs the
@@ -411,7 +427,7 @@ class _ServeStageProgram:
 
     def retire(self, op: Op, result, engine: Engine) -> float:
         s, run = self.s, self.run
-        (y, cache, toks), t_done = result
+        y, cache, toks, t_done = self._outcome(op, result, engine)
         gid = run.gid_of[op.seq]
         self.done_count[gid] = self.done_count.get(gid, 0) + 1
         self.inflight[gid] = self.inflight.get(gid, 1) - 1
@@ -422,6 +438,13 @@ class _ServeStageProgram:
         else:
             engine.ordered_push(run.acts[s], op.seq, (gid, y), t_done)
         return t_done
+
+    def _outcome(self, op: Op, result, engine: Engine):
+        """(output, the prefill's cache or None, the head's sampled tokens
+        (on the device, on the host) or None, completion time) of a retired
+        op."""
+        (y, cache, toks), t_done = result
+        return y, cache, toks, t_done
 
     # -- failover & rebalance -----------------------------------------------
     def fail_replica(self, rep: int, driver, lost: list) -> None:
@@ -549,6 +572,57 @@ def _run_stage(prog: AotProgram, params, x: torch.Tensor, device, stream, sample
     return AsyncResult(((y, cache, toks),), watch=[watch])
 
 
+class _RankServeStageProgram(_ServeStageProgram):
+    """`_ServeStageProgram` over ranks: the same op queue, routing and
+    channels; an op is posted to its replica's rank (`_on_stage` there), its
+    hidden state sent there from the rank that holds it, and a FIFO token
+    is a `remote.Ref` to a hidden state that stays on its rank.  The head's
+    rank reports the sampled token ids, which come back to the embed stage
+    in its next decode command; a group's cache slices stay on their ranks
+    until the group is done."""
+
+    def __init__(self, s: int, pipe: "DecodePipeline", run: "_ServeRun"):
+        super().__init__(s, pipe, run)
+        self.ctl = pipe._ctl
+
+    def _task_for(self, kind: str, gid: int, seq: int, pos: int, payload, rep: int):
+        """The op's command to its replica's rank: ``payload`` (the prompt
+        or the fed-back tokens, or a `Ref` to the producer's hidden state)
+        inline or sent from the rank that holds it."""
+        run = self.run
+        rank = self.pipe.stage_ranks[self.s][rep]
+        spec = (self.ctl.inputs_for(payload, [rank])[rank] if isinstance(payload, Ref)
+                else ("value", np.asarray(payload)))
+        what = f"{kind} of {self.name} replica {rep} group {gid} (op {seq})"
+        cid = self.ctl.post(rank, {
+            "do": "run", "fn": "stage", "lane": (self.s, rep) if run.overlap else None,
+            "s": self.s, "rep": rep, "kind": kind, "gid": gid, "seq": seq,
+            "cap": run.groups[gid].cap, "temperature": run.temperature,
+            "overlap": run.overlap, "inputs": {"x": spec}, "what": what})
+        return posted, (self.ctl, cid, [rank], what)
+
+    def _outcome(self, op: Op, result, engine: Engine):
+        run = self.run
+        cid, t_done = result
+        rank = self.pipe.stage_ranks[self.s][op.rep]
+        rep = self.ctl.take(cid)[rank]
+        run.rank_host_s[rank] = run.rank_host_s.get(rank, 0.0) + rep["host_s"]
+        if engine.tracer is not None:
+            engine.tracer.op_rank(self.name, op.rep, rank, rep["host_s"])
+        engine.result.stage_dispatch_s[self.name] += rep["host_s"]
+        if rep.get("stream") is not None:
+            run.streams.add((rank, rep["stream"]))
+        if self.pipe.stage_descs[self.s].has_head:    # the tokens, on the host only
+            return None, None, (None, rep["tokens"]), t_done
+        return Ref(rank, ("h", self.s, op.seq), rep["meta"]), None, None, t_done
+
+    def free(self, gid: int) -> None:
+        if self.pipe.period_span[self.s] is not None:
+            self.ctl.post(self.pipe.stage_ranks[self.s][self.rep_of(gid)], {
+                "do": "run", "fn": "free", "lane": None, "s": self.s, "gid": gid,
+                "ack": False, "what": f"free group {gid}'s cache of {self.name}"})
+
+
 class _ServeRun:
     """Shared state of one pipelined serve: groups, channels, the global
     op sequence, and the head-side bookkeeping."""
@@ -570,9 +644,10 @@ class _ServeRun:
         #                                instead of feeding back
         self.streams: set = set()              # handles of the CUDA streams
         #                                        ops ran on
+        self.rank_host_s: dict = {}            # over ranks: rank -> op host seconds
         self.gid_of: list[int] = []            # seq -> gid
-        self.programs = [_ServeStageProgram(s, pipe, self)
-                         for s in range(len(pipe.stage_names))]
+        program = _ServeStageProgram if pipe.pool is None else _RankServeStageProgram
+        self.programs = [program(s, pipe, self) for s in range(len(pipe.stage_names))]
         S = len(self.programs)
         self.acts = [pipe._edge_fifo(s, capacity_blocks) for s in range(S - 1)]
         # the continuous token stream: head -> embed feedback.  At most
@@ -604,7 +679,7 @@ class _ServeRun:
         the host values."""
         g = self.groups[self.gid_of[op.seq]]
         dev_toks, host_toks = toks
-        nxt = host_toks.numpy().copy()
+        nxt = np.array(host_toks)
         g.last_logits = logits
         if op.kind == "P":
             g.t_prefill_done = t_done - engine.t0
@@ -635,11 +710,12 @@ class _ServeRun:
             else:
                 seq = self.enqueue("D", g.gid, g.bucket + g.steps)
                 g.fed.append(g.cur.copy())
-                self.feedback.push([(seq, (g.gid, dev_toks[:, None]))], t_done)
+                fed = nxt[:, None] if dev_toks is None else dev_toks[:, None]
+                self.feedback.push([(seq, (g.gid, fed))], t_done)
         else:
             g.t_last = t_done - engine.t0
             for p in self.programs:            # free the group's resident
-                p.caches.pop(g.gid, None)      # cache slices immediately
+                p.free(g.gid)                  # cache slices immediately
             self.open_groups -= 1
             if self.open_groups == 0:
                 self.feedback.close()
@@ -673,7 +749,7 @@ class ResumeState:
 # ===========================================================================
 # the pipeline
 # ===========================================================================
-class DecodePipeline:
+class DecodePipeline(OverRanks):
     """A placed serving pipeline: prefill + decode token streams through a
     planned, placed, replicated LM stage graph.
 
@@ -685,7 +761,14 @@ class DecodePipeline:
     ``seed``, the same the server draws from that seed.  ``devices``
     (or ``device``): where the stages run, the card unless the caller
     asks for the CPU (``devices=["cpu"]``); without a card this raises.
-    The pool is one device: every placement slice folds onto it.
+    One device: every placement slice folds onto it.  A
+    `launch.mesh.RankPool` (or a ``DeviceMesh``, or a list of ranks): a
+    process a rank, every rank building the same pipeline with the same
+    ``params`` or ``seed``; the pool's first rank serves (``serve``,
+    ``LMServer(pipeline=)``) and calls ``close``, every other rank
+    ``work``.  Weights drawn from ``seed`` are drawn whole on each rank,
+    a layer at a time, and a rank holds only its stages' tensors and the
+    layer being drawn (the others go to the meta device as they are made).
     ``warmup`` (default True) runs every stage program once per group
     shape on every replica before the engine starts; ``compile_stats.late``
     counts first calls that landed inside a timed serve (kept at zero by
@@ -726,11 +809,18 @@ class DecodePipeline:
                 f"{cfg.name}: DecodePipeline runs embed->blocks->head "
                 f"decoder pipelines only (enc-dec / multimodal frontends "
                 f"are a ROADMAP item)")
-        pool = {resolve_device(d) for d in (devices if devices is not None else [device])}
-        if len(pool) != 1:
-            raise NotImplementedError(
-                f"DecodePipeline runs on one device, got {sorted(map(str, pool))}")
-        self.device = pool.pop()
+        from ...launch.mesh import as_rank_pool
+        self.pool = as_rank_pool(devices, device) if devices is not None else None
+        if self.pool is None:
+            pool = {resolve_device(d) for d in (devices if devices is not None else [device])}
+            if len(pool) != 1:
+                raise NotImplementedError(
+                    f"DecodePipeline runs on one device in one process, got "
+                    f"{sorted(map(str, pool))}; over several devices it runs a process "
+                    f"a device (devices=launch.mesh.RankPool)")
+            self.device = pool.pop()
+        else:
+            self.device = self.pool.device
         self.cfg = cfg
         self.stg = stg
         self.sel = sel
@@ -755,15 +845,7 @@ class DecodePipeline:
                 f"graph has {len(graph_blocks)} block nodes but the model "
                 f"has {cfg.n_layers} layers — plan and model disagree")
 
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = lm.init_params(cfg, device=self.device, generator=gen)
-        if params.embed.device != self.device:
-            raise ValueError(f"params live on {params.embed.device}, the "
-                             f"pipeline on {self.device}")
-        self.params = params
         self.periods_per_stage = pps
-        head_w = lm._head(cfg, params)
 
         # stage list: embed, one per pps-period group, head — then the
         # fusion plan partitions that base chain into executed stages.
@@ -773,8 +855,9 @@ class DecodePipeline:
         self.stage_params: list[dict] = []     # stage -> its tensors
         self.stage_devices: list[list] = []    # stage -> replica -> device
         self.stage_streams: list[list] = []    # stage -> replica -> stream
+        self.stage_ranks: list[list] = []      # over ranks: stage -> replica -> rank
         self.period_span: list = []            # stage -> (lo, hi) or None
-        pl = place(stg, sel, [self.device])
+        pl = place(stg, sel, self.pool if self.pool is not None else [self.device])
         self.placement = pl
 
         def owners_of(lo_p, hi_p):
@@ -796,11 +879,9 @@ class DecodePipeline:
             self.stage_descs.append(_StageDesc(
                 name="+".join(grp), has_embed="embed" in grp, span=span,
                 has_head="head" in grp))
+        stage_owners = []
         for desc in self.stage_descs:
             owners = ["embed"] if desc.has_embed else []
-            stage_p = {}
-            if desc.has_embed:
-                stage_p["embed"] = params.embed
             if desc.span is not None:
                 block_owners = owners_of(*desc.span)
                 owners.extend(block_owners)
@@ -811,23 +892,54 @@ class DecodePipeline:
                         f"{block_owners} whose plan choices differ "
                         f"({sorted(picks)}) — use periods_per_stage=1 "
                         f"or align the plan")
+            if desc.has_head:
+                owners.append("head")
+            stage_owners.append(owners)
+            # over ranks, each replica on its slice's first rank: a tp > 1
+            # slice folds there, as the JAX package folds it onto its
+            # first device
+            if self.pool is not None:
+                self.stage_ranks.append(
+                    [sl.devices[0] for o in owners for sl in pl.replicas_of(o)] or [self.pool[0]])
+        mine = None
+        if self.pool is not None:
+            mine = [any(r == self.pool.rank for r in ranks) for ranks in self.stage_ranks]
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = lm.init_params(cfg, device=self.device, generator=gen,
+                                    keep=None if mine is None else self._kept(mine))
+        self.params = params
+        if params.embed.device != self.device and mine is None:
+            raise ValueError(f"params live on {params.embed.device}, the "
+                             f"pipeline on {self.device}")
+        head_w = lm._head(cfg, params)
+        for s_, (desc, owners) in enumerate(zip(self.stage_descs, stage_owners)):
+            stage_p = {}
+            if desc.has_embed:
+                stage_p["embed"] = params.embed
+            if desc.span is not None:
                 lo, hi = desc.span[0] * L, desc.span[1] * L
                 stage_p.update(layers=params.layers[lo:hi], span=(lo, hi))
             if desc.has_head:
-                owners.append("head")
                 stage_p.update(norm=params.final_norm, w=head_w)
             # replica pool: every member owner's placement slices (nr x
             # n_owners replicas, each doing the whole stage's work, same
             # planned capacity); on one device they share the tensors
             n_rep = max(1, sum(len(pl.replicas_of(o)) for o in owners))
+            own = [mine is None or self.stage_ranks[s_][k] == self.pool.rank
+                   for k in range(n_rep)]
             self.stage_names.append(desc.name)
             self.stage_params.append(stage_p)
             self.stage_devices.append([self.device] * n_rep)
             self.stage_streams.append(
-                [torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-                 for _ in range(n_rep)])
+                [torch.cuda.Stream(self.device) if self.device.type == "cuda" and own[k]
+                 else None for k in range(n_rep)])
             self.period_span.append(desc.span)
         self.lanes = Lanes([len(d) for d in self.stage_devices], self._n_workers())
+        if self.pool is not None:
+            from .remote import Controller
+            self.ranks = sorted({r for ranks in self.stage_ranks for r in ranks})
+            self._ctl = Controller(self.pool, self) if self.pool.is_controller else None
 
         # one (prefill, decode) program pair per stage signature present
         self.warmup = warmup
@@ -842,6 +954,25 @@ class DecodePipeline:
             self._programs[desc.key] = (
                 AotProgram(pre, name=f"{tag}.prefill", stats=self.compile_stats),
                 AotProgram(dec, name=f"{tag}.decode", stats=self.compile_stats))
+
+    def _kept(self, mine: list):
+        """Over ranks, with weights this pipeline draws itself: the test of
+        `lm.init_params`'s ``keep`` that holds the tensors of the stages a
+        replica of which runs here (``mine``: a flag a stage) and the
+        embedding where a tied head reads it; the rest of the model is
+        drawn all the same and let go at once."""
+        L = len(self.cfg.block_pattern)
+        keep = set()
+        for desc, own in zip(self.stage_descs, mine):
+            if not own:
+                continue
+            if desc.has_embed or (desc.has_head and self.cfg.tie_embeddings):
+                keep.add("embed")
+            if desc.has_head:
+                keep.update(("final_norm", "head"))
+            if desc.span is not None:
+                keep.update(f"layers.{i}" for i in range(desc.span[0] * L, desc.span[1] * L))
+        return keep.__contains__
 
     def _resolve_fusion(self, base, fusion_plan, stg, sel):
         """Normalize ``fusion_plan`` to a contiguous partition of the base
@@ -913,6 +1044,12 @@ class DecodePipeline:
         its stream.  Runs before the engine's clock starts; no served
         request pays a first launch."""
         shape = (g.batch, g.bucket, g.cap)
+        if self.pool is not None:
+            if (shape, overlap) not in self._warmed:
+                self._ctl.run_on(self.ranks, {"fn": "warm", "shape": shape, "overlap": overlap},
+                                 f"warm-up at {shape}")
+                self._warmed.add((shape, overlap))
+            return
         jobs = []
         for s in range(len(self.stage_descs)):
             for rep in range(len(self.stage_devices[s]) if overlap else 1):
@@ -954,11 +1091,76 @@ class DecodePipeline:
         PyTorch keys a workspace by (cuBLAS handle, stream) and frees them
         only all at once, so the workspaces of other threads go too and are
         made again at their next product: call it while no other thread
-        runs one."""
+        runs one.  Over ranks, the controller's ``close`` stops every rank's
+        worker, each of which does so on its rank (``rank_bytes_sent``: what
+        each rank sent to the others, over the pipeline's life)."""
+        if self.pool is None:
+            self.close_lanes()
+        elif self._ctl is not None:
+            self.rank_bytes_sent = self._ctl.close()
+
+    def close_lanes(self) -> None:
         self.lanes.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch._C._cuda_clearCublasWorkspaces()
+
+    # -- over ranks: the workers' side ----------------------------------------
+    def _on_warm(self, w, cmd, inputs):
+        """Every program of the group shape ``shape`` run once on scratch
+        inputs by each (stage, replica) on this rank, where its ops run."""
+        overlap, shape = cmd["overlap"], cmd["shape"]
+        jobs = []
+        for s, ranks in enumerate(self.stage_ranks):
+            for rep, r in enumerate(ranks):
+                if r != w.rank:
+                    continue
+                if overlap:
+                    jobs.append(self.lanes.submit(s, rep, self._warm_stage, s,
+                                                  self.stage_streams[s][rep], *shape))
+                else:
+                    self._warm_stage(s, None, *shape)
+        for job in jobs:
+            job.result()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {}
+
+    def _on_stage(self, w, cmd, inputs):
+        """A prefill or decode op of stage ``s`` on this rank (`_run_stage`):
+        the group's cache slice stays here; a hidden state stays here for
+        the next stage; the head reports the sampled token ids."""
+        s, rep, gid, kind = cmd["s"], cmd["rep"], cmd["gid"], cmd["kind"]
+        desc = self.stage_descs[s]
+        pre, dec = self._programs[desc.key]
+        stream = self.stage_streams[s][rep] if cmd["overlap"] else None
+        sample = None
+        if desc.has_head:
+            temperature = cmd["temperature"]
+            if (self.temperature if temperature is None else temperature) > 0.0:
+                self._seed_group(gid)
+
+            def sample(logits):
+                return self._sample(logits, gid, temperature)
+        on = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        with on:
+            x = w.get(inputs["x"], self.device)
+        params = self.stage_params[s]
+        if kind == "P":
+            ar = _run_stage(pre, params, x, self.device, stream, sample, None, cmd["cap"])
+        else:
+            ar = _run_stage(dec, params, x, self.device, stream, sample,
+                            w.store.get(("cache", s, gid)))
+        (y, cache, toks), = ar.payload
+        if cache is not None:
+            w.store[("cache", s, gid)] = cache
+        if desc.has_head:
+            return AsyncResult({"tokens": toks[1], "stream": stream_handle(stream)}, ar.watch)
+        w.store[("h", s, cmd["seq"])] = y
+        return AsyncResult({"meta": meta_of(y), "stream": stream_handle(stream)}, ar.watch)
+
+    def _on_free(self, w, cmd, inputs):
+        w.store.pop(("cache", cmd["s"], cmd["gid"]), None)
 
     # -- cache ownership ------------------------------------------------------
     def _owner_stream(self, s: int, rep: int, overlap: bool):
@@ -1074,6 +1276,10 @@ class DecodePipeline:
         groups = self._groups(prompts, max_new, group_size)[0]
         self._preflight(n_groups=len(groups), capacity_blocks=2, feedback_capacity=None,
                         group_shapes=[(g.batch, g.bucket, g.cap) for g in groups])
+        if self.pool is not None:
+            self._check_controller()
+            self._bracket(lambda: [self._warm_group(g, overlap) for g in groups])
+            return
         for g in groups:
             self._warm_group(g, overlap)
 
@@ -1114,6 +1320,11 @@ class DecodePipeline:
         if not prompts:
             raise ValueError("serve() needs at least one prompt")
         overlap = self.overlap if overlap is None else overlap
+        if self.pool is not None:
+            self._check_controller()
+            if injector is not None or health is not None or pause_after_tokens is not None:
+                raise NotImplementedError("failover, migration and pause across ranks are a "
+                                          "ROADMAP item: they run on one rank")
         groups, group_of = self._groups(prompts, max_new, group_size)
         report = None
         if preflight:
@@ -1121,10 +1332,29 @@ class DecodePipeline:
                 n_groups=len(groups), capacity_blocks=capacity_blocks,
                 feedback_capacity=feedback_capacity,
                 group_shapes=[(g.batch, g.bucket, g.cap) for g in groups])
+        if self.pool is not None:
+            res, costs = self._bracket(lambda: self._serve_body(
+                groups, group_of, eos_id=eos_id, capacity_blocks=capacity_blocks,
+                overlap=overlap, temperature=temperature, tracer=tracer,
+                feedback_capacity=feedback_capacity, report=report))
+            res.ranks = {r: dict(c, host_s=res.ranks.get(r, 0.0)) for r, c in costs.items()}
+            return res
+        return self._serve_body(groups, group_of, eos_id=eos_id,
+                                capacity_blocks=capacity_blocks, overlap=overlap,
+                                temperature=temperature, tracer=tracer, injector=injector,
+                                health=health, pause_after_tokens=pause_after_tokens,
+                                feedback_capacity=feedback_capacity, report=report)
+
+    def _serve_body(self, groups, group_of, *, eos_id, capacity_blocks, overlap, temperature,
+                    tracer, feedback_capacity, report, injector=None, health=None,
+                    pause_after_tokens=None) -> ServeRunResult:
+        """`serve` past its checks: warm-up, the engine, the result."""
         if self.warmup:
             for g in groups:
                 self._warm_group(g, overlap)
         self._seed_groups(groups)
+        if self.pool is not None:
+            self._ctl.run_on(self.ranks, {"fn": "window"}, "window")
 
         run = _ServeRun(self, groups, eos_id=eos_id,
                         capacity_blocks=capacity_blocks, overlap=overlap,
@@ -1137,13 +1367,18 @@ class DecodePipeline:
                                    health=health, static_report=report)
         for g in groups:                       # run-relative group timings
             g.t_start = max(0.0, g.t_start - engine.t0)
+        if self.pool is not None:
+            res.ranks = run.rank_host_s
         return res
 
     def _seed_groups(self, groups) -> None:
         for g in groups:
-            if g.gid not in self._gens:
-                self._gens[g.gid] = torch.Generator(device=self.device).manual_seed(
-                    (self.seed ^ 0xC0FFEE) + g.gid)
+            self._seed_group(g.gid)
+
+    def _seed_group(self, gid: int) -> None:
+        if gid not in self._gens:
+            self._gens[gid] = torch.Generator(device=self.device).manual_seed(
+                (self.seed ^ 0xC0FFEE) + gid)
 
     def _preflight(self, *, n_groups: int, capacity_blocks: int,
                    feedback_capacity: int | None, group_shapes):
@@ -1180,8 +1415,8 @@ class DecodePipeline:
             tracer.watch_fifo(run.feedback, "feedback",
                               src=names[-1], dst=names[0])
         engine = Engine(run.programs, overlap=run.overlap,
-                        replica_queue=self.replica_queue,
-                        tracer=tracer, fifos=fifo_map, lanes=self.lanes,
+                        replica_queue=self.replica_queue, tracer=tracer, fifos=fifo_map,
+                        lanes=self.lanes if self.pool is None else RemoteLanes(),
                         injector=injector,
                         on_tick=None if health is None else health.tick,
                         tick_every=64 if health is None else health.check_every,
@@ -1236,6 +1471,9 @@ class DecodePipeline:
         don't.  Each group's parked token is fed back and decoding
         continues, so no in-flight request is dropped and the combined
         streams are bitwise what an uninterrupted serve yields."""
+        if self.pool is not None:
+            raise NotImplementedError("resume across ranks is a ROADMAP item: it runs on one "
+                                      "rank")
         overlap = self.overlap if overlap is None else overlap
         live = state.live_groups()
         if not live:

@@ -60,6 +60,11 @@ may still be running there after its body returned: the program's
 (`decode.DecodePipeline`).  The lanes belong to the caller and outlive a
 `PipelineFailure`: the next run on them starts clean.
 
+Over ranks (`remote`), the controller's engine runs the same programs; an
+op body there only posts the op's commands (`RemoteLanes` runs it inline)
+and returns a `RemoteWatch`, ready when the ranks of the op's slice have
+reported it done; the work runs on each rank's own `Lanes`.
+
 The measurement surface is per-stage streams of completion (or firing)
 times whose steady-state gap is the stage's measured inverse throughput
 (`steady_inverse`); a replicated stage's streams merge, so the measured
@@ -69,7 +74,7 @@ from __future__ import annotations
 
 import heapq
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Protocol, runtime_checkable
 
@@ -179,6 +184,27 @@ class DeviceWatch:
     def block_until_ready(self) -> None:
         if self.event is not None:
             self.event.synchronize()
+
+
+class RemoteWatch:
+    """The completion future of an op whose body runs on other ranks
+    (`remote.Controller`): ready once every rank of its slice reported it
+    done, polled as a `DeviceWatch` is (``is_ready`` takes the reports
+    that came, without waiting).  A rank's reported failure raises here,
+    naming the rank and the op; ``block_until_ready`` waits within the
+    pool's time limit."""
+
+    __slots__ = ("ctl", "cid", "ranks", "what")
+
+    def __init__(self, ctl, cid: int, ranks, what: str):
+        self.ctl, self.cid, self.ranks, self.what = ctl, cid, tuple(ranks), what
+
+    def is_ready(self) -> bool:
+        self.ctl.poll()
+        return self.ctl.done(self.cid, self.ranks)
+
+    def block_until_ready(self) -> None:
+        self.ctl.wait(self.cid, self.ranks, self.what, take=False)
 
 
 class AsyncResult:
@@ -390,6 +416,30 @@ class Lanes:
     def close(self) -> None:
         for pool in self._pools:
             pool.shutdown(wait=True)
+
+
+class RemoteLanes(Lanes):
+    """The lanes of a pipeline over ranks, on its controller: every op body
+    there only posts its commands and returns a `RemoteWatch` (the work
+    runs on the ranks' own lanes), so it runs at once on the scheduler
+    thread and its future comes back done."""
+
+    def __init__(self):
+        self.n = 1
+
+    def submit(self, stage: int, rep: int, fn, *args):
+        fut: Future = Future()
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as e:
+            fut.set_exception(e)
+        return fut
+
+    def relayout(self, replicas: list[int]) -> "Lanes":
+        return self
+
+    def close(self) -> None:
+        pass
 
 
 class Engine(Driver):

@@ -72,14 +72,19 @@ on every (stage, replica)'s own lane thread and stage stream (and the fold on
 the scheduler thread), through `aot.AotProgram`'s accounting, so
 ``compile_stats.late`` stays 0.
 
-On one card every placement slice is the card: JAX's per-stage sub-meshes
-(``submesh_of``), ``stage_param_shardings`` and the sharding ``policy``
-fold away (their ports, `launch.mesh.submesh_of` and
-`launch.sharding.stage_param_shardings`, are SPMD over processes, which
-this one-process runtime is not), and so do its on-device prefetch and
-its ``_act_barrier`` (an eager boundary between fused members is already
-a materialisation point).  A pool of several devices is refused
-(``ROADMAP.md``).
+In one process every placement slice is its one device, and the stages'
+replicas share its tensors.  Over several devices the pipeline runs a
+process a device (``devices=`` a `launch.mesh.RankPool`, `remote`): each
+replica of a stage runs on its placement slice's ranks, each holding the
+stage's weights; a tp > 1 slice of distinct ranks runs its stage SPMD over
+its sub-mesh (`launch.mesh.submesh_of`), the parameters DTensors placed by
+`launch.sharding.stage_param_shardings` and the input replicated there, as
+the JAX package places them; the pool's first rank schedules, every
+rank runs its own ops, and the fold runs on replica 0's rank in
+microbatch order, so gradients stay bitwise the one-process pipeline's
+(tp slices aside: their sums run in another order).  The JAX package's
+on-device prefetch and ``_act_barrier`` have no counterpart (an eager
+boundary between fused members is already a materialisation point).
 
 Every run is preflighted (`core.verify.verify_lm_plan`, ``preflight=``):
 schedule consistency and the credit simulation over this run's FIFO
@@ -89,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -107,6 +113,7 @@ from .channels import Fifo
 from .engine import (AsyncResult, DeviceWatch, Engine, Lanes, Op, describe_position,
                      steady_inverse)
 from .placement import Placement, place
+from .remote import OverRanks, Ref, posted, stream_handle
 from .schedule import SchedOp, Schedule, fill_drain, max_live_by_chunk, one_f_one_b
 
 
@@ -195,7 +202,7 @@ class FusedStage(nn.Module):
 
 
 def build_lm_stages(cfg: ModelConfig, *, layers_per_stage: int | None = None,
-                    seed: int = 0, device="cuda", empty: bool = False
+                    seed: int = 0, device="cuda", empty: bool = False, keep=None
                     ) -> tuple[list[str], dict]:
     """(stage names, {name: module}) for embed / block groups / head, in
     ``cfg.param_dtype`` (float32 masters, with gradients).
@@ -203,20 +210,26 @@ def build_lm_stages(cfg: ModelConfig, *, layers_per_stage: int | None = None,
     ``layers_per_stage`` groups adjacent layers into one stage (1 == the
     lm_graph granularity).  Random weights come from a `torch.Generator`
     on ``device`` seeded from ``seed``; ``empty`` leaves them unset, for
-    `bridge.stages_from_jax` to fill."""
+    `bridge.stages_from_jax` to fill.  ``keep``: None, or the names of the
+    stages to return; the others are drawn all the same, in turn, so the
+    kept ones are the whole model's draws, and each is let go as soon as
+    it is drawn (the memory held is the kept stages and one other)."""
     device = resolve_device(device)
     generator = None if empty else torch.Generator(device=device).manual_seed(seed)
     kw = dict(device=device, generator=generator, param_dtype=dtype_of(cfg.param_dtype))
     make = blocks.Maker(cfg, **kw)
     pattern = cfg.block_pattern * (cfg.n_layers // len(cfg.block_pattern))
     lps = layers_per_stage or 1
-    names, stages = ["embed"], {"embed": EmbedStage(cfg, make)}
-    for s0 in range(0, len(pattern), lps):
-        name = f"block{s0 // lps:02d}"
+    names, stages = [], {}
+
+    def add(name, module):
         names.append(name)
-        stages[name] = BlockStage(cfg, tuple(pattern[s0:s0 + lps]), **kw)
-    names.append("head")
-    stages["head"] = HeadStage(cfg, make)
+        if keep is None or name in keep:
+            stages[name] = module
+    add("embed", EmbedStage(cfg, make))
+    for s0 in range(0, len(pattern), lps):
+        add(f"block{s0 // lps:02d}", BlockStage(cfg, tuple(pattern[s0:s0 + lps]), **kw))
+    add("head", HeadStage(cfg, make))
     return names, stages
 
 
@@ -234,15 +247,22 @@ class LMStage:
     #                               off the card
     dtypes: list                  # the masters' dtypes, parameter order
     members: tuple = ()           # a fused stage's member names, in order
+    ranks: list = field(default_factory=list)    # over ranks: replica index ->
+    #                               its slice's ranks (empty in one process)
+    meshes: list = field(default_factory=list)   # over ranks: replica index ->
+    #                               its tp sub-mesh, or None
 
     @property
     def params(self) -> list:
         return list(self.module.parameters())
 
-    def grad_tree(self, flat: list) -> dict:
+    def grad_tree(self, flat: list, names=None) -> dict:
         """A flat gradient list (parameter order) as the stage's tree:
-        {parameter name: tensor}, a fused stage's keyed by member first."""
-        named = dict(zip((n for n, _ in self.module.named_parameters()), flat))
+        {parameter name: tensor}, a fused stage's keyed by member first.
+        ``names``: the parameter names, where this process holds no module
+        of the stage (a pipeline over ranks)."""
+        names = names or [n for n, _ in self.module.named_parameters()]
+        named = dict(zip(names, flat))
         if not self.members:
             return named
         tree = {m: {} for m in self.members}
@@ -279,6 +299,10 @@ class LMPipelineResult:
     # (stage, kind, mb, replica, t_dispatch, t_done) per op, run-relative —
     # the raw material for overlap debugging and gantt-style bench plots
     streams_used: int = 0                   # distinct CUDA streams that ran ops
+    ranks: dict = field(default_factory=dict)
+    # over ranks: rank -> {"host_s": its op bodies' host seconds, "late",
+    # "bytes_sent": what it sent to other ranks, "launches": kernel launches
+    # in the timed run, by kernel}
 
     def stage_inverse_us(self, name: str) -> float:
         """Effective microseconds per forward firing of one stage: the
@@ -518,11 +542,6 @@ class _LMStageProgram:
         i, M, mb = self.chunks[op.chunk], self.M, op.seq
         st = self.stages[op.chunk]
         rep = mb % len(st.devices)
-        stream = st.streams[rep] if self.overlap else None
-        if stream is not None:
-            self.streams.add(stream.cuda_stream)
-        elif self.pipe.device.type == "cuda":
-            self.streams.add(torch.cuda.current_stream(self.pipe.device).cuda_stream)
         if op.kind == "F":
             if i == 0:
                 x = self.microbatches[mb]
@@ -532,14 +551,13 @@ class _LMStageProgram:
                 op.releases.append((self.acts[i - 1], 1))
             if i < M - 1:
                 self.acts[i].reserve(1)
-            task = (_fwd_op, (self.pipe._placed(st, self.overlap), rep, x, self.train,
-                              i > 0, self.pipe.device))
+            task = self._launch_fwd(st, i, rep, mb, x)
         else:
+            y_bar = None
             if i == M - 1:
-                logits, y_bar = self.res.outputs[mb], None
                 # release the vocab-sized tensor: 1F1B exists to bound
                 # live activations, so don't hoard logits
-                self.res.outputs[mb] = None
+                logits, self.res.outputs[mb] = self.res.outputs[mb], None
             else:
                 mb_got, y_bar = self.grds[i].pop_hold(1)[0]
                 assert mb_got == mb, f"fifo order broke: {mb_got}!={mb}"
@@ -548,17 +566,39 @@ class _LMStageProgram:
             if i > 0:
                 self.grds[i - 1].reserve(1)
             self._live[op.chunk] -= 1
-            task = (_bwd_op, (self.pipe._placed(st, self.overlap), rep,
-                              self.vjps.pop((i, mb)), y_bar, logits, self.loss_fn,
-                              self.pipe.device))
+            task = self._launch_bwd(st, i, rep, mb, self.vjps.pop((i, mb)), y_bar, logits)
         self.pos += 1
         return task
+
+    def _stream(self, st: LMStage, rep: int):
+        """The stream replica ``rep``'s op runs on (None: the caller's),
+        noted in the run's set of streams used."""
+        stream = st.streams[rep] if self.overlap else None
+        if stream is not None:
+            self.streams.add(stream.cuda_stream)
+        elif self.pipe.device.type == "cuda":
+            self.streams.add(torch.cuda.current_stream(self.pipe.device).cuda_stream)
+        return stream
+
+    def _launch_fwd(self, st: LMStage, i: int, rep: int, mb: int, x):
+        """The F op's task on its input ``x`` (the microbatch's tokens, or
+        the producer's activation)."""
+        self._stream(st, rep)
+        return (_fwd_op, (self.pipe._placed(st, self.overlap), rep, x, self.train,
+                          i > 0, self.pipe.device))
+
+    def _launch_bwd(self, st: LMStage, i: int, rep: int, mb: int, vjp, y_bar, logits):
+        """The B op's task: ``y_bar`` the consumer's cotangent, or None on
+        the last stage, which seeds from its ``logits``."""
+        self._stream(st, rep)
+        return (_bwd_op, (self.pipe._placed(st, self.overlap), rep, vjp, y_bar, logits,
+                          self.loss_fn, self.pipe.device))
 
     def retire(self, op: Op, result, engine: Engine) -> float:
         i, M = self.chunks[op.chunk], self.M
         st = self.stages[op.chunk]
         if op.kind == "F":
-            y, vjp, t_done = result
+            y, vjp, t_done = self._fwd_result(op, result, engine)
             if self.train:
                 self.vjps[(i, op.seq)] = vjp
                 self._live[op.chunk] += 1
@@ -572,18 +612,34 @@ class _LMStageProgram:
                 self.res.outputs[op.seq] = y
                 self.res.mb_done_s.append(t_done - engine.t0)
         else:
-            p_bar, x_bar, lval, t_done = result
+            p_bar, x_bar, lval, t_done = self._bwd_result(op, result, engine)
             if i > 0:
                 engine.ordered_push(self.grds[i - 1], op.seq, x_bar, t_done)
             if lval is not None:
                 self.raw_losses[op.seq] = lval
             buf, nxt = self.acc_buf[i], self.acc_next
-            buf[op.seq] = (p_bar, st.streams[op.rep] if self.overlap else None)
+            buf[op.seq] = p_bar
             while nxt[i] in buf:
-                pb, src = buf.pop(nxt[i])
+                self._fold(st, i, nxt[i], buf.pop(nxt[i]))
                 nxt[i] += 1
-                self.grads[st.name] = self.pipe._fold_into(st, self.grads[st.name], pb, src)
         return t_done
+
+    def _fwd_result(self, op: Op, result, engine: Engine):
+        """(output, vjp, completion time) of a retired F op."""
+        return result
+
+    def _bwd_result(self, op: Op, result, engine: Engine):
+        """(what the fold takes, input cotangent, loss or None, completion
+        time) of a retired B op."""
+        p_bar, x_bar, lval, t_done = result
+        return ((p_bar, self.stages[op.chunk].streams[op.rep] if self.overlap else None),
+                x_bar, lval, t_done)
+
+    def _fold(self, st: LMStage, i: int, mb: int, p_bar) -> None:
+        """Fold microbatch ``mb``'s gradients; the calls come in microbatch
+        order."""
+        pb, src = p_bar
+        self.grads[st.name] = self.pipe._fold_into(st, self.grads[st.name], pb, src)
 
     def describe(self) -> str:
         return describe_position(self.name, self.pos, self.ops,
@@ -593,19 +649,25 @@ class _LMStageProgram:
 # ===========================================================================
 # pipeline assembly + execution
 # ===========================================================================
-class LMPipeline:
+class LMPipeline(OverRanks):
     """A placed LM pipeline ready to stream microbatches.
 
     ``stg``/``sel`` come from the planner (`selection_from_plan` turns a
     PlanResult into the Selection).  ``layers_per_stage`` groups adjacent
     layers into one stage; ``params``: the stage modules ({name: module},
     from `build_lm_stages` or `bridge.stages_from_jax`) to run — pass one
-    set to several pipelines to share weights — else random float32
+    set to several pipelines to share weights — or a function of the stage
+    names this process runs that returns them; else random float32
     masters from ``seed``.  ``devices`` (or ``device``): where the stages
     run, the card unless the caller asks for the CPU (``devices=["cpu"]``);
-    without a card this raises.  The pool is one device: every placement
-    slice folds onto it.  ``impl``: ``None`` runs the kernels, ``"ref"``
-    the oracles (`kernels.ops`).
+    without a card this raises.  One device: every placement slice folds
+    onto it.  A `launch.mesh.RankPool` (or a ``DeviceMesh``, or a list of
+    ranks): a process a rank, every rank building the same pipeline; the
+    pool's first rank calls ``run`` and ``close``, every other rank
+    ``work`` (module docstring, `remote`); each rank keeps only the
+    stages it runs (drawn from ``seed``, every stage is drawn in turn and
+    let go unless it runs here).  ``impl``: ``None`` runs the kernels, ``"ref"`` the
+    oracles (`kernels.ops`).
 
     ``overlap`` selects the asynchronous executor (a stream a stage, a
     lane thread a (stage, replica); the default) or the serial one;
@@ -627,19 +689,26 @@ class LMPipeline:
                  workers: int | None = None, params: dict | None = None,
                  schedule: Schedule | None = None, warmup: bool = True,
                  fusion_plan=None, impl: str | None = None):
+        from ...launch.mesh import as_rank_pool
         from . import as_selection
         sel = as_selection(sel)
-        pool = {resolve_device(d) for d in (devices if devices is not None else [device])}
-        if len(pool) != 1:
-            raise NotImplementedError(
-                f"LMPipeline runs on one device, got {sorted(map(str, pool))}")
-        self.device = pool.pop()
+        self.pool = as_rank_pool(devices, device) if devices is not None else None
+        if self.pool is None:
+            pool = {resolve_device(d) for d in (devices if devices is not None else [device])}
+            if len(pool) != 1:
+                raise NotImplementedError(
+                    f"LMPipeline runs on one device in one process, got "
+                    f"{sorted(map(str, pool))}; over several devices it runs a "
+                    f"process a device (devices=launch.mesh.RankPool)")
+            self.device = pool.pop()
+        else:
+            self.device = self.pool.device
         self.cfg = cfg
         self.schedule = schedule
         self.stg = stg                 # kept for static verification
         self.sel = sel                 # (core.verify.verify_lm_plan)
         self.impl = ops.check_impl(impl)
-        self.placement = place(stg, sel, [self.device])
+        self.placement = place(stg, sel, self.pool if self.pool is not None else [self.device])
         self.overlap = overlap
         self.replica_queue = max(1, replica_queue)
         self.warmup = warmup
@@ -662,39 +731,31 @@ class LMPipeline:
                 f"{n_built} built decoder stages x "
                 f"{lps} layer(s): LMPipeline executes embed->blocks->head "
                 f"only (encoder/decoder pipelines are a ROADMAP item)")
+        self._working_depth = 0
+        self.capacity_blocks = capacity_blocks
+        self.workers = workers
+        self._layouts: dict = {}
+        self.owners: dict[str, list[str]] = {}
+        if self.pool is not None:
+            names = ["embed"] + [f"block{i:02d}" for i in range(n_built)] + ["head"]
+            for name in names:
+                self.owners[name] = self._owners_of(name, names[1:-1], graph_blocks, lps, sel)
+            self._init_ranks(names, params, layers_per_stage, seed, fusion_plan)
+            return
         if params is None:
             names, modules = build_lm_stages(cfg, layers_per_stage=layers_per_stage,
                                              seed=seed, device=self.device)
         else:
-            modules = dict(params)
             names = ["embed"] + [f"block{i:02d}" for i in range(n_built)] + ["head"]
+            modules = dict(params(names) if callable(params) else params)
             if list(modules) != names:
                 raise ValueError(f"params hold stages {list(modules)}, the plan "
                                  f"builds {names}")
         self.modules = modules
-        self._working_depth = 0
-        self.owners: dict[str, list[str]] = {}
         built_blocks = names[1:-1]
         stages = []
         for name in names:
-            if name in ("embed", "head"):
-                owners = [name]
-            else:
-                # built stage i holds layers [i*lps, (i+1)*lps) — slice the
-                # per-layer graph nodes with the same arithmetic
-                i = built_blocks.index(name)
-                owners = graph_blocks[i * lps:(i + 1) * lps]
-                if not owners:
-                    raise ValueError(
-                        f"stage {name}: no graph nodes map to it — the "
-                        f"graph/built-stage invariant above broke")
-                picks = {sel.choices[o] for o in owners}
-                if len(picks) > 1:
-                    raise ValueError(
-                        f"stage {name} groups graph nodes {owners} whose "
-                        f"plan choices differ ({sorted(picks)}) — the "
-                        f"executor would drop replicas the plan promised; "
-                        f"use layers_per_stage=1 or align the plan")
+            owners = self._owners_of(name, built_blocks, graph_blocks, lps, sel)
             # a fused stage does the work of all its owners' graph nodes;
             # use every owner's replica slices (nr x n_owners replicas, each
             # doing n_owners layers of work -> same planned capacity); on
@@ -710,19 +771,119 @@ class LMPipeline:
         self.stages: list[LMStage] = stages
         self.fusion_plan = None
         if fusion_plan is not None:
-            groups = self._resolve_fusion(fusion_plan)
+            groups = self._resolve_fusion(fusion_plan, {st.name: len(st.devices)
+                                                        for st in self.stages})
             if any(len(g) > 1 for g in groups):
                 self.stages = self._fuse_lm_stages(groups)
                 self.fusion_plan = tuple(groups)
-        self.capacity_blocks = capacity_blocks
-        self.workers = workers
         self.lanes = Lanes([len(st.devices) for st in self.stages], self._n_workers())
-        self._layouts: dict = {}
+
+    @staticmethod
+    def _owners_of(name: str, built_blocks: list, graph_blocks: list, lps: int,
+                   sel: Selection) -> list[str]:
+        """The graph nodes built stage ``name`` executes."""
+        if name in ("embed", "head"):
+            return [name]
+        # built stage i holds layers [i*lps, (i+1)*lps) — slice the
+        # per-layer graph nodes with the same arithmetic
+        i = built_blocks.index(name)
+        owners = graph_blocks[i * lps:(i + 1) * lps]
+        if not owners:
+            raise ValueError(
+                f"stage {name}: no graph nodes map to it — the "
+                f"graph/built-stage invariant above broke")
+        picks = {sel.choices[o] for o in owners}
+        if len(picks) > 1:
+            raise ValueError(
+                f"stage {name} groups graph nodes {owners} whose "
+                f"plan choices differ ({sorted(picks)}) — the "
+                f"executor would drop replicas the plan promised; "
+                f"use layers_per_stage=1 or align the plan")
+        return owners
+
+    # -- over ranks: construction ------------------------------------------
+    def _init_ranks(self, names: list, params, layers_per_stage, seed: int,
+                    fusion_plan) -> None:
+        """The stages over a `RankPool`, as the JAX package places them over
+        devices: each replica of a built stage on its placement slice's
+        ranks (its owners' slices, pooled); a fusion group's replicas pool
+        its members' slices, each on its slice's first rank, holding every
+        member's parameters; a tp > 1 slice of distinct ranks gets its
+        sub-mesh (`launch.mesh.submesh_of`, made by every rank in the same
+        order) and its stage's parameters as DTensors placed by
+        `launch.sharding.stage_param_shardings`.  This rank keeps the
+        modules of the stages it runs and drops the others."""
+        from ...launch.mesh import submesh_of
+        from ...launch.sharding import distribute_params, stage_param_shardings
+        from .remote import Controller
+        pool, rank = self.pool, self.pool.rank
+        slices = {n: [sl.devices for o in self.owners[n] for sl in self.placement.replicas_of(o)]
+                  or [(pool[0],)] for n in names}
+        groups = [(n,) for n in names]
+        self.fusion_plan = None
+        if fusion_plan is not None:
+            groups = self._resolve_fusion(fusion_plan, {n: len(slices[n]) for n in names})
+            if any(len(g) > 1 for g in groups):
+                self.fusion_plan = tuple(groups)
+        plan = []                          # (name, members, slices) a stage
+        for grp in groups:
+            if len(grp) == 1:
+                plan.append((grp[0], (), slices[grp[0]]))
+                continue
+            for m in grp:
+                if any(len(set(sl)) > 1 for sl in slices[m]):
+                    raise ValueError(f"cannot fuse tp-sharded stage {m}: stage combining "
+                                     f"requires single-device members")
+            name = "+".join(grp)
+            self.owners[name] = [o for m in grp for o in self.owners[m]]
+            plan.append((name, grp, [(sl[0],) for m in grp for sl in slices[m]]))
+        need = {m for name, members, sls in plan if any(rank in sl for sl in sls)
+                for m in (members or (name,))}
+        if params is None:
+            _, modules = build_lm_stages(self.cfg, layers_per_stage=layers_per_stage,
+                                         seed=seed, device=self.device, keep=need)
+        else:
+            if callable(params):
+                params = params([n for n in names if n in need])
+            missing = sorted(need - set(params))
+            if missing:
+                raise ValueError(f"rank {rank} runs stages {missing}, which params lack")
+            modules = {n: params[n] for n in names if n in need}
+        for name, module in modules.items():
+            if next(module.parameters()).device != self.device:
+                raise ValueError(f"stage {name} lives on {next(module.parameters()).device}, "
+                                 f"rank {rank} on {self.device}")
+        self.modules = modules
+        self.stages = []
+        for name, members, sls in plan:
+            meshes = [submesh_of(sl, device=self.device.type) for sl in sls]
+            mine = [k for k, sl in enumerate(sls) if rank in sl]
+            if len({meshes[k] is None for k in mine}) > 1 or \
+                    sum(meshes[k] is not None for k in mine) > 1:
+                raise NotImplementedError(
+                    f"stage {name}: rank {rank} is in several tp slices "
+                    f"{[sls[k] for k in mine]}; give the pool more ranks")
+            module = None
+            if mine:
+                module = (FusedStage({m: modules[m] for m in members}) if members
+                          else modules[name])
+                mesh = meshes[mine[0]]
+                if mesh is not None:
+                    distribute_params(module, stage_param_shardings(name, module, mesh,
+                                                                    self.cfg))
+            st = self._stage(name, module, len(sls), members=tuple(members))
+            st.ranks, st.meshes = [tuple(sl) for sl in sls], meshes
+            self.stages.append(st)
+        self.ranks = sorted({r for st in self.stages for sl in st.ranks for r in sl})
+        self._tp_lock = threading.Lock()
+        self.lanes = Lanes([len(st.devices) for st in self.stages], self._n_workers())
+        self._ctl = Controller(pool, self) if pool.is_controller else None
 
     def _stage(self, name: str, module: nn.Module, n_rep: int,
                members: tuple = ()) -> LMStage:
         impl = self.impl
-        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" and module is not None else None)
         return LMStage(
             name=name, module=module,
             fwd=AotProgram(lambda m, x: _stage_forward(m, x, impl), name=f"{name}.fwd",
@@ -731,19 +892,20 @@ class LMPipeline:
             acc=AotProgram(_fold, name=f"{name}.acc", stats=self.compile_stats),
             devices=[self.device] * n_rep,
             streams=[stream] * n_rep,
-            dtypes=[p.dtype for p in module.parameters()], members=members)
+            dtypes=[] if module is None else [p.dtype for p in module.parameters()],
+            members=members)
 
-    def _resolve_fusion(self, fusion_plan) -> list[tuple[str, ...]]:
+    def _resolve_fusion(self, fusion_plan, reps: dict) -> list[tuple[str, ...]]:
         """Normalise ``fusion_plan`` into a contiguous partition of the
-        built stage names.  ``"auto"`` asks `core.restructure.auto_fusion`
-        (block stages form the ``heavy`` set — merging them is
-        ``layers_per_stage``'s job; fusion absorbs the stateless
-        endpoints); an explicit plan is a list of adjacent-name tuples."""
-        names = [st.name for st in self.stages]
+        built stage names (``reps``: {name: replicas}, in stage order).
+        ``"auto"`` asks `core.restructure.auto_fusion` (block stages form
+        the ``heavy`` set — merging them is ``layers_per_stage``'s job;
+        fusion absorbs the stateless endpoints); an explicit plan is a list
+        of adjacent-name tuples."""
+        names = list(reps)
         if fusion_plan == "auto":
             from ...core import restructure
             heavy = [n for n in names if n.startswith("block")]
-            reps = {st.name: len(st.devices) for st in self.stages}
             return list(restructure.auto_fusion(
                 names, heavy=heavy, replicas=reps,
                 dev_in_score=False).groups)
@@ -854,6 +1016,7 @@ class LMPipeline:
         """Unpipelined forward — the same stage modules applied in sequence
         on the caller's stream; the pipelined serving run must match this
         bitwise."""
+        self._one_process("reference")
         outs = []
         with torch.no_grad():
             for mb in microbatches:
@@ -869,6 +1032,7 @@ class LMPipeline:
         — every stage's forward, the loss, every stage's backward in
         reverse — each stage's gradients folded in microbatch order.  Any
         schedule's run must match it bitwise."""
+        self._one_process("sequential")
         acc: list = [None] * self.n_stages
         losses = {}
         for k, mb in enumerate(microbatches):
@@ -896,6 +1060,11 @@ class LMPipeline:
         grads = {st.name: None if a is None else st.grad_tree(a)
                  for st, a in zip(self.stages, acc)}
         return grads, losses
+
+    def _one_process(self, what: str) -> None:
+        if self.pool is not None:
+            raise NotImplementedError(f"{what}() runs every stage in one process: build the "
+                                      f"pipeline on one device for it")
 
     def _edge_fifo(self, producer: LMStage, consumer: LMStage) -> Fifo:
         # a slot is occupied from producer *dispatch* (reservation) to
@@ -981,6 +1150,11 @@ class LMPipeline:
         ``warmup``), so that none lands inside a timed run."""
         overlap = self.overlap if overlap is None else overlap
         sched = self._resolve_schedule(schedule, len(microbatches), train)
+        if self.pool is not None:
+            self._check_controller()
+            self._bracket(lambda: self._warm_ranks(tuple(np.shape(microbatches[0])), train,
+                                                   loss_fn, overlap))
+            return
         with self._working_copies():
             self._warm_run(self._tokens(microbatches[0]), train, loss_fn, overlap, sched)
 
@@ -1037,11 +1211,184 @@ class LMPipeline:
         PyTorch keys a workspace by (cuBLAS handle, stream) and frees them
         only all at once, so the workspaces of other threads go too and are
         made again at their next product: call it while no other thread
-        runs one."""
+        runs one.  Over ranks, the controller's ``close`` stops every rank's
+        worker, each of which does so on its rank (``rank_bytes_sent``: what
+        each rank sent to the others, over the pipeline's life)."""
+        if self.pool is None:
+            self.close_lanes()
+        elif self._ctl is not None:
+            self.rank_bytes_sent = self._ctl.close()
+
+    def close_lanes(self) -> None:
         self.lanes.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch._C._cuda_clearCublasWorkspaces()
+
+    # -- over ranks: the workers' side ----------------------------------------
+    def _sharded(self, st: LMStage, rep: int):
+        """The sharding context of replica ``rep``'s tp sub-mesh (held one
+        body at a time on this rank: the context is the process's), or
+        none."""
+        mesh = st.meshes[rep] if st.meshes else None
+        if mesh is None:
+            return contextlib.nullcontext()
+        from ... import sharding_ctx as sc
+
+        @contextlib.contextmanager
+        def held():
+            with self._tp_lock, sc.activate(sc.from_mesh(mesh)):
+                yield
+        return held()
+
+    @staticmethod
+    def _spmd(st: LMStage, rep: int, x):
+        """``x`` replicated over replica ``rep``'s sub-mesh (a tp slice's
+        input), or as it is."""
+        mesh = st.meshes[rep] if st.meshes else None
+        if mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    @staticmethod
+    def _spmd_grads(st: LMStage, rep: int, p_bar: list) -> list:
+        """A tp slice's parameter gradients laid out as their parameters."""
+        if not st.meshes or st.meshes[rep] is None:
+            return p_bar
+        return [g.redistribute(p.device_mesh, p.placements) for g, p in zip(p_bar, st.params)]
+
+    def _on_begin(self, w, cmd, inputs):
+        """A run starts here: the working copies are made (`OverRanks`)."""
+        super()._on_begin(w, cmd, inputs)
+        self._rank_copies = contextlib.ExitStack()
+        self._rank_copies.enter_context(self._working_copies())
+        return {}
+
+    def _on_end(self, w, cmd, inputs):
+        """A run ends here: the working copies go, after the device's last
+        reads of them."""
+        self._rank_copies.close()
+        return super()._on_end(w, cmd, inputs)
+
+    def _on_warm(self, w, cmd, inputs):
+        """Every program of this rank's (stage, replica)s run once, on zero
+        inputs of the run's shape, where the run will run it: overlapped,
+        on the (stage, replica)'s lane thread and stream; else here; and
+        the fold on this thread, where folds run, on replica 0's ranks."""
+        train, overlap = cmd["train"], cmd["overlap"]
+        for i, st in enumerate(self.stages):
+            for rep, sl in enumerate(st.ranks):
+                if w.rank not in sl:
+                    continue
+                args = (i, rep, cmd["shape"], train, cmd["loss_fn"], overlap)
+                pb, src = (self.lanes.submit(i, rep, self._warm_rank_stage, *args).result()
+                           if overlap else self._warm_rank_stage(*args))
+                if pb is not None and w.rank in st.ranks[0]:
+                    st.acc.precompile(self._fold_into(st, None, pb, src), pb)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {}
+
+    def _warm_rank_stage(self, i: int, rep: int, shape, train: bool, loss_fn, overlap: bool):
+        """`_warm_stage` on zeros of this stage's input (token ids, or the
+        bfloat16 activations the embed stage gives), SPMD on a tp slice."""
+        st = self.stages[i]
+        x = (torch.zeros(shape, dtype=torch.long, device=self.device) if i == 0 else
+             torch.zeros((*shape, self.cfg.d_model), dtype=torch.bfloat16, device=self.device))
+        with self._sharded(st, rep):
+            _, pb, stream = self._warm_stage(i, rep, self._spmd(st, rep, x), train, loss_fn,
+                                             overlap)
+            return None if pb is None else self._spmd_grads(st, rep, pb), stream
+
+    def _on_fwd(self, w, cmd, inputs):
+        """An F op on this rank (`_fwd_op`, on a tp slice SPMD over its
+        sub-mesh): its output kept here for the consumer, with its vjp."""
+        from .remote import _full, meta_of
+        i, rep, mb, train = cmd["i"], cmd["rep"], cmd["mb"], cmd["train"]
+        st = self._placed(self.stages[i], cmd["overlap"])
+        stream = st.streams[rep]
+        with self._sharded(st, rep):
+            with _on(stream):
+                x = w.get(inputs["x"], self.device)
+                if i == 0:
+                    x = x.to(self.device, torch.long)
+            ar = _fwd_op(st, rep, self._spmd(st, rep, x), train, i > 0, self.device)
+            y, vjp = ar.payload
+            out = self._after_spmd(st, rep, ar, stream, y)
+        if w.rank == st.ranks[rep][0]:
+            w.store[("y", i, mb)] = out
+        if train:
+            w.store[("vjp", i, mb)] = vjp
+        return AsyncResult({"meta": meta_of(out), "stream": stream_handle(stream)}, ar.watch)
+
+    def _on_bwd(self, w, cmd, inputs):
+        """A B op on this rank (`_bwd_op`): the head seeds from its own
+        logits; the parameter gradients stay here for the fold, the input's
+        for the producer."""
+        from .remote import meta_of
+        i, rep, mb = cmd["i"], cmd["rep"], cmd["mb"]
+        st = self._placed(self.stages[i], cmd["overlap"])
+        stream = st.streams[rep]
+        vjp = w.store.pop(("vjp", i, mb))
+        w.store.pop(("y", i, mb), None)
+        with self._sharded(st, rep):
+            y_bar, logits = None, vjp[0]
+            if i < self.n_stages - 1:
+                with _on(stream):
+                    y_bar = self._spmd(st, rep, w.get(inputs["y_bar"], self.device))
+                logits = None
+            ar = _bwd_op(st, rep, vjp, y_bar, logits, cmd["loss_fn"], self.device)
+            p_bar, x_bar, lval = ar.payload
+            p_bar = self._spmd_grads(st, rep, p_bar)
+            x_bar = self._after_spmd(st, rep, ar, stream, x_bar)
+        w.store[("pbar", i, mb)] = p_bar
+        if x_bar is not None and w.rank == st.ranks[rep][0]:
+            w.store[("xbar", i, mb)] = x_bar
+        return AsyncResult({"meta_x": meta_of(x_bar), "meta_p": meta_of(p_bar), "loss": lval,
+                            "stream": stream_handle(stream)}, ar.watch)
+
+    def _after_spmd(self, st: LMStage, rep: int, ar: AsyncResult, stream, t):
+        """A tp slice's output (or input gradient) whole on each of its ranks,
+        the op's watch then taken after that collective; ``t`` else."""
+        if not st.meshes or st.meshes[rep] is None or t is None:
+            return t
+        from .remote import _full
+        with _on(stream):
+            t = _full(t)
+            ar.watch = [DeviceWatch(self.device)]
+        return t
+
+    def _on_fold(self, w, cmd, inputs):
+        """Fold one microbatch's parameter gradients into the stage's
+        accumulator here, on replica 0's rank, on this thread: the
+        controller posts the folds of a stage in microbatch order."""
+        i, rep = cmd["i"], cmd["rep"]
+        st = self.stages[i]
+        opened = inputs["pbar"]
+        pb = w.get(opened, self.device)
+        here = opened[0] == "have"
+        if not here and st.meshes[0] is not None:
+            from torch.distributed.tensor import DTensor
+            pb = [DTensor.from_local(t, p.device_mesh, p.placements, run_check=False,
+                                     shape=p.shape, stride=p.stride())
+                  for t, p in zip(pb, st.params)]
+        src = st.streams[rep] if here and cmd["overlap"] else None
+        w.store[("acc", i)] = self._fold_into(st, w.store.get(("acc", i)), pb, src)
+
+    def _on_grads(self, w, cmd, inputs):
+        """The stage's accumulated gradients, whole (a tp slice's gathered),
+        kept for the controller to fetch from replica 0's first rank."""
+        from .remote import _full, meta_of
+        i = cmd["i"]
+        st = self.stages[i]
+        acc = w.store.pop(("acc", i), None)
+        if acc is None:
+            return {"meta": None}
+        full = [_full(a) for a in acc]
+        if w.rank == st.ranks[0][0]:
+            w.store[("grads", i)] = full
+        return {"meta": meta_of(full), "names": [n for n, _ in st.module.named_parameters()]}
 
     def run(self, microbatches: list, *, train: bool = False,
             loss_fn=None, overlap: bool | None = None,
@@ -1073,11 +1420,15 @@ class LMPipeline:
         = escape hatch; the deadlock report then notes preflight was
         skipped).
         """
+        if self.pool is not None:
+            self._check_controller()
         overlap = self.overlap if overlap is None else overlap
         n_micro = len(microbatches)
         M = self.n_stages
         sched = self._resolve_schedule(schedule, n_micro, train)
-        mbs = [self._tokens(mb) for mb in microbatches]
+        mbs = ([np.asarray(mb.cpu() if isinstance(mb, torch.Tensor) else mb)
+                for mb in microbatches] if self.pool is not None
+               else [self._tokens(mb) for mb in microbatches])
         acts = [self._edge_fifo(self.stages[i], self.stages[i + 1])
                 for i in range(M - 1)]             # i -> i+1 activations
         grds = [self._edge_fifo(self.stages[i + 1], self.stages[i])
@@ -1087,6 +1438,10 @@ class LMPipeline:
             report = self._preflight(sched, n_micro, train,
                                      [f.capacity for f in acts],
                                      [f.capacity for f in grds or []])
+        if self.pool is not None:
+            return self._run_ranks(sched, mbs, acts, grds, report, train=train,
+                                   loss_fn=loss_fn, overlap=overlap, tracer=tracer,
+                                   injector=injector)
         with self._working_copies():
             return self._execute(sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn,
                                  overlap=overlap, tracer=tracer, injector=injector)
@@ -1094,10 +1449,37 @@ class LMPipeline:
     def _execute(self, sched: Schedule, mbs: list, acts: list, grds: list | None, report, *,
                  train: bool, loss_fn, overlap: bool, tracer, injector) -> LMPipelineResult:
         """`run` past its checks: the warm-up, the engine, the result."""
-        M, p, n_micro = self.n_stages, sched.n_stages, len(mbs)
         if self.warmup and mbs:
             self._warm_run(mbs[0], train, loss_fn, overlap, sched)
         lanes, _ = self._layout(sched)
+        res, engine, raw_losses, grads, _ = self._drive(
+            _LMStageProgram, sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn,
+            overlap=overlap, tracer=tracer, injector=injector, lanes=lanes,
+            workers=self._n_workers())
+        # drain the async tail before reading the wall clock; the outputs,
+        # made on the stages' streams, are the caller's from here on
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            here = torch.cuda.current_stream(self.device)
+            for o in res.outputs:
+                if o is not None:
+                    o.record_stream(here)
+        res.losses = {mb: float(v) for mb, v in sorted(raw_losses.items())}
+        res.mb_done_s.sort()
+        res.wall_s = time.perf_counter() - engine.t0
+        if grads is not None:
+            res.grads = {st.name: None if grads[st.name] is None
+                         else st.grad_tree(grads[st.name]) for st in self.stages}
+        return res
+
+    def _drive(self, program, sched: Schedule, mbs: list, acts: list, grds: list | None,
+               report, *, train: bool, loss_fn, overlap: bool, tracer, injector, lanes,
+               workers: int):
+        """The engine over one ``program`` (an `_LMStageProgram` class) a
+        physical stage of ``sched``: (the result with the engine's streams
+        and the FIFOs' stats, the engine, the raw losses, the folded
+        gradients, the programs)."""
+        M, p, n_micro = self.n_stages, sched.n_stages, len(mbs)
         fifo_map = {}
         for i in range(M - 1):
             fifo_map[f"act{i}"] = acts[i]
@@ -1118,16 +1500,15 @@ class LMPipeline:
         raw_losses: dict[int, object] = {}
         streams: set = set()
         programs = [
-            _LMStageProgram(s, self, sched.stage_ops[s],
-                            chunks=[sched.model_stage(s, c)
-                                    for c in range(sched.n_chunks)],
-                            acts=acts, grds=grds, res=res,
-                            microbatches=mbs, train=train,
-                            loss_fn=loss_fn, grads=grads,
-                            raw_losses=raw_losses, overlap=overlap, streams=streams)
+            program(s, self, sched.stage_ops[s],
+                    chunks=[sched.model_stage(s, c)
+                            for c in range(sched.n_chunks)],
+                    acts=acts, grds=grds, res=res,
+                    microbatches=mbs, train=train,
+                    loss_fn=loss_fn, grads=grads,
+                    raw_losses=raw_losses, overlap=overlap, streams=streams)
             for s in range(p)]
-        engine = Engine(programs, overlap=overlap,
-                        workers=self._n_workers(),
+        engine = Engine(programs, overlap=overlap, workers=workers,
                         replica_queue=self.replica_queue,
                         tracer=tracer, fifos=fifo_map, lanes=lanes,
                         injector=injector, static_report=report)
@@ -1141,23 +1522,144 @@ class LMPipeline:
         res.op_trace = er.op_trace
         res.max_inflight = er.max_inflight
         res.streams_used = len(streams)
-
-        # drain the async tail before reading the wall clock; the outputs,
-        # made on the stages' streams, are the caller's from here on
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            here = torch.cuda.current_stream(self.device)
-            for o in res.outputs:
-                if o is not None:
-                    o.record_stream(here)
-        res.losses = {mb: float(v) for mb, v in sorted(raw_losses.items())}
-        res.mb_done_s.sort()
-        res.wall_s = time.perf_counter() - engine.t0
-        if grads is not None:
-            res.grads = {st.name: None if grads[st.name] is None
-                         else st.grad_tree(grads[st.name]) for st in self.stages}
         for i in range(M - 1):
             res.fifo_stats[("act", i)] = acts[i].stats
             if grds is not None:
                 res.fifo_stats[("grd", i)] = grds[i].stats
+        return res, engine, raw_losses, grads, programs
+
+    # -- over ranks: the controller's side -------------------------------------
+    def _run_ranks(self, sched: Schedule, mbs: list, acts: list, grds: list | None, report, *,
+                   train: bool, loss_fn, overlap: bool, tracer, injector) -> LMPipelineResult:
+        """`run` over ranks: every rank makes its working copies and warms its
+        programs, then the engine runs the schedule here, each op posted to
+        the ranks of its replica's slice (`_RankStageProgram`); then the
+        gradients (or the logits) come here, and each rank's costs."""
+        import pickle
+        if injector is not None:
+            raise NotImplementedError("replica faults across ranks are a ROADMAP item")
+        if train and loss_fn is not None:
+            try:
+                pickle.dumps(loss_fn)
+            except Exception as e:
+                raise ValueError("over ranks, loss_fn goes to the head's rank: pass a "
+                                 "module-level function") from e
+        res, costs = self._bracket(lambda: self._execute_ranks(
+            sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn, overlap=overlap,
+            tracer=tracer))
+        for r, c in costs.items():
+            res.ranks.setdefault(r, {}).update(c)
         return res
+
+    def _warm_ranks(self, shape: tuple, train: bool, loss_fn, overlap: bool) -> None:
+        key = (shape, train, getattr(loss_fn, "__code__", loss_fn), overlap)
+        if key not in self._warmed:
+            self._ctl.run_on(self.ranks, {"fn": "warm", "shape": shape, "train": train,
+                                          "loss_fn": loss_fn, "overlap": overlap}, "warm-up")
+            self._warmed.add(key)
+
+    def _execute_ranks(self, sched: Schedule, mbs: list, acts: list, grds: list | None,
+                       report, *, train: bool, loss_fn, overlap: bool,
+                       tracer) -> LMPipelineResult:
+        from .engine import RemoteLanes
+        ctl = self._ctl
+        if self.warmup and mbs:
+            self._warm_ranks(tuple(mbs[0].shape), train, loss_fn, overlap)
+        ctl.run_on(self.ranks, {"fn": "window"}, "window")
+        res, engine, raw_losses, _, programs = self._drive(
+            _RankStageProgram, sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn,
+            overlap=overlap, tracer=tracer, injector=None, lanes=RemoteLanes(), workers=1)
+        res.wall_s = time.perf_counter() - engine.t0
+        res.losses = {mb: float(v) for mb, v in sorted(raw_losses.items())}
+        res.mb_done_s.sort()
+        for prog in programs:
+            for r, host_s in prog.rank_host_s.items():
+                d = res.ranks.setdefault(r, {})
+                d["host_s"] = d.get("host_s", 0.0) + host_s
+        if train:
+            res.grads = {}
+            for i, st in enumerate(self.stages):
+                reps = ctl.run_on(st.ranks[0], {"fn": "grads", "i": i}, f"grads of {st.name}")
+                first = reps[st.ranks[0][0]]
+                res.grads[st.name] = None if first["meta"] is None else st.grad_tree(
+                    ctl.fetch(Ref(st.ranks[0][0], ("grads", i), first["meta"])),
+                    names=first["names"])
+        else:
+            res.outputs = [None if ref is None else ctl.fetch(ref) for ref in res.outputs]
+        return res
+
+
+class _RankStageProgram(_LMStageProgram):
+    """`_LMStageProgram` over ranks: the same schedule, ready checks, FIFO
+    credits and fold order; an op is posted to the ranks of its replica's
+    slice, its input sent there from the rank that holds it, and a FIFO
+    token is a `remote.Ref` to a tensor that stays on its rank.  The folds
+    of a stage are posted in microbatch order to replica 0's ranks; a
+    replica on other ranks sends its gradients there."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.ctl = self.pipe._ctl
+        self.rank_host_s: dict[int, float] = {}
+
+    def _launch_fwd(self, st: LMStage, i: int, rep: int, mb: int, x):
+        ranks = st.ranks[rep]
+        specs = ({r: ("value", x) for r in ranks} if i == 0
+                 else self.ctl.inputs_for(x, ranks))
+        return self._post(st, i, rep, mb, "F", {"fn": "fwd", "train": self.train}, "x", specs)
+
+    def _launch_bwd(self, st: LMStage, i: int, rep: int, mb: int, vjp, y_bar, logits):
+        # the logits and the vjp stay on the head's rank and the op's
+        specs = {} if y_bar is None else self.ctl.inputs_for(y_bar, st.ranks[rep])
+        return self._post(st, i, rep, mb, "B", {"fn": "bwd", "loss_fn": self.loss_fn},
+                          "y_bar", specs)
+
+    def _post(self, st: LMStage, i: int, rep: int, mb: int, kind: str, fields: dict,
+              name: str, specs: dict):
+        """The op's command to every rank of its slice, ``specs`` its input
+        ``name`` on each rank (none: no input); the task the engine polls."""
+        ranks = st.ranks[rep]
+        what = f"{kind} of {st.name} replica {rep} microbatch {mb}"
+        cmd = {"do": "run", "lane": (i, rep) if self.overlap else None, "i": i, "rep": rep,
+               "mb": mb, "overlap": self.overlap, "id": self.ctl.new_id(), "what": what,
+               **fields}
+        for r in dict.fromkeys(ranks):
+            self.ctl.post(r, dict(cmd, inputs={name: specs[r]} if specs else {}))
+        return posted, (self.ctl, cmd["id"], ranks, what)
+
+    def _reports(self, op: Op, result, engine: Engine):
+        """(the slice's first rank's report, every rank's, completion time),
+        each rank's host seconds booked."""
+        cid, t_done = result
+        reps = self.ctl.take(cid)
+        for r, rep in reps.items():
+            self.rank_host_s[r] = self.rank_host_s.get(r, 0.0) + rep["host_s"]
+            if engine.tracer is not None:
+                engine.tracer.op_rank(self.name, op.rep, r, rep["host_s"])
+            if rep.get("stream") is not None:
+                self.streams.add((r, rep["stream"]))
+        engine.result.stage_dispatch_s[self.name] += max(rep["host_s"] for rep in reps.values())
+        return reps[self.stages[op.chunk].ranks[op.rep][0]], reps, t_done
+
+    def _fwd_result(self, op: Op, result, engine: Engine):
+        first, _, t_done = self._reports(op, result, engine)
+        i, st = self.chunks[op.chunk], self.stages[op.chunk]
+        return Ref(st.ranks[op.rep][0], ("y", i, op.seq), first["meta"]), True, t_done
+
+    def _bwd_result(self, op: Op, result, engine: Engine):
+        first, reps, t_done = self._reports(op, result, engine)
+        i, st = self.chunks[op.chunk], self.stages[op.chunk]
+        return ((op.rep, {r: rep["meta_p"] for r, rep in reps.items()}),
+                Ref(st.ranks[op.rep][0], ("xbar", i, op.seq), first["meta_x"]),
+                first.get("loss"), t_done)
+
+    def _fold(self, st: LMStage, i: int, mb: int, p_bar) -> None:
+        """Each of replica 0's ranks folds the shard it holds, sent from the
+        rank of the same position in the replica that ran the op."""
+        rep, metas = p_bar
+        for j, r0 in enumerate(st.ranks[0]):
+            src = st.ranks[rep][j]
+            spec = self.ctl.inputs_for(Ref(src, ("pbar", i, mb), metas[src]), [r0])[r0]
+            self.ctl.post(r0, {"do": "run", "fn": "fold", "lane": None, "i": i, "rep": rep,
+                               "mb": mb, "overlap": self.overlap, "inputs": {"pbar": spec},
+                               "ack": False, "what": f"fold of {st.name} microbatch {mb}"})

@@ -1,7 +1,8 @@
 """Metrics registry over the tracer: counters, gauges, histograms — and
 the stall-based bottleneck attribution they enable.
 
-Copied verbatim from ``repro/runtime/pipeline/metrics.py``.
+Copied from ``repro/runtime/pipeline/metrics.py``; the port adds the
+rank counters of a pipeline over ranks (``pipeline.rank_host_s``).
 
 `trace.Tracer` records *events*; this module turns them into *numbers*:
 
@@ -144,7 +145,8 @@ def registry_from_trace(tracer: Tracer,
     """Fold a tracer's aggregates into a registry: per-stage busy time
     and utilization (needs ``wall_s`` — the run's makespan in the
     tracer's time unit), wait counters by (stage, reason), and
-    retire-latency histograms per (stage, replica)."""
+    retire-latency histograms per (stage, replica), and over ranks each
+    stage's op host seconds by rank."""
     reg = MetricsRegistry()
     stage_busy: dict[str, float] = {}
     for track, busy in tracer.busy.items():
@@ -161,6 +163,8 @@ def registry_from_trace(tracer: Tracer,
                           stage=stage, replica=str(rep))
         for dt in samples:
             h.observe(dt * 1e6)
+    for (stage, rank), s in tracer.rank_host_s.items():
+        reg.counter("pipeline.rank_host_s", stage=stage, rank=str(rank)).inc(s)
     for (stage, rep, t_fault, t_rec, n_replayed) in tracer.failovers:
         reg.counter("pipeline.failovers", stage=stage,
                     replica=str(rep)).inc()

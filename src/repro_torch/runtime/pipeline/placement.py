@@ -16,6 +16,13 @@ placement *oversubscribes*: slices wrap around the pool round-robin and the
 executor time-shares them: on one card every slice is the card, and its
 stages share it through their own CUDA streams.  ``Placement.oversubscription``
 reports the folding factor so measurements can be caveated.
+
+Over a `launch.mesh.RankPool` (a process a device) the pool is its ranks:
+slices hold ranks, and a plan wanting more chips than the pool has ranks
+folds onto them round-robin as onto devices, its stages sharing a rank's
+device through their own streams.  A rank pool's slices are its ranks
+already: ``StageSlice.resolve`` is for integer placements made without a
+pool.
 """
 from __future__ import annotations
 

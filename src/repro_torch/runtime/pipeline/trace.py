@@ -1,6 +1,7 @@
 """Structured pipeline tracing: a ring-buffer tracer both drivers feed.
 
-Copied verbatim from ``repro/runtime/pipeline/trace.py``.
+Copied from ``repro/runtime/pipeline/trace.py``; the port adds `Tracer.op_rank`,
+the rank each op of a pipeline over ranks ran on.
 
 The paper's loop — find the bottleneck or the excess capacity, then
 reselect/replicate/split — needs *measured evidence* of where time goes.
@@ -119,6 +120,10 @@ class Tracer:
         self.failovers: list[tuple] = []   # (stage, rep, t_fault, t_rec, n)
         self.fifo_watch: dict[str, FifoWatch] = {}     # label -> watch entry
         self.virtual = False
+        # a pipeline over ranks: the rank each op track ran on, and the host
+        # seconds its op bodies took there (reported by the rank's worker)
+        self.rank_of: dict[str, int] = {}              # track -> rank
+        self.rank_host_s: dict[tuple, float] = {}      # (stage, rank) -> s
 
     # -- clock binding (drivers call at run start) --------------------------
     def bind_wall(self, t0: float) -> None:
@@ -152,6 +157,15 @@ class Tracer:
             samples.append(t - t0)
         else:                                  # deterministic ring reservoir
             samples[self.n_retire[track] % _SAMPLE_CAP] = t - t0
+
+    def op_rank(self, stage: str, rep: int, rank: int, host_s: float) -> None:
+        """An op of (``stage``, ``rep``) ran on ``rank``, its body taking
+        ``host_s`` of that rank's host time: the controller merges each
+        rank's report into its own trace, whose spans (dispatch to
+        retirement, on the controller's clock) cover the op on every rank."""
+        self.rank_of[f"{stage}/r{rep}"] = rank
+        key = (stage, rank)
+        self.rank_host_s[key] = self.rank_host_s.get(key, 0.0) + host_s
 
     def wait(self, stage: str, reason: str, edge: str,
              t0: float, t: float) -> None:
@@ -249,8 +263,10 @@ class Tracer:
             t = tids.get(track)
             if t is None:
                 t = tids[track] = len(tids) + 1
-                events.append({"name": "thread_name", "ph": "M", "pid": 0,
-                               "tid": t, "args": {"name": track}})
+                rank = self.rank_of.get(track)
+                events.append({"name": "thread_name", "ph": "M", "pid": 0, "tid": t,
+                               "args": {"name": track if rank is None
+                                        else f"{track} @ rank {rank}"}})
             return t
 
         # cycles export 1:1 as us — relative spans are what matter

@@ -167,7 +167,7 @@ class LMServer:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(device=self.device, generator=gen)
-        if params.embed.device != self.device:
+        if params.embed.device != self.device and getattr(pipeline, "pool", None) is None:
             raise ValueError(f"params live on {params.embed.device}, the server on "
                              f"{self.device}")
         if mesh is not None:

@@ -46,28 +46,30 @@ def _child(rank, world, store, case, payload, out_dir):
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
-        result = CASES[case](rank, world, payload)
+        result = (CASES[case] if isinstance(case, str) else case)(rank, world, payload)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(result, fh)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(tmp_path, world: int, case: str, payload=None) -> list:
-    """Runs ``CASES[case](rank, world, payload)`` on ``world`` gloo ranks;
+def _spawn(tmp_path, world: int, case, payload=None) -> list:
+    """Runs ``CASES[case](rank, world, payload)`` on ``world`` gloo ranks
+    (or ``case(...)``, a module-level function of another test module);
     returns each rank's result.  Fails (after killing the ranks) past
     TIMEOUT_S or when a rank fails."""
     import torch.multiprocessing as mp
-    out = tmp_path / f"{case}-out"
+    name = case if isinstance(case, str) else case.__name__
+    out = tmp_path / f"{name}-out"
     out.mkdir()
-    store = tmp_path / f"{case}-store"
+    store = tmp_path / f"{name}-store"
     ctx = mp.start_processes(_child, args=(world, str(store), case, payload, str(out)),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + TIMEOUT_S
     try:
         while not ctx.join(timeout=max(0.1, min(2.0, deadline - time.monotonic()))):
             if time.monotonic() > deadline:
-                pytest.fail(f"{case}: {world} ranks did not finish in {TIMEOUT_S:.0f} s")
+                pytest.fail(f"{name}: {world} ranks did not finish in {TIMEOUT_S:.0f} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():

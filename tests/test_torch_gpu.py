@@ -1685,3 +1685,28 @@ def test_mesh_phase_at_a_two_layer_cut(cuda):
     assert len(tokens) == 8 and all(1 <= len(t) <= 8 for t in tokens)
     assert set(rounds) == {"train", "serve"}
     assert all(n > 0 for r in rounds.values() for n in r.values()), rounds
+
+
+def test_ranks_phase_at_a_two_layer_cut(cuda):
+    """``chip_smoke.py``'s phase 19 at qwen2.5-3b's and mamba2-370m's full
+    width cut to 2 layers: two processes share the card as the ranks of a
+    gloo pool; 1F1B and interleaved training bitwise the one-rank
+    pipeline's, two-rank serving tokens equal to the one-rank pipeline's,
+    every rank launching the kernels of its stages and no plain version."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke                    # by name: the spawned ranks import it
+
+    rng = np.random.default_rng(0)
+    prompts = {name: [rng.integers(2, get_config(name).vocab, n).tolist()
+                      for n in rng.integers(64, 401, 8)]
+               for name in ("qwen2.5-3b", "mamba2-370m")}
+    tokens, rounds = chip_smoke.ranks_phase("test", prompts, layers=2, serve_layers=2)
+    assert set(tokens) == set(prompts)
+    assert all(len(t) == 8 and all(1 <= len(x) <= 32 for x in t) for t in tokens.values())
+    assert set(rounds) == {"train 1f1b", "train interleaved", "serve qwen2.5-3b",
+                           "serve mamba2-370m"}
+    assert all(set(by_rank) == {0, 1} for by_rank in rounds.values()), rounds
