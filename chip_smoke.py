@@ -259,11 +259,22 @@ script exits non-zero without its result line.  The phases:
     two-rank run with every rank's plain versions counted (none may run)
     and every kernel of each rank's stages launched there.  Recorded: wall
     seconds and tok/s beside the one-rank pipeline's, the bytes each rank
-    sent, launches and host seconds by rank, peak memory by rank.  tp > 1
-    needs collectives that gloo lacks for CUDA tensors: it runs on the CPU
-    only (``tests/test_torch_pipe_ranks.py``);
+    sent, launches and host seconds by rank, peak memory by rank.  Then
+    phase 9's drills on the same two ranks (`rank_drills`; records
+    ``"ranks_drill"``, ``"ranks_escalation"``): qwen2.5-3b at full width
+    and depth, 9 layers a stage, two groups of 4: crashes (overlapped and
+    serial), a stall driving a ``HealthController`` (a slice moved rank to
+    rank), the lone embed replica's crash, a pause resumed on the same
+    pool, and one resumed on a successor on rank 0 alone at 12 layers a
+    stage; each drill's tokens equal the uninterrupted two-rank serve's
+    and phase 4's, every kernel of each rank's stages launched (replays
+    included), no plain version;
+    and (i) gains a crash that escalates, then a 1F1B run bitwise the
+    first.  tp > 1 needs collectives that gloo lacks for CUDA tensors: it
+    runs on the CPU only (``tests/test_torch_pipe_ranks.py``);
 17. the ``kernels`` record (with phase 18's ``mesh_launches`` and phase
-    19's ``rank_launches``), the card's name and power limit, and last the
+    19's ``rank_launches``, its drills' among them), the card's name and
+    power limit, and last the
     result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2977,6 +2988,153 @@ def _rank_counted(pipe, fn, names, what):
     return out, {r: costs[r]["launches"] for r in sorted(costs)}
 
 
+def rank_peak_reset(pipe) -> None:
+    """On one rank: its process's peak-memory mark reset."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def rank_peak(pipe) -> int:
+    """On one rank: its process's peak allocated bytes since the reset."""
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def rank_drills(rank: int, pool, spec: dict):
+    """Phase 19's (iv): phase 9's drills over the two ranks, qwen2.5-3b at
+    full width and (ii)'s depth through a `DecodePipeline` at a quarter of
+    its layers a stage (9 at full depth; each block stage's replicas
+    alternate ranks, so ``blocks01`` r0 is on rank 0 and r1 on rank 1),
+    phase 4's 8 requests in two groups of 4 (a failover needs a group on
+    each replica), 32 new tokens: the uninterrupted serve; a crash of
+    ``blocks01`` r1 at token 6 (its group's slices replayed on rank 0); a
+    crash of ``blocks00`` r0 at its third op, serial; a stall of
+    ``blocks01`` r1 driving a `HealthController` (a slice moved from rank 1
+    to rank 0, re-plan advice); the lone embed replica's crash
+    (`PipelineFailure`, then a plain serve; before the rescale, which lets
+    rank 1's weights go); a pause after 8 tokens resumed on the same pool;
+    another resumed on the successor `rescale_serving` builds at one chip
+    on a pool of rank 0 alone at a third of the layers a stage (12) with
+    the advice (the weights rank 0 lacks moved from rank 1, the slices
+    replayed).  Each counted (`_rank_counted`), its peak memory by rank.
+    On rank 0 returns the records, else None."""
+    from repro_torch.analysis.roofline import HW_H100
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import planner
+    from repro_torch.graphs import lm_graph
+    from repro_torch.runtime.elastic import rescale_serving
+    from repro_torch.runtime.failures import PipelineFailure, ReplicaFaultPlan
+    from repro_torch.runtime.pipeline import DecodePipeline, HealthController, Tracer
+
+    cfg = get_config("qwen2.5-3b")
+    if spec["serve_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["serve_layers"])
+    # four block stages (two at a cut: a stage needs two layers, so two replicas)
+    pps, rescale_pps = max(2, cfg.n_layers // 4), max(1, cfg.n_layers // 3)
+    shape = ShapeCfg("serve_decode", 512, 4, "decode")
+    plan = planner.plan(cfg, shape, chips=1, hw=HW_H100, max_tp=1)
+    stg, _ = lm_graph.build_stg(cfg, shape, hw=HW_H100, max_tp=1)
+    pipe = DecodePipeline(cfg, stg, plan, devices=pool, seed=0, periods_per_stage=pps)
+    if rank != 0:
+        pipe.work()
+        return None
+    names = ["rmsnorm", "flash_attention", "fused_qkv_rope", "decode_attention",
+             "fused_out_residual"]
+    prompts = spec["prompts"]["qwen2.5-3b"]
+    pipe.warm(prompts, 32, group_size=4)
+    pipe.warm(prompts, 32, group_size=4, overlap=False)
+    out = {"stages": pipe.stage_names, "stage_ranks": pipe.stage_ranks, "drills": [],
+           "launches": {}}
+
+    def drill(label, target, fn, need=names, **extra):
+        target.call_ranks(rank_peak_reset)
+        t0 = time.perf_counter()
+        res, by_rank = _rank_counted(target, fn, need, f"2-rank drill {label}")
+        rec = dict(drill=label, seconds=time.perf_counter() - t0, tokens=res.tokens,
+                   paused=res.paused, late=target.compile_stats.late,
+                   failovers=res.failovers, migrations=res.migrations, adopted=res.adopted,
+                   launches_by_rank=by_rank,
+                   bytes_sent_by_rank={r: c["bytes_sent"] for r, c in res.ranks.items()},
+                   bytes_moved_by_rank={r: c["bytes_moved"] for r, c in res.ranks.items()},
+                   host_s_by_rank={r: c["host_s"] for r, c in res.ranks.items()},
+                   drill_peak_memory_by_rank=target.call_ranks(rank_peak), **extra)
+        out["drills"].append(rec)
+        out["launches"][f"drill {label}"] = by_rank
+        if rec["late"]:
+            raise AssertionError(f"2-rank drill {label}: {rec['late']} late calls")
+        return res, rec
+
+    drill("uninterrupted, two groups of 4", pipe,
+          lambda: pipe.serve(prompts, 32, group_size=4))
+    for label, fault, kw in (("crash blocks01:r1@tok6", "blocks01:r1@tok6=crash", {}),
+                             ("crash blocks00:r0@op3 overlap=False", "blocks00:r0@op3=crash",
+                              {"overlap": False})):
+        inj = ReplicaFaultPlan.parse(fault)
+        res, rec = drill(label, pipe, lambda: pipe.serve(prompts, 32, group_size=4,
+                                                         injector=inj, **kw))
+        rec["fired"] = inj.fired
+        if inj.fired != 1 or len(res.failovers) != 1:
+            raise AssertionError(f"2-rank drill {label}: fired {inj.fired}, "
+                                 f"failovers {res.failovers}")
+
+    tracer = Tracer()
+    hc = HealthController(tracer=tracer, threshold=1.5, min_samples=4, check_every=1,
+                          replan_after=2)
+    stall = ReplicaFaultPlan.parse("blocks01:r1@op1=stall:0.03x999")
+    res, rec = drill("stall blocks01:r1@op1 x0.03s, health", pipe, lambda: pipe.serve(
+        prompts, 32, group_size=4, tracer=tracer, injector=stall, health=hc))
+    rec.update(fired=stall.fired, health_migrations=hc.migrations, advice=hc.replan_advice,
+               stage_host_s_by_rank={f"{s}@{r}": v for (s, r), v in tracer.rank_host_s.items()})
+    slow = pipe.stage_ranks[pipe.stage_names.index("blocks01")][1]     # rank 1 at 9 a stage
+    away = [m for m in res.migrations if m["from_rank"] == slow != m["to_rank"]]
+    rec["moved_away"] = away
+    if not away or not hc.replan_advice:
+        raise AssertionError(f"2-rank health drill: migrations {res.migrations}, advice "
+                             f"{hc.replan_advice}")
+
+    try:
+        pipe.serve(prompts, 32, group_size=4,
+                   injector=ReplicaFaultPlan.parse("embed:r0@op2=crash"))
+        raise AssertionError("2-rank drill: a crash of the lone embed replica did not raise")
+    except PipelineFailure as e:
+        need = {"fifo_occupancy", "waiting", "schedule", "reorder_occupancy", "lost_ops",
+                "failovers", "static_preflight"}
+        out["escalation"] = dict(stage=e.stage, replica=e.replica, reason=e.reason,
+                                 bundle_keys=sorted(e.diagnostics),
+                                 lost_ops=e.diagnostics.get("lost_ops"))
+        if (e.stage, e.replica) != ("embed", 0) or not need <= set(e.diagnostics):
+            raise AssertionError(f"2-rank escalation: {out['escalation']}")
+    drill("plain serve after the escalation", pipe,
+          lambda: pipe.serve(prompts, 32, group_size=4))
+
+    def pause():
+        return pipe.serve(prompts, 32, group_size=4, pause_after_tokens=8)
+
+    paused, _ = drill("pause after 8 tokens, to resume here", pipe, pause)
+    # no prefill on this path: every slice adopted where it is
+    drill("resume on the same pool", pipe, lambda: pipe.resume(paused.resume_state),
+          need=[k for k in names if k != "flash_attention"])
+    paused, _ = drill("pause after 8 tokens, to rescale", pipe, pause)
+    t0 = time.perf_counter()
+    rs = rescale_serving(pipe, cfg, shape, plan, new_chips=1, stg=stg, devices=[0],
+                         periods_per_stage=rescale_pps,
+                         measured_ratio=hc.replan_advice, hw=HW_H100, max_tp=1)
+    rescale_s = time.perf_counter() - t0
+    succ = rs.pipe
+    succ.warm(prompts, 32, group_size=4)        # and its preflight (plain versions)
+    drill("resume on the successor, rank 0 alone", succ,
+          lambda: succ.resume(paused.resume_state), layers_a_stage=rescale_pps,
+          rescale=rs.summary(),
+          rescale_s=rescale_s, successor_stages=succ.stage_names,
+          weights_moved=succ.weights_moved, weights_held=succ.weights_held)
+    succ.close()
+    pipe.close()
+    return out
+
+
 def ranks_child(rank: int, spec: dict) -> None:
     """One of the two ranks of phase 19 (a process of its own): a gloo group
     of world 2 on the one card, a pool of both ranks with host-staged gloo
@@ -2995,6 +3153,8 @@ def ranks_child(rank: int, spec: dict) -> None:
     from repro_torch.graphs import lm_graph
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import init_distributed, rank_pool
+    from repro_torch.runtime.failures import (PipelineFailure, ReplicaFaultPlan,
+                                              ReplicaFaultSpec)
     from repro_torch.runtime.pipeline import (DecodePipeline, LMPipeline, interleaved_1f1b,
                                               selection_from_plan)
     from repro_torch.runtime.server import Request
@@ -3040,6 +3200,30 @@ def ranks_child(rank: int, spec: dict) -> None:
                                                        for r, c in res.ranks.items()},
                                 "host_s_by_rank": {r: c["host_s"] for r, c in res.ranks.items()},
                                 "late": pipe.compile_stats.late, "streams": res.streams_used}
+            # a crash on a single-replica block stage escalates (no failover
+            # hook); every rank drained, the pool's next 1F1B run is clean
+            inj = ReplicaFaultPlan(faults=[ReplicaFaultSpec(pipe.stages[1].name, 0, at=2)])
+            t0 = time.perf_counter()
+            try:
+                pipe.run(mbs, train=True, loss_fn=rank_loss, injector=inj)
+                raise AssertionError("2-rank training: an injected crash did not escalate")
+            except PipelineFailure as e:
+                esc = dict(stage=e.stage, replica=e.replica, reason=e.reason,
+                           no_failover_hook="no failover hook" in str(e),
+                           bundle_keys=sorted(e.diagnostics),
+                           lost_ops=e.diagnostics.get("lost_ops"),
+                           seconds=time.perf_counter() - t0)
+            again, launches = _rank_counted(
+                pipe, lambda: pipe.run(mbs, train=True, loss_fn=rank_loss), train_kernels,
+                "2-rank 1f1b after the escalation")
+            first = runs["1f1b"]
+            esc.update(again_wall_s=again.wall_s, launches_by_rank=launches,
+                       late=pipe.compile_stats.late, losses_bitwise=again.losses == first.losses,
+                       grads_bitwise=all(torch.equal(g, first.grads[n][k])
+                                         for n, tree in again.grads.items()
+                                         for k, g in tree.items()))
+            train["escalation"] = esc
+            del again
             pipe.close()
             del pipe
             gc.collect()
@@ -3057,7 +3241,8 @@ def ranks_child(rank: int, spec: dict) -> None:
                                     n_grad_leaves=sum(len(t) for t in ref.grads.values()))
                 del ref
             one.close()
-            del one, runs
+            # every gradient of the cut, fetched here: let it go before (ii)-(iv)
+            del one, runs, res, first, got
         gc.collect()
         torch.cuda.empty_cache()
         out["train"] = train
@@ -3109,7 +3294,12 @@ def ranks_child(rank: int, spec: dict) -> None:
             gc.collect()
             torch.cuda.empty_cache()
             out[name] = rec
+
+        # (iv) the drills, on the same two ranks
         out["peak_memory"] = torch.cuda.max_memory_allocated()
+        out["drills"] = rank_drills(rank, pool, spec)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     with open(spec["out"] + f".rank{rank}", "wb") as fh:
@@ -3131,12 +3321,17 @@ def ranks_phase(smi, prompts: dict, *, layers: int = 8,
           a `DecodePipeline` over both ranks (9 and 12 layers a stage),
           phase 4's 8 requests in one group of 8, then the one-rank
           pipeline in rank 0;
+      (iv) phase 9's drills over the two ranks (`rank_drills`): each
+          drill's tokens equal the uninterrupted two-rank serve's in two
+          groups of 4 (which the caller holds to phase 4's); and (i) gains
+          a crash that escalates, then a 1F1B run bitwise the first;
     each two-rank run counted: every rank ran no plain version and launched
     every kernel of its stages.  tp > 1 needs the collectives gloo lacks
     for CUDA tensors, so it runs on the CPU only (tests).  Returns the
-    served tokens by model, and the per-rank launches by run.
-    ``serve_layers`` cuts (ii) and (iii) in depth (a card test's short
-    run)."""
+    served tokens by model (and (iv)'s, under ``"drills"``), and the
+    per-rank launches by run.
+    ``serve_layers`` cuts (ii), (iii) and (iv) in depth (a card test's
+    short run)."""
     import pickle
     import shutil
 
@@ -3203,8 +3398,31 @@ def ranks_phase(smi, prompts: dict, *, layers: int = 8,
                                  f"pipeline's, or made {rec['late']} late calls")
         tokens[name] = rec["tokens"]
         launches[f"serve {name}"] = rec["launches_by_rank"]
+    esc = train["escalation"]
+    if not (esc["no_failover_hook"] and esc["losses_bitwise"]
+                                and esc["grads_bitwise"] and not esc["late"]):
+        raise AssertionError(f"2-rank training escalation: {esc}")
+    tokens["drills"] = rank_drill_records(base, r0["drills"])
+    launches.update(r0["drills"]["launches"])
     emit("ranks_phase_wall", seconds=wall, card=smi)
     return tokens, launches
+
+
+def rank_drill_records(base: dict, drills: dict) -> list:
+    """Emit (iv)'s records, hold each drill's tokens (the pauses aside) to
+    the uninterrupted two-rank serve's, and return those."""
+    ref = drills["drills"][0]["tokens"]
+    for rec in drills["drills"]:
+        checked = not rec["paused"]
+        emit("ranks_drill", **base, config="qwen2.5-3b", stages=drills["stages"],
+             stage_ranks=drills["stage_ranks"],
+             tokens_equal_uninterrupted=rec["tokens"] == ref if checked else None,
+             **{k: v for k, v in rec.items() if k != "tokens"})
+        if checked and rec["tokens"] != ref:
+            raise AssertionError(f"2-rank drill {rec['drill']}: tokens differ from the "
+                                 "uninterrupted serve's")
+    emit("ranks_escalation", **base, config="qwen2.5-3b", **drills["escalation"])
+    return ref
 
 
 def main() -> int:
@@ -4621,7 +4839,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     rank_tokens, rank_rounds = ranks_phase(smi, {"qwen2.5-3b": prompts,
                                                  "mamba2-370m": m_prompts})
-    same = {name: rank_tokens[name] == served_tokens[name] for name in rank_tokens}
+    want = dict(served_tokens, drills=served_tokens["qwen2.5-3b"])
+    same = {name: rank_tokens[name] == want[name] for name in rank_tokens}
     emit("ranks_phase", seconds=time.perf_counter() - t_phase, tokens_equal_phase_4=same,
          card=smi)
     if not all(same.values()):

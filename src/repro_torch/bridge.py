@@ -50,18 +50,34 @@ def _flat_jax(cfg: ModelConfig, params) -> dict:
     return out
 
 
-def from_jax(cfg: ModelConfig, params, *, device="cuda", param_dtype=None) -> LM:
+def from_jax(cfg: ModelConfig, params, *, device="cuda", param_dtype=None, keep=None) -> LM:
     """A port `LM` on ``device`` holding the JAX ``params`` (numpy leaves):
     for serving (``param_dtype`` None) in the compute dtype, or as trainable
-    masters of ``param_dtype`` (the JAX float32 masters as they are)."""
+    masters of ``param_dtype`` (the JAX float32 masters as they are).
+    ``keep``: as `models.lm.init_params`'s, a test of the names
+    ``"embed"``, ``"final_norm"``, ``"head"`` and ``"layers.<i>"``; what it
+    leaves out stays on the meta device (a rank of a pipeline over ranks
+    fills only its stages)."""
     model = LM(cfg, device=resolve_device(device), param_dtype=param_dtype)
     src = _flat_jax(cfg, params)
     dst = dict(model.named_parameters())
     if src.keys() != dst.keys():
         raise ValueError(f"{cfg.name}: JAX leaves {sorted(src.keys() ^ dst.keys())} "
                          "have no counterpart")
+    if keep is not None:
+        for name in ("embed", "final_norm", "head"):
+            held = getattr(model, name, None)
+            if held is not None and not keep(name):
+                setattr(model, name, torch.nn.Parameter(held.to("meta"),
+                                                        requires_grad=held.requires_grad))
+        for i, layer in enumerate(model.layers):
+            if not keep(f"layers.{i}"):
+                layer.to("meta")
+        dst = dict(model.named_parameters())
     with torch.no_grad():
         for name, leaf in src.items():
+            if dst[name].is_meta:
+                continue
             value = torch.from_numpy(np.array(leaf, dtype=np.float32))
             if value.shape != dst[name].shape:
                 raise ValueError(f"{name}: JAX shape {tuple(value.shape)}, "

@@ -22,7 +22,8 @@ later rescale takes it back in.
 
 A live serving pool (`rescale_serving`): the planner re-solves for the new
 budget and a successor `DecodePipeline` is built on the same weights,
-ready to adopt the drained pool's live state.
+ready to adopt the drained pool's live state; over ranks, on a subset of
+the pool's ranks, with the weights a rank lacks moved to it rank to rank.
 """
 from __future__ import annotations
 
@@ -136,7 +137,18 @@ def rescale_serving(pipe, cfg: ModelConfig, shape: ShapeCfg,
     ``plan_kw``: the planner options the old plan was made with (``hw``,
     ``max_tp``), which ``stg`` was built with too; they pass to
     ``planner.replan``.  ``devices``: where the successor runs (default:
-    ``pipe``'s device)."""
+    ``pipe``'s device, or over ranks ``pipe``'s pool).
+
+    Over ranks (``pipe`` on a `launch.mesh.RankPool`, called on its
+    controller while every other rank runs ``pipe.work()``): ``devices`` is
+    a subset of the pool's ranks that keeps its controller first.  The
+    controller alone re-plans and sends the plan to every rank, which
+    builds the successor on a pool of its own groups (a member's worker
+    runs beside ``pipe``'s, and ``pipe.work()`` returns once both closed);
+    each weight a successor rank lacks moves to it from a rank that holds
+    it, and a rank that leaves lets its weights go.  Then
+    ``rs.pipe.resume(state)`` adopts the parked slices, through ``pipe``
+    where one changes rank: close ``pipe`` after it."""
     if measured_ratio:
         stage_of = pipe.graph_stage_map()        # graph node -> stage name
         fanned: dict[str, float] = {}
@@ -148,14 +160,18 @@ def rescale_serving(pipe, cfg: ModelConfig, shape: ShapeCfg,
     new_plan, diff = planner.replan(cfg, shape, old_plan,
                                     new_chips=new_chips, engine=engine,
                                     measured_ratio=measured_ratio, **plan_kw)
+    kw = dict(periods_per_stage=(pipe.periods_per_stage
+                                 if periods_per_stage is None else periods_per_stage),
+              seed=pipe.seed, overlap=pipe.overlap, replica_queue=pipe.replica_queue,
+              workers=pipe.workers, temperature=pipe.temperature,
+              fusion_plan=pipe.fusion_plan, impl=pipe.impl, warmup=pipe.warmup)
+    if pipe.pool is not None:
+        ranks = pipe.pool.ranks if devices is None else devices
+        return ServingRescale(pipe=pipe._successor(stg, new_plan, list(ranks), kw),
+                              plan=new_plan, diff=diff)
     from .pipeline.decode import DecodePipeline
     new_pipe = DecodePipeline(
         cfg, stg, new_plan,
         devices=devices if devices is not None else [pipe.device],
-        periods_per_stage=(pipe.periods_per_stage
-                           if periods_per_stage is None else periods_per_stage),
-        seed=pipe.seed, params=pipe.params, overlap=pipe.overlap,
-        replica_queue=pipe.replica_queue, workers=pipe.workers,
-        temperature=pipe.temperature, fusion_plan=pipe.fusion_plan,
-        impl=pipe.impl, warmup=pipe.warmup)
+        params=pipe.params, **kw)
     return ServingRescale(pipe=new_pipe, plan=new_plan, diff=diff)

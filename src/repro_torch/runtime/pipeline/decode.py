@@ -71,8 +71,14 @@ replica of a stage on its placement slice's first rank (a tp > 1 slice
 folds there, as the JAX package folds it onto its first device), its
 caches resident there; the pool's first rank schedules and keeps the
 groups' bookkeeping, the head's rank reports each sampled token there,
-and it goes back to the embed stage in its next decode command.
-Failover, migration, pause and resume stay one-process (``ROADMAP.md``).
+and it goes back to the embed stage in its next decode command.  The drills
+run there too (`_RankServeStageProgram`): a replica on another rank fails
+over (its lost ops waited home on its rank, their outputs and its groups'
+slices freed there, each slice replayed on its survivor's rank, step by
+step on the ranks of the preceding stages), a migration moves a slice rank
+to rank, a pause parks the slices on their ranks (`remote.PARKED`), and a
+resume adopts, moves or replays each one, here or on the successor that
+`runtime.elastic.rescale_serving` builds over a subset of the ranks.
 Encoder-decoder and multimodal frontends are rejected: the pipeline runs
 embed -> blocks -> head only.
 
@@ -87,6 +93,7 @@ shape, dtype and storage as it found them.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field
 
@@ -106,7 +113,7 @@ from .channels import Fifo, StreamChannel
 from .engine import (AsyncResult, DeviceWatch, Engine, EngineResult, Lanes, Op,
                      RemoteLanes, describe_position)
 from .placement import Placement, place
-from .remote import OverRanks, Ref, meta_of, posted, stream_handle
+from .remote import OverRanks, Ref, meta_of, posted, stream_handle, tree_flatten, tree_meta
 
 
 # ===========================================================================
@@ -217,7 +224,15 @@ class ServeRunResult(EngineResult):
     resume_state: object = None        # `ResumeState` when paused
     ranks: dict = field(default_factory=dict)
     # over ranks: rank -> {"host_s": its op bodies' host seconds, "late",
-    # "bytes_sent", "launches": kernel launches in the timed serve}
+    # "bytes_sent", "bytes_moved" (of those, slices and weights moved),
+    # "launches": kernel launches in the timed serve}
+    migrations: list = field(default_factory=list)
+    # over ranks: one dict per migrated slice {stage, gid, from, to,
+    # from_rank, to_rank, bytes (moved rank to rank, 0 on one rank)}
+    adopted: dict = field(default_factory=dict)
+    # over ranks, a resume: {"moved": one dict per parked slice adopted
+    # {stage, gid, from_rank, to_rank, bytes}, "replayed": {stage, gid,
+    # rank} per slice rebuilt where the spans differ}
 
     @property
     def decode_tokens(self) -> int:
@@ -463,21 +478,7 @@ class _ServeStageProgram:
         replay of its prompt and fed-token history up to its last
         retired op here — bitwise what the dead replica held."""
         pipe, run = self.pipe, self.run
-        self.dead.add(rep)
-        alive = [r for r in range(self.n_replicas) if r not in self.dead]
-        if not alive:
-            raise PipelineFailure(
-                f"stage {self.name}: replica r{rep} was the last one — "
-                f"nothing left to fail over to",
-                stage=self.name, replica=rep)
-        moved = [gid for gid in range(len(run.groups))
-                 if self.rep_of(gid) == rep]
-        for i, gid in enumerate(moved):
-            self.rep_map[gid] = alive[i % len(alive)]
-        for op in lost:
-            kind, gid, seq, pos, payload = op.recover
-            self.inflight[gid] = self.inflight.get(gid, 1) - 1
-            self.redo.append((kind, gid, seq, pos, payload))
+        moved = self._take_over(rep, lost)
         here = pipe._owner_stream(self.s, rep, False)     # the current stream
         for gid in moved:
             old = self.caches.pop(gid, None)
@@ -490,6 +491,27 @@ class _ServeStageProgram:
                 reps = [run.programs[j].rep_of(gid) for j in range(self.s + 1)]
                 self.caches[gid] = pipe._replay_cache(
                     run.groups[gid], self.s, k, reps, run.overlap)
+
+    def _take_over(self, rep: int, lost: list) -> list:
+        """Mark replica ``rep`` dead, remap its groups round-robin onto the
+        survivors and queue the lost ops' redo; returns the moved groups.
+        No survivor -> `PipelineFailure`."""
+        self.dead.add(rep)
+        alive = [r for r in range(self.n_replicas) if r not in self.dead]
+        if not alive:
+            raise PipelineFailure(
+                f"stage {self.name}: replica r{rep} was the last one — "
+                f"nothing left to fail over to",
+                stage=self.name, replica=rep)
+        moved = [gid for gid in range(len(self.run.groups))
+                 if self.rep_of(gid) == rep]
+        for i, gid in enumerate(moved):
+            self.rep_map[gid] = alive[i % len(alive)]
+        for op in lost:
+            kind, gid, seq, pos, payload = op.recover
+            self.inflight[gid] = self.inflight.get(gid, 1) - 1
+            self.redo.append((kind, gid, seq, pos, payload))
+        return moved
 
     def migrate_gid(self, gid: int, to_rep: int) -> bool:
         """Move one group to another replica between its ops (straggler
@@ -572,6 +594,74 @@ def _run_stage(prog: AotProgram, params, x: torch.Tensor, device, stream, sample
     return AsyncResult(((y, cache, toks),), watch=[watch])
 
 
+_TOKENS = itertools.count()     # the controller's names of pauses and replays
+
+
+# -- over ranks: the weights a successor's rank lacks ---------------------------
+def _weight_names(cfg: ModelConfig) -> list:
+    """The weights by `lm.init_params`'s ``keep`` names."""
+    return (["embed", "final_norm"] + ([] if cfg.tie_embeddings else ["head"])
+            + [f"layers.{i}" for i in range(cfg.n_layers)])
+
+
+def _weight_slots(params, name: str) -> list:
+    """(module, attribute, tensor) of each tensor of weight ``name``."""
+    if not name.startswith("layers."):
+        return [(params, name, getattr(params, name))]
+    layer = params.layers[int(name.split(".")[1])]
+    out = []
+    for full, p in layer.named_parameters():
+        path, _, attr = full.rpartition(".")
+        out.append((layer.get_submodule(path), attr, p))
+    return out
+
+
+def _weight_tensors(params, name: str) -> list:
+    return [t for _, _, t in _weight_slots(params, name)]
+
+
+def _held_weights(pipe) -> list:
+    """The weights this rank holds (a function for `remote.Controller.call`)."""
+    return [n for n in _weight_names(pipe.cfg)
+            if not any(t.is_meta for t in _weight_tensors(pipe.params, n))]
+
+
+def _build_successor(pipe, spec: dict):
+    """On every rank of ``pipe``'s pool (the world, which makes the new
+    pool's groups): the successor's pool and, on its ranks, the successor on
+    ``pipe``'s weights (what a rank lacks comes next, `_on_install`).  A
+    member other than the controller runs the successor's worker beside
+    ``pipe``'s.  Returns the successor on the controller, else None."""
+    from ...launch.mesh import rank_pool
+    pool = rank_pool(spec["ranks"], device=pipe.device, transport=pipe.pool.transport,
+                     timeout_s=pipe.pool.timeout_s)
+    if pool.rank not in pool.ranks:
+        return None
+    succ = DecodePipeline(spec["cfg"], spec["stg"], spec["plan"], devices=pool,
+                          params=pipe.params, **spec["kw"])
+    pipe.successor = succ
+    if pool.is_controller:
+        return succ
+    succ._work_beside(pipe)
+    return None
+
+
+def _settle_weights(pipe, leaving: list) -> list:
+    """After the weight moves: a rank that leaves the pool lets its weights
+    go (``pipe``'s stages there with them); a successor binds its stages to
+    the weights its rank now holds.  Returns what this rank holds."""
+    if pipe.pool.rank in leaving:
+        for name in _weight_names(pipe.cfg):
+            for mod, attr, t in _weight_slots(pipe.params, name):
+                mod._parameters[attr] = torch.nn.Parameter(t.to("meta"),
+                                                           requires_grad=t.requires_grad)
+        pipe.stage_params = [{} for _ in pipe.stage_descs]
+    succ = getattr(pipe, "successor", None)
+    if succ is not None:
+        succ._bind_params()
+    return _held_weights(pipe)
+
+
 class _RankServeStageProgram(_ServeStageProgram):
     """`_ServeStageProgram` over ranks: the same op queue, routing and
     channels; an op is posted to its replica's rank (`_on_stage` there), its
@@ -579,32 +669,51 @@ class _RankServeStageProgram(_ServeStageProgram):
     is a `remote.Ref` to a hidden state that stays on its rank.  The head's
     rank reports the sampled token ids, which come back to the embed stage
     in its next decode command; a group's cache slices stay on their ranks
-    until the group is done."""
+    until the group is done (``caches`` holds each one's `remote.TreeMeta`
+    here, the slice itself stays on its replica's rank).
+
+    The drills: an op's hidden-state input is kept by its holder until the
+    op (or its redo on a survivor) retires; an injected stall rides in the
+    op's command (``stall_s``); a dead replica's lost ops are waited home
+    on its rank and what they made freed there (`drain_lost`), its groups'
+    slices freed there and replayed on the survivors' ranks
+    (`DecodePipeline._replay_ranks`); a migration moves the slice rank to
+    rank (``migrations`` of the run records each)."""
 
     def __init__(self, s: int, pipe: "DecodePipeline", run: "_ServeRun"):
         super().__init__(s, pipe, run)
         self.ctl = pipe._ctl
+        self.stall_s = 0.0                 # the engine's stall for the next op
+        self.sent: dict[int, tuple] = {}   # seq -> (command id, rank, replica)
+
+    def rank_of(self, rep: int) -> int:
+        return self.pipe.stage_ranks[self.s][rep]
 
     def _task_for(self, kind: str, gid: int, seq: int, pos: int, payload, rep: int):
         """The op's command to its replica's rank: ``payload`` (the prompt
-        or the fed-back tokens, or a `Ref` to the producer's hidden state)
-        inline or sent from the rank that holds it."""
+        or the fed-back tokens, or a `Ref` to the producer's hidden state,
+        which its holder keeps until this op retires) inline or sent from
+        the rank that holds it."""
         run = self.run
-        rank = self.pipe.stage_ranks[self.s][rep]
-        spec = (self.ctl.inputs_for(payload, [rank])[rank] if isinstance(payload, Ref)
-                else ("value", np.asarray(payload)))
+        rank = self.rank_of(rep)
+        spec = (self.ctl.inputs_for(payload, [rank], keep=True)[rank]
+                if isinstance(payload, Ref) else ("value", np.asarray(payload)))
         what = f"{kind} of {self.name} replica {rep} group {gid} (op {seq})"
         cid = self.ctl.post(rank, {
             "do": "run", "fn": "stage", "lane": (self.s, rep) if run.overlap else None,
             "s": self.s, "rep": rep, "kind": kind, "gid": gid, "seq": seq,
             "cap": run.groups[gid].cap, "temperature": run.temperature,
-            "overlap": run.overlap, "inputs": {"x": spec}, "what": what})
+            "overlap": run.overlap, "inputs": {"x": spec}, "stall_s": self.stall_s,
+            "what": what})
+        self.stall_s = 0.0
+        self.sent[seq] = (cid, rank, rep)
         return posted, (self.ctl, cid, [rank], what)
 
     def _outcome(self, op: Op, result, engine: Engine):
         run = self.run
         cid, t_done = result
-        rank = self.pipe.stage_ranks[self.s][op.rep]
+        rank = self.rank_of(op.rep)
+        self.sent.pop(op.seq, None)
         rep = self.ctl.take(cid)[rank]
         run.rank_host_s[rank] = run.rank_host_s.get(rank, 0.0) + rep["host_s"]
         if engine.tracer is not None:
@@ -612,15 +721,72 @@ class _RankServeStageProgram(_ServeStageProgram):
         engine.result.stage_dispatch_s[self.name] += rep["host_s"]
         if rep.get("stream") is not None:
             run.streams.add((rank, rep["stream"]))
+        if isinstance(op.recover[4], Ref):            # its input, kept till now
+            self.ctl.drop(op.recover[4].rank, [op.recover[4].key], "an op's input")
+        if rep.get("cache") is not None:
+            self.caches[run.gid_of[op.seq]] = rep["cache"]
         if self.pipe.stage_descs[self.s].has_head:    # the tokens, on the host only
             return None, None, (None, rep["tokens"]), t_done
-        return Ref(rank, ("h", self.s, op.seq), rep["meta"]), None, None, t_done
+        return Ref(rank, ("h", self.s, op.seq, op.rep), rep["meta"]), None, None, t_done
 
     def free(self, gid: int) -> None:
-        if self.pipe.period_span[self.s] is not None:
-            self.ctl.post(self.pipe.stage_ranks[self.s][self.rep_of(gid)], {
-                "do": "run", "fn": "free", "lane": None, "s": self.s, "gid": gid,
-                "ack": False, "what": f"free group {gid}'s cache of {self.name}"})
+        if self.caches.pop(gid, None) is not None:
+            self.ctl.drop(self.rank_of(self.rep_of(gid)), [("cache", self.s, gid)],
+                       f"free group {gid}'s cache of {self.name}")
+
+    # -- failover & rebalance over ranks -------------------------------------
+    def drain_lost(self, lost: list) -> None:
+        """The dead replica's rank lives (the fault is simulated) and runs
+        the lost ops to their end: wait each one's report home and drop it,
+        and free its output there."""
+        for op in lost:
+            cid, rank, rep = self.sent.pop(op.seq)
+            self.ctl.wait(cid, [rank], f"lost op {op.seq} of {self.name}")
+            if not self.pipe.stage_descs[self.s].has_head:
+                self.ctl.drop(rank, [("h", self.s, op.seq, rep)], f"lost op {op.seq}'s output")
+
+    def fail_replica(self, rep: int, driver, lost: list) -> None:
+        """`_ServeStageProgram.fail_replica` over ranks: the routing remap and
+        the redo queue alike; the moved groups' slices freed on the dead
+        replica's rank and each rebuilt by replay on its survivor's rank
+        (every preceding stage's step on the rank of the group's replica
+        there, the hidden state sent rank to rank as live traffic sends
+        it)."""
+        pipe, run = self.pipe, self.run
+        moved = self._take_over(rep, lost)
+        if pipe.period_span[self.s] is None or not moved:
+            return
+        # a lost prefill may have left a slice there that ``caches`` never saw
+        self.ctl.drop(self.rank_of(rep), [("cache", self.s, gid) for gid in moved],
+                   f"the dead {self.name} r{rep}'s slices")
+        for gid in moved:
+            if self.caches.pop(gid, None) is None:
+                continue
+            reps = [run.programs[j].rep_of(gid) for j in range(self.s + 1)]
+            self.caches[gid] = pipe._replay_ranks(
+                run.groups[gid], self.s, self.done_count.get(gid, 0), reps, run.overlap)
+
+    def migrate_gid(self, gid: int, to_rep: int) -> bool:
+        """`_ServeStageProgram.migrate_gid` over ranks: the slice moves from
+        the source replica's rank to the new owner's (freed at the source),
+        or is handed to its stream on the same rank."""
+        if self.inflight.get(gid) or to_rep in self.dead:
+            return False
+        frm = self.rep_of(gid)
+        if frm == to_rep:
+            return True
+        self.rep_map[gid] = to_rep
+        meta = self.caches.get(gid)
+        if meta is not None:
+            a, b = self.rank_of(frm), self.rank_of(to_rep)
+            key = ("cache", self.s, gid)
+            if a != b:
+                self.ctl.move(Ref(a, key, meta), b, key, ack=False)
+            self.pipe._adopt(b, key, key, self.s, to_rep, self.run.overlap)
+            self.run.migrations.append({"stage": self.name, "gid": gid, "from": frm,
+                                        "to": to_rep, "from_rank": a, "to_rank": b,
+                                        "bytes": meta.nbytes if a != b else 0})
+        return True
 
 
 class _ServeRun:
@@ -645,6 +811,9 @@ class _ServeRun:
         self.streams: set = set()              # handles of the CUDA streams
         #                                        ops ran on
         self.rank_host_s: dict = {}            # over ranks: rank -> op host seconds
+        self.migrations: list = []             # over ranks: each slice migrated,
+        self.moved_slices: list = []           # moved rank to rank on resume,
+        self.replayed_slices: list = []        # replayed on resume
         self.gid_of: list[int] = []            # seq -> gid
         program = _ServeStageProgram if pipe.pool is None else _RankServeStageProgram
         self.programs = [program(s, pipe, self) for s in range(len(pipe.stage_names))]
@@ -738,12 +907,25 @@ class ResumeState:
     eos_id: int
     stage_caches: dict = field(default_factory=dict)
     # stage name -> {"span": (lo, hi), "caches": {gid: cache},
-    #                "streams": {gid: stream the cache was last used on}}
+    #                "streams": {gid: stream the cache was last used on}};
+    # over ranks {"span": (lo, hi), "slices": {gid: (rank, key, meta)}}:
+    # each slice parked on its rank (`remote.PARKED`) under ``key``
+    owner: object = None
+    # over ranks: the pipeline that parked the slices, whose controller
+    # moves one to another rank and frees what no resume adopts
 
     def live_groups(self) -> list:
         return [g for g in self.groups
                 if g.done is not None and not g.done.all()
                 and g.steps < g.budget.max() - 1]
+
+    def free(self) -> None:
+        """Over ranks: let go of every parked slice no resume adopted."""
+        if self.owner is None:
+            return
+        for entry in self.stage_caches.values():
+            for rank, key, _ in entry.pop("slices", {}).values():
+                self.owner._ctl.drop(rank, [key], "a parked slice")
 
 
 # ===========================================================================
@@ -904,24 +1086,18 @@ class DecodePipeline(OverRanks):
         mine = None
         if self.pool is not None:
             mine = [any(r == self.pool.rank for r in ranks) for ranks in self.stage_ranks]
+        keep = None if mine is None else self._weight_keys(mine).__contains__
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = lm.init_params(cfg, device=self.device, generator=gen,
-                                    keep=None if mine is None else self._kept(mine))
+            params = lm.init_params(cfg, device=self.device, generator=gen, keep=keep)
+        elif not isinstance(params, torch.nn.Module):
+            params = params(keep)
         self.params = params
         if params.embed.device != self.device and mine is None:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"pipeline on {self.device}")
-        head_w = lm._head(cfg, params)
+        self._bind_params()
         for s_, (desc, owners) in enumerate(zip(self.stage_descs, stage_owners)):
-            stage_p = {}
-            if desc.has_embed:
-                stage_p["embed"] = params.embed
-            if desc.span is not None:
-                lo, hi = desc.span[0] * L, desc.span[1] * L
-                stage_p.update(layers=params.layers[lo:hi], span=(lo, hi))
-            if desc.has_head:
-                stage_p.update(norm=params.final_norm, w=head_w)
             # replica pool: every member owner's placement slices (nr x
             # n_owners replicas, each doing the whole stage's work, same
             # planned capacity); on one device they share the tensors
@@ -929,7 +1105,6 @@ class DecodePipeline(OverRanks):
             own = [mine is None or self.stage_ranks[s_][k] == self.pool.rank
                    for k in range(n_rep)]
             self.stage_names.append(desc.name)
-            self.stage_params.append(stage_p)
             self.stage_devices.append([self.device] * n_rep)
             self.stage_streams.append(
                 [torch.cuda.Stream(self.device) if self.device.type == "cuda" and own[k]
@@ -955,12 +1130,12 @@ class DecodePipeline(OverRanks):
                 AotProgram(pre, name=f"{tag}.prefill", stats=self.compile_stats),
                 AotProgram(dec, name=f"{tag}.decode", stats=self.compile_stats))
 
-    def _kept(self, mine: list):
-        """Over ranks, with weights this pipeline draws itself: the test of
-        `lm.init_params`'s ``keep`` that holds the tensors of the stages a
-        replica of which runs here (``mine``: a flag a stage) and the
-        embedding where a tied head reads it; the rest of the model is
-        drawn all the same and let go at once."""
+    def _weight_keys(self, mine: list) -> set:
+        """Over ranks: the names of `lm.init_params`'s ``keep`` (``"embed"``,
+        ``"final_norm"``, ``"head"``, ``"layers.<i>"``) that the stages with a
+        replica on a rank read (``mine``: a flag a stage), the embedding too
+        where a tied head reads it.  Weights drawn from the seed are drawn
+        whole, and the rest let go at once."""
         L = len(self.cfg.block_pattern)
         keep = set()
         for desc, own in zip(self.stage_descs, mine):
@@ -969,10 +1144,30 @@ class DecodePipeline(OverRanks):
             if desc.has_embed or (desc.has_head and self.cfg.tie_embeddings):
                 keep.add("embed")
             if desc.has_head:
-                keep.update(("final_norm", "head"))
+                keep.add("final_norm")
+                if not self.cfg.tie_embeddings:
+                    keep.add("head")
             if desc.span is not None:
                 keep.update(f"layers.{i}" for i in range(desc.span[0] * L, desc.span[1] * L))
-        return keep.__contains__
+        return keep
+
+    def _bind_params(self) -> None:
+        """Each stage's tensors, taken from ``params`` (again after a
+        successor's weights came: `_on_install`)."""
+        cfg, params = self.cfg, self.params
+        L = len(cfg.block_pattern)
+        head_w = lm._head(cfg, params)
+        self.stage_params = []
+        for desc in self.stage_descs:
+            stage_p = {}
+            if desc.has_embed:
+                stage_p["embed"] = params.embed
+            if desc.span is not None:
+                lo, hi = desc.span[0] * L, desc.span[1] * L
+                stage_p.update(layers=params.layers[lo:hi], span=(lo, hi))
+            if desc.has_head:
+                stage_p.update(norm=params.final_norm, w=head_w)
+            self.stage_params.append(stage_p)
 
     def _resolve_fusion(self, base, fusion_plan, stg, sel):
         """Normalize ``fusion_plan`` to a contiguous partition of the base
@@ -1105,6 +1300,46 @@ class DecodePipeline(OverRanks):
             torch.cuda.synchronize(self.device)
             torch._C._cuda_clearCublasWorkspaces()
 
+    def _successor(self, stg: STG, plan, ranks, kw: dict) -> "DecodePipeline":
+        """Over ranks: the `DecodePipeline` of ``plan`` on a pool of
+        ``ranks`` (of this pool, this controller first), which this
+        controller's plan, sent to every rank, builds there
+        (`_build_successor`).  Each weight a successor rank lacks is moved
+        to it from the lowest rank that holds it, in this controller's
+        order, bitwise; the ranks that leave let theirs go, so this
+        pipeline then only hands its parked state over and closes
+        (``weights_moved`` and ``weights_held`` record both)."""
+        import torch.distributed as dist
+        ranks = [int(r) for r in ranks]
+        if (not ranks or ranks[0] != self.pool.controller or len(set(ranks)) != len(ranks)
+                or not set(ranks) <= set(self.pool.ranks)):
+            raise ValueError(f"a successor's ranks {ranks} are ranks of the pool "
+                             f"{list(self.pool.ranks)}, its controller first")
+        if sorted(self.pool.ranks) != list(range(dist.get_world_size())):
+            raise NotImplementedError("every rank of the world makes a successor's groups: "
+                                      "the pipeline's pool must span the world")
+        ctl = self._ctl
+        succ = ctl.call(_build_successor, dict(cfg=self.cfg, stg=stg, plan=plan, ranks=ranks,
+                                               kw=kw))[ctl.rank]
+        held = {r: set(names) for r, names in ctl.call(_held_weights).items()}
+        succ.weights_moved = []
+        for r in ranks:
+            lacks = succ._weight_keys([r in rs for rs in succ.stage_ranks]) - held[r]
+            for name in sorted(lacks):
+                src = min(a for a, names in held.items() if name in names)
+                metas = [meta_of(t) for t in _weight_tensors(self.params, name)]
+                ctl.post(src, {"do": "run", "fn": "put_weights", "lane": None, "name": name,
+                               "ack": False, "what": f"weight {name} for rank {r}"})
+                ctl.move(Ref(src, ("w", name), metas), r, ("w", name), ack=False)
+                ctl.post(r, {"do": "run", "fn": "install", "lane": None, "name": name,
+                             "ack": False, "what": f"install weight {name}"})
+                succ.weights_moved.append({"weight": name, "from_rank": src, "to_rank": r,
+                                           "bytes": sum(int(np.prod(sh)) * getattr(
+                                               torch, dt).itemsize for sh, dt in metas)})
+        succ.weights_held = ctl.call(_settle_weights,
+                                     [r for r in self.pool.ranks if r not in ranks])
+        return succ
+
     # -- over ranks: the workers' side ----------------------------------------
     def _on_warm(self, w, cmd, inputs):
         """Every program of the group shape ``shape`` run once on scratch
@@ -1152,15 +1387,73 @@ class DecodePipeline(OverRanks):
             ar = _run_stage(dec, params, x, self.device, stream, sample,
                             w.store.get(("cache", s, gid)))
         (y, cache, toks), = ar.payload
+        out = {"stream": stream_handle(stream)}
         if cache is not None:
             w.store[("cache", s, gid)] = cache
+            out["cache"] = tree_meta(cache)
         if desc.has_head:
-            return AsyncResult({"tokens": toks[1], "stream": stream_handle(stream)}, ar.watch)
-        w.store[("h", s, cmd["seq"])] = y
-        return AsyncResult({"meta": meta_of(y), "stream": stream_handle(stream)}, ar.watch)
+            return AsyncResult(dict(out, tokens=toks[1]), ar.watch)
+        w.store[("h", s, cmd["seq"], rep)] = y
+        return AsyncResult(dict(out, meta=meta_of(y)), ar.watch)
 
-    def _on_free(self, w, cmd, inputs):
-        w.store.pop(("cache", cmd["s"], cmd["gid"]), None)
+    def _on_replay(self, w, cmd, inputs):
+        """One step of a cache replay (`_replay_ranks`) on this rank, as
+        replica ``rep`` of stage ``s`` runs it: the prefill (step 0) builds
+        a fresh slice under the replay's own key, a decode step updates it;
+        the hidden state stays here for the next stage's step."""
+        s, rep, token = cmd["s"], cmd["rep"], cmd["token"]
+        pre, dec = self._programs[self.stage_descs[s].key]
+        stream = self.stage_streams[s][rep] if cmd["overlap"] else None
+        on = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        with on:
+            x = w.get(inputs["x"], self.device)
+        key = ("replay", token, s)
+        if cmd["j"] == 0:
+            ar = _run_stage(pre, self.stage_params[s], x, self.device, stream, None, None,
+                            cmd["cap"])
+        else:
+            ar = _run_stage(dec, self.stage_params[s], x, self.device, stream, None,
+                            w.store.get(key))
+        (y, cache, _), = ar.payload
+        out = {}
+        if cache is not None:
+            w.store[key] = cache
+            out["cache"] = tree_meta(cache)
+        if not cmd["last"]:
+            w.store[("rh", token, s)] = y
+            out["meta"] = meta_of(y)
+        return AsyncResult(out, ar.watch)
+
+    def _on_adopt(self, w, cmd, inputs):
+        """A slice taken under ``key`` (from ``src`` here: a rename), and,
+        given ``rep``, handed to replica ``rep`` of stage ``s``'s stream:
+        the allocator keeps its memory until that stream's work on it
+        ends."""
+        cache = w.take(cmd["src"])
+        rep = cmd.get("rep")
+        if rep is not None:
+            stream = self._owner_stream(cmd["s"], rep, cmd["overlap"])
+            if stream is not None:
+                for t in tree_flatten(cache)[0]:
+                    t.record_stream(stream)
+        w.put(cmd["key"], cache)
+        return {}
+
+    def _on_put_weights(self, w, cmd, inputs):
+        """The tensors of weight ``name`` (`_weight_tensors`) into the store,
+        for a move to a successor's rank that lacks them."""
+        w.store[("w", cmd["name"])] = [t.detach() for t in _weight_tensors(self.params,
+                                                                             cmd["name"])]
+        return {}
+
+    def _on_install(self, w, cmd, inputs):
+        """Weight ``name``, moved here, installed in ``params`` in place of
+        its meta tensors."""
+        name = cmd["name"]
+        for (mod, attr, old), t in zip(_weight_slots(self.params, name),
+                                       w.take(("w", name))):
+            mod._parameters[attr] = torch.nn.Parameter(t, requires_grad=old.requires_grad)
+        return {}
 
     # -- cache ownership ------------------------------------------------------
     def _owner_stream(self, s: int, rep: int, overlap: bool):
@@ -1241,6 +1534,45 @@ class DecodePipeline(OverRanks):
                 after = ar.watch[0].event
         return caches[s_target]
 
+    def _replay_ranks(self, g: _Group, s_target: int, k: int, reps: list,
+                      overlap: bool):
+        """`_replay_cache` over ranks: each step of each stage ``s`` is a
+        command (`_on_replay`) to the rank of replica ``reps[s]``, on its
+        lane and stream, the hidden state sent rank to rank as live traffic
+        sends it; a step is posted once the one before it reported, so it
+        reads a complete input.  Every stage builds a fresh slice under the
+        replay's own key; the target's becomes the group's slice on its
+        rank, the others go.  Returns its `remote.TreeMeta`."""
+        ctl = self._ctl
+        token = next(_TOKENS)
+        ranks = [self.stage_ranks[s][reps[s]] for s in range(s_target + 1)]
+        meta, x = None, None
+        for j in range(k):
+            for s in range(s_target + 1):
+                if s == 0:
+                    spec = ("value", np.asarray(g.tokens if j == 0 else g.fed[j - 1][:, None]))
+                else:
+                    spec = ctl.inputs_for(x, [ranks[s]])[ranks[s]]
+                rep = ctl.run_on([ranks[s]], {
+                    "fn": "replay", "lane": (s, reps[s]) if overlap else None, "s": s,
+                    "rep": reps[s], "j": j, "token": token, "cap": g.cap,
+                    "last": s == s_target, "overlap": overlap, "inputs": {"x": spec}},
+                    f"replay step {j} of {self.stage_names[s]} for group {g.gid}")[ranks[s]]
+                meta = rep.get("cache", meta) if s == s_target else meta
+                x = None if s == s_target else Ref(ranks[s], ("rh", token, s), rep["meta"])
+        for s in range(s_target):
+            ctl.drop(ranks[s], [("replay", token, s)], "a replay's slice")
+        self._adopt(ranks[-1], ("replay", token, s_target), ("cache", s_target, g.gid),
+                    s_target, reps[s_target], overlap)
+        return meta
+
+    def _adopt(self, rank: int, src, key, s: int, rep, overlap: bool) -> None:
+        """Post `_on_adopt` to ``rank``: the slice ``src`` there becomes
+        ``key``, handed to replica ``rep`` of stage ``s`` (None: no stream)."""
+        self._ctl.post(rank, {"do": "run", "fn": "adopt", "lane": None, "src": src, "key": key,
+                              "s": s, "rep": rep, "overlap": overlap, "ack": False,
+                              "what": f"adopt {src} as {key}"})
+
     # -- serving ------------------------------------------------------------
     def _groups(self, prompts: list[list[int]], max_new, group_size: int):
         """The serve's slot groups, as `LMServer.serve` forms its rounds."""
@@ -1303,7 +1635,9 @@ class DecodePipeline(OverRanks):
         `failures.ReplicaFaultPlan` chaos schedule (see
         `_ServeStageProgram.fail_replica` for the failover semantics).
         ``health``: optional `health.HealthController` ticked from the
-        engine's retire path.  ``pause_after_tokens``: admission pause —
+        engine's retire path.  Over ranks both hold as on one rank: an
+        injected stall sleeps on the stalled replica's lane on its rank.
+        ``pause_after_tokens``: admission pause —
         groups reaching that many decode steps park instead of
         scheduling further work; the returned result has ``paused=True``
         and a ``resume_state`` that `resume()` (on this or a rescaled
@@ -1322,9 +1656,6 @@ class DecodePipeline(OverRanks):
         overlap = self.overlap if overlap is None else overlap
         if self.pool is not None:
             self._check_controller()
-            if injector is not None or health is not None or pause_after_tokens is not None:
-                raise NotImplementedError("failover, migration and pause across ranks are a "
-                                          "ROADMAP item: they run on one rank")
         groups, group_of = self._groups(prompts, max_new, group_size)
         report = None
         if preflight:
@@ -1332,18 +1663,21 @@ class DecodePipeline(OverRanks):
                 n_groups=len(groups), capacity_blocks=capacity_blocks,
                 feedback_capacity=feedback_capacity,
                 group_shapes=[(g.batch, g.bucket, g.cap) for g in groups])
-        if self.pool is not None:
-            res, costs = self._bracket(lambda: self._serve_body(
-                groups, group_of, eos_id=eos_id, capacity_blocks=capacity_blocks,
-                overlap=overlap, temperature=temperature, tracer=tracer,
-                feedback_capacity=feedback_capacity, report=report))
-            res.ranks = {r: dict(c, host_s=res.ranks.get(r, 0.0)) for r, c in costs.items()}
-            return res
-        return self._serve_body(groups, group_of, eos_id=eos_id,
-                                capacity_blocks=capacity_blocks, overlap=overlap,
-                                temperature=temperature, tracer=tracer, injector=injector,
-                                health=health, pause_after_tokens=pause_after_tokens,
-                                feedback_capacity=feedback_capacity, report=report)
+
+        def body():
+            return self._serve_body(groups, group_of, eos_id=eos_id,
+                                    capacity_blocks=capacity_blocks, overlap=overlap,
+                                    temperature=temperature, tracer=tracer, injector=injector,
+                                    health=health, pause_after_tokens=pause_after_tokens,
+                                    feedback_capacity=feedback_capacity, report=report)
+        return body() if self.pool is None else self._over_ranks(body)
+
+    def _over_ranks(self, body) -> ServeRunResult:
+        """``body`` (a serve or a resume) inside the run bracket of every
+        rank, with each rank's costs in the result's ``ranks``."""
+        res, costs = self._bracket(body)
+        res.ranks = {r: dict(c, host_s=res.ranks.get(r, 0.0)) for r, c in costs.items()}
+        return res
 
     def _serve_body(self, groups, group_of, *, eos_id, capacity_blocks, overlap, temperature,
                     tracer, feedback_capacity, report, injector=None, health=None,
@@ -1442,7 +1776,12 @@ class DecodePipeline(OverRanks):
         for s in range(len(run.acts)):
             res.fifo_stats[("act", s)] = run.acts[s].stats
         res.fifo_stats["feedback"] = run.feedback.stats
-        if run.parked:
+        res.migrations = run.migrations
+        res.adopted = {"moved": run.moved_slices, "replayed": run.replayed_slices}
+        if run.parked and self.pool is not None:
+            res.paused = True
+            res.resume_state = self._park(run, group_of)
+        elif run.parked:
             res.paused = True
             res.resume_state = ResumeState(
                 groups=run.groups, group_of=list(group_of), eos_id=run.eos_id,
@@ -1454,6 +1793,25 @@ class DecodePipeline(OverRanks):
                     for s, prog in enumerate(run.programs)
                     if self.period_span[s] is not None})
         return res, engine
+
+    def _park(self, run: _ServeRun, group_of: list) -> ResumeState:
+        """Over ranks: each live group's slices renamed into their rank's
+        `remote.PARKED`, where a run's ``begin`` leaves them, under a key of
+        this pause; the `ResumeState` names each (rank, key, meta)."""
+        token = next(_TOKENS)
+        stage_caches = {}
+        for s, prog in enumerate(run.programs):
+            span = self.period_span[s]
+            if span is None:
+                continue
+            slices = {}
+            for gid, meta in sorted(prog.caches.items()):
+                rank, key = prog.rank_of(prog.rep_of(gid)), ("parked", token, s, gid)
+                self._adopt(rank, ("cache", s, gid), key, s, None, run.overlap)
+                slices[gid] = (rank, key, meta)
+            stage_caches[self.stage_names[s]] = {"span": span, "slices": slices}
+        return ResumeState(groups=run.groups, group_of=list(group_of), eos_id=run.eos_id,
+                           stage_caches=stage_caches, owner=self)
 
     def resume(self, state: ResumeState, *, capacity_blocks: int = 2,
                overlap: bool | None = None,
@@ -1470,14 +1828,21 @@ class DecodePipeline(OverRanks):
         deterministic replay from prompt + fed-token history when they
         don't.  Each group's parked token is fed back and decoding
         continues, so no in-flight request is dropped and the combined
-        streams are bitwise what an uninterrupted serve yields."""
+        streams are bitwise what an uninterrupted serve yields.  Over
+        ranks (`_adopt_parked`) a parked slice stays where it is when its
+        new owner is on the same rank, moves rank to rank on the same
+        span, and is replayed on the new owners' ranks where the spans
+        differ; the state frees what it does not hand over.  Resume before
+        closing the pipeline that paused."""
         if self.pool is not None:
-            raise NotImplementedError("resume across ranks is a ROADMAP item: it runs on one "
-                                      "rank")
+            self._check_controller()
         overlap = self.overlap if overlap is None else overlap
         live = state.live_groups()
         if not live:
             raise ValueError("resume() on a state with no live groups")
+        if (state.owner is None) != (self.pool is None):
+            raise ValueError("a pause over ranks resumes over ranks, a pause in one process "
+                             "in one process")
         report = None
         if preflight:
             # the channel is sized for every exported group (finished
@@ -1488,17 +1853,41 @@ class DecodePipeline(OverRanks):
                 n_groups=len(live), capacity_blocks=capacity_blocks,
                 feedback_capacity=fb_cap,
                 group_shapes=[(g.batch, g.bucket, g.cap) for g in live])
-        if self.warmup:
+
+        def body():
+            if self.warmup:
+                for g in live:
+                    self._warm_group(g, overlap)
+            self._seed_groups(live)
+            if self.pool is not None:
+                self._ctl.run_on(self.ranks, {"fn": "window"}, "window")
+            run = _ServeRun(self, state.groups, eos_id=state.eos_id,
+                            capacity_blocks=capacity_blocks, overlap=overlap,
+                            temperature=temperature,
+                            pause_at=pause_after_tokens,
+                            open_groups=len(live),
+                            feedback_capacity=feedback_capacity)
+            if self.pool is not None:
+                self._adopt_parked(state, run, live)
+            else:
+                self._adopt_caches(state, run, live)
             for g in live:
-                self._warm_group(g, overlap)
-        self._seed_groups(live)
-        run = _ServeRun(self, state.groups, eos_id=state.eos_id,
-                        capacity_blocks=capacity_blocks, overlap=overlap,
-                        temperature=temperature,
-                        pause_at=pause_after_tokens,
-                        open_groups=len(live),
-                        feedback_capacity=feedback_capacity)
+                seq = run.enqueue("D", g.gid, g.bucket + g.steps)
+                g.fed.append(g.cur.copy())
+                run.feedback.push([(seq, (g.gid, torch.from_numpy(g.cur[:, None])))], 0.0)
+            res, _engine = self._launch(run, state.group_of, tracer=tracer,
+                                        injector=injector, health=health,
+                                        static_report=report)
+            if self.pool is not None:
+                res.ranks = run.rank_host_s
+            return res
+        return body() if self.pool is None else self._over_ranks(body)
+
+    def _adopt_caches(self, state: ResumeState, run: _ServeRun, live: list) -> None:
+        """One process: each live group's slices handed off where the spans
+        match, replayed where they do not."""
         by_span = {tuple(v["span"]): v for v in state.stage_caches.values()}
+        overlap = run.overlap
         for s, prog in enumerate(run.programs):
             span = self.period_span[s]
             donors = by_span.get(tuple(span)) if span is not None else None
@@ -1515,11 +1904,45 @@ class DecodePipeline(OverRanks):
                 else:
                     reps = [run.programs[j].rep_of(g.gid) for j in range(s + 1)]
                     prog.caches[g.gid] = self._replay_cache(g, s, k, reps, overlap)
-        for g in live:
-            seq = run.enqueue("D", g.gid, g.bucket + g.steps)
-            g.fed.append(g.cur.copy())
-            run.feedback.push([(seq, (g.gid, torch.from_numpy(g.cur[:, None])))], 0.0)
-        res, _engine = self._launch(run, state.group_of, tracer=tracer,
-                                    injector=injector, health=health,
-                                    static_report=report)
-        return res
+
+    def _adopt_parked(self, state: ResumeState, run: _ServeRun, live: list) -> None:
+        """Over ranks: each live group's parked slice adopted by its new
+        owner where the spans match, first moved there rank to rank by the
+        pipeline that parked it (its pool holds both ranks) when the owner
+        is on another rank; replayed on the owners' ranks where they do
+        not.  Then the state frees what it still names."""
+        by_span = {tuple(v["span"]): v for v in state.stage_caches.values()}
+        owner, adopt, replay, moves = state.owner, [], [], []
+        for s, prog in enumerate(run.programs):
+            span = self.period_span[s]
+            donors = by_span.get(tuple(span)) if span is not None else None
+            for g in live:
+                k = 1 + g.steps
+                prog.done_count[g.gid] = k
+                if span is None:
+                    continue
+                rep = prog.rep_of(g.gid)
+                rank = prog.rank_of(rep)
+                if donors is None or g.gid not in donors["slices"]:
+                    replay.append((prog, s, g, k))
+                    continue
+                src, key, meta = donors["slices"].pop(g.gid)
+                if src != rank:
+                    new = key + ("to", rank)
+                    moves.append((owner._ctl.move(Ref(src, key, meta), rank, new), rank))
+                    key = new
+                adopt.append((rank, key, s, rep, g.gid, meta))
+                run.moved_slices.append({"stage": self.stage_names[s], "gid": g.gid,
+                                         "from_rank": src, "to_rank": rank,
+                                         "bytes": meta.nbytes if src != rank else 0})
+        for cid, rank in moves:
+            owner._ctl.wait(cid, [rank], "a parked slice's move")
+        for rank, key, s, rep, gid, meta in adopt:
+            self._adopt(rank, key, ("cache", s, gid), s, rep, run.overlap)
+            run.programs[s].caches[gid] = meta
+        for prog, s, g, k in replay:
+            reps = [run.programs[j].rep_of(g.gid) for j in range(s + 1)]
+            prog.caches[g.gid] = self._replay_ranks(g, s, k, reps, run.overlap)
+            run.replayed_slices.append({"stage": self.stage_names[s], "gid": g.gid,
+                                        "rank": prog.rank_of(reps[s])})
+        state.free()

@@ -63,7 +63,13 @@ may still be running there after its body returned: the program's
 Over ranks (`remote`), the controller's engine runs the same programs; an
 op body there only posts the op's commands (`RemoteLanes` runs it inline)
 and returns a `RemoteWatch`, ready when the ranks of the op's slice have
-reported it done; the work runs on each rank's own `Lanes`.
+reported it done; the work runs on each rank's own `Lanes`.  Such a program
+has a ``stall_s`` slot, which the engine fills with an injected stall before
+``dispatch`` so that the command carries it (the op's lane on its rank
+sleeps, not the scheduler), and a ``drain_lost`` hook, which
+`_replica_fault` calls before ``fail_replica`` so that the lost ops'
+commands are waited home, their reports dropped and what they made freed on
+their rank.
 
 The measurement surface is per-stage streams of completion (or firing)
 times whose steady-state gap is the stage's measured inverse throughput
@@ -422,7 +428,12 @@ class RemoteLanes(Lanes):
     """The lanes of a pipeline over ranks, on its controller: every op body
     there only posts its commands and returns a `RemoteWatch` (the work
     runs on the ranks' own lanes), so it runs at once on the scheduler
-    thread and its future comes back done."""
+    thread and its future comes back done.  With nothing to dispatch, the
+    engine polls every op's watch again (``polled``) instead of waiting for
+    the oldest: a stalled op on one rank must not hold up the reports of
+    the others."""
+
+    polled = True
 
     def __init__(self):
         self.n = 1
@@ -592,6 +603,9 @@ class Engine(Driver):
             self._abort(op)
             lost.append(op)
         lost.sort(key=lambda o: o.seq)
+        drain = getattr(prog, "drain_lost", None)
+        if drain is not None:       # over ranks: the lost ops' commands, home
+            drain(lost)
         fail = getattr(prog, "fail_replica", None)
         try:
             if fail is None:
@@ -733,6 +747,10 @@ class Engine(Driver):
                             continue
                         elif spec is not None:
                             stall_s = spec.stall_s
+                    if stall_s > 0.0 and hasattr(prog, "stall_s"):
+                        # over ranks: the command carries it, and the
+                        # op's own lane sleeps on its rank
+                        prog.stall_s, stall_s = stall_s, 0.0
                     fn, args = prog.dispatch(op, self)
                     if stall_s > 0.0:
                         fn = _stalled(fn, stall_s)
@@ -828,6 +846,11 @@ class Engine(Driver):
                         wait(list(inflight),
                              timeout=self.POLL_S if pending else None,
                              return_when=FIRST_COMPLETED)
+                    elif pending and getattr(lanes, "polled", False):
+                        # over ranks each op's end is a report to come,
+                        # the oldest not always the first: poll them all
+                        # again rather than wait for the oldest
+                        time.sleep(self.POLL_S)
                     elif pending:
                         # nothing dispatchable, no workers running: block
                         # on the oldest in-flight device op for an

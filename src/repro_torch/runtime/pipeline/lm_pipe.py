@@ -1413,7 +1413,8 @@ class LMPipeline(OverRanks):
         ``res.stage_wait_s``; warmup stays untraced so the aggregates
         cover only the timed window.  ``injector``: an optional
         `failures.ReplicaFaultPlan`; training has no failover hook, so a
-        fault raises `PipelineFailure`.  ``preflight``: run the static
+        fault raises `PipelineFailure` (over ranks too, after every rank's
+        commands came home and the run's tensors were freed on every rank).  ``preflight``: run the static
         plan verifier (`core.verify.verify_lm_plan`) over the resolved
         schedule and the actual act/grd FIFO capacities before building
         the engine, raising `PlanVerificationError` on any ERROR (False
@@ -1534,10 +1535,13 @@ class LMPipeline(OverRanks):
         """`run` over ranks: every rank makes its working copies and warms its
         programs, then the engine runs the schedule here, each op posted to
         the ranks of its replica's slice (`_RankStageProgram`); then the
-        gradients (or the logits) come here, and each rank's costs."""
+        gradients (or the logits) come here, and each rank's costs.  Under
+        ``injector`` a stall sleeps on the op's lane on its rank, and a
+        crash escalates as on one rank (`PipelineFailure`, no failover
+        hook): every rank's commands in flight are waited home and the
+        run's tensors freed on every rank (`remote.OverRanks._bracket`), so
+        the pool runs again."""
         import pickle
-        if injector is not None:
-            raise NotImplementedError("replica faults across ranks are a ROADMAP item")
         if train and loss_fn is not None:
             try:
                 pickle.dumps(loss_fn)
@@ -1546,7 +1550,7 @@ class LMPipeline(OverRanks):
                                  "module-level function") from e
         res, costs = self._bracket(lambda: self._execute_ranks(
             sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn, overlap=overlap,
-            tracer=tracer))
+            tracer=tracer, injector=injector))
         for r, c in costs.items():
             res.ranks.setdefault(r, {}).update(c)
         return res
@@ -1560,7 +1564,7 @@ class LMPipeline(OverRanks):
 
     def _execute_ranks(self, sched: Schedule, mbs: list, acts: list, grds: list | None,
                        report, *, train: bool, loss_fn, overlap: bool,
-                       tracer) -> LMPipelineResult:
+                       tracer, injector) -> LMPipelineResult:
         from .engine import RemoteLanes
         ctl = self._ctl
         if self.warmup and mbs:
@@ -1568,7 +1572,7 @@ class LMPipeline(OverRanks):
         ctl.run_on(self.ranks, {"fn": "window"}, "window")
         res, engine, raw_losses, _, programs = self._drive(
             _RankStageProgram, sched, mbs, acts, grds, report, train=train, loss_fn=loss_fn,
-            overlap=overlap, tracer=tracer, injector=None, lanes=RemoteLanes(), workers=1)
+            overlap=overlap, tracer=tracer, injector=injector, lanes=RemoteLanes(), workers=1)
         res.wall_s = time.perf_counter() - engine.t0
         res.losses = {mb: float(v) for mb, v in sorted(raw_losses.items())}
         res.mb_done_s.sort()
@@ -1601,6 +1605,7 @@ class _RankStageProgram(_LMStageProgram):
         super().__init__(*a, **kw)
         self.ctl = self.pipe._ctl
         self.rank_host_s: dict[int, float] = {}
+        self.stall_s = 0.0          # the engine's injected stall for the next op
 
     def _launch_fwd(self, st: LMStage, i: int, rep: int, mb: int, x):
         ranks = st.ranks[rep]
@@ -1622,7 +1627,8 @@ class _RankStageProgram(_LMStageProgram):
         what = f"{kind} of {st.name} replica {rep} microbatch {mb}"
         cmd = {"do": "run", "lane": (i, rep) if self.overlap else None, "i": i, "rep": rep,
                "mb": mb, "overlap": self.overlap, "id": self.ctl.new_id(), "what": what,
-               **fields}
+               "stall_s": self.stall_s, **fields}
+        self.stall_s = 0.0
         for r in dict.fromkeys(ranks):
             self.ctl.post(r, dict(cmd, inputs={name: specs[r]} if specs else {}))
         return posted, (self.ctl, cmd["id"], ranks, what)

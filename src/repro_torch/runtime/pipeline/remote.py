@@ -40,6 +40,25 @@ Why this cannot deadlock: a worker's own thread blocks only in a receive
 whose send the controller issued earlier, or in a collective of a tp slice
 whose other ranks got the same command at the same point of the order; so
 the earliest blocked command, in the controller's order, can always go on.
+
+What the self-healing drills add.  An input that a lost op may need again
+is *kept* (``inputs_for(keep=True)``): its holder neither pops it nor sends
+it away for good, and the controller drops it there (``drop``) once the
+consuming op, or its redo on a survivor, retired.  ``move`` sends a store
+entry (a tensor, a list, or a tree such as a cache slice, `TreeMeta`) from
+one rank to another under a new key at one point of the controller's
+order, and is a rename on the same rank: migration, a resume's transfer
+and a successor's weights use it.  A ``run`` command may carry ``stall_s``,
+slept on its lane before the body (an injected straggler is slow on its
+own rank).  Parked cache slices (keys ``("parked", ...)``) live in this
+process's `PARKED` store, which a run's ``begin`` leaves alone and every
+pipeline's worker on the rank reads, so a successor built on the same
+ranks adopts them; the `ResumeState` that names them frees what it does
+not adopt.  After a `failures.PipelineFailure` the controller waits every
+posted command home and drops its report (``drain``), and every rank
+empties its store of the failed run's tensors; a command that raised on
+its rank meanwhile is raised then (a `RankFailure` caused by the
+`PipelineFailure`), never dropped.
 """
 from __future__ import annotations
 
@@ -56,10 +75,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..failures import PipelineFailure
 from .engine import AsyncResult, RemoteWatch
 
 CMD_TAG, REPORT_TAG = 1, 2
 IDLE_S = 2e-4           # a loop's sleep when nothing moved
+PARKED: dict = {}       # this process's parked cache slices, every pipeline's
+_ACTIVE = [time.monotonic()]    # when a worker of this process last took a command
 
 
 class RankFailure(RuntimeError):
@@ -122,8 +144,61 @@ def meta_of(value):
     return (tuple(t.shape), str(t.dtype).removeprefix("torch."))
 
 
+@dataclass(frozen=True)
+class TreeMeta:
+    """The meta of a nested dict / list of tensors (a cache slice): its
+    structure (`tree_flatten`'s ``spec``) and each leaf's (shape, dtype)."""
+    spec: object
+    leaves: tuple
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(np.prod(shape)) * getattr(torch, dt).itemsize
+                   for shape, dt in self.leaves)
+
+
+def tree_flatten(value) -> tuple[list, object]:
+    """(the tensors of a nested dict / list / tuple in a fixed order, its
+    structure): a leaf's structure is None."""
+    if isinstance(value, dict):
+        keys = tuple(value)             # in order: a program's signature reads it
+        parts = [tree_flatten(value[k]) for k in keys]
+        return [t for p in parts for t in p[0]], ("d", keys, tuple(p[1] for p in parts))
+    if isinstance(value, (list, tuple)):
+        parts = [tree_flatten(v) for v in value]
+        return [t for p in parts for t in p[0]], ("l", tuple(p[1] for p in parts))
+    return [value], None
+
+
+def tree_unflatten(spec, leaves: list):
+    """`tree_flatten`'s inverse."""
+    it = iter(leaves)
+
+    def build(sp):
+        if sp is None:
+            return next(it)
+        if sp[0] == "d":
+            return {k: build(s) for k, s in zip(sp[1], sp[2])}
+        return [build(s) for s in sp[1]]
+    return build(spec)
+
+
+def tree_meta(value) -> TreeMeta:
+    leaves, spec = tree_flatten(value)
+    return TreeMeta(spec, tuple(meta_of(t) for t in leaves))
+
+
 def _metas(meta) -> list:
+    if isinstance(meta, TreeMeta):
+        return list(meta.leaves)
     return meta if isinstance(meta, list) else [meta]
+
+
+def _leaves(value) -> list:
+    """The tensors a send of ``value`` carries, in `_metas` order."""
+    if isinstance(value, dict):
+        return tree_flatten(value)[0]
+    return list(value) if isinstance(value, (list, tuple)) else [value]
 
 
 def _host(value):
@@ -245,8 +320,13 @@ def stream_handle(stream):
     return None if stream is None else stream.cuda_stream
 
 
-def _timed(fn, *args):
+def _timed(stall_s: float, fn, *args):
+    """(``fn(*args)``, its host seconds), after a host-side sleep of
+    ``stall_s`` where one is injected (a straggler: the seconds include the
+    sleep, as on one rank)."""
     t0 = time.perf_counter()
+    if stall_s:
+        time.sleep(stall_s)
     out = fn(*args)
     return out, time.perf_counter() - t0
 
@@ -257,14 +337,18 @@ class Worker:
     the tensors that ops left here; ``bytes_sent`` counts what this rank
     sent to others.  The controller's own worker gets its commands from
     ``commands`` and puts its reports on ``reports`` (in-process queues);
-    any other rank's talks over the pool's control group."""
+    any other rank's talks over the pool's control group.  ``target.worker``
+    is the worker (what the rank holds can be read there)."""
 
     def __init__(self, pool, target, *, commands=None, reports=None):
         self.pool = pool
         self.target = target
+        target.worker = self
         self.rank = pool.rank
         self.store: dict = {}
+        self.parked: set = set()       # the PARKED keys this worker put there
         self.bytes_sent = 0
+        self.bytes_moved = 0           # of those, what ``move`` sent
         self.timeout = timedelta(seconds=pool.timeout_s)
         self._commands = commands
         self._reports = reports
@@ -277,12 +361,14 @@ class Worker:
     def loop(self) -> None:
         """Execute commands until a ``stop``.  A worker on another rank than
         the controller's raises `RankFailure` when no command came within the
-        pool's time limit while nothing ran (the controller died or hangs)."""
+        pool's time limit while nothing ran, here or in another pipeline's
+        worker of this process (the controller died or hangs)."""
         idle_since = time.monotonic()
         limit = float("inf") if self._commands is not None else self.pool.timeout_s
         while True:
             cmd = self._next()
             if cmd is not None:
+                _ACTIVE[0] = time.monotonic()
                 if cmd["do"] == "stop":
                     self._finish(cmd)
                     return
@@ -290,7 +376,7 @@ class Worker:
             moved = self._progress() or cmd is not None
             if moved or self._running or self._watching:
                 idle_since = time.monotonic()
-            elif time.monotonic() - idle_since > limit:
+            elif time.monotonic() - max(idle_since, _ACTIVE[0]) > limit:
                 raise RankFailure(f"rank {self.rank}: no command from rank "
                                   f"{self.pool.controller} in {self.pool.timeout_s:.0f} s",
                                   rank=self.rank)
@@ -315,6 +401,8 @@ class Worker:
                 pass
         self._running, self._watching = [], []
         self.store.clear()
+        for key in self.parked:
+            PARKED.pop(key, None)
         try:
             self.target.close_lanes()
             self._out.drain()
@@ -331,20 +419,26 @@ class Worker:
                 self._send(cmd)
             elif do == "recv":
                 opened = self._open(cmd["value"])
-                self.store[cmd["key"]] = self.get(opened, self.target.device)
+                value = self.get(opened, self.target.device)
+                if cmd.get("sync") and self.target.device.type == "cuda":
+                    torch.cuda.current_stream(self.target.device).synchronize()
+                self.put(cmd["key"], value)
                 self._report(cmd, {})
+            elif do == "drop":
+                for key in cmd["keys"]:
+                    self.drop(key)
             elif do == "call":
                 result = cmd["fn"](self.target, *cmd.get("args", ()))
                 self._report(cmd, {"result": result})
             elif do == "run":
                 inputs = {k: self._open(spec) for k, spec in cmd.get("inputs", {}).items()}
                 fn = getattr(self.target, "_on_" + cmd["fn"])
-                lane = cmd.get("lane")
+                lane, stall = cmd.get("lane"), cmd.get("stall_s", 0.0)
                 if lane is None:
-                    self._done(cmd, *_timed(fn, self, cmd, inputs))
+                    self._done(cmd, *_timed(stall, fn, self, cmd, inputs))
                 else:
-                    fut = self.target.lanes.submit(lane[0], lane[1], _timed, fn, self, cmd,
-                                                   inputs)
+                    fut = self.target.lanes.submit(lane[0], lane[1], _timed, stall, fn, self,
+                                                   cmd, inputs)
                     self._running.append((cmd, fut))
             else:
                 raise ValueError(f"unknown command {do!r}")
@@ -401,19 +495,37 @@ class Worker:
                                            "stopped": cmd.get("stopped", False)})
 
     # -- data ----------------------------------------------------------------
+    def _slot(self, key) -> dict:
+        """The store that holds ``key``: this process's `PARKED` for a parked
+        slice, this worker's store else."""
+        return PARKED if isinstance(key, tuple) and key[:1] == ("parked",) else self.store
+
+    def take(self, key, pop: bool = True):
+        slot = self._slot(key)
+        return slot.pop(key) if pop else slot[key]
+
+    def put(self, key, value) -> None:
+        slot = self._slot(key)
+        slot[key] = value
+        if slot is PARKED:
+            self.parked.add(key)
+
+    def drop(self, key) -> None:
+        self._slot(key).pop(key, None)
+
     def _send(self, cmd) -> None:
         """Post the sends of a store entry to each rank of ``dst``: one tag a
         tensor from ``tag`` on, each through the host over gloo on the card."""
-        key = cmd["key"]
-        value = self.store.pop(key) if cmd.get("pop") else self.store[key]
-        tensors = value if isinstance(value, (list, tuple)) else [value]
+        value = self.take(cmd["key"], cmd.get("pop"))
         staged = self.pool.host_staged
-        for j, t in enumerate(tensors):
+        for j, t in enumerate(_leaves(value)):
             t = _local(t).detach()
             t = (t.to("cpu") if staged else t).contiguous()
             for dst in cmd["dst"]:
                 self._out.send(t, dst, self.pool.data, cmd["tag"] + j)
-                self.bytes_sent += t.numel() * t.element_size()
+                n = t.numel() * t.element_size()
+                self.bytes_sent += n
+                self.bytes_moved += n if cmd.get("move") else 0
 
     def _open(self, spec):
         """An input spec made ready to take: a store entry taken now, the
@@ -423,7 +535,7 @@ class Worker:
             return spec
         if kind == "store":
             _, key, pop = spec
-            return ("have", self.store.pop(key) if pop else self.store[key])
+            return ("have", self.take(key, pop))
         if kind == "recv":
             _, src, tag, meta = spec
             on = torch.device("cpu") if self.pool.transport == "gloo" else self.target.device
@@ -431,7 +543,7 @@ class Worker:
                     for shape, dt in _metas(meta)]
             works = [dist.irecv(b, src, group=self.pool.data, tag=tag + j)
                      for j, b in enumerate(bufs)]
-            return ("incoming", works, bufs, isinstance(meta, list))
+            return ("incoming", works, bufs, meta)
         raise ValueError(f"unknown input {kind!r}")
 
     def get(self, opened, device):
@@ -443,7 +555,7 @@ class Worker:
             return torch.as_tensor(np.asarray(opened[1])).to(device)
         if kind == "have":
             return opened[1]
-        _, works, bufs, is_list = opened
+        _, works, bufs, meta = opened
         out = []
         for w, b in zip(works, bufs):
             w.wait(self.timeout)
@@ -452,7 +564,9 @@ class Worker:
             elif device.type == "cuda":
                 b.record_stream(torch.cuda.current_stream(device))
             out.append(b)
-        return out if is_list else out[0]
+        if isinstance(meta, TreeMeta):
+            return tree_unflatten(meta.spec, out)
+        return out if isinstance(meta, list) else out[0]
 
 
 class Controller:
@@ -478,6 +592,7 @@ class Controller:
         self._inboxes = {r: _inbox(pool, r, REPORT_TAG) for r in self.workers}
         self._out = _Outbox(timedelta(seconds=pool.timeout_s), pool.device)
         self.reports: dict[int, dict] = {}
+        self._expect: dict[int, int] = {}      # command id -> reports it owes
         self._ids = itertools.count(1)
         self._tags = itertools.count(0)
         self.closed = False
@@ -500,6 +615,8 @@ class Controller:
 
     def post(self, rank: int, cmd: dict) -> int:
         cmd.setdefault("id", self.new_id())
+        if cmd.get("ack", True):
+            self._expect[cmd["id"]] = self._expect.get(cmd["id"], 0) + 1
         if rank == self.rank:
             self._commands.put(cmd)
         else:
@@ -524,11 +641,11 @@ class Controller:
                               rank=self.rank) from self._out.error
 
     def _take(self, rep: dict) -> None:
+        self.reports.setdefault(rep["id"], {})[rep["rank"]] = rep
         if "error" in rep:
             raise RankFailure(f"rank {rep['rank']} failed in {rep.get('what') or 'a command'}: "
                               f"{rep['error']}\n--- on rank {rep['rank']}:\n{rep['trace']}",
                               rank=rep["rank"], what=rep.get("what", ""))
-        self.reports.setdefault(rep["id"], {})[rep["rank"]] = rep
 
     def done(self, cid: int, ranks) -> bool:
         return len(self.reports.get(cid, ())) >= len(set(ranks))
@@ -548,25 +665,70 @@ class Controller:
             time.sleep(IDLE_S)
 
     def take(self, cid: int) -> dict:
+        self._expect.pop(cid, None)
         return self.reports.pop(cid)
 
-    def inputs_for(self, ref: Ref, ranks) -> dict:
+    def drain(self) -> list[RankFailure]:
+        """Wait every posted command home (within the pool's time limit) and
+        drop its report: what a run that failed left in flight on the ranks.
+        Returns the failures the ranks reported meanwhile (a command that
+        raised there), for the caller to raise."""
+        deadline = time.monotonic() + self.timeout_s
+        errors = []
+        while True:
+            try:
+                self.poll()
+            except RankFailure as e:
+                if self._error is not None or self._out.error is not None:
+                    raise
+                errors.append(e)
+                continue
+            if all(len(self.reports.get(c, ())) >= n for c, n in self._expect.items()):
+                break
+            if time.monotonic() > deadline:
+                raise RankFailure(f"commands {sorted(self._expect)[:8]} not home in "
+                                  f"{self.timeout_s:.0f} s after a failed run")
+            time.sleep(IDLE_S)
+        for cid in self._expect:
+            self.reports.pop(cid, None)
+        self._expect.clear()
+        return errors
+
+    def inputs_for(self, ref: Ref, ranks, *, keep: bool = False, move: bool = False) -> dict:
         """The input spec of ``ref`` for each rank of ``ranks``: the holder
         takes it from its store; for the others the holder is told to send it
-        (one command, posted now) and each gets a ``recv``."""
+        (one command, posted now) and each gets a ``recv``.  ``keep``: the
+        holder keeps it (an op that may be lost reads it; `release` lets it
+        go: `drop`).  ``move``: the bytes count as moved."""
         ranks = list(dict.fromkeys(ranks))
         away = [r for r in ranks if r != ref.rank]
         specs = {}
         if away:
             tag = self.new_tags(len(_metas(ref.meta)))
             self.post(ref.rank, {"do": "send", "key": ref.key, "dst": away, "tag": tag,
-                                 "pop": ref.rank not in ranks, "ack": False,
-                                 "what": f"send {ref.key} to rank(s) {away}"})
+                                 "pop": not keep and ref.rank not in ranks, "ack": False,
+                                 "move": move, "what": f"send {ref.key} to rank(s) {away}"})
             for r in away:
                 specs[r] = ("recv", ref.rank, tag, ref.meta)
         if ref.rank in ranks:
-            specs[ref.rank] = ("store", ref.key, True)
+            specs[ref.rank] = ("store", ref.key, not keep)
         return specs
+
+    def drop(self, rank: int, keys: list, what: str) -> None:
+        """Free the store entries ``keys`` on ``rank`` (a kept input, a lost
+        op's output, a dead replica's or a parked slice), posted now."""
+        self.post(rank, {"do": "drop", "keys": keys, "ack": False, "what": what})
+
+    def move(self, ref: Ref, dst: int, key, *, ack: bool = True) -> int:
+        """Move the store entry ``ref`` to rank ``dst`` under ``key`` (a
+        rename on the same rank), posted now: the holder lets it go, and
+        ``dst`` holds it, copied onto its card, before it takes its next
+        command (with ``ack``, once the returned command reported).
+        Returns that command's id."""
+        spec = self.inputs_for(ref, [dst], move=True)[dst]
+        return self.post(dst, {"do": "recv", "key": key, "value": spec, "sync": True,
+                               "ack": ack,
+                               "what": f"move {ref.key} from rank {ref.rank} as {key}"})
 
     def fetch(self, ref: Ref):
         """The value of ``ref`` here, on this rank's device (taken from its
@@ -619,12 +781,32 @@ class OverRanks:
     def work(self) -> None:
         """On a rank of the pool other than its controller: run the
         controller's commands on this rank's stages until it closes the
-        pipeline.  Raises `RankFailure` when no command came within the
-        pool's time limit."""
+        pipeline, and every successor built from it on this rank
+        (`runtime.elastic.rescale_serving`, whose workers run on threads of
+        their own meanwhile).  Raises `RankFailure` when no command came
+        within the pool's time limit."""
         if self.pool is None or self._ctl is not None:
             raise RuntimeError("work() runs a rank of a pipeline over ranks other than its "
                                "controller; the controller runs the pipeline")
         Worker(self.pool, self).loop()
+        for thread, errors in getattr(self, "_successors", ()):
+            thread.join()
+            if errors:
+                raise errors[0]
+
+    def _work_beside(self, parent) -> None:
+        """`work` on a thread of its own, joined by ``parent``'s `work` on
+        this rank (this pipeline succeeds ``parent``, whose worker goes on)."""
+        errors: list = []
+
+        def run():
+            try:
+                self.work()
+            except Exception as e:
+                errors.append(e)
+        thread = threading.Thread(target=run, daemon=True, name=f"rank{self.pool.rank}-worker")
+        thread.start()
+        parent.__dict__.setdefault("_successors", []).append((thread, errors))
 
     def call_ranks(self, fn, *args) -> dict:
         """{rank: ``fn(pipeline, *args)``} from each rank of the pipeline, on
@@ -639,10 +821,10 @@ class OverRanks:
                                f"rank {self.pool.controller} runs the pipeline")
 
     def _on_begin(self, w, cmd, inputs):
-        w.store.clear()
+        w.store.clear()                 # a failed run's tensors; PARKED stays
         cs = self.compile_stats
         self._rank_mark = (cs.compiles, cs.misses, cs.late, cs.calls, w.bytes_sent,
-                           launch_counts())
+                           w.bytes_moved, launch_counts())
         self._rank_launches = self._rank_mark[-1]
         return {}
 
@@ -653,20 +835,32 @@ class OverRanks:
 
     def _on_end(self, w, cmd, inputs):
         self.compile_stats.in_window = False
-        cs, (c0, m0, l0, k0, b0, _) = self.compile_stats, self._rank_mark
+        if cmd.get("failed"):
+            w.store.clear()
+        cs, (c0, m0, l0, k0, b0, v0, _) = self.compile_stats, self._rank_mark
         since = self._rank_launches
         return {"compiles": cs.compiles - c0, "misses": cs.misses - m0, "late": cs.late - l0,
                 "calls": cs.calls - k0, "bytes_sent": w.bytes_sent - b0,
+                "bytes_moved": w.bytes_moved - v0,
                 "launches": {k: v - since.get(k, 0) for k, v in launch_counts().items()}}
 
     def _bracket(self, body):
         """``begin`` on every rank, ``body()``, ``end`` on every rank (also
         when ``body`` raised); returns (``body()``, {rank: its costs}) after
-        adding the other ranks' first calls to ``compile_stats``."""
+        adding the other ranks' first calls to ``compile_stats``.  After a
+        `PipelineFailure` (a fault with no failover) every command still in
+        flight is waited home first, and every rank empties its store; the
+        first command that raised on a rank meanwhile is raised instead."""
         ctl = self._ctl
         ctl.run_on(self.ranks, {"fn": "begin"}, "begin")
         try:
             out = body()
+        except PipelineFailure as e:
+            errors = ctl.drain()
+            ctl.run_on(self.ranks, {"fn": "end", "failed": True}, "end")
+            if errors:                  # a rank's own fault, not the simulated one
+                raise errors[0] from e
+            raise
         except Exception:
             try:
                 ctl.run_on(self.ranks, {"fn": "end"}, "end")
@@ -683,6 +877,7 @@ class OverRanks:
                 cs.late += e["late"]
                 cs.calls += e["calls"]
             costs[r] = {"late": e["late"], "bytes_sent": e["bytes_sent"],
+                        "bytes_moved": e["bytes_moved"],
                         "launches": {k: v for k, v in e["launches"].items() if v}}
         return out, costs
 

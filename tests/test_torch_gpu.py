@@ -1689,10 +1689,15 @@ def test_mesh_phase_at_a_two_layer_cut(cuda):
 
 def test_ranks_phase_at_a_two_layer_cut(cuda):
     """``chip_smoke.py``'s phase 19 at qwen2.5-3b's and mamba2-370m's full
-    width cut to 2 layers: two processes share the card as the ranks of a
-    gloo pool; 1F1B and interleaved training bitwise the one-rank
-    pipeline's, two-rank serving tokens equal to the one-rank pipeline's,
-    every rank launching the kernels of its stages and no plain version."""
+    width, training cut to 2 layers and serving to 4: two processes share
+    the card as the ranks of a gloo pool; 1F1B and interleaved training
+    bitwise the one-rank pipeline's, two-rank serving tokens equal to the
+    one-rank pipeline's; the drills (iv) at 2 layers a stage (1 after
+    the rescale), every drill's tokens equal the uninterrupted two-rank
+    serve's, each crash one failover, a slice
+    migrated from rank 1 to rank 0, the successor on rank 0 alone; every
+    rank launching the kernels of its stages and no plain version; the
+    training crash escalating, the next 1F1B run bitwise the first."""
     import sys
     from pathlib import Path
 
@@ -1704,9 +1709,14 @@ def test_ranks_phase_at_a_two_layer_cut(cuda):
     prompts = {name: [rng.integers(2, get_config(name).vocab, n).tolist()
                       for n in rng.integers(64, 401, 8)]
                for name in ("qwen2.5-3b", "mamba2-370m")}
-    tokens, rounds = chip_smoke.ranks_phase("test", prompts, layers=2, serve_layers=2)
-    assert set(tokens) == set(prompts)
+    tokens, rounds = chip_smoke.ranks_phase("test", prompts, layers=2, serve_layers=4)
+    assert set(tokens) == set(prompts) | {"drills"}
     assert all(len(t) == 8 and all(1 <= len(x) <= 32 for x in t) for t in tokens.values())
-    assert set(rounds) == {"train 1f1b", "train interleaved", "serve qwen2.5-3b",
-                           "serve mamba2-370m"}
-    assert all(set(by_rank) == {0, 1} for by_rank in rounds.values()), rounds
+    drills = [k for k in rounds if k.startswith("drill ")]
+    assert set(rounds) - set(drills) == {"train 1f1b", "train interleaved",
+                                         "serve qwen2.5-3b", "serve mamba2-370m"}
+    assert all(set(by_rank) == {0, 1} for k, by_rank in rounds.items()
+               if not k.startswith("drill ")), rounds
+    assert len(drills) == 9, drills
+    assert set(rounds["drill crash blocks01:r1@tok6"]) == {0, 1}
+    assert set(rounds["drill resume on the successor, rank 0 alone"]) == {0}
