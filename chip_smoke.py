@@ -242,7 +242,10 @@ script exits non-zero without its result line.  The phases:
     without and with ``mesh=`` (the tokens equal each other and phase
     4's); the meshed runs counted (every kernel of the path launched, no
     plain version called), the step and decode times of both beside the
-    card (DTensor's cost at world 1);
+    card (DTensor's cost at world 1); and the dry run's arguments of the
+    training cell made on the card and placed on the mesh by the dry
+    run's own placement (record ``"mesh_placed"``: their local bytes and
+    the allocator's growth);
 19. the pipelines over ranks (`ranks_phase`, run after 18): two processes
     share the card as ranks 0 and 1 of a gloo group (NCCL refuses two ranks
     on one card; gloo sends host copies of the card's tensors; two
@@ -272,6 +275,20 @@ script exits non-zero without its result line.  The phases:
     and (i) gains a crash that escalates, then a 1F1B run bitwise the
     first.  tp > 1 needs collectives that gloo lacks for CUDA tensors: it
     runs on the CPU only (``tests/test_torch_pipe_ranks.py``);
+20. the dry run (`dryrun_phase`, run after 19), a host computation:
+    ``python -m repro_torch.launch.dryrun --no-save`` in processes of its
+    own, at once, for qwen2.5-3b's three runnable cells at 16x16 and
+    jamba-1.5-large's ``long_500k`` at 2x16x16 (one process as rank 0 of a
+    fake group of 256 or 512 ranks, meta tensors, no device work), and
+    phase 18's training cell at (1, 1): every cell [OK], qwen2.5-3b's FSDP
+    training moving all-gather and reduce-scatter traffic, and that
+    cell's argument bytes equal to what phase 18 placed on the card and
+    covered by the allocator's growth there, which exceeds them by at
+    most 0.1%.
+    Records ``"dryrun_cell"`` (a cell: the bottleneck, the three terms,
+    wire bytes by kind, argument GB a device, seconds), ``"dryrun_card_check"``
+    and ``"dryrun_phase"``, each beside the card's name and power limit
+    and marked a host computation; no kernel is launched;
 17. the ``kernels`` record (with phase 18's ``mesh_launches`` and phase
     19's ``rank_launches``, its drills' among them), the card's name and
     power limit, and last the
@@ -283,9 +300,11 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2790,10 +2809,15 @@ def mesh_phase(cfg, prompts, smi, *, seq=4096, global_batch=8, grad_accum=4,
           rmsnorm, flash, decode attention and the chain's two GEMVs) and no
           plain version or `_composed_step` called, so DTensor ran the
           kernels on its local tensors and decomposed none;
-      (d) step and decode times with and without the mesh beside the card.
+      (d) step and decode times with and without the mesh beside the card;
+      (e) the dry run's arguments of (a)'s training cell (`mesh_cell`) made
+          on the card and placed on the mesh by the dry run's own
+          `place_args`: the bytes of their local shards, and the
+          allocator's growth over the placement (phase 20 holds the dry
+          run's argument bytes of the same cell to both).
 
     Returns (the meshed round's tokens, {"train": launches, "serve":
-    launches})."""
+    launches}, {"local_bytes", "allocated_growth_bytes"} of (e))."""
     import shutil
 
     import numpy as np
@@ -2887,10 +2911,149 @@ def mesh_phase(cfg, prompts, smi, *, seq=4096, global_batch=8, grad_accum=4,
         if not same or not out["mesh"]["weights_are_dtensors"]:
             raise AssertionError("the meshed server's tokens differ from the plain server's, "
                                  "or its weights are not DTensors")
+
+        # (e) the dry run's arguments of (a)'s cell, made on the card and placed
+        from repro_torch.launch import dryrun, steps
+        from repro_torch.launch.sharding import tree_map
+        cell_cfg, shape, policy = mesh_cell(cfg, seq, global_batch, grad_accum)
+        b = steps.input_specs(cell_cfg, shape, impl="ref")
+
+        def to_card(tree):
+            return tree_map(lambda t: torch.empty_like(t, device="cuda"), tree)
+
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        placed_args = dryrun.place_args(
+            b.kind, (b.arg_specs[0].to_empty(device="cuda"), to_card(b.arg_specs[1]),
+                     b.arg_specs[2], to_card(b.arg_specs[3])), mesh, cell_cfg, policy)
+        torch.cuda.synchronize()
+        placed = {"local_bytes": dryrun.local_bytes(placed_args),
+                  "allocated_growth_bytes": torch.cuda.memory_allocated() - before}
+        emit("mesh_placed", cell=f"{cell_cfg.name} train, seq {seq}, batch {global_batch}, "
+             f"accum {grad_accum}, fsdp", mesh=f"(1, 1) data x model, {backend} world 1",
+             **placed, card=smi)
+        del placed_args, b
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    return out["mesh"]["tokens"], rounds
+    return out["mesh"]["tokens"], rounds, placed
+
+
+def mesh_cell(cfg, seq=4096, global_batch=8, grad_accum=4):
+    """Phase 18's training cell of ``cfg`` as the dry run takes it: phase
+    18's accumulation, its (seq, batch) shape, FSDP on."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.sharding import ShardingPolicy
+    return (dataclasses.replace(cfg, grad_accum=grad_accum),
+            ShapeCfg("mesh_train", seq, global_batch, "train"), ShardingPolicy(fsdp=True))
+
+
+# -- phase 20: the dry run, a host computation --------------------------------
+DRYRUN_WHERE = ("host: one process as rank 0 of a fake process group, meta tensors; "
+                "no device work")
+
+
+def dryrun_mesh_cell() -> None:
+    """Phase 20's run of `mesh_cell` (a process of its own): the dry run on
+    a fake world of one, at the (1, 1) mesh; prints its result."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh
+    cfg, shape, policy = mesh_cell(get_config("qwen2.5-3b"))
+    dryrun.join_fake_group(1)
+    mesh = device_mesh((1, 1), ("data", "model"), device="cpu")
+    print(json.dumps(dryrun.dry_run(cfg, shape, mesh, policy, arch=cfg.name, mesh_name="1x1")),
+          flush=True)
+
+
+def dryrun_phase(smi, placed: dict) -> None:
+    """Phase 20: ``python -m repro_torch.launch.dryrun --no-save`` in
+    processes of their own (this one holds no default group it could
+    lend), at once: qwen2.5-3b's three runnable cells at 16x16 and jamba's
+    ``long_500k`` at 2x16x16; and `mesh_cell` at (1, 1).  Each cell must
+    print [OK]; qwen2.5-3b's FSDP training must move all-gather and
+    reduce-scatter traffic; `mesh_cell`'s argument bytes must equal the
+    local bytes phase 18 placed on the card, and the allocator's growth
+    there (the independent witness) must cover them, by at most 0.1%
+    more.  One record a cell (the bottleneck, the three terms, wire bytes
+    by kind, argument GB a device, its process's seconds to its exit),
+    each a host computation."""
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--no-save"]
+    runs = {"qwen2.5-3b": cli + ["--arch", "qwen2.5-3b"],
+            "jamba": cli + ["--arch", "jamba-1.5-large-398b", "--shape", "long_500k",
+                            "--multi-pod"],
+            "mesh_cell": [sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_mesh_cell()"]}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE) for k, cmd in runs.items()}
+    outs, seconds = {}, {}
+
+    def wait(k, p):     # each process's seconds from the common start to its own exit
+        outs[k] = p.communicate(timeout=600)
+        seconds[k] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=kp) for kp in procs.items()]
+    try:
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        if set(outs) != set(procs):
+            raise AssertionError(f"dry runs {sorted(set(procs) - set(outs))} did not end "
+                                 "within 600 s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = {k: (p.returncode, [line for line in outs[k][0].splitlines()
+                                 if line.startswith("[FAIL]")] or outs[k][1][-2000:])
+              for k, p in procs.items() if p.returncode != 0 or "[FAIL]" in outs[k][0]}
+    if failed:
+        raise AssertionError(f"dry runs failed: {failed}")
+    results = {k: [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+               for k, (out, _) in outs.items()}
+    want = {("qwen2.5-3b", s, "16x16") for s in ("train_4k", "prefill_32k", "decode_32k")}
+    want |= {("jamba-1.5-large-398b", "long_500k", "2x16x16"),
+             ("qwen2.5-3b", "mesh_train", "1x1")}
+    got = {(r["arch"], r["shape"], r["mesh"]): r for rs in results.values() for r in rs}
+    if set(got) != want:
+        raise AssertionError(f"the dry run's cells {sorted(got)} are not {sorted(want)}")
+    for k, rs in results.items():
+        for r in rs:
+            roof = r["roofline"]
+            emit("dryrun_cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"], kind=r["kind"],
+                 n_devices=r["n_devices"], where=DRYRUN_WHERE, bottleneck=roof["bottleneck"],
+                 compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+                 collective_s=roof["collective_s"], hlo_flops=roof["hlo_flops"],
+                 hlo_bytes=roof["hlo_bytes"], wire_bytes=roof["collectives"]["wire_bytes"],
+                 collective_counts=roof["collectives"]["counts"],
+                 argument_gb=r["memory"]["argument_size"] / 1e9,
+                 output_gb=r["memory"]["output_size"] / 1e9, lower_s=r["lower_s"],
+                 process_s=seconds[k], card=smi)
+    kinds = set(got["qwen2.5-3b", "train_4k", "16x16"]["roofline"]["collectives"]["counts"])
+    if not {"all-gather", "reduce-scatter"} <= kinds:
+        raise AssertionError(f"qwen2.5-3b's FSDP training moved {sorted(kinds)}, no "
+                             "all-gather and reduce-scatter")
+    # the independent witness is the allocator: what placement took on the card
+    # must cover the dry run's argument bytes, above them by at most 0.1%
+    args = got["qwen2.5-3b", "mesh_train", "1x1"]["memory"]["argument_size"]
+    growth = placed["allocated_growth_bytes"]
+    within = args <= growth <= args * 1.001
+    emit("dryrun_card_check", cell="phase 18's training cell at (1, 1)",
+         dry_run_argument_bytes=args, placed_local_bytes=placed["local_bytes"],
+         placed_allocated_growth_bytes=growth, growth_over_args_bytes=growth - args,
+         equal=args == placed["local_bytes"], growth_within_0p1pct=within, card=smi)
+    if args != placed["local_bytes"]:
+        raise AssertionError(f"the dry run's argument bytes {args} are not the "
+                             f"{placed['local_bytes']} phase 18 placed on the card")
+    if not within:
+        raise AssertionError(f"the allocator grew by {growth} bytes placing the dry run's "
+                             f"{args} argument bytes: not within [args, args + 0.1%]")
 
 
 # -- phase 19: the pipelines over two ranks that share the card ---------------
@@ -4827,7 +4990,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    mesh_tokens, mesh_rounds = mesh_phase(get_config("qwen2.5-3b"), prompts, smi)
+    mesh_tokens, mesh_rounds, mesh_placed = mesh_phase(get_config("qwen2.5-3b"), prompts, smi)
     same = mesh_tokens == served_tokens["qwen2.5-3b"]
     emit("mesh_phase", seconds=time.perf_counter() - t_phase, tokens_equal_phase_4=same)
     if not same:
@@ -4845,6 +5008,11 @@ def main() -> int:
          card=smi)
     if not all(same.values()):
         raise AssertionError(f"the 2-rank pipelines' tokens differ from phase 4's: {same}")
+
+    # -- 20. the dry run: the production meshes on a fake group (host) -------
+    t_phase = time.perf_counter()
+    dryrun_phase(smi, mesh_placed)
+    emit("dryrun_phase", seconds=time.perf_counter() - t_phase, where=DRYRUN_WHERE, card=smi)
 
     # -- 17. the record of the kernels, the card, the result ----------------
     # launches from the serving round that runs each kernel: qwen's for the

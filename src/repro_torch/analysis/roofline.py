@@ -1,22 +1,29 @@
 """The card's published rates, a step's roofline, and the bytes a decode
 stage must move.
 
-Copied from ``repro/analysis/roofline.py``: `Hardware`,
-`RooflineReport`, `decode_stage_bytes` and `fraction_of_roofline`, with
-the names and behaviour unchanged.  `analyze_step` is the part of the
-JAX ``analyze_compiled`` that needs no compiled program: the compute and
-memory terms of a step's counts (`analysis.step_cost.count_step`) on one
-card, the bottleneck, the model's FLOPs (6 N D to train, 2 N D
-otherwise), and the bound on the step's time, tokens a second and MFU.
-The port runs on one card and has no partitioned program to parse, so
-the collective term is 0 (the JAX ``parse_collectives`` and ``hlo`` are
-not ported).  The JAX package's TPU table is not copied; the port's one
-entry is `HW_H100`.
+Copied from ``repro/analysis/roofline.py``: `Hardware`, `CollectiveStats`,
+`RooflineReport`, `decode_stage_bytes`, `measure_host_bandwidth` and
+`fraction_of_roofline`, with the names and behaviour unchanged.
+`analyze_step` is ``analyze_compiled`` without a compiled program: from a
+step's global counts (`analysis.step_cost.count_step`) and, on a mesh of
+``n_devices``, the collectives its eager meshed run issued
+(`analysis.collectives.count_collectives`, the counterpart of
+``parse_collectives`` and ``hlo.collect``), the three terms
+
+    compute    = FLOPs      / (n_devices * peak FLOP/s)
+    memory     = bytes      / (n_devices * HBM rate)
+    collective = wire bytes / (n_devices * link rate)
+
+the bottleneck, the model's FLOPs (6 N D to train, 2 N D otherwise), and
+the bound on the step's time, tokens a second and MFU.  On one card, with
+no collectives given, the collective term is 0.  The JAX package's TPU
+table is not copied; the port's one entry is `HW_H100`.
 """
 from __future__ import annotations
 
 import json
-from dataclasses import asdict, dataclass
+import time
+from dataclasses import asdict, dataclass, field
 
 
 @dataclass(frozen=True)
@@ -35,6 +42,16 @@ class Hardware:
 # activations take to leave a chip, which moves them one way.
 HW_H100 = Hardware(name="h100-sxm", peak_flops=989e12, hbm_bw=3.35e12,
                    link_bw=450e9, hbm_bytes=80e9)
+
+
+@dataclass
+class CollectiveStats:
+    op_bytes: dict[str, float] = field(default_factory=dict)   # shard bytes by kind
+    wire_bytes: dict[str, float] = field(default_factory=dict)  # ring-cost traffic
+    counts: dict[str, int] = field(default_factory=dict)
+
+    def total_wire(self) -> float:
+        return sum(self.wire_bytes.values())
 
 
 @dataclass
@@ -70,29 +87,45 @@ def model_flops(cfg, kind: str, tokens: float) -> float:
 
 
 def analyze_step(*, arch: str, shape_name: str, kind: str, cfg, tokens: float,
-                 step_flops: float, step_bytes: float,
-                 hw: Hardware = HW_H100) -> RooflineReport:
-    """The roofline of one step on one card of ``hw`` from its whole-step
-    counts (``step_flops`` / ``step_bytes``: `step_cost.count_step`):
-    compute = FLOPs / peak, memory = bytes / HBM rate, the larger the
-    bound on the step's time and the bottleneck."""
-    compute_s = step_flops / hw.peak_flops
-    memory_s = step_bytes / hw.hbm_bw
-    terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
+                 step_flops: float, step_bytes: float, hw: Hardware = HW_H100,
+                 n_devices: int = 1, mesh_name: str = "1",
+                 collectives: CollectiveStats | None = None,
+                 per_device_peak_memory: float | None = None) -> RooflineReport:
+    """The roofline of one step on ``n_devices`` cards of ``hw`` from its
+    whole-step counts (``step_flops`` / ``step_bytes``:
+    `step_cost.count_step`) and its ``collectives``
+    (`collectives.count_collectives`; None: none): compute = FLOPs / (n
+    peak), memory = bytes / (n HBM rate), collective = wire bytes / (n
+    link rate), the largest the bound on the step's time and the
+    bottleneck.  ``per_device_peak_memory`` is the caller's bytes a
+    device (the dry run's argument bytes: there is no compiled program
+    to give temporaries), carried into the report."""
+    coll = collectives or CollectiveStats()
+    n = n_devices
+    compute_s = step_flops / (n * hw.peak_flops)
+    memory_s = step_bytes / (n * hw.hbm_bw)
+    collective_s = coll.total_wire() / (n * hw.link_bw)
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     bottleneck = max(terms, key=terms.get)
     bound = max(terms.values())
     useful = model_flops(cfg, kind, tokens)
+    if collectives is None:
+        note = ("one card: no collectives (the JAX package parses them from its "
+                "partitioned HLO, which the port has not); FLOPs and bytes from "
+                "step_cost.count_step over the plain versions on the meta device")
+    else:
+        note = (f"{n} devices: collectives as the eager meshed step issued them "
+                "(collectives.count_collectives); FLOPs and bytes from "
+                "step_cost.count_step over the plain versions on the meta device")
     return RooflineReport(
-        arch=arch, shape=shape_name, mesh="1", n_devices=1, hlo_flops=step_flops,
-        hlo_bytes=step_bytes, wire_bytes=0.0, compute_s=compute_s, memory_s=memory_s,
-        collective_s=0.0, bottleneck=bottleneck, model_flops=useful,
-        useful_flops_ratio=(useful / step_flops) if step_flops else 0.0,
-        collectives={"counts": {}, "wire_bytes": {}}, step_time_bound_s=bound,
+        arch=arch, shape=shape_name, mesh=mesh_name, n_devices=n, hlo_flops=step_flops,
+        hlo_bytes=step_bytes, wire_bytes=coll.total_wire(), compute_s=compute_s,
+        memory_s=memory_s, collective_s=collective_s, bottleneck=bottleneck,
+        model_flops=useful, useful_flops_ratio=(useful / step_flops) if step_flops else 0.0,
+        collectives={"counts": coll.counts, "wire_bytes": coll.wire_bytes},
+        per_device_peak_memory=per_device_peak_memory, step_time_bound_s=bound,
         tokens_per_s=(tokens / bound) if bound else 0.0,
-        mfu=(useful / hw.peak_flops) / bound if bound else 0.0,
-        note="one card: no collectives (the JAX package parses them from its "
-             "partitioned HLO, which the port has not); FLOPs and bytes from "
-             "step_cost.count_step over the plain versions on the meta device")
+        mfu=(useful / (n * hw.peak_flops)) / bound if bound else 0.0, note=note)
 
 
 def _dtype_size(name: str) -> int:
@@ -168,6 +201,27 @@ def decode_stage_bytes(cfg, batch: int, cache_len: int, *,
         total += d * 4                          # final norm
         total += d * cfg.padded_vocab * pb + batch * cfg.padded_vocab * ab
     return total
+
+
+def measure_host_bandwidth(mbytes: int = 256, repeats: int = 5) -> float:
+    """Achievable host memory bandwidth (bytes/s), measured.
+
+    One `numpy` buffer copy (read + write) over a buffer far larger than
+    any cache level, best of ``repeats`` — the realistic peak for
+    roofline fractions on the host, where the card's datasheet numbers
+    do not apply.  Card runs should use the `Hardware` table instead.
+    """
+    import numpy as np
+    n = mbytes * (1 << 20) // 8
+    src = np.ones(n, np.float64)
+    dst = np.empty_like(src)
+    best = float("inf")
+    np.copyto(dst, src)                  # warm: fault pages, warm TLBs
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * n * 8 / best
 
 
 def fraction_of_roofline(step_bytes: float, measured_s: float,

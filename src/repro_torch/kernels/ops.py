@@ -153,6 +153,24 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, impl: str | None = None):
     return _ssd_scan(x, dt, a, b, c, chunk=chunk)
 
 
+def ssd_decode_step(s, xt, dtt, a, bt, ct):
+    """`ref.ssd_decode_step`, Mamba2's one-token state update (serving):
+    every (sequence, head, column) of the state is independent, so under a
+    mesh it runs on the local shards in the state's layout (s (B, H, P, N)
+    split on any of its first three dims), the token's inputs laid out to
+    match; DTensor's own einsum flattens a split dim, which some torch
+    versions (2.11) refuse."""
+    if not _dtensor(s):
+        return ref.ssd_decode_step(s, xt, dtt, a, bt, ct)
+    from torch.distributed.tensor import Replicate, Shard
+    ps = [p if isinstance(p, Shard) and p.dim < 3 else Replicate() for p in s.placements]
+    ph = [p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in ps]     # (B, H)
+    pa = [Shard(0) if p == Shard(1) else Replicate() for p in ps]                 # (H,)
+    pb = [p if p == Shard(0) else Replicate() for p in ps]                        # (B, N)
+    return _local_map(ref.ssd_decode_step, s.device_mesh, (ps, ps), (ps, ps, ph, pa, pb, pb),
+                      None, s, xt, dtt, a, bt, ct)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-5, impl: str | None = None):
     if _dtensor(x):
         from torch.distributed.tensor import Replicate

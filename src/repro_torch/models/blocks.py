@@ -55,7 +55,7 @@ from torch import nn
 
 from .. import sharding_ctx as sc
 from ..configs.base import ModelConfig
-from ..kernels import ops, ref
+from ..kernels import ops
 from .common import activation, dense_init, dtype_of, rmsnorm, rope
 
 
@@ -117,9 +117,12 @@ class Attention(nn.Module):
             q = q + self.bq.to(dt)
             k = k + self.bk.to(dt)
             v = v + self.bv.to(dt)
-        q = sc.act(q.view(B, S, a.n_heads, a.head_dim), "dp", None, "tp", None)
-        k = sc.act(k.view(B, S, a.n_kv_heads, a.head_dim), "dp", None, "tp", None)
-        v = sc.act(v.view(B, S, a.n_kv_heads, a.head_dim), "dp", None, "tp", None)
+        q = sc.act(sc.heads(q, a.n_heads).view(B, S, a.n_heads, a.head_dim),
+                   "dp", None, "tp", None)
+        k = sc.act(sc.heads(k, a.n_kv_heads).view(B, S, a.n_kv_heads, a.head_dim),
+                   "dp", None, "tp", None)
+        v = sc.act(sc.heads(v, a.n_kv_heads).view(B, S, a.n_kv_heads, a.head_dim),
+                   "dp", None, "tp", None)
         return rope(q, positions, a.rope_theta), rope(k, positions, a.rope_theta), v
 
     def forward(self, x, positions, *, causal=True, impl=None, return_kv=False):
@@ -131,8 +134,7 @@ class Attention(nn.Module):
         q, k, v = self._qkv(h, positions)
         o = ops.attention(q, k, v, causal=causal,
                           window=self.cfg.attn.window if causal else None, impl=impl)
-        B, S, _ = x.shape
-        out = sc.act(x + o.reshape(B, S, -1) @ self.wo.to(x.dtype), "dp", "sp", None)
+        out = sc.act(x + sc.merge_heads(o) @ self.wo.to(x.dtype), "dp", "sp", None)
         return (out, (k, v)) if return_kv else out
 
     def decode(self, x, cache, pos, *, impl=None):
@@ -159,10 +161,10 @@ class Attention(nn.Module):
         q, k, v = self._qkv(h, positions)
         C = cache["k"].shape[1]
         slot = torch.remainder(positions, C).long()
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        sc.write_slot(cache["k"], slot, k.to(cache["k"].dtype))
+        sc.write_slot(cache["v"], slot, v.to(cache["v"].dtype))
         cache_len = torch.clamp(pos + 1, max=C)
-        o = ref.decode_attention_ref(q[:, 0], cache["k"], cache["v"], cache_len)
+        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], cache_len, impl="ref")
         return sc.act(x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype), "dp", "sp", None), cache
 
 
@@ -187,7 +189,9 @@ class CrossAttention(Attention):
         if self.bk is not None:
             k = k + self.bk.to(dt)
             v = v + self.bv.to(dt)
-        return k.view(B, Se, a.n_kv_heads, a.head_dim), v.view(B, Se, a.n_kv_heads, a.head_dim)
+        kv = a.n_kv_heads
+        return (sc.heads(k, kv).view(B, Se, kv, a.head_dim),
+                sc.heads(v, kv).view(B, Se, kv, a.head_dim))
 
     def forward(self, x, k, v, *, impl=None):
         """`cross_attn_forward`: x (B, S, D) attends, not causal, to every
@@ -195,8 +199,9 @@ class CrossAttention(Attention):
         a = self.cfg.attn
         B, S, _ = x.shape
         q = self._q(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
-        o = ops.attention(q.view(B, S, a.n_heads, a.head_dim), k, v, causal=False, impl=impl)
-        return sc.act(x + o.reshape(B, S, -1) @ self.wo.to(x.dtype), "dp", "sp", None)
+        q = sc.heads(q, a.n_heads).view(B, S, a.n_heads, a.head_dim)
+        o = ops.attention(q, k, v, causal=False, impl=impl)
+        return sc.act(x + sc.merge_heads(o) @ self.wo.to(x.dtype), "dp", "sp", None)
 
     def decode(self, x, k, v, cache_len, *, impl=None):
         """`cross_attn_decode`: one token, x (B, 1, D), over the cached K/V
@@ -206,7 +211,8 @@ class CrossAttention(Attention):
         a = self.cfg.attn
         B = x.shape[0]
         q = self._q(rmsnorm(x, self.norm, self.cfg.norm_eps, impl))
-        o = ops.decode_attention(q.view(B, a.n_heads, a.head_dim), k, v, cache_len, impl=impl)
+        q = sc.heads(q, a.n_heads).view(B, a.n_heads, a.head_dim)
+        o = ops.decode_attention(q, k, v, cache_len, impl=impl)
         return x + o.reshape(B, 1, -1) @ self.wo.to(x.dtype)
 
 
@@ -261,7 +267,7 @@ class Mamba(nn.Module):
         ``"ref"`` runs the op-by-op body, the oracle."""
         if ops.check_impl(impl) == "ref":
             y = y + xh * self.d_skip[:, None].to(xh.dtype)
-            y = y.reshape(*z.shape) * F.silu(z)
+            y = sc.merge_heads(y) * F.silu(z)
             y = rmsnorm(y, self.gate_norm, self.cfg.norm_eps, impl)
         else:
             y = ops.rmsnorm_gated(y, xh, self.d_skip, z, self.gate_norm, eps=self.cfg.norm_eps)
@@ -278,12 +284,13 @@ class Mamba(nn.Module):
         h = rmsnorm(x, self.norm, self.cfg.norm_eps, impl)
         x_in, z, b, c, dt = self._proj(h)
         # depthwise causal conv (d_conv taps) as shifted adds
-        padded = F.pad(x_in, (0, 0, m.d_conv - 1, 0))
+        padded = sc.pad(x_in, (0, 0, m.d_conv - 1, 0))
         conv = torch.zeros_like(x_in)
         w = self.conv_w.to(x_in.dtype)
         for k in range(m.d_conv):
             conv = conv + padded[:, k:k + S] * w[k]
-        xh = sc.act(F.silu(conv).reshape(B, S, H, m.head_dim), "dp", None, "tp", None)
+        xh = sc.act(sc.heads(F.silu(conv), H).reshape(B, S, H, m.head_dim),
+                    "dp", None, "tp", None)
         y, state = ops.ssd(xh, dt, -torch.exp(self.a_log), b, c, impl=impl)
         out = sc.act(self._gate_out(x, y, xh, z, impl), "dp", "sp", None)
         return out, (padded[:, S:], state)
@@ -300,8 +307,8 @@ class Mamba(nn.Module):
         w, hist = self.conv_w.to(x_in.dtype), cache["conv"]
         conv = x_in * w[-1] + torch.einsum("bkd,kd->bd", hist.to(x_in.dtype), w[:-1])
         hist.copy_(torch.cat([hist[:, 1:], x_in[:, None].to(hist.dtype)], dim=1))
-        xh = F.silu(conv).reshape(B, H, m.head_dim)
-        y, ssm = ref.ssd_decode_step(cache["ssm"], xh, dt, -torch.exp(self.a_log), b, c)
+        xh = sc.heads(F.silu(conv), H).reshape(B, H, m.head_dim)
+        y, ssm = ops.ssd_decode_step(cache["ssm"], xh, dt, -torch.exp(self.a_log), b, c)
         cache["ssm"].copy_(sc.act(ssm, "dp", "tp", None, None))
         return sc.act(self._gate_out(x[:, 0], y, xh, z, impl)[:, None], "dp", "sp", None), cache
 
@@ -450,23 +457,67 @@ class MoE(nn.Module):
         """`_expert_ffn`: xe (E, R, D) -> (E, R, D), expert e's FFN on its rows."""
         return self.experts(xe, mm=torch.bmm)
 
+    def _route(self, probs) -> tuple:
+        """The einsum path's routing of ``probs`` (B, S, E), flat in round
+        order: per round, each token's slot in that round's (E * B * C)
+        dispatch buffer (B * S,) (one past the buffer where dropped) and
+        its gate (B, S)."""
+        B, S, E = probs.shape
+        cap = self.capacity(S)
+        rows = torch.arange(B, device=probs.device)[:, None] * cap
+        out = []
+        for idx, gate, slot, keep in self._rounds(probs):
+            out += [torch.where(keep, idx * (B * cap) + rows + slot, E * B * cap).reshape(-1),
+                    gate]
+        return tuple(out)
+
+    def _dispatch(self, h, flat):
+        """One round's dispatch of h (B, S, D) to the slots ``flat`` gives
+        (`_route`): the (E, B * C, D) buffer, each expert's C slots of
+        every row side by side."""
+        B, S, D = h.shape
+        E = self.cfg.moe.n_experts
+        cap = self.capacity(S)
+        buf = h.new_zeros((E * B * cap + 1, D)).index_add(0, flat, h.reshape(-1, D))
+        return buf[:-1].view(E, B * cap, D)
+
+    @staticmethod
+    def _combine(ye, flat, gate):
+        """Each token's slot of the experts' output ye (E, B * C, D), zero
+        where it was dropped, times its gate (B, S) -> (B, S, D)."""
+        D = ye.shape[-1]
+        ye = ye.reshape(-1, D)
+        tok = torch.cat([ye, ye.new_zeros((1, D))]).index_select(0, flat)
+        return tok.view(*gate.shape, D) * gate.to(ye.dtype)[..., None]
+
     def forward(self, x, *, impl=None):
         """`moe_forward` (GShard top-k with capacity): x (B, S, D) -> (B, S,
-        D); `forward_sorted` under ``set_moe_impl("sorted")``."""
+        D); `forward_sorted` under ``set_moe_impl("sorted")``.
+
+        On a mesh (DTensor activations) each rank dispatches and combines
+        its own rows (a row's capacity is its own, so the split is exact):
+        the buffers are split over the batch's mesh dims along their B * C
+        rows, and the experts' products run on them as DTensors."""
         if MOE_IMPL == "sorted":
             return self.forward_sorted(x, impl=impl)
-        B, S, D = x.shape
-        E = self.cfg.moe.n_experts
         h, probs = self._probs(x, impl)
-        cap = self.capacity(S)
-        rows = torch.arange(B, device=x.device)[:, None] * cap
+        route, dispatch, combine = self._route, self._dispatch, self._combine
+        if ops._dtensor(h):
+            from torch.distributed.tensor import Replicate, Shard
+            from torch.distributed.tensor.experimental import local_map
+            mesh = h.device_mesh
+            rows = [p if p == Shard(0) else Replicate() for p in h.placements]
+            slots = [Shard(1) if p == Shard(0) else Replicate() for p in rows]
+            route = local_map(route, out_placements=(rows, rows) * self.cfg.moe.top_k,
+                              in_placements=(rows,), device_mesh=mesh, redistribute_inputs=True)
+            dispatch = local_map(dispatch, out_placements=slots, in_placements=(rows, rows),
+                                 device_mesh=mesh, redistribute_inputs=True)
+            combine = local_map(combine, out_placements=rows, in_placements=(slots, rows, rows),
+                                device_mesh=mesh, redistribute_inputs=True)
         out = torch.zeros_like(h)
-        for idx, gate, slot, keep in self._rounds(probs):
-            flat = torch.where(keep, idx * (B * cap) + rows + slot, E * B * cap).reshape(-1)
-            buf = h.new_zeros((E * B * cap + 1, D)).index_add(0, flat, h.reshape(-1, D))
-            ye = self._expert_ffn(buf[:-1].view(E, B * cap, D)).reshape(-1, D)
-            tok = torch.cat([ye, ye.new_zeros((1, D))]).index_select(0, flat)
-            out = out + tok.view(B, S, D) * gate.to(h.dtype)[..., None]
+        routes = route(probs)
+        for flat, gate in zip(routes[0::2], routes[1::2]):
+            out = out + combine(self._expert_ffn(dispatch(h, flat)), flat, gate)
         if self.shared is not None:
             out = out + self.shared(h)
         return sc.act(x + out.to(x.dtype), "dp", "sp", None)

@@ -100,9 +100,9 @@ def chunked_lm_loss(x, head, labels, mask=None, chunk: int = 512):
     mask = (torch.ones((B, S), dtype=torch.float32, device=x.device) if mask is None
             else mask.float())
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
+        x = sc.pad(x, (0, 0, 0, pad))
+        labels = sc.pad(labels, (0, pad))
+        mask = sc.pad(mask, (0, pad))
     head_c = head.to(x.dtype)
     nll = cnt = 0.0
     for i in range(nb):

@@ -126,7 +126,7 @@ def _embed_inputs(cfg: ModelConfig, params: LM, batch):
     ``batch["prefix_embeds"]`` (B, P, D) where the config has the prefix
     frontend and the batch has them; and P (0 without)."""
     dt = dtype_of(cfg.compute_dtype)
-    x = sc.act(params.embed[batch["tokens"]].to(dt), "dp", "sp", None)
+    x = sc.act(sc.lookup(params.embed, batch["tokens"]).to(dt), "dp", "sp", None)
     if cfg.frontend != "vit_stub" or "prefix_embeds" not in batch:
         return x, 0
     pre = batch["prefix_embeds"].to(dt)
@@ -249,6 +249,15 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, dtype, device,
     return cache
 
 
+def _rolled(t, shift: int):
+    """``torch.roll(t, shift, dims=1)`` as slices and a concatenation, which
+    DTensor places in every torch version (2.11 has no strategy for roll)."""
+    if not shift:
+        return t
+    n = t.shape[1]
+    return torch.cat([t[:, n - shift:], t[:, :n - shift]], dim=1)
+
+
 def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, enc_out=None,
                    impl=None):
     """Prompt pass over ``layers``, filling each layer's cache in place:
@@ -269,11 +278,11 @@ def prefill_blocks(cfg: ModelConfig, layers, x, positions, caches, *, enc_out=No
             cap = c["k"].shape[1]
             if S >= cap:       # ring layout: the last cap positions, rolled
                 shift = (S - cap) % cap
-                c["k"].copy_(torch.roll(k[:, -cap:], shift, dims=1))
-                c["v"].copy_(torch.roll(v[:, -cap:], shift, dims=1))
+                c["k"].copy_(_rolled(k[:, -cap:], shift))
+                c["v"].copy_(_rolled(v[:, -cap:], shift))
             else:              # the slots past the prompt stay zero
-                c["k"][:, :S].copy_(k)
-                c["v"][:, :S].copy_(v)
+                sc.write_prefix(c["k"], k)
+                sc.write_prefix(c["v"], v)
         if layer.cross is not None:
             k, v = layer.cross.kv(enc_out)
             cc["cross_k"].copy_(k)
@@ -328,7 +337,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens, *, impl=None):
     """One token for every sequence.  tokens: (B, 1) integer device tensor.
     Returns logits (B, 1, Vp) and ``cache``, updated in place: the ring
     slots and ``pos`` (+1)."""
-    x = sc.act(params.embed[tokens].to(dtype_of(cfg.compute_dtype)), "dp", None, None)
+    x = sc.act(sc.lookup(params.embed, tokens).to(dtype_of(cfg.compute_dtype)), "dp", None, None)
     pos = cache["pos"]
     x = decode_blocks(cfg, params.layers, cache["layers"], x, pos,
                       cross_len=cache.get("cross_len"), impl=impl)

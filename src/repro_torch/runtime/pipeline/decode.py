@@ -223,9 +223,10 @@ class ServeRunResult(EngineResult):
     paused: bool = False               # admission-paused mid-stream
     resume_state: object = None        # `ResumeState` when paused
     ranks: dict = field(default_factory=dict)
-    # over ranks: rank -> {"host_s": its op bodies' host seconds, "late",
-    # "bytes_sent", "bytes_moved" (of those, slices and weights moved),
-    # "launches": kernel launches in the timed serve}
+    # over ranks: rank -> {"host_s": its op bodies' host seconds, "stall_s":
+    # of those, the injected stalls it slept, "late", "bytes_sent",
+    # "bytes_moved" (of those, slices and weights moved), "launches": kernel
+    # launches in the timed serve}
     migrations: list = field(default_factory=list)
     # over ranks: one dict per migrated slice {stage, gid, from, to,
     # from_rank, to_rank, bytes (moved rank to rank, 0 on one rank)}
@@ -716,6 +717,7 @@ class _RankServeStageProgram(_ServeStageProgram):
         self.sent.pop(op.seq, None)
         rep = self.ctl.take(cid)[rank]
         run.rank_host_s[rank] = run.rank_host_s.get(rank, 0.0) + rep["host_s"]
+        run.rank_stall_s[rank] = run.rank_stall_s.get(rank, 0.0) + rep["stall_s"]
         if engine.tracer is not None:
             engine.tracer.op_rank(self.name, op.rep, rank, rep["host_s"])
         engine.result.stage_dispatch_s[self.name] += rep["host_s"]
@@ -811,6 +813,7 @@ class _ServeRun:
         self.streams: set = set()              # handles of the CUDA streams
         #                                        ops ran on
         self.rank_host_s: dict = {}            # over ranks: rank -> op host seconds
+        self.rank_stall_s: dict = {}           # and of those, stalls slept
         self.migrations: list = []             # over ranks: each slice migrated,
         self.moved_slices: list = []           # moved rank to rank on resume,
         self.replayed_slices: list = []        # replayed on resume
@@ -830,6 +833,11 @@ class _ServeRun:
         self.feedback = StreamChannel(block=1, capacity_blocks=1,
                                       min_capacity=fb_cap)
         self.open_groups = len(groups) if open_groups is None else open_groups
+
+    def rank_times(self) -> dict:
+        """Over ranks: rank -> {"host_s", "stall_s"} of its op bodies."""
+        return {r: {"host_s": s, "stall_s": self.rank_stall_s.get(r, 0.0)}
+                for r, s in self.rank_host_s.items()}
 
     def enqueue(self, kind: str, gid: int, pos: int) -> int:
         seq = len(self.gid_of)
@@ -1676,7 +1684,8 @@ class DecodePipeline(OverRanks):
         """``body`` (a serve or a resume) inside the run bracket of every
         rank, with each rank's costs in the result's ``ranks``."""
         res, costs = self._bracket(body)
-        res.ranks = {r: dict(c, host_s=res.ranks.get(r, 0.0)) for r, c in costs.items()}
+        res.ranks = {r: dict(c, **res.ranks.get(r, {"host_s": 0.0, "stall_s": 0.0}))
+                     for r, c in costs.items()}
         return res
 
     def _serve_body(self, groups, group_of, *, eos_id, capacity_blocks, overlap, temperature,
@@ -1702,7 +1711,7 @@ class DecodePipeline(OverRanks):
         for g in groups:                       # run-relative group timings
             g.t_start = max(0.0, g.t_start - engine.t0)
         if self.pool is not None:
-            res.ranks = run.rank_host_s
+            res.ranks = run.rank_times()
         return res
 
     def _seed_groups(self, groups) -> None:
@@ -1879,7 +1888,7 @@ class DecodePipeline(OverRanks):
                                         injector=injector, health=health,
                                         static_report=report)
             if self.pool is not None:
-                res.ranks = run.rank_host_s
+                res.ranks = run.rank_times()
             return res
         return body() if self.pool is None else self._over_ranks(body)
 

@@ -300,9 +300,10 @@ class LMPipelineResult:
     # the raw material for overlap debugging and gantt-style bench plots
     streams_used: int = 0                   # distinct CUDA streams that ran ops
     ranks: dict = field(default_factory=dict)
-    # over ranks: rank -> {"host_s": its op bodies' host seconds, "late",
-    # "bytes_sent": what it sent to other ranks, "launches": kernel launches
-    # in the timed run, by kernel}
+    # over ranks: rank -> {"host_s": its op bodies' host seconds, "stall_s":
+    # of those, the injected stalls it slept, "late", "bytes_sent": what it
+    # sent to other ranks, "launches": kernel launches in the timed run, by
+    # kernel}
 
     def stage_inverse_us(self, name: str) -> float:
         """Effective microseconds per forward firing of one stage: the
@@ -1580,6 +1581,7 @@ class LMPipeline(OverRanks):
             for r, host_s in prog.rank_host_s.items():
                 d = res.ranks.setdefault(r, {})
                 d["host_s"] = d.get("host_s", 0.0) + host_s
+                d["stall_s"] = d.get("stall_s", 0.0) + prog.rank_stall_s.get(r, 0.0)
         if train:
             res.grads = {}
             for i, st in enumerate(self.stages):
@@ -1605,6 +1607,7 @@ class _RankStageProgram(_LMStageProgram):
         super().__init__(*a, **kw)
         self.ctl = self.pipe._ctl
         self.rank_host_s: dict[int, float] = {}
+        self.rank_stall_s: dict[int, float] = {}    # of those, stalls slept
         self.stall_s = 0.0          # the engine's injected stall for the next op
 
     def _launch_fwd(self, st: LMStage, i: int, rep: int, mb: int, x):
@@ -1640,6 +1643,7 @@ class _RankStageProgram(_LMStageProgram):
         reps = self.ctl.take(cid)
         for r, rep in reps.items():
             self.rank_host_s[r] = self.rank_host_s.get(r, 0.0) + rep["host_s"]
+            self.rank_stall_s[r] = self.rank_stall_s.get(r, 0.0) + rep["stall_s"]
             if engine.tracer is not None:
                 engine.tracer.op_rank(self.name, op.rep, r, rep["host_s"])
             if rep.get("stream") is not None:

@@ -321,14 +321,14 @@ def stream_handle(stream):
 
 
 def _timed(stall_s: float, fn, *args):
-    """(``fn(*args)``, its host seconds), after a host-side sleep of
-    ``stall_s`` where one is injected (a straggler: the seconds include the
-    sleep, as on one rank)."""
+    """(``fn(*args)``, its host seconds, the seconds it slept), after a
+    host-side sleep of ``stall_s`` where one is injected (a straggler: the
+    host seconds include the sleep, as on one rank)."""
     t0 = time.perf_counter()
     if stall_s:
         time.sleep(stall_s)
     out = fn(*args)
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, float(stall_s or 0.0)
 
 
 class Worker:
@@ -355,7 +355,8 @@ class Worker:
         self._inbox = None if commands is not None else _inbox(pool, pool.controller, CMD_TAG)
         self._out = _Outbox(self.timeout, pool.device)
         self._running: list = []       # (cmd, future): a lane runs its body
-        self._watching: list = []      # (cmd, AsyncResult, host_s): device work queued
+        self._watching: list = []      # (cmd, AsyncResult, host_s, stall_s): device
+        #                                work queued
 
     # -- the loop ----------------------------------------------------------
     def loop(self) -> None:
@@ -456,7 +457,7 @@ class Worker:
             except Exception as e:
                 self._fail(cmd, e)
         for item in list(self._watching):
-            cmd, ar, host_s = item
+            cmd, ar, host_s, stall_s = item
             try:
                 ready = ar.is_ready()
                 if ready:
@@ -467,15 +468,15 @@ class Worker:
                 continue
             if ready:
                 self._watching.remove(item)
-                self._report(cmd, dict(body, host_s=host_s))
+                self._report(cmd, dict(body, host_s=host_s, stall_s=stall_s))
                 moved = True
         return moved
 
-    def _done(self, cmd, result, host_s: float) -> None:
+    def _done(self, cmd, result, host_s: float, stall_s: float) -> None:
         if isinstance(result, AsyncResult):
-            self._watching.append((cmd, result, host_s))
+            self._watching.append((cmd, result, host_s, stall_s))
         else:
-            self._report(cmd, dict(result or {}, host_s=host_s))
+            self._report(cmd, dict(result or {}, host_s=host_s, stall_s=stall_s))
 
     # -- reports -----------------------------------------------------------
     def _report(self, cmd, body: dict) -> None:

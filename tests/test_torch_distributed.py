@@ -9,12 +9,16 @@ The cases run in three spawns (module fixtures), each rank writing what
 it measured to a file that the tests below read:
 
   * world 4: (i) ``train_loop`` of qwen2.5-3b ``reduced()`` in float32 at
-    mesh (2, 2) with ``tp=2, fsdp=True`` and at (4, 1) with
-    ``fsdp=True``, and of mamba2-370m ``reduced()`` at (2, 2), against the port's one-device ``train_loop`` (held to
-    JAX in ``tests/test_torch_trainer.py`` and ``test_torch_train.py``):
-    losses and final parameters within 1e-5 relative; (iv) the elastic
-    drill; (vi) ``ShardCtx.pin``'s placements against the spec JAX's
-    ``pin`` constrains to;
+    mesh (2, 2) with ``tp=2, fsdp=True``, at (4, 1) with ``fsdp=True`` and
+    at (1, 4) with ``tp=4`` (the model axis splits inside a kv head; with
+    6 query heads, inside the query heads too), and of mamba2-370m and
+    llama4-scout (the einsum MoE, each rank dispatching its own rows)
+    ``reduced()`` at (2, 2), against the port's one-device
+    ``train_loop`` (held to JAX in ``tests/test_torch_trainer.py`` and
+    ``test_torch_train.py``): losses and final parameters within 1e-5
+    relative; (iv) the elastic drill; (v) ``LMServer(mesh=)`` at (1, 4)
+    by both routes against the one-device server; (vi) ``ShardCtx.pin``'s
+    placements against the spec JAX's ``pin`` constrains to;
   * world 8: (ii) the int8 ring against JAX ``compressed_mean`` under
     ``jax.vmap(axis_name="data")`` on the same rows (within one quantum:
     XLA fuses a hop's multiply-add on the CPU); (iii) the sorted MoE
@@ -112,17 +116,26 @@ def _world4(rank, world, payload):
     from repro_torch.runtime.trainer import train_loop
     cfg = _f32()
     out = {}
-    # (i) training at (2, 2) tp=2 fsdp and (4, 1) fsdp; mamba2-370m at (2, 2)
-    for name, arch, shape, kw in (("2x2", "qwen2.5-3b", (2, 2), dict(tp=2, fsdp=True)),
-                                  ("4x1", "qwen2.5-3b", (4, 1), dict(fsdp=True)),
-                                  ("mamba-2x2", "mamba2-370m", (2, 2), dict(tp=2, fsdp=True))):
+    # (i) training at (2, 2) tp=2 fsdp, (4, 1) fsdp and (1, 4) tp=4 (2 kv heads:
+    # the model axis splits inside a head; with 6 query heads also inside the
+    # out-projection's input, whose gradient comes back split so);
+    # mamba2-370m at (2, 2)
+    h6 = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, n_heads=6))
+    for name, c, shape, kw in (("2x2", cfg, (2, 2), dict(tp=2, fsdp=True)),
+                               ("4x1", cfg, (4, 1), dict(fsdp=True)),
+                               ("1x4", cfg, (1, 4), dict(tp=4)),
+                               ("h6-1x4", h6, (1, 4), dict(tp=4)),
+                               ("mamba-2x2", _f32("mamba2-370m"), (2, 2), dict(tp=2, fsdp=True)),
+                               ("moe-2x2", _f32("llama4-scout-17b-a16e"), (2, 2),
+                                dict(tp=2, fsdp=True))):
         mesh = device_mesh(shape, ("data", "model"), device="cpu")
-        s = train_loop(_f32(arch), _loop(**kw), device="cpu", mesh=mesh)
+        s = train_loop(c, _loop(**kw), device="cpu", mesh=mesh)
         layout = {k: _placements(p) for k, p in s.model.named_parameters()}
         out[name] = {"losses": s.losses, "params": _full_params(s.model), "layout": layout}
     if rank == 0:
-        for name, arch in (("one", "qwen2.5-3b"), ("mamba-one", "mamba2-370m")):
-            s = train_loop(_f32(arch), _loop(), device="cpu")
+        for name, c in (("one", cfg), ("h6-one", h6), ("mamba-one", _f32("mamba2-370m")),
+                        ("moe-one", _f32("llama4-scout-17b-a16e"))):
+            s = train_loop(c, _loop(), device="cpu")
             out[name] = {"losses": s.losses, "params": _full_params(s.model)}
     # (vi) pins at (2, 2)
     mesh = device_mesh((2, 2), ("data", "model"), device="cpu")
@@ -132,6 +145,10 @@ def _world4(rank, world, payload):
         x = shd.place(torch.zeros(shape), shd.NamedSharding(mesh, shd.P()))
         pins.append(_placements(ctx.pin(x, *axes)))
     out["pins"] = pins
+    # (v) serving at (1, 4), by the kernels' route and by the oracle's
+    mesh = device_mesh((1, 4), ("data", "model"), device="cpu")
+    for impl in (None, "ref"):
+        out[f"serve-1x4-{impl}"] = _serve(cfg, mesh, payload["reqs"], rank, impl)
     out["submeshes"] = _submeshes(rank, cfg)
     out["drill"] = _drill(rank, world, payload["ckpt"])
     return out
@@ -282,31 +299,36 @@ def _world8(rank, world, payload):
     return {"ring": _ring(rank, world, payload["ring"]), "moe": _moe(rank, world, payload["moe"])}
 
 
-def _world2(rank, world, payload):
-    """(v) qwen2.5-3b ``reduced()`` in float32 served at mesh (1, 2); rank 0
-    also serves it on one device and replays those tokens for the top-2
-    margins."""
-    from repro_torch.launch.mesh import device_mesh
+def _serve(cfg, mesh, payload, rank, impl=None):
+    """``cfg`` served at ``mesh`` by ``impl``'s route; rank 0 also serves it
+    on one device and replays those tokens for the top-2 margins."""
     from repro_torch.models import lm
     from repro_torch.runtime.server import LMServer, Request
-    cfg = _f32()
     reqs = [Request(u, p, m) for u, p, m in payload]
 
     def model():
         return lm.init_params(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 
-    mesh = device_mesh((1, 2), ("data", "model"), device="cpu")
-    srv = LMServer(cfg, max_batch=2, params=model(), mesh=mesh)
+    srv = LMServer(cfg, max_batch=2, params=model(), mesh=mesh, impl=impl)
     out = {"tokens": [c.tokens for c in srv.serve(reqs)],
            "layout": {k: _placements(p) for k, p in srv.params.named_parameters()}}
-    out["wrappers"] = _wrappers(mesh)
     if rank == 0:
-        one = LMServer(cfg, max_batch=2, params=model(), device="cpu")
+        one = LMServer(cfg, max_batch=2, params=model(), device="cpu", impl=impl)
         out["one"] = [c.tokens for c in one.serve(reqs)]
         out["margins"] = []
         for lo in range(0, len(reqs), 2):
             rnd = [(r.uid, r.prompt, r.max_new) for r in reqs[lo:lo + 2]]
             out["margins"] += list(_margins(cfg, one.params, rnd, out["one"][lo:lo + 2]))
+    return out
+
+
+def _world2(rank, world, payload):
+    """(v) qwen2.5-3b ``reduced()`` in float32 served at mesh (1, 2), and
+    the kernel wrappers on DTensors."""
+    from repro_torch.launch.mesh import device_mesh
+    mesh = device_mesh((1, 2), ("data", "model"), device="cpu")
+    out = _serve(_f32(), mesh, payload, rank)
+    out["wrappers"] = _wrappers(mesh)
     return out
 
 
@@ -406,12 +428,19 @@ def _jax_pin_specs():
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("w4")
-    return _spawn(tmp, 4, "world4", {"pins": PIN_CASES, "ckpt": str(tmp / "ckpt")})
+    reqs = _requests(np.random.default_rng(3), max_new=8)   # capacities 24 and 40
+    return _spawn(tmp, 4, "world4", {"pins": PIN_CASES, "ckpt": str(tmp / "ckpt"),
+                                     "reqs": reqs})
 
 
-@pytest.mark.parametrize("mesh", ["2x2", "4x1", "mamba-2x2"])
+def _requests(rng, max_new=6):
+    return [(i, rng.integers(2, 500, rng.integers(3, 20)).tolist(), max_new) for i in range(3)]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1", "1x4", "h6-1x4", "mamba-2x2", "moe-2x2"])
 def test_train_loop_on_a_mesh_equals_one_device(world4, mesh):
-    one = world4[0]["mamba-one" if mesh.startswith("mamba") else "one"]
+    family = mesh.split("-")[0] if "-" in mesh else None
+    one = world4[0][f"{family}-one" if family else "one"]
     for rank in world4:
         got = rank[mesh]
         assert got["losses"].keys() == one["losses"].keys() == {0, 1, 2}
@@ -695,22 +724,36 @@ TIE = 1e-4
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    rng = np.random.default_rng(3)
-    reqs = [(i, rng.integers(2, 500, rng.integers(3, 20)).tolist(), 6) for i in range(3)]
-    return _spawn(tmp_path_factory.mktemp("w2"), 2, "world2", reqs)
+    return _spawn(tmp_path_factory.mktemp("w2"), 2, "world2",
+                  _requests(np.random.default_rng(3)))
 
 
-def test_server_on_a_mesh_equals_one_device(world2):
-    """Tokens equal the one-device server's up to a step whose top-2 margin
-    is under TIE (the rule of the server tests)."""
-    one, margins = world2[0]["one"], world2[0]["margins"]
-    for rank in world2:
+def _same_tokens(ranks):
+    """Each rank's tokens equal rank 0's one-device tokens up to a step
+    whose top-2 margin is under TIE (the rule of the server tests)."""
+    one, margins = ranks[0]["one"], ranks[0]["margins"]
+    for rank in ranks:
         for i, (got, want) in enumerate(zip(rank["tokens"], one)):
             diff = [t for t, (a, b) in enumerate(zip(got, want)) if a != b]
             if diff:
                 assert margins[i][diff[0]] < TIE, (i, diff[0], margins[i][diff[0]])
             else:
                 assert len(got) == len(want)
+
+
+def test_server_on_a_mesh_equals_one_device(world2):
+    _same_tokens(world2)
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_server_at_tp4_equals_one_device(world4, impl):
+    """At (1, 4) the model axis splits inside a kv head (2 heads of 16 over
+    4 ranks): the projections are gathered over "model" before the head
+    view, and each rank writes its own slot of a cache split over its
+    capacity (24 and 40 slots, split as the kv heads cannot be)."""
+    _same_tokens([rank[f"serve-1x4-{impl}"] for rank in world4])
+    lay = world4[0][f"serve-1x4-{impl}"]["layout"]
+    assert lay["layers.0.mixer.wk"] == ["Replicate()", "Shard(dim=1)"]
 
 
 def test_kernel_wrappers_on_dtensors_equal_plain(world2):

@@ -630,14 +630,17 @@ def test_a_stall_over_ranks_drives_a_migration_rank_to_rank(drills):
 
 def test_the_stall_sleeps_on_the_replicas_rank(drills):
     """Each stalled op's sleep is in its rank's host seconds for the stage
-    (each rank's report of the op), none on the controller's rank."""
+    (each rank's report of the op), and each rank's report says what it
+    slept: the replica's rank all of it, the controller's rank none."""
     c = drills["chaos"]
     d = c["d"]
     r0_rank = c["ranks"][c["names"].index("blocks00")][0]
     slept = STALL_S * d["fired"]
     assert d["fired"] >= 2 and r0_rank != 0
     assert d["stage_host_s"][f"blocks00@{r0_rank}"] >= slept, d["stage_host_s"]
-    assert d["costs"][0]["host_s"] < d["ref_costs"][0]["host_s"] + 0.5 * slept
+    assert d["costs"][0]["stall_s"] == 0.0
+    assert d["costs"][r0_rank]["stall_s"] == pytest.approx(slept, rel=1e-12)
+    assert sum(c["stall_s"] for c in d["costs"].values()) == pytest.approx(slept, rel=1e-12)
 
 
 # -- (e), (f) -----------------------------------------------------------------------

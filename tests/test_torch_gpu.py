@@ -1665,7 +1665,7 @@ def test_hybrid_cut_kernel_route_matches_ref_route(cuda):
 
 
 def test_mesh_phase_at_a_two_layer_cut(cuda):
-    """``chip_smoke.py``'s phase 18, (a) to (c), at qwen2.5-3b's full width
+    """``chip_smoke.py``'s phase 18, (a) to (e), at qwen2.5-3b's full width
     cut to 2 layers: 3 `train_loop` steps without and with a (1, 1) mesh
     (NCCL, world 1) and ``fsdp=True``, equal losses; one serving round
     without and with ``mesh=``, equal tokens; each meshed run launched
@@ -1680,11 +1680,12 @@ def test_mesh_phase_at_a_two_layer_cut(cuda):
     cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab, n).tolist() for n in rng.integers(64, 401, 8)]
-    tokens, rounds = smoke.mesh_phase(cfg, prompts, "test", seq=1024, global_batch=4,
-                                      grad_accum=2, max_new=8)
+    tokens, rounds, placed = smoke.mesh_phase(cfg, prompts, "test", seq=1024, global_batch=4,
+                                              grad_accum=2, max_new=8)
     assert len(tokens) == 8 and all(1 <= len(t) <= 8 for t in tokens)
     assert set(rounds) == {"train", "serve"}
     assert all(n > 0 for r in rounds.values() for n in r.values()), rounds
+    assert placed["local_bytes"] > 0 and placed["allocated_growth_bytes"] > 0, placed
 
 
 def test_ranks_phase_at_a_two_layer_cut(cuda):

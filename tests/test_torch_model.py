@@ -245,9 +245,12 @@ new = ["core.intra_node", "core.transform", "core.simulate", "graphs.jpeg", "gra
        "runtime.pipeline.lm_pipe", "configs.seamless_m4t_medium", "configs.internvl2_26b",
        "configs.llama4_scout", "configs.llama4_maverick", "configs.jamba_1_5_large",
        "launch.steps", "analysis.step_cost", "launch.mesh", "launch.sharding",
-       "sharding_ctx", "optim.compress"]
+       "sharding_ctx", "optim.compress", "launch.dryrun", "analysis.collectives"]
 missing = [m for m in new if "repro_torch." + m not in sys.modules]
 assert not missing, missing
+# importing the dry run starts no process group
+import torch.distributed as dist
+assert not dist.is_initialized()
 """
 
 

@@ -373,6 +373,50 @@ def test_roofline_of_a_counted_step(kind):
     assert '"bottleneck"' in rep.to_json()
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_analyze_step_with_its_defaults_is_the_one_card_report(kind):
+    """With no mesh and no collectives `analyze_step` gives the one-card
+    report it gave before it took them, field for field: compute and
+    memory on one card's rates, the collective term 0, the note that says
+    why."""
+    from repro_torch.analysis import RooflineReport
+    cfg = get_config("qwen2.5-3b-smoke")
+    sh = SMALL[kind]
+    b = steps.input_specs(cfg, sh, impl="ref")
+    cost = count_step(b.fn, *b.arg_specs)
+    tokens = sh.global_batch * (1 if kind == "decode" else sh.seq_len)
+    rep = analyze_step(arch=cfg.name, shape_name=kind, kind=kind, cfg=cfg, tokens=tokens,
+                       step_flops=cost.flops, step_bytes=cost.major_bytes)
+    compute_s, memory_s = cost.flops / HW_H100.peak_flops, cost.major_bytes / HW_H100.hbm_bw
+    terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
+    bound = max(terms.values())
+    useful = (6.0 if kind == "train" else 2.0) * cfg.active_param_count() * tokens
+    want = RooflineReport(
+        arch=cfg.name, shape=kind, mesh="1", n_devices=1, hlo_flops=cost.flops,
+        hlo_bytes=cost.major_bytes, wire_bytes=0.0, compute_s=compute_s, memory_s=memory_s,
+        collective_s=0.0, bottleneck=max(terms, key=terms.get), model_flops=useful,
+        useful_flops_ratio=useful / cost.flops, collectives={"counts": {}, "wire_bytes": {}},
+        step_time_bound_s=bound, tokens_per_s=tokens / bound,
+        mfu=(useful / HW_H100.peak_flops) / bound,
+        note="one card: no collectives (the JAX package parses them from its "
+             "partitioned HLO, which the port has not); FLOPs and bytes from "
+             "step_cost.count_step over the plain versions on the meta device")
+    assert dataclasses.asdict(rep) == dataclasses.asdict(want)
+
+
+def test_measure_host_bandwidth_is_a_copy_s_bytes_over_its_best_time(monkeypatch):
+    """Two bytes moved (read and write) an element of the buffer, over the
+    fastest of the timed copies: a clock that ticks 0.5 s then 0.25 s a
+    copy gives 2 n 8 / 0.25."""
+    from repro_torch.analysis import roofline
+    ticks = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.5])
+    monkeypatch.setattr(roofline.time, "perf_counter", lambda: next(ticks))
+    n = 1 * (1 << 20) // 8
+    assert roofline.measure_host_bandwidth(mbytes=1, repeats=3) == 2 * n * 8 / 0.25
+    monkeypatch.undo()
+    assert 1e8 < roofline.measure_host_bandwidth(mbytes=8, repeats=2) < 1e13
+
+
 def test_full_size_jamba_is_described_without_allocating():
     """jamba-1.5-large-398b at full size: its 398 B parameters (796 GB in
     bf16) and a decode cell's count, all on the meta device."""
