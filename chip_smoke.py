@@ -121,7 +121,13 @@ script exits non-zero without its result line.  The phases:
     32, P 64, N 128), L 129, L 1, L 65 and the reduced widths (P 8, N 16),
     b and c strided as ``Mamba._proj`` slices them; the gated norm at
     (8192, 2048) with z strided as ``torch.chunk`` gives it, and at width
-    1000; each of the last two also called twice and compared bitwise.
+    1000; each of the last two also called twice and compared bitwise;
+    the cluster kernels (rows past the row kernels): the plain gradient at
+    (8192, D) for D 5120, 6144, 7168 and 8192 and jamba's gated gradient
+    (16384) at 8 and 4096 rows, checked in both dtypes, called twice
+    through autograd and compared bitwise, and timed beside the wide
+    kernels they replace (the plans forced to them in the same call) and
+    ``F.rms_norm``'s backward (``train_kernel_time_cluster``).
     Their times at the training shapes beside their bounds, the plain
     versions' autograd and the library's (SDPA's backward, ``F.rms_norm``'s;
     none computes the scan's or the gated norm's); one train step (accum 2)
@@ -785,6 +791,7 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_plain
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
+    from repro_torch.probes.wide_norms import wide_plans
     from repro_torch.runtime.failures import FailureInjector
     from repro_torch.runtime.trainer import TrainLoopConfig, run_resilient, train_loop
 
@@ -1187,6 +1194,118 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
     del gsets
     emit("train_kernel_time_hybrid", card=smi, **{k: bwd_row(k)["hybrid_shapes"] for k in (
         "flash_attention_bwd", "ssd_scan_bwd", "rmsnorm_gated_bwd")})
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the cluster kernels: gradient rows past the row kernels -------------
+    # the plain gradient at (8192, D), D 5120 (the llama4 decoders), 6144
+    # (nemotron-4-15b, internvl2-26b), 7168 (deepseek-coder-33b) and 8192
+    # (jamba), and jamba's gated gradient (16384) at 8 and 4096 rows: each
+    # checked in bf16 and float32 against the plain version's autograd (the
+    # kernel named by the plan's route) and called twice through autograd and
+    # compared bitwise; then timed in bf16 beside the wide kernels they
+    # replace (``wide_ms``: the plans forced to them, in the same call), the
+    # bound, the plain version's autograd, ``F.rms_norm``'s backward (the
+    # plain gradient) and an empty kernel on the cluster grid
+    card = rn.card_of(0) if device == "cuda" else rn.Card(132, 2048, 65536)
+    wn, wide_widths = (8192, (5120, 6144, 7168, 8192)) if full else (16, (1056,))
+    g_rows = (8, 4096) if full else (8, 40)
+
+    def routed(base, plan):
+        return f"{base}_cluster" if plan.cluster else base
+
+    def wide_ms(fn, sets):
+        """``fn``'s ms with the plans forced to the wide kernels."""
+        with wide_plans():
+            return timed(fn, sets)
+
+    twice = []
+    for dtype in (bf16, f32):
+        elem = 2 if dtype == bf16 else 4
+        for d_ in wide_widths:
+            x, w, g = randn(wn, d_, dtype=dtype), 1.0 + 0.1 * randn(d_, dtype=f32), \
+                randn(wn, d_, dtype=dtype)
+            kernel = routed("rmsnorm_bwd", rn.norm_bwd_plan(wn, d_, elem, aligned=True,
+                                                            card=card))
+            got, want = grads(rmsnorm, (x, w), g), grads(rmsnorm_plain, (x, w), g)
+            for name, a_, b_ in zip(("dx", "dw"), got, want):
+                check_grad(kernel, f"({wn}, {d_}) {dtype}: {name}", a_, b_, dtype)
+            twice.append((f"{kernel} ({wn}, {d_}) {dtype}", all(
+                torch.equal(u, v) for u, v in zip(got, grads(rmsnorm, (x, w), g)))))
+            del x, w, g, got, want
+        for n_rows in g_rows:
+            y, xh, d, xz, w, g = gate_in((n_rows,), mh, mp, dtype)
+            kernel = routed("rmsnorm_gated_bwd", rn.norm_bwd_plan(
+                n_rows, mh * mp, elem, aligned=True, card=card, gated=True))
+            got = gate_grads(rmsnorm_gated, y, xh, d, xz, w, g)
+            want = gate_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+            for name, a_, b_ in zip(("dy", "dxh", "dd_skip", "d(x, z) projection", "dw"), got,
+                                    want):
+                check_grad(kernel, f"jamba ({n_rows}, {mh * mp}) H{mh} P{mp} {dtype}, z rows "
+                           f"{2 * mh * mp} apart: {name}", a_, b_, dtype)
+            twice.append((f"{kernel} jamba ({n_rows}, {mh * mp}) {dtype}", all(
+                torch.equal(u, v) for u, v in zip(got, gate_grads(rmsnorm_gated, y, xh, d, xz,
+                                                                  w, g)))))
+            del y, xh, d, xz, w, g, got, want
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    emit("train_bitwise_cluster", cases=dict(twice), ok=all(v for _, v in twice),
+         what="each gradient through autograd twice on the same inputs")
+    if not all(v for _, v in twice):
+        raise AssertionError(f"a gradient gave other bits on a second call: "
+                             f"{[k for k, v in twice if not v]}")
+
+    by_shape = {}
+    for d_ in wide_widths:
+        nbytes = 3 * 2 * wn * d_ + 2 * 4 * d_        # x, g read, dx written; w read, dw written
+        sets = copies(lambda: (randn(wn, d_), 1.0 + 0.1 * randn(d_, dtype=f32), randn(wn, d_)),
+                      nbytes)
+        plan = rn.norm_bwd_plan(wn, d_, 2, aligned=True, card=card)
+        b_ms, b_by = bound(nbytes, 10 * wn * d_, F32_FLOP_PER_S)
+        by_shape[f"({wn}, {d_})"] = dict(
+            ms=timed(rmsnorm_backward, sets), wide_ms=wide_ms(rmsnorm_backward, sets),
+            plain_ms=timed(backward_only, [with_graph(rmsnorm_plain, x, w)
+                                           for x, w, _ in sets[:2]], iters=4),
+            library_ms=timed(backward_only, [with_graph(
+                lambda x_, w_: F.rms_norm(x_, (d_,), w_, 1e-5), x, w.to(bf16))
+                for x, w, _ in sets]),
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if device == "cuda" else 0.0,
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, plan=plan._asdict(),
+            clusters=rn.clusters_launched(plan, 2, gated=False) if device == "cuda" else None)
+        del sets
+    emit("train_kernel_time_cluster", kernel="rmsnorm backward", card=smi, shapes=by_shape)
+    rows.append(("rmsnorm_bwd_cluster", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:18",
+                 dict(by_shape[f"({wn}, {wide_widths[-1]})"], by_shape=by_shape)))
+
+    g_by_shape = {}
+    for n_rows in g_rows:
+        dn = mh * mp
+        # y, xh, z, g read, dy, dxh, dz written; w, d_skip read, dw, dd_skip written
+        nbytes = 7 * 2 * n_rows * dn + 2 * 4 * dn + 2 * 4 * mh
+        sets = copies(lambda: (lambda y, xh, d, xz, w, g: (
+            y, xh, d, torch.chunk(xz, 2, dim=-1)[1], w, g))(*gate_in((n_rows,), mh, mp, bf16)),
+            nbytes)
+        plan = rn.norm_bwd_plan(n_rows, dn, 2, aligned=True, card=card, gated=True)
+        b_ms, b_by = bound(nbytes, 30 * n_rows * dn, F32_FLOP_PER_S)
+        g_by_shape[f"jamba ({n_rows}, {dn})"] = dict(
+            ms=timed(rmsnorm_gated_backward, sets),
+            wide_ms=wide_ms(rmsnorm_gated_backward, sets),
+            plain_ms=timed(backward_only, [with_graph(rmsnorm_gated_plain, *t[:5])
+                                           for t in sets[:2]], iters=4),
+            library_ms=None, library="none: no single PyTorch call computes this function",
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if device == "cuda" else 0.0,
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, plan=plan._asdict(),
+            clusters=rn.clusters_launched(plan, 2, gated=True) if device == "cuda" else None,
+            parts={name: dict(ms=timed(gate_pass(mask), sets)) for name, mask in (
+                ("rmsnorm_gated_bwd_cluster_kernel", rn.GATED_ROWS_PASS),
+                ("rmsnorm_gated_tail_kernel", rn.GATED_TAIL_PASS))})
+        del sets
+    emit("train_kernel_time_cluster", kernel="rmsnorm_gated backward", card=smi,
+         shapes=g_by_shape)
+    head = g_by_shape[f"jamba ({g_rows[-1]}, {mh * mp})"]
+    rows.append(("rmsnorm_gated_bwd_cluster", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:18", dict(head, by_shape=g_by_shape)))
     if device == "cuda":
         torch.cuda.empty_cache()
 
@@ -2322,15 +2441,18 @@ def moe_serving(ab, kernels, smi):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.flash_attention import flash_attention_backward
     from repro_torch.kernels.rmsnorm import rmsnorm_backward
     from repro_torch.models import blocks, lm
     from repro_torch.runtime.server import LMServer, Request, ServeStats, _bucket
 
     dev, gb = torch.device("cuda"), 1e9
+    # scout's norm (5120) trains past the row kernel: the cluster kernel
     train_kernels = {"flash_attention": kernels["flash_attention"],
                      "flash_attention_bwd": flash_attention_backward,
-                     "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward}
+                     "rmsnorm": kernels["rmsnorm"], "rmsnorm_bwd": rmsnorm_backward,
+                     "rmsnorm_bwd_cluster": rn.rmsnorm_bwd_cluster}
     prompt_lens = np.random.default_rng(0).integers(64, 401, 8)      # phase 4's traffic
     rounds = {}
 
@@ -2549,6 +2671,7 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.core import planner
     from repro_torch.graphs import lm_graph
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.flash_attention import flash_attention_backward
     from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_gated_backward
     from repro_torch.kernels.ssd_scan import ssd_scan_backward
@@ -2777,9 +2900,13 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     del params
 
     # -- one train step of the 2-layer cut, bf16 masters ----------------------
+    # jamba's norms train past the row kernels: the plain gradient at 8192
+    # and the gated at 16384 each on their cluster kernel
     train_kernels = dict(kernels, flash_attention_bwd=flash_attention_backward,
                          rmsnorm_bwd=rmsnorm_backward, ssd_scan_bwd=ssd_scan_backward,
-                         rmsnorm_gated_bwd=rmsnorm_gated_backward)
+                         rmsnorm_gated_bwd=rmsnorm_gated_backward,
+                         rmsnorm_bwd_cluster=rn.rmsnorm_bwd_cluster,
+                         rmsnorm_gated_bwd_cluster=rn.rmsnorm_gated_bwd_cluster)
     for k in ("fused_qkv_rope", "fused_out_residual", "decode_attention"):
         train_kernels.pop(k, None)
     cut_train_ab(dataclasses.replace(first_layers(full, 2), remat="full"), torch.bfloat16,
@@ -5044,16 +5171,26 @@ def main() -> int:
         "flash_attention_bwd": ["flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
                                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dot_kernel",
                                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
-        "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"],
+        "rmsnorm_bwd": ["rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_cluster_kernel",
+                        "rmsnorm_bwd_kernel", "rmsnorm_dw_kernel"],
+        "rmsnorm_bwd_cluster": ["rmsnorm_bwd_cluster_kernel", "rmsnorm_dw_kernel"],
         "ssd_scan_bwd": ["ssd_bwd_states_kernel", "ssd_bwd_chunk_mma_kernel", "ssd_bwd_da_kernel",
                          "ssd_bwd_chunk_kernel"],
-        "rmsnorm_gated_bwd": ["rmsnorm_gated_bwd_rows_kernel", "rmsnorm_gated_bwd_kernel",
-                              "rmsnorm_gated_tail_kernel"]}
+        "rmsnorm_gated_bwd": ["rmsnorm_gated_bwd_rows_kernel",
+                              "rmsnorm_gated_bwd_cluster_kernel", "rmsnorm_gated_bwd_kernel",
+                              "rmsnorm_gated_tail_kernel"],
+        "rmsnorm_gated_bwd_cluster": ["rmsnorm_gated_bwd_cluster_kernel",
+                                      "rmsnorm_gated_tail_kernel"]}
     backward = ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd", "rmsnorm_gated_bwd")
-    not_served = dict.fromkeys(backward, 0)
+    cluster = ("rmsnorm_bwd_cluster", "rmsnorm_gated_bwd_cluster")
+    not_served = dict.fromkeys(backward + cluster, 0)
+    # the cluster kernels' launches: jamba's train A/B (phase 16), whose norms
+    # are past the row kernels
+    jamba_train = next(n for r, n in hybrid_rounds.items() if r.endswith("train A/B"))
     served = dict(launches, fused_decode=launches["fused_qkv_rope"],
                   ssd_scan=m_launches["ssd_scan"], rmsnorm_gated=m_launches["rmsnorm_gated"],
-                  **{k: train_launches[k] for k in backward})
+                  **{k: train_launches[k] for k in backward},
+                  **{k: jamba_train[k] for k in cluster})
     piped = dict(not_served, **pipe_launches, fused_decode=pipe_launches["fused_qkv_rope"],
                  ssd_scan=m_pipe_launches["ssd_scan"],
                  rmsnorm_gated=m_pipe_launches["rmsnorm_gated"])

@@ -48,13 +48,28 @@
 // intermediates: after xh * d_skip (d_skip itself cast first), after the
 // add, after silu(z) and after the product; the norm runs in float32 on the
 // rounded product.  A lane keeps its columns' d_skip in registers too.
+#include <cooperative_groups.h>
+
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // 1 keeps only the gated backward row kernel's loads and stores (it writes
 // its pieces of y, xh and z as dy, dxh and dz): a variant that
 // `repro_torch.probes.train_bwd` builds to time the kernel's memory side.
 #ifndef GATED_BWD_NO_MATH
 #define GATED_BWD_NO_MATH 0
+#endif
+
+// A variant that `repro_torch.probes.wide_norms` builds to find what bounds
+// the cluster kernels: 1 leaves out the exchange of a row's sums between the
+// cluster's CTAs (each CTA uses its own), 2 the element math (a lane writes
+// its pieces back as they came), 3 both.  The results are then wrong.
+#ifndef CLUSTER_ABLATE
+#define CLUSTER_ABLATE 0
 #endif
 
 namespace {
@@ -270,10 +285,12 @@ int launch_rows(const Args& a, int warps, int groups, int blocks, cudaStream_t s
 }
 
 // warps 0: the wide kernel; else the row kernel with the plan's units,
-// warps a row, row groups a block and blocks (rmsnorm.norm_plan).
+// warps a row, row groups a block and blocks (rmsnorm.norm_plan); ctas 1
+// (the forward has no cluster kernel).
 template <typename T, bool GATED>
-int launch(const Args& a, int warps, int units, int groups, int blocks, void* stream) {
+int launch(const Args& a, int warps, int units, int groups, int blocks, int ctas, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (ctas != 1) return static_cast<int>(cudaErrorInvalidValue);   // no cluster forward
   if (warps == 0) {
     int threads = (a.D + 31) / 32 * 32;
     threads = threads > 1024 ? 1024 : threads;
@@ -314,9 +331,30 @@ int launch(const Args& a, int warps, int units, int groups, int blocks, void* st
 //    same in every row it takes.  At the end the block adds its row
 //    groups' shares in group order in shared memory and writes one partial
 //    row.
-// Rows off 16 bytes or too wide take rmsnorm_bwd_kernel: a block walks
-// rows grid-stride, one at a time, element by element, in two passes (the
-// second from L1/L2), the block's partial of dw in shared memory.
+// rmsnorm_bwd_cluster_kernel, for aligned rows that 8 warps of two pieces
+// do not hold (past 4096 bf16 columns: the training of nemotron-4-15b,
+// deepseek-coder-33b, internvl2-26b, the llama4 decoders and jamba; at most
+// 8 CTAs of 8 warps of two pieces, 32768), the same layout on more warps
+// (`rmsnorm.cluster_plan`): one CTA of 16 warps a row (one an SM, at the
+// same 128 registers a thread) where it holds the row (to 8192 bf16) and
+// there are at least as many rows as SMs; else the row on a thread-block
+// cluster of the fewest CTAs of 8 warps that hold it, twice as many below
+// the SM count.  A lane's pieces, weight and dw share live in registers as
+// above; the row's two sums go warp -> CTA -> cluster through (distributed)
+// shared memory, one cluster barrier a row (`ClusterSums`); the clusters
+// walk the rows grid-stride, as many as the card holds at once
+// (`fit_clusters`), and each writes one partial row of dw (its CTAs'
+// columns are disjoint).  It replaces the wide kernel there, which read
+// each element with a 2-byte load, twice: at (8192, 5120-8192) bf16 on the
+// H100, 73-83% of the bound (PERF.md).  Its loads and stores alone
+// (CLUSTER_ABLATE 3) take 76-80% of the bound; a CTA of 16 warps beats two
+// of 8 (60-75%), whose exchange crosses SMs.  Three designs measured
+// slower: each row brought into L2 ahead by a bulk prefetch; a ring of
+// shared-memory stages filled by bulk copies, 2-6 rows ahead; and the sums
+// sent one way, by remote mbarrier arrivals, with no cluster barrier.
+// Rows off 16 bytes or past the cluster take rmsnorm_bwd_kernel: a block
+// walks rows grid-stride, one at a time, element by element, in two passes
+// (the second from L1/L2), the block's partial of dw in shared memory.
 // rmsnorm_dw_kernel: dw = the partial rows summed in a fixed order.  No
 // atomics: two calls on the same inputs give the same bits.
 
@@ -359,13 +397,57 @@ __device__ __forceinline__ float2 row_sums(float a, float b, float2* part, int l
   return make_float2(a, b);
 }
 
+// The row kernels' reduction of a row's sums: `row_sums` over its row group.
+struct GroupSums {
+  float2* part;
+  int log_warps, parity;
+  __device__ __forceinline__ float2 operator()(float a, float b) {
+    return row_sums(a, b, part, log_warps, parity);
+  }
+};
+
+constexpr int MAX_CTAS = 8;                          // a cluster, the portable most
+constexpr int CLUSTER_SLOTS = MAX_CTAS * MAX_WARPS;  // a warp's pair of sums each
+// a cluster kernel's CTA at most: 16 warps, at the row kernel's 128
+// registers a thread (8 warps, two CTAs an SM; or 16, one)
+constexpr int CLUSTER_THREADS = 2 * THREADS;
+
+// The cluster kernels' reduction of a row's sums (a, b) over the `ctas`
+// CTAs of a cluster that hold the row: shuffles within a warp; then lane r
+// of each warp puts the warp's pair into slot (rank * warps + warp) of
+// CTA r's shared memory (distributed shared memory), one cluster barrier
+// (a CTA's barrier where the cluster is one CTA), and every warp adds the
+// ctas * warps slots of its own CTA in one order (lane i slots i and i +
+// 32, then shuffles), so every lane of the cluster gets the same value.
+// Two sets of slots by row parity: a set is written again two rows on,
+// after the barrier of the row between, which each CTA reaches only after
+// it has read the set.
+struct ClusterSums {
+  float2* slots;   // this CTA's, 2 x CLUSTER_SLOTS
+  int ctas, rank, parity;
+  __device__ __forceinline__ float2 operator()(float a, float b) {
+    a = repro::warp_sum(a);
+    b = repro::warp_sum(b);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    if (CLUSTER_ABLATE & 1) return make_float2(a, b);
+    float2* set = slots + parity * CLUSTER_SLOTS;
+    if (lane < ctas)
+      cg::this_cluster().map_shared_rank(set, lane)[rank * warps + warp] = make_float2(a, b);
+    repro::cluster_sync();
+    const int n = ctas * warps;
+    const float2 s0 = lane < n ? set[lane] : make_float2(0.f, 0.f);
+    const float2 s1 = lane + 32 < n ? set[lane + 32] : make_float2(0.f, 0.f);
+    parity ^= 1;
+    return make_float2(repro::warp_sum(s0.x + s1.x), repro::warp_sum(s0.y + s1.y));
+  }
+};
+
 // dx of one row from a lane's pieces, and the lane's share of dw.
-template <typename T, int UNITS>
+template <typename T, int UNITS, typename Sums>
 __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g)[UNITS],
                                         T* __restrict__ dx, long row, int D, float eps, Lane l,
                                         const float4 (&w)[UNITS][16 / sizeof(T) / 4],
-                                        float (&dw)[UNITS][16 / sizeof(T)], float2* part,
-                                        int log_warps, int& parity) {
+                                        float (&dw)[UNITS][16 / sizeof(T)], Sums& sums) {
   constexpr int E = 16 / sizeof(T);
   float ss = 0.f, gwx = 0.f;
 #pragma unroll
@@ -383,7 +465,7 @@ __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g
     ss += a;
     gwx += c;
   }
-  const float2 t = row_sums(ss, gwx, part, log_warps, parity);
+  const float2 t = sums(ss, gwx);
   const float r = rsqrtf(t.x / D + eps), c = r * r * r * t.y / D;
   T* out = dx + row * D;
 #pragma unroll
@@ -406,6 +488,21 @@ __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g
   }
 }
 
+// The weight of a lane's columns, float32, loaded once for every row it takes.
+template <typename T, int UNITS>
+__device__ __forceinline__ void lane_weight(float4 (&wr)[UNITS][16 / sizeof(T) / 4],
+                                            const float* __restrict__ w, Lane l) {
+  constexpr int H = 16 / sizeof(T) / 4;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      wr[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // Rows of 2^log_warps warps each, `blockDim.x / 32 >> log_warps` row
 // groups a block, grid-stride over the rows; dw_part: a row a block.
 template <typename T, int UNITS>
@@ -425,29 +522,24 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   uint4 x0[UNITS], g0[UNITS], x1[UNITS], g1[UNITS];
   if (row < rows) load_pieces<T>(x0, g0, x, g, row, D, l);
-  const float4* w4 = reinterpret_cast<const float4*>(w);
   float4 wr[UNITS][H];
+  lane_weight<T>(wr, w, l);
   float dw[UNITS][E];
 #pragma unroll
-  for (int k = 0; k < UNITS; ++k) {
-    const int u = l.first + k * l.step;
-#pragma unroll
-    for (int h = 0; h < H; ++h)
-      wr[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < UNITS; ++k)
 #pragma unroll
     for (int j = 0; j < E; ++j) dw[k][j] = 0.f;
-  }
 
-  int parity = 0;
+  GroupSums sums{part, log_warps, 0};
   while (row < rows) {   // two buffers: the next row loads while this one is reduced
     long next = row + stride;
     if (next < rows) load_pieces<T>(x1, g1, x, g, next, D, l);
-    bwd_row<T>(x0, g0, dx, row, D, eps, l, wr, dw, part, log_warps, parity);
+    bwd_row<T>(x0, g0, dx, row, D, eps, l, wr, dw, sums);
     row = next;
     if (row >= rows) break;
     next = row + stride;
     if (next < rows) load_pieces<T>(x0, g0, x, g, next, D, l);
-    bwd_row<T>(x1, g1, dx, row, D, eps, l, wr, dw, part, log_warps, parity);
+    bwd_row<T>(x1, g1, dx, row, D, eps, l, wr, dw, sums);
     row = next;
   }
 
@@ -466,6 +558,78 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int i = 0; i < groups; ++i) s += fold[i * D + c];
     dw_part[static_cast<long>(blockIdx.x) * D + c] = s;
   }
+}
+
+// Writes a lane's float32 share of its columns (E a piece) into `out`, the
+// cluster's partial row: the cluster's lanes hold disjoint columns.
+template <int UNITS, int E>
+__device__ __forceinline__ void store_share(float* __restrict__ out, const float (&v)[UNITS][E],
+                                            Lane l) {
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+    if (u < l.units) {
+#pragma unroll
+      for (int j = 0; j < E; j += 4)
+        *reinterpret_cast<float4*>(out + u * E + j) =
+            make_float4(v[k][j], v[k][j + 1], v[k][j + 2], v[k][j + 3]);
+    }
+  }
+}
+
+// A row of the gradient held across the `ctas` CTAs of a cluster (CTAs of
+// 8 warps, or one of 16; `ClusterSums`); the clusters walk the rows
+// grid-stride; dw_part: a row a cluster.
+template <typename T, int UNITS>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+    rmsnorm_bwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                               const T* __restrict__ g, T* __restrict__ dx,
+                               float* __restrict__ dw_part, int rows, int D, float eps) {
+  constexpr int E = 16 / sizeof(T), H = E / 4;
+  __shared__ float2 slots[2 * CLUSTER_SLOTS];
+  const int ctas = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const Lane l{rank * static_cast<int>(blockDim.x) + static_cast<int>(threadIdx.x),
+               static_cast<int>(blockDim.x) * ctas, D / E};
+  const long stride = gridDim.x / ctas, cluster = blockIdx.x / ctas;
+  long row = cluster;
+
+  uint4 x0[UNITS], g0[UNITS], x1[UNITS], g1[UNITS];
+  if (row < rows) load_pieces<T>(x0, g0, x, g, row, D, l);
+  float4 wr[UNITS][H];
+  lane_weight<T>(wr, w, l);
+  float dw[UNITS][E];
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k)
+#pragma unroll
+    for (int j = 0; j < E; ++j) dw[k][j] = 0.f;
+  repro::cluster_sync();   // every CTA of the cluster runs before its slots are written
+
+  ClusterSums sums{slots, ctas, rank, 0};
+  auto step = [&](const uint4 (&xs)[UNITS], const uint4 (&gs)[UNITS], long r) {
+    if constexpr ((CLUSTER_ABLATE & 2) != 0) {
+      sums(0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < UNITS; ++k)
+        if (l.first + k * l.step < l.units)
+          *reinterpret_cast<uint4*>(dx + r * D + (l.first + k * l.step) * E) = make_uint4(
+              xs[k].x ^ gs[k].x, xs[k].y ^ gs[k].y, xs[k].z ^ gs[k].z, xs[k].w ^ gs[k].w);
+    } else {
+      bwd_row<T>(xs, gs, dx, r, D, eps, l, wr, dw, sums);
+    }
+  };
+  while (row < rows) {   // two buffers: the next row loads while this one is reduced
+    long next = row + stride;
+    if (next < rows) load_pieces<T>(x1, g1, x, g, next, D, l);
+    step(x0, g0, row);
+    row = next;
+    if (row >= rows) break;
+    next = row + stride;
+    if (next < rows) load_pieces<T>(x0, g0, x, g, next, D, l);
+    step(x1, g1, row);
+    row = next;
+  }
+  store_share(dw_part + cluster * D, dw, l);
 }
 
 // The pair (a, b) summed over the block; every thread gets both.  The
@@ -539,13 +703,94 @@ rmsnorm_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw, int
 
 constexpr int BWD_THREADS = 256;
 
-// warps 0: the wide kernel on `blocks` blocks; else the row kernel with the
-// plan's units, warps a row, row groups a block and blocks
-// (rmsnorm.norm_bwd_plan).  dw_part: float32 (blocks, D).
+// The launch of `clusters` clusters of `ctas` CTAs of `threads` threads.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int clusters, int ctas, int threads, cudaStream_t stream) {
+    cfg.gridDim = dim3(clusters * ctas);
+    cfg.blockDim = dim3(threads);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Lowers `clusters` to the clusters of `kernel` that the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once a kernel, device, cluster
+// and block size), so that the grid is one wave; the clusters walk the
+// rows grid-stride.
+template <typename Kernel>
+cudaError_t fit_clusters(Kernel kernel, int ctas, int threads, int& clusters) {
+  if (ctas == 1) return cudaSuccess;   // a CTA a row: the plan's grid
+  struct Fit {
+    const void* kernel;
+    int device, ctas, threads, clusters;
+  };
+  static std::mutex lock;
+  static std::vector<Fit> known;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int fit = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (const Fit& f : known)
+      if (f.kernel == key && f.device == device && f.ctas == ctas && f.threads == threads)
+        fit = f.clusters;
+  }
+  if (fit == 0) {
+    ClusterLaunch l(1, ctas, threads, nullptr);
+    if ((err = cudaOccupancyMaxActiveClusters(&fit, kernel, &l.cfg)) != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+    std::lock_guard<std::mutex> hold(lock);
+    known.push_back({key, device, ctas, threads, fit});
+  }
+  clusters = clusters < fit ? clusters : fit;
+  return cudaSuccess;
+}
+
+// Launches `kernel` on `clusters` clusters of `ctas` CTAs, lowered by
+// `fit_clusters` (and set to the number launched); `ctas` 1: a CTA a row,
+// no cluster, `clusters` CTAs.  No fallback: a refused launch returns its
+// error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int ctas, int threads, int& clusters,
+                           cudaStream_t stream, Args... args) {
+  if (ctas < 1 || ctas > MAX_CTAS || threads > CLUSTER_THREADS ||
+      ctas * threads / 32 > CLUSTER_SLOTS || clusters < 1)
+    return cudaErrorInvalidValue;
+  if (ctas == 1) {   // a CTA a row: no cluster
+    kernel<<<clusters, threads, 0, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaError_t err = fit_clusters(kernel, ctas, threads, clusters);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(clusters, ctas, threads, stream);
+  if ((err = cudaLaunchKernelEx(&l.cfg, kernel, args...)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The lanes of `ctas` CTAs of `warps` warps, `units` pieces of E elements
+// each, hold a row of D.
+bool holds(int units, int warps, int ctas, int E, int D) {
+  return static_cast<long>(units) * 32 * warps * ctas * E >= D;
+}
+
+// warps 0: the wide kernel on `blocks` blocks; ctas > 1 or warps > 8: the
+// cluster kernel, a row on `ctas` CTAs of `warps` warps, `blocks / ctas`
+// clusters at most; else the row kernel with the plan's units, warps a row,
+// row groups a block and blocks (rmsnorm.norm_bwd_plan).  dw_part: float32
+// (blocks / ctas, D): a partial row a block, or a cluster.
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_part, void* dw,
                int rows, int D, float eps, int warps, int units, int groups, int blocks,
-               void* stream) {
+               int ctas, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
@@ -553,11 +798,23 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
   T* dxt = static_cast<T*>(dx);
   float* part = static_cast<float*>(dw_part);
   cudaError_t err = cudaSuccess;
+  int parts = blocks;   // partial rows of dw
   if (warps == 0) {
     const size_t smem = sizeof(float) * D;
     if ((err = repro::allow_shared(rmsnorm_bwd_kernel<T>, smem)) != cudaSuccess)
       return static_cast<int>(err);
     rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, s>>>(xt, wt, gt, dxt, part, rows, D, eps);
+  } else if (ctas > 1 || warps > MAX_WARPS) {
+    if (warps > CLUSTER_THREADS / 32 || (units != 1 && units != 2) ||
+        !holds(units, warps, ctas, 16 / sizeof(T), D))
+      return static_cast<int>(cudaErrorInvalidValue);
+    parts = blocks / ctas;
+    err = units == 1
+              ? launch_cluster(rmsnorm_bwd_cluster_kernel<T, 1>, ctas, warps * 32, parts, s, xt,
+                               wt, gt, dxt, part, rows, D, eps)
+              : launch_cluster(rmsnorm_bwd_cluster_kernel<T, 2>, ctas, warps * 32, parts, s, xt,
+                               wt, gt, dxt, part, rows, D, eps);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     if (warps > MAX_WARPS || (warps & (warps - 1)) || groups * warps > MAX_WARPS ||
         groups * D > FOLD_FLOATS)
@@ -573,7 +830,7 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dw_kernel<<<(D + 31) / 32, 256, 0, s>>>(part, static_cast<float*>(dw), blocks, D);
+  rmsnorm_dw_kernel<<<(D + 31) / 32, 256, 0, s>>>(part, static_cast<float*>(dw), parts, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,10 +861,21 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw_p
 // a ring of three stages, three blocks an SM; and g1 and silu(z) kept
 // packed with sigmoid(z) computed again after the row's sums, which ended
 // the spill but added to the element arithmetic (roundings to the input
-// type, exponentials and reciprocals).  Other rows take
-// rmsnorm_gated_bwd_kernel: a block walks rows, element by element, two
-// passes a row.  Then one launch, rmsnorm_gated_tail_kernel, sums the
-// partial rows a column in a fixed order (dw, and dd_skip's columns) and
+// type, exponentials and reciprocals).
+// rmsnorm_gated_bwd_cluster_kernel, for aligned rows past 8 warps (2048
+// bf16 columns) up to 8 CTAs of 8 warps (16384: jamba's Mamba2 norm, whose
+// wide kernel kept two float32 partials a column in shared memory, 128 KB
+// a block at 16384, so one block of 8 warps an SM, and computed the gate
+// in both its passes): the row kernel's layout on a CTA of 16 warps or a
+// cluster of CTAs, as rmsnorm_bwd_cluster_kernel takes them; a lane's dw
+// and dd_skip shares go straight from registers to its cluster's partial
+// rows.  At jamba's (4096, 16384) bf16, 8 CTAs a row and 30 clusters (the
+// card's most at once), it takes 67-68% of its bound; its loads and stores
+// alone 81%; 4 CTAs of 16 warps a row ran slower (PERF.md).  Rows off 16
+// bytes or past the cluster take rmsnorm_gated_bwd_kernel: a block walks
+// rows, element by element, two passes a row.  Then one launch,
+// rmsnorm_gated_tail_kernel, sums the partial rows (one a block or a
+// cluster) a column in a fixed order (dw, and dd_skip's columns) and
 // d_skip's gradient over each head's columns: a block a head (or a few
 // narrow heads), no atomics.
 
@@ -664,13 +932,12 @@ __device__ __forceinline__ void load_gated(uint4 (&p)[4], const GatedBwdArgs& a,
 }
 
 // One row from a lane's piece of each input (one piece a lane).
-template <typename T>
+template <typename T, typename Sums>
 __device__ __forceinline__ void gated_bwd_row(const uint4 (&p)[4], const GatedBwdArgs& a,
                                               long row, Lane l, const float (&w)[16 / sizeof(T)],
                                               const float (&ds)[16 / sizeof(T)],
                                               float (&dw)[16 / sizeof(T)],
-                                              float (&dd)[16 / sizeof(T)], float2* part,
-                                              int log_warps, int& parity) {
+                                              float (&dd)[16 / sizeof(T)], Sums& sums) {
   constexpr int E = 16 / sizeof(T);
   const T* y = reinterpret_cast<const T*>(&p[0]);
   const T* xh = reinterpret_cast<const T*>(&p[1]);
@@ -684,7 +951,7 @@ __device__ __forceinline__ void gated_bwd_row(const uint4 (&p)[4], const GatedBw
     ss += u * u;
     guw += to_float(g[j]) * w[j] * u;
   }
-  const float2 t = row_sums(ss, guw, part, log_warps, parity);
+  const float2 t = sums(ss, guw);
   const float r = rsqrtf(t.x / a.D + a.eps), c = r * r * r * t.y / a.D;
   if (l.first < l.units) {
     uint4 o[3];
@@ -731,7 +998,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     }
   }
 
-  int parity = 0;
+  GroupSums sums{part, log_warps, 0};
   auto step = [&](const uint4 (&p)[4], long r) {
     if constexpr (GATED_BWD_NO_MATH) {
       if (l.first < l.units) {
@@ -741,7 +1008,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         *reinterpret_cast<uint4*>(static_cast<T*>(a.dz) + o) = p[2];
       }
     } else {
-      gated_bwd_row<T>(p, a, r, l, w, ds, dw, dd, part, log_warps, parity);
+      gated_bwd_row<T>(p, a, r, l, w, ds, dw, dd, sums);
     }
   };
   while (row < a.rows) {   // two buffers: the next row loads while this one is reduced
@@ -775,6 +1042,68 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     a.dw_part[static_cast<long>(blockIdx.x) * a.D + c] = sw;
     a.dd_part[static_cast<long>(blockIdx.x) * a.D + c] = sd;
   }
+}
+
+// A row of the gated gradient held across the `ctas` CTAs of a cluster
+// (CTAs of 8 warps, or one of 16; one piece of each input a lane;
+// `ClusterSums`); the clusters walk the rows grid-stride; dw_part,
+// dd_part: a row a cluster.
+template <typename T>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+    rmsnorm_gated_bwd_cluster_kernel(const GatedBwdArgs a) {
+  constexpr int E = 16 / sizeof(T);
+  __shared__ float2 slots[2 * CLUSTER_SLOTS];
+  const int ctas = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const Lane l{rank * static_cast<int>(blockDim.x) + static_cast<int>(threadIdx.x),
+               static_cast<int>(blockDim.x) * ctas, a.D / E};
+  const long stride = gridDim.x / ctas, cluster = blockIdx.x / ctas;
+  long row = cluster;
+
+  uint4 p0[4], p1[4];
+  if (row < a.rows) load_gated<T>(p0, a, row, l);
+  float w[E], ds[E], dw[1][E], dd[1][E];
+  {
+    const int col = min(l.first, l.units - 1) * E;
+    int head = col / a.P, c = col - head * a.P;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      w[j] = l.first < l.units ? a.w[col + j] : 0.f;
+      ds[j] = rnd<T>(a.d_skip[head]);
+      dw[0][j] = dd[0][j] = 0.f;
+      if (++c == a.P) c = 0, ++head;
+    }
+  }
+  repro::cluster_sync();   // every CTA of the cluster runs before its slots are written
+
+  ClusterSums sums{slots, ctas, rank, 0};
+  auto step = [&](const uint4 (&p)[4], long r) {
+    if constexpr ((CLUSTER_ABLATE & 2) != 0) {
+      sums(0.f, 0.f);
+      if (l.first < l.units) {
+        const long o = r * a.D + l.first * E;
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dy) + o) = make_uint4(
+            p[0].x ^ p[3].x, p[0].y ^ p[3].y, p[0].z ^ p[3].z, p[0].w ^ p[3].w);
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dxh) + o) = p[1];
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.dz) + o) = p[2];
+      }
+    } else {
+      gated_bwd_row<T>(p, a, r, l, w, ds, dw[0], dd[0], sums);
+    }
+  };
+  while (row < a.rows) {   // two buffers: the next row loads while this one is reduced
+    long next = row + stride;
+    if (next < a.rows) load_gated<T>(p1, a, next, l);
+    step(p0, row);
+    row = next;
+    if (row >= a.rows) break;
+    next = row + stride;
+    if (next < a.rows) load_gated<T>(p0, a, next, l);
+    step(p1, row);
+    row = next;
+  }
+  store_share(a.dw_part + cluster * a.D, dw, l);
+  store_share(a.dd_part + cluster * a.D, dd, l);
 }
 
 template <typename T>
@@ -863,15 +1192,27 @@ rmsnorm_gated_tail_kernel(const float* __restrict__ dw_part, const float* __rest
 
 constexpr int GATED_PASS_ROWS = 1, GATED_PASS_TAIL = 2;
 
-// warps 0: the wide kernel on `blocks` blocks; else the row kernel (one
-// piece a lane) with the plan's warps a row, row groups a block and blocks;
-// then the tail (hpb heads a block).  passes: which of the two launch.
+// warps 0: the wide kernel on `blocks` blocks; ctas > 1 or warps > 8: the
+// cluster kernel, a row on `ctas` CTAs of `warps` warps (one piece a lane),
+// `blocks / ctas` clusters at most; else the row kernel (one piece a lane) with the
+// plan's warps a row, row groups a block and blocks; then the tail (hpb
+// heads a block) over the partial rows, one a block or a cluster.  passes:
+// which of the two launch.
 template <typename T>
 int launch_gated_bwd(const GatedBwdArgs& a, float* dw, float* dd, int H, int hpb, int warps,
-                     int units, int groups, int blocks, int passes, void* stream) {
+                     int units, int groups, int blocks, int ctas, int passes, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (passes & GATED_PASS_ROWS) {
+  int parts = blocks;
+  if (warps != 0 && (ctas > 1 || warps > MAX_WARPS)) {
+    if (units != 1 || warps > CLUSTER_THREADS / 32 || !holds(1, warps, ctas, 16 / sizeof(T), a.D))
+      return static_cast<int>(cudaErrorInvalidValue);
+    parts = blocks / ctas;
+    err = passes & GATED_PASS_ROWS
+              ? launch_cluster(rmsnorm_gated_bwd_cluster_kernel<T>, ctas, warps * 32, parts, s, a)
+              : fit_clusters(rmsnorm_gated_bwd_cluster_kernel<T>, ctas, warps * 32, parts);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (passes & GATED_PASS_ROWS) {
     if (warps == 0) {
       const size_t smem = 2 * sizeof(float) * a.D;
       if ((err = repro::allow_shared(rmsnorm_gated_bwd_kernel<T>, smem)) != cudaSuccess)
@@ -891,7 +1232,7 @@ int launch_gated_bwd(const GatedBwdArgs& a, float* dw, float* dd, int H, int hpb
     if (hpb < 1 || (err = repro::allow_shared(rmsnorm_gated_tail_kernel, smem)) != cudaSuccess)
       return static_cast<int>(hpb < 1 ? cudaErrorInvalidValue : err);
     rmsnorm_gated_tail_kernel<<<(H + hpb - 1) / hpb, TAIL_SLICES * 32, smem, s>>>(
-        a.dw_part, a.dd_part, dw, dd, blocks, a.D, H, a.P, hpb);
+        a.dw_part, a.dd_part, dw, dd, parts, a.D, H, a.P, hpb);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
@@ -903,59 +1244,88 @@ int launch_gated_bwd(const GatedBwdArgs& a, float* dw, float* dd, int H, int hpb
 #define RMSNORM_ENTRY(SUFFIX, T)                                                               \
   extern "C" int rmsnorm_##SUFFIX(const void* x, const void* w, void* out, int rows, int D,    \
                                   float eps, int warps, int units, int groups, int blocks,     \
-                                  void* stream) {                                              \
+                                  int ctas, void* stream) {                                    \
     const Args a{x, nullptr, nullptr, nullptr, static_cast<const float*>(w), out, 0, rows, D, 1, \
                  eps};                                                                         \
-    return launch<T, false>(a, warps, units, groups, blocks, stream);                          \
+    return launch<T, false>(a, warps, units, groups, blocks, ctas, stream);                    \
   }                                                                                            \
   extern "C" int rmsnorm_gated_##SUFFIX(const void* y, const void* xh, const void* d_skip,     \
                                         const void* z, long z_stride, int P, const void* w,    \
                                         void* out, int rows, int D, float eps, int warps,      \
-                                        int units, int groups, int blocks, void* stream) {     \
+                                        int units, int groups, int blocks, int ctas,           \
+                                        void* stream) {                                        \
     const Args a{y, xh, z, static_cast<const float*>(d_skip), static_cast<const float*>(w),    \
                  out, z_stride, rows, D, P, eps};                                              \
-    return launch<T, true>(a, warps, units, groups, blocks, stream);                           \
+    return launch<T, true>(a, warps, units, groups, blocks, ctas, stream);                     \
   }
 
 RMSNORM_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_ENTRY(f32, float)
 
-// dx laid out as x; dw_part float32 (blocks, D) scratch; dw float32 (D,)
+// dx laid out as x; dw_part float32 (blocks / ctas, D) scratch; dw float32 (D,)
 #define RMSNORM_BWD_ENTRY(SUFFIX, T)                                                           \
   extern "C" int rmsnorm_bwd_##SUFFIX(const void* x, const void* w, const void* g, void* dx,   \
                                       void* dw_part, void* dw, int rows, int D, float eps,     \
-                                      int warps, int units, int groups, int blocks,            \
+                                      int warps, int units, int groups, int blocks, int ctas,  \
                                       void* stream) {                                          \
     return launch_bwd<T>(x, w, g, dx, dw_part, dw, rows, D, eps, warps, units, groups, blocks, \
-                         stream);                                                              \
+                         ctas, stream);                                                        \
   }
 
 RMSNORM_BWD_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_BWD_ENTRY(f32, float)
 
 // dy, dxh laid out as y; dz (rows, D) contiguous; dw_part, dd_part float32
-// (blocks, D) scratch; dw (D,), dd (H,) float32; hpb: heads a tail block;
+// (blocks / ctas, D) scratch; dw (D,), dd (H,) float32; hpb: heads a tail block;
 // passes: 1 the rows, 2 the tail
 #define RMSNORM_GATED_BWD_ENTRY(SUFFIX, T)                                                     \
   extern "C" int rmsnorm_gated_bwd_##SUFFIX(                                                   \
       const void* y, const void* xh, const void* d_skip, const void* z, long z_stride, int P,  \
       const void* w, const void* g, void* dy, void* dxh, void* dz, void* dw_part,              \
       void* dd_part, void* dw, void* dd, int rows, int D, float eps, int H, int hpb,           \
-      int warps, int units, int groups, int blocks, int passes, void* stream) {               \
+      int warps, int units, int groups, int blocks, int ctas, int passes, void* stream) {     \
     const GatedBwdArgs a{y, xh, z, g, static_cast<const float*>(d_skip),                       \
                          static_cast<const float*>(w), dy, dxh, dz,                            \
                          static_cast<float*>(dw_part), static_cast<float*>(dd_part), z_stride, \
                          rows, D, P, eps};                                                     \
     return launch_gated_bwd<T>(a, static_cast<float*>(dw), static_cast<float*>(dd), H, hpb,    \
-                               warps, units, groups, blocks, passes, stream);                  \
+                               warps, units, groups, blocks, ctas, passes, stream);            \
   }
 
 RMSNORM_GATED_BWD_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_GATED_BWD_ENTRY(f32, float)
 
-// An empty kernel on a given grid: the launch floor a norm's time is held
-// against.
-extern "C" int rmsnorm_launch_floor(int blocks, int threads, void* stream) {
-  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+// The clusters of a backward cluster kernel (gated or plain, bf16 or
+// float32, `units` pieces a lane) of `ctas` CTAs of `threads` threads that
+// the card holds at once, as its launch takes them (ctas 1: no bound, the
+// plan's grid); < 0: the error.
+extern "C" int rmsnorm_cluster_fit(int gated, int bf16, int units, int ctas, int threads) {
+  int clusters = 1 << 30;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (gated && units == 1)
+    err = bf16 ? fit_clusters(rmsnorm_gated_bwd_cluster_kernel<__nv_bfloat16>, ctas, threads,
+                              clusters)
+               : fit_clusters(rmsnorm_gated_bwd_cluster_kernel<float>, ctas, threads, clusters);
+  else if (!gated && (units == 1 || units == 2))
+    err = bf16 ? (units == 1 ? fit_clusters(rmsnorm_bwd_cluster_kernel<__nv_bfloat16, 1>, ctas,
+                                            threads, clusters)
+                             : fit_clusters(rmsnorm_bwd_cluster_kernel<__nv_bfloat16, 2>, ctas,
+                                            threads, clusters))
+               : (units == 1 ? fit_clusters(rmsnorm_bwd_cluster_kernel<float, 1>, ctas, threads,
+                                            clusters)
+                             : fit_clusters(rmsnorm_bwd_cluster_kernel<float, 2>, ctas, threads,
+                                            clusters));
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// An empty kernel on a given grid, in clusters of `ctas` CTAs where ctas >
+// 1: the launch floor a norm's time is held against.
+extern "C" int rmsnorm_launch_floor(int blocks, int threads, int ctas, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (ctas > 1) {
+    int clusters = blocks / ctas;
+    return static_cast<int>(launch_cluster(empty_kernel, ctas, threads, clusters, s));
+  }
+  empty_kernel<<<blocks, threads, 0, s>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,8 @@ from .ref import rmsnorm_gated_backward as rmsnorm_gated_backward_plain
 from .ref import rmsnorm_reference as rmsnorm_plain  # the kernel's plain version
 
 __all__ = ["rmsnorm", "rmsnorm_backward", "rmsnorm_gated", "rmsnorm_gated_backward",
-           "rmsnorm_gated_plain", "rmsnorm_plain", "norm_bwd_plan", "norm_plan", "tail_heads"]
+           "rmsnorm_gated_plain", "rmsnorm_plain", "cluster_plan", "norm_bwd_plan", "norm_plan",
+           "tail_heads"]
 
 THREADS = 256      # a block of the row kernel at most (its launch bounds)
 REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an SM
@@ -40,14 +41,16 @@ REGISTERS = 128    # a thread at most: the launch bounds keep two such blocks an
 MAX_UNITS = {False: 4, True: 2}
 GATED_BWD_UNITS = 1
 
-_ARGS = [build.P, build.P, build.P, build.I, build.I, build.F] + [build.I] * 4 + [build.P]
-_BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F] + [build.I] * 4 + [build.P]
+MAX_CTAS = 8       # CTAs of a cluster that hold one row, at most: the portable cluster
+CLUSTER_SLOTS = 64  # the cluster kernel's warps a row, at most (its slots for their sums)
+_ARGS = [build.P, build.P, build.P, build.I, build.I, build.F] + [build.I] * 5 + [build.P]
+_BWD_ARGS = [build.P] * 6 + [build.I, build.I, build.F] + [build.I] * 5 + [build.P]
 MAX_BWD_WIDTH = 50_000   # the wide backward keeps a float32 partial of dw a column in shared memory
 FOLD_FLOATS = 8 * 32 * 2 * 8   # the backward's row groups' dw shares in shared memory, at most
 _GATED_ARGS = ([build.P] * 4 + [build.L, build.I, build.P, build.P, build.I, build.I, build.F]
-               + [build.I] * 4 + [build.P])
+               + [build.I] * 5 + [build.P])
 _GATED_BWD_ARGS = ([build.P] * 4 + [build.L, build.I] + [build.P] * 9
-                   + [build.I, build.I, build.F] + [build.I] * 7 + [build.P])
+                   + [build.I, build.I, build.F] + [build.I] * 8 + [build.P])
 MAX_GATED_BWD_WIDTH = 25_000   # its wide kernel keeps two float32 partials a column in shared memory
 # its launches: the rows, then the tail (dw and d_skip's gradient from the
 # partial rows)
@@ -65,11 +68,21 @@ class Card(NamedTuple):
 class NormPlan(NamedTuple):
     """A launch: ``warps`` warps a row (0: the wide kernel, a block a row),
     each lane holding ``units`` 16-byte pieces of it; ``groups`` rows a
-    block at once; ``blocks`` blocks, which walk the rows grid-stride."""
+    block at once; ``blocks`` blocks, which walk the rows grid-stride.
+    ``warps`` > 8 or ``ctas`` > 1: a backward's cluster kernel, a row held
+    by ``ctas`` CTAs of ``warps`` warps each (a thread-block cluster, or one
+    CTA of 16 warps), ``blocks / ctas`` clusters at most (the kernel takes
+    as many as the card holds at once)."""
     warps: int
     units: int
     groups: int
     blocks: int
+    ctas: int = 1
+
+    @property
+    def cluster(self) -> bool:
+        """The plan of a backward's cluster kernel."""
+        return self.warps > THREADS // 32 or self.ctas > 1
 
 
 WIDE = NormPlan(0, 0, 0, 0)
@@ -89,7 +102,9 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     many.  At qwen2.5-3b's prefill (4096 rows of 2048 bf16 on 132 SMs): 2
     warps a row, 4 pieces a lane, 4 rows a block, 264 blocks; at a decode
     step (8 rows): 8 blocks of one row of 4 warps.  ``backward``: two
-    inputs a piece, as the gated form's three; both: four, one piece a lane."""
+    inputs a piece, as the gated form's three; both: four, one piece a lane.
+    A backward's row past 8 warps goes to `cluster_plan`; a forward's to the
+    wide kernel."""
     vec = 16 // elem_bytes
     if not aligned or d % vec:
         return WIDE
@@ -99,7 +114,7 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     while -(-pieces // (32 * warps)) > limit:
         warps *= 2
     if warps > THREADS // 32:
-        return WIDE
+        return cluster_plan(rows, pieces, limit, card) if backward else WIDE
     if rows < card.sms and warps < THREADS // 32:
         warps *= 2
     units = 1 << (-(-pieces // (32 * warps)) - 1).bit_length()
@@ -109,6 +124,49 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     return NormPlan(warps, units, groups, min(-(-rows // groups), card.sms * max(1, fit)))
 
 
+def cluster_plan(rows: int, pieces: int, limit: int, card: Card,
+                 warps: int | None = None) -> NormPlan:
+    """A backward's row of ``pieces`` 16-byte pieces (of each input) past 8
+    warps, at most ``limit`` pieces a lane, for the cluster kernel: one CTA
+    of 16 warps (one an SM) where it holds the row and there are at least
+    as many rows as SMs, so that the row's warps add their sums on one SM
+    (the plain gradient to 8192 bf16 columns: 73-83% of its bound against
+    60-75% on two CTAs of 8, PERF.md); else the fewest CTAs of 8 warps (two
+    an SM) that hold it in a thread-block cluster, twice as many when there
+    are fewer rows than SMs, so that more SMs share the rows, or the wide
+    kernel where `MAX_CTAS` do not hold it (jamba's gated gradient, 16384
+    bf16 with one piece a lane: 8 CTAs).  ``warps`` forces CTAs of 8 or 16
+    warps.  As many clusters as fit the card at once (by threads, and by
+    the registers the launch bounds allow) or as there are rows, fewer;
+    the kernel launches fewer where the card holds fewer
+    (`clusters_launched`)."""
+    if warps is None:
+        warps = 2 * THREADS // 32 if rows >= card.sms and pieces <= 2 * THREADS * limit else \
+            THREADS // 32
+    lanes = 32 * warps
+    most = min(MAX_CTAS, CLUSTER_SLOTS // warps)
+    ctas = -(-pieces // (lanes * limit))
+    if ctas > most:
+        return WIDE
+    if rows < card.sms:
+        ctas = min(most, 2 * ctas)
+    units = 1 << (-(-pieces // (lanes * ctas)) - 1).bit_length()
+    fit = min(card.threads // lanes, card.registers // (REGISTERS * lanes))
+    clusters = max(1, min(rows, card.sms * max(1, fit) // ctas))
+    return NormPlan(warps, units, 1, clusters * ctas, ctas)
+
+
+def clusters_launched(plan: NormPlan, elem_bytes: int, *, gated: bool) -> int:
+    """The clusters that a backward's cluster kernel launches on ``plan``
+    (card only): the plan's, or as many as the current card holds at once
+    where that is fewer."""
+    fit = build.library().rmsnorm_cluster_fit(int(gated), int(elem_bytes == 2), plan.units,
+                                              plan.ctas, 32 * plan.warps)
+    if fit < 0:
+        raise RuntimeError(f"rmsnorm_cluster_fit: CUDA error {-fit} for {plan}")
+    return min(plan.blocks // plan.ctas, fit)
+
+
 def norm_bwd_plan(rows: int, d: int, elem_bytes: int, *, aligned: bool, card: Card,
                   gated: bool = False) -> NormPlan:
     """The backward's launch, which writes one partial row of dw a block:
@@ -116,7 +174,10 @@ def norm_bwd_plan(rows: int, d: int, elem_bytes: int, *, aligned: bool, card: Ca
     qwen2.5-3b's training rows (8192 of 2048 bf16 on 132 SMs: 4 warps a
     row, 2 pieces a lane, 2 rows a block, 264 blocks), or, ``gated``, for
     four (y, xh, z and the gradient; mamba2-370m's 8192 rows of 2048 bf16:
-    8 warps a row, one piece a lane, a row a block, 264 blocks); rows that
+    8 warps a row, one piece a lane, a row a block, 264 blocks); rows past
+    8 warps take `cluster_plan`'s (jamba's gated 4096 rows of 16384 bf16:
+    8 CTAs of 8 warps a row, 33 clusters at most; the plain gradient's
+    8192 rows of 5120-8192 bf16: a CTA of 16 warps a row, 132); rows that
     go to the wide kernel take a block a row, at most two blocks an SM at
     once."""
     plan = norm_plan(rows, d, elem_bytes, gated=gated, aligned=aligned, card=card,
@@ -166,8 +227,9 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """dx (x's shape and dtype) and dw (float32) of ``rmsnorm(x, w)`` for the
     output gradient ``g``, on CUDA tensors: the backward kernel on
-    `norm_bwd_plan`'s launch, then the fixed-order sum of its per-block
-    partial rows of dw (no atomics)."""
+    `norm_bwd_plan`'s launch (the row kernel, the cluster kernel or the
+    wide kernel), then the fixed-order sum of its partial rows of dw, one a
+    block or a cluster (no atomics)."""
     _check("rmsnorm_backward", x, w)
     build.check_cuda("rmsnorm_backward", x, g)
     d = x.shape[-1]
@@ -182,12 +244,14 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                          aligned=_aligned(x.data_ptr(), w.data_ptr(), g.data_ptr(),
                                           dx.data_ptr()),
                          card=card_of(x.device.index))
-    part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks // plan.ctas, d), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
     build.call(f"rmsnorm_bwd_{build.DTYPE_SUFFIX[x.dtype]}", _BWD_ARGS, x.data_ptr(),
                w.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows,
                d, eps, *plan, build.stream(x.device))
     build.count(rmsnorm_backward)
+    if plan.cluster:
+        build.count(rmsnorm_bwd_cluster)
     return dx, dw
 
 
@@ -220,6 +284,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
 
 rmsnorm.launches = 0            # forward kernel launches
 rmsnorm_backward.launches = 0   # backward calls (two kernels each)
+
+
+class _Launches:
+    """The launch count (`build.count`) of a kernel that a wrapper reaches
+    on some plans only, kept beside the wrapper's own."""
+    launches = 0
+
+
+# rmsnorm_bwd_cluster_kernel's and rmsnorm_gated_bwd_cluster_kernel's launches
+rmsnorm_bwd_cluster = _Launches()
+rmsnorm_gated_bwd_cluster = _Launches()
 
 
 def rmsnorm_gated_plain(y, xh, d_skip, z, w, *, eps: float = 1e-5):
@@ -298,9 +373,10 @@ def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5,
     """dy, dxh (y's shape and dtype), dd_skip (H,) float32, dz (z's shape,
     contiguous) and dw (H*P,) float32 of ``rmsnorm_gated(y, xh, d_skip, z,
     w)`` for the output gradient ``g`` (z's shape and dtype).  CUDA
-    tensors: the backward kernel on `norm_bwd_plan`'s gated launch, then
-    one launch of the fixed-order sums of its per-block partial rows of dw
-    and of d_skip's gradient a column, and of d_skip's over each head's
+    tensors: the backward kernel on `norm_bwd_plan`'s gated launch (the
+    row kernel, the cluster kernel or the wide kernel), then one launch of
+    the fixed-order sums of its partial rows (one a block or a cluster) of
+    dw and of d_skip's gradient a column, and of d_skip's over each head's
     columns (no atomics; ``passes`` launches only one of the two, to time
     them apart); CPU tensors: the plain version."""
     if y.device.type == "cpu":
@@ -321,7 +397,7 @@ def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5,
                        dy.data_ptr(), dxh.data_ptr(), dz.data_ptr(), zs * z.element_size())
     plan = norm_bwd_plan(rows, d, y.element_size(), aligned=aligned,
                          card=card_of(y.device.index), gated=True)
-    part = torch.empty((2, plan.blocks, d), dtype=torch.float32, device=y.device)
+    part = torch.empty((2, plan.blocks // plan.ctas, d), dtype=torch.float32, device=y.device)
     dd, dw = torch.empty_like(d_skip), torch.empty_like(w)
     build.call(f"rmsnorm_gated_bwd_{build.DTYPE_SUFFIX[y.dtype]}", _GATED_BWD_ARGS,
                y.data_ptr(), xh.data_ptr(), d_skip.data_ptr(), z.data_ptr(), zs, p,
@@ -329,6 +405,8 @@ def rmsnorm_gated_backward(y, xh, d_skip, z, w, g, *, eps: float = 1e-5,
                part[0].data_ptr(), part[1].data_ptr(), dw.data_ptr(), dd.data_ptr(), rows, d,
                eps, h, tail_heads(p), *plan, passes, build.stream(y.device))
     build.count(rmsnorm_gated_backward)
+    if plan.cluster and passes & GATED_ROWS_PASS:
+        build.count(rmsnorm_gated_bwd_cluster)
     return dy, dxh, dd, dz, dw
 
 
@@ -366,8 +444,9 @@ rmsnorm_gated_backward.launches = 0   # backward calls (two kernels each)
 
 
 def launch_floor(plan: NormPlan) -> None:
-    """Launches an empty kernel on the grid of the row kernel's ``plan``
-    (card only): the floor a norm's time is held against."""
-    build.call("rmsnorm_launch_floor", [build.I, build.I, build.P], plan.blocks,
-               32 * plan.warps * plan.groups,
+    """Launches an empty kernel on the grid of the row kernel's or the
+    cluster kernel's ``plan`` (in clusters of ``plan.ctas`` CTAs; card
+    only): the floor a norm's time is held against."""
+    build.call("rmsnorm_launch_floor", [build.I, build.I, build.I, build.P], plan.blocks,
+               32 * plan.warps * plan.groups, plan.ctas,
                build.stream(torch.device("cuda", torch.cuda.current_device())))

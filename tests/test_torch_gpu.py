@@ -1107,7 +1107,8 @@ def test_flash_attention_backward_on_a_thread_new_to_cuda(cuda):
 
 # qwen's width at its training rows and at 8 rows, a width of a ragged
 # number of 16-byte pieces, widths off 16 bytes, one that takes 8 warps a
-# row (4096; float32: the wide kernel) and one wider than the row kernel
+# row (4096; float32: a CTA of 16 warps) and ones wider than the row kernel
+# (3840 float32, 20000: the cluster kernel)
 @pytest.mark.parametrize("shape", [(8192, 2048), (8, 1000), (3, 1001), (2, 20000), (5, 3840),
                                    (2, 7, 128), (8, 2048), (4096, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1273,7 +1274,7 @@ def _gated_grads(fn, y, xh, d, xz, w, g):
 
 # (lead, H, P): mamba2-370m's training rows (8192 of 2048) and a decode
 # step's 8, a width of a ragged number of pieces (1000), mamba2-2.7b's width
-# (5120: the wide kernel) and a width off 16 bytes (60: the wide kernel)
+# (5120: the cluster kernel) and a width off 16 bytes (60: the wide kernel)
 @pytest.mark.parametrize("lead,h,p", [((2, 4096), 32, 64), ((8,), 32, 64), ((3, 5), 4, 250),
                                       ((2, 3), 80, 64), ((4, 7), 3, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1293,7 +1294,8 @@ def test_rmsnorm_gated_backward_matches_plain_autograd(cuda, lead, h, p, dtype):
 # 132 rows (a row's warps double below the SM count), 265 and 793 (one
 # row more than the 264 blocks, two blocks an SM, take at once, and than
 # three rounds of them); widths of 1024 (4 warps a row), 2048 (8) and 2056
-# (past 8 warps: the wide kernel)
+# (past 8 warps: the cluster kernel, 4 CTAs of 8 warps below 132 rows, a
+# CTA of 16 warps from 132)
 @pytest.mark.parametrize("rows", [131, 132, 265, 793])
 @pytest.mark.parametrize("h,p", [(16, 64), (32, 64), (8, 257)])
 def test_rmsnorm_gated_backward_either_side_of_its_plan(cuda, rows, h, p):
@@ -1592,6 +1594,83 @@ def test_gated_norm_backward_at_the_hybrid_width(cuda, dtype):
     want = _gated_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
     for got_, want_ in zip(got, want):
         _close_scaled(got_, want_, MAMBA_BWD_TOL[dtype])
+
+
+def _cluster_route(fn, args, counter):
+    """``fn(*args)``, and whether it launched the cluster kernel that
+    ``counter`` counts (its count moved by one)."""
+    before = counter.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, counter.launches - before
+
+
+# jamba's Mamba2 width (16384) at a decode step's 8 rows and at 4096, and
+# the gated forms either side of their plans' limits: the gated gradient's
+# row kernel (2048 | 2056: 8 warps of one piece), the gated forward's (4096
+# | 4104: the wide kernel), and the cluster's (16384 | 16392 in bf16: 8 CTAs
+# of one piece; float32 16384 is past it); each forward and gradient
+# against the plain version's autograd
+@pytest.mark.parametrize("lead,h,p", [((8,), 256, 64), ((1, 4096), 256, 64), ((5,), 8, 256),
+                                      ((133,), 8, 257), ((7,), 64, 64), ((7,), 8, 513),
+                                      ((9,), 4, 4098), ((300,), 4, 4098)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_norm_either_side_of_the_cluster_plan(cuda, lead, h, p, dtype):
+    y, xh, d, xz, w, g = _gated_bwd_inputs(lead, h, p, dtype, cuda)
+    z = torch.chunk(xz, 2, dim=-1)[1]
+    rows, elem = int(np.prod(lead)), torch.finfo(dtype).bits // 8
+    plan = rn.norm_bwd_plan(rows, h * p, elem, aligned=True, card=rn.card_of(cuda.index or 0),
+                            gated=True)
+    _close(rmsnorm_gated(y, xh, d, z, w), rmsnorm_gated_plain(y, xh, d, z, w), dtype)
+    got, launched = _cluster_route(lambda *a: _gated_grads(rmsnorm_gated, *a),
+                                   (y, xh, d, xz, w, g), rn.rmsnorm_gated_bwd_cluster)
+    assert launched == plan.cluster
+    want = _gated_grads(rmsnorm_gated_plain, y, xh, d, xz, w, g)
+    for got_, want_ in zip(got, want):
+        _close_scaled(got_, want_, MAMBA_BWD_TOL[dtype])
+
+
+# the plain gradient either side of its row kernel (4096 | 4104: 8 warps of
+# two pieces), at the llama4 decoders' 5120 and jamba's 8192 (2 CTAs a row,
+# 4 at 8 rows), and either side of the cluster's limit (32768 | 32776 in
+# bf16: 8 CTAs of two pieces; float32 16384 | 16388)
+@pytest.mark.parametrize("rows,d", [(8, 4096), (300, 4096), (8, 4104), (300, 4104), (8, 5120),
+                                    (4096, 5120), (8, 8192), (4096, 8192), (8, 16384),
+                                    (3, 16388), (3, 32768), (3, 32776)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_either_side_of_the_cluster_plan(cuda, rows, d, dtype):
+    rng = np.random.default_rng(rows + d)
+    x = _rand(rng, (rows, d), dtype, cuda).requires_grad_(True)
+    w = (1.0 + 0.1 * _rand(rng, (d,), torch.float32, cuda)).requires_grad_(True)
+    g = _rand(rng, (rows, d), dtype, cuda)
+    plan = rn.norm_bwd_plan(rows, d, x.element_size(), aligned=True,
+                            card=rn.card_of(cuda.index or 0))
+    _, launched = _cluster_route(lambda: rmsnorm(x, w).backward(g), (), rn.rmsnorm_bwd_cluster)
+    assert launched == plan.cluster
+    got = (x.grad, w.grad)
+    x.grad = w.grad = None
+    rmsnorm_plain(x, w).backward(g)
+    _close_scaled(got[0], x.grad, BWD_TOL[dtype])
+    _close_scaled(got[1], w.grad, 1e-4 if dtype == torch.float32 else BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_kernels_give_the_same_bits_twice(cuda, dtype):
+    """The cluster kernels, called twice on the same inputs, give the same
+    bits (fixed-order sums, no atomics): jamba's gated gradient at 16384
+    (bf16; float32 takes the wide kernel there) and the plain gradient at
+    16384 over 4096 rows."""
+    y, xh, d, xz, w, g = _gated_bwd_inputs((4096,), 256, 64, dtype, cuda)
+    args = (y, xh, d, torch.chunk(xz, 2, dim=-1)[1], w, g)
+    first = rmsnorm_gated_backward(*args)
+    second = rmsnorm_gated_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    rng = np.random.default_rng(9)
+    x, g = _rand(rng, (4096, 16384), dtype, cuda), _rand(rng, (4096, 16384), dtype, cuda)
+    wn = _rand(rng, (16384,), torch.float32, cuda)
+    first, launched = _cluster_route(rmsnorm_backward, (x, wn, g), rn.rmsnorm_bwd_cluster)
+    assert launched == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, rmsnorm_backward(x, wn, g)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

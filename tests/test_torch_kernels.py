@@ -186,16 +186,28 @@ def test_norm_bwd_plan_covers_every_row_once_within_its_limits(rows, d, elem):
 
 
 @pytest.mark.parametrize("rows,d,elem,aligned", [(8, 100, 2, True), (3, 1001, 4, True),
-                                                 (8, 2048, 2, False), (2, 20000, 2, True),
-                                                 (4096, 4096, 4, True), (5, 3840, 4, True),
-                                                 (1000, 8200, 2, True)])
+                                                 (8, 2048, 2, False), (2, 40000, 2, True),
+                                                 (4096, 32776, 2, True), (5, 16392, 4, True),
+                                                 (1000, 8200, 2, False)])
 def test_norm_bwd_plan_sends_what_the_row_kernel_does_not_take_to_the_wide_kernel(
         rows, d, elem, aligned):
-    """Rows off 16 bytes or too wide for 8 warps of two pieces: the wide
-    kernel, a block a row at a time, at most two blocks an SM; a partial
-    row of dw a block."""
+    """Rows off 16 bytes, or too wide for 8 CTAs of 8 warps of two pieces
+    (past 4096 pieces: 32768 bf16, 16384 float32): the wide kernel, a block
+    a row at a time, at most two blocks an SM; a partial row of dw a
+    block."""
     assert norm_bwd_plan(rows, d, elem, aligned=aligned, card=NORM_CARD) == \
         NormPlan(0, 0, 0, min(rows, 2 * 132))
+
+
+@pytest.mark.parametrize("rows,d,elem", [(2, 20000, 2), (4096, 4096, 4), (5, 3840, 4),
+                                         (1000, 8200, 2)])
+def test_norm_bwd_plan_takes_aligned_rows_past_8_warps_to_the_cluster_kernel(rows, d, elem):
+    """Aligned rows that 8 warps of two pieces do not hold, which went to
+    the wide kernel before the cluster kernel: a CTA of 16 warps or a
+    cluster of CTAs of 8 a row."""
+    plan = norm_bwd_plan(rows, d, elem, aligned=True, card=NORM_CARD)
+    assert plan.cluster and (plan.warps, plan.ctas > 1) in ((8, True), (16, False))
+    assert 32 * plan.warps * plan.ctas * plan.units * 16 >= d * elem
 
 
 def test_norm_bwd_plan_at_the_training_shapes():
@@ -205,6 +217,75 @@ def test_norm_bwd_plan_at_the_training_shapes():
     assert norm_bwd_plan(8192, 2048, 2, aligned=True, card=NORM_CARD) == NormPlan(4, 2, 2, 264)
     assert norm_bwd_plan(8, 2048, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 1, 1, 8)
     assert norm_bwd_plan(4096, 4096, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 2, 1, 264)
+
+
+# the four forms (forward, gated forward, gradient, gated gradient): widths
+# either side of the row kernels' limits (2056, 4104, 8200), the llama4
+# decoders' (5120) and jamba's model and Mamba2 widths (8192, 16384); rows
+# of a decode step, below and at the SM count, and of training
+CLUSTER_FORMS = {"forward": (False, False), "gated forward": (True, False),
+                 "gradient": (False, True), "gated gradient": (True, True)}
+
+
+@pytest.mark.parametrize("form", list(CLUSTER_FORMS))
+@pytest.mark.parametrize("d", [2056, 4104, 5120, 8192, 8200, 16384])
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("rows", [8, 131, 132, 4096])
+def test_cluster_plan_covers_each_aligned_row_past_the_row_kernel(form, d, elem, rows):
+    """A gradient's aligned row that 8 warps do not hold goes to the
+    cluster kernel: one CTA of 16 warps where it holds the row and the rows
+    are at least the SMs, else a cluster of CTAs of 8 warps.  Its lanes
+    hold the row within the row kernels' units; the cluster is the fewest
+    CTAs that do (twice as many below the SM count), at most 8, else the
+    wide kernel; as many clusters as fit the card at once, or as there are
+    rows; grid-stride over the clusters takes every row once.  A row the
+    row kernel holds keeps its plan; a forward has no cluster kernel, so a
+    row past 8 warps goes to the wide kernel."""
+    gated, backward = CLUSTER_FORMS[form]
+    pieces = d * elem // 16
+    limit = (rn.GATED_BWD_UNITS if gated and backward else MAX_UNITS[gated or backward])
+    if backward:
+        plan = norm_bwd_plan(rows, d, elem, aligned=True, card=NORM_CARD, gated=gated)
+    else:
+        plan = norm_plan(rows, d, elem, gated=gated, aligned=True, card=NORM_CARD)
+    if pieces <= THREADS * limit:          # the row kernel's
+        assert not plan.cluster and plan.warps
+        return
+    sixteen = rows >= 132 and pieces <= 2 * THREADS * limit
+    lanes = 2 * THREADS if sixteen else THREADS
+    fewest = -(-pieces // (lanes * limit))
+    if not backward or fewest > rn.MAX_CTAS:
+        assert plan == (WIDE if not backward else NormPlan(0, 0, 0, min(rows, 2 * 132)))
+        return
+    assert plan.cluster and plan.warps == lanes // 32 and plan.groups == 1
+    assert plan.ctas == (fewest if rows >= 132 else min(rn.MAX_CTAS, 2 * fewest))
+    assert plan.ctas == 1 if sixteen else 2 <= plan.ctas <= rn.MAX_CTAS == 8
+    assert plan.units <= limit and plan.units & (plan.units - 1) == 0
+    assert lanes * plan.ctas * plan.units >= pieces                  # the lanes hold the row
+    assert plan.units == 1 or lanes * plan.ctas * (plan.units // 2) < pieces
+    clusters = plan.blocks // plan.ctas
+    assert plan.blocks == clusters * plan.ctas and 1 <= clusters <= rows
+    fit = min(2048 // lanes, 65536 // (REGISTERS * lanes))
+    assert plan.blocks <= 132 * fit                                   # one wave at most
+    cover = np.zeros(rows, np.int64)
+    for c in range(clusters):
+        cover[c::clusters] += 1
+    assert (cover == 1).all()
+
+
+def test_cluster_plan_at_jamba_and_the_large_decoders_training_rows():
+    """jamba's gated gradient (4096 rows of 16384 bf16): 8 CTAs of 8 warps
+    a row, 33 clusters at most; its model width and the large decoders'
+    (5120-8192) in the plain gradient: a CTA of 16 warps, two pieces a
+    lane, one an SM; at a decode step's 8 rows, 4 CTAs of 8 warps."""
+    assert norm_bwd_plan(4096, 16384, 2, aligned=True, card=NORM_CARD, gated=True) == \
+        NormPlan(8, 1, 1, 264, 8)
+    assert norm_bwd_plan(8, 16384, 2, aligned=True, card=NORM_CARD, gated=True) == \
+        NormPlan(8, 1, 1, 64, 8)
+    for d in (5120, 6144, 7168, 8192):
+        assert norm_bwd_plan(8192, d, 2, aligned=True, card=NORM_CARD) == \
+            NormPlan(16, 2, 1, 132, 1)
+        assert norm_bwd_plan(8, d, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 1, 1, 32, 4)
 
 
 def test_row_stride_reads_column_slices_and_refuses_uneven_rows():

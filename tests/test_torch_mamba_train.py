@@ -257,19 +257,27 @@ def test_ssd_function_gradients_with_and_without_the_state(monkeypatch, use_stat
                                     (5120, 2)])
 def test_gated_bwd_plan_holds_a_row_in_one_piece_a_lane(rows, d, elem):
     """The gated backward's launch: one 16-byte piece of each input a lane
-    (the kernel's one instance), the row groups' two float32 shares a
-    column within the fold buffer, no block without a row; what does not
-    fit goes to the wide kernel, whose block keeps two floats a column."""
+    (the kernels' one instance); in the row kernel, the row groups' two
+    float32 shares a column within the fold buffer; past 8 warps (5120, and
+    2048 float32), the cluster kernel (a CTA of 16 warps, or a cluster of
+    CTAs of 8), which writes its shares straight to a partial row a
+    cluster; no block or cluster without a row; what does not fit
+    goes to the wide kernel, whose block keeps two floats a column."""
     plan = rn.norm_bwd_plan(rows, d, elem, aligned=True, card=NORM_CARD, gated=True)
     pieces = d * elem // 16
     if plan.warps == 0:
-        assert pieces > 32 * rn.THREADS // 32
+        assert pieces > 32 * rn.THREADS // 32 * rn.MAX_CTAS
         assert 2 * d * 4 <= 232_448
         return
     assert plan.units == rn.GATED_BWD_UNITS == 1
-    assert 32 * plan.warps >= pieces and plan.warps * plan.groups <= rn.THREADS // 32
-    assert 2 * plan.groups * d <= FOLD_FLOATS
-    assert 1 <= plan.blocks <= -(-rows // plan.groups)     # no block without a row
+    assert 32 * plan.warps * plan.ctas >= pieces
+    if not plan.cluster:
+        assert plan.warps * plan.groups <= rn.THREADS // 32
+        assert 2 * plan.groups * d <= FOLD_FLOATS
+    else:
+        assert plan.groups == 1 and pieces > rn.THREADS and plan.warps in (8, 16)
+    # no block (no cluster) without a row
+    assert 1 <= plan.blocks // plan.ctas <= -(-rows // plan.groups)
 
 
 def test_gated_bwd_plan_at_mamba_training_rows():
