@@ -66,7 +66,13 @@ script exits non-zero without its result line.  The phases:
     flash not causal (the encoder's B8 S1024 and the cross B8 Sq128 Sk1024,
     H16 KV16 D64, beside SDPA not causal), decode attention over the cross
     cache and the chain's GEMVs at seamless-m4t-medium's D1024
-    (``times_prefix``);
+    (``times_prefix``); the forwards past the row kernel on the cluster
+    kernel (jamba's gated norm at 16384 in bf16 and float32, the plain norm
+    at 16384 and at 8192 in float32, over 8 and 4096 rows): each checked
+    against its plain version, its route by the counters, called twice and
+    compared bitwise, and timed beside the wide kernel forced in the same
+    call, its bound, ``F.rms_norm`` or the gated norm's yardstick and the
+    launch floor (``kernel_time_cluster_forward``);
  7. where a decode step's device time goes, for each model, from
     ``torch.profiler``, and the device's idle share against the wall time
     of unprofiled steps; the same for one mamba2-370m prefill at the
@@ -510,9 +516,10 @@ def counted(fn, kernels, require=True):
     return out, rec
 
 
-def run_counted(what, fn, kernels, rounds):
+def run_counted(what, fn, kernels, rounds, absent=None):
     """`counted`, with every plain version and `_composed_step` counted too:
-    none may run.  Keeps the launches in ``rounds[what]``; returns ``fn``'s
+    none may run; nor may the kernels that ``absent`` counts ({name:
+    counter}).  Keeps the launches in ``rounds[what]``; returns ``fn``'s
     result."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -537,13 +544,16 @@ def run_counted(what, fn, kernels, rounds):
         setattr(m, a, counting(a, originals[(m, a)]))
     fd._composed_step.calls = 0
     try:
-        out, rec = counted(fn, kernels)
+        out, rec = counted(fn, dict(kernels, **(absent or {})), require=list(kernels))
     finally:
         for m, a in plain:
             setattr(m, a, originals[(m, a)])
     if calls or fd._composed_step.calls:
         raise AssertionError(f"{what}: plain versions called {calls}, _composed_step "
                              f"{fd._composed_step.calls} times: the path left its kernels")
+    launched = {k: rec["launches"][k] for k in absent or () if rec["launches"][k]}
+    if launched:
+        raise AssertionError(f"{what}: launched {launched}, which this path must not")
     rounds[what] = rec["launches"]
     return out
 
@@ -1271,7 +1281,8 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
                 for x, w, _ in sets]),
             floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if device == "cuda" else 0.0,
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, plan=plan._asdict(),
-            clusters=rn.clusters_launched(plan, 2, gated=False) if device == "cuda" else None)
+            clusters=(rn.clusters_launched(plan, 2, gated=False, backward=True)
+                      if device == "cuda" else None))
         del sets
     emit("train_kernel_time_cluster", kernel="rmsnorm backward", card=smi, shapes=by_shape)
     rows.append(("rmsnorm_bwd_cluster", "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1296,7 +1307,8 @@ def training(check, copies, bound, smi, *, full=True, device="cuda"):
             library_ms=None, library="none: no single PyTorch call computes this function",
             floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if device == "cuda" else 0.0,
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, plan=plan._asdict(),
-            clusters=rn.clusters_launched(plan, 2, gated=True) if device == "cuda" else None,
+            clusters=(rn.clusters_launched(plan, 2, gated=True, backward=True)
+                      if device == "cuda" else None),
             parts={name: dict(ms=timed(gate_pass(mask), sets)) for name, mask in (
                 ("rmsnorm_gated_bwd_cluster_kernel", rn.GATED_ROWS_PASS),
                 ("rmsnorm_gated_tail_kernel", rn.GATED_TAIL_PASS))})
@@ -2639,9 +2651,10 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
 
     Serves phase 4's traffic through ``LMServer`` at ``max_batch`` 8 after a
     warm-up round; the counted round launches every kernel of the path
-    (flash, rmsnorm, the gated norm, the SSD scan, decode attention, the
-    chain's ``qkv_rope`` and ``out_residual``), calls no plain version and
-    never `_composed_step`; tok/s, decode step p50 / p90 beside its bound
+    (flash, rmsnorm, the gated norm on its cluster kernel, the SSD scan,
+    decode attention, the chain's ``qkv_rope`` and ``out_residual``),
+    neither norm's wide kernel, no plain version and never
+    `_composed_step`; tok/s, decode step p50 / p90 beside its bound
     (`decode_stage_bytes` of the bf16 weights: every weight but the
     embedding table once, the SSM states and the KV cache, at the round's
     last step) and beside the bytes as `MoE.decode` reads them (every
@@ -2654,7 +2667,8 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     `ab`), every routing decision equal.  The same requests through ``LMServer(max_batch=4,
     pipeline=DecodePipeline(...))``, one period (the cut's four layers) a
     stage, planned on the H100: tokens equal to the single-device
-    ``LMServer(max_batch=4)``'s, ``late == 0``, every kernel launched.  One
+    ``LMServer(max_batch=4)``'s, ``late == 0``, every kernel launched (the
+    gated norm's cluster kernel among them; no wide kernel).  One
     train step of the 2-layer cut with bf16 masters and no optimizer state
     (float32 ones and their gradients would take 95 GB), kernel route
     against ``impl="ref"``: the loss and each leaf's gradient norm within
@@ -2684,6 +2698,10 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     full = get_config(JAMBA)
     cfg = first_layers(full, 4)
     rounds = {}
+    # the gated norm's rows (16384) are past the row kernel: the served
+    # rounds launch its cluster kernel, and neither norm's wide kernel
+    kernels = dict(kernels, rmsnorm_gated_cluster=rn.rmsnorm_gated_cluster)
+    no_wide = {"rmsnorm_wide": rn.rmsnorm_wide, "rmsnorm_gated_wide": rn.rmsnorm_gated_wide}
     prompt_lens = np.random.default_rng(0).integers(64, 401, 8)      # phase 4's traffic
     prompts = [np.random.default_rng(n).integers(2, cfg.vocab, n).tolist() for n in prompt_lens]
     bucket = _bucket(max(map(len, prompts)))
@@ -2788,7 +2806,8 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
     resident = sum(p.numel() * p.element_size() for p in params.parameters())
     server.serve(requests(2))
     server.stats = ServeStats()
-    outs = run_counted(f"{cfg.name} serve", lambda: server.serve(requests(32)), kernels, rounds)
+    outs = run_counted(f"{cfg.name} serve", lambda: server.serve(requests(32)), kernels, rounds,
+                       absent=no_wide)
     check_outs(outs, cfg.name)
     steps_s = np.array(server.stats.decode_step_s)
     summary = server.stats.summary()
@@ -2843,7 +2862,7 @@ def hybrid_serving(ab, profile_decode, kernels, smi, *, decode_ms):
         server = LMServer(cfg, max_batch=4, pipeline=pipe)
         pipe.warm(prompts, 32, group_size=4)
         got = run_counted(f"{cfg.name} pipelined serve", lambda: server.serve(requests(32)),
-                          kernels, rounds)
+                          kernels, rounds, absent=no_wide)
         check_outs(got, f"{cfg.name} pipelined")
         run, late = server.last_run, pipe.compile_stats.late
         emit("hybrid_pipeline", config=cfg.name, stages=pipe.stage_names,
@@ -3745,6 +3764,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_gated, rmsnorm_gated_plain,
                                              rmsnorm_plain)
     from repro_torch.kernels.ssd_scan import blocks_per_sm, ssd_scan, ssd_scan_plain
+    from repro_torch.probes.wide_norms import wide_plans
     from repro_torch.analysis.roofline import HW_H100
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.core import planner
@@ -4804,16 +4824,80 @@ def main() -> int:
             ms=timed(lambda *a: rmsnorm_gated(*a), sets),
             plain_ms=timed(lambda *a: rmsnorm_gated_plain(*a), sets), library_ms=None,
             yardstick_ms=timed(unfused, sets),
-            # a row of 16384 is past the row kernel: the wide kernel, whose
-            # grid is not the plan's, so no empty kernel stands beside it
-            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if plan.blocks else None,
-            kernel="row" if plan.blocks else "wide",
+            # a row of 16384 is past the row kernel: the cluster kernel, an
+            # empty kernel on its plan's grid (in clusters) beside it
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets) if plan.warps else None,
+            kernel="cluster" if plan.cluster else "row" if plan.warps else "wide",
             bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(), bytes=nb)
         del sets
     times["rmsnorm_gated"]["hybrid_shapes"] = gated_jamba
     emit("times_hybrid", card=smi, **{k: times[k]["hybrid_shapes"] for k in (
         "flash_attention", "decode_attention", "fused_decode", "rmsnorm", "ssd_scan",
         "rmsnorm_gated")})
+    torch.cuda.empty_cache()
+
+    # the forwards past the row kernel, on the cluster kernel: jamba's gated
+    # norm (16384) and the plain norm at 16384 and 8192 (float32) over a
+    # decode step's 8 rows and a prefill's 4096, in bf16 and float32: each
+    # checked against its plain version, its route by the counters, called
+    # twice and compared bitwise; then timed beside the wide kernel it
+    # replaces (``wide_ms``: the plans forced to it, in the same call), the
+    # bound, the plain version, ``F.rms_norm`` (the plain norm) or the
+    # yardstick (the gated: the op-by-op torch body, then the norm) and an
+    # empty kernel on its grid
+    def forward_inputs(gated, rows, d, dtype):
+        if gated:
+            return gated_inputs((rows,), mh, mp, dtype=dtype)
+        return randn(rows, d, dtype=dtype), 1.0 + 0.1 * randn(d, dtype=torch.float32)
+
+    forward_shapes = [(gated, d, rows, dtype) for gated, d, dtypes in (
+        (True, mh * mp, (bf16, torch.float32)), (False, 16384, (bf16, torch.float32)),
+        (False, 8192, (torch.float32,))) for dtype in dtypes for rows in (8, 4096)]
+    twice, fwd_by_shape = [], {}
+    for gated, d, n_rows, dtype in forward_shapes:
+        name = "rmsnorm_gated" if gated else "rmsnorm"
+        fn = rmsnorm_gated if gated else rmsnorm
+        counter = rn.rmsnorm_gated_cluster if gated else rn.rmsnorm_cluster
+        elem = 2 if dtype == bf16 else 4
+        case = f"({n_rows}, {d}) {str(dtype)[6:]}"
+        args = forward_inputs(gated, n_rows, d, dtype)
+        before = counter.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name} {case}: the cluster kernel did not launch")
+        tol = ATOL if dtype == bf16 else F32_TOL
+        check(name, f"{case} on the cluster kernel", got,
+              (rmsnorm_gated_plain if gated else rmsnorm_plain)(*args), tol, tol)
+        twice.append((f"{name} {case}", torch.equal(got, fn(*args))))
+        del args, got
+        # y, xh, z read and the rows written (gated), or x read and written;
+        # the weight (and d_skip) read
+        nb = (4 if gated else 2) * elem * n_rows * d + 4 * d + (4 * mh if gated else 0)
+        sets = copies(lambda: forward_inputs(gated, n_rows, d, dtype),
+                      nb + (elem * n_rows * d if gated else 0))
+        plan = rn.norm_plan(n_rows, d, elem, gated=gated, aligned=True, card=card)
+        b_ms, b_by = bound(nb, (11 if gated else 4) * n_rows * d, F32_FLOP_PER_S)
+        with wide_plans():
+            wide = timed(lambda *a: fn(*a), sets)
+        plain = rmsnorm_gated_plain if gated else rmsnorm_plain
+        fwd_by_shape[f"{name} {case}"] = dict(
+            ms=timed(lambda *a: fn(*a), sets), wide_ms=wide,
+            plain_ms=timed(lambda *a: plain(*a), sets[:2], iters=10),
+            **(dict(yardstick_ms=timed(unfused, sets), library_ms=None) if gated else dict(
+                library_ms=timed(lambda x, w: F.rms_norm(x, (d,), w, 1e-5), sets),
+                library_same_dtype_weight_ms=timed(
+                    lambda x, w: F.rms_norm(x, (d,), w.to(dtype), 1e-5), sets))),
+            floor_ms=timed(lambda *_: rn.launch_floor(plan), sets),
+            bound_ms=b_ms, bound_by=b_by, bytes=nb, plan=plan._asdict(),
+            clusters=rn.clusters_launched(plan, elem, gated=gated, backward=False))
+        del sets
+    emit("forward_bitwise_cluster", cases=dict(twice), ok=all(v for _, v in twice),
+         what="each forward twice on the same inputs")
+    if not all(v for _, v in twice):
+        raise AssertionError(f"a forward gave other bits on a second call: "
+                             f"{[k for k, v in twice if not v]}")
+    emit("kernel_time_cluster_forward", card=smi, shapes=fwd_by_shape)
     torch.cuda.empty_cache()
 
     emit("times", shapes={"rmsnorm": "(8, 2048) decode (by_shape: also (8, 1024) and "
@@ -5161,8 +5245,8 @@ def main() -> int:
     # meshed train loop and serving round of phase 18, ``rank_launches``
     # from each two-rank run of phase 19, by rank
     cuda_kernels = {
-        "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
-        "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_wide_kernel"],
+        "rmsnorm": ["rmsnorm_rows_kernel", "rmsnorm_cluster_kernel", "rmsnorm_wide_kernel"],
+        "rmsnorm_gated": ["rmsnorm_rows_kernel", "rmsnorm_cluster_kernel", "rmsnorm_wide_kernel"],
         "flash_attention": ["flash_attention_mma_kernel"],
         "decode_attention": ["decode_attention_kernel"],
         "fused_decode": ["fused_qkv_rope_kernel", "decode_attention_kernel",

@@ -38,9 +38,18 @@
 //    spread over as many SMs.
 //  - The launch bounds cap a thread at 128 registers, so two blocks of 256
 //    threads fit an SM: 16 warps, each with a row in flight.
-// Rows off 16 bytes, or wider than 8 warps hold, go to the wide kernel: a
-// block a row, element loads, two passes over the row (the second from
-// L1/L2), the weight from device memory.
+// Aligned rows that 8 warps do not hold (past 8192 bf16 / 4096 float32
+// columns; the gated form past 4096 / 2048, as jamba's Mamba2 norm at 16384)
+// go to rmsnorm_cluster_kernel: a lane's registers as above, on one CTA of
+// 16 warps or a thread-block cluster of CTAs of 8 warps (`rmsnorm.
+// cluster_plan`, the layout of the gradients' cluster kernels below), the
+// row's sum through `ClusterSums`, one cluster barrier a row.  At 4096 rows
+// it takes 72-87% of the bound against the wide kernel's 39-63%; jamba's
+// gated rows take two CTAs of 16 warps, 4% faster than four of 8 (PERF.md).
+// Rows off 16 bytes, or past 8 CTAs of 8 warps (65536 bf16 / 32768
+// float32 columns; gated 32768 / 16384), go to the wide kernel: a block a
+// row, element loads, two passes over the row (the second from L1/L2),
+// the weight from device memory.
 //
 // The gated form reads y and xh (contiguous, one row a token) and z, a
 // column slice of the in-projection with its own row stride, and rounds to
@@ -143,13 +152,13 @@ __device__ __forceinline__ void load_row(Pieces<UNITS, GATED>& p, const Args& a,
 }
 
 // Normalises one row from a lane's pieces and writes it, with `w` the
-// weight of the lane's columns; `part` holds the sums of the warps of a row
-// that several warps share.
-template <typename T, int UNITS, bool GATED>
+// weight of the lane's columns; `sum` adds the lanes' shares of the row's
+// sum of squares over the lanes that hold the row.
+template <typename T, int UNITS, bool GATED, typename Sum>
 __device__ __forceinline__ void norm_row(Pieces<UNITS, GATED>& p, const Args& a, long row,
                                          Lane l, const float4 (&w)[UNITS][16 / sizeof(T) / 4],
                                          const float (&ds)[GATED ? UNITS : 1][16 / sizeof(T)],
-                                         float* part, int log_warps, int& parity) {
+                                         Sum& sum) {
   constexpr int E = 16 / sizeof(T), H = E / 4;
   float acc[UNITS];
 #pragma unroll
@@ -172,17 +181,7 @@ __device__ __forceinline__ void norm_row(Pieces<UNITS, GATED>& p, const Args& a,
   float ss = 0.f;
 #pragma unroll
   for (int k = 0; k < UNITS; ++k) ss += acc[k];
-  ss = repro::warp_sum(ss);
-  if (log_warps > 0) {   // the row's warps add their sums in one order, so all get one value
-    const int warp = threadIdx.x >> 5, group = warp >> log_warps;
-    if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = ss;
-    repro::named_barrier(1 + group, 32 << log_warps);
-    ss = 0.f;
-    for (int i = group << log_warps; i < (group + 1) << log_warps; ++i)
-      ss += part[parity * MAX_WARPS + i];
-    parity ^= 1;
-  }
-  const float r = rsqrtf(ss / a.D + a.eps);
+  const float r = rsqrtf(sum(ss) / a.D + a.eps);
   T* out = static_cast<T*>(a.out) + row * a.D;
 #pragma unroll
   for (int k = 0; k < UNITS; ++k) {
@@ -195,6 +194,59 @@ __device__ __forceinline__ void norm_row(Pieces<UNITS, GATED>& p, const Args& a,
 #pragma unroll
       for (int j = 0; j < E; ++j) oe[j] = from_float<T>(to_float(e[j]) * r * wk[j]);
       *reinterpret_cast<uint4*>(out + u * E) = o;
+    }
+  }
+}
+
+// The row kernel's sum of a row's squares: shuffles within a warp, then
+// the row's warps add their sums in one order behind one named barrier (two
+// slots by row parity), so every lane of the row gets the same value.
+struct RowSum {
+  float* part;   // 2 x MAX_WARPS
+  int log_warps, parity;
+  __device__ __forceinline__ float operator()(float ss) {
+    ss = repro::warp_sum(ss);
+    if (log_warps > 0) {
+      const int warp = threadIdx.x >> 5, group = warp >> log_warps;
+      if ((threadIdx.x & 31) == 0) part[parity * MAX_WARPS + warp] = ss;
+      repro::named_barrier(1 + group, 32 << log_warps);
+      ss = 0.f;
+      for (int i = group << log_warps; i < (group + 1) << log_warps; ++i)
+        ss += part[parity * MAX_WARPS + i];
+      parity ^= 1;
+    }
+    return ss;
+  }
+};
+
+// The weight of a lane's columns, float32, loaded once for every row it takes.
+template <typename T, int UNITS>
+__device__ __forceinline__ void lane_weight(float4 (&wr)[UNITS][16 / sizeof(T) / 4],
+                                            const float* __restrict__ w, Lane l) {
+  constexpr int H = 16 / sizeof(T) / 4;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {
+    const int u = l.first + k * l.step;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      wr[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// d_skip of a lane's columns, cast to the input type as torch casts it.
+template <typename T, int UNITS>
+__device__ __forceinline__ void lane_skip(float (&ds)[UNITS][16 / sizeof(T)], const Args& a,
+                                          Lane l) {
+  constexpr int E = 16 / sizeof(T);
+#pragma unroll
+  for (int k = 0; k < UNITS; ++k) {        // one division a piece: P may not divide E
+    const int col = min(l.first + k * l.step, l.units - 1) * E;
+    int head = col / a.P, c = col - head * a.P;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      ds[k][j] = rnd<T>(a.d_skip[head]);
+      if (++c == a.P) c = 0, ++head;
     }
   }
 }
@@ -214,40 +266,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   Pieces<UNITS, GATED> p0, p1;
   if (row < a.rows) load_row<T>(p0, a, row, l);
-  // the weight of the lane's columns, for every row it takes
-  const float4* w4 = reinterpret_cast<const float4*>(a.w);
-  float4 w[UNITS][H];
-#pragma unroll
-  for (int k = 0; k < UNITS; ++k) {
-    const int u = l.first + k * l.step;
-#pragma unroll
-    for (int h = 0; h < H; ++h)
-      w[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float ds[GATED ? UNITS : 1][E];            // d_skip of the lane's columns, cast as torch does
-  if constexpr (GATED) {
-#pragma unroll
-    for (int k = 0; k < UNITS; ++k) {        // one division a piece: P may not divide E
-      const int col = min(l.first + k * l.step, l.units - 1) * E;
-      int head = col / a.P, c = col - head * a.P;
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        ds[k][j] = rnd<T>(a.d_skip[head]);
-        if (++c == a.P) c = 0, ++head;
-      }
-    }
-  }
+  float4 w[UNITS][H];                        // for every row the lane takes
+  lane_weight<T>(w, a.w, l);
+  float ds[GATED ? UNITS : 1][E];
+  if constexpr (GATED) lane_skip<T>(ds, a, l);
 
-  int parity = 0;
+  RowSum sum{part, log_warps, 0};
   while (row < a.rows) {   // two buffers: the next row loads while this one is normalised
     long next = row + stride;
     if (next < a.rows) load_row<T>(p1, a, next, l);
-    norm_row<T>(p0, a, row, l, w, ds, part, log_warps, parity);
+    norm_row<T>(p0, a, row, l, w, ds, sum);
     row = next;
     if (row >= a.rows) break;
     next = row + stride;
     if (next < a.rows) load_row<T>(p0, a, next, l);
-    norm_row<T>(p1, a, row, l, w, ds, part, log_warps, parity);
+    norm_row<T>(p1, a, row, l, w, ds, sum);
     row = next;
   }
 }
@@ -284,20 +317,206 @@ int launch_rows(const Args& a, int warps, int groups, int blocks, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
-// warps 0: the wide kernel; else the row kernel with the plan's units,
-// warps a row, row groups a block and blocks (rmsnorm.norm_plan); ctas 1
-// (the forward has no cluster kernel).
+// -- rows held across a thread-block cluster ------------------------------
+
+constexpr int MAX_CTAS = 8;                          // a cluster, the portable most
+constexpr int CLUSTER_SLOTS = MAX_CTAS * MAX_WARPS;  // a warp's pair of sums each
+// a cluster kernel's CTA at most: 16 warps, at the row kernel's 128
+// registers a thread (8 warps, two CTAs an SM; or 16, one)
+constexpr int CLUSTER_THREADS = 2 * THREADS;
+
+// The cluster kernels' reduction of a row's sums (a, b) over the `ctas`
+// CTAs of a cluster that hold the row: shuffles within a warp; then lane r
+// of each warp puts the warp's pair into slot (rank * warps + warp) of
+// CTA r's shared memory (distributed shared memory), one cluster barrier
+// (a CTA's barrier where the cluster is one CTA), and every warp adds the
+// ctas * warps slots of its own CTA in one order (lane i slots i and i +
+// 32, then shuffles), so every lane of the cluster gets the same value.
+// Two sets of slots by row parity: a set is written again two rows on,
+// after the barrier of the row between, which each CTA reaches only after
+// it has read the set.
+struct ClusterSums {
+  float2* slots;   // this CTA's, 2 x CLUSTER_SLOTS
+  int ctas, rank, parity;
+  __device__ __forceinline__ float2 operator()(float a, float b) {
+    a = repro::warp_sum(a);
+    b = repro::warp_sum(b);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    if (CLUSTER_ABLATE & 1) return make_float2(a, b);
+    float2* set = slots + parity * CLUSTER_SLOTS;
+    if (lane < ctas)
+      cg::this_cluster().map_shared_rank(set, lane)[rank * warps + warp] = make_float2(a, b);
+    repro::cluster_sync();
+    const int n = ctas * warps;
+    const float2 s0 = lane < n ? set[lane] : make_float2(0.f, 0.f);
+    const float2 s1 = lane + 32 < n ? set[lane + 32] : make_float2(0.f, 0.f);
+    parity ^= 1;
+    return make_float2(repro::warp_sum(s0.x + s1.x), repro::warp_sum(s0.y + s1.y));
+  }
+};
+
+// The cluster kernels' reduction of one sum: `ClusterSums` with b = 0.
+struct ClusterSum {
+  ClusterSums sums;
+  __device__ __forceinline__ float operator()(float ss) { return sums(ss, 0.f).x; }
+};
+
+// A row held across the `ctas` CTAs of a cluster (CTAs of 8 warps, or one
+// of 16), in the row kernel's registers: a lane's pieces (16-byte unit
+// `rank * blockDim + tid + k * blockDim * ctas`), loaded before the sum and
+// written from the same registers; its columns' weight and d_skip resident;
+// the next row's loads in flight while this one is reduced and written;
+// the row's sum through `ClusterSum`.  The clusters walk the rows
+// grid-stride.
+template <typename T, int UNITS, bool GATED>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) rmsnorm_cluster_kernel(Args a) {
+  constexpr int E = 16 / sizeof(T), H = E / 4;
+  __shared__ float2 slots[2 * CLUSTER_SLOTS];
+  const int ctas = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const Lane l{rank * static_cast<int>(blockDim.x) + static_cast<int>(threadIdx.x),
+               static_cast<int>(blockDim.x) * ctas, a.D / E};
+  const long stride = gridDim.x / ctas;
+  long row = blockIdx.x / ctas;
+
+  Pieces<UNITS, GATED> p0, p1;
+  if (row < a.rows) load_row<T>(p0, a, row, l);
+  float4 w[UNITS][H];
+  lane_weight<T>(w, a.w, l);
+  float ds[GATED ? UNITS : 1][E];
+  if constexpr (GATED) lane_skip<T>(ds, a, l);
+  repro::cluster_sync();   // every CTA of the cluster runs before its slots are written
+
+  ClusterSum sum{{slots, ctas, rank, 0}};
+  while (row < a.rows) {   // two buffers: the next row loads while this one is normalised
+    long next = row + stride;
+    if (next < a.rows) load_row<T>(p1, a, next, l);
+    norm_row<T>(p0, a, row, l, w, ds, sum);
+    row = next;
+    if (row >= a.rows) break;
+    next = row + stride;
+    if (next < a.rows) load_row<T>(p0, a, next, l);
+    norm_row<T>(p1, a, row, l, w, ds, sum);
+    row = next;
+  }
+}
+
+// The launch of `clusters` clusters of `ctas` CTAs of `threads` threads.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int clusters, int ctas, int threads, cudaStream_t stream) {
+    cfg.gridDim = dim3(clusters * ctas);
+    cfg.blockDim = dim3(threads);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Lowers `clusters` to the clusters of `kernel` that the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once a kernel, device, cluster
+// and block size), so that the grid is one wave; the clusters walk the
+// rows grid-stride.
+template <typename Kernel>
+cudaError_t fit_clusters(Kernel kernel, int ctas, int threads, int& clusters) {
+  if (ctas == 1) return cudaSuccess;   // a CTA a row: the plan's grid
+  struct Fit {
+    const void* kernel;
+    int device, ctas, threads, clusters;
+  };
+  static std::mutex lock;
+  static std::vector<Fit> known;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int fit = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (const Fit& f : known)
+      if (f.kernel == key && f.device == device && f.ctas == ctas && f.threads == threads)
+        fit = f.clusters;
+  }
+  if (fit == 0) {
+    ClusterLaunch l(1, ctas, threads, nullptr);
+    if ((err = cudaOccupancyMaxActiveClusters(&fit, kernel, &l.cfg)) != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+    std::lock_guard<std::mutex> hold(lock);
+    known.push_back({key, device, ctas, threads, fit});
+  }
+  clusters = clusters < fit ? clusters : fit;
+  return cudaSuccess;
+}
+
+// Launches `kernel` on `clusters` clusters of `ctas` CTAs, lowered by
+// `fit_clusters` (and set to the number launched); `ctas` 1: a CTA a row,
+// no cluster, `clusters` CTAs.  No fallback: a refused launch returns its
+// error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int ctas, int threads, int& clusters,
+                           cudaStream_t stream, Args... args) {
+  if (ctas < 1 || ctas > MAX_CTAS || threads > CLUSTER_THREADS ||
+      ctas * threads / 32 > CLUSTER_SLOTS || clusters < 1)
+    return cudaErrorInvalidValue;
+  if (ctas == 1) {   // a CTA a row: no cluster
+    kernel<<<clusters, threads, 0, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaError_t err = fit_clusters(kernel, ctas, threads, clusters);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(clusters, ctas, threads, stream);
+  if ((err = cudaLaunchKernelEx(&l.cfg, kernel, args...)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The lanes of `ctas` CTAs of `warps` warps, `units` pieces of E elements
+// each, hold a row of D.
+bool holds(int units, int warps, int ctas, int E, int D) {
+  return static_cast<long>(units) * 32 * warps * ctas * E >= D;
+}
+
+template <typename T, bool GATED>
+int launch_cluster_rows(const Args& a, int warps, int units, int blocks, int ctas,
+                        cudaStream_t stream) {
+  if (warps > CLUSTER_THREADS / 32 || !holds(units, warps, ctas, 16 / sizeof(T), a.D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int clusters = blocks / ctas;
+  switch (units) {
+    case 1: return static_cast<int>(launch_cluster(rmsnorm_cluster_kernel<T, 1, GATED>, ctas,
+                                                   warps * 32, clusters, stream, a));
+    case 2: return static_cast<int>(launch_cluster(rmsnorm_cluster_kernel<T, 2, GATED>, ctas,
+                                                   warps * 32, clusters, stream, a));
+    case 4:
+      if constexpr (!GATED)
+        return static_cast<int>(launch_cluster(rmsnorm_cluster_kernel<T, 4, false>, ctas,
+                                               warps * 32, clusters, stream, a));
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// warps 0: the wide kernel; ctas > 1 or warps > 8: the cluster kernel, a
+// row on `ctas` CTAs of `warps` warps, `blocks / ctas` clusters at most (as
+// many as the card holds at once); else the row kernel with the plan's
+// units, warps a row, row groups a block and blocks (rmsnorm.norm_plan).
+// No fallback: a refused launch returns its error.
 template <typename T, bool GATED>
 int launch(const Args& a, int warps, int units, int groups, int blocks, int ctas, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (ctas != 1) return static_cast<int>(cudaErrorInvalidValue);   // no cluster forward
   if (warps == 0) {
     int threads = (a.D + 31) / 32 * 32;
     threads = threads > 1024 ? 1024 : threads;
     rmsnorm_wide_kernel<T, GATED><<<a.rows, threads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (warps > MAX_WARPS || (warps & (warps - 1)) || groups * warps > MAX_WARPS)
+  if (ctas > 1 || warps > MAX_WARPS)
+    return launch_cluster_rows<T, GATED>(a, warps, units, blocks, ctas, s);
+  if (ctas != 1 || (warps & (warps - 1)) || groups * warps > MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (units) {
     case 1: return launch_rows<T, 1, GATED>(a, warps, groups, blocks, s);
@@ -406,41 +625,6 @@ struct GroupSums {
   }
 };
 
-constexpr int MAX_CTAS = 8;                          // a cluster, the portable most
-constexpr int CLUSTER_SLOTS = MAX_CTAS * MAX_WARPS;  // a warp's pair of sums each
-// a cluster kernel's CTA at most: 16 warps, at the row kernel's 128
-// registers a thread (8 warps, two CTAs an SM; or 16, one)
-constexpr int CLUSTER_THREADS = 2 * THREADS;
-
-// The cluster kernels' reduction of a row's sums (a, b) over the `ctas`
-// CTAs of a cluster that hold the row: shuffles within a warp; then lane r
-// of each warp puts the warp's pair into slot (rank * warps + warp) of
-// CTA r's shared memory (distributed shared memory), one cluster barrier
-// (a CTA's barrier where the cluster is one CTA), and every warp adds the
-// ctas * warps slots of its own CTA in one order (lane i slots i and i +
-// 32, then shuffles), so every lane of the cluster gets the same value.
-// Two sets of slots by row parity: a set is written again two rows on,
-// after the barrier of the row between, which each CTA reaches only after
-// it has read the set.
-struct ClusterSums {
-  float2* slots;   // this CTA's, 2 x CLUSTER_SLOTS
-  int ctas, rank, parity;
-  __device__ __forceinline__ float2 operator()(float a, float b) {
-    a = repro::warp_sum(a);
-    b = repro::warp_sum(b);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-    if (CLUSTER_ABLATE & 1) return make_float2(a, b);
-    float2* set = slots + parity * CLUSTER_SLOTS;
-    if (lane < ctas)
-      cg::this_cluster().map_shared_rank(set, lane)[rank * warps + warp] = make_float2(a, b);
-    repro::cluster_sync();
-    const int n = ctas * warps;
-    const float2 s0 = lane < n ? set[lane] : make_float2(0.f, 0.f);
-    const float2 s1 = lane + 32 < n ? set[lane + 32] : make_float2(0.f, 0.f);
-    parity ^= 1;
-    return make_float2(repro::warp_sum(s0.x + s1.x), repro::warp_sum(s0.y + s1.y));
-  }
-};
 
 // dx of one row from a lane's pieces, and the lane's share of dw.
 template <typename T, int UNITS, typename Sums>
@@ -485,21 +669,6 @@ __device__ __forceinline__ void bwd_row(const uint4 (&x)[UNITS], const uint4 (&g
       }
       *reinterpret_cast<uint4*>(out + u * E) = o;
     }
-  }
-}
-
-// The weight of a lane's columns, float32, loaded once for every row it takes.
-template <typename T, int UNITS>
-__device__ __forceinline__ void lane_weight(float4 (&wr)[UNITS][16 / sizeof(T) / 4],
-                                            const float* __restrict__ w, Lane l) {
-  constexpr int H = 16 / sizeof(T) / 4;
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int k = 0; k < UNITS; ++k) {
-    const int u = l.first + k * l.step;
-#pragma unroll
-    for (int h = 0; h < H; ++h)
-      wr[k][h] = u < l.units ? w4[u * H + h] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -703,84 +872,7 @@ rmsnorm_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw, int
 
 constexpr int BWD_THREADS = 256;
 
-// The launch of `clusters` clusters of `ctas` CTAs of `threads` threads.
-struct ClusterLaunch {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(int clusters, int ctas, int threads, cudaStream_t stream) {
-    cfg.gridDim = dim3(clusters * ctas);
-    cfg.blockDim = dim3(threads);
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = ctas;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
 
-// Lowers `clusters` to the clusters of `kernel` that the card holds at once
-// (cudaOccupancyMaxActiveClusters, asked once a kernel, device, cluster
-// and block size), so that the grid is one wave; the clusters walk the
-// rows grid-stride.
-template <typename Kernel>
-cudaError_t fit_clusters(Kernel kernel, int ctas, int threads, int& clusters) {
-  if (ctas == 1) return cudaSuccess;   // a CTA a row: the plan's grid
-  struct Fit {
-    const void* kernel;
-    int device, ctas, threads, clusters;
-  };
-  static std::mutex lock;
-  static std::vector<Fit> known;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const void* key = reinterpret_cast<const void*>(kernel);
-  int fit = 0;
-  {
-    std::lock_guard<std::mutex> hold(lock);
-    for (const Fit& f : known)
-      if (f.kernel == key && f.device == device && f.ctas == ctas && f.threads == threads)
-        fit = f.clusters;
-  }
-  if (fit == 0) {
-    ClusterLaunch l(1, ctas, threads, nullptr);
-    if ((err = cudaOccupancyMaxActiveClusters(&fit, kernel, &l.cfg)) != cudaSuccess) return err;
-    if (fit < 1) return cudaErrorInvalidConfiguration;
-    std::lock_guard<std::mutex> hold(lock);
-    known.push_back({key, device, ctas, threads, fit});
-  }
-  clusters = clusters < fit ? clusters : fit;
-  return cudaSuccess;
-}
-
-// Launches `kernel` on `clusters` clusters of `ctas` CTAs, lowered by
-// `fit_clusters` (and set to the number launched); `ctas` 1: a CTA a row,
-// no cluster, `clusters` CTAs.  No fallback: a refused launch returns its
-// error.
-template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, int ctas, int threads, int& clusters,
-                           cudaStream_t stream, Args... args) {
-  if (ctas < 1 || ctas > MAX_CTAS || threads > CLUSTER_THREADS ||
-      ctas * threads / 32 > CLUSTER_SLOTS || clusters < 1)
-    return cudaErrorInvalidValue;
-  if (ctas == 1) {   // a CTA a row: no cluster
-    kernel<<<clusters, threads, 0, stream>>>(args...);
-    return cudaGetLastError();
-  }
-  cudaError_t err = fit_clusters(kernel, ctas, threads, clusters);
-  if (err != cudaSuccess) return err;
-  ClusterLaunch l(clusters, ctas, threads, stream);
-  if ((err = cudaLaunchKernelEx(&l.cfg, kernel, args...)) != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The lanes of `ctas` CTAs of `warps` warps, `units` pieces of E elements
-// each, hold a row of D.
-bool holds(int units, int warps, int ctas, int E, int D) {
-  return static_cast<long>(units) * 32 * warps * ctas * E >= D;
-}
 
 // warps 0: the wide kernel on `blocks` blocks; ctas > 1 or warps > 8: the
 // cluster kernel, a row on `ctas` CTAs of `warps` warps, `blocks / ctas`
@@ -1295,26 +1387,40 @@ RMSNORM_BWD_ENTRY(f32, float)
 RMSNORM_GATED_BWD_ENTRY(bf16, __nv_bfloat16)
 RMSNORM_GATED_BWD_ENTRY(f32, float)
 
-// The clusters of a backward cluster kernel (gated or plain, bf16 or
-// float32, `units` pieces a lane) of `ctas` CTAs of `threads` threads that
-// the card holds at once, as its launch takes them (ctas 1: no bound, the
-// plan's grid); < 0: the error.
-extern "C" int rmsnorm_cluster_fit(int gated, int bf16, int units, int ctas, int threads) {
+namespace {
+
+// `fit_clusters` of the cluster kernel that a launch of these arguments takes.
+template <typename T>
+cudaError_t cluster_fit(int backward, int gated, int units, int ctas, int threads, int& n) {
+  if (backward && gated)
+    return units == 1 ? fit_clusters(rmsnorm_gated_bwd_cluster_kernel<T>, ctas, threads, n)
+                      : cudaErrorInvalidValue;
+  if (backward)
+    return units == 1   ? fit_clusters(rmsnorm_bwd_cluster_kernel<T, 1>, ctas, threads, n)
+           : units == 2 ? fit_clusters(rmsnorm_bwd_cluster_kernel<T, 2>, ctas, threads, n)
+                        : cudaErrorInvalidValue;
+  if (gated)
+    return units == 1   ? fit_clusters(rmsnorm_cluster_kernel<T, 1, true>, ctas, threads, n)
+           : units == 2 ? fit_clusters(rmsnorm_cluster_kernel<T, 2, true>, ctas, threads, n)
+                        : cudaErrorInvalidValue;
+  return units == 1   ? fit_clusters(rmsnorm_cluster_kernel<T, 1, false>, ctas, threads, n)
+         : units == 2 ? fit_clusters(rmsnorm_cluster_kernel<T, 2, false>, ctas, threads, n)
+         : units == 4 ? fit_clusters(rmsnorm_cluster_kernel<T, 4, false>, ctas, threads, n)
+                      : cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The clusters of a cluster kernel (the forward or the backward, gated or
+// plain, bf16 or float32, `units` pieces a lane) of `ctas` CTAs of
+// `threads` threads that the card holds at once, as its launch takes them
+// (ctas 1: no bound, the plan's grid); < 0: the error.
+extern "C" int rmsnorm_cluster_fit(int backward, int gated, int bf16, int units, int ctas,
+                                   int threads) {
   int clusters = 1 << 30;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (gated && units == 1)
-    err = bf16 ? fit_clusters(rmsnorm_gated_bwd_cluster_kernel<__nv_bfloat16>, ctas, threads,
-                              clusters)
-               : fit_clusters(rmsnorm_gated_bwd_cluster_kernel<float>, ctas, threads, clusters);
-  else if (!gated && (units == 1 || units == 2))
-    err = bf16 ? (units == 1 ? fit_clusters(rmsnorm_bwd_cluster_kernel<__nv_bfloat16, 1>, ctas,
-                                            threads, clusters)
-                             : fit_clusters(rmsnorm_bwd_cluster_kernel<__nv_bfloat16, 2>, ctas,
-                                            threads, clusters))
-               : (units == 1 ? fit_clusters(rmsnorm_bwd_cluster_kernel<float, 1>, ctas, threads,
-                                            clusters)
-                             : fit_clusters(rmsnorm_bwd_cluster_kernel<float, 2>, ctas, threads,
-                                            clusters));
+  const cudaError_t err =
+      bf16 ? cluster_fit<__nv_bfloat16>(backward, gated, units, ctas, threads, clusters)
+           : cluster_fit<float>(backward, gated, units, ctas, threads, clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 

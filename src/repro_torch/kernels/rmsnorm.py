@@ -6,8 +6,10 @@ The kernels replace the Pallas TPU kernel `_rmsnorm_kernel`
 elementwise ops that the JAX package runs before it in a Mamba2 block.  The
 source says what bounds them on the H100 and how they are laid out;
 `norm_plan` chooses the launch on the host from the shapes and the card's
-properties.  ``rmsnorm`` and ``rmsnorm_gated`` launch a kernel for CUDA
-tensors and run the plain version for CPU tensors.
+properties: the row kernel, the cluster kernel (aligned rows past 8 warps,
+`cluster_plan`) or the wide kernel.  ``rmsnorm`` and ``rmsnorm_gated``
+launch a kernel for CUDA tensors and run the plain version for CPU
+tensors.
 
 On the card, ``rmsnorm`` is differentiable when ``x`` or ``w`` requires
 grad: `_RmsNorm` runs the forward kernel and the backward kernel
@@ -69,10 +71,11 @@ class NormPlan(NamedTuple):
     """A launch: ``warps`` warps a row (0: the wide kernel, a block a row),
     each lane holding ``units`` 16-byte pieces of it; ``groups`` rows a
     block at once; ``blocks`` blocks, which walk the rows grid-stride.
-    ``warps`` > 8 or ``ctas`` > 1: a backward's cluster kernel, a row held
-    by ``ctas`` CTAs of ``warps`` warps each (a thread-block cluster, or one
-    CTA of 16 warps), ``blocks / ctas`` clusters at most (the kernel takes
-    as many as the card holds at once)."""
+    ``warps`` > 8 or ``ctas`` > 1: a cluster kernel (the forward's or a
+    backward's), a row held by ``ctas`` CTAs of ``warps`` warps each (a
+    thread-block cluster, or one CTA of 16 warps), ``blocks / ctas``
+    clusters at most (the kernel takes as many as the card holds at
+    once)."""
     warps: int
     units: int
     groups: int
@@ -81,7 +84,7 @@ class NormPlan(NamedTuple):
 
     @property
     def cluster(self) -> bool:
-        """The plan of a backward's cluster kernel."""
+        """The plan of a cluster kernel."""
         return self.warps > THREADS // 32 or self.ctas > 1
 
 
@@ -103,8 +106,8 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     warps a row, 4 pieces a lane, 4 rows a block, 264 blocks; at a decode
     step (8 rows): 8 blocks of one row of 4 warps.  ``backward``: two
     inputs a piece, as the gated form's three; both: four, one piece a lane.
-    A backward's row past 8 warps goes to `cluster_plan`; a forward's to the
-    wide kernel."""
+    A row past 8 warps goes to `cluster_plan` (jamba's gated forward, 4096
+    rows of 16384 bf16: 2 CTAs of 16 warps a row, two pieces a lane)."""
     vec = 16 // elem_bytes
     if not aligned or d % vec:
         return WIDE
@@ -114,7 +117,7 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
     while -(-pieces // (32 * warps)) > limit:
         warps *= 2
     if warps > THREADS // 32:
-        return cluster_plan(rows, pieces, limit, card) if backward else WIDE
+        return cluster_plan(rows, pieces, limit, card, most16=2 if gated and not backward else 1)
     if rows < card.sms and warps < THREADS // 32:
         warps *= 2
     units = 1 << (-(-pieces // (32 * warps)) - 1).bit_length()
@@ -125,24 +128,28 @@ def norm_plan(rows: int, d: int, elem_bytes: int, *, gated: bool, aligned: bool,
 
 
 def cluster_plan(rows: int, pieces: int, limit: int, card: Card,
-                 warps: int | None = None) -> NormPlan:
-    """A backward's row of ``pieces`` 16-byte pieces (of each input) past 8
-    warps, at most ``limit`` pieces a lane, for the cluster kernel: one CTA
-    of 16 warps (one an SM) where it holds the row and there are at least
-    as many rows as SMs, so that the row's warps add their sums on one SM
-    (the plain gradient to 8192 bf16 columns: 73-83% of its bound against
-    60-75% on two CTAs of 8, PERF.md); else the fewest CTAs of 8 warps (two
-    an SM) that hold it in a thread-block cluster, twice as many when there
-    are fewer rows than SMs, so that more SMs share the rows, or the wide
-    kernel where `MAX_CTAS` do not hold it (jamba's gated gradient, 16384
-    bf16 with one piece a lane: 8 CTAs).  ``warps`` forces CTAs of 8 or 16
+                 warps: int | None = None, *, most16: int = 1) -> NormPlan:
+    """A row of ``pieces`` 16-byte pieces (of each input) past 8 warps, at
+    most ``limit`` pieces a lane, for the cluster kernel (the forward's or a
+    backward's): the fewest CTAs of 16 warps (one an SM), at most
+    ``most16``, where they hold the row and there are at least as many rows
+    as SMs, so that the row's warps add their sums on few SMs (the plain
+    gradient to 8192 bf16 columns on one: 73-83% of its bound against
+    60-75% on two CTAs of 8; the gated forward, ``most16`` 2, at jamba's
+    4096 rows of 16384 bf16 on two: 4% faster than on four CTAs of 8, where
+    the plain forward at (4096, 32768) bf16 ran 2% slower on two than on
+    four of 8, PERF.md); else the fewest CTAs of 8 warps (two an SM) that
+    hold it in a thread-block cluster, twice as many when there are fewer
+    rows than SMs, so that more SMs share the rows, or the wide kernel
+    where `MAX_CTAS` do not hold it (jamba's gated gradient, 16384 bf16
+    with one piece a lane: 8 CTAs).  ``warps`` forces CTAs of 8 or 16
     warps.  As many clusters as fit the card at once (by threads, and by
     the registers the launch bounds allow) or as there are rows, fewer;
     the kernel launches fewer where the card holds fewer
     (`clusters_launched`)."""
     if warps is None:
-        warps = 2 * THREADS // 32 if rows >= card.sms and pieces <= 2 * THREADS * limit else \
-            THREADS // 32
+        sixteen = most16 * 2 * THREADS * limit        # the pieces those CTAs of 16 warps hold
+        warps = 2 * THREADS // 32 if rows >= card.sms and pieces <= sixteen else THREADS // 32
     lanes = 32 * warps
     most = min(MAX_CTAS, CLUSTER_SLOTS // warps)
     ctas = -(-pieces // (lanes * limit))
@@ -156,12 +163,12 @@ def cluster_plan(rows: int, pieces: int, limit: int, card: Card,
     return NormPlan(warps, units, 1, clusters * ctas, ctas)
 
 
-def clusters_launched(plan: NormPlan, elem_bytes: int, *, gated: bool) -> int:
-    """The clusters that a backward's cluster kernel launches on ``plan``
-    (card only): the plan's, or as many as the current card holds at once
-    where that is fewer."""
-    fit = build.library().rmsnorm_cluster_fit(int(gated), int(elem_bytes == 2), plan.units,
-                                              plan.ctas, 32 * plan.warps)
+def clusters_launched(plan: NormPlan, elem_bytes: int, *, gated: bool, backward: bool) -> int:
+    """The clusters that the forward's or a backward's cluster kernel
+    launches on ``plan`` (card only): the plan's, or as many as the current
+    card holds at once where that is fewer."""
+    fit = build.library().rmsnorm_cluster_fit(int(backward), int(gated), int(elem_bytes == 2),
+                                              plan.units, plan.ctas, 32 * plan.warps)
     if fit < 0:
         raise RuntimeError(f"rmsnorm_cluster_fit: CUDA error {-fit} for {plan}")
     return min(plan.blocks // plan.ctas, fit)
@@ -220,6 +227,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     build.call(f"rmsnorm_{build.DTYPE_SUFFIX[x.dtype]}", _ARGS, x.data_ptr(), w.data_ptr(),
                out.data_ptr(), rows, d, eps, *plan, build.stream(x.device))
     build.count(rmsnorm)
+    _count_route(plan, rmsnorm_cluster, rmsnorm_wide)
     return out
 
 
@@ -295,6 +303,19 @@ class _Launches:
 # rmsnorm_bwd_cluster_kernel's and rmsnorm_gated_bwd_cluster_kernel's launches
 rmsnorm_bwd_cluster = _Launches()
 rmsnorm_gated_bwd_cluster = _Launches()
+# the forwards' launches of rmsnorm_cluster_kernel and of rmsnorm_wide_kernel
+rmsnorm_cluster = _Launches()
+rmsnorm_gated_cluster = _Launches()
+rmsnorm_wide = _Launches()
+rmsnorm_gated_wide = _Launches()
+
+
+def _count_route(plan: NormPlan, cluster: _Launches, wide: _Launches) -> None:
+    """Counts a forward's launch of the cluster kernel or the wide kernel."""
+    if plan.cluster:
+        build.count(cluster)
+    elif not plan.warps:
+        build.count(wide)
 
 
 def rmsnorm_gated_plain(y, xh, d_skip, z, w, *, eps: float = 1e-5):
@@ -359,6 +380,7 @@ def _gated_forward(y, xh, d_skip, z, w, eps):
                xh.data_ptr(), d_skip.data_ptr(), z.data_ptr(), zs, p, w.data_ptr(),
                out.data_ptr(), rows, d, eps, *plan, build.stream(y.device))
     build.count(rmsnorm_gated)
+    _count_route(plan, rmsnorm_gated_cluster, rmsnorm_gated_wide)
     return out
 
 

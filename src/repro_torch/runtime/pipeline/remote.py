@@ -58,7 +58,14 @@ not adopt.  After a `failures.PipelineFailure` the controller waits every
 posted command home and drops its report (``drain``), and every rank
 empties its store of the failed run's tensors; a command that raised on
 its rank meanwhile is raised then (a `RankFailure` caused by the
-`PipelineFailure`), never dropped.
+`PipelineFailure`), never dropped.  After any other failure of a run (a
+rank's own fault, raised as the first `RankFailure` the controller took)
+the controller drops the late reports of the commands the run left in
+flight (``abandon``): another op of the run that failed on its rank is the
+same fault, and must not fail the ``end`` or the ``stop`` that follow.  A
+worker's ``stop`` report is its last message: once it is sent, the
+controller may close the group, so an error in waiting that send home is
+not the worker's (the controller raises where the report did not come).
 """
 from __future__ import annotations
 
@@ -411,7 +418,10 @@ class Worker:
             self._fail(dict(cmd, stopped=True), e)
         else:
             self._report(cmd, {"bytes_sent": self.bytes_sent, "stopped": True})
-        self._out.drain()
+        try:     # the report, sent last: the controller may close the group once it came
+            self._out.drain()
+        except Exception:
+            pass
 
     def _handle(self, cmd) -> None:
         try:
@@ -595,6 +605,7 @@ class Controller:
         self.reports: dict[int, dict] = {}
         self._expect: dict[int, int] = {}      # command id -> reports it owes
         self._ids = itertools.count(1)
+        self._abandoned = 0                    # the reports of commands below it are dropped
         self._tags = itertools.count(0)
         self.closed = False
 
@@ -642,6 +653,8 @@ class Controller:
                               rank=self.rank) from self._out.error
 
     def _take(self, rep: dict) -> None:
+        if rep["id"] < self._abandoned:
+            return
         self.reports.setdefault(rep["id"], {})[rep["rank"]] = rep
         if "error" in rep:
             raise RankFailure(f"rank {rep['rank']} failed in {rep.get('what') or 'a command'}: "
@@ -694,6 +707,16 @@ class Controller:
             self.reports.pop(cid, None)
         self._expect.clear()
         return errors
+
+    def abandon(self) -> None:
+        """Drop the reports of every command posted so far, those still to
+        come too: what a run that a rank's fault ended left in flight.
+        Their ranks finish or fail them on their own; a failure among them
+        is the run's, raised already."""
+        self._abandoned = self.new_id()
+        for cid in [c for c in self.reports if c < self._abandoned]:
+            del self.reports[cid]
+        self._expect = {c: n for c, n in self._expect.items() if c >= self._abandoned}
 
     def inputs_for(self, ref: Ref, ranks, *, keep: bool = False, move: bool = False) -> dict:
         """The input spec of ``ref`` for each rank of ``ranks``: the holder
@@ -851,7 +874,9 @@ class OverRanks:
         adding the other ranks' first calls to ``compile_stats``.  After a
         `PipelineFailure` (a fault with no failover) every command still in
         flight is waited home first, and every rank empties its store; the
-        first command that raised on a rank meanwhile is raised instead."""
+        first command that raised on a rank meanwhile is raised instead.
+        After any other exception the commands in flight are abandoned
+        (`Controller.abandon`) before ``end``."""
         ctl = self._ctl
         ctl.run_on(self.ranks, {"fn": "begin"}, "begin")
         try:
@@ -863,6 +888,7 @@ class OverRanks:
                 raise errors[0] from e
             raise
         except Exception:
+            ctl.abandon()
             try:
                 ctl.run_on(self.ranks, {"fn": "end"}, "end")
             except Exception:

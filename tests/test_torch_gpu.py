@@ -55,8 +55,8 @@ def _close(got, want, dtype):
 
 # the serving widths (mamba2-370m 1024, qwen 2048, danube 3840) at decode
 # and prefill rows, rows off the persistent grid (5000), a width of a ragged
-# number of pieces (1000), widths off 16 bytes (100, 1001) and one wider
-# than the row kernel holds (20000): the wide kernel
+# number of pieces (1000), widths off 16 bytes (100, 1001: the wide kernel)
+# and one wider than the row kernel holds (20000: the cluster kernel)
 @pytest.mark.parametrize("shape", [(4, 16), (3, 5, 64), (2, 7, 128), (8, 1024), (8, 2048),
                                    (3, 100), (4096, 1024), (4096, 2048), (5000, 2048), (8, 3840),
                                    (4096, 3840), (8, 1000), (3, 1001), (2, 20000)])
@@ -121,7 +121,8 @@ def _gated_inputs(rng, lead, heads, width, dtype, device):
 
 # mamba2-370m's decode and prefill (H32 P64, z's rows 4096 apart), the
 # reduced config's widths (H16 P8), a width beyond the row kernel (5120:
-# mamba2-2.7b's) and one off 16 bytes (15): the wide kernel
+# mamba2-2.7b's, the cluster kernel) and one off 16 bytes (15: the wide
+# kernel)
 @pytest.mark.parametrize("lead,heads,width", [((8,), 32, 64), ((8, 512), 32, 64), ((2, 3), 16, 8),
                                               ((3,), 80, 64), ((2, 2), 3, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1608,9 +1609,12 @@ def _cluster_route(fn, args, counter):
 # jamba's Mamba2 width (16384) at a decode step's 8 rows and at 4096, and
 # the gated forms either side of their plans' limits: the gated gradient's
 # row kernel (2048 | 2056: 8 warps of one piece), the gated forward's (4096
-# | 4104: the wide kernel), and the cluster's (16384 | 16392 in bf16: 8 CTAs
-# of one piece; float32 16384 is past it); each forward and gradient
-# against the plain version's autograd
+# | 4104 in bf16, 2048 | 2056 in float32: the cluster kernel past it), and
+# the gradient's cluster (16384 | 16392 in bf16: 8 CTAs of one piece;
+# float32 16384 is past it; the forward's cluster holds 16392 in bf16 and
+# 16384 in float32, 16392 in float32 goes to the wide kernel); each forward
+# (its route by the counters) and gradient against the plain version's
+# autograd
 @pytest.mark.parametrize("lead,h,p", [((8,), 256, 64), ((1, 4096), 256, 64), ((5,), 8, 256),
                                       ((133,), 8, 257), ((7,), 64, 64), ((7,), 8, 513),
                                       ((9,), 4, 4098), ((300,), 4, 4098)])
@@ -1619,9 +1623,14 @@ def test_gated_norm_either_side_of_the_cluster_plan(cuda, lead, h, p, dtype):
     y, xh, d, xz, w, g = _gated_bwd_inputs(lead, h, p, dtype, cuda)
     z = torch.chunk(xz, 2, dim=-1)[1]
     rows, elem = int(np.prod(lead)), torch.finfo(dtype).bits // 8
-    plan = rn.norm_bwd_plan(rows, h * p, elem, aligned=True, card=rn.card_of(cuda.index or 0),
-                            gated=True)
-    _close(rmsnorm_gated(y, xh, d, z, w), rmsnorm_gated_plain(y, xh, d, z, w), dtype)
+    card = rn.card_of(cuda.index or 0)
+    plan = rn.norm_bwd_plan(rows, h * p, elem, aligned=True, card=card, gated=True)
+    fplan = rn.norm_plan(rows, h * p, elem, gated=True, aligned=True, card=card)
+    wide = rn.rmsnorm_gated_wide.launches
+    out, launched = _cluster_route(rmsnorm_gated, (y, xh, d, z, w), rn.rmsnorm_gated_cluster)
+    assert launched == fplan.cluster
+    assert rn.rmsnorm_gated_wide.launches - wide == (fplan.warps == 0)
+    _close(out, rmsnorm_gated_plain(y, xh, d, z, w), dtype)
     got, launched = _cluster_route(lambda *a: _gated_grads(rmsnorm_gated, *a),
                                    (y, xh, d, xz, w, g), rn.rmsnorm_gated_bwd_cluster)
     assert launched == plan.cluster
@@ -1654,23 +1663,49 @@ def test_rmsnorm_backward_either_side_of_the_cluster_plan(cuda, rows, d, dtype):
     _close_scaled(got[1], w.grad, 1e-4 if dtype == torch.float32 else BWD_TOL[dtype])
 
 
+# the plain forward either side of its row kernel (8192 | 8200 bf16, 4096 |
+# 4100 float32: 8 warps of four pieces) and of its cluster's limit (65536 |
+# 65544 bf16, 32768 | 32772 float32: 8 CTAs of 8 warps of four pieces),
+# below and above the SM count; its route by the counters
+@pytest.mark.parametrize("rows", [3, 8, 300])
+@pytest.mark.parametrize("d,dtype", [(8192, torch.bfloat16), (8200, torch.bfloat16),
+                                     (65536, torch.bfloat16), (65544, torch.bfloat16),
+                                     (4096, torch.float32), (4100, torch.float32),
+                                     (32768, torch.float32), (32772, torch.float32)])
+def test_rmsnorm_forward_either_side_of_the_cluster_plan(cuda, rows, d, dtype):
+    rng = np.random.default_rng(rows + d)
+    x = _rand(rng, (rows, d), dtype, cuda)
+    w = 1.0 + 0.1 * _rand(rng, (d,), torch.float32, cuda)
+    plan = rn.norm_plan(rows, d, x.element_size(), gated=False, aligned=True,
+                        card=rn.card_of(cuda.index or 0))
+    wide = rn.rmsnorm_wide.launches
+    out, launched = _cluster_route(rmsnorm, (x, w), rn.rmsnorm_cluster)
+    assert launched == plan.cluster
+    assert rn.rmsnorm_wide.launches - wide == (plan.warps == 0)
+    _close(out, rmsnorm_plain(x, w), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cluster_kernels_give_the_same_bits_twice(cuda, dtype):
     """The cluster kernels, called twice on the same inputs, give the same
     bits (fixed-order sums, no atomics): jamba's gated gradient at 16384
     (bf16; float32 takes the wide kernel there) and the plain gradient at
-    16384 over 4096 rows."""
+    16384 over 4096 rows; both forwards at 16384 over 4096 rows."""
     y, xh, d, xz, w, g = _gated_bwd_inputs((4096,), 256, 64, dtype, cuda)
     args = (y, xh, d, torch.chunk(xz, 2, dim=-1)[1], w, g)
     first = rmsnorm_gated_backward(*args)
     second = rmsnorm_gated_backward(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first, launched = _cluster_route(rmsnorm_gated, args[:5], rn.rmsnorm_gated_cluster)
+    assert launched == 1 and torch.equal(first, rmsnorm_gated(*args[:5]))
     rng = np.random.default_rng(9)
     x, g = _rand(rng, (4096, 16384), dtype, cuda), _rand(rng, (4096, 16384), dtype, cuda)
     wn = _rand(rng, (16384,), torch.float32, cuda)
     first, launched = _cluster_route(rmsnorm_backward, (x, wn, g), rn.rmsnorm_bwd_cluster)
     assert launched == 1
     assert all(torch.equal(a, b) for a, b in zip(first, rmsnorm_backward(x, wn, g)))
+    first, launched = _cluster_route(rmsnorm, (x, wn), rn.rmsnorm_cluster)
+    assert launched == 1 and torch.equal(first, rmsnorm(x, wn))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

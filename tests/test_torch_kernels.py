@@ -137,12 +137,27 @@ def test_norm_plan_covers_the_row_within_its_limits(rows, d, elem, gated):
 
 
 @pytest.mark.parametrize("d,elem,gated,aligned", [(100, 2, False, True), (1001, 4, False, True),
-                                                  (2048, 2, False, False), (20000, 2, False, True),
-                                                  (8200, 2, False, True), (4100, 4, False, True),
-                                                  (5120, 2, True, True), (2048, 2, True, False)])
+                                                  (2048, 2, False, False), (65544, 2, False, True),
+                                                  (32772, 4, False, True), (32776, 2, True, True),
+                                                  (16392, 4, True, True), (2048, 2, True, False)])
 def test_norm_plan_sends_what_the_row_kernel_does_not_take_to_the_wide_kernel(
         d, elem, gated, aligned):
+    """Rows off 16 bytes (in width or address), and rows past 8 CTAs of 8
+    warps (plain: 65536 bf16, 32768 float32; gated: 32768, 16384): the wide
+    kernel."""
     assert norm_plan(8, d, elem, gated=gated, aligned=aligned, card=NORM_CARD) == WIDE
+
+
+@pytest.mark.parametrize("d,elem,gated", [(20000, 2, False), (8200, 2, False), (4100, 4, False),
+                                          (5120, 2, True)])
+def test_norm_plan_takes_aligned_forward_rows_past_8_warps_to_the_cluster_kernel(d, elem, gated):
+    """Aligned forward rows that 8 warps do not hold, which went to the wide
+    kernel before the forward's cluster kernel: at 8 rows, a cluster of
+    CTAs of 8 warps a row whose lanes hold it within `MAX_UNITS`."""
+    plan = norm_plan(8, d, elem, gated=gated, aligned=True, card=NORM_CARD)
+    assert plan.cluster and plan.warps == 8 and 2 <= plan.ctas <= rn.MAX_CTAS
+    assert plan.units <= MAX_UNITS[gated]
+    assert 32 * plan.warps * plan.ctas * plan.units * 16 >= d * elem
 
 
 def test_norm_plan_at_the_serving_shapes():
@@ -232,15 +247,16 @@ CLUSTER_FORMS = {"forward": (False, False), "gated forward": (True, False),
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("rows", [8, 131, 132, 4096])
 def test_cluster_plan_covers_each_aligned_row_past_the_row_kernel(form, d, elem, rows):
-    """A gradient's aligned row that 8 warps do not hold goes to the
-    cluster kernel: one CTA of 16 warps where it holds the row and the rows
-    are at least the SMs, else a cluster of CTAs of 8 warps.  Its lanes
-    hold the row within the row kernels' units; the cluster is the fewest
-    CTAs that do (twice as many below the SM count), at most 8, else the
-    wide kernel; as many clusters as fit the card at once, or as there are
-    rows; grid-stride over the clusters takes every row once.  A row the
-    row kernel holds keeps its plan; a forward has no cluster kernel, so a
-    row past 8 warps goes to the wide kernel."""
+    """An aligned row that 8 warps do not hold goes to the cluster kernel:
+    the fewest CTAs of 16 warps, at most one (the gated forward: two), where
+    they hold the row and the rows are at least the SMs, else a cluster of
+    CTAs of 8 warps.  Its lanes hold the row within the row kernels' units;
+    the cluster is the fewest CTAs that do (twice as many below the SM
+    count), at most 8, else the wide kernel; as many clusters as fit the
+    card at once, or as there are rows; grid-stride over the clusters takes
+    every row once.  A row the row kernel holds keeps its plan; a forward's
+    row past 8 warps goes to the cluster kernel as a gradient's does,
+    within ``MAX_UNITS[gated]``."""
     gated, backward = CLUSTER_FORMS[form]
     pieces = d * elem // 16
     limit = (rn.GATED_BWD_UNITS if gated and backward else MAX_UNITS[gated or backward])
@@ -251,15 +267,16 @@ def test_cluster_plan_covers_each_aligned_row_past_the_row_kernel(form, d, elem,
     if pieces <= THREADS * limit:          # the row kernel's
         assert not plan.cluster and plan.warps
         return
-    sixteen = rows >= 132 and pieces <= 2 * THREADS * limit
+    most16 = 2 if gated and not backward else 1      # CTAs of 16 warps a row at most
+    sixteen = rows >= 132 and pieces <= most16 * 2 * THREADS * limit
     lanes = 2 * THREADS if sixteen else THREADS
     fewest = -(-pieces // (lanes * limit))
-    if not backward or fewest > rn.MAX_CTAS:
+    if fewest > rn.MAX_CTAS:
         assert plan == (WIDE if not backward else NormPlan(0, 0, 0, min(rows, 2 * 132)))
         return
     assert plan.cluster and plan.warps == lanes // 32 and plan.groups == 1
     assert plan.ctas == (fewest if rows >= 132 else min(rn.MAX_CTAS, 2 * fewest))
-    assert plan.ctas == 1 if sixteen else 2 <= plan.ctas <= rn.MAX_CTAS == 8
+    assert plan.ctas <= most16 if sixteen else 2 <= plan.ctas <= rn.MAX_CTAS == 8
     assert plan.units <= limit and plan.units & (plan.units - 1) == 0
     assert lanes * plan.ctas * plan.units >= pieces                  # the lanes hold the row
     assert plan.units == 1 or lanes * plan.ctas * (plan.units // 2) < pieces
@@ -286,6 +303,23 @@ def test_cluster_plan_at_jamba_and_the_large_decoders_training_rows():
         assert norm_bwd_plan(8192, d, 2, aligned=True, card=NORM_CARD) == \
             NormPlan(16, 2, 1, 132, 1)
         assert norm_bwd_plan(8, d, 2, aligned=True, card=NORM_CARD) == NormPlan(8, 1, 1, 32, 4)
+
+
+def test_norm_plan_at_jamba_s_forward_rows():
+    """The forwards past the row kernel on an H100: jamba's gated norm (16384)
+    in bf16 at prefill, 2 CTAs of 16 warps of two pieces, one an SM; at
+    decode, 8 CTAs of 8 warps of one piece; in float32, 8 CTAs of 8 warps of
+    two pieces, 33 clusters at most; the plain norm at 16384 bf16 and 8192
+    float32 over 4096 rows, a CTA of 16 warps of four pieces, one an SM;
+    8192 float32 at 8 rows, 4 CTAs of 8 warps of two pieces."""
+    def plan(rows, d, elem, gated):
+        return norm_plan(rows, d, elem, gated=gated, aligned=True, card=NORM_CARD)
+    assert plan(4096, 16384, 2, True) == NormPlan(16, 2, 1, 132, 2)
+    assert plan(8, 16384, 2, True) == NormPlan(8, 1, 1, 64, 8)
+    assert plan(4096, 16384, 4, True) == NormPlan(8, 2, 1, 264, 8)
+    assert plan(4096, 16384, 2, False) == NormPlan(16, 4, 1, 132, 1)
+    assert plan(4096, 8192, 4, False) == NormPlan(16, 4, 1, 132, 1)
+    assert plan(8, 8192, 4, False) == NormPlan(8, 2, 1, 32, 4)
 
 
 def test_row_stride_reads_column_slices_and_refuses_uneven_rows():
